@@ -1,0 +1,81 @@
+"""Model configuration and serving constants.
+
+The serving subset of the reference ``ModelConfig``: architecture widths,
+the deploy-graph flags of the shipped engine (``s2d_merged``,
+``fused_stem``, ``merged_head``) and the int8 ``QuantSpec``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..quant.fake_quant import QuantSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Static architecture + numerics configuration (serving subset).
+
+    Attributes:
+        num_classes: number of object classes (4 cone classes).
+        base_channels: widths are ``base_channels * {1, 2, 4, 8, 16}``.
+        lite_p2: P2 stage as one plain conv instead of a C3k2.
+        input_size: static square input resolution.
+        compute_dtype: activation dtype of the float layers.
+        quant: int8 behaviour; None is the float model.
+        deploy: BatchNorm folded into conv weight + bias.
+        stem_s2d / s2d_host / stage1_s2d / s2d_merged: the host
+            space-to-depth input contract; with ``s2d_merged`` the frame
+            arrives as (S/2, S/4, 24) merged columns.
+        fused_stem: stem + stage1 as one fused kernel over the merged frame.
+        merged_head: float-path heads as one channel-concat/block-diagonal
+            conv chain.
+    """
+
+    num_classes: int = 4
+    base_channels: int = 32
+    lite_p2: bool = False
+    input_size: int = 640
+    compute_dtype: torch.dtype = torch.bfloat16
+    num_anchors: int = 1
+    quant: QuantSpec | None = None
+    deploy: bool = False
+    stem_s2d: bool = False
+    s2d_host: bool = False
+    stage1_s2d: bool = False
+    s2d_merged: bool = False
+    fused_stem: bool = False
+    merged_head: bool = False
+
+    @property
+    def widths(self) -> tuple[int, int, int, int, int]:
+        bc = self.base_channels
+        return (bc, bc * 2, bc * 4, bc * 8, bc * 16)
+
+    @property
+    def strides(self) -> tuple[int, int, int]:
+        """Feature strides of the P2/P3/P4 heads."""
+        return (4, 8, 16)
+
+    @property
+    def grid_sizes(self) -> tuple[int, int, int]:
+        s = self.input_size
+        return (s // 4, s // 8, s // 16)
+
+    @property
+    def num_cells(self) -> int:
+        """Total decode workload per frame (33,600 cells at 640)."""
+        return sum(g * g for g in self.grid_sizes)
+
+
+DEFAULT_CLASS_NAMES = ("yellow_cone", "blue_cone", "orange_cone",
+                       "large_orange_cone")
+
+DEFAULT_CONF_THRESHOLD = 0.5
+DEFAULT_IOU_THRESHOLD = 0.45
+DEFAULT_CP_Q = 0.1
+MAX_DETECTIONS = 1024
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)

@@ -1,0 +1,78 @@
+"""Decoupled anchor-free detection head, one per feature level.
+
+cls branch = 2x ConvBlock(3x3) + 1x1 pred -> ``num_classes``; reg branch =
+2x ConvBlock(3x3) + 1x1 pred -> 4 TLBR. Quantized levels (P3/P4 of the
+int8 engine) run the standard per-conv path; float levels of a
+``merged_head`` engine (P2) run the branch-merged form: conv1 concatenates
+output channels, conv2 and the preds are block-diagonal over the doubled
+channels, built once at load exactly as the reference builds them.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..quant.fake_quant import QuantConv
+from ..quant.qtensor import QTensor
+from .blocks import ConvBlock, WeightTree
+from .config import ModelConfig
+
+
+class DetectionHead(nn.Module):
+    def __init__(self, tree: WeightTree, cfg: ModelConfig, name: str
+                 ) -> None:
+        super().__init__()
+        self.merged = (cfg.merged_head and cfg.deploy
+                       and not tree.spec.active(name))
+        self.nc = cfg.num_classes * cfg.num_anchors
+        self.dtype = cfg.compute_dtype
+        if self.merged:
+            self._build_merged(tree, name)
+            return
+        self.cls_conv1 = ConvBlock(tree, f"{name}/cls_conv1", 3)
+        self.cls_conv2 = ConvBlock(tree, f"{name}/cls_conv2", 3)
+        self.cls_pred = tree.conv(f"{name}/cls_pred")
+        self.reg_conv1 = ConvBlock(tree, f"{name}/reg_conv1", 3)
+        self.reg_conv2 = ConvBlock(tree, f"{name}/reg_conv2", 3)
+        self.reg_pred = tree.conv(f"{name}/reg_pred")
+
+    def _build_merged(self, tree: WeightTree, name: str) -> None:
+        def kb(path):
+            p = tree.node(f"{name}/{path}")
+            return (np.asarray(p["kernel"], np.float32),
+                    np.asarray(p["bias"], np.float32))
+
+        ck1, cb1 = kb("cls_conv1/conv")
+        ck2, cb2 = kb("cls_conv2/conv")
+        ckp, cbp = kb("cls_pred")
+        rk1, rb1 = kb("reg_conv1/conv")
+        rk2, rb2 = kb("reg_conv2/conv")
+        rkp, rbp = kb("reg_pred")
+        h, nc, nr = ck1.shape[2], ckp.shape[-1], rkp.shape[-1]
+        z33 = np.zeros((3, 3, h, h), np.float32)
+        k1 = np.concatenate([ck1, rk1], axis=-1)
+        b1 = np.concatenate([cb1, rb1])
+        k2 = np.concatenate([np.concatenate([ck2, z33], axis=-1),
+                             np.concatenate([z33, rk2], axis=-1)], axis=2)
+        b2 = np.concatenate([cb2, rb2])
+        kp = np.concatenate(
+            [np.concatenate([ckp, np.zeros((1, 1, h, nr), np.float32)], -1),
+             np.concatenate([np.zeros((1, 1, h, nc), np.float32), rkp], -1)],
+            axis=2)
+        bp = np.concatenate([cbp, rbp])
+        self.conv1 = QuantConv(k1, b1, 1, 1, dtype=self.dtype)
+        self.conv2 = QuantConv(k2, b2, 1, 1, dtype=self.dtype)
+        self.pred = QuantConv(kp, bp, 1, 0, dtype=self.dtype)
+
+    def forward(self, x):
+        if self.merged:
+            if isinstance(x, QTensor):
+                x = x.dequant(self.dtype)
+            y = torch.relu(self.conv1(x))
+            y = torch.relu(self.conv2(y))
+            y = self.pred(y)
+            return y[..., :self.nc].float(), y[..., self.nc:].float()
+        cls = self.cls_pred(self.cls_conv2(self.cls_conv1(x)))
+        reg = self.reg_pred(self.reg_conv2(self.reg_conv1(x)))
+        return cls.float(), reg.float()

@@ -1,0 +1,32 @@
+"""FPN top-down + PAN bottom-up neck over P2/P3/P4: lateral 1x1 convs,
+nearest 2x upsample, concat fusion, strided-conv downsampling."""
+from __future__ import annotations
+
+from torch import nn
+
+from .blocks import C3k2, ConvBlock, WeightTree
+
+
+class Neck(nn.Module):
+    def __init__(self, tree: WeightTree) -> None:
+        super().__init__()
+        self.lateral_p3 = ConvBlock(tree, "neck/lateral_p3", 1)
+        self.fpn_c3k2_1 = C3k2(tree, "neck/fpn_c3k2_1")
+        self.lateral_p2 = ConvBlock(tree, "neck/lateral_p2", 1)
+        self.fpn_c3k2_2 = C3k2(tree, "neck/fpn_c3k2_2")
+        self.down1 = ConvBlock(tree, "neck/down1", 3, 2)
+        self.pan_c3k2_1 = C3k2(tree, "neck/pan_c3k2_1")
+        self.down2 = ConvBlock(tree, "neck/down2", 3, 2)
+        self.pan_c3k2_2 = C3k2(tree, "neck/pan_c3k2_2")
+
+    def forward(self, features):
+        p2_in, p3_in, p4_in, p4_sppf = features
+        # top-down (FPN): 40 -> 80 -> 160
+        p3_fused = self.fpn_c3k2_1(self.lateral_p3(p4_sppf), x2=p3_in,
+                                   up_x=True)
+        p2_fused = self.fpn_c3k2_2(self.lateral_p2(p3_fused), x2=p2_in,
+                                   up_x=True)
+        # bottom-up (PAN)
+        p3_out = self.pan_c3k2_1(self.down1(p2_fused), x2=p3_fused)
+        p4_out = self.pan_c3k2_2(self.down2(p3_out), x2=p4_in)
+        return p2_fused, p3_out, p4_out

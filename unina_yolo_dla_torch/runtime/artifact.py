@@ -1,0 +1,88 @@
+"""Loaded serving artifact: ``config.json`` + ``variables.msgpack`` of an
+exported engine directory -> a frame -> ``Detections`` callable.
+
+The port's counterpart of the reference ``ServingArtifact``: the same
+directory, the same call (one (S, S, 3) uint8 RGB frame), served by the
+port's modules instead of the serialized program. The frame is blocked
+and merged on the host; the weights go to the device once, at load.
+"""
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..models.config import (
+    DEFAULT_CONF_THRESHOLD,
+    DEFAULT_CP_Q,
+    DEFAULT_IOU_THRESHOLD,
+    MAX_DETECTIONS,
+    ModelConfig,
+)
+from ..models.detector import from_jax_variables
+from ..ops.decode import Detections
+from ..ops.preprocess import merged_frame_np
+from ..quant.fake_quant import PERF_EXCLUDE, QuantSpec
+from ..utils.checkpoint import load_msgpack_raw
+from ..utils.device import resolve_device
+from .pipeline import build_serving_fn
+
+
+def config_from_artifact(conf: dict) -> ModelConfig:
+    """The engine configuration an exported ``config.json`` describes."""
+    if not (conf.get("s2d_merged") and conf.get("fused_stem")):
+        raise NotImplementedError(
+            "the port serves s2d_merged + fused_stem artifacts")
+    if conf.get("camera") or conf.get("batch"):
+        raise NotImplementedError(
+            "camera and batch artifacts are not ported yet")
+    quant = (QuantSpec("int8_fused", exclude=PERF_EXCLUDE)
+             if conf.get("quantized") else None)
+    return ModelConfig(
+        num_classes=conf["num_classes"],
+        base_channels=conf["base_channels"],
+        lite_p2=conf.get("lite_p2", False),
+        input_size=conf["input_size"],
+        quant=quant, deploy=True, stem_s2d=True, s2d_host=True,
+        stage1_s2d=True, s2d_merged=True, fused_stem=True,
+        merged_head=conf.get("merged_head", False))
+
+
+class ServingArtifact:
+    """Frame -> Detections with weights resident on ``device``."""
+
+    def __init__(self, directory: str | Path, device=None) -> None:
+        self.dir = Path(directory)
+        missing = [f for f in ("config.json", "variables.msgpack")
+                   if not (self.dir / f).exists()]
+        if missing:
+            raise FileNotFoundError(
+                f"incomplete serving artifact at {self.dir}: missing "
+                f"{', '.join(missing)}")
+        self.device = resolve_device(device)
+        self.config = json.loads((self.dir / "config.json").read_text())
+        self.model_config = config_from_artifact(self.config)
+        variables = load_msgpack_raw(self.dir / "variables.msgpack")
+        self.model = from_jax_variables(variables,
+                                        self.model_config).to(self.device)
+        c = self.config
+        self._serve = build_serving_fn(
+            self.model, self.model_config,
+            c.get("conf_threshold", DEFAULT_CONF_THRESHOLD),
+            c.get("iou_threshold", DEFAULT_IOU_THRESHOLD),
+            c.get("q_factor", DEFAULT_CP_Q),
+            c.get("max_detections", MAX_DETECTIONS))
+
+    def stage(self, frame: np.ndarray) -> torch.Tensor:
+        """(S, S, 3) uint8 RGB -> merged (S/2, S/4, 24) on the device."""
+        s = self.model_config.input_size
+        frame = np.asarray(frame)
+        if frame.shape != (s, s, 3) or frame.dtype != np.uint8:
+            raise ValueError(f"expected a ({s}, {s}, 3) uint8 RGB frame, "
+                             f"got {frame.shape} {frame.dtype}")
+        return torch.from_numpy(merged_frame_np(frame)).to(self.device)
+
+    def __call__(self, frame: np.ndarray) -> Detections:
+        return self._serve(self.stage(frame))
