@@ -4,10 +4,19 @@
 
 Builds the port's CUDA kernels from ``unina_yolo_dla_torch/csrc``, holds
 each kernel against its plain PyTorch version on the card at the shapes of
-the serving path, serves the committed int8 engine
-(``artifacts/serving_artifact``) on a synthetic scene, checks through the
-launch counters that the frame went through every kernel, and checks the
-card's detections against the port's own CPU path on the same frame.
+the serving paths, then serves two engines on a synthetic scene:
+
+- the committed int8 engine (``artifacts/serving_artifact``: fused
+  stem+stage1, merged head);
+- the fused-subgraph int8 engine ``int8_s2dm_fc`` (the same weights with
+  ``s2d_merged`` but no ``fused_stem``, ``fused_c3k2``, ``fused_head``),
+  built through ``load_msgpack_raw`` -> ``from_jax_variables`` ->
+  ``build_serving_fn``: stage1, C3k2, C3k2-cat and head kernels.
+
+For each it checks through the launch counters (set to 0 just before the
+engine's timed frames, read just after) that every frame went through the
+path's kernels, checks the card's detections against the port's own CPU
+path on the same frame, and profiles a few frames.
 
 Prints one JSON line per kernel, a ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no
@@ -28,13 +37,26 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 ARTIFACT = REPO / "artifacts" / "serving_artifact"
 
-# NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core
-# FLOP/s, f32 CUDA-core FLOP/s
 # the port's kernels by wrapper, as their device functions are named
 DEVICE_FUNCS = {"normalize": ("normalize_kernel",),
                 "fused_stem_stage1": ("fused_stem_stage1_kernel",),
                 "decode_level": ("decode_kernel",),
-                "nms": ("suppress_kernel", "scan_kernel")}
+                "nms": ("suppress_kernel", "scan_kernel"),
+                "stage1_merged": ("stage1_merged_kernel",),
+                "fused_c3k2": ("c3k2_kernel<false>",),
+                "fused_c3k2_cat": ("c3k2_kernel<true>",),
+                "fused_head": ("head_kernel",)}
+# launches per frame of each engine's path
+PER_FRAME = {
+    "shipped": {"normalize": 1, "fused_stem_stage1": 1, "decode_level": 3,
+                "nms": 1, "stage1_merged": 0, "fused_c3k2": 0,
+                "fused_c3k2_cat": 0, "fused_head": 0},
+    "int8_s2dm_fc": {"normalize": 1, "fused_stem_stage1": 0,
+                     "decode_level": 3, "nms": 1, "stage1_merged": 1,
+                     "fused_c3k2": 1, "fused_c3k2_cat": 1, "fused_head": 1},
+}
+# NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core
+# FLOP/s, f32 CUDA-core FLOP/s
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -193,19 +215,173 @@ def check_kernels(art, torch) -> list[dict]:
     return rows
 
 
-def profile_frames(art, rgb, torch, frames: int = 10) -> dict:
+def capture_inputs(model, serve, frame, torch) -> dict:
+    """The arguments each fused module of the fc engine receives while one
+    frame is served (forward pre-hooks, removed after)."""
+    mods = {"stage1_merged": model.backbone.stage1_conv,
+            "fused_c3k2": model.backbone.stage1_block,
+            "fused_c3k2_cat": model.neck.fpn_c3k2_2,
+            "fused_head": model.head_p2}
+    caps = {}
+
+    def keep(name):
+        def hook(_module, args, kwargs):
+            caps[name] = (args, kwargs)
+        return hook
+
+    hooks = [m.register_forward_pre_hook(keep(n), with_kwargs=True)
+             for n, m in mods.items()]
+    try:
+        serve(frame)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return {n: (mods[n], *caps[n]) for n in mods}
+
+
+def check_fc_kernels(model, serve, frame, torch) -> list[dict]:
+    """The fc engine's four kernels vs their plain versions on the card,
+    on the activations and weights of one served frame."""
+    import torch.nn.functional as F
+
+    from unina_yolo_dla_torch.ops.cuda import (
+        c3k2_kernel, head_kernel, stage1_kernel)
+    from unina_yolo_dla_torch.quant.qtensor import QTensor
+
+    bf = torch.bfloat16
+    caps = capture_inputs(model, serve, frame, torch)
+
+    def dev(t):  # the modules' own int8 -> bf16 boundary
+        t = t.dequant(bf) if isinstance(t, QTensor) else t
+        return t.to(bf).contiguous()
+
+    def compare(outs, wants):
+        err = rel = 0.0
+        for g, w in zip(outs, wants):
+            g, w = g.float(), w.float()
+            err = max(err, float((g - w).abs().max()))
+            rel = max(rel, float(((g - w).abs() / (1.0 + w.abs())).max()))
+        return err, rel
+
+    def row(name, source, replaces, fn, plain, nbytes, flops, iters,
+            library_ms=None):
+        outs, wants = fn(), plain()
+        torch.cuda.synchronize()
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        wants = wants if isinstance(wants, tuple) else (wants,)
+        err, rel = compare(outs, wants)
+        assert rel <= 1e-2, f"{name}: max |err|/(1+|ref|) {rel} > 1e-2"
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        return dict(
+            name=name, route="cuda",
+            source=f"unina_yolo_dla_torch/csrc/{source}",
+            replaces=f"unina_yolo_dla_tpu/ops/pallas/{replaces}",
+            max_abs_err=err, tolerance="|err| <= 1e-2 * (1 + |ref|)",
+            ms=cuda_ms(fn, iters), plain_ms=cuda_ms(plain, max(iters // 5, 3)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+    rows = []
+    # 5. stage1 over the merged stem output
+    mod, args, _ = caps["stage1_merged"]
+    xm = dev(args[0])
+    wb, bias = mod.kernel, mod.bias
+    _, h, w2, cm = xm.shape
+    out = stage1_kernel.fused_downsample_merged(xm, wb, bias)
+    # yardstick: one cuDNN conv on the un-merged view (1, C, H, 2*W2),
+    # the blocked kernel unfolded to its 4x4 stride-2 form (pad 2, the
+    # 161st row/column dropped), bias included, ReLU excluded
+    c = cm // 2
+    xs = xm.reshape(1, h, 2 * w2, c).permute(0, 3, 1, 2)
+    k4 = wb.reshape(2, 2, 2, 2, c, -1).permute(5, 4, 0, 2, 1, 3).reshape(
+        -1, c, 4, 4).contiguous()
+
+    def lib():
+        return F.conv2d(xs, k4, bias.to(bf), stride=2,
+                        padding=2)[..., :h // 2, :w2]
+
+    ref = torch.relu(lib()).permute(0, 2, 3, 1).float()
+    lib_rel = float(((out.float() - ref).abs() / (1 + ref.abs())).max())
+    assert lib_rel <= 1e-2, f"stage1 yardstick disagrees: {lib_rel}"
+    rows.append(row(
+        "stage1_merged", "stage1.cu", "stage1_kernel.py:127",
+        lambda: stage1_kernel.fused_downsample_merged(xm, wb, bias),
+        lambda: stage1_kernel.fused_downsample_merged_plain(xm, wb, bias),
+        xm.numel() * 2 + out.numel() * 2 + wb.numel() * 2 + bias.numel() * 4,
+        2 * out.numel() * wb.shape[0] * wb.shape[1] * wb.shape[2], 100,
+        library_ms=cuda_ms(lib, 100)))
+
+    def weights(mod):
+        return [getattr(mod, n) for n in mod._FUSED]
+
+    def c3k2_macs(ws, pixels):  # bottlenecks + cv3 per output pixel
+        _, _, wb1, _, wb2, *_ = ws
+        return pixels * (wb1[0].numel() * len(wb1) + wb2[0].numel() * len(wb2)
+                         + ws[8].numel())
+
+    # 6. stage1_block: the whole C3k2
+    mod, args, _ = caps["fused_c3k2"]
+    x = dev(args[0])
+    ws = weights(mod)
+    px = x.shape[1] * x.shape[2]
+    nbytes = 2 * x.numel() + 2 * px * ws[8].shape[1] + sum(
+        t.numel() * t.element_size() for t in ws)
+    macs = px * 2 * ws[0].numel() + c3k2_macs(ws, px)
+    rows.append(row(
+        "fused_c3k2", "c3k2.cu", "c3k2_kernel.py:324",
+        lambda: c3k2_kernel.fused_c3k2(x, *ws, shortcut=mod.shortcut),
+        lambda: c3k2_kernel.fused_c3k2_plain(x, *ws, shortcut=mod.shortcut),
+        nbytes, 2 * macs, 100))
+
+    # 7. fpn_c3k2_2: upsample + concat folded into the first dots
+    mod, args, kwargs = caps["fused_c3k2_cat"]
+    xa, xb, up = dev(args[0]), dev(kwargs["x2"]), kwargs["up_x"]
+    ws = weights(mod)
+    ca = xa.shape[-1]
+    pa, pb = xa.shape[1] * xa.shape[2], xb.shape[1] * xb.shape[2]
+    nbytes = 2 * (xa.numel() + xb.numel() + pb * ws[8].shape[1]) + sum(
+        t.numel() * t.element_size() for t in ws)
+    macs = (2 * ws[0].shape[1] * (pa * ca + pb * xb.shape[-1])
+            + c3k2_macs(ws, pb))
+    rows.append(row(
+        "fused_c3k2_cat", "c3k2.cu", "c3k2_kernel.py:356",
+        lambda: c3k2_kernel.fused_c3k2_cat(xa, xb, *ws, shortcut=mod.shortcut,
+                                           up_a=up),
+        lambda: c3k2_kernel.fused_c3k2_cat_plain(
+            xa, xb, *ws, shortcut=mod.shortcut, up_a=up),
+        nbytes, 2 * macs, 100))
+
+    # 8. head_p2: both branches, f32 preds
+    mod, args, _ = caps["fused_head"]
+    x = dev(args[0])
+    ws = weights(mod)
+    px = x.shape[1] * x.shape[2]
+    npred = ws[4].shape[1] + ws[10].shape[1]
+    nbytes = 2 * x.numel() + 4 * px * npred + sum(
+        t.numel() * t.element_size() for t in ws)
+    macs = px * (ws[0].numel() + ws[2].numel() + ws[6].numel()
+                 + ws[8].numel() + ws[4].numel() + ws[10].numel())
+    rows.append(row(
+        "fused_head", "head.cu", "head_kernel.py:127",
+        lambda: head_kernel.fused_head(x, *ws),
+        lambda: head_kernel.fused_head_plain(x, *ws),
+        nbytes, 2 * macs, 50))
+    return rows
+
+
+def profile_frames(serve, rgb, torch, frames: int = 10) -> dict:
     """Device time per frame by kernel (torch.profiler, CUDA activity),
     against the host wall clock of the same frames."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    art(rgb)
+    serve(rgb)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(frames):
-            art(rgb)
+            serve(rgb)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3 / frames
     by_name: dict[str, list] = {}
@@ -252,6 +428,42 @@ def match_detections(a, b, box_tol: float, score_tol: float) -> dict:
             "max_score_err": worst_score}
 
 
+def drive(serve, rgb, labels, kernels, per_frame, cpu_dets, torch) -> dict:
+    """One engine end to end at batch 1: warm-up, then FRAMES timed frames
+    with every launch counter set to 0 just before and read just after;
+    the path's launches per frame, its outputs' sanity and its match with
+    the port's CPU path on the same frame."""
+    for _ in range(5):
+        serve(rgb)
+    torch.cuda.synchronize()
+    for kern in kernels.values():
+        kern.launches = 0
+    times = []
+    for _ in range(FRAMES):
+        t = time.perf_counter()
+        dets = serve(rgb)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    for name, per in per_frame.items():
+        assert launches[name] == per * FRAMES, (
+            f"{name}: {launches[name]} launches in {FRAMES} frames, "
+            f"expected {per * FRAMES}")
+    n_valid = dets.count
+    assert dets.boxes.shape == (1024, 4)
+    assert bool(torch.isfinite(dets.boxes).all())
+    assert bool(torch.isfinite(dets.scores).all())
+    gt = {int(lbl[0]) for lbl in labels}
+    got_cls = {int(c) for c in dets.classes[dets.valid].tolist()}
+    assert 1 <= n_valid <= len(labels) + 3, (n_valid, len(labels))
+    assert got_cls <= gt, (got_cls, gt)
+    match = match_detections(dets, cpu_dets, box_tol=0.5, score_tol=1e-2)
+    return {"frames": FRAMES, "valid": n_valid, "gt_cones": len(labels),
+            "frame_ms_median": float(np.median(times)),
+            "frame_ms_min": float(np.min(times)), "vs_cpu_port": match,
+            "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -262,9 +474,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from unina_yolo_dla_torch.data.synthetic import SynthConfig, generate_image
+    from unina_yolo_dla_torch.models.config import ModelConfig
+    from unina_yolo_dla_torch.models.detector import from_jax_variables
     from unina_yolo_dla_torch.ops.cuda import (
-        _lib, decode_kernel, nms_kernel, preprocess_kernel, stem_kernel)
+        _lib, c3k2_kernel, decode_kernel, head_kernel, nms_kernel,
+        preprocess_kernel, stage1_kernel, stem_kernel)
+    from unina_yolo_dla_torch.quant.fake_quant import PERF_EXCLUDE, QuantSpec
     from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
+    from unina_yolo_dla_torch.runtime.pipeline import build_serving_fn
+    from unina_yolo_dla_torch.utils.checkpoint import load_msgpack_raw
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -281,60 +499,70 @@ def main() -> int:
     for logf in sorted(_lib.BUILD_DIR.glob("*.log")):
         log(f"--- {logf.name}\n{logf.read_text().strip()}")
 
-    art = ServingArtifact(ARTIFACT)                 # on cuda
     kernels = {"normalize": preprocess_kernel.KERNEL,
                "fused_stem_stage1": stem_kernel.KERNEL,
                "decode_level": decode_kernel.KERNEL,
-               "nms": nms_kernel.KERNEL}
-    expected_per_frame = {"normalize": 1, "fused_stem_stage1": 1,
-                          "decode_level": 3, "nms": 1}
+               "nms": nms_kernel.KERNEL,
+               "stage1_merged": stage1_kernel.KERNEL,
+               "fused_c3k2": c3k2_kernel.KERNEL,
+               "fused_c3k2_cat": c3k2_kernel.KERNEL_CAT,
+               "fused_head": head_kernel.KERNEL}
+    # the shipped engine, and the fc engine from the same weights through
+    # the entry points (both on cuda)
+    art = ServingArtifact(ARTIFACT)
+    c = art.config
+    serve_kw = dict(conf_threshold=c["conf_threshold"],
+                    iou_threshold=c["iou_threshold"],
+                    q_factor=c["q_factor"],
+                    max_detections=c["max_detections"])
+    fc_cfg = ModelConfig(
+        quant=QuantSpec("int8_fused", exclude=PERF_EXCLUDE), deploy=True,
+        stem_s2d=True, s2d_host=True, stage1_s2d=True, s2d_merged=True,
+        fused_c3k2=True, fused_head=True)
+    variables = load_msgpack_raw(ARTIFACT / "variables.msgpack")
+    fc_model = from_jax_variables(variables, fc_cfg)
+    fc_serve = build_serving_fn(fc_model, fc_cfg, **serve_kw)
 
-    # phase 2: each kernel against its plain version on the card
-    rows = check_kernels(art, torch)
-
-    # phase 3: end to end, batch 1, the committed engine
     img, labels = generate_image(np.random.default_rng(7),
                                  SynthConfig(image_size=640, seed=7))
     rgb = np.ascontiguousarray(img[..., ::-1])
-    for _ in range(5):
-        art(rgb)
-    torch.cuda.synchronize()
-    for kern in kernels.values():
-        kern.launches = 0
-    times = []
-    for _ in range(FRAMES):
-        t = time.perf_counter()
-        dets = art(rgb)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-    launches = {name: kern.launches for name, kern in kernels.items()}
-    for name, per in expected_per_frame.items():
-        assert launches[name] == per * FRAMES, (
-            f"{name}: {launches[name]} launches in {FRAMES} frames, "
-            f"expected {per * FRAMES}")
-    n_valid = dets.count
-    assert dets.boxes.shape == (1024, 4)
-    assert bool(torch.isfinite(dets.boxes).all())
-    assert bool(torch.isfinite(dets.scores).all())
-    gt = {int(lbl[0]) for lbl in labels}
-    got_cls = {int(c) for c in dets.classes[dets.valid].tolist()}
-    assert 1 <= n_valid <= len(labels) + 3, (n_valid, len(labels))
-    assert got_cls <= gt, (got_cls, gt)
+
+    # phase 2: each kernel against its plain version on the card
+    rows = [dict(r, path="shipped") for r in check_kernels(art, torch)]
+    rows += [dict(r, path="int8_s2dm_fc") for r in check_fc_kernels(
+        fc_model, fc_serve, art.stage(rgb), torch)]
+
+    # phase 3: end to end, batch 1, the committed engine
     cpu_dets = ServingArtifact(ARTIFACT, device="cpu")(rgb)
-    match = match_detections(dets, cpu_dets, box_tol=0.5, score_tol=1e-2)
-    e2e = {"frames": FRAMES, "valid": n_valid, "gt_cones": len(labels),
-           "frame_ms_median": float(np.median(times)),
-           "frame_ms_min": float(np.min(times)), "vs_cpu_port": match,
-           "launches": launches}
+    e2e = drive(art, rgb, labels, kernels, PER_FRAME["shipped"], cpu_dets,
+                torch)
     print(json.dumps({"end_to_end": e2e}), flush=True)
 
     # phase 4: where the frame's time goes (profiler over a few frames)
     prof = profile_frames(art, rgb, torch)
     log(json.dumps({"profile": prof}, indent=1))
 
+    # phase 5: end to end, batch 1, the fc engine
+    cpu_fc = build_serving_fn(from_jax_variables(variables, fc_cfg, "cpu"),
+                              fc_cfg, **serve_kw)
+    cpu_dets = cpu_fc(art.stage(rgb).cpu())
+
+    def serve_fc(frame):
+        return fc_serve(art.stage(frame))
+
+    e2e_fc = drive(serve_fc, rgb, labels, kernels, PER_FRAME["int8_s2dm_fc"],
+                   cpu_dets, torch)
+    print(json.dumps({"end_to_end_fc": e2e_fc}), flush=True)
+
+    # phase 6: the fc engine's frame under the profiler
+    prof_fc = profile_frames(serve_fc, rgb, torch)
+    log(json.dumps({"profile_fc": prof_fc}, indent=1))
+
+    runs = {"shipped": (e2e, prof), "int8_s2dm_fc": (e2e_fc, prof_fc)}
     for row in rows:
-        row["launches"] = launches[row["name"]]
-        row["device_ms_per_frame"] = prof[
+        run, pr = runs[row["path"]]
+        row["launches"] = run["launches"][row["name"]]
+        row["device_ms_per_frame"] = pr[
             "port_kernels_device_ms_per_frame"][row["name"]]
         print(json.dumps(row), flush=True)
     line = {"kernels": rows}
@@ -342,7 +570,8 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "build_s": build_s, "end_to_end": e2e,
-         "profile": prof, **line},
+         "profile": prof, "end_to_end_fc": e2e_fc, "profile_fc": prof_fc,
+         **line},
         indent=2))
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,153 @@
+"""Port fused C3k2 and its pair form (plain versions and the CPU dispatch)
+vs the reference ``fused_c3k2`` / ``fused_c3k2_cat`` (CPU; the kernels on
+the card are in test_torch_gpu.py).
+
+Weights are drawn with numpy in the reference's HWIO layout and packed
+by each side's own packer. Tolerances: f32 within 1e-5 absolute (same
+products, f32 sums in another order); bf16 within 1e-2 (1 + |ref|), a
+bf16 rounding step where an f32 sum landed on the other side of a
+rounding boundary.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from unina_yolo_dla_torch.ops.cuda import c3k2_kernel as tk
+from unina_yolo_dla_tpu.ops.pallas.c3k2_kernel import (
+    fused_c3k2,
+    fused_c3k2_cat,
+)
+
+ATOL_F32 = 1e-5
+REL_BF16 = 1e-2
+
+
+def _kb(rng, shape):
+    fan = int(np.prod(shape[:-1]))
+    return (rng.normal(0, np.sqrt(2 / fan), shape).astype(np.float32),
+            rng.normal(0, .1, shape[-1]).astype(np.float32))
+
+
+def _weights(rng, cin, hd, f, n):
+    cv1, cv2 = _kb(rng, (1, 1, cin, hd)), _kb(rng, (1, 1, cin, hd))
+    cv3 = _kb(rng, (1, 1, 2 * hd, f))
+    bns = [(_kb(rng, (1, 1, hd, hd)), _kb(rng, (3, 3, hd, hd)))
+           for _ in range(n)]
+    return cv1, cv2, cv3, bns
+
+
+def _jax(ws):
+    cv1, cv2, cv3, bns = ws
+    j = lambda kb: tuple(map(jnp.asarray, kb))  # noqa: E731
+    return j(cv1), j(cv2), j(cv3), [(j(a), j(b)) for a, b in bns]
+
+
+def _act(rng, shape):
+    return np.maximum(rng.normal(0, 1, shape), 0).astype(np.float32)
+
+
+def _close_bf16(got, want):
+    got = got.float().numpy()
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    assert np.all(np.abs(got - want) <= REL_BF16 * (1 + np.abs(want)))
+
+
+@pytest.mark.parametrize("n,shortcut", [(1, True), (2, True), (1, False),
+                                        (2, False)])
+def test_plain_matches_reference_xla_form_f32(rng, n, shortcut):
+    x = _act(rng, (12, 16, 16))
+    ws = _weights(rng, 16, 8, 16, n)
+    want = np.asarray(fused_c3k2(jnp.asarray(x), *_jax(ws),
+                                 shortcut=shortcut, use_pallas=False))
+    got = tk.fused_c3k2(torch.from_numpy(x),
+                        *tk.pack_c3k2_weights(*ws, torch.float32),
+                        shortcut=shortcut).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_F32)
+
+
+def test_plain_matches_reference_pallas_row_grid_f32(rng):
+    """H = 80: the reference grids rows (blk 20, halo n); the interpret
+    run of that kernel is the reference here."""
+    x = _act(rng, (80, 24, 16))
+    ws = _weights(rng, 16, 8, 16, 2)
+    want = np.asarray(fused_c3k2(jnp.asarray(x), *_jax(ws),
+                                 use_pallas=True, interpret=True))
+    got = tk.fused_c3k2_plain(torch.from_numpy(x),
+                              *tk.pack_c3k2_weights(*ws, torch.float32))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL_F32)
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_plain_bf16_matches_reference_bf16(rng, n):
+    x = _act(rng, (20, 24, 32))
+    ws = _weights(rng, 32, 16, 32, n)
+    want = fused_c3k2(jnp.asarray(x).astype(jnp.bfloat16), *_jax(ws),
+                      use_pallas=False)
+    got = tk.fused_c3k2(torch.from_numpy(x).to(torch.bfloat16),
+                        *tk.pack_c3k2_weights(*ws, torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("up_a,shortcut", [(True, True), (False, True),
+                                           (True, False)])
+def test_cat_plain_matches_reference_xla_form_f32(rng, up_a, shortcut):
+    xa = _act(rng, (6, 8, 8) if up_a else (12, 16, 8))
+    xb = _act(rng, (12, 16, 16))
+    ws = _weights(rng, 24, 8, 16, 1)
+    want = np.asarray(fused_c3k2_cat(
+        jnp.asarray(xa), jnp.asarray(xb), *_jax(ws), shortcut=shortcut,
+        upsample_a=up_a, use_pallas=False))
+    got = tk.fused_c3k2_cat(torch.from_numpy(xa), torch.from_numpy(xb),
+                            *tk.pack_c3k2_weights(*ws, torch.float32),
+                            shortcut=shortcut, up_a=up_a).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_F32)
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_cat_plain_matches_reference_pallas_row_grid_f32(rng, n):
+    """H = 80 with the upsample: the reference's row-gridded pair kernel
+    (even halo) in interpret mode."""
+    xa = _act(rng, (40, 12, 8))
+    xb = _act(rng, (80, 24, 16))
+    ws = _weights(rng, 24, 8, 16, n)
+    want = np.asarray(fused_c3k2_cat(
+        jnp.asarray(xa), jnp.asarray(xb), *_jax(ws), upsample_a=True,
+        use_pallas=True, interpret=True))
+    got = tk.fused_c3k2_cat_plain(
+        torch.from_numpy(xa), torch.from_numpy(xb),
+        *tk.pack_c3k2_weights(*ws, torch.float32), up_a=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL_F32)
+
+
+def test_cat_plain_bf16_matches_reference_bf16(rng):
+    """The fpn_c3k2_2 pattern in the serving dtype: xa at half resolution,
+    its dot's f32 result upsampled, 64 + 64 input channels, hidden 32."""
+    xa = _act(rng, (10, 12, 64))
+    xb = _act(rng, (20, 24, 64))
+    ws = _weights(rng, 128, 32, 64, 1)
+    bf = jnp.bfloat16
+    want = fused_c3k2_cat(jnp.asarray(xa).astype(bf),
+                          jnp.asarray(xb).astype(bf), *_jax(ws),
+                          upsample_a=True, use_pallas=False)
+    got = tk.fused_c3k2_cat(torch.from_numpy(xa).to(torch.bfloat16),
+                            torch.from_numpy(xb).to(torch.bfloat16),
+                            *tk.pack_c3k2_weights(*ws, torch.bfloat16),
+                            up_a=True)
+    _close_bf16(got, want)
+
+
+def test_plain_batched_equals_per_frame(rng):
+    x = torch.from_numpy(_act(rng, (3, 8, 12, 16)))
+    xa = torch.from_numpy(_act(rng, (3, 4, 6, 8)))
+    ws = tk.pack_c3k2_weights(*_weights(rng, 16, 8, 16, 1), torch.float32)
+    wc = tk.pack_c3k2_weights(*_weights(rng, 24, 8, 16, 1), torch.float32)
+    whole = tk.fused_c3k2(x, *ws)
+    per = torch.stack([tk.fused_c3k2(x[i], *ws) for i in range(3)])
+    torch.testing.assert_close(whole, per, rtol=0, atol=0)
+    whole = tk.fused_c3k2_cat(xa, x, *wc, up_a=True)
+    per = torch.stack([tk.fused_c3k2_cat(xa[i], x[i], *wc, up_a=True)
+                       for i in range(3)])
+    torch.testing.assert_close(whole, per, rtol=0, atol=0)

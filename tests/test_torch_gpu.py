@@ -13,13 +13,22 @@ import pytest
 import torch
 
 from unina_yolo_dla_torch.data.synthetic import SynthConfig, generate_image
+from unina_yolo_dla_torch.models.config import ModelConfig
+from unina_yolo_dla_torch.models.detector import from_jax_variables
 from unina_yolo_dla_torch.ops.cuda import (
+    c3k2_kernel,
     decode_kernel,
+    head_kernel,
     nms_kernel,
     preprocess_kernel,
+    stage1_kernel,
     stem_kernel,
 )
+from unina_yolo_dla_torch.ops.preprocess import merged_frame_np
+from unina_yolo_dla_torch.quant.fake_quant import PERF_EXCLUDE, QuantSpec
 from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
+from unina_yolo_dla_torch.runtime.pipeline import build_serving_fn
+from unina_yolo_dla_torch.utils.checkpoint import load_msgpack_raw
 
 pytestmark = pytest.mark.gpu
 
@@ -130,3 +139,134 @@ def test_served_artifact_matches_cpu_port(cuda):
     for box, klass in zip(cb, cc):
         err = np.abs(gb - box).max(axis=1) + 1e9 * (gc != klass)
         assert err.min() <= 0.5
+
+
+def _within(got, want, rel=1e-2):
+    """|err| <= rel * (1 + |ref|) everywhere (bf16 rounding steps)."""
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= rel * (1 + want.abs())).all())
+
+
+def _act(rng, shape, cuda):
+    """Post-ReLU-like bf16 activations."""
+    a = np.maximum(rng.normal(0, 1, shape), 0).astype(np.float32)
+    return torch.from_numpy(a).to(cuda, torch.bfloat16)
+
+
+def _kb(rng, shape):
+    fan = int(np.prod(shape[:-1]))
+    return (rng.normal(0, np.sqrt(2 / fan), shape).astype(np.float32),
+            rng.normal(0, .1, shape[-1]).astype(np.float32))
+
+
+def _to(ws, cuda):
+    return [w.to(cuda) for w in ws]
+
+
+def test_stage1_kernel_batched(rng, cuda):
+    """Batch 2 on the grid at the serving shape."""
+    xm = _act(rng, (2, 320, 160, 64), cuda)
+    wb, b = _kb(rng, (2, 2, 128, 64))
+    wb = torch.from_numpy(wb).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(b).to(cuda)
+    got = _launched(stage1_kernel.KERNEL,
+                    lambda: stage1_kernel.fused_downsample_merged(xm, wb, b))
+    want = stage1_kernel.fused_downsample_merged_plain(xm, wb, b)
+    assert got.shape == (2, 160, 160, 64)
+    assert _within(got, want)
+
+
+def _c3k2_weights(rng, cin, n, cuda):
+    hd, f = c3k2_kernel.KERNEL_HID, c3k2_kernel.KERNEL_F
+    ws = c3k2_kernel.pack_c3k2_weights(
+        _kb(rng, (1, 1, cin, hd)), _kb(rng, (1, 1, cin, hd)),
+        _kb(rng, (1, 1, 2 * hd, f)),
+        [(_kb(rng, (1, 1, hd, hd)), _kb(rng, (3, 3, hd, hd)))
+         for _ in range(n)], torch.bfloat16)
+    return _to(ws, cuda)
+
+
+@pytest.mark.parametrize("shape,n,shortcut", [((2, 160, 160, 64), 1, True),
+                                              ((1, 37, 45, 64), 2, False)])
+def test_c3k2_kernel(rng, cuda, shape, n, shortcut):
+    """Batch 2 at the stage1_block shape; a ragged 37 x 45 image with two
+    bottlenecks covers the tile edges and the 2-pixel halo."""
+    x = _act(rng, shape, cuda)
+    ws = _c3k2_weights(rng, shape[-1], n, cuda)
+    got = _launched(c3k2_kernel.KERNEL, lambda: c3k2_kernel.fused_c3k2(
+        x, *ws, shortcut=shortcut))
+    want = c3k2_kernel.fused_c3k2_plain(x, *ws, shortcut=shortcut)
+    assert got.shape == (*shape[:-1], 64)
+    assert _within(got, want)
+
+
+@pytest.mark.parametrize("hb,wb_,up_a,n", [(160, 160, True, 1),
+                                           (38, 46, True, 2),
+                                           (37, 45, False, 1)])
+def test_c3k2_cat_kernel(rng, cuda, hb, wb_, up_a, n):
+    """Batch 2 at the fpn_c3k2_2 shapes (xa 80^2 upsampled, xb 160^2),
+    and ragged images with and without the upsample."""
+    sa = (hb // 2, wb_ // 2) if up_a else (hb, wb_)
+    xa = _act(rng, (2, *sa, 64), cuda)
+    xb = _act(rng, (2, hb, wb_, 64), cuda)
+    ws = _c3k2_weights(rng, 128, n, cuda)
+    got = _launched(c3k2_kernel.KERNEL_CAT,
+                    lambda: c3k2_kernel.fused_c3k2_cat(xa, xb, *ws,
+                                                       up_a=up_a))
+    want = c3k2_kernel.fused_c3k2_cat_plain(xa, xb, *ws, up_a=up_a)
+    assert got.shape == (2, hb, wb_, 64)
+    assert _within(got, want)
+
+
+@pytest.mark.parametrize("shape", [(2, 160, 160, 64), (1, 37, 45, 64)])
+def test_head_kernel(rng, cuda, shape):
+    """Batch 2 at the head_p2 shape and a ragged image; the f32 preds
+    within 1e-2 (1 + |ref|) of the plain version."""
+    x = _act(rng, shape, cuda)
+    ws = head_kernel.pack_head_weights(
+        [_kb(rng, (3, 3, 64, 64)), _kb(rng, (3, 3, 64, 64))],
+        _kb(rng, (1, 1, 64, 4)),
+        [_kb(rng, (3, 3, 64, 64)), _kb(rng, (3, 3, 64, 64))],
+        _kb(rng, (1, 1, 64, 4)), torch.bfloat16)
+    ws = _to(ws, cuda)
+    cls, reg = _launched(head_kernel.KERNEL,
+                         lambda: head_kernel.fused_head(x, *ws))
+    wc, wr = head_kernel.fused_head_plain(x, *ws)
+    assert cls.dtype == reg.dtype == torch.float32
+    assert cls.shape == reg.shape == (*shape[:-1], 4)
+    assert cls.is_contiguous() and reg.is_contiguous()
+    assert _within(cls, wc) and _within(reg, wr)
+
+
+def test_fc_engine_frame_matches_cpu_port(cuda):
+    """The int8_s2dm_fc engine (committed weights) on the card through
+    the new kernels, against the port's CPU path on the same frame."""
+    cfg = ModelConfig(quant=QuantSpec("int8_fused", exclude=PERF_EXCLUDE),
+                      deploy=True, stem_s2d=True, s2d_host=True,
+                      stage1_s2d=True, s2d_merged=True, fused_c3k2=True,
+                      fused_head=True)
+    variables = load_msgpack_raw(ARTIFACT / "variables.msgpack")
+    img, _ = generate_image(np.random.default_rng(7),
+                            SynthConfig(image_size=640, seed=7))
+    frame = torch.from_numpy(merged_frame_np(np.ascontiguousarray(
+        img[..., ::-1])))
+    kw = dict(conf_threshold=0.5, iou_threshold=0.45, q_factor=0.2116)
+    kernels = (stage1_kernel.KERNEL, c3k2_kernel.KERNEL,
+               c3k2_kernel.KERNEL_CAT, head_kernel.KERNEL)
+    before = [k.launches for k in kernels]
+    gpu = build_serving_fn(from_jax_variables(variables, cfg), cfg, **kw)(
+        frame.to(cuda))
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1, 1]
+    cpu = build_serving_fn(from_jax_variables(variables, cfg, "cpu"), cfg,
+                           **kw)(frame)
+    gv, cv = gpu.valid.cpu().numpy(), cpu.valid.numpy()
+    assert gv.sum() == cv.sum() >= 1
+    gb, gc = gpu.boxes.cpu().numpy()[gv], gpu.classes.cpu().numpy()[gv]
+    gs = gpu.scores.cpu().numpy()[gv]
+    for box, klass, score in zip(cpu.boxes.numpy()[cv],
+                                 cpu.classes.numpy()[cv],
+                                 cpu.scores.numpy()[cv]):
+        err = np.abs(gb - box).max(axis=1) + 1e9 * (gc != klass)
+        j = int(err.argmin())
+        assert err[j] <= 0.5 and abs(gs[j] - score) <= 1e-2

@@ -96,7 +96,7 @@ def small_engine():
                                input_size=64, compute_dtype=torch.float32,
                                quant=TSpec("int8_fused", exclude=T_PERF),
                                **SERVING_FLAGS)
-    port = from_jax_variables(variables, tcfg)
+    port = from_jax_variables(variables, tcfg, device="cpu")
     frame = np.random.default_rng(5).integers(0, 256, (64, 64, 3),
                                               dtype=np.uint8)
     return model, jcfg, variables, port, tcfg, merged_frame_np(frame)

@@ -1,8 +1,11 @@
 """CSP-Darknet backbone emitting P2 (s4), P3 (s8), P4 (s16) + SPPF(P4).
 
-The deployed ``s2d_merged`` + ``fused_stem`` engine only: the stem and the
-stage1 downsample run as ONE fused kernel over the merged frame
-(``ops/cuda/stem_kernel.py``).
+The deployed ``s2d_merged`` engines only. With ``fused_stem`` the stem and
+the stage1 downsample run as ONE fused kernel over the merged frame
+(``ops/cuda/stem_kernel.py``); without it the stem is a shift-dot matmul
+emitting merged columns and stage1 is its own kernel over them
+(``ops/cuda/stage1_kernel.py``). ``fused_c3k2`` fuses the float-path
+C3k2s (``stage1_block`` in the int8 engine).
 """
 from __future__ import annotations
 
@@ -11,45 +14,60 @@ import torch
 from torch import nn
 
 from ..ops.cuda.stem_kernel import fused_stem_stage1
-from .blocks import C3k2, ConvBlock, SPPF, WeightTree
+from .blocks import C3k2, ConvBlock, MergedDownsample, ShiftDot2x2, SPPF, \
+    WeightTree
 from .config import ModelConfig
 
 
 class Backbone(nn.Module):
     def __init__(self, tree: WeightTree, cfg: ModelConfig) -> None:
         super().__init__()
-        if not (cfg.s2d_merged and cfg.fused_stem and cfg.deploy):
+        if not (cfg.s2d_merged and cfg.deploy):
             raise NotImplementedError(
-                "the port serves the deploy s2d_merged + fused_stem engine")
+                "the port serves the deploy s2d_merged engines")
         dt = cfg.compute_dtype
-        stem = tree.node("backbone/stem/conv")
-        s1 = tree.node("backbone/stage1_conv/conv")
+        self.fused_stem = cfg.fused_stem
+        if self.fused_stem:
+            stem = tree.node("backbone/stem/conv")
+            s1 = tree.node("backbone/stage1_conv/conv")
 
-        def buf(name, a, dtype):
-            self.register_buffer(name, torch.from_numpy(
-                np.array(a, np.float32)).to(dtype))
+            def buf(name, a, dtype):
+                self.register_buffer(name, torch.from_numpy(
+                    np.array(a, np.float32)).to(dtype))
 
-        # kernels in the compute dtype (as the fused pass reads them),
-        # biases in f32
-        buf("stem_kernel", stem["kernel"], dt)
-        buf("stem_bias", stem["bias"], torch.float32)
-        buf("stage1_kernel", s1["kernel"], dt)
-        buf("stage1_bias", s1["bias"], torch.float32)
+            # kernels in the compute dtype (as the fused pass reads them),
+            # biases in f32
+            buf("stem_kernel", stem["kernel"], dt)
+            buf("stem_bias", stem["bias"], torch.float32)
+            buf("stage1_kernel", s1["kernel"], dt)
+            buf("stage1_bias", s1["bias"], torch.float32)
+        else:
+            self.stem = ShiftDot2x2(tree, "backbone/stem/conv")
+            self.stage1_conv = MergedDownsample(
+                tree, "backbone/stage1_conv/conv")
         self.dtype = dt
+
+        def c3k2(name):
+            return C3k2(tree, f"backbone/{name}",
+                        fused=cfg.fuses(cfg.fused_c3k2, name))
+
         if cfg.lite_p2:
             self.stage1_block = ConvBlock(tree, "backbone/stage1_block", 3)
         else:
-            self.stage1_block = C3k2(tree, "backbone/stage1_block")
+            self.stage1_block = c3k2("stage1_block")
         self.stage2_conv = ConvBlock(tree, "backbone/stage2_conv", 3, 2)
-        self.stage2_c3k2 = C3k2(tree, "backbone/stage2_c3k2")
+        self.stage2_c3k2 = c3k2("stage2_c3k2")
         self.stage3_conv = ConvBlock(tree, "backbone/stage3_conv", 3, 2)
-        self.stage3_c3k2 = C3k2(tree, "backbone/stage3_c3k2")
+        self.stage3_c3k2 = c3k2("stage3_c3k2")
         self.sppf = SPPF(tree, "backbone/sppf")
 
     def forward(self, x: torch.Tensor):
-        x = fused_stem_stage1(x.to(self.dtype).contiguous(),
-                              self.stem_kernel, self.stem_bias,
-                              self.stage1_kernel, self.stage1_bias)
+        x = x.to(self.dtype).contiguous()
+        if self.fused_stem:
+            x = fused_stem_stage1(x, self.stem_kernel, self.stem_bias,
+                                  self.stage1_kernel, self.stage1_bias)
+        else:
+            x = self.stage1_conv(torch.relu(self.stem(x)))
         p2 = self.stage1_block(x)
         p3 = self.stage2_c3k2(self.stage2_conv(p2))
         p4 = self.stage3_c3k2(self.stage3_conv(p3))

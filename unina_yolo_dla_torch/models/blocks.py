@@ -1,5 +1,7 @@
-"""Building blocks of the deployed engine: ConvBlock, Bottleneck, C3k2,
-SPPF, nearest 2x upsample and the int8-aware concat.
+"""Building blocks of the deployed engines: ConvBlock, Bottleneck, C3k2
+(standard and fused), SPPF, the merged-layout stem (ShiftDot2x2) and
+stage1 downsample (MergedDownsample), nearest 2x upsample and the
+int8-aware concat.
 
 Deploy mode only (BatchNorm folded into conv weight + bias). Each block is
 built from the reference's variable tree by ``WeightTree`` at the block's
@@ -18,6 +20,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda.c3k2_kernel import (
+    fused_c3k2,
+    fused_c3k2_cat,
+    pack_c3k2_weights,
+)
+from ..ops.cuda.stage1_kernel import fused_downsample_merged
 from ..quant.fake_quant import ActQuant, QuantConv, QuantSpec
 from ..quant.qtensor import (
     QTensor,
@@ -105,6 +113,45 @@ def concat_features(xs, dim: int = -1):
     return torch.cat([x.to(dt) for x in xs], dim=dim)
 
 
+class _KernelBias(nn.Module):
+    """A conv's kernel at ``path`` in the compute dtype, its bias in f32."""
+
+    def __init__(self, tree: WeightTree, path: str) -> None:
+        super().__init__()
+        p = tree.node(path)
+        self.register_buffer("kernel", torch.from_numpy(
+            np.array(p["kernel"], np.float32)).to(tree.dtype))
+        self.register_buffer("bias", torch.from_numpy(
+            np.array(p["bias"], np.float32)))
+
+
+class ShiftDot2x2(_KernelBias):
+    """The merged stem conv: 2x2 stride-1, pad ((1,0),(1,0)), as four
+    shifted slices concatenated to (N, 4C) and one float32 matmul of the
+    compute-dtype values, bias added in float32, the result rounded to
+    the compute dtype (ReLU follows in the caller)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        *lead, h, w, c = x.shape
+        o = self.kernel.shape[-1]
+        xp = F.pad(x.to(self.kernel.dtype), (0, 0, 1, 0, 1, 0))
+        patches = torch.cat([xp[..., kh:kh + h, kw:kw + w, :]
+                             for kh in range(2) for kw in range(2)], dim=-1)
+        y = patches.reshape(-1, 4 * c).float() @ \
+            self.kernel.float().reshape(4 * c, o)
+        return (y + self.bias).reshape(*lead, h, w, o).to(self.kernel.dtype)
+
+
+class MergedDownsample(_KernelBias):
+    """stage1_conv of an ``s2d_merged`` engine without ``fused_stem``:
+    the blocked 2x2 conv + bias + ReLU over the column-merged stem output,
+    one kernel (``ops/cuda/stage1_kernel.py``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fused_downsample_merged(x.to(self.kernel.dtype).contiguous(),
+                                       self.kernel, self.bias)
+
+
 class ConvBlock(nn.Module):
     """Conv (+ folded bias) + ReLU, then ``out_q`` requant where int8."""
 
@@ -151,12 +198,34 @@ class Bottleneck(nn.Module):
 class C3k2(nn.Module):
     """Cross-stage-partial block: two 1x1 projections, ``n`` bottlenecks on
     one path, concat, 1x1 out conv. ``x2``/``up_x`` carry the neck's
-    ``C3k2(concat([upsample2x?(x), x2]))`` pattern."""
+    ``C3k2(concat([upsample2x?(x), x2]))`` pattern.
 
-    def __init__(self, tree: WeightTree, path: str, shortcut: bool = True
-                 ) -> None:
+    ``fused`` (float-path blocks only): the whole block is one kernel
+    (``ops/cuda/c3k2_kernel.py``; the pair form folds the upsample and
+    the concat into its first dots), its weights packed once here."""
+
+    _FUSED = ("w1", "b1", "wb1", "bb1", "wb2", "bb2", "w2", "b2", "w3", "b3")
+
+    def __init__(self, tree: WeightTree, path: str, shortcut: bool = True,
+                 fused: bool = False) -> None:
         super().__init__()
         n = tree.count(path, "bottleneck_")
+        self.shortcut = shortcut
+        self.fused = fused and not tree.spec.active(path)
+        if self.fused:
+            self.dtype = tree.dtype
+
+            def kb(sub):
+                p = tree.node(f"{path}/{sub}/conv")
+                return p["kernel"], p["bias"]
+
+            ws = pack_c3k2_weights(
+                kb("cv1"), kb("cv2"), kb("cv3"),
+                [(kb(f"bottleneck_{i}/cv1"), kb(f"bottleneck_{i}/cv2"))
+                 for i in range(n)], tree.dtype)
+            for name, t in zip(self._FUSED, ws):
+                self.register_buffer(name, t)
+            return
         self.cv1 = ConvBlock(tree, path + "/cv1", 1)
         self.bottlenecks = nn.ModuleList(
             Bottleneck(tree, f"{path}/bottleneck_{i}", shortcut)
@@ -164,7 +233,20 @@ class C3k2(nn.Module):
         self.cv2 = ConvBlock(tree, path + "/cv2", 1)
         self.cv3 = ConvBlock(tree, path + "/cv3", 1)
 
+    def _forward_fused(self, x, x2, up_x: bool):
+        def deq(t):   # the int8 -> float boundary, as QuantConv's
+            t = t.dequant(self.dtype) if isinstance(t, QTensor) else t
+            return t.to(self.dtype).contiguous()
+
+        ws = [getattr(self, n) for n in self._FUSED]
+        if x2 is not None:
+            return fused_c3k2_cat(deq(x), deq(x2), *ws,
+                                  shortcut=self.shortcut, up_a=up_x)
+        return fused_c3k2(deq(x), *ws, shortcut=self.shortcut)
+
     def forward(self, x, x2=None, up_x: bool = False):
+        if self.fused:
+            return self._forward_fused(x, x2, up_x)
         if x2 is not None:
             x = upsample_nearest_2x(x) if up_x else x
             x = concat_features([x, x2])

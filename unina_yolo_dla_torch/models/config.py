@@ -1,8 +1,9 @@
 """Model configuration and serving constants.
 
 The serving subset of the reference ``ModelConfig``: architecture widths,
-the deploy-graph flags of the shipped engine (``s2d_merged``,
-``fused_stem``, ``merged_head``) and the int8 ``QuantSpec``.
+the deploy-graph flags of the served engines (``s2d_merged``,
+``fused_stem``, ``merged_head``, ``fused_c3k2``, ``fused_head``,
+``fused_only``) and the int8 ``QuantSpec``.
 """
 from __future__ import annotations
 
@@ -28,9 +29,15 @@ class ModelConfig:
         stem_s2d / s2d_host / stage1_s2d / s2d_merged: the host
             space-to-depth input contract; with ``s2d_merged`` the frame
             arrives as (S/2, S/4, 24) merged columns.
-        fused_stem: stem + stage1 as one fused kernel over the merged frame.
+        fused_stem: stem + stage1 as one fused kernel over the merged frame;
+            without it an ``s2d_merged`` engine runs the stem as a shift-dot
+            matmul and stage1 as its own kernel.
         merged_head: float-path heads as one channel-concat/block-diagonal
-            conv chain.
+            conv chain (takes precedence over ``fused_head``).
+        fused_c3k2: every float-path C3k2 as one fused kernel.
+        fused_head: every float-path decoupled head as one fused kernel.
+        fused_only: when set, only the named blocks/heads (module names:
+            ``"stage1_block"``, ``"fpn_c3k2_2"``, ``"head_p2"``, ...) fuse.
     """
 
     num_classes: int = 4
@@ -47,6 +54,14 @@ class ModelConfig:
     s2d_merged: bool = False
     fused_stem: bool = False
     merged_head: bool = False
+    fused_c3k2: bool = False
+    fused_head: bool = False
+    fused_only: tuple[str, ...] | None = None
+
+    def fuses(self, flag: bool, name: str) -> bool:
+        """The per-block fusion gate: ``flag`` (``fused_c3k2`` or
+        ``fused_head``) narrowed by ``fused_only``."""
+        return flag and (self.fused_only is None or name in self.fused_only)
 
     @property
     def widths(self) -> tuple[int, int, int, int, int]:

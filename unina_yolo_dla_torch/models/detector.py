@@ -11,6 +11,7 @@ from typing import Any
 import torch
 from torch import nn
 
+from ..utils.device import resolve_device
 from .backbone import Backbone
 from .blocks import WeightTree
 from .config import ModelConfig
@@ -25,7 +26,7 @@ class UninaYoloDla(nn.Module):
         super().__init__()
         self.config = cfg
         self.backbone = Backbone(tree, cfg)
-        self.neck = Neck(tree)
+        self.neck = Neck(tree, cfg)
         self.head_p2 = DetectionHead(tree, cfg, "head_p2")
         self.head_p3 = DetectionHead(tree, cfg, "head_p3")
         self.head_p4 = DetectionHead(tree, cfg, "head_p4")
@@ -36,13 +37,15 @@ class UninaYoloDla(nn.Module):
         return [self.head_p2(p2), self.head_p3(p3), self.head_p4(p4)]
 
 
-def from_jax_variables(variables: dict[str, Any], cfg: ModelConfig
-                       ) -> UninaYoloDla:
+def from_jax_variables(variables: dict[str, Any], cfg: ModelConfig,
+                       device=None) -> UninaYoloDla:
     """The reference's ``{"params", "quant"}`` tree of numpy arrays ->
-    the port's detector (on the CPU; move it with ``.to(device)``).
+    the port's detector on ``device`` (``cuda`` by default; ``"cpu"``
+    runs the plain versions of the kernels).
 
     int8 kernels stay int8 (reshaped to the integer product's (N, K)),
     ``w_scale``, biases and ``amax`` stay float32, float kernels take the
     compute dtype, and the merged P2 head weights are built here."""
-    return UninaYoloDla(WeightTree(variables, cfg.quant, cfg.compute_dtype),
-                        cfg).eval()
+    model = UninaYoloDla(WeightTree(variables, cfg.quant, cfg.compute_dtype),
+                         cfg).eval()
+    return model.to(resolve_device(device))

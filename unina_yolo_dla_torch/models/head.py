@@ -5,7 +5,10 @@ cls branch = 2x ConvBlock(3x3) + 1x1 pred -> ``num_classes``; reg branch =
 int8 engine) run the standard per-conv path; float levels of a
 ``merged_head`` engine (P2) run the branch-merged form: conv1 concatenates
 output channels, conv2 and the preds are block-diagonal over the doubled
-channels, built once at load exactly as the reference builds them.
+channels, built once at load exactly as the reference builds them. Float
+levels of a ``fused_head`` engine (without ``merged_head``) run both
+branches as one kernel (``ops/cuda/head_kernel.py``), whose preds stay
+float32.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.cuda.head_kernel import fused_head, pack_head_weights
 from ..quant.fake_quant import QuantConv
 from ..quant.qtensor import QTensor
 from .blocks import ConvBlock, WeightTree
@@ -20,15 +24,33 @@ from .config import ModelConfig
 
 
 class DetectionHead(nn.Module):
+    _FUSED = ("wc1", "bc1", "wc2", "bc2", "wcp", "bcp",
+              "wr1", "br1", "wr2", "br2", "wrp", "brp")
+
     def __init__(self, tree: WeightTree, cfg: ModelConfig, name: str
                  ) -> None:
         super().__init__()
-        self.merged = (cfg.merged_head and cfg.deploy
-                       and not tree.spec.active(name))
+        float_path = cfg.deploy and not tree.spec.active(name)
+        self.merged = cfg.merged_head and float_path
+        self.fused = (not self.merged and float_path
+                      and cfg.fuses(cfg.fused_head, name))
         self.nc = cfg.num_classes * cfg.num_anchors
         self.dtype = cfg.compute_dtype
         if self.merged:
             self._build_merged(tree, name)
+            return
+        if self.fused:
+            def kb(path):
+                p = tree.node(f"{name}/{path}")
+                return p["kernel"], p["bias"]
+
+            ws = pack_head_weights(
+                [kb("cls_conv1/conv"), kb("cls_conv2/conv")],
+                kb("cls_pred"),
+                [kb("reg_conv1/conv"), kb("reg_conv2/conv")],
+                kb("reg_pred"), self.dtype)
+            for n, t in zip(self._FUSED, ws):
+                self.register_buffer(n, t)
             return
         self.cls_conv1 = ConvBlock(tree, f"{name}/cls_conv1", 3)
         self.cls_conv2 = ConvBlock(tree, f"{name}/cls_conv2", 3)
@@ -66,6 +88,11 @@ class DetectionHead(nn.Module):
         self.pred = QuantConv(kp, bp, 1, 0, dtype=self.dtype)
 
     def forward(self, x):
+        if self.fused:
+            if isinstance(x, QTensor):
+                x = x.dequant(self.dtype)
+            return fused_head(x.to(self.dtype).contiguous(),
+                              *(getattr(self, n) for n in self._FUSED))
         if self.merged:
             if isinstance(x, QTensor):
                 x = x.dequant(self.dtype)

@@ -1,23 +1,32 @@
 """FPN top-down + PAN bottom-up neck over P2/P3/P4: lateral 1x1 convs,
-nearest 2x upsample, concat fusion, strided-conv downsampling."""
+nearest 2x upsample, concat fusion, strided-conv downsampling. The
+upsample + concat go through C3k2's ``x2``/``up_x`` so that a fused C3k2
+(``fpn_c3k2_2`` in the int8 ``fused_c3k2`` engine) folds them into its
+first dots."""
 from __future__ import annotations
 
 from torch import nn
 
 from .blocks import C3k2, ConvBlock, WeightTree
+from .config import ModelConfig
 
 
 class Neck(nn.Module):
-    def __init__(self, tree: WeightTree) -> None:
+    def __init__(self, tree: WeightTree, cfg: ModelConfig) -> None:
         super().__init__()
+
+        def c3k2(name):
+            return C3k2(tree, f"neck/{name}",
+                        fused=cfg.fuses(cfg.fused_c3k2, name))
+
         self.lateral_p3 = ConvBlock(tree, "neck/lateral_p3", 1)
-        self.fpn_c3k2_1 = C3k2(tree, "neck/fpn_c3k2_1")
+        self.fpn_c3k2_1 = c3k2("fpn_c3k2_1")
         self.lateral_p2 = ConvBlock(tree, "neck/lateral_p2", 1)
-        self.fpn_c3k2_2 = C3k2(tree, "neck/fpn_c3k2_2")
+        self.fpn_c3k2_2 = c3k2("fpn_c3k2_2")
         self.down1 = ConvBlock(tree, "neck/down1", 3, 2)
-        self.pan_c3k2_1 = C3k2(tree, "neck/pan_c3k2_1")
+        self.pan_c3k2_1 = c3k2("pan_c3k2_1")
         self.down2 = ConvBlock(tree, "neck/down2", 3, 2)
-        self.pan_c3k2_2 = C3k2(tree, "neck/pan_c3k2_2")
+        self.pan_c3k2_2 = c3k2("pan_c3k2_2")
 
     def forward(self, features):
         p2_in, p3_in, p4_in, p4_sppf = features

@@ -1,0 +1,207 @@
+"""Kernels 6 and 7: the whole C3k2 block in one pass, and its pair form
+over ``concat([upsample2x?(xa), xb])``.
+
+CUDA source: ``csrc/c3k2.cu`` (entry points ``unina_fused_c3k2`` and
+``unina_fused_c3k2_cat``, counted separately). ``fused_c3k2`` and
+``fused_c3k2_cat`` launch them for CUDA tensors; for CPU tensors they run
+``fused_c3k2_plain`` / ``fused_c3k2_cat_plain``, which follow the
+reference's XLA form step by step:
+
+    p1 = cv1(x), p2 = cv2(x)                   1x1: ReLU(x @ w + b)
+    n x [t = cv1_i(p1); t = cv2_i(t) (3x3); p1 = p1 + t (or t)]
+    out = ReLU(p1 @ w3[:h] + p2 @ w3[h:] + b3)  cv3 as a split dot
+
+Products of compute-dtype values are summed in float32, biases are
+float32, and every conv output is ReLU'd in float32 then rounded to the
+compute dtype; the residual add is in the compute dtype. In the pair form
+the first dots split by input rows, ``xa``'s part runs at ``xa``'s
+resolution and only its float32 result is upsampled.
+
+Weights come packed by ``pack_c3k2_weights`` (once, at load):
+``(w1, b1, wb1, bb1, wb2, bb2, w2, b2, w3, b3)`` with w1/w2 (Cin, h),
+wb1 (n, h, h), wb2 (n, 3, 3, h, h), w3 (2h, F) in the compute dtype and
+the biases (h,), (n, h), (n, h), (h,), (F,) in float32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ._lib import I, Kernel, P, check_cuda, stream_ptr
+
+KERNEL = Kernel("unina_fused_c3k2",
+                [P, I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P])
+KERNEL_CAT = Kernel("unina_fused_c3k2_cat",
+                    [P, P, I, I, I, P, P, P, P, P, P, P, P, P, P, P,
+                     I, I, I, I, I, P])
+
+# the widths the CUDA kernel is compiled for (csrc/c3k2.cu): hidden h,
+# output F, bottlenecks n <= KERNEL_NMAX, input channels a multiple of 8
+KERNEL_HID, KERNEL_F, KERNEL_NMAX = 32, 64, 2
+
+
+def pack_c3k2_weights(cv1, cv2, cv3, bottlenecks, dtype: torch.dtype):
+    """HWIO ``(kernel, bias)`` pairs -> the kernel's flat operands.
+
+    ``cv1``/``cv2``/``cv3`` are the three 1x1 convs, ``bottlenecks`` a
+    list of ``((k1, b1), (k2, b2))`` (1x1 then 3x3) per bottleneck."""
+    def f32(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    (k1, b1), (k2, b2), (k3, b3) = cv1, cv2, cv3
+    hd = np.shape(k1)[-1]
+    w1 = f32(k1).reshape(-1, hd).to(dtype)
+    w2 = f32(k2).reshape(-1, hd).to(dtype)
+    w3 = f32(k3).reshape(2 * hd, -1).to(dtype)
+    wb1 = torch.stack([f32(k).reshape(hd, hd) for (k, _), _ in bottlenecks]
+                      ).to(dtype)
+    bb1 = torch.stack([f32(b) for (_, b), _ in bottlenecks])
+    wb2 = torch.stack([f32(k) for _, (k, _) in bottlenecks]).to(dtype)
+    bb2 = torch.stack([f32(b) for _, (_, b) in bottlenecks])
+    return (w1, f32(b1), wb1, bb1, wb2, bb2, w2, f32(b2), w3, f32(b3))
+
+
+def _dot(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """float32 sum of products of compute-dtype values."""
+    return t.float() @ w.float()
+
+
+def _act(z: torch.Tensor, b: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    return torch.relu(z + b.float()).to(dt)
+
+
+def _conv3x3(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+             ) -> torch.Tensor:
+    """ReLU(3x3 same-pad conv) as nine shifted products, f32 sum."""
+    h, wd = t.shape[-3:-1]
+    tp = F.pad(t, (0, 0, 1, 1, 1, 1))
+    acc = None
+    for kh in range(3):
+        for kw in range(3):
+            z = _dot(tp[:, kh:kh + h, kw:kw + wd], w[kh, kw])
+            acc = z if acc is None else acc + z
+    return _act(acc, b, t.dtype)
+
+
+def _up2(t: torch.Tensor) -> torch.Tensor:
+    return t.repeat_interleave(2, dim=-3).repeat_interleave(2, dim=-2)
+
+
+def _post(p1, p2, wb1, bb1, wb2, bb2, w3, b3, shortcut: bool):
+    """Bottleneck chain + the cv3 split dot."""
+    for i in range(wb1.shape[0]):
+        t = _act(_dot(p1, wb1[i]), bb1[i], p1.dtype)
+        t = _conv3x3(t, wb2[i], bb2[i])
+        p1 = p1 + t if shortcut else t
+    h = p1.shape[-1]
+    return _act(_dot(p1, w3[:h]) + _dot(p2, w3[h:]), b3, p1.dtype)
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, *x.shape[-3:])
+
+
+def fused_c3k2_plain(x, w1, b1, wb1, bb1, wb2, bb2, w2, b2, w3, b3, *,
+                     shortcut: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the fused C3k2 (any float dtype)."""
+    xf = _flat(x)
+    dt = x.dtype
+    p1 = _act(_dot(xf, w1), b1, dt)
+    p2 = _act(_dot(xf, w2), b2, dt)
+    out = _post(p1, p2, wb1, bb1, wb2, bb2, w3, b3, shortcut)
+    return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
+def _pair(xa, xb, w, b, up_a: bool):
+    ca = xa.shape[-1]
+    za = _dot(xa, w[:ca])
+    if up_a:
+        za = _up2(za)
+    return _act(za + _dot(xb, w[ca:]), b, xb.dtype)
+
+
+def fused_c3k2_cat_plain(xa, xb, w1, b1, wb1, bb1, wb2, bb2, w2, b2, w3, b3,
+                         *, shortcut: bool = True, up_a: bool = False
+                         ) -> torch.Tensor:
+    """Plain PyTorch version of the pair form (any float dtype)."""
+    xaf, xbf = _flat(xa), _flat(xb)
+    p1 = _pair(xaf, xbf, w1, b1, up_a)
+    p2 = _pair(xaf, xbf, w2, b2, up_a)
+    out = _post(p1, p2, wb1, bb1, wb2, bb2, w3, b3, shortcut)
+    return out.reshape(*xb.shape[:-1], out.shape[-1])
+
+
+def _check_weights(ws, cin: int) -> int:
+    w1, b1, wb1, bb1, wb2, bb2, w2, b2, w3, b3 = ws
+    n = wb1.shape[0]
+    hd, fo = KERNEL_HID, KERNEL_F
+    if not 1 <= n <= KERNEL_NMAX:
+        raise ValueError(f"kernel takes 1..{KERNEL_NMAX} bottlenecks, got {n}")
+    bf = torch.bfloat16
+    check_cuda(w1, "w1", bf, (cin, hd))
+    check_cuda(w2, "w2", bf, (cin, hd))
+    check_cuda(wb1, "wb1", bf, (n, hd, hd))
+    check_cuda(wb2, "wb2", bf, (n, 3, 3, hd, hd))
+    check_cuda(w3, "w3", bf, (2 * hd, fo))
+    for t, name, shape in ((b1, "b1", (hd,)), (b2, "b2", (hd,)),
+                           (bb1, "bb1", (n, hd)), (bb2, "bb2", (n, hd)),
+                           (b3, "b3", (fo,))):
+        check_cuda(t, name, torch.float32, shape)
+    return n
+
+
+def _ptrs(ws):
+    w1, b1, wb1, bb1, wb2, bb2, w2, b2, w3, b3 = ws
+    return [t.data_ptr() for t in (w1, b1, wb1, bb1, wb2, bb2, w2, b2, w3,
+                                   b3)]
+
+
+def fused_c3k2(x: torch.Tensor, *ws, shortcut: bool = True) -> torch.Tensor:
+    """The fused C3k2 over ``x`` (..., H, W, Cin) -> (..., H, W, F).
+
+    The CUDA kernel takes bf16 ``x`` with Cin a multiple of 8, hidden 32,
+    F 64, 1 or 2 bottlenecks; batch is its grid's z."""
+    if not x.is_cuda:
+        return fused_c3k2_plain(x, *ws, shortcut=shortcut)
+    check_cuda(x, "x", torch.bfloat16)
+    h, w, cin = x.shape[-3:]
+    if cin % 8:
+        raise ValueError(f"kernel takes Cin a multiple of 8, got {cin}")
+    n = _check_weights(ws, cin)
+    bsz = x.numel() // (h * w * cin)
+    out = torch.empty((*x.shape[:-1], KERNEL_F), dtype=torch.bfloat16,
+                      device=x.device)
+    KERNEL.launch(x.data_ptr(), cin, *_ptrs(ws), out.data_ptr(), bsz, h, w,
+                  n, int(shortcut), stream_ptr(x.device))
+    return out
+
+
+def fused_c3k2_cat(xa: torch.Tensor, xb: torch.Tensor, *ws,
+                   shortcut: bool = True, up_a: bool = False
+                   ) -> torch.Tensor:
+    """The fused C3k2 over ``concat([upsample2x?(xa), xb])``: ``xa``
+    (..., H/2, W/2, Ca) when ``up_a`` else (..., H, W, Ca), ``xb``
+    (..., H, W, Cb) -> (..., H, W, F). The CUDA kernel takes bf16 inputs
+    with Ca and Cb multiples of 8 and the widths of ``fused_c3k2``."""
+    if not xb.is_cuda:
+        return fused_c3k2_cat_plain(xa, xb, *ws, shortcut=shortcut,
+                                    up_a=up_a)
+    check_cuda(xb, "xb", torch.bfloat16)
+    h, w, cb = xb.shape[-3:]
+    lead = xb.shape[:-3]
+    ca = xa.shape[-1]
+    hs, ws_ = (h // 2, w // 2) if up_a else (h, w)
+    check_cuda(xa, "xa", torch.bfloat16, (*lead, hs, ws_, ca))
+    if ca % 8 or cb % 8 or (up_a and (h % 2 or w % 2)):
+        raise ValueError(f"kernel takes Ca, Cb multiples of 8 (and even H, "
+                         f"W to upsample), got xa {tuple(xa.shape)}, xb "
+                         f"{tuple(xb.shape)}")
+    n = _check_weights(ws, ca + cb)
+    bsz = xb.numel() // (h * w * cb)
+    out = torch.empty((*lead, h, w, KERNEL_F), dtype=torch.bfloat16,
+                      device=xb.device)
+    KERNEL_CAT.launch(xa.data_ptr(), xb.data_ptr(), ca, cb, int(up_a),
+                      *_ptrs(ws), out.data_ptr(), bsz, h, w, n,
+                      int(shortcut), stream_ptr(xb.device))
+    return out

@@ -1,0 +1,103 @@
+"""Kernel 8: the decoupled detection head, both branches in one pass.
+
+CUDA source: ``csrc/head.cu``. ``fused_head`` launches it for a CUDA
+tensor; for a CPU tensor it runs ``fused_head_plain``, which follows the
+reference's XLA form step by step. Per branch over the same input:
+
+    c1   = ReLU(conv3x3(x)  + b1)  -> compute dtype
+    c2   = ReLU(conv3x3(c1) + b2)  -> compute dtype
+    pred = c2 @ wp + bp            float32, never rounded
+
+The 3x3s are nine shifted products summed in float32. Unlike the port's
+standard and merged heads, whose preds are rounded to the compute dtype
+before the cast to float32, the fused head's preds stay float32.
+
+Weights come packed by ``pack_head_weights`` (once, at load):
+``(wc1, bc1, wc2, bc2, wcp, bcp, wr1, br1, wr2, br2, wrp, brp)`` with
+the 3x3 kernels (3, 3, h, h) and the preds (h, co) in the compute dtype,
+the biases float32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ._lib import I, Kernel, P, check_cuda, stream_ptr
+from .c3k2_kernel import _conv3x3, _dot
+
+KERNEL = Kernel("unina_fused_head",
+                [P, P, P, P, P, P, P, I, P, P, P, P, P, P, I, P, P,
+                 I, I, I, P])
+
+# the widths the CUDA kernel is compiled for (csrc/head.cu)
+KERNEL_C, KERNEL_NOMAX = 64, 8
+
+
+def pack_head_weights(cls_convs, cls_pred, reg_convs, reg_pred,
+                      dtype: torch.dtype):
+    """HWIO ``(kernel, bias)`` pairs -> the kernel's flat operands:
+    ``cls_convs``/``reg_convs`` the two 3x3 ConvBlocks of each branch,
+    ``cls_pred``/``reg_pred`` the 1x1 preds."""
+    def f32(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    out = []
+    for convs, (kp, bp) in ((cls_convs, cls_pred), (reg_convs, reg_pred)):
+        for k, b in convs:
+            out += [f32(k).to(dtype), f32(b)]
+        kp = f32(kp)
+        out += [kp.reshape(kp.shape[-2], kp.shape[-1]).to(dtype), f32(bp)]
+    return tuple(out)
+
+
+def _branch(x, w1, b1, w2, b2, wp, bp):
+    t = _conv3x3(_conv3x3(x, w1, b1), w2, b2)
+    return _dot(t, wp) + bp.float()
+
+
+def fused_head_plain(x: torch.Tensor, *ws):
+    """Plain PyTorch version (any float dtype): ``(cls, reg)`` float32."""
+    xf = x.reshape(-1, *x.shape[-3:])
+    cls = _branch(xf, *ws[:6])
+    reg = _branch(xf, *ws[6:])
+    return (cls.reshape(*x.shape[:-1], cls.shape[-1]),
+            reg.reshape(*x.shape[:-1], reg.shape[-1]))
+
+
+def fused_head(x: torch.Tensor, *ws):
+    """Both head branches over ``x`` (..., H, W, h) -> ``(cls, reg)``,
+    (..., H, W, Ccls) logits and (..., H, W, 4) distances in float32,
+    each contiguous. The CUDA kernel takes bf16 ``x`` with h = 64 and up
+    to 8 outputs per pred; batch is its grid's z."""
+    if not x.is_cuda:
+        return fused_head_plain(x, *ws)
+    check_cuda(x, "x", torch.bfloat16)
+    h, w, c = x.shape[-3:]
+    if c != KERNEL_C:
+        raise ValueError(f"kernel takes {KERNEL_C} channels, got {c}")
+    bf = torch.bfloat16
+    outs = []
+    for i, name in ((0, "cls"), (6, "reg")):
+        w1, b1, w2, b2, wp, bp = ws[i:i + 6]
+        no = wp.shape[-1]
+        if not 1 <= no <= KERNEL_NOMAX:
+            raise ValueError(f"{name}_pred: 1..{KERNEL_NOMAX} outputs, "
+                             f"got {no}")
+        check_cuda(w1, f"{name}_conv1", bf, (3, 3, c, c))
+        check_cuda(w2, f"{name}_conv2", bf, (3, 3, c, c))
+        check_cuda(wp, f"{name}_pred", bf, (c, no))
+        for t, tn in ((b1, "conv1 bias"), (b2, "conv2 bias")):
+            check_cuda(t, f"{name} {tn}", torch.float32, (c,))
+        check_cuda(bp, f"{name}_pred bias", torch.float32, (no,))
+        outs.append(torch.empty((*x.shape[:-1], no), dtype=torch.float32,
+                                device=x.device))
+    bsz = x.numel() // (h * w * c)
+    (wc1, bc1, wc2, bc2, wcp, bcp, wr1, br1, wr2, br2, wrp, brp) = ws
+    KERNEL.launch(x.data_ptr(), wc1.data_ptr(), bc1.data_ptr(),
+                  wc2.data_ptr(), bc2.data_ptr(), wcp.data_ptr(),
+                  bcp.data_ptr(), wcp.shape[-1], wr1.data_ptr(),
+                  br1.data_ptr(), wr2.data_ptr(), br2.data_ptr(),
+                  wrp.data_ptr(), brp.data_ptr(), wrp.shape[-1],
+                  outs[0].data_ptr(), outs[1].data_ptr(), bsz, h, w,
+                  stream_ptr(x.device))
+    return outs[0], outs[1]

@@ -32,9 +32,8 @@ from .pipeline import build_serving_fn
 
 def config_from_artifact(conf: dict) -> ModelConfig:
     """The engine configuration an exported ``config.json`` describes."""
-    if not (conf.get("s2d_merged") and conf.get("fused_stem")):
-        raise NotImplementedError(
-            "the port serves s2d_merged + fused_stem artifacts")
+    if not conf.get("s2d_merged"):
+        raise NotImplementedError("the port serves s2d_merged artifacts")
     if conf.get("camera") or conf.get("batch"):
         raise NotImplementedError(
             "camera and batch artifacts are not ported yet")
@@ -46,7 +45,8 @@ def config_from_artifact(conf: dict) -> ModelConfig:
         lite_p2=conf.get("lite_p2", False),
         input_size=conf["input_size"],
         quant=quant, deploy=True, stem_s2d=True, s2d_host=True,
-        stage1_s2d=True, s2d_merged=True, fused_stem=True,
+        stage1_s2d=True, s2d_merged=True,
+        fused_stem=conf.get("fused_stem", False),
         merged_head=conf.get("merged_head", False))
 
 
@@ -65,8 +65,8 @@ class ServingArtifact:
         self.config = json.loads((self.dir / "config.json").read_text())
         self.model_config = config_from_artifact(self.config)
         variables = load_msgpack_raw(self.dir / "variables.msgpack")
-        self.model = from_jax_variables(variables,
-                                        self.model_config).to(self.device)
+        self.model = from_jax_variables(variables, self.model_config,
+                                        self.device)
         c = self.config
         self._serve = build_serving_fn(
             self.model, self.model_config,
