@@ -18,6 +18,10 @@ engine's timed frames, read just after) that every frame went through the
 path's kernels, checks the card's detections against the port's own CPU
 path on the same frame, and profiles a few frames.
 
+The stage1 and head kernels are also run at ragged shapes that cut every
+tile edge, and the built library's SASS is read for the tensor-core
+instruction each of them issues (``mma`` in their rows).
+
 Prints one JSON line per kernel, a ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no
 result) without a CUDA device or when any phase fails. A copy of the
@@ -42,10 +46,13 @@ DEVICE_FUNCS = {"normalize": ("normalize_kernel",),
                 "fused_stem_stage1": ("fused_stem_stage1_kernel",),
                 "decode_level": ("decode_kernel",),
                 "nms": ("suppress_kernel", "scan_kernel"),
-                "stage1_merged": ("stage1_merged_kernel",),
+                "stage1_merged": ("stage1_mma_kernel",),
                 "fused_c3k2": ("c3k2_kernel<false>",),
                 "fused_c3k2_cat": ("c3k2_kernel<true>",),
-                "fused_head": ("head_kernel",)}
+                "fused_head": ("head_mma_kernel",)}
+# the kernels that run on the tensor cores: checked at ragged shapes too,
+# and their SASS read for the instruction they issue
+MMA_KERNELS = ("stage1_merged", "fused_head")
 # launches per frame of each engine's path
 PER_FRAME = {
     "shipped": {"normalize": 1, "fused_stem_stage1": 1, "decode_level": 3,
@@ -90,6 +97,76 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     t_ops = flops / peak_flops * 1e3
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def mma_route(lib_path: Path, func: str, source: Path) -> str:
+    """Which tensor-core instruction a device function issues: ``wgmma``
+    (HGMMA in the built library's SASS) or ``mma.sync`` (HMMA only), read
+    by ``cuobjdump``; where that tool is absent, what the source states."""
+    from unina_yolo_dla_torch.ops.cuda import _lib
+
+    tool = Path(_lib._nvcc()).with_name("cuobjdump")
+    if tool.exists():
+        sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        body = [part for part in sass.split("Function : ")[1:]
+                if func in part.splitlines()[0]]
+        assert len(body) == 1, f"{func}: {len(body)} SASS functions"
+        found = ("wgmma" if "HGMMA" in body[0] else
+                 "mma.sync" if "HMMA" in body[0] else None)
+        log(f"{func}: SASS has {body[0].count('HGMMA')} HGMMA, "
+            f"{body[0].count('HMMA')} HMMA")
+    else:
+        text = source.read_text()
+        found = ("wgmma" if "wgmma" in text else
+                 "mma.sync" if "mma.sync" in text else None)
+    assert found is not None, f"{func}: no tensor-core instruction"
+    return found
+
+
+def check_ragged(torch) -> dict:
+    """Stage1 and the head at shapes that cut every tile edge (batch 2,
+    H = 10 x W2 = 37 and 37 x 45), random weights, against plain."""
+    from unina_yolo_dla_torch.ops.cuda import (
+        head_kernel, mma_pack, stage1_kernel)
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    rng = np.random.default_rng(1)
+
+    def act(shape):
+        a = np.maximum(rng.normal(0, 1, shape), 0).astype(np.float32)
+        return torch.from_numpy(a).to(dev, bf)
+
+    def kb(shape):
+        fan = int(np.prod(shape[:-1]))
+        return (rng.normal(0, np.sqrt(2 / fan), shape).astype(np.float32),
+                rng.normal(0, .1, shape[-1]).astype(np.float32))
+
+    def rel(got, want):
+        got, want = got.float(), want.float()
+        return float(((got - want).abs() / (1.0 + want.abs())).max())
+
+    xm = act((2, 10, 37, 64))
+    wb, b = kb((2, 2, 128, 64))
+    wb, b = torch.from_numpy(wb).to(dev, bf), torch.from_numpy(b).to(dev)
+    got = stage1_kernel.fused_downsample_merged(
+        xm, mma_pack.pack_stage1_mma(wb), b)
+    torch.cuda.synchronize()
+    worst = {"stage1_merged": rel(
+        got, stage1_kernel.fused_downsample_merged_plain(xm, wb, b))}
+    x = act((2, 37, 45, 64))
+    ws = [w.to(dev) for w in head_kernel.pack_head_weights(
+        [kb((3, 3, 64, 64)), kb((3, 3, 64, 64))], kb((1, 1, 64, 4)),
+        [kb((3, 3, 64, 64)), kb((3, 3, 64, 64))], kb((1, 1, 64, 4)), bf)]
+    w33 = mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8])
+    got = head_kernel.fused_head(x, *ws, w33=w33)
+    torch.cuda.synchronize()
+    want = head_kernel.fused_head_plain(x, *ws)
+    worst["fused_head"] = max(rel(g, w) for g, w in zip(got, want))
+    for name, r in worst.items():
+        assert r <= 1e-2, f"{name} ragged: max |err|/(1+|ref|) {r} > 1e-2"
+    return worst
 
 
 def check_kernels(art, torch) -> list[dict]:
@@ -287,7 +364,8 @@ def check_fc_kernels(model, serve, frame, torch) -> list[dict]:
     xm = dev(args[0])
     wb, bias = mod.kernel, mod.bias
     _, h, w2, cm = xm.shape
-    out = stage1_kernel.fused_downsample_merged(xm, wb, bias)
+    wb_mma = mod.kernel_mma  # the B tiles, packed once at load
+    out = stage1_kernel.fused_downsample_merged(xm, wb_mma, bias)
     # yardstick: one cuDNN conv on the un-merged view (1, C, H, 2*W2),
     # the blocked kernel unfolded to its 4x4 stride-2 form (pad 2, the
     # 161st row/column dropped), bias included, ReLU excluded
@@ -305,7 +383,7 @@ def check_fc_kernels(model, serve, frame, torch) -> list[dict]:
     assert lib_rel <= 1e-2, f"stage1 yardstick disagrees: {lib_rel}"
     rows.append(row(
         "stage1_merged", "stage1.cu", "stage1_kernel.py:127",
-        lambda: stage1_kernel.fused_downsample_merged(xm, wb, bias),
+        lambda: stage1_kernel.fused_downsample_merged(xm, wb_mma, bias),
         lambda: stage1_kernel.fused_downsample_merged_plain(xm, wb, bias),
         xm.numel() * 2 + out.numel() * 2 + wb.numel() * 2 + bias.numel() * 4,
         2 * out.numel() * wb.shape[0] * wb.shape[1] * wb.shape[2], 100,
@@ -357,13 +435,15 @@ def check_fc_kernels(model, serve, frame, torch) -> list[dict]:
     ws = weights(mod)
     px = x.shape[1] * x.shape[2]
     npred = ws[4].shape[1] + ws[10].shape[1]
+    # the 3x3 weights count once (the kernel reads them as mod.w33, the
+    # plain version as ws[0], [2], [6], [8])
     nbytes = 2 * x.numel() + 4 * px * npred + sum(
         t.numel() * t.element_size() for t in ws)
     macs = px * (ws[0].numel() + ws[2].numel() + ws[6].numel()
                  + ws[8].numel() + ws[4].numel() + ws[10].numel())
     rows.append(row(
         "fused_head", "head.cu", "head_kernel.py:127",
-        lambda: head_kernel.fused_head(x, *ws),
+        lambda: head_kernel.fused_head(x, *ws, w33=mod.w33),
         lambda: head_kernel.fused_head_plain(x, *ws),
         nbytes, 2 * macs, 50))
     return rows
@@ -531,6 +611,14 @@ def main() -> int:
     rows = [dict(r, path="shipped") for r in check_kernels(art, torch)]
     rows += [dict(r, path="int8_s2dm_fc") for r in check_fc_kernels(
         fc_model, fc_serve, art.stage(rgb), torch)]
+    ragged = check_ragged(torch)
+    log(json.dumps({"ragged_max_rel_err": ragged}))
+    lib_path = _lib.build()
+    for row in rows:
+        if row["name"] in MMA_KERNELS:
+            row["ragged_max_rel_err"] = ragged[row["name"]]
+            row["mma"] = mma_route(lib_path, DEVICE_FUNCS[row["name"]][0],
+                                   REPO / row["source"])
 
     # phase 3: end to end, batch 1, the committed engine
     cpu_dets = ServingArtifact(ARTIFACT, device="cpu")(rgb)
@@ -559,6 +647,12 @@ def main() -> int:
     log(json.dumps({"profile_fc": prof_fc}, indent=1))
 
     runs = {"shipped": (e2e, prof), "int8_s2dm_fc": (e2e_fc, prof_fc)}
+    for engine, (_, pr) in runs.items():
+        for name, per in PER_FRAME[engine].items():
+            dev_ms = pr["port_kernels_device_ms_per_frame"][name]
+            assert (dev_ms > 0) == (per > 0), (
+                f"{engine}: {name} has {dev_ms} ms of profiled device time "
+                f"at {per} launches per frame")
     for row in rows:
         run, pr = runs[row["path"]]
         row["launches"] = run["launches"][row["name"]]

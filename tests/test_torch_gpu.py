@@ -19,6 +19,7 @@ from unina_yolo_dla_torch.ops.cuda import (
     c3k2_kernel,
     decode_kernel,
     head_kernel,
+    mma_pack,
     nms_kernel,
     preprocess_kernel,
     stage1_kernel,
@@ -163,17 +164,25 @@ def _to(ws, cuda):
     return [w.to(cuda) for w in ws]
 
 
-def test_stage1_kernel_batched(rng, cuda):
-    """Batch 2 on the grid at the serving shape."""
-    xm = _act(rng, (2, 320, 160, 64), cuda)
+@pytest.mark.parametrize("shape", [(2, 320, 160, 64), (1, 6, 5, 64),
+                                   (2, 10, 37, 64), (3, 2, 1, 64)])
+def test_stage1_kernel_batched(rng, cuda, shape):
+    """Batch 2 at the serving shape; an image smaller than one 4 x 16
+    tile; a ragged one (W2 = 37, not a multiple of 8, 5 output rows); a
+    single output pixel per image."""
+    xm = _act(rng, shape, cuda)
     wb, b = _kb(rng, (2, 2, 128, 64))
     wb = torch.from_numpy(wb).to(cuda, torch.bfloat16)
     b = torch.from_numpy(b).to(cuda)
+    packed = mma_pack.pack_stage1_mma(wb)
     got = _launched(stage1_kernel.KERNEL,
-                    lambda: stage1_kernel.fused_downsample_merged(xm, wb, b))
+                    lambda: stage1_kernel.fused_downsample_merged(
+                        xm, packed, b))
     want = stage1_kernel.fused_downsample_merged_plain(xm, wb, b)
-    assert got.shape == (2, 160, 160, 64)
+    assert got.shape == (shape[0], shape[1] // 2, shape[2], 64)
     assert _within(got, want)
+    with pytest.raises(ValueError):  # the blocked kernel is the CPU's
+        stage1_kernel.fused_downsample_merged(xm, wb, b)
 
 
 def _c3k2_weights(rng, cin, n, cuda):
@@ -218,9 +227,11 @@ def test_c3k2_cat_kernel(rng, cuda, hb, wb_, up_a, n):
     assert _within(got, want)
 
 
-@pytest.mark.parametrize("shape", [(2, 160, 160, 64), (1, 37, 45, 64)])
+@pytest.mark.parametrize("shape", [(2, 160, 160, 64), (1, 37, 45, 64),
+                                   (1, 3, 5, 64), (2, 16, 21, 64)])
 def test_head_kernel(rng, cuda, shape):
-    """Batch 2 at the head_p2 shape and a ragged image; the f32 preds
+    """Batch 2 at the head_p2 shape, a ragged image, one smaller than an
+    8 x 16 tile and one whose W is not a multiple of 8; the f32 preds
     within 1e-2 (1 + |ref|) of the plain version."""
     x = _act(rng, shape, cuda)
     ws = head_kernel.pack_head_weights(
@@ -229,8 +240,9 @@ def test_head_kernel(rng, cuda, shape):
         [_kb(rng, (3, 3, 64, 64)), _kb(rng, (3, 3, 64, 64))],
         _kb(rng, (1, 1, 64, 4)), torch.bfloat16)
     ws = _to(ws, cuda)
+    w33 = mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8])
     cls, reg = _launched(head_kernel.KERNEL,
-                         lambda: head_kernel.fused_head(x, *ws))
+                         lambda: head_kernel.fused_head(x, *ws, w33=w33))
     wc, wr = head_kernel.fused_head_plain(x, *ws)
     assert cls.dtype == reg.dtype == torch.float32
     assert cls.shape == reg.shape == (*shape[:-1], 4)

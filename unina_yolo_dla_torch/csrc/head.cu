@@ -1,8 +1,9 @@
-// Fused decoupled detection head: both branches in one pass over x.
+// Fused decoupled detection head: both branches in one pass over x, the
+// 3x3 convs on the tensor cores.
 //
 // Replaces: unina_yolo_dla_tpu/ops/pallas/head_kernel.py fused_head
 //   (_pallas_head, pallas_call at :127 gridless / :137 row-gridded).
-//   Per branch (cls, then reg), over the same input x (H, W, 64):
+//   Per branch (cls, reg), over the same input x (H, W, 64):
 //     c1   = bf16(ReLU(conv3x3(x)  + b1))
 //     c2   = bf16(ReLU(conv3x3(c1) + b2))
 //     pred = c2 @ wp + bp      (f32, never rounded to bf16)
@@ -11,93 +12,57 @@
 //   contiguous f32 tensors, which the decode kernel takes as they are.
 //
 // Bound on the H100: at head_p2, (160,160,64) -> 2 x (160,160,4), the
-//   four 3x3 convs are 7.6 GFLOP over 4.1 MB: on bf16 tensor cores it is
-//   bound by operations (~8 us). This first kernel runs the MACs as f32
-//   FMAs on the CUDA cores, so it is bound by those operations, a
-//   hundred times slower than that.
-// Design: one block per 4 x 32 output tile (batch on grid z) stages x on
-//   the tile plus a 2-pixel halo (8 x 36 pixels, f32, zero outside the
-//   image) once for both branches. Per branch it stages the 3x3 weights
-//   of one conv at a time (bf16, 72 KB), computes conv1 on the tile plus a
-//   1-pixel halo (6 x 34) and masks it to 0 outside the image, so conv2
-//   sees the image's zero padding in rows and columns (the TPU kernel's
-//   `valid` mask, which covers rows only because it grids rows only);
-//   conv2's result is parked over the spent weights for the 1x1 pred.
-//   ~195 KB of shared memory, one block per SM. Each thread computes one
-//   pixel x 32 channels; activations are read column-fastest, weights as
-//   warp-wide broadcasts.
+//   four 3x3 convs are 7.6 GFLOP over 4.1 MB: bound by operations, about
+//   8 us at the bf16 tensor-core peak.
+// Design: implicit GEMMs with K = 9 taps x 64 channels (operand layouts
+//   in csrc/mma_sm90.cuh). Persistent blocks, one per SM, walk 8 x 16
+//   output tiles; a block is two warpgroups, one per branch.
+//   - x on the tile plus a 2-pixel halo (12 x 20 bf16 pixels, zero-filled
+//     outside the image by cp.async) is staged once for both branches.
+//   - conv1 runs on the tile plus a 1-pixel halo: 180 pixels, padded to
+//     three m64 products per branch (96 f32 accumulators a thread). Its
+//     result goes to shared memory already rounded to bf16, and 0 where
+//     the halo pixel lies outside the image: that is the zero padding
+//     conv2 must see, in rows and in columns, not ReLU(b1). conv2 is two
+//     m64 products per branch over that c1.
+//   - The weights are packed on the host as 18 slabs (conv1 taps, then
+//     conv2 taps) of [cls | reg] swizzled B tiles; both convs' taps
+//     stream through a two-slot ring per warpgroup, tap s+1 copied by
+//     cp.async under tap s's products. The warpgroups only meet at the
+//     tile boundary, so one's barriers and epilogues overlap the other's
+//     products.
+//   - conv2's accumulators become the A fragments of a warp-level
+//     m16n8k16 product with the 1x1 pred weights (bf16-rounded c2, f32
+//     accumulate, up to 8 outputs), so c2 never leaves registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
-constexpr int C = 64;     // head width (P2 channels)
-constexpr int OG = 32;    // output channels per thread in the 3x3s
-constexpr int TR = 4;     // output rows per block
-constexpr int TW = 32;    // output columns per block
-constexpr int XR = TR + 4, XC = TW + 4;  // x window (halo 2)
-constexpr int CR = TR + 2, CC = TW + 2;  // conv1 window (halo 1)
-constexpr int NOMAX = 8;  // pred outputs per branch
-constexpr int THREADS = 256;
-
-constexpr size_t X_BYTES = (size_t)XR * C * XC * 4;
-constexpr size_t C1_BYTES = (size_t)CR * C * CC * 4;
-constexpr size_t W_BYTES = (size_t)9 * C * C * 2;
-constexpr size_t SMEM_BYTES = X_BYTES + C1_BYTES + W_BYTES;
-static_assert((size_t)TR * TW * C * 4 <= W_BYTES, "c2 must fit over w");
-static_assert(THREADS == TR * TW * (C / OG), "conv2: one item per thread");
-
+using namespace mma90;
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ void unpack8(const uint4& v, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// acc[j] += 3x3 conv of the window `a` ([row][c][col], row stride C*ld)
-// at (r, col) with bf16 weights w_s[((kh*3+kw)*C + c)*C + og*OG + j]
-__device__ __forceinline__ void conv3x3_px(const float* a, int ld, int r,
-                                           int col, const bf16* w_s, int og,
-                                           float* acc) {
-  for (int kh = 0; kh < 3; ++kh)
-    for (int kw = 0; kw < 3; ++kw) {
-      const float* src = a + (r + kh) * C * ld + col + kw;
-      const bf16* wt = w_s + (kh * 3 + kw) * C * C + og * OG;
-      for (int c = 0; c < C; ++c) {
-        float xv = src[c * ld];
-        const uint4* wv = reinterpret_cast<const uint4*>(wt + c * C);
-#pragma unroll
-        for (int q = 0; q < OG / 8; ++q) {
-          float wf[8];
-          unpack8(wv[q], wf);
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            acc[q * 8 + e] = __fmaf_rn(xv, wf[e], acc[q * 8 + e]);
-        }
-      }
-    }
-}
-
-__device__ __forceinline__ void copy_w(bf16* dst, const bf16* src, int tid) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  for (int i = tid; i < (int)(W_BYTES / 16); i += THREADS) d[i] = s[i];
-}
+constexpr int C = 64;            // head width (P2 channels)
+constexpr int TR = 8, TW = 16;   // output tile
+constexpr int XR = TR + 4, XC = TW + 4;  // x window (halo 2)
+constexpr int CR = TR + 2, CC = TW + 2;  // conv1 window (halo 1)
+constexpr int C1_PX = CR * CC;   // 180, computed as 3 x 64 rows
+constexpr int MT1 = 3, MT2 = 2;  // m64 products of conv1 / conv2
+constexpr int NOMAX = 8;         // pred outputs per branch
+constexpr int TAPS = 18;         // conv1's nine, then conv2's nine
+constexpr int X_BYTES = XR * XC * PIX_BYTES;
+constexpr int C1_BYTES = C1_PX * PIX_BYTES;
+constexpr int RING_BYTES = 2 * B_TILE_BYTES;  // per warpgroup
+constexpr int THREADS = 256;
+constexpr int SMEM_BYTES = 1024 + 2 * RING_BYTES + X_BYTES + 2 * C1_BYTES;
+static_assert(MT1 * 64 >= C1_PX && MT2 * 64 == TR * TW, "m64 products");
+static_assert(TW == 16, "conv2 rows are m >> 4");
 
 struct Branch {
-  const bf16* w1;
   const float* b1;
-  const bf16* w2;
   const float* b2;
   const bf16* wp;   // (C, no)
   const float* bp;  // (no,)
@@ -106,115 +71,222 @@ struct Branch {
 };
 
 __global__ void __launch_bounds__(THREADS, 1)
-head_kernel(const bf16* __restrict__ x, Branch cls, Branch reg, int H,
-            int W) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* x_s = reinterpret_cast<float*>(smem);                 // [XR][C][XC]
-  float* c1_s = reinterpret_cast<float*>(smem + X_BYTES);      // [CR][C][CC]
-  bf16* w_s = reinterpret_cast<bf16*>(smem + X_BYTES + C1_BYTES);
-  float* c2_s = reinterpret_cast<float*>(w_s);                 // [C][TR*TW]
+head_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w33,
+                Branch cls, Branch reg, int H, int W, int tiles_x,
+                int tiles_y, int ntiles) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int wg = threadIdx.x >> 7;  // 0: cls branch, 1: reg branch
+  const int t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const uint32_t ring = base + wg * RING_BYTES;
+  const uint32_t x_s = base + 2 * RING_BYTES;
+  const uint32_t c1_s = x_s + X_BYTES + wg * C1_BYTES;
+  unsigned char* c1_p = smem_raw + (c1_s - smem_u32(smem_raw));
+  const Branch br = wg == 0 ? cls : reg;
+  // slab s of this branch: w33 + (s * 2 + wg) tiles
+  const bf16* wsrc = w33 + (size_t)wg * (B_TILE_BYTES / 2);
 
-  const int tid = threadIdx.x;
-  const int R0 = blockIdx.y * TR, W0 = blockIdx.x * TW;
-  const int b = blockIdx.z;
-  const bf16* xb = x + (size_t)b * H * W * C;
-
-  // x window: row R0-2+xr, column W0-2+xc, 8 channels per 16 B load
-  for (int i = tid; i < XR * XC * (C / 8); i += THREADS) {
-    int c8 = i % (C / 8);
-    int t = i / (C / 8);
-    int xc = t % XC, xr = t / XC;
-    int gy = R0 - 2 + xr, gx = W0 - 2 + xc;
-    float v[8];
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      unpack8(__ldg(reinterpret_cast<const uint4*>(
-                  xb + ((size_t)gy * W + gx) * C + c8 * 8)),
-              v);
-    } else {
+  // this lane's A rows: conv1 over x (m < 180 real, the rest repeat the
+  // last pixel and are dropped), conv2 over c1
+  int xpix[MT1], cpix[MT2];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e) x_s[(xr * C + c8 * 8 + e) * XC + xc] = v[e];
+  for (int mt = 0; mt < MT1; ++mt) {
+    int m = min(mt * 64 + warp * 16 + (lane & 15), C1_PX - 1);
+    xpix[mt] = (m / CC) * XC + m % CC;
   }
+#pragma unroll
+  for (int mt = 0; mt < MT2; ++mt) {
+    int m = mt * 64 + warp * 16 + (lane & 15);
+    cpix[mt] = (m >> 4) * CC + (m & 15);
+  }
+  // pred weights as m16n8k16 B fragments: k = 16 ks + 2 tq (+1) (+8), n = g
+  uint32_t wpf[4][2];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int k = 16 * ks + 8 * h + 2 * tq;
+      bf16 lo = g < br.no ? br.wp[k * br.no + g] : __float2bfloat16_rn(0.f);
+      bf16 hi =
+          g < br.no ? br.wp[(k + 1) * br.no + g] : __float2bfloat16_rn(0.f);
+      wpf[ks][h] = (uint32_t)__bfloat16_as_ushort(lo) |
+                   ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+    }
 
-  for (int br = 0; br < 2; ++br) {
-    const Branch p = br == 0 ? cls : reg;
-    __syncthreads();  // x staged / the previous pred is done with c2_s
-    copy_w(w_s, p.w1, tid);
-    __syncthreads();
-    // conv1 on the tile + 1-pixel halo, 0 outside the image
-    for (int item = tid; item < CR * CC * (C / OG); item += THREADS) {
-      int px = item % (CR * CC), og = item / (CR * CC);
-      int cr = px / CC, cc = px % CC;
-      int gy = R0 - 1 + cr, gx = W0 - 1 + cc;
-      bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      float acc[OG];
+  float acc[MT1][32];
+  uint32_t a[MT1][4][4];
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int b = tile / (tiles_x * tiles_y);
+    const int rem = tile - b * tiles_x * tiles_y;
+    const int R0 = (rem / tiles_x) * TR, W0 = (rem % tiles_x) * TW;
+    const bf16* xb = x + (size_t)b * H * W * C;
+
+    __syncthreads();  // both branches are done with the previous x window
+    // x window: row R0-2+xr, column W0-2+xc; zeros outside the image
+    for (int i = threadIdx.x; i < XR * XC * 8; i += THREADS) {
+      int ch = i & 7, p = i >> 3;
+      int xr = p / XC, xc = p - xr * XC;
+      int gy = R0 - 2 + xr, gx = W0 - 2 + xc;
+      bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const bf16* src = ok ? xb + ((size_t)gy * W + gx) * C + ch * 8 : xb;
+      cp_async16(x_s + pix_chunk(p, ch), src, ok ? 16 : 0);
+    }
+    for (int i = t; i < B_TILE_BYTES / 16; i += 128)
+      cp_async16(ring + i * 16, wsrc + i * 8, 16);
+    cp_async_commit();
+
 #pragma unroll
-      for (int j = 0; j < OG; ++j) acc[j] = 0.f;
-      conv3x3_px(x_s, XC, cr, cc, w_s, og, acc);
+    for (int mt = 0; mt < MT1; ++mt)
 #pragma unroll
-      for (int j = 0; j < OG; ++j) {
-        float v = bf16r(fmaxf(__fadd_rn(acc[j], __ldg(p.b1 + og * OG + j)),
-                              0.f));
-        c1_s[(cr * C + og * OG + j) * CC + cc] = inside ? v : 0.f;
+      for (int j = 0; j < 32; ++j) acc[mt][j] = 0.f;
+
+#pragma unroll 1
+    for (int s = 0; s < TAPS; ++s) {
+      // slab s has landed, tap s-1's products are done: its slot is free
+      cp_async_wait<0>();
+      fence_proxy_async();
+      wgmma_wait<0>();
+      if (s == 0)
+        __syncthreads();  // the x window came from all 256 threads
+      else
+        warpgroup_barrier(1 + wg);
+      if (s + 1 < TAPS) {
+        const bf16* src = wsrc + (size_t)(s + 1) * B_TILE_BYTES;  // 2 tiles
+        const uint32_t dst = ring + ((s + 1) & 1) * B_TILE_BYTES;
+        for (int i = t; i < B_TILE_BYTES / 16; i += 128)
+          cp_async16(dst + i * 16, src + i * 8, 16);
+        cp_async_commit();
+      }
+      const uint64_t desc = b_desc(ring + (s & 1) * B_TILE_BYTES);
+      if (s < 9) {
+        const int shift = (s / 3) * XC + s % 3;
+#pragma unroll
+        for (int mt = 0; mt < MT1; ++mt)
+          load_a64(a[mt], x_s, xpix[mt] + shift, lane);
+        wgmma_fence();
+#pragma unroll
+        for (int mt = 0; mt < MT1; ++mt) mma_a64(acc[mt], a[mt], desc);
+        wgmma_commit();
+        if (s == 8) {
+          // conv1 done: bias, ReLU, bf16, the image mask -> c1
+          wgmma_wait<0>();
+#pragma unroll
+          for (int mt = 0; mt < MT1; ++mt)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int m = mt * 64 + warp * 16 + g + 8 * half;
+              if (m < C1_PX) {
+                const int gy = R0 - 1 + m / CC, gx = W0 - 1 + m % CC;
+                const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                  const int col = 8 * j + 2 * tq;
+                  float v0 = fmaxf(__fadd_rn(acc[mt][4 * j + 2 * half],
+                                             __ldg(br.b1 + col)), 0.f);
+                  float v1 = fmaxf(__fadd_rn(acc[mt][4 * j + 2 * half + 1],
+                                             __ldg(br.b1 + col + 1)), 0.f);
+                  *reinterpret_cast<uint32_t*>(c1_p + pix_chunk(m, j) +
+                                               tq * 4) =
+                      inside ? pack_bf16(v0, v1) : 0u;
+                }
+              }
+            }
+#pragma unroll
+          for (int mt = 0; mt < MT2; ++mt)
+#pragma unroll
+            for (int j = 0; j < 32; ++j) acc[mt][j] = 0.f;
+        }
+      } else {
+        const int tap = s - 9;
+        const int shift = (tap / 3) * CC + tap % 3;
+#pragma unroll
+        for (int mt = 0; mt < MT2; ++mt)
+          load_a64(a[mt], c1_s, cpix[mt] + shift, lane);
+        wgmma_fence();
+#pragma unroll
+        for (int mt = 0; mt < MT2; ++mt) mma_a64(acc[mt], a[mt], desc);
+        wgmma_commit();
       }
     }
-    __syncthreads();
-    copy_w(w_s, p.w2, tid);
-    __syncthreads();
-    // conv2 on the tile: one pixel x 32 channels per thread
-    const int px = tid % (TR * TW), og = tid / (TR * TW);
-    float acc[OG];
+    wgmma_wait<0>();
+
+    // c2 = bf16(ReLU(conv2 + b2)) straight into A fragments; the 1x1 pred
+    // on them in f32
 #pragma unroll
-    for (int j = 0; j < OG; ++j) acc[j] = 0.f;
-    conv3x3_px(c1_s, CC, px / TW, px % TW, w_s, og, acc);
-    __syncthreads();  // every thread is done reading the conv2 weights
+    for (int mt = 0; mt < MT2; ++mt) {
+      float pd[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < OG; ++j)
-      c2_s[(og * OG + j) * (TR * TW) + px] = bf16r(
-          fmaxf(__fadd_rn(acc[j], __ldg(p.b2 + og * OG + j)), 0.f));
-    __syncthreads();
-    // 1x1 pred in f32: one pixel x one output per item
-    for (int item = tid; item < TR * TW * p.no; item += THREADS) {
-      int q = item % (TR * TW), jo = item / (TR * TW);
-      int gy = R0 + q / TW, gx = W0 + q % TW;
-      float a = 0.f;
-      for (int c = 0; c < C; ++c)
-        a = __fmaf_rn(c2_s[c * (TR * TW) + q],
-                      __bfloat162float(p.wp[c * p.no + jo]), a);
-      if (gy < H && gx < W)
-        p.out[(((size_t)b * H + gy) * W + gx) * p.no + jo] =
-            __fadd_rn(a, __ldg(p.bp + jo));
+      for (int ks = 0; ks < 4; ++ks) {
+        uint32_t af[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          // q: 0 row g, 1 row g+8 (columns 16ks+2tq), 2/3 the same +8
+          const int col = 16 * ks + 8 * (q >> 1) + 2 * tq;
+          af[q] = pack_bf16(
+              fmaxf(__fadd_rn(acc[mt][8 * ks + 2 * q], __ldg(br.b2 + col)),
+                    0.f),
+              fmaxf(__fadd_rn(acc[mt][8 * ks + 2 * q + 1],
+                              __ldg(br.b2 + col + 1)), 0.f));
+        }
+        mma_m16n8k16(pd, af, wpf[ks]);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = mt * 64 + warp * 16 + g + 8 * half;
+        const int gy = R0 + (m >> 4), gx = W0 + (m & 15);
+        if (gy < H && gx < W) {
+          float* o = br.out + (((size_t)b * H + gy) * W + gx) * br.no;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 2 * tq + e;
+            if (col < br.no)
+              o[col] = __fadd_rn(pd[2 * half + e], __ldg(br.bp + col));
+          }
+        }
+      }
     }
   }
 }
 
 }  // namespace
 
-extern "C" int unina_fused_head(const void* x, const void* wc1,
-                                const void* bc1, const void* wc2,
-                                const void* bc2, const void* wcp,
-                                const void* bcp, int nc, const void* wr1,
-                                const void* br1, const void* wr2,
-                                const void* br2, const void* wrp,
-                                const void* brp, int nr, void* out_cls,
-                                void* out_reg, int B, int H, int W,
-                                void* stream) {
-  if (B <= 0 || nc < 1 || nc > NOMAX || nr < 1 || nr > NOMAX)
+extern "C" int unina_fused_head(const void* x, const void* w33,
+                                const void* bc1, const void* bc2,
+                                const void* wcp, const void* bcp, int nc,
+                                const void* br1, const void* br2,
+                                const void* wrp, const void* brp, int nr,
+                                void* out_cls, void* out_reg, int B, int H,
+                                int W, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || nc < 1 || nc > NOMAX || nr < 1 ||
+      nr > NOMAX)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  Branch cls{(const bf16*)wc1, (const float*)bc1, (const bf16*)wc2,
-             (const float*)bc2, (const bf16*)wcp, (const float*)bcp, nc,
-             (float*)out_cls};
-  Branch reg{(const bf16*)wr1, (const float*)br1, (const bf16*)wr2,
-             (const float*)br2, (const bf16*)wrp, (const float*)brp, nr,
-             (float*)out_reg};
-  dim3 grid((W + TW - 1) / TW, (H + TR - 1) / TR, B);
-  head_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const bf16*)x, cls, reg, H, W);
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(head_mma_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SMEM_BYTES);
+    if (err != cudaSuccess) {
+      sms = 0;
+      return (int)err;
+    }
+  }
+  Branch cls{(const float*)bc1, (const float*)bc2, (const bf16*)wcp,
+             (const float*)bcp, nc, (float*)out_cls};
+  Branch reg{(const float*)br1, (const float*)br2, (const bf16*)wrp,
+             (const float*)brp, nr, (float*)out_reg};
+  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TR - 1) / TR;
+  const int ntiles = tiles_x * tiles_y * B;
+  const int blocks = ntiles < sms ? ntiles : sms;
+  head_mma_kernel<<<blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const bf16*)w33, cls, reg, H, W, tiles_x, tiles_y,
+      ntiles);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,151 @@
+// Shared device code of the tensor-core kernels (sm_90a): asynchronous
+// copies, ldmatrix, the warpgroup matrix multiply and the 16-byte-chunk
+// XOR swizzle. Included by stage1.cu and head.cu; not compiled on its own.
+//
+// The products these kernels run are implicit GEMMs over NHWC pixels of
+// 64 bf16 channels (128 bytes a pixel):
+//
+//   A (activations)  rows are pixels of a window in shared memory. The rows
+//     of one filter tap are the same pixels shifted by whole pixels, which
+//     a shared-memory matrix descriptor cannot express inside a swizzle
+//     atom, so A goes through registers: every lane hands `ldmatrix` the
+//     address of its own pixel row (`load_a64`). A pixel's eight 16-byte
+//     chunks are stored at chunk ^ (pixel & 7), which spreads the eight
+//     rows of one ldmatrix phase over all banks.
+//   B (weights)  never shifts, so `wgmma` reads it from shared memory
+//     through a descriptor: one tile is [64 n][64 k] bf16, K contiguous
+//     (128 bytes a row), 128-byte swizzle, 8 KB, 1024-byte aligned. The
+//     host packs the weights into exactly this image (ops/cuda/mma_pack.py)
+//     so the device copy is a flat 16-byte-chunk copy.
+//   D  f32 accumulators in registers, 32 a thread for m64n64: thread
+//     (warp w, lane l) holds rows 16w + l/4 (+8), columns 8j + 2(l%4) (+1).
+#pragma once
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace mma90 {
+
+constexpr int PIX_BYTES = 128;       // one pixel: 64 bf16 channels
+constexpr int B_TILE_BYTES = 8192;   // one [64 n][64 k] weight tile
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// byte offset of 16-byte chunk `chunk` of pixel `pix` inside a window
+__device__ __forceinline__ uint32_t pix_chunk(int pix, int chunk) {
+  return (uint32_t)(pix * PIX_BYTES + ((chunk ^ (pix & 7)) << 4));
+}
+
+// ---- cp.async: 16 bytes global -> shared; src_bytes = 0 writes zeros ----
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// makes shared-memory writes of this thread (cp.async included) visible
+// to wgmma's reads of B, which go through the async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// barrier of one warpgroup (128 threads); id 0 is __syncthreads' own
+__device__ __forceinline__ void warpgroup_barrier(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// ---- A operand ----
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+// The four k16 fragments of one pixel row x 64 channels. `win` is the
+// window's shared address, `pix` the pixel of this lane's row (row =
+// 16 * warp + lane % 16 of the warpgroup's 64), lanes 16-31 take the upper
+// 8 channels of each k16 step.
+__device__ __forceinline__ void load_a64(uint32_t (&a)[4][4], uint32_t win,
+                                         int pix, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    ldmatrix_x4(a[ks], win + pix_chunk(pix, 2 * ks + (lane >> 4)));
+}
+
+// ---- B operand: descriptor of a 128-byte-swizzled K-major tile ----
+__device__ __forceinline__ uint64_t b_desc(uint32_t tile_addr) {
+  return (uint64_t)((tile_addr & 0x3FFFF) >> 4)  // start address
+         | (1ull << 16)                          // leading offset (unused)
+         | ((uint64_t)(1024 >> 4) << 32)         // 8-row group stride
+         | (1ull << 62);                         // 128-byte swizzle
+}
+
+// ---- wgmma ----
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d += A(64 x 16, registers) @ B(16 x 64, shared through `desc`); the
+// predicate is wgmma's scale-d (0 would overwrite d instead of adding)
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+      : "memory");
+}
+// One 64-deep K chunk: four k16 steps over one weight tile. The caller
+// fences before (after its ldmatrix loads) and commits after.
+__device__ __forceinline__ void mma_a64(float (&d)[32],
+                                        const uint32_t (&a)[4][4],
+                                        uint64_t tile_desc) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_m64n64k16(d, a[ks], tile_desc + (uint64_t)(ks * 32 >> 4));
+}
+
+// ---- warp-level m16n8k16 (the head's 1x1 preds) ----
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two f32 -> one register of two bf16 (lo = first), round to nearest even
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+}  // namespace mma90

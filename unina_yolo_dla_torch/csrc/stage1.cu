@@ -1,4 +1,5 @@
-// Stage1 2x2 blocked downsample over the column-merged stem output.
+// Stage1 2x2 blocked downsample over the column-merged stem output, on the
+// tensor cores.
 //
 // Replaces: unina_yolo_dla_tpu/ops/pallas/stage1_kernel.py
 //   fused_downsample_merged (_pallas_merged, pallas_call at :127).
@@ -9,146 +10,201 @@
 //   kernel's kw = 1 half of each kw-packed product shifted by one column.
 //
 // Bound on the H100: at (320,160,64) -> (160,160,64) the work is
-//   1.68 GFLOP over 6.6 MB in and 3.3 MB out: a few microseconds on bf16
-//   tensor cores, bound by bytes. This first kernel runs the MACs as f32
-//   FMAs on the CUDA cores, so it is bound by those operations instead.
-// Design: the stage1 half of csrc/stem.cu, reading the stem output from
-//   device memory instead of computing it. One block per 4 x 32 output
-//   tile (batch on grid z) stages its 10 x 33 input window (as f32, zero
-//   outside the image) and the bf16 weights (64 KB) in shared memory;
-//   each thread accumulates one output pixel x 32 channels over the 512
-//   taps. Column index fastest in shared memory, so a warp's 32 threads
-//   read 32 consecutive words; weights are warp-wide broadcasts.
+//   1.68 GFLOP over 6.6 MB in and 3.3 MB out: about 3 us of memory traffic
+//   against 1.7 us of bf16 tensor-core time, so it is bound by bytes.
+// Design: an implicit GEMM, M = output pixels, N = 64, K = 512 in eight
+//   64-deep chunks (kh, kw, di), each chunk one input pixel row shifted by
+//   kw (csrc/mma_sm90.cuh has the operand layouts).
+//   - Persistent blocks, one per SM, of two warpgroups. The 64 KB of
+//     weights (packed on the host into eight swizzled B tiles) are copied
+//     into shared memory once per block, not once per tile.
+//   - Each warpgroup walks its own 4 x 16 output tiles (64 pixels: one
+//     m64 product, one output row per warp). A tile's input window, 10
+//     rows x 17 merged columns of bf16 pixels, arrives by cp.async (zero
+//     fill outside the image) into a ring of two stages, so the next
+//     tile's loads run under this tile's 32 k16 steps.
+//   - A comes through ldmatrix, double-buffered by chunk, so chunk q+1
+//     loads while chunk q multiplies; bias, ReLU and the bf16 rounding
+//     happen in registers, and the tile leaves through shared memory as
+//     16-byte stores of whole pixels.
+//   - Edge tiles are masked: any even H, any W2, any batch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
-constexpr int CM = 64;      // merged input channels (2 columns x 32)
-constexpr int CO = 64;      // output channels
-constexpr int K1 = 8 * CM;  // taps: (kh, kw, di, c) = 2*2*2*64
-constexpr int TR = 4;       // output rows per block
-constexpr int TW = 32;      // output columns per block
-constexpr int SR = 2 * TR + 2, SC = TW + 1;  // input window
-constexpr int OG = 32;      // output channels per thread
-constexpr int THREADS = 256;
+using namespace mma90;
+typedef __nv_bfloat16 bf16;
 
-constexpr size_t W_BYTES = (size_t)K1 * CO * 2;  // bf16
-constexpr size_t X_BYTES = (size_t)SR * CM * SC * 4;
-constexpr size_t SMEM_BYTES = W_BYTES + X_BYTES;
+constexpr int CM = 64;          // merged input channels (2 columns x 32)
+constexpr int CO = 64;          // output channels
+constexpr int CHUNKS = 8;       // K chunks: (kh, kw, di)
+constexpr int TR = 4, TW = 16;  // output tile of one warpgroup
+constexpr int SR = 2 * TR + 2, SC = TW + 1;  // its input window
+constexpr int WIN_PX = SR * SC;
+constexpr int WIN_BYTES = WIN_PX * PIX_BYTES;
+constexpr int OUT_BYTES = TR * TW * PIX_BYTES;
+constexpr int W_BYTES = CHUNKS * B_TILE_BYTES;
+constexpr int WG_BYTES = 2 * WIN_BYTES + OUT_BYTES;
+constexpr int WGS = 2;
+constexpr int THREADS = WGS * 128;
+constexpr int SMEM_BYTES = 1024 + W_BYTES + WGS * WG_BYTES;
+static_assert(TW == 16 && TR == 4, "one output row per warp");
 
-__device__ __forceinline__ void unpack8(const uint4& v, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
+struct Tile {
+  const bf16* x;  // this image
+  bf16* out;
+  int r0, w0;     // first output row / merged column
+};
+
+__device__ __forceinline__ Tile tile_at(int t, int tiles_x, int tiles_y,
+                                        const bf16* xm, bf16* out, int H,
+                                        int W2) {
+  int b = t / (tiles_x * tiles_y);
+  int rem = t - b * tiles_x * tiles_y;
+  Tile tl;
+  tl.x = xm + (size_t)b * H * W2 * CM;
+  tl.out = out + (size_t)b * (H / 2) * W2 * CO;
+  tl.r0 = (rem / tiles_x) * TR;
+  tl.w0 = (rem % tiles_x) * TW;
+  return tl;
+}
+
+// window pixel (wr, wc) <- input row 2*r0 - 2 + wr, merged column
+// w0 - 1 + wc; zeros outside the image
+__device__ __forceinline__ void load_window(uint32_t win, const Tile& tl,
+                                            int H, int W2, int t) {
+  for (int i = t; i < WIN_PX * 8; i += 128) {
+    int ch = i & 7, p = i >> 3;
+    int wr = p / SC, wc = p - wr * SC;
+    int s = 2 * tl.r0 - 2 + wr, sc = tl.w0 - 1 + wc;
+    bool ok = s >= 0 && s < H && sc >= 0 && sc < W2;
+    const bf16* src = ok ? tl.x + ((size_t)s * W2 + sc) * CM + ch * 8 : tl.x;
+    cp_async16(win + pix_chunk(p, ch), src, ok ? 16 : 0);
   }
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
-stage1_merged_kernel(const __nv_bfloat16* __restrict__ xm,
-                     const __nv_bfloat16* __restrict__ wb,
-                     const float* __restrict__ bias,
-                     __nv_bfloat16* __restrict__ out, int H, int W2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* x_s = reinterpret_cast<float*>(smem + W_BYTES);
+stage1_mma_kernel(const bf16* __restrict__ xm, const bf16* __restrict__ wpk,
+                  const float* __restrict__ bias, bf16* __restrict__ out,
+                  int H, int W2, int tiles_x, int tiles_y, int ntiles) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int wg = threadIdx.x >> 7;
+  const int t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31;
+  const uint32_t w_s = base;
+  const uint32_t win_s = base + W_BYTES + wg * WG_BYTES;  // two stages
+  const uint32_t out_s = win_s + 2 * WIN_BYTES;
+  unsigned char* out_p = smem_raw + (out_s - smem_u32(smem_raw));
 
-  const int tid = threadIdx.x;
-  const int H2 = H / 2;
-  const int R0 = blockIdx.y * TR;
-  const int W0 = blockIdx.x * TW;
-  const int b = blockIdx.z;
-  const __nv_bfloat16* x = xm + (size_t)b * H * W2 * CM;
+  // warpgroup g of block b takes tiles g*gridDim.x + b, + WGS*gridDim.x, ...
+  const int stride = WGS * gridDim.x;
+  int tile = wg * gridDim.x + blockIdx.x;
 
-  // weights: (kh, kw, di*CM + c, o) rows, copied 16 B at a time
-  {
-    const uint4* src = reinterpret_cast<const uint4*>(wb);
-    uint4* dst = reinterpret_cast<uint4*>(w_s);
-    for (int i = tid; i < (int)(W_BYTES / 16); i += THREADS) dst[i] = src[i];
-  }
-  // input window, zero outside the image: x_s[(sr*CM + c)*SC + scl] holds
-  // row 2*R0-2+sr, merged column W0-1+scl; 8 channels per 16 B load
-  for (int i = tid; i < SR * SC * (CM / 8); i += THREADS) {
-    int c8 = i % (CM / 8);
-    int t = i / (CM / 8);
-    int scl = t % SC;
-    int sr = t / SC;
-    int s = 2 * R0 - 2 + sr;
-    int sc = W0 - 1 + scl;
-    float v[8];
-    if (s >= 0 && s < H && sc >= 0 && sc < W2) {
-      uint4 raw = *reinterpret_cast<const uint4*>(
-          x + ((size_t)s * W2 + sc) * CM + c8 * 8);
-      unpack8(raw, v);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e) x_s[(sr * CM + c8 * 8 + e) * SC + scl] = v[e];
-  }
+  for (int i = threadIdx.x; i < W_BYTES / 16; i += THREADS)
+    cp_async16(w_s + i * 16, wpk + i * 8, 16);
+  if (tile < ntiles)
+    load_window(win_s, tile_at(tile, tiles_x, tiles_y, xm, out, H, W2), H, W2,
+                t);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
   __syncthreads();
 
-  // one output pixel x 32 channels per thread
-  const int p = tid % (TR * TW);
-  const int og = tid / (TR * TW);
-  const int rl = p / TW, wl = p % TW;
-  const int r = R0 + rl, w = W0 + wl;
-  float acc[OG];
+  float bv[16];  // bias of this thread's columns 8j + 2(lane%4) (+1)
 #pragma unroll
-  for (int j = 0; j < OG; ++j) acc[j] = 0.f;
-  for (int kh = 0; kh < 2; ++kh)
-    for (int kw = 0; kw < 2; ++kw)
-      for (int di = 0; di < 2; ++di) {
-        const float* srow = x_s + ((2 * rl + 2 * kh + di) * CM) * SC + wl + kw;
-        const __nv_bfloat16* wbase =
-            w_s + (size_t)((kh * 2 + kw) * 2 * CM + di * CM) * CO + og * OG;
-        for (int c = 0; c < CM; ++c) {
-          float xv = srow[c * SC];
-          const uint4* wv = reinterpret_cast<const uint4*>(wbase + c * CO);
+  for (int j = 0; j < 8; ++j) {
+    bv[2 * j] = __ldg(bias + 8 * j + 2 * (lane & 3));
+    bv[2 * j + 1] = __ldg(bias + 8 * j + 2 * (lane & 3) + 1);
+  }
+  const uint64_t wdesc = b_desc(w_s);
+  // this lane's A row: output pixel (row `warp`, column lane % 16)
+  const int p0 = 2 * warp * SC + (lane & 15);
+
+  for (int it = 0; tile < ntiles; tile += stride, ++it) {
+    const Tile tl = tile_at(tile, tiles_x, tiles_y, xm, out, H, W2);
+    const uint32_t win = win_s + (it & 1) * WIN_BYTES;
+    if (tile + stride < ntiles)
+      load_window(win_s + ((it + 1) & 1) * WIN_BYTES,
+                  tile_at(tile + stride, tiles_x, tiles_y, xm, out, H, W2), H,
+                  W2, t);
+    cp_async_commit();
+
+    float acc[32];
 #pragma unroll
-          for (int q = 0; q < OG / 8; ++q) {
-            float wf[8];
-            unpack8(wv[q], wf);
+    for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+    uint32_t a[2][4][4];
 #pragma unroll
-            for (int e = 0; e < 8; ++e)
-              acc[q * 8 + e] = __fmaf_rn(xv, wf[e], acc[q * 8 + e]);
-          }
-        }
+    for (int q = 0; q < CHUNKS; ++q) {
+      const int kh = q >> 2, kw = (q >> 1) & 1, di = q & 1;
+      load_a64(a[q & 1], win, p0 + (2 * kh + di) * SC + kw, lane);
+      wgmma_fence();
+      mma_a64(acc, a[q & 1], wdesc + (uint64_t)(q * B_TILE_BYTES >> 4));
+      wgmma_commit();
+      wgmma_wait<1>();  // chunk q-1 is done with the other A buffer
+    }
+    wgmma_wait<0>();
+
+    // every warp is done with the previous tile's staged output
+    warpgroup_barrier(1 + wg);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = warp * 16 + (lane >> 2) + 8 * half;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float v0 = fmaxf(__fadd_rn(acc[4 * j + 2 * half], bv[2 * j]), 0.f);
+        float v1 =
+            fmaxf(__fadd_rn(acc[4 * j + 2 * half + 1], bv[2 * j + 1]), 0.f);
+        *reinterpret_cast<uint32_t*>(out_p + pix_chunk(m, j) +
+                                     (lane & 3) * 4) = pack_bf16(v0, v1);
       }
-  if (r < H2 && w < W2) {
-    __nv_bfloat16* dst = out + (((size_t)b * H2 + r) * W2 + w) * CO + og * OG;
-#pragma unroll
-    for (int q = 0; q < OG / 8; ++q) {
-      __align__(16) __nv_bfloat16 v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        int o = og * OG + q * 8 + e;
-        v[e] = __float2bfloat16_rn(
-            fmaxf(__fadd_rn(acc[q * 8 + e], bias[o]), 0.f));
-      }
-      reinterpret_cast<uint4*>(dst)[q] = *reinterpret_cast<uint4*>(v);
+    }
+    cp_async_wait<0>();  // the next window has landed (this thread's part)
+    warpgroup_barrier(1 + wg);
+    const int H2 = H / 2;
+    for (int i = t; i < TR * TW * 8; i += 128) {
+      int ch = i & 7, m = i >> 3;
+      int r = tl.r0 + (m >> 4), w = tl.w0 + (m & 15);
+      if (r < H2 && w < W2)
+        *reinterpret_cast<uint4*>(tl.out + ((size_t)r * W2 + w) * CO +
+                                  ch * 8) =
+            *reinterpret_cast<const uint4*>(out_p + pix_chunk(m, ch));
     }
   }
 }
 
 }  // namespace
 
-extern "C" int unina_stage1_merged(const void* xm, const void* wb,
+extern "C" int unina_stage1_merged(const void* xm, const void* wpk,
                                    const void* bias, void* out, int B, int H,
                                    int W2, void* stream) {
-  if (H % 2 != 0 || B <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      stage1_merged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((W2 + TW - 1) / TW, (H / 2 + TR - 1) / TR, B);
-  stage1_merged_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)xm, (const __nv_bfloat16*)wb, (const float*)bias,
-      (__nv_bfloat16*)out, H, W2);
+  if (H % 2 != 0 || H <= 0 || W2 <= 0 || B <= 0)
+    return (int)cudaErrorInvalidValue;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(stage1_mma_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SMEM_BYTES);
+    if (err != cudaSuccess) {
+      sms = 0;
+      return (int)err;
+    }
+  }
+  const int tiles_x = (W2 + TW - 1) / TW, tiles_y = (H / 2 + TR - 1) / TR;
+  const int ntiles = tiles_x * tiles_y * B;
+  const int want = (ntiles + WGS - 1) / WGS;
+  const int blocks = want < sms ? want : sms;
+  stage1_mma_kernel<<<blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+      (const bf16*)xm, (const bf16*)wpk, (const float*)bias, (bf16*)out, H, W2,
+      tiles_x, tiles_y, ntiles);
   return (int)cudaGetLastError();
 }

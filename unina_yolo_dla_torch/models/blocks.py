@@ -25,6 +25,7 @@ from ..ops.cuda.c3k2_kernel import (
     fused_c3k2_cat,
     pack_c3k2_weights,
 )
+from ..ops.cuda.mma_pack import pack_stage1_mma
 from ..ops.cuda.stage1_kernel import fused_downsample_merged
 from ..quant.fake_quant import ActQuant, QuantConv, QuantSpec
 from ..quant.qtensor import (
@@ -145,11 +146,19 @@ class ShiftDot2x2(_KernelBias):
 class MergedDownsample(_KernelBias):
     """stage1_conv of an ``s2d_merged`` engine without ``fused_stem``:
     the blocked 2x2 conv + bias + ReLU over the column-merged stem output,
-    one kernel (``ops/cuda/stage1_kernel.py``)."""
+    one kernel (``ops/cuda/stage1_kernel.py``). The kernel's B-tile image
+    of the weights is packed here, once."""
+
+    def __init__(self, tree: WeightTree, path: str) -> None:
+        super().__init__(tree, path)
+        packs = tuple(self.kernel.shape) == (2, 2, 128, 64)
+        self.register_buffer(
+            "kernel_mma", pack_stage1_mma(self.kernel) if packs else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return fused_downsample_merged(x.to(self.kernel.dtype).contiguous(),
-                                       self.kernel, self.bias)
+        return fused_downsample_merged(
+            x.to(self.kernel.dtype).contiguous(),
+            self.kernel_mma if x.is_cuda else self.kernel, self.bias)
 
 
 class ConvBlock(nn.Module):

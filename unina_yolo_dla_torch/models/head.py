@@ -16,7 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.cuda.head_kernel import fused_head, pack_head_weights
+from ..ops.cuda.head_kernel import KERNEL_C, fused_head, pack_head_weights
+from ..ops.cuda.mma_pack import pack_head_mma
 from ..quant.fake_quant import QuantConv
 from ..quant.qtensor import QTensor
 from .blocks import ConvBlock, WeightTree
@@ -51,6 +52,11 @@ class DetectionHead(nn.Module):
                 kb("reg_pred"), self.dtype)
             for n, t in zip(self._FUSED, ws):
                 self.register_buffer(n, t)
+            # the 3x3s once more as the CUDA kernel's B tiles
+            w33 = (ws[0], ws[6], ws[2], ws[8])
+            packs = all(tuple(w.shape) == (3, 3, KERNEL_C, KERNEL_C)
+                        for w in w33)
+            self.register_buffer("w33", pack_head_mma(*w33) if packs else None)
             return
         self.cls_conv1 = ConvBlock(tree, f"{name}/cls_conv1", 3)
         self.cls_conv2 = ConvBlock(tree, f"{name}/cls_conv2", 3)
@@ -92,7 +98,8 @@ class DetectionHead(nn.Module):
             if isinstance(x, QTensor):
                 x = x.dequant(self.dtype)
             return fused_head(x.to(self.dtype).contiguous(),
-                              *(getattr(self, n) for n in self._FUSED))
+                              *(getattr(self, n) for n in self._FUSED),
+                              w33=self.w33)
         if self.merged:
             if isinstance(x, QTensor):
                 x = x.dequant(self.dtype)

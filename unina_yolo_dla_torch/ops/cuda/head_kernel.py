@@ -1,8 +1,9 @@
 """Kernel 8: the decoupled detection head, both branches in one pass.
 
-CUDA source: ``csrc/head.cu``. ``fused_head`` launches it for a CUDA
-tensor; for a CPU tensor it runs ``fused_head_plain``, which follows the
-reference's XLA form step by step. Per branch over the same input:
+CUDA source: ``csrc/head.cu`` (tensor cores). ``fused_head`` launches it
+for a CUDA tensor; for a CPU tensor it runs ``fused_head_plain``, which
+follows the reference's XLA form step by step. Per branch over the same
+input:
 
     c1   = ReLU(conv3x3(x)  + b1)  -> compute dtype
     c2   = ReLU(conv3x3(c1) + b2)  -> compute dtype
@@ -13,9 +14,11 @@ standard and merged heads, whose preds are rounded to the compute dtype
 before the cast to float32, the fused head's preds stay float32.
 
 Weights come packed by ``pack_head_weights`` (once, at load):
-``(wc1, bc1, wc2, bc2, wcp, bcp, wr1, br1, wr2, br2, wrp, brp)`` with
-the 3x3 kernels (3, 3, h, h) and the preds (h, co) in the compute dtype,
-the biases float32.
+``(wc1, bc1, wc2, bc2, wcp, bcp, wr1, br1, wr2, br2, wrp, brp)`` with the
+3x3 kernels (3, 3, h, h) and the preds (h, co) in the compute dtype and
+the biases float32. The CUDA kernel reads the four 3x3 kernels as its B
+tiles instead, ``w33 = mma_pack.pack_head_mma(wc1, wr1, wc2, wr2)``, which
+the caller packs once at load as well.
 """
 from __future__ import annotations
 
@@ -26,8 +29,7 @@ from ._lib import I, Kernel, P, check_cuda, stream_ptr
 from .c3k2_kernel import _conv3x3, _dot
 
 KERNEL = Kernel("unina_fused_head",
-                [P, P, P, P, P, P, P, I, P, P, P, P, P, P, I, P, P,
-                 I, I, I, P])
+                [P, P, P, P, P, P, I, P, P, P, P, I, P, P, I, I, I, P])
 
 # the widths the CUDA kernel is compiled for (csrc/head.cu)
 KERNEL_C, KERNEL_NOMAX = 64, 8
@@ -59,32 +61,36 @@ def fused_head_plain(x: torch.Tensor, *ws):
     """Plain PyTorch version (any float dtype): ``(cls, reg)`` float32."""
     xf = x.reshape(-1, *x.shape[-3:])
     cls = _branch(xf, *ws[:6])
-    reg = _branch(xf, *ws[6:])
+    reg = _branch(xf, *ws[6:12])
     return (cls.reshape(*x.shape[:-1], cls.shape[-1]),
             reg.reshape(*x.shape[:-1], reg.shape[-1]))
 
 
-def fused_head(x: torch.Tensor, *ws):
+def fused_head(x: torch.Tensor, *ws, w33: torch.Tensor | None = None):
     """Both head branches over ``x`` (..., H, W, h) -> ``(cls, reg)``,
     (..., H, W, Ccls) logits and (..., H, W, 4) distances in float32,
     each contiguous. The CUDA kernel takes bf16 ``x`` with h = 64 and up
-    to 8 outputs per pred; batch is its grid's z."""
+    to 8 outputs per pred; batch rides on its tile index. Of ``ws`` it
+    reads the biases and the preds, and the 3x3s from ``w33``."""
     if not x.is_cuda:
         return fused_head_plain(x, *ws)
     check_cuda(x, "x", torch.bfloat16)
     h, w, c = x.shape[-3:]
     if c != KERNEL_C:
         raise ValueError(f"kernel takes {KERNEL_C} channels, got {c}")
+    if w33 is None:
+        raise ValueError("the CUDA kernel needs w33 = pack_head_mma(wc1, "
+                         "wr1, wc2, wr2)")
     bf = torch.bfloat16
+    check_cuda(w33, "w33", bf, (18, 2 * c, c))
+    (_, bc1, _, bc2, wcp, bcp, _, br1, _, br2, wrp, brp) = ws
     outs = []
-    for i, name in ((0, "cls"), (6, "reg")):
-        w1, b1, w2, b2, wp, bp = ws[i:i + 6]
+    for name, b1, b2, wp, bp in (("cls", bc1, bc2, wcp, bcp),
+                                 ("reg", br1, br2, wrp, brp)):
         no = wp.shape[-1]
         if not 1 <= no <= KERNEL_NOMAX:
             raise ValueError(f"{name}_pred: 1..{KERNEL_NOMAX} outputs, "
                              f"got {no}")
-        check_cuda(w1, f"{name}_conv1", bf, (3, 3, c, c))
-        check_cuda(w2, f"{name}_conv2", bf, (3, 3, c, c))
         check_cuda(wp, f"{name}_pred", bf, (c, no))
         for t, tn in ((b1, "conv1 bias"), (b2, "conv2 bias")):
             check_cuda(t, f"{name} {tn}", torch.float32, (c,))
@@ -92,11 +98,9 @@ def fused_head(x: torch.Tensor, *ws):
         outs.append(torch.empty((*x.shape[:-1], no), dtype=torch.float32,
                                 device=x.device))
     bsz = x.numel() // (h * w * c)
-    (wc1, bc1, wc2, bc2, wcp, bcp, wr1, br1, wr2, br2, wrp, brp) = ws
-    KERNEL.launch(x.data_ptr(), wc1.data_ptr(), bc1.data_ptr(),
-                  wc2.data_ptr(), bc2.data_ptr(), wcp.data_ptr(),
-                  bcp.data_ptr(), wcp.shape[-1], wr1.data_ptr(),
-                  br1.data_ptr(), wr2.data_ptr(), br2.data_ptr(),
+    KERNEL.launch(x.data_ptr(), w33.data_ptr(), bc1.data_ptr(),
+                  bc2.data_ptr(), wcp.data_ptr(), bcp.data_ptr(),
+                  wcp.shape[-1], br1.data_ptr(), br2.data_ptr(),
                   wrp.data_ptr(), brp.data_ptr(), wrp.shape[-1],
                   outs[0].data_ptr(), outs[1].data_ptr(), bsz, h, w,
                   stream_ptr(x.device))

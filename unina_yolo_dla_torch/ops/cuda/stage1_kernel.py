@@ -1,8 +1,10 @@
 """Kernel 5: the stage1 2x2 blocked downsample over the merged stem output.
 
-CUDA source: ``csrc/stage1.cu``. ``fused_downsample_merged`` launches it
-for a CUDA tensor; for a CPU tensor it runs
-``fused_downsample_merged_plain``, which follows the reference's XLA form
+CUDA source: ``csrc/stage1.cu`` (tensor cores). ``fused_downsample_merged``
+launches it for a CUDA tensor, with the weights as the kernel's B tiles
+(``mma_pack.pack_stage1_mma``, packed by the caller once at load); for a
+CPU tensor it runs ``fused_downsample_merged_plain`` on the blocked
+weights, which follows the reference's XLA form
 step by step: kw-packed weights, the merged input padded 2 rows on top and
 1 column on the left, four (kh, di) products accumulated in float32 with
 the kw = 1 half shifted by one merged column, then bias and ReLU.
@@ -65,8 +67,11 @@ def fused_downsample_merged(xm: torch.Tensor, wb: torch.Tensor,
                             bias: torch.Tensor) -> torch.Tensor:
     """ReLU(blocked 2x2 conv + bias) over the merged layout, one pass.
 
-    The CUDA kernel takes bf16 ``xm`` (B, H, W2, 64), the bf16 blocked
-    kernel (2, 2, 128, 64) and an f32 bias (64,); batch is its grid's z."""
+    ``wb`` is the weights as the side that computes reads them: for a CPU
+    tensor the blocked kernel (2, 2, 4C, O), for a CUDA tensor its B-tile
+    image ``pack_stage1_mma(blocked)`` (8, 64, 64), which the caller packs
+    once at load. The CUDA kernel takes bf16 ``xm`` (B, H, W2, 64) and an
+    f32 bias (64,); batch rides on its tile index."""
     if not xm.is_cuda:
         return fused_downsample_merged_plain(xm, wb, bias)
     lead = xm.shape[:-3]
@@ -76,7 +81,8 @@ def fused_downsample_merged(xm: torch.Tensor, wb: torch.Tensor,
     if cm != KERNEL_CM or h % 2:
         raise ValueError(f"kernel takes (B, even H, W2, {KERNEL_CM}), got "
                          f"{tuple(xm.shape)}")
-    check_cuda(wb, "wb", torch.bfloat16, (2, 2, 2 * KERNEL_CM, KERNEL_O))
+    check_cuda(wb, "wb (pack_stage1_mma image)", torch.bfloat16,
+               (8, KERNEL_O, KERNEL_CM))
     check_cuda(bias, "bias", torch.float32, (KERNEL_O,))
     out = torch.empty((*lead, h // 2, w2, KERNEL_O), dtype=torch.bfloat16,
                       device=xm.device)
