@@ -18,9 +18,10 @@ engine's timed frames, read just after) that every frame went through the
 path's kernels, checks the card's detections against the port's own CPU
 path on the same frame, and profiles a few frames.
 
-The stage1 and head kernels are also run at ragged shapes that cut every
-tile edge, and the built library's SASS is read for the tensor-core
-instruction each of them issues (``mma`` in their rows).
+The five tensor-core kernels (stem+stage1, stage1, both C3k2 forms, head)
+are also run at ragged shapes that cut every tile edge, and the built
+library's SASS is read for the tensor-core instruction each of them issues
+(``mma`` in their rows).
 
 Prints one JSON line per kernel, a ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no
@@ -52,7 +53,11 @@ DEVICE_FUNCS = {"normalize": ("normalize_kernel",),
                 "fused_head": ("head_mma_kernel",)}
 # the kernels that run on the tensor cores: checked at ragged shapes too,
 # and their SASS read for the instruction they issue
-MMA_KERNELS = ("stage1_merged", "fused_head")
+MMA_KERNELS = ("fused_stem_stage1", "stage1_merged", "fused_c3k2",
+               "fused_c3k2_cat", "fused_head")
+# template instantiations as cuobjdump lists them (mangled)
+SASS_NAMES = {"c3k2_kernel<false>": "c3k2_kernelILb0EE",
+              "c3k2_kernel<true>": "c3k2_kernelILb1EE"}
 # launches per frame of each engine's path
 PER_FRAME = {
     "shipped": {"normalize": 1, "fused_stem_stage1": 1, "decode_level": 3,
@@ -111,7 +116,7 @@ def mma_route(lib_path: Path, func: str, source: Path) -> str:
                               capture_output=True, text=True,
                               check=True).stdout
         body = [part for part in sass.split("Function : ")[1:]
-                if func in part.splitlines()[0]]
+                if SASS_NAMES.get(func, func) in part.splitlines()[0]]
         assert len(body) == 1, f"{func}: {len(body)} SASS functions"
         found = ("wgmma" if "HGMMA" in body[0] else
                  "mma.sync" if "HMMA" in body[0] else None)
@@ -126,35 +131,49 @@ def mma_route(lib_path: Path, func: str, source: Path) -> str:
 
 
 def check_ragged(torch) -> dict:
-    """Stage1 and the head at shapes that cut every tile edge (batch 2,
-    H = 10 x W2 = 37 and 37 x 45), random weights, against plain."""
+    """The tensor-core kernels at shapes that cut every tile edge, random
+    weights, against plain: the stem and stage1 at batch 2, H = 10 x
+    W2 = 37; the head at 37 x 45; both C3k2 forms with two bottlenecks at
+    37 x 45 (and 38 x 46 with the upsample on)."""
     from unina_yolo_dla_torch.ops.cuda import (
-        head_kernel, mma_pack, stage1_kernel)
+        c3k2_kernel, head_kernel, mma_pack, stage1_kernel, stem_kernel)
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     rng = np.random.default_rng(1)
 
-    def act(shape):
-        a = np.maximum(rng.normal(0, 1, shape), 0).astype(np.float32)
-        return torch.from_numpy(a).to(dev, bf)
+    def act(shape, relu=True):
+        a = rng.normal(0, 1, shape)
+        a = np.maximum(a, 0) if relu else a
+        return torch.from_numpy(a.astype(np.float32)).to(dev, bf)
 
     def kb(shape):
         fan = int(np.prod(shape[:-1]))
         return (rng.normal(0, np.sqrt(2 / fan), shape).astype(np.float32),
                 rng.normal(0, .1, shape[-1]).astype(np.float32))
 
+    def kb_dev(shape):
+        k, b = kb(shape)
+        return torch.from_numpy(k).to(dev, bf), torch.from_numpy(b).to(dev)
+
     def rel(got, want):
         got, want = got.float(), want.float()
         return float(((got - want).abs() / (1.0 + want.abs())).max())
 
-    xm = act((2, 10, 37, 64))
-    wb, b = kb((2, 2, 128, 64))
-    wb, b = torch.from_numpy(wb).to(dev, bf), torch.from_numpy(b).to(dev)
-    got = stage1_kernel.fused_downsample_merged(
-        xm, mma_pack.pack_stage1_mma(wb), b)
+    worst = {}
+    wb, b = kb_dev((2, 2, 128, 64))
+    wb_mma = mma_pack.pack_stage1_mma(wb)
+    frame = act((2, 10, 37, 24), relu=False)
+    ks, bs = kb_dev((2, 2, 24, 64))
+    got = stem_kernel.fused_stem_stage1(
+        frame, mma_pack.pack_stem_mma(ks), bs, wb_mma, b)
     torch.cuda.synchronize()
-    worst = {"stage1_merged": rel(
-        got, stage1_kernel.fused_downsample_merged_plain(xm, wb, b))}
+    worst["fused_stem_stage1"] = rel(
+        got, stem_kernel.fused_stem_stage1_plain(frame, ks, bs, wb, b))
+    xm = act((2, 10, 37, 64))
+    got = stage1_kernel.fused_downsample_merged(xm, wb_mma, b)
+    torch.cuda.synchronize()
+    worst["stage1_merged"] = rel(
+        got, stage1_kernel.fused_downsample_merged_plain(xm, wb, b))
     x = act((2, 37, 45, 64))
     ws = [w.to(dev) for w in head_kernel.pack_head_weights(
         [kb((3, 3, 64, 64)), kb((3, 3, 64, 64))], kb((1, 1, 64, 4)),
@@ -164,6 +183,52 @@ def check_ragged(torch) -> dict:
     torch.cuda.synchronize()
     want = head_kernel.fused_head_plain(x, *ws)
     worst["fused_head"] = max(rel(g, w) for g, w in zip(got, want))
+
+    # The C3k2 forms chain up to seven rounded products, and with random
+    # normal weights one bf16 step of a large p1 can grow past the limit on
+    # the way to a small output. Their inputs are drawn on binary grids
+    # instead (activations k/2, sparse weights k/4, biases k/8), coarse
+    # enough that every f32 sum is exact in any order: kernel and plain
+    # must then agree bit for bit, and any difference is a fault of tiling,
+    # masking or a rounding point.
+    def grid_act(shape):
+        a = rng.integers(0, 5, shape) * 0.5
+        return torch.from_numpy(a.astype(np.float32)).to(dev, bf)
+
+    def grid_kb(shape):
+        fan = int(np.prod(shape[:-1]))
+        k = np.where(rng.random(shape) < min(1.0, 8 / fan),
+                     rng.choice([-.5, -.25, .25, .5], shape), 0.0)
+        return (k.astype(np.float32),
+                (rng.integers(-2, 3, shape[-1]) / 8).astype(np.float32))
+
+    def c3k2_ws(cin, ca=0):
+        ws = [w.to(dev) for w in c3k2_kernel.pack_c3k2_weights(
+            grid_kb((1, 1, cin, 32)), grid_kb((1, 1, cin, 32)),
+            grid_kb((1, 1, 64, 64)),
+            [(grid_kb((1, 1, 32, 32)), grid_kb((3, 3, 32, 32)))
+             for _ in range(2)], bf)]
+        return ws, mma_pack.pack_c3k2_mma(ws[0], ws[6], ws[2], ws[4], ws[8],
+                                          ca)
+
+    x = grid_act((2, 37, 45, 64))
+    ws, wpk = c3k2_ws(64)
+    got = c3k2_kernel.fused_c3k2(x, *ws, wpk=wpk)
+    torch.cuda.synchronize()
+    want = c3k2_kernel.fused_c3k2_plain(x, *ws)
+    assert float(want.float().abs().max()) > 1.0, "degenerate grid inputs"
+    worst["fused_c3k2"] = rel(got, want)
+    ws, wpk = c3k2_ws(128, 64)
+    worst["fused_c3k2_cat"] = 0.0
+    for (hb, wb_), up in (((38, 46), True), ((37, 45), False)):
+        xa = grid_act((2, hb // 2, wb_ // 2, 64) if up else (2, hb, wb_, 64))
+        xb = grid_act((2, hb, wb_, 64))
+        got = c3k2_kernel.fused_c3k2_cat(xa, xb, *ws, up_a=up, wpk=wpk)
+        torch.cuda.synchronize()
+        want = c3k2_kernel.fused_c3k2_cat_plain(xa, xb, *ws, up_a=up)
+        assert float(want.float().abs().max()) > 1.0, "degenerate grid inputs"
+        worst["fused_c3k2_cat"] = max(worst["fused_c3k2_cat"],
+                                      rel(got, want))
     for name, r in worst.items():
         assert r <= 1e-2, f"{name} ragged: max |err|/(1+|ref|) {r} > 1e-2"
     return worst
@@ -205,10 +270,13 @@ def check_kernels(art, torch) -> list[dict]:
     # 2. fused stem + stage1 on the normalised frame, real weights
     bb = art.model.backbone
     xm = want.to(torch.bfloat16)[None].contiguous()
-    args = (xm, bb.stem_kernel, bb.stem_bias, bb.stage1_kernel,
+    plain_args = (xm, bb.stem_kernel, bb.stem_bias, bb.stage1_kernel,
+                  bb.stage1_bias)
+    # the B tiles, packed once at load
+    args = (xm, bb.stem_kernel_mma, bb.stem_bias, bb.stage1_kernel_mma,
             bb.stage1_bias)
     got = stem_kernel.fused_stem_stage1(*args)
-    want_s = stem_kernel.fused_stem_stage1_plain(*args)
+    want_s = stem_kernel.fused_stem_stage1_plain(*plain_args)
     torch.cuda.synchronize()
     g, w = got.float(), want_s.float()
     err = float((g - w).abs().max())
@@ -227,8 +295,8 @@ def check_kernels(art, torch) -> list[dict]:
         replaces="unina_yolo_dla_tpu/ops/pallas/stem_kernel.py:192",
         max_abs_err=err, tolerance="|err| <= 1e-2 * (1 + |ref|)",
         ms=cuda_ms(lambda: stem_kernel.fused_stem_stage1(*args), 100),
-        plain_ms=cuda_ms(lambda: stem_kernel.fused_stem_stage1_plain(*args),
-                         20),
+        plain_ms=cuda_ms(
+            lambda: stem_kernel.fused_stem_stage1_plain(*plain_args), 20),
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
 
     # 3. decode: the three levels of one frame (160^2, 80^2, 40^2 cells)
@@ -407,7 +475,8 @@ def check_fc_kernels(model, serve, frame, torch) -> list[dict]:
     macs = px * 2 * ws[0].numel() + c3k2_macs(ws, px)
     rows.append(row(
         "fused_c3k2", "c3k2.cu", "c3k2_kernel.py:324",
-        lambda: c3k2_kernel.fused_c3k2(x, *ws, shortcut=mod.shortcut),
+        lambda: c3k2_kernel.fused_c3k2(x, *ws, shortcut=mod.shortcut,
+                                       wpk=mod.wpk),
         lambda: c3k2_kernel.fused_c3k2_plain(x, *ws, shortcut=mod.shortcut),
         nbytes, 2 * macs, 100))
 
@@ -424,7 +493,7 @@ def check_fc_kernels(model, serve, frame, torch) -> list[dict]:
     rows.append(row(
         "fused_c3k2_cat", "c3k2.cu", "c3k2_kernel.py:356",
         lambda: c3k2_kernel.fused_c3k2_cat(xa, xb, *ws, shortcut=mod.shortcut,
-                                           up_a=up),
+                                           up_a=up, wpk=mod.wpk),
         lambda: c3k2_kernel.fused_c3k2_cat_plain(
             xa, xb, *ws, shortcut=mod.shortcut, up_a=up),
         nbytes, 2 * macs, 100))

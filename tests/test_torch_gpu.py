@@ -76,22 +76,30 @@ def test_normalize_kernel_exact(rng, cuda):
     assert float((got - want).abs().max()) <= 1e-6
 
 
-def test_stem_kernel_batched(rng, cuda):
-    """Batch 2 on the grid; within a bf16 step of the plain version."""
-    xm = rng.normal(0, 1, (2, 320, 160, 24)).astype(np.float32)
+@pytest.mark.parametrize("shape", [(2, 320, 160, 24), (2, 10, 37, 24),
+                                   (1, 12, 5, 24), (3, 2, 1, 24)])
+def test_stem_kernel_batched(rng, cuda, shape):
+    """Batch 2 at the serving shape; a ragged image (odd W2 = 37, 5 output
+    rows: not a multiple of the 4 x 16 tile) at batch 2; an image smaller
+    than one tile; a single output pixel per image. Within a bf16 step of
+    the plain version."""
+    xm = rng.normal(0, 1, shape).astype(np.float32)
     ks = rng.normal(0, np.sqrt(2 / 96), (2, 2, 24, 64)).astype(np.float32)
     k1 = rng.normal(0, np.sqrt(2 / 512), (2, 2, 128, 64)).astype(np.float32)
     bs = rng.normal(0, .1, 64).astype(np.float32)
     b1 = rng.normal(0, .1, 64).astype(np.float32)
     bf = torch.bfloat16
-    args = (torch.from_numpy(xm).to(cuda, bf), torch.from_numpy(ks).to(
-        cuda, bf), torch.from_numpy(bs).to(cuda), torch.from_numpy(k1).to(
-        cuda, bf), torch.from_numpy(b1).to(cuda))
+    xm, ks, k1 = (torch.from_numpy(a).to(cuda, bf) for a in (xm, ks, k1))
+    bs, b1 = torch.from_numpy(bs).to(cuda), torch.from_numpy(b1).to(cuda)
+    ksp, k1p = mma_pack.pack_stem_mma(ks), mma_pack.pack_stage1_mma(k1)
     got = _launched(stem_kernel.KERNEL,
-                    lambda: stem_kernel.fused_stem_stage1(*args)).float()
-    want = stem_kernel.fused_stem_stage1_plain(*args).float()
-    assert got.shape == (2, 160, 160, 64)
+                    lambda: stem_kernel.fused_stem_stage1(
+                        xm, ksp, bs, k1p, b1)).float()
+    want = stem_kernel.fused_stem_stage1_plain(xm, ks, bs, k1, b1).float()
+    assert got.shape == (shape[0], shape[1] // 2, shape[2], 64)
     assert bool(((got - want).abs() <= 1e-2 * (1 + want.abs())).all())
+    with pytest.raises(ValueError):  # the blocked kernels are the CPU's
+        stem_kernel.fused_stem_stage1(xm, ks, bs, k1, b1)
 
 
 def test_decode_kernel_matches_plain(rng, cuda):
@@ -185,46 +193,103 @@ def test_stage1_kernel_batched(rng, cuda, shape):
         stage1_kernel.fused_downsample_merged(xm, wb, b)
 
 
-def _c3k2_weights(rng, cin, n, cuda):
+def _c3k2_weights(rng, cin, n, cuda, ca=0):
+    """``pack_c3k2_weights``' operands on the card, and the kernel's B-tile
+    image of them (split at ``ca`` for the pair form)."""
     hd, f = c3k2_kernel.KERNEL_HID, c3k2_kernel.KERNEL_F
     ws = c3k2_kernel.pack_c3k2_weights(
         _kb(rng, (1, 1, cin, hd)), _kb(rng, (1, 1, cin, hd)),
         _kb(rng, (1, 1, 2 * hd, f)),
         [(_kb(rng, (1, 1, hd, hd)), _kb(rng, (3, 3, hd, hd)))
          for _ in range(n)], torch.bfloat16)
-    return _to(ws, cuda)
+    ws = _to(ws, cuda)
+    return ws, mma_pack.pack_c3k2_mma(ws[0], ws[6], ws[2], ws[4], ws[8], ca)
 
 
 @pytest.mark.parametrize("shape,n,shortcut", [((2, 160, 160, 64), 1, True),
-                                              ((1, 37, 45, 64), 2, False)])
+                                              ((1, 37, 45, 64), 2, False),
+                                              ((1, 6, 5, 64), 1, True),
+                                              ((2, 6, 5, 24), 2, True)])
 def test_c3k2_kernel(rng, cuda, shape, n, shortcut):
     """Batch 2 at the stage1_block shape; a ragged 37 x 45 image with two
-    bottlenecks covers the tile edges and the 2-pixel halo."""
+    bottlenecks covers the tile edges and the 2-pixel halo; images smaller
+    than one 8 x 16 tile, one of them with Cin = 24 (a zero-filled K
+    chunk)."""
     x = _act(rng, shape, cuda)
-    ws = _c3k2_weights(rng, shape[-1], n, cuda)
+    ws, wpk = _c3k2_weights(rng, shape[-1], n, cuda)
     got = _launched(c3k2_kernel.KERNEL, lambda: c3k2_kernel.fused_c3k2(
-        x, *ws, shortcut=shortcut))
+        x, *ws, shortcut=shortcut, wpk=wpk))
     want = c3k2_kernel.fused_c3k2_plain(x, *ws, shortcut=shortcut)
     assert got.shape == (*shape[:-1], 64)
     assert _within(got, want)
+    with pytest.raises(ValueError):  # the B tiles are the card's operand
+        c3k2_kernel.fused_c3k2(x, *ws, shortcut=shortcut)
 
 
-@pytest.mark.parametrize("hb,wb_,up_a,n", [(160, 160, True, 1),
-                                           (38, 46, True, 2),
-                                           (37, 45, False, 1)])
-def test_c3k2_cat_kernel(rng, cuda, hb, wb_, up_a, n):
+@pytest.mark.parametrize("hb,wb_,up_a,n,ca", [(160, 160, True, 1, 64),
+                                              (38, 46, True, 2, 64),
+                                              (37, 45, False, 1, 64),
+                                              (6, 4, True, 1, 64),
+                                              (6, 5, False, 2, 72)])
+def test_c3k2_cat_kernel(rng, cuda, hb, wb_, up_a, n, ca):
     """Batch 2 at the fpn_c3k2_2 shapes (xa 80^2 upsampled, xb 160^2),
-    and ragged images with and without the upsample."""
+    ragged images with and without the upsample, and images smaller than
+    one tile (one with Ca = 72: two xa chunks, the second zero-filled)."""
     sa = (hb // 2, wb_ // 2) if up_a else (hb, wb_)
-    xa = _act(rng, (2, *sa, 64), cuda)
+    xa = _act(rng, (2, *sa, ca), cuda)
     xb = _act(rng, (2, hb, wb_, 64), cuda)
-    ws = _c3k2_weights(rng, 128, n, cuda)
+    ws, wpk = _c3k2_weights(rng, ca + 64, n, cuda, ca)
     got = _launched(c3k2_kernel.KERNEL_CAT,
                     lambda: c3k2_kernel.fused_c3k2_cat(xa, xb, *ws,
-                                                       up_a=up_a))
+                                                       up_a=up_a, wpk=wpk))
     want = c3k2_kernel.fused_c3k2_cat_plain(xa, xb, *ws, up_a=up_a)
     assert got.shape == (2, hb, wb_, 64)
     assert _within(got, want)
+
+
+@pytest.mark.parametrize("hb,wb_,up_a,n,ca,shortcut",
+                         [(37, 45, False, 2, 0, True),
+                          (38, 46, True, 2, 64, True),
+                          (37, 45, False, 2, 72, False),
+                          (22, 18, True, 1, 8, True)])
+def test_c3k2_kernels_bit_exact_on_grid_inputs(rng, cuda, hb, wb_, up_a, n,
+                                               ca, shortcut):
+    """Inputs on binary grids (activations k/2, sparse weights k/4, biases
+    k/8) make every f32 sum exact in any order, so the kernel must equal
+    the plain version bit for bit: any difference is a fault of tiling,
+    masking or a rounding point, not of summation order. ``ca`` = 0 is the
+    single form."""
+    def act(shape):
+        a = (rng.integers(0, 5, shape) * 0.5).astype(np.float32)
+        return torch.from_numpy(a).to(cuda, torch.bfloat16)
+
+    def kb(shape):
+        fan = int(np.prod(shape[:-1]))
+        k = np.where(rng.random(shape) < min(1.0, 8 / fan),
+                     rng.choice([-.5, -.25, .25, .5], shape), 0.0)
+        return (k.astype(np.float32),
+                (rng.integers(-2, 3, shape[-1]) / 8).astype(np.float32))
+
+    hd, f = c3k2_kernel.KERNEL_HID, c3k2_kernel.KERNEL_F
+    ws = _to(c3k2_kernel.pack_c3k2_weights(
+        kb((1, 1, ca + 64, hd)), kb((1, 1, ca + 64, hd)),
+        kb((1, 1, 2 * hd, f)),
+        [(kb((1, 1, hd, hd)), kb((3, 3, hd, hd))) for _ in range(n)],
+        torch.bfloat16), cuda)
+    wpk = mma_pack.pack_c3k2_mma(ws[0], ws[6], ws[2], ws[4], ws[8], ca)
+    xb = act((2, hb, wb_, 64))
+    if ca:
+        xa = act((2, hb // 2, wb_ // 2, ca) if up_a else (2, hb, wb_, ca))
+        got = c3k2_kernel.fused_c3k2_cat(xa, xb, *ws, shortcut=shortcut,
+                                         up_a=up_a, wpk=wpk)
+        want = c3k2_kernel.fused_c3k2_cat_plain(xa, xb, *ws,
+                                                shortcut=shortcut, up_a=up_a)
+    else:
+        got = c3k2_kernel.fused_c3k2(xb, *ws, shortcut=shortcut, wpk=wpk)
+        want = c3k2_kernel.fused_c3k2_plain(xb, *ws, shortcut=shortcut)
+    torch.cuda.synchronize()
+    assert float(want.float().abs().max()) > 1.0   # not a degenerate case
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("shape", [(2, 160, 160, 64), (1, 37, 45, 64),

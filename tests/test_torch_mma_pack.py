@@ -10,7 +10,13 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from unina_yolo_dla_torch.ops.cuda import head_kernel, mma_pack, stage1_kernel
+from unina_yolo_dla_torch.ops.cuda import (
+    c3k2_kernel,
+    head_kernel,
+    mma_pack,
+    stage1_kernel,
+    stem_kernel,
+)
 
 TILES = [(8, 16), (4, 32), (16, 16), (5, 7)]
 
@@ -128,32 +134,43 @@ def test_head_pack_other_width_has_no_tiles():
 
 # ---- (b), (c) the kernels' tiling in plain PyTorch ----
 
-def _stage1_tiled(xm, p, bias, tr, tw):
-    """csrc/stage1.cu's walk: per (tr x tw) output tile a zero-filled
-    window of 2*tr + 2 input rows x tw + 1 merged columns, eight K chunks
-    (kh, kw, di) of shifted window pixels against the packed tiles."""
-    bsz, h, w2, _ = xm.shape
-    h2 = h // 2
-    out = torch.zeros(bsz, h2, w2, 64)
+def _window(x, r0, c0, rows, cols):
+    """rows x cols pixels of (H, W, C) from (r0, c0), zero outside."""
+    h, w, _ = x.shape
+    win = torch.zeros(rows, cols, x.shape[-1])
+    ra, rb = max(r0, 0), min(r0 + rows, h)
+    ca, cb = max(c0, 0), min(c0 + cols, w)
+    if ra < rb and ca < cb:
+        win[ra - r0:rb - r0, ca - c0:cb - c0] = x[ra:rb, ca:cb]
+    return win
+
+
+def _stage1_tile(win, p, bias, tr, tw):
+    """csrc/stage1_tile.cuh: one (tr x tw) output tile from its window of
+    2*tr + 2 rows x tw + 1 merged columns, eight K chunks (kh, kw, di) of
+    shifted window pixels against the packed tiles."""
     rr, cc = torch.meshgrid(torch.arange(tr), torch.arange(tw),
                             indexing="ij")
     rr, cc = rr.reshape(-1), cc.reshape(-1)
+    acc = torch.zeros(-(-tr * tw // 64) * 64, 64)
+    for q in range(8):
+        kh, kw, di = q >> 2, (q >> 1) & 1, q & 1
+        a = _pad64(win[2 * rr + 2 * kh + di, cc + kw])
+        acc = acc + a @ _b_tile(p[q])
+    return torch.relu(acc[:tr * tw] + bias).reshape(tr, tw, 64)
+
+
+def _stage1_tiled(xm, p, bias, tr, tw):
+    """csrc/stage1.cu's walk: per output tile a zero-filled window of the
+    merged stem output."""
+    bsz, h, w2, _ = xm.shape
+    h2 = h // 2
+    out = torch.zeros(bsz, h2, w2, 64)
     for b in range(bsz):
         for r0 in range(0, h2, tr):
             for w0 in range(0, w2, tw):
-                win = torch.zeros(2 * tr + 2, tw + 1, 64)
-                for wr in range(2 * tr + 2):
-                    s = 2 * r0 - 2 + wr
-                    for wc in range(tw + 1):
-                        sc = w0 - 1 + wc
-                        if 0 <= s < h and 0 <= sc < w2:
-                            win[wr, wc] = xm[b, s, sc]
-                acc = torch.zeros(-(-tr * tw // 64) * 64, 64)
-                for q in range(8):
-                    kh, kw, di = q >> 2, (q >> 1) & 1, q & 1
-                    a = _pad64(win[2 * rr + 2 * kh + di, cc + kw])
-                    acc = acc + a @ _b_tile(p[q])
-                res = torch.relu(acc[:tr * tw] + bias).reshape(tr, tw, 64)
+                win = _window(xm[b], 2 * r0 - 2, w0 - 1, 2 * tr + 2, tw + 1)
+                res = _stage1_tile(win, p, bias, tr, tw)
                 nr, nc = min(tr, h2 - r0), min(tw, w2 - w0)
                 out[b, r0:r0 + nr, w0:w0 + nc] = res[:nr, :nc]
     return out
@@ -171,17 +188,6 @@ def test_stage1_tiling_matches_plain(tr, tw):
     assert got.shape == want.shape == (2, 5, 37, 64)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-5)
-
-
-def _window(x, r0, c0, rows, cols):
-    """rows x cols pixels of (H, W, C) from (r0, c0), zero outside."""
-    h, w, _ = x.shape
-    win = torch.zeros(rows, cols, x.shape[-1])
-    ra, rb = max(r0, 0), min(r0 + rows, h)
-    ca, cb = max(c0, 0), min(c0 + cols, w)
-    if ra < rb and ca < cb:
-        win[ra - r0:rb - r0, ca - c0:cb - c0] = x[ra:rb, ca:cb]
-    return win
 
 
 def _conv_taps(win, slabs, half, out_r, out_c):
@@ -252,5 +258,290 @@ def test_head_halo_mask_is_needed():
     c2 = torch.relu(_conv_taps(c1, w33[9:], 0, 9, 11) + ws[3])
     unmasked = c2 @ ws[4] + ws[5]
     err = (unmasked - want[0]).abs()
+    assert float(err[1:-1, 1:-1].max()) <= 1e-5
+    assert float(err[0].max()) > 1e-3 and float(err[:, 0].max()) > 1e-3
+
+
+# ---- (d) the fused stem + stage1 kernel ----
+
+def _stem_ws(rng, dtype=torch.float32):
+    ks, bs = _kb(rng, (2, 2, 24, 64))
+    k1, b1 = _kb(rng, (2, 2, 128, 64))
+    return (torch.from_numpy(ks).to(dtype), torch.from_numpy(bs),
+            torch.from_numpy(k1).to(dtype), torch.from_numpy(b1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_pack_inverts_and_pads_k(dtype):
+    rng = np.random.default_rng(7)
+    ks = _stem_ws(rng, dtype)[0]
+    p = mma_pack.pack_stem_mma(ks)
+    assert p.shape == (2, 64, 64) and p.dtype == dtype and p.is_contiguous()
+    assert torch.equal(mma_pack.unpack_stem_mma(p), ks)
+    for kh in range(2):
+        b = _b_tile(p[kh])
+        # K = kw*24 + c: a frame pixel, then its right neighbour; 48..63 zero
+        assert torch.equal(b[:24], ks[kh, 0]) and torch.equal(b[24:48],
+                                                               ks[kh, 1])
+        assert not b[48:].any()
+    with pytest.raises(ValueError):
+        mma_pack.pack_stem_mma(torch.zeros(2, 2, 12, 64))
+
+
+def _stem_tiled(xm, ws, tr, tw, mask=True):
+    """csrc/stem.cu's walk: per (tr x tw) output tile a zero-filled frame
+    window of 2*tr + 3 rows x tw + 2 merged columns; the stem on the
+    2*tr + 2 x tw + 1 pixels stage1 needs, as one K = 48 product per kernel
+    row kh over the 96 contiguous bytes of a window pixel and its right
+    neighbour (zero-padded to the 64-deep tile), M padded to 64 rows; 0
+    where the stem pixel lies outside the image; then stage1's tile."""
+    ks, bs, k1, b1 = ws
+    ksp, k1p = mma_pack.pack_stem_mma(ks), mma_pack.pack_stage1_mma(k1)
+    bsz, h, w2, _ = xm.shape
+    h2 = h // 2
+    sr_n, sc_n = 2 * tr + 2, tw + 1
+    out = torch.zeros(bsz, h2, w2, 64)
+    m = torch.arange(sr_n * sc_n)
+    sr, sc = m // sc_n, m % sc_n
+    for b in range(bsz):
+        for r0 in range(0, h2, tr):
+            for w0 in range(0, w2, tw):
+                fwin = _window(xm[b], 2 * r0 - 3, w0 - 2, sr_n + 1, sc_n + 1)
+                flat = fwin.reshape(-1)
+                acc = torch.zeros(-(-len(m) // 64) * 64, 64)
+                for kh in range(2):
+                    pix = (sr + kh) * (sc_n + 1) + sc
+                    a = flat[pix[:, None] * 24 + torch.arange(48)[None, :]]
+                    acc = acc + _pad64(F.pad(a, (0, 16))) @ _b_tile(ksp[kh])
+                stem = torch.relu(acc[:len(m)] + bs)
+                if mask:
+                    s, c = 2 * r0 - 2 + sr, w0 - 1 + sc
+                    inside = (s >= 0) & (s < h) & (c >= 0) & (c < w2)
+                    stem = stem * inside[:, None]
+                stem = stem.to(xm.dtype).float().reshape(sr_n, sc_n, 64)
+                res = _stage1_tile(stem, k1p, b1, tr, tw)
+                nr, nc = min(tr, h2 - r0), min(tw, w2 - w0)
+                out[b, r0:r0 + nr, w0:w0 + nc] = res[:nr, :nc]
+    return out
+
+
+@pytest.mark.parametrize("tr,tw", [(4, 16), (2, 32), (8, 16), (3, 5)])
+def test_stem_tiling_matches_plain(tr, tw):
+    rng = np.random.default_rng(8)
+    xm = torch.from_numpy(rng.normal(0, 1, (2, 10, 37, 24)).astype(
+        np.float32))
+    ws = _stem_ws(rng)
+    got = _stem_tiled(xm, ws, tr, tw)
+    want = stem_kernel.fused_stem_stage1_plain(xm, *ws)
+    assert got.shape == want.shape == (2, 5, 37, 64)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_stem_window_mask_is_needed():
+    """Without the mask the stem pixels above and left of the image are
+    ReLU(bias), not stage1's zero padding: the first output row and column
+    must differ from the plain version, the rest must not."""
+    rng = np.random.default_rng(9)
+    xm = torch.from_numpy(rng.normal(0, 1, (1, 12, 9, 24)).astype(
+        np.float32))
+    ks, bs, k1, b1 = _stem_ws(rng)
+    ws = (ks, bs.abs() + 0.5, k1, b1)      # a positive stem bias
+    want = stem_kernel.fused_stem_stage1_plain(xm, *ws)[0]
+    err = (_stem_tiled(xm, ws, 4, 16, mask=False)[0] - want).abs()
+    assert float(err[1:, 1:].max()) <= 1e-5
+    assert float(err[0].max()) > 1e-3 and float(err[:, 0].max()) > 1e-3
+
+
+# ---- (e) the fused C3k2 kernel and its pair form ----
+
+def _c3k2_ws(rng, cin, n, dtype=torch.float32):
+    return c3k2_kernel.pack_c3k2_weights(
+        _kb(rng, (1, 1, cin, 32)), _kb(rng, (1, 1, cin, 32)),
+        _kb(rng, (1, 1, 64, 64)),
+        [(_kb(rng, (1, 1, 32, 32)), _kb(rng, (3, 3, 32, 32)))
+         for _ in range(n)], dtype)
+
+
+def _wpk(ws, ca=0):
+    return mma_pack.pack_c3k2_mma(ws[0], ws[6], ws[2], ws[4], ws[8], ca)
+
+
+def _b_tile32(tile: torch.Tensor) -> torch.Tensor:
+    """One packed [32 n][64 k'] tile -> B (64 k, 32 n), by the address the
+    device computes (as ``_b_tile``)."""
+    n = torch.arange(32)[None, :]
+    k = torch.arange(64)[:, None]
+    return tile[n, (((k >> 3) ^ (n & 7)) << 3) + (k & 7)]
+
+
+@pytest.mark.parametrize("cin,ca,n", [(64, 0, 1), (128, 64, 2), (24, 8, 1),
+                                      (136, 72, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_c3k2_pack_inverts_and_holds_the_image(dtype, cin, ca, n):
+    rng = np.random.default_rng(10)
+    ws = _c3k2_ws(rng, cin, n, dtype)
+    w1, _, wb1, _, wb2, _, w2, _, w3, _ = ws
+    p = _wpk(ws, ca)
+    assert p.dtype == dtype and p.is_contiguous()
+    assert p.shape == (mma_pack.c3k2_mma_numel(cin, n, ca),)
+    for got, want in zip(mma_pack.unpack_c3k2_mma(p, cin, n, ca),
+                         (w1, w2, wb1, wb2, w3)):
+        assert torch.equal(got, want)
+    # xa's channels fill their own 64-deep chunks ahead of xb's; the last
+    # chunk of each is zero-padded
+    kc = -(-ca // 64) + -(-(cin - ca) // 64)
+    first = p[:kc * 4096].reshape(kc, 64, 64)
+    q = -(-ca // 64)                       # xb's first chunk
+    rows = min(64, cin - ca)
+    b = _b_tile(first[q])
+    assert torch.equal(b[:rows, :32], w1[ca:ca + rows])
+    assert torch.equal(b[:rows, 32:], w2[ca:ca + rows])
+    assert not b[rows:].any()
+    # bottleneck i: slab 0 is wb1, slab 1 + tap the 3x3's taps, two K = 32
+    # slabs a [32 n][64 k] tile
+    mid = p[kc * 4096:kc * 4096 + n * 5 * 2048].reshape(n, 5, 32, 64)
+    i, tap = n - 1, 5
+    assert torch.equal(_b_tile32(mid[i, 0])[:32], wb1[i])
+    slab = 1 + tap
+    got = _b_tile32(mid[i, slab >> 1])[32 * (slab & 1):32 * (slab & 1) + 32]
+    assert torch.equal(got, wb2[i, tap // 3, tap % 3])
+    assert torch.equal(_b_tile(p[-4096:].reshape(64, 64)), w3)
+    with pytest.raises(ValueError):
+        mma_pack.pack_c3k2_mma(w1, w2, wb1, wb2, w3, cin)
+
+
+def _c3k2_tiled(xa, xb, ws, tr, tw, *, up_a=False, shortcut=True,
+                mask=True):
+    """csrc/c3k2.cu's walk, per (tr x tw) output tile with a halo of n:
+    A  [p1 | p2] on the window from 64-deep K chunks (xa's from a coarse
+       window at (r >> 1, c >> 1) when upsampled), 0 outside the image;
+    B  t = ReLU(p1 @ wb1 + bb1) on the window, 0 outside the image;
+    C  the 3x3 over t on the window shrunk by one pixel more each
+       bottleneck, the residual into p1 in place, 0 outside the image;
+    D  ReLU([p1 | p2] @ w3 + b3) on the tile.
+    M is padded to 64 rows, weights are read back from the packed image.
+    ``xa`` None is the single form."""
+    _, b1, wb1, bb1, _, bb2, _, b2, _, b3 = ws
+    n = wb1.shape[0]
+    ca = 0 if xa is None else xa.shape[-1]
+    cb = xb.shape[-1]
+    ka, kb_ = -(-ca // 64), -(-cb // 64)
+    wpk = _wpk(ws, ca)
+    first = wpk[:(ka + kb_) * 4096].reshape(ka + kb_, 64, 64)
+    mid = wpk[(ka + kb_) * 4096:-4096].reshape(n, 5, 32, 64)
+    w3 = _b_tile(wpk[-4096:].reshape(64, 64))
+
+    def slab(i, s):   # K = 32 slab s of bottleneck i
+        return _b_tile32(mid[i, s >> 1])[32 * (s & 1):32 * (s & 1) + 32]
+
+    def rows64(win2d, c_lo):   # (pixels, C) -> M padded, one 64-deep chunk
+        a = win2d[:, c_lo:c_lo + 64]
+        return _pad64(F.pad(a, (0, 64 - a.shape[1])))
+
+    bsz, h, w, _ = xb.shape
+    out = torch.zeros(bsz, h, w, 64)
+    wr_n, wc_n = tr + 2 * n, tw + 2 * n
+    for b in range(bsz):
+        for r0 in range(0, h, tr):
+            for c0 in range(0, w, tw):
+                gy = torch.arange(r0 - n, r0 - n + wr_n)[:, None]
+                gx = torch.arange(c0 - n, c0 - n + wc_n)[None, :]
+                inside = ((gy >= 0) & (gy < h) & (gx >= 0) & (gx < w))
+                keep = inside[..., None] if mask else 1.0
+                wp = wr_n * wc_n
+                acc = torch.zeros(-(-wp // 64) * 64, 64)
+                if xa is not None and up_a:
+                    ay0, ax0 = (r0 - n) >> 1, (c0 - n) >> 1
+                    coarse = _window(xa[b], ay0, ax0,
+                                     ((r0 + tr + n - 1) >> 1) - ay0 + 1,
+                                     ((c0 + tw + n - 1) >> 1) - ax0 + 1)
+                    awin = coarse[(gy >> 1) - ay0, (gx >> 1) - ax0]
+                elif xa is not None:
+                    awin = _window(xa[b], r0 - n, c0 - n, wr_n, wc_n)
+                for q in range(ka):
+                    acc = acc + rows64(awin.reshape(wp, ca), 64 * q) \
+                        @ _b_tile(first[q])
+                bwin = _window(xb[b], r0 - n, c0 - n, wr_n, wc_n)
+                for q in range(kb_):
+                    acc = acc + rows64(bwin.reshape(wp, cb), 64 * q) \
+                        @ _b_tile(first[ka + q])
+                p = torch.relu(acc[:wp] + torch.cat([b1, b2])).reshape(
+                    wr_n, wc_n, 64) * keep
+                for i in range(n):
+                    t = torch.relu(_pad64(p.reshape(wp, 64)[:, :32])
+                                   @ slab(i, 0) + bb1[i])[:wp]
+                    t = t.reshape(wr_n, wc_n, 32) * keep
+                    hh = n - 1 - i
+                    off = n - hh
+                    rr_n, rc_n = tr + 2 * hh, tw + 2 * hh
+                    rr, rc = torch.meshgrid(torch.arange(rr_n),
+                                            torch.arange(rc_n), indexing="ij")
+                    rr, rc = rr.reshape(-1), rc.reshape(-1)
+                    acc = torch.zeros(-(-len(rr) // 64) * 64, 32)
+                    for tap in range(9):
+                        a = t[rr + off - 1 + tap // 3, rc + off - 1 + tap % 3]
+                        acc = acc + _pad64(a) @ slab(i, 1 + tap)
+                    u = torch.relu(acc[:len(rr)] + bb2[i]).reshape(
+                        rr_n, rc_n, 32)
+                    reg = (slice(off, off + rr_n), slice(off, off + rc_n))
+                    new = p[reg][..., :32] + u if shortcut else u
+                    if mask:
+                        new = new * inside[reg][..., None]
+                    p = p.clone()
+                    p[reg[0], reg[1], :32] = new
+                res = torch.relu(_pad64(p[n:n + tr, n:n + tw].reshape(-1, 64))
+                                 @ w3 + b3)[:tr * tw].reshape(tr, tw, 64)
+                nr, nc = min(tr, h - r0), min(tw, w - c0)
+                out[b, r0:r0 + nr, c0:c0 + nc] = res[:nr, :nc]
+    return out
+
+
+def _img(rng, shape):
+    return torch.from_numpy(np.maximum(rng.normal(0, 1, shape), 0).astype(
+        np.float32))
+
+
+@pytest.mark.parametrize("tr,tw", TILES)
+@pytest.mark.parametrize("n,shortcut", [(1, True), (2, False)])
+def test_c3k2_tiling_matches_plain(tr, tw, n, shortcut):
+    rng = np.random.default_rng(11)
+    x = _img(rng, (2, 19, 23, 24))        # Cin = 24: a zero-filled chunk
+    ws = _c3k2_ws(rng, 24, n)
+    got = _c3k2_tiled(None, x, ws, tr, tw, shortcut=shortcut)
+    want = c3k2_kernel.fused_c3k2_plain(x, *ws, shortcut=shortcut)
+    assert got.shape == want.shape == (2, 19, 23, 64)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("tr,tw", [(8, 16), (4, 32), (6, 10)])
+@pytest.mark.parametrize("up_a,n,ca", [(True, 1, 64), (True, 2, 72),
+                                       (False, 2, 8)])
+def test_c3k2_cat_tiling_matches_plain(tr, tw, up_a, n, ca):
+    """Even tile origins, as the kernel's 8 x 16: the coarse xa window is
+    read at (r >> 1, c >> 1)."""
+    rng = np.random.default_rng(12)
+    hb, wb_ = 18, 22
+    xa = _img(rng, (1, hb // 2, wb_ // 2, ca) if up_a else (1, hb, wb_, ca))
+    xb = _img(rng, (1, hb, wb_, 16))
+    ws = _c3k2_ws(rng, ca + 16, n)
+    got = _c3k2_tiled(xa, xb, ws, tr, tw, up_a=up_a)
+    want = c3k2_kernel.fused_c3k2_cat_plain(xa, xb, *ws, up_a=up_a)
+    assert got.shape == want.shape == (1, hb, wb_, 64)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_c3k2_halo_mask_is_needed():
+    """Without the masks the halo pixels outside the image carry
+    ReLU(bias) into the 3x3 instead of its zero padding: the border must
+    differ from the plain version, the interior must not."""
+    rng = np.random.default_rng(13)
+    x = _img(rng, (1, 7, 9, 64))
+    ws = list(_c3k2_ws(rng, 64, 1))
+    ws[1], ws[3] = ws[1].abs() + 0.5, ws[3].abs() + 0.5  # b1, bb1 > 0
+    want = c3k2_kernel.fused_c3k2_plain(x, *ws)[0]
+    err = (_c3k2_tiled(None, x, ws, 8, 16, mask=False)[0] - want).abs()
     assert float(err[1:-1, 1:-1].max()) <= 1e-5
     assert float(err[0].max()) > 1e-3 and float(err[:, 0].max()) > 1e-3

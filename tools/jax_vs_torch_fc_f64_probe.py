@@ -1,7 +1,7 @@
 """Does float64 accumulation of the stem and stage1 products close the
 fc engine's score gap against the jitted JAX model? (CPU; not a test.)
 
-    JAX_PLATFORMS=cpu python tools/torch_fc_f64_probe.py
+    JAX_PLATFORMS=cpu python tools/jax_vs_torch_fc_f64_probe.py
 
 ``int8_s2dm_fc`` at full width on the CPU, port against ``jax.jit`` of the
 JAX model, on the synthetic scenes of seeds 1, 2, 3 and 7: once with the

@@ -1,6 +1,7 @@
 // Shared device code of the tensor-core kernels (sm_90a): asynchronous
 // copies, ldmatrix, the warpgroup matrix multiply and the 16-byte-chunk
-// XOR swizzle. Included by stage1.cu and head.cu; not compiled on its own.
+// XOR swizzle. Included by stage1.cu, stem.cu, c3k2.cu and head.cu; not
+// compiled on its own.
 //
 // The products these kernels run are implicit GEMMs over NHWC pixels of
 // 64 bf16 channels (128 bytes a pixel):
@@ -14,11 +15,13 @@
 //     rows of one ldmatrix phase over all banks.
 //   B (weights)  never shifts, so `wgmma` reads it from shared memory
 //     through a descriptor: one tile is [64 n][64 k] bf16, K contiguous
-//     (128 bytes a row), 128-byte swizzle, 8 KB, 1024-byte aligned. The
-//     host packs the weights into exactly this image (ops/cuda/mma_pack.py)
-//     so the device copy is a flat 16-byte-chunk copy.
-//   D  f32 accumulators in registers, 32 a thread for m64n64: thread
-//     (warp w, lane l) holds rows 16w + l/4 (+8), columns 8j + 2(l%4) (+1).
+//     (128 bytes a row), 128-byte swizzle, 8 KB, 1024-byte aligned (or
+//     [32 n][64 k], 4 KB, for the m64n32 products). The host packs the
+//     weights into exactly this image (ops/cuda/mma_pack.py) so the device
+//     copy is a flat 16-byte-chunk copy.
+//   D  f32 accumulators in registers, 32 a thread for m64n64 (16 for
+//     m64n32): thread (warp w, lane l) holds rows 16w + l/4 (+8), columns
+//     8j + 2(l%4) (+1).
 #pragma once
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -121,6 +124,22 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
       : "memory");
 }
+// the same with N = 32: B is 16 x 32, 16 accumulators a thread
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+      : "memory");
+}
 // One 64-deep K chunk: four k16 steps over one weight tile. The caller
 // fences before (after its ldmatrix loads) and commits after.
 __device__ __forceinline__ void mma_a64(float (&d)[32],
@@ -146,6 +165,13 @@ __device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+// and back: the two bf16 of one register as f32 (exact)
+__device__ __forceinline__ float bf16_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t v) {
+  return __uint_as_float(v & 0xFFFF0000u);
 }
 
 }  // namespace mma90

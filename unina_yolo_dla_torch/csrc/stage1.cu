@@ -14,7 +14,8 @@
 //   against 1.7 us of bf16 tensor-core time, so it is bound by bytes.
 // Design: an implicit GEMM, M = output pixels, N = 64, K = 512 in eight
 //   64-deep chunks (kh, kw, di), each chunk one input pixel row shifted by
-//   kw (csrc/mma_sm90.cuh has the operand layouts).
+//   kw (csrc/mma_sm90.cuh has the operand layouts; csrc/stage1_tile.cuh
+//   the tile's products and its store, shared with stem.cu).
 //   - Persistent blocks, one per SM, of two warpgroups. The 64 KB of
 //     weights (packed on the host into eight swizzled B tiles) are copied
 //     into shared memory once per block, not once per tile.
@@ -32,46 +33,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_sm90.cuh"
+#include "stage1_tile.cuh"
 
 namespace {
 
-using namespace mma90;
-typedef __nv_bfloat16 bf16;
+using namespace stage1_tile;
 
-constexpr int CM = 64;          // merged input channels (2 columns x 32)
-constexpr int CO = 64;          // output channels
-constexpr int CHUNKS = 8;       // K chunks: (kh, kw, di)
-constexpr int TR = 4, TW = 16;  // output tile of one warpgroup
-constexpr int SR = 2 * TR + 2, SC = TW + 1;  // its input window
-constexpr int WIN_PX = SR * SC;
-constexpr int WIN_BYTES = WIN_PX * PIX_BYTES;
-constexpr int OUT_BYTES = TR * TW * PIX_BYTES;
-constexpr int W_BYTES = CHUNKS * B_TILE_BYTES;
 constexpr int WG_BYTES = 2 * WIN_BYTES + OUT_BYTES;
 constexpr int WGS = 2;
 constexpr int THREADS = WGS * 128;
 constexpr int SMEM_BYTES = 1024 + W_BYTES + WGS * WG_BYTES;
-static_assert(TW == 16 && TR == 4, "one output row per warp");
-
-struct Tile {
-  const bf16* x;  // this image
-  bf16* out;
-  int r0, w0;     // first output row / merged column
-};
-
-__device__ __forceinline__ Tile tile_at(int t, int tiles_x, int tiles_y,
-                                        const bf16* xm, bf16* out, int H,
-                                        int W2) {
-  int b = t / (tiles_x * tiles_y);
-  int rem = t - b * tiles_x * tiles_y;
-  Tile tl;
-  tl.x = xm + (size_t)b * H * W2 * CM;
-  tl.out = out + (size_t)b * (H / 2) * W2 * CO;
-  tl.r0 = (rem / tiles_x) * TR;
-  tl.w0 = (rem % tiles_x) * TW;
-  return tl;
-}
 
 // window pixel (wr, wc) <- input row 2*r0 - 2 + wr, merged column
 // w0 - 1 + wc; zeros outside the image
@@ -108,72 +79,31 @@ stage1_mma_kernel(const bf16* __restrict__ xm, const bf16* __restrict__ wpk,
   for (int i = threadIdx.x; i < W_BYTES / 16; i += THREADS)
     cp_async16(w_s + i * 16, wpk + i * 8, 16);
   if (tile < ntiles)
-    load_window(win_s, tile_at(tile, tiles_x, tiles_y, xm, out, H, W2), H, W2,
-                t);
+    load_window(win_s, tile_at<CM>(tile, tiles_x, tiles_y, xm, out, H, W2), H,
+                W2, t);
   cp_async_commit();
   cp_async_wait<0>();
   fence_proxy_async();
   __syncthreads();
 
-  float bv[16];  // bias of this thread's columns 8j + 2(lane%4) (+1)
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    bv[2 * j] = __ldg(bias + 8 * j + 2 * (lane & 3));
-    bv[2 * j + 1] = __ldg(bias + 8 * j + 2 * (lane & 3) + 1);
-  }
+  float bv[16];
+  load_bias(bv, bias, lane);
   const uint64_t wdesc = b_desc(w_s);
-  // this lane's A row: output pixel (row `warp`, column lane % 16)
-  const int p0 = 2 * warp * SC + (lane & 15);
 
   for (int it = 0; tile < ntiles; tile += stride, ++it) {
-    const Tile tl = tile_at(tile, tiles_x, tiles_y, xm, out, H, W2);
+    const Tile tl = tile_at<CM>(tile, tiles_x, tiles_y, xm, out, H, W2);
     const uint32_t win = win_s + (it & 1) * WIN_BYTES;
     if (tile + stride < ntiles)
-      load_window(win_s + ((it + 1) & 1) * WIN_BYTES,
-                  tile_at(tile + stride, tiles_x, tiles_y, xm, out, H, W2), H,
-                  W2, t);
+      load_window(
+          win_s + ((it + 1) & 1) * WIN_BYTES,
+          tile_at<CM>(tile + stride, tiles_x, tiles_y, xm, out, H, W2), H, W2,
+          t);
     cp_async_commit();
 
     float acc[32];
-#pragma unroll
-    for (int j = 0; j < 32; ++j) acc[j] = 0.f;
-    uint32_t a[2][4][4];
-#pragma unroll
-    for (int q = 0; q < CHUNKS; ++q) {
-      const int kh = q >> 2, kw = (q >> 1) & 1, di = q & 1;
-      load_a64(a[q & 1], win, p0 + (2 * kh + di) * SC + kw, lane);
-      wgmma_fence();
-      mma_a64(acc, a[q & 1], wdesc + (uint64_t)(q * B_TILE_BYTES >> 4));
-      wgmma_commit();
-      wgmma_wait<1>();  // chunk q-1 is done with the other A buffer
-    }
-    wgmma_wait<0>();
-
-    // every warp is done with the previous tile's staged output
-    warpgroup_barrier(1 + wg);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = warp * 16 + (lane >> 2) + 8 * half;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float v0 = fmaxf(__fadd_rn(acc[4 * j + 2 * half], bv[2 * j]), 0.f);
-        float v1 =
-            fmaxf(__fadd_rn(acc[4 * j + 2 * half + 1], bv[2 * j + 1]), 0.f);
-        *reinterpret_cast<uint32_t*>(out_p + pix_chunk(m, j) +
-                                     (lane & 3) * 4) = pack_bf16(v0, v1);
-      }
-    }
-    cp_async_wait<0>();  // the next window has landed (this thread's part)
-    warpgroup_barrier(1 + wg);
-    const int H2 = H / 2;
-    for (int i = t; i < TR * TW * 8; i += 128) {
-      int ch = i & 7, m = i >> 3;
-      int r = tl.r0 + (m >> 4), w = tl.w0 + (m & 15);
-      if (r < H2 && w < W2)
-        *reinterpret_cast<uint4*>(tl.out + ((size_t)r * W2 + w) * CO +
-                                  ch * 8) =
-            *reinterpret_cast<const uint4*>(out_p + pix_chunk(m, ch));
-    }
+    products(acc, win, wdesc, warp, lane);
+    // store() also waits for the next window's copies
+    store(acc, bv, out_p, tl.out, tl.r0, tl.w0, H / 2, W2, t, 1 + wg);
   }
 }
 

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.cuda.mma_pack import pack_stage1_mma, pack_stem_mma
 from ..ops.cuda.stem_kernel import fused_stem_stage1
 from .blocks import C3k2, ConvBlock, MergedDownsample, ShiftDot2x2, SPPF, \
     WeightTree
@@ -41,6 +42,13 @@ class Backbone(nn.Module):
             buf("stem_bias", stem["bias"], torch.float32)
             buf("stage1_kernel", s1["kernel"], dt)
             buf("stage1_bias", s1["bias"], torch.float32)
+            # the same kernels as the CUDA kernel's B tiles, packed once
+            packs = (tuple(self.stem_kernel.shape) == (2, 2, 24, 64)
+                     and tuple(self.stage1_kernel.shape) == (2, 2, 128, 64))
+            self.register_buffer("stem_kernel_mma", pack_stem_mma(
+                self.stem_kernel) if packs else None)
+            self.register_buffer("stage1_kernel_mma", pack_stage1_mma(
+                self.stage1_kernel) if packs else None)
         else:
             self.stem = ShiftDot2x2(tree, "backbone/stem/conv")
             self.stage1_conv = MergedDownsample(
@@ -64,8 +72,11 @@ class Backbone(nn.Module):
     def forward(self, x: torch.Tensor):
         x = x.to(self.dtype).contiguous()
         if self.fused_stem:
-            x = fused_stem_stage1(x, self.stem_kernel, self.stem_bias,
-                                  self.stage1_kernel, self.stage1_bias)
+            ks, k1 = ((self.stem_kernel_mma, self.stage1_kernel_mma)
+                      if x.is_cuda else
+                      (self.stem_kernel, self.stage1_kernel))
+            x = fused_stem_stage1(x, ks, self.stem_bias, k1,
+                                  self.stage1_bias)
         else:
             x = self.stage1_conv(torch.relu(self.stem(x)))
         p2 = self.stage1_block(x)

@@ -21,11 +21,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda.c3k2_kernel import (
+    KERNEL_F,
+    KERNEL_HID,
     fused_c3k2,
     fused_c3k2_cat,
     pack_c3k2_weights,
 )
-from ..ops.cuda.mma_pack import pack_stage1_mma
+from ..ops.cuda.mma_pack import pack_c3k2_mma, pack_stage1_mma
 from ..ops.cuda.stage1_kernel import fused_downsample_merged
 from ..quant.fake_quant import ActQuant, QuantConv, QuantSpec
 from ..quant.qtensor import (
@@ -211,12 +213,15 @@ class C3k2(nn.Module):
 
     ``fused`` (float-path blocks only): the whole block is one kernel
     (``ops/cuda/c3k2_kernel.py``; the pair form folds the upsample and
-    the concat into its first dots), its weights packed once here."""
+    the concat into its first dots), its weights packed once here, also
+    as the CUDA kernel's B tiles. ``split`` is the channel count of ``x``
+    where the block is called with ``x2`` (the tiles keep the two inputs'
+    channels apart), else 0."""
 
     _FUSED = ("w1", "b1", "wb1", "bb1", "wb2", "bb2", "w2", "b2", "w3", "b3")
 
     def __init__(self, tree: WeightTree, path: str, shortcut: bool = True,
-                 fused: bool = False) -> None:
+                 fused: bool = False, split: int = 0) -> None:
         super().__init__()
         n = tree.count(path, "bottleneck_")
         self.shortcut = shortcut
@@ -234,6 +239,10 @@ class C3k2(nn.Module):
                  for i in range(n)], tree.dtype)
             for name, t in zip(self._FUSED, ws):
                 self.register_buffer(name, t)
+            w1, _, wb1, _, wb2, _, w2, _, w3, _ = ws
+            packs = w1.shape[1] == KERNEL_HID and w3.shape[1] == KERNEL_F
+            self.register_buffer("wpk", pack_c3k2_mma(
+                w1, w2, wb1, wb2, w3, split) if packs else None)
             return
         self.cv1 = ConvBlock(tree, path + "/cv1", 1)
         self.bottlenecks = nn.ModuleList(
@@ -249,9 +258,9 @@ class C3k2(nn.Module):
 
         ws = [getattr(self, n) for n in self._FUSED]
         if x2 is not None:
-            return fused_c3k2_cat(deq(x), deq(x2), *ws,
+            return fused_c3k2_cat(deq(x), deq(x2), *ws, wpk=self.wpk,
                                   shortcut=self.shortcut, up_a=up_x)
-        return fused_c3k2(deq(x), *ws, shortcut=self.shortcut)
+        return fused_c3k2(deq(x), *ws, wpk=self.wpk, shortcut=self.shortcut)
 
     def forward(self, x, x2=None, up_x: bool = False):
         if self.fused:

@@ -5,6 +5,7 @@ upsample + concat go through C3k2's ``x2``/``up_x`` so that a fused C3k2
 first dots."""
 from __future__ import annotations
 
+import numpy as np
 from torch import nn
 
 from .blocks import C3k2, ConvBlock, WeightTree
@@ -15,18 +16,21 @@ class Neck(nn.Module):
     def __init__(self, tree: WeightTree, cfg: ModelConfig) -> None:
         super().__init__()
 
-        def c3k2(name):
-            return C3k2(tree, f"neck/{name}",
+        def c3k2(name, first):
+            # `first` makes the block's first input; its width is where a
+            # fused block's packed weights split
+            split = np.shape(tree.node(f"neck/{first}/conv")["kernel"])[-1]
+            return C3k2(tree, f"neck/{name}", split=split,
                         fused=cfg.fuses(cfg.fused_c3k2, name))
 
         self.lateral_p3 = ConvBlock(tree, "neck/lateral_p3", 1)
-        self.fpn_c3k2_1 = c3k2("fpn_c3k2_1")
+        self.fpn_c3k2_1 = c3k2("fpn_c3k2_1", "lateral_p3")
         self.lateral_p2 = ConvBlock(tree, "neck/lateral_p2", 1)
-        self.fpn_c3k2_2 = c3k2("fpn_c3k2_2")
+        self.fpn_c3k2_2 = c3k2("fpn_c3k2_2", "lateral_p2")
         self.down1 = ConvBlock(tree, "neck/down1", 3, 2)
-        self.pan_c3k2_1 = c3k2("pan_c3k2_1")
+        self.pan_c3k2_1 = c3k2("pan_c3k2_1", "down1")
         self.down2 = ConvBlock(tree, "neck/down2", 3, 2)
-        self.pan_c3k2_2 = c3k2("pan_c3k2_2")
+        self.pan_c3k2_2 = c3k2("pan_c3k2_2", "down2")
 
     def forward(self, features):
         p2_in, p3_in, p4_in, p4_sppf = features

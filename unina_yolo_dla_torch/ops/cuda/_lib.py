@@ -10,7 +10,7 @@ Each exported C function launches its kernel(s) on the stream it is given
 and returns ``cudaGetLastError()``; ``Kernel.launch`` raises on non-zero.
 All sources compile with ``--fmad=false``: kernels that must agree bit for
 bit with their plain PyTorch versions get no silent multiply-add
-contraction, and the stem kernel asks for its FMAs explicitly.
+contraction.
 """
 from __future__ import annotations
 

@@ -1,11 +1,11 @@
 """Kernels 6 and 7: the whole C3k2 block in one pass, and its pair form
 over ``concat([upsample2x?(xa), xb])``.
 
-CUDA source: ``csrc/c3k2.cu`` (entry points ``unina_fused_c3k2`` and
-``unina_fused_c3k2_cat``, counted separately). ``fused_c3k2`` and
-``fused_c3k2_cat`` launch them for CUDA tensors; for CPU tensors they run
-``fused_c3k2_plain`` / ``fused_c3k2_cat_plain``, which follow the
-reference's XLA form step by step:
+CUDA source: ``csrc/c3k2.cu`` (tensor cores; entry points
+``unina_fused_c3k2`` and ``unina_fused_c3k2_cat``, counted separately).
+``fused_c3k2`` and ``fused_c3k2_cat`` launch them for CUDA tensors; for
+CPU tensors they run ``fused_c3k2_plain`` / ``fused_c3k2_cat_plain``,
+which follow the reference's XLA form step by step:
 
     p1 = cv1(x), p2 = cv2(x)                   1x1: ReLU(x @ w + b)
     n x [t = cv1_i(p1); t = cv2_i(t) (3x3); p1 = p1 + t (or t)]
@@ -20,7 +20,11 @@ resolution and only its float32 result is upsampled.
 Weights come packed by ``pack_c3k2_weights`` (once, at load):
 ``(w1, b1, wb1, bb1, wb2, bb2, w2, b2, w3, b3)`` with w1/w2 (Cin, h),
 wb1 (n, h, h), wb2 (n, 3, 3, h, h), w3 (2h, F) in the compute dtype and
-the biases (h,), (n, h), (n, h), (h,), (F,) in float32.
+the biases (h,), (n, h), (n, h), (h,), (F,) in float32. The CUDA kernel
+reads the five weights as its B tiles instead, ``wpk =
+mma_pack.pack_c3k2_mma(w1, w2, wb1, wb2, w3, ca)`` (``ca`` = ``xa``'s
+channels in the pair form, else 0), which the caller packs once at load as
+well, and sums each split product of the plain version in one accumulator.
 """
 from __future__ import annotations
 
@@ -29,11 +33,12 @@ import torch
 import torch.nn.functional as F
 
 from ._lib import I, Kernel, P, check_cuda, stream_ptr
+from .mma_pack import c3k2_mma_numel
 
 KERNEL = Kernel("unina_fused_c3k2",
-                [P, I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P])
+                [P, I, P, P, P, P, P, P, P, I, I, I, I, I, P])
 KERNEL_CAT = Kernel("unina_fused_c3k2_cat",
-                    [P, P, I, I, I, P, P, P, P, P, P, P, P, P, P, P,
+                    [P, P, I, I, I, P, P, P, P, P, P, P,
                      I, I, I, I, I, P])
 
 # the widths the CUDA kernel is compiled for (csrc/c3k2.cu): hidden h,
@@ -132,18 +137,16 @@ def fused_c3k2_cat_plain(xa, xb, w1, b1, wb1, bb1, wb2, bb2, w2, b2, w3, b3,
     return out.reshape(*xb.shape[:-1], out.shape[-1])
 
 
-def _check_weights(ws, cin: int) -> int:
+def _check_weights(ws, wpk, cin: int, ca: int = 0) -> int:
     w1, b1, wb1, bb1, wb2, bb2, w2, b2, w3, b3 = ws
     n = wb1.shape[0]
     hd, fo = KERNEL_HID, KERNEL_F
     if not 1 <= n <= KERNEL_NMAX:
         raise ValueError(f"kernel takes 1..{KERNEL_NMAX} bottlenecks, got {n}")
-    bf = torch.bfloat16
-    check_cuda(w1, "w1", bf, (cin, hd))
-    check_cuda(w2, "w2", bf, (cin, hd))
-    check_cuda(wb1, "wb1", bf, (n, hd, hd))
-    check_cuda(wb2, "wb2", bf, (n, 3, 3, hd, hd))
-    check_cuda(w3, "w3", bf, (2 * hd, fo))
+    if wpk is None:
+        raise ValueError("the CUDA kernel needs wpk = pack_c3k2_mma(w1, w2, "
+                         "wb1, wb2, w3, ca)")
+    check_cuda(wpk, "wpk", torch.bfloat16, (c3k2_mma_numel(cin, n, ca),))
     for t, name, shape in ((b1, "b1", (hd,)), (b2, "b2", (hd,)),
                            (bb1, "bb1", (n, hd)), (bb2, "bb2", (n, hd)),
                            (b3, "b3", (fo,))):
@@ -151,39 +154,45 @@ def _check_weights(ws, cin: int) -> int:
     return n
 
 
-def _ptrs(ws):
-    w1, b1, wb1, bb1, wb2, bb2, w2, b2, w3, b3 = ws
-    return [t.data_ptr() for t in (w1, b1, wb1, bb1, wb2, bb2, w2, b2, w3,
-                                   b3)]
+def _ptrs(ws, wpk):
+    _, b1, _, bb1, _, bb2, _, b2, _, b3 = ws
+    return [t.data_ptr() for t in (wpk, b1, bb1, bb2, b2, b3)]
 
 
-def fused_c3k2(x: torch.Tensor, *ws, shortcut: bool = True) -> torch.Tensor:
+def fused_c3k2(x: torch.Tensor, *ws, shortcut: bool = True,
+               wpk: torch.Tensor | None = None) -> torch.Tensor:
     """The fused C3k2 over ``x`` (..., H, W, Cin) -> (..., H, W, F).
 
     The CUDA kernel takes bf16 ``x`` with Cin a multiple of 8, hidden 32,
-    F 64, 1 or 2 bottlenecks; batch is its grid's z."""
+    F 64, 1 or 2 bottlenecks; batch rides on its tile index. Of ``ws`` it
+    reads the biases, and the weights from ``wpk``. A block keeps a window
+    of every 64-channel chunk of the input in shared memory, so the launch
+    is refused (RuntimeError) beyond 5 chunks with one bottleneck, 3 with
+    two."""
     if not x.is_cuda:
         return fused_c3k2_plain(x, *ws, shortcut=shortcut)
     check_cuda(x, "x", torch.bfloat16)
     h, w, cin = x.shape[-3:]
     if cin % 8:
         raise ValueError(f"kernel takes Cin a multiple of 8, got {cin}")
-    n = _check_weights(ws, cin)
+    n = _check_weights(ws, wpk, cin)
     bsz = x.numel() // (h * w * cin)
     out = torch.empty((*x.shape[:-1], KERNEL_F), dtype=torch.bfloat16,
                       device=x.device)
-    KERNEL.launch(x.data_ptr(), cin, *_ptrs(ws), out.data_ptr(), bsz, h, w,
-                  n, int(shortcut), stream_ptr(x.device))
+    KERNEL.launch(x.data_ptr(), cin, *_ptrs(ws, wpk), out.data_ptr(), bsz, h,
+                  w, n, int(shortcut), stream_ptr(x.device))
     return out
 
 
 def fused_c3k2_cat(xa: torch.Tensor, xb: torch.Tensor, *ws,
-                   shortcut: bool = True, up_a: bool = False
-                   ) -> torch.Tensor:
+                   shortcut: bool = True, up_a: bool = False,
+                   wpk: torch.Tensor | None = None) -> torch.Tensor:
     """The fused C3k2 over ``concat([upsample2x?(xa), xb])``: ``xa``
     (..., H/2, W/2, Ca) when ``up_a`` else (..., H, W, Ca), ``xb``
     (..., H, W, Cb) -> (..., H, W, F). The CUDA kernel takes bf16 inputs
-    with Ca and Cb multiples of 8 and the widths of ``fused_c3k2``."""
+    with Ca and Cb multiples of 8 and the widths and limits of
+    ``fused_c3k2`` (``xa``'s and ``xb``'s chunks count separately);
+    ``wpk`` is packed with ``ca = Ca``."""
     if not xb.is_cuda:
         return fused_c3k2_cat_plain(xa, xb, *ws, shortcut=shortcut,
                                     up_a=up_a)
@@ -197,11 +206,11 @@ def fused_c3k2_cat(xa: torch.Tensor, xb: torch.Tensor, *ws,
         raise ValueError(f"kernel takes Ca, Cb multiples of 8 (and even H, "
                          f"W to upsample), got xa {tuple(xa.shape)}, xb "
                          f"{tuple(xb.shape)}")
-    n = _check_weights(ws, ca + cb)
+    n = _check_weights(ws, wpk, ca + cb, ca)
     bsz = xb.numel() // (h * w * cb)
     out = torch.empty((*lead, h, w, KERNEL_F), dtype=torch.bfloat16,
                       device=xb.device)
     KERNEL_CAT.launch(xa.data_ptr(), xb.data_ptr(), ca, cb, int(up_a),
-                      *_ptrs(ws), out.data_ptr(), bsz, h, w, n,
+                      *_ptrs(ws, wpk), out.data_ptr(), bsz, h, w, n,
                       int(shortcut), stream_ptr(xb.device))
     return out

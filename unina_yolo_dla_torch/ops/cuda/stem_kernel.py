@@ -1,9 +1,12 @@
 """Kernel 2: fused stem + stage1 over the column-merged frame.
 
-CUDA source: ``csrc/stem.cu``. ``fused_stem_stage1`` launches it for a
-CUDA tensor; for a CPU tensor it runs ``fused_stem_stage1_plain``, the
-same math in PyTorch: products of the compute-dtype values accumulated in
-float32, the stem rounded to the compute dtype before stage1.
+CUDA source: ``csrc/stem.cu`` (tensor cores). ``fused_stem_stage1``
+launches it for a CUDA tensor, with both kernels as the B-tile images
+``mma_pack.pack_stem_mma`` / ``pack_stage1_mma`` make of them (packed by
+the caller once at load); for a CPU tensor it runs
+``fused_stem_stage1_plain`` on the blocked kernels, the same math in
+PyTorch: products of the compute-dtype values accumulated in float32, the
+stem rounded to the compute dtype before stage1.
 
 Geometry (all pads on the top/left, as the reference):
 
@@ -58,8 +61,12 @@ def fused_stem_stage1(xm: torch.Tensor, stem_kernel: torch.Tensor,
                       stage1_bias: torch.Tensor) -> torch.Tensor:
     """ReLU(stage1(ReLU(stem(xm)))) in one pass; (..., H/2, W2, C2).
 
-    The CUDA kernel takes bf16 ``xm`` (B, H, W2, 24) with bf16 kernels and
-    f32 biases (64 stem and 64 stage1 channels); batch is its grid's z."""
+    The kernels are as the side that computes reads them: for a CPU
+    tensor the blocked ones, (2, 2, CM, O2) and (2, 2, 2*O2, C2); for a
+    CUDA tensor their B-tile images ``pack_stem_mma(stem)`` (2, 64, 64)
+    and ``pack_stage1_mma(stage1)`` (8, 64, 64). The CUDA kernel takes
+    bf16 ``xm`` (B, even H, W2, 24) and f32 biases (64,); batch rides on
+    its tile index."""
     if not xm.is_cuda:
         return fused_stem_stage1_plain(xm, stem_kernel, stem_bias,
                                        stage1_kernel, stage1_bias)
@@ -70,11 +77,11 @@ def fused_stem_stage1(xm: torch.Tensor, stem_kernel: torch.Tensor,
     if cm != KERNEL_CM or h % 2:
         raise ValueError(f"kernel takes (B, even H, W2, {KERNEL_CM}), got "
                          f"{tuple(xm.shape)}")
-    check_cuda(stem_kernel, "stem_kernel", torch.bfloat16,
-               (2, 2, KERNEL_CM, KERNEL_O2))
+    check_cuda(stem_kernel, "stem_kernel (pack_stem_mma image)",
+               torch.bfloat16, (2, KERNEL_O2, 64))
     check_cuda(stem_bias, "stem_bias", torch.float32, (KERNEL_O2,))
-    check_cuda(stage1_kernel, "stage1_kernel", torch.bfloat16,
-               (2, 2, 2 * KERNEL_O2, KERNEL_C2))
+    check_cuda(stage1_kernel, "stage1_kernel (pack_stage1_mma image)",
+               torch.bfloat16, (8, KERNEL_C2, KERNEL_O2))
     check_cuda(stage1_bias, "stage1_bias", torch.float32, (KERNEL_C2,))
     out = torch.empty((*lead, h // 2, w2, KERNEL_C2), dtype=torch.bfloat16,
                       device=xm.device)
