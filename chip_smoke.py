@@ -23,6 +23,13 @@ are also run at ragged shapes that cut every tile edge, and the built
 library's SASS is read for the tensor-core instruction each of them issues
 (``mma`` in their rows).
 
+The three small kernels around the model (normalize, decode, NMS) are also
+timed inside a replayed CUDA graph (``graph_ms``: the card's time per launch
+under the host's launch cost), next to an empty kernel timed the same way
+(the ``launch_floor`` line): normalize in both output forms (bfloat16, the
+served one, in the row's main keys; float32 under ``f32_*``), NMS on the
+all-valid set and on the served frame's own candidate set (``served_*``).
+
 Prints one JSON line per kernel, a ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no
 result) without a CUDA device or when any phase fails. A copy of the
@@ -43,10 +50,10 @@ REPO = Path(__file__).resolve().parent
 ARTIFACT = REPO / "artifacts" / "serving_artifact"
 
 # the port's kernels by wrapper, as their device functions are named
-DEVICE_FUNCS = {"normalize": ("normalize_kernel",),
+DEVICE_FUNCS = {"normalize": ("normalize_merged_kernel",),
                 "fused_stem_stage1": ("fused_stem_stage1_kernel",),
                 "decode_level": ("decode_kernel",),
-                "nms": ("suppress_kernel", "scan_kernel"),
+                "nms": ("nms_kernel",),
                 "stage1_merged": ("stage1_mma_kernel",),
                 "fused_c3k2": ("c3k2_kernel<false>",),
                 "fused_c3k2_cat": ("c3k2_kernel<true>",),
@@ -95,6 +102,61 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
+    """Mean device time of ``fn`` inside a replayed CUDA graph of
+    ``launches`` calls: what the card spends per call when the host's
+    launch cost is out of the way."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * launches)
+
+
+def launch_floor(torch) -> dict:
+    """An empty kernel (``csrc/launch_floor.cu``) timed the three ways the
+    rows are: CUDA events over back-to-back launches, a replayed CUDA graph,
+    the profiler's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from unina_yolo_dla_torch.ops.cuda import _lib
+
+    empty = _lib.Kernel("unina_empty_launch", [_lib.P])
+    dev = torch.device("cuda")
+
+    def fn():
+        empty.launch(_lib.stream_ptr(dev))
+
+    out = {"ms": cuda_ms(fn, 500), "graph_ms": graph_ms(fn)}
+    calls = 100
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and "empty_kernel" in e.name]
+    assert len(spans) == calls, f"{len(spans)} empty kernels profiled"
+    out["profiler_device_ms"] = sum(spans) / 1e3 / calls
+    return out
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -234,42 +296,62 @@ def check_ragged(torch) -> dict:
     return worst
 
 
-def check_kernels(art, torch) -> list[dict]:
+def check_kernels(art, rgb, torch) -> list[dict]:
     """Each kernel vs its plain version on the card, at serving shapes."""
     from unina_yolo_dla_torch.ops.cuda import (
         decode_kernel, nms_kernel, preprocess_kernel, stem_kernel)
     from unina_yolo_dla_torch.ops.decode import decode_outputs
+
+    bf = torch.bfloat16
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     s = art.model_config.input_size
     rows = []
 
-    # 1. normalize: merged uint8 frame (S/2, S/4, 24) -> f32
+    # 1. normalize: merged uint8 frame (S/2, S/4, 24) -> bf16 (the served
+    # form: the row's main keys) and f32 (the reference kernel's contract)
     frame = torch.from_numpy(
         rng.integers(0, 256, (s // 2, s // 4, 24), dtype=np.uint8)).to(dev)
     mean, std = preprocess_kernel.channel_constants(24)
-    got = preprocess_kernel.normalize(frame, mean, std)
     want = preprocess_kernel.normalize_plain(frame, mean, std)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    assert err <= 1e-6, f"normalize: max |err| {err} > 1e-6"
+    # a ragged merged frame too: 840 bytes, no multiple of a warp's step
+    small = torch.from_numpy(
+        rng.integers(0, 256, (7, 5, 24), dtype=np.uint8)).to(dev)
+    want_small = preprocess_kernel.normalize_plain(small, mean, std)
     n = frame.numel()
-    b_ms, b_by = bound(n * 1 + n * 4, 2 * n, F32_FLOPS)
+    forms = {}
+    for dt in (bf, torch.float32):
+        def run(img=frame, dt=dt):
+            return preprocess_kernel.normalize(img, mean, std, out_dtype=dt)
+
+        def plain(dt=dt):
+            return preprocess_kernel.normalize_plain(frame, mean, std,
+                                                     out_dtype=dt)
+
+        got, got_small = run(), run(small)
+        torch.cuda.synchronize()
+        assert got.dtype == dt
+        err = float((got.float() - want.to(dt).float()).abs().max())
+        # exact: the kernel's table holds the plain version's own values
+        assert torch.equal(got, want.to(dt)), f"normalize {dt}: |err| {err}"
+        assert torch.equal(got_small, want_small.to(dt)), (
+            f"normalize {dt}: ragged frame differs")
+        b_ms, b_by = bound(n * (1 + got.element_size()), 2 * n, F32_FLOPS)
+        forms[dt] = dict(max_abs_err=err, ms=cuda_ms(run, 500),
+                         graph_ms=graph_ms(run), plain_ms=cuda_ms(plain, 200),
+                         bound_ms=b_ms, bound_by=b_by)
     rows.append(dict(
         name="normalize", route="cuda",
         source="unina_yolo_dla_torch/csrc/normalize.cu",
         replaces="unina_yolo_dla_tpu/ops/pallas/preprocess_kernel.py:66",
-        max_abs_err=err, tolerance="abs 1e-6",
-        ms=cuda_ms(lambda: preprocess_kernel.normalize(frame, mean, std),
-                   500),
-        plain_ms=cuda_ms(
-            lambda: preprocess_kernel.normalize_plain(frame, mean, std), 200),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        tolerance="exact (both output forms)", form="bfloat16 out",
+        **forms[bf], library_ms=None,
+        **{f"f32_{k}": v for k, v in forms[torch.float32].items()}))
 
     # 2. fused stem + stage1 on the normalised frame, real weights
     bb = art.model.backbone
-    xm = want.to(torch.bfloat16)[None].contiguous()
+    xm = want.to(bf)[None].contiguous()
     plain_args = (xm, bb.stem_kernel, bb.stem_bias, bb.stage1_kernel,
                   bb.stage1_bias)
     # the B tiles, packed once at load
@@ -328,35 +410,52 @@ def check_kernels(art, torch) -> list[dict]:
         "within 1e-6 relative", per="frame (3 levels)",
         ms=cuda_ms(lambda: [decode_kernel.decode_level_packed(
             c, r, st, conf, q) for c, r, st in levels], 200),
+        graph_ms=graph_ms(lambda: [decode_kernel.decode_level_packed(
+            c, r, st, conf, q) for c, r, st in levels]),
         plain_ms=cuda_ms(lambda: [decode_kernel.decode_level_plain(
             c, r, st, conf, q) for c, r, st in levels], 50),
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
 
     # 4. NMS: the sorted K = 1024 set of that random head output (every
-    # slot valid: the heaviest set the path can hand it)
+    # slot valid: the heaviest set the path can hand it), and the candidate
+    # set the served frame itself hands over (a few valid slots)
     outs = [(c[None], r[None]) for c, r, _ in levels]
-    dets = decode_outputs(outs, art.model_config.strides, conf, q, 1024)
     thr = art.config["iou_threshold"]
-    nargs = (dets.boxes, dets.classes, dets.valid, thr)
-    keep = nms_kernel.nms_keep(*nargs)
-    keep_plain = nms_kernel.nms_keep_plain(*nargs)
-    torch.cuda.synchronize()
-    assert torch.equal(keep, keep_plain), "nms: keep masks differ"
-    k = dets.boxes.shape[0]
-    # IoU tests the kernel makes: later, same-class, both-valid pairs
-    same = ((dets.classes[:, None] == dets.classes[None, :])
-            & dets.valid[:, None] & dets.valid[None, :]).triu(1)
-    pairs = int(same.sum())
-    b_ms, b_by = bound(k * (16 + 4 + 1) + k, pairs * 15, F32_FLOPS)
+    with torch.inference_mode():
+        x = preprocess_kernel.normalize(art.stage(rgb), mean, std,
+                                        out_dtype=bf)[None]
+        served = decode_outputs(art.model(x), art.model_config.strides, conf,
+                                q, art.config["max_detections"])
+    sets = {}
+    for which, dets in (("all_valid", decode_outputs(
+            outs, art.model_config.strides, conf, q, 1024)),
+            ("served", served)):
+        nargs = (dets.boxes, dets.classes, dets.valid, thr)
+        keep = nms_kernel.nms_keep(*nargs)
+        keep_plain = nms_kernel.nms_keep_plain(*nargs)
+        torch.cuda.synchronize()
+        assert torch.equal(keep, keep_plain), f"nms ({which}): masks differ"
+        k = dets.boxes.shape[0]
+        # IoU tests the kernel needs: later, same-class, both-valid pairs
+        same = ((dets.classes[:, None] == dets.classes[None, :])
+                & dets.valid[:, None] & dets.valid[None, :]).triu(1)
+        b_ms, b_by = bound(k * (16 + 4 + 1) + k, int(same.sum()) * 15,
+                           F32_FLOPS)
+        sets[which] = dict(
+            max_abs_err=float((keep.int() - keep_plain.int()).abs().max()),
+            kept=int(keep.sum()), valid=int(dets.valid.sum()),
+            ms=cuda_ms(lambda: nms_kernel.nms_keep(*nargs), 200),
+            graph_ms=graph_ms(lambda: nms_kernel.nms_keep(*nargs)),
+            plain_ms=cuda_ms(lambda: nms_kernel.nms_keep_plain(*nargs), 3, 1),
+            bound_ms=b_ms, bound_by=b_by)
+    log(f"nms: the served frame hands over {sets['served']['valid']} valid "
+        f"candidates of {served.boxes.shape[0]}, "
+        f"{sets['served']['kept']} kept")
     rows.append(dict(
         name="nms", route="cuda", source="unina_yolo_dla_torch/csrc/nms.cu",
         replaces="unina_yolo_dla_tpu/ops/pallas/nms_kernel.py:111",
-        max_abs_err=float((keep.int() - keep_plain.int()).abs().max()),
-        tolerance="keep mask exact", kept=int(keep.sum()),
-        valid=int(dets.valid.sum()),
-        ms=cuda_ms(lambda: nms_kernel.nms_keep(*nargs), 200),
-        plain_ms=cuda_ms(lambda: nms_kernel.nms_keep_plain(*nargs), 3, 1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        tolerance="keep mask exact", **sets["all_valid"], library_ms=None,
+        **{f"served_{k}": v for k, v in sets["served"].items()}))
     return rows
 
 
@@ -541,13 +640,20 @@ def profile_frames(serve, rgb, torch, frames: int = 10) -> dict:
             row[1] += 1
     busy = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    port = {w: sum(v[0] for n, v in by_name.items()
-                   if any(re.search(rf"(^|\W){f}\(", n) for f in funcs))
-            for w, funcs in DEVICE_FUNCS.items()}
+
+    def ours(wrapper):  # device functions, with or without template args
+        return [v for n, v in by_name.items() if any(
+            re.search(rf"(^|\W){f}(<[^(]*>)?\(", n)
+            for f in DEVICE_FUNCS[wrapper])]
+
+    port = {w: sum(v[0] for v in ours(w)) for w in DEVICE_FUNCS}
+    port_calls = {w: sum(v[1] for v in ours(w)) / frames
+                  for w in DEVICE_FUNCS}
     return {"frames": frames, "wall_ms_per_frame": wall,
             "device_busy_ms_per_frame": busy,
             "device_idle_share": 1.0 - busy / wall,
             "port_kernels_device_ms_per_frame": port,
+            "port_kernels_calls_per_frame": port_calls,
             "kernels_per_frame": sum(v[1] for v in by_name.values())
             / frames,
             "top": [{"name": n[:90], "ms_per_frame": v[0],
@@ -677,7 +783,9 @@ def main() -> int:
     rgb = np.ascontiguousarray(img[..., ::-1])
 
     # phase 2: each kernel against its plain version on the card
-    rows = [dict(r, path="shipped") for r in check_kernels(art, torch)]
+    floor = launch_floor(torch)
+    print(json.dumps({"launch_floor": floor}), flush=True)
+    rows = [dict(r, path="shipped") for r in check_kernels(art, rgb, torch)]
     rows += [dict(r, path="int8_s2dm_fc") for r in check_fc_kernels(
         fc_model, fc_serve, art.stage(rgb), torch)]
     ragged = check_ragged(torch)
@@ -722,6 +830,12 @@ def main() -> int:
             assert (dev_ms > 0) == (per > 0), (
                 f"{engine}: {name} has {dev_ms} ms of profiled device time "
                 f"at {per} launches per frame")
+            # one wrapper call is one kernel on the card (the profiler may
+            # miss the first kernel launched inside its window)
+            calls = pr["port_kernels_calls_per_frame"][name]
+            assert per - 1 / pr["frames"] <= calls <= per, (
+                f"{engine}: {name} ran {calls} kernels per frame at {per} "
+                f"launches per frame")
     for row in rows:
         run, pr = runs[row["path"]]
         row["launches"] = run["launches"][row["name"]]
@@ -732,7 +846,8 @@ def main() -> int:
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        {"card": smi, "build_s": build_s, "end_to_end": e2e,
+        {"card": smi, "build_s": build_s, "launch_floor": floor,
+         "end_to_end": e2e,
          "profile": prof, "end_to_end_fc": e2e_fc, "profile_fc": prof_fc,
          **line},
         indent=2))

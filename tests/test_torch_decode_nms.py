@@ -106,6 +106,49 @@ def test_nms_keep_mask_matches_reference_exactly(case):
         np.testing.assert_array_equal(want[:6], [1, 0, 1, 0, 1, 0])
 
 
+def _scattered(rng, k, n_valid, one_class=False):
+    """Random candidates, crowded enough that some suppress others, whose
+    valid slots are scattered over all k (not a prefix)."""
+    _, scores, classes, _ = _random_dets(rng, k, k)
+    centers = rng.uniform(50, 170, (k, 2))
+    wh = rng.uniform(20, 60, (k, 2))
+    boxes = np.concatenate([centers - wh / 2, centers + wh / 2],
+                           -1).astype(np.float32)
+    valid = np.zeros(k, bool)
+    valid[rng.choice(k, n_valid, replace=False)] = True
+    if one_class:
+        classes = np.full(k, 2, np.int32)
+    return boxes, scores, classes, valid
+
+
+@pytest.mark.parametrize("case,k,n_valid,one_class", [
+    ("scattered", 256, 90, False), ("k100", 100, 70, False),
+    ("k37", 37, 30, False), ("one_class", 128, 100, True),
+    ("none_valid", 64, 0, False)])
+def test_nms_any_mask_any_k_matches_reference_exactly(case, k, n_valid,
+                                                      one_class):
+    """A scattered valid mask, K not a multiple of 32, one class only and
+    no valid candidate: the keep mask equals the reference's ``nms`` and
+    ``nms_reference`` exactly."""
+    arrs = _scattered(np.random.default_rng(k + n_valid), k, n_valid,
+                      one_class)
+    thr = 0.45
+    jdets, tdets = _both(arrs, thr)
+    want = np.asarray(j_nms(jdets, thr).valid)
+    np.testing.assert_array_equal(want, np.asarray(
+        j_nms_reference(jdets, thr).valid))
+    got = tn.nms(tdets, thr).valid.numpy()
+    assert got.shape == (k,)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tn.nms_reference(tdets, thr).valid.numpy(),
+                                  want)
+    assert not (got & ~arrs[3]).any()
+    if n_valid:
+        assert 0 < got.sum() < n_valid   # something is suppressed
+    else:
+        assert got.sum() == 0
+
+
 def test_nms_matches_pallas_interpret_deep_chain():
     arrs, thr = _chain(n=60), 0.3
     jdets, tdets = _both(arrs, thr)

@@ -59,21 +59,60 @@ def _launched(kernel, fn):
     return out
 
 
-def test_normalize_kernel_exact(rng, cuda):
-    img = torch.from_numpy(rng.integers(0, 256, (320, 160, 24),
-                                        dtype=np.uint8)).to(cuda)
-    mean, std = preprocess_kernel.channel_constants(24)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(320, 160, 24), (7, 5, 24), (1, 1, 24),
+                                   (33, 17, 3)])
+def test_normalize_kernel_exact(rng, cuda, shape, out_dtype):
+    """The merged path at the serving shape, at ragged shapes whose byte
+    count is no multiple of a warp's 384-byte step (840 and 24 bytes: the
+    tail alone) and on a plain 3-channel frame, both output forms, bit for
+    bit the plain version; one wrapper call is one launch."""
+    img = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(
+        cuda)
+    mean, std = preprocess_kernel.channel_constants(shape[-1])
     got = _launched(preprocess_kernel.KERNEL,
-                    lambda: preprocess_kernel.normalize(img, mean, std))
+                    lambda: preprocess_kernel.normalize(
+                        img, mean, std, out_dtype=out_dtype))
     want = preprocess_kernel.normalize_plain(img, mean, std)
-    assert float((got - want).abs().max()) <= 1e-6
-    bgra = torch.from_numpy(rng.integers(0, 256, (64, 64, 4),
-                                         dtype=np.uint8)).to(cuda)
-    got = preprocess_kernel.normalize(bgra, swap_rb=True)
-    want = preprocess_kernel.normalize_plain(
-        bgra, preprocess_kernel.IMAGENET_MEAN, preprocess_kernel.IMAGENET_STD,
-        swap_rb=True)
-    assert float((got - want).abs().max()) <= 1e-6
+    assert got.dtype == out_dtype and got.shape == want.shape
+    assert torch.equal(got, want.to(out_dtype))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels,swap", [(3, True), (4, True), (4, False)])
+def test_normalize_kernel_generic_path_exact(rng, cuda, channels, swap,
+                                             out_dtype):
+    """3- and 4-channel frames with the B/R swap and the dropped alpha (a
+    thread per pixel), and a view that starts 1 byte into its buffer (the
+    4-byte loads do not apply)."""
+    img = torch.from_numpy(rng.integers(0, 256, (61, 67, channels),
+                                        dtype=np.uint8)).to(cuda)
+    mean, std = preprocess_kernel.IMAGENET_MEAN, preprocess_kernel.IMAGENET_STD
+    got = _launched(preprocess_kernel.KERNEL,
+                    lambda: preprocess_kernel.normalize(
+                        img, swap_rb=swap, out_dtype=out_dtype))
+    want = preprocess_kernel.normalize_plain(img, mean, std, swap_rb=swap)
+    assert got.shape == (61, 67, 3)
+    assert torch.equal(got, want.to(out_dtype))
+    flat = torch.from_numpy(rng.integers(
+        0, 256, 1 + 9 * 5 * channels, dtype=np.uint8)).to(cuda)
+    odd = flat[1:].view(9, 5, channels)
+    got = preprocess_kernel.normalize(odd, swap_rb=swap, out_dtype=out_dtype)
+    want = preprocess_kernel.normalize_plain(odd, mean, std, swap_rb=swap)
+    assert torch.equal(got, want.to(out_dtype))
+
+
+def test_normalize_kernel_other_channel_maps(rng, cuda):
+    """Constants that do not repeat with period 3, and fewer output than
+    input channels: the by-value channel map."""
+    img = torch.from_numpy(rng.integers(0, 256, (19, 23, 8),
+                                        dtype=np.uint8)).to(cuda)
+    for c_out in (8, 5):
+        mean = tuple(float(m) for m in rng.uniform(0.3, 0.6, c_out))
+        std = tuple(float(s) for s in rng.uniform(0.2, 0.3, c_out))
+        got = preprocess_kernel.normalize(img, mean, std)
+        want = preprocess_kernel.normalize_plain(img, mean, std)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("shape", [(2, 320, 160, 24), (2, 10, 37, 24),
@@ -116,23 +155,91 @@ def test_decode_kernel_matches_plain(rng, cuda):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("k", [1024, 100])
+def _crowd(rng, k, span):
+    """k boxes of 20-60 px with centres inside a ``span`` px square."""
+    centers = rng.uniform(50, 50 + span, (k, 2))
+    wh = rng.uniform(20, 60, (k, 2))
+    return np.concatenate([centers - wh / 2, centers + wh / 2], -1)
+
+
+@pytest.mark.parametrize("k", [1024, 100, 37])
 def test_nms_kernel_exact(cuda, k):
+    """Random boxes with a prefix mask, and a 60-deep (K = 37: 37-deep)
+    suppression chain at IoU 0.5: exact for any chain depth."""
     rng = np.random.default_rng(3)
     centers = rng.uniform(50, 590, (k, 2))
     wh = rng.uniform(5, 60, (k, 2))
     boxes = np.concatenate([centers - wh / 2, centers + wh / 2], -1)
+    depth = min(60, k)
     chain = np.zeros((k, 4))
-    for i in range(60):        # a 60-deep suppression chain at IoU 0.5
+    for i in range(depth):
         chain[i] = (6.0 * i, 0, 6.0 * i + 18.0, 18.0)
     for b, cls, n, thr in ((boxes, rng.integers(0, 4, k), k - 20, 0.45),
-                           (chain, np.zeros(k), 60, 0.3)):
+                           (chain, np.zeros(k), depth, 0.3)):
         bt = torch.tensor(b, dtype=torch.float32, device=cuda)
         ct = torch.tensor(cls, dtype=torch.int32, device=cuda)
         vt = torch.arange(k, device=cuda) < n
         got = _launched(nms_kernel.KERNEL,
                         lambda: nms_kernel.nms_keep(bt, ct, vt, thr))
+        assert got.shape == (k,) and got.dtype == torch.bool
         assert torch.equal(got, nms_kernel.nms_keep_plain(bt, ct, vt, thr))
+    assert got[:6].tolist() == [True, False, True, False, True, False]
+
+
+@pytest.mark.parametrize("k,n_valid", [
+    (1024, 0), (1024, 1), (1024, 31), (1024, 33), (1024, 96), (1024, 97),
+    (1024, 256), (1024, 257), (1024, 1024), (100, 70), (100, 100), (37, 30),
+    (37, 37), (1, 1)])
+def test_nms_kernel_scattered_mask_exact(cuda, k, n_valid):
+    """Valid slots scattered over all K, either side of the 96-candidate
+    step between one block and the whole cluster, K not a multiple of 32:
+    the keep mask is the plain version's, and one call is one launch."""
+    rng = np.random.default_rng(1000 * k + n_valid)
+    bt = torch.tensor(_crowd(rng, k, 40 + 12 * int(np.sqrt(n_valid))),
+                      dtype=torch.float32, device=cuda)
+    ct = torch.tensor(rng.integers(0, 4, k), dtype=torch.int32, device=cuda)
+    valid = np.zeros(k, bool)
+    valid[rng.choice(k, n_valid, replace=False)] = True
+    vt = torch.from_numpy(valid).to(cuda)
+    got = _launched(nms_kernel.KERNEL,
+                    lambda: nms_kernel.nms_keep(bt, ct, vt, 0.45))
+    want = nms_kernel.nms_keep_plain(bt, ct, vt, 0.45)
+    assert torch.equal(got, want)
+    if n_valid > 30:
+        assert 0 < int(got.sum()) < n_valid   # something was suppressed
+
+
+def test_nms_kernel_one_class_long_chain(cuda):
+    """All 1024 candidates of one class in one crowd (most are suppressed),
+    and a 1024-deep chain: every word's fixed point runs its full depth."""
+    rng = np.random.default_rng(5)
+    k = 1024
+    ct = torch.zeros(k, dtype=torch.int32, device=cuda)
+    vt = torch.ones(k, dtype=torch.bool, device=cuda)
+    bt = torch.tensor(_crowd(rng, k, 300), dtype=torch.float32, device=cuda)
+    got = nms_kernel.nms_keep(bt, ct, vt, 0.45)
+    assert torch.equal(got, nms_kernel.nms_keep_plain(bt, ct, vt, 0.45))
+    chain = np.array([(6.0 * i, 0, 6.0 * i + 18.0, 18.0) for i in range(k)])
+    bt = torch.tensor(chain, dtype=torch.float32, device=cuda)
+    got = nms_kernel.nms_keep(bt, ct, vt, 0.3)
+    assert torch.equal(got, nms_kernel.nms_keep_plain(bt, ct, vt, 0.3))
+    assert got.tolist() == [i % 2 == 0 for i in range(k)]
+
+
+def test_serving_path_launches_one_of_each(cuda):
+    """One served frame is one normalize launch (bf16 out: the backbone's
+    cast is a no-op), three decode launches and one NMS launch."""
+    art = ServingArtifact(ARTIFACT)
+    img, _ = generate_image(np.random.default_rng(7),
+                            SynthConfig(image_size=640, seed=7))
+    rgb = np.ascontiguousarray(img[..., ::-1])
+    art(rgb)
+    kernels = (preprocess_kernel.KERNEL, decode_kernel.KERNEL,
+               nms_kernel.KERNEL)
+    before = [kern.launches for kern in kernels]
+    art(rgb)
+    torch.cuda.synchronize()
+    assert [kern.launches - b for kern, b in zip(kernels, before)] == [1, 3, 1]
 
 
 def test_served_artifact_matches_cpu_port(cuda):

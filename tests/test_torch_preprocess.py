@@ -39,6 +39,35 @@ def test_normalize_matches_pallas_interpret(rng, channels, swap):
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("shape", [(16, 8, 24), (7, 5, 24)])
+def test_normalize_bf16_out_matches_plain_and_reference_bits(rng, shape):
+    """The serving form: ``out_dtype=bfloat16`` is the exact float32 value
+    rounded to nearest-even, bit for bit the plain version cast to bf16 and
+    the reference's normalise of the same merged frame cast to bf16
+    (tolerance 0 in bf16 bits)."""
+    merged = rng.integers(0, 256, shape, dtype=np.uint8)
+    mean, std = tk.channel_constants(24)
+    got = tk.normalize(torch.from_numpy(merged), mean, std,
+                       out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == shape
+    plain = tk.normalize_plain(torch.from_numpy(merged), mean, std)
+    assert plain.dtype == torch.float32
+    assert torch.equal(got, plain.to(torch.bfloat16))
+    assert torch.equal(got, tk.normalize_plain(
+        torch.from_numpy(merged), mean, std, out_dtype=torch.bfloat16))
+    cfg = dataclasses.replace(ModelConfig(), s2d_host=True, s2d_merged=True)
+    want = np.asarray(_normalize_for(cfg, jnp.asarray(merged)).astype(
+        jnp.bfloat16).view(jnp.uint16))
+    np.testing.assert_array_equal(got.view(torch.int16).numpy().view(
+        np.uint16), want)
+
+
+def test_normalize_rejects_other_out_dtypes(rng):
+    img = torch.from_numpy(rng.integers(0, 256, (4, 4, 3), dtype=np.uint8))
+    with pytest.raises(ValueError):
+        tk.normalize(img, out_dtype=torch.float16)
+
+
 def test_normalize_float_formula(rng):
     x = rng.uniform(0, 1, (8, 8, 3)).astype(np.float32)
     want = np.asarray(jp.normalize(jnp.asarray(x)))

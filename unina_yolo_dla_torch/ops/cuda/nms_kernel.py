@@ -1,9 +1,10 @@
 """Kernel 4: exact greedy class-aware NMS (suppression bitmask + scan).
 
-CUDA source: ``csrc/nms.cu``. One wrapper call launches both of its
-kernels (the K x K bitmask, then the one-block greedy scan) and counts one
-launch. The plain version is the greedy recurrence over the same
-suppression relation.
+CUDA source: ``csrc/nms.cu``. One wrapper call is one kernel launch: the
+kernel compacts the valid slots, builds the suppression bits of that set
+in shared memory and scans them greedily, so its work follows the number
+of valid candidates, not K. The plain version is the greedy recurrence
+over the same suppression relation.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import torch
 from ...utils.boxes import pairwise_iou
 from ._lib import F, I, Kernel, P, check_cuda, stream_ptr
 
-KERNEL = Kernel("unina_nms", [P, P, P, P, P, I, F, P])
+KERNEL = Kernel("unina_nms", [P, P, P, P, I, F, P])
 MAX_K = 1024
 
 
@@ -42,7 +43,8 @@ def nms_keep_plain(boxes: torch.Tensor, classes: torch.Tensor,
 
 def nms_keep(boxes: torch.Tensor, classes: torch.Tensor,
              valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
-    """Keep mask (K,) bool of greedy NMS over score-sorted candidates."""
+    """Keep mask (K,) bool of greedy NMS over score-sorted candidates;
+    ``valid`` may be any mask (not only a prefix), K anything in 1..1024."""
     if not boxes.is_cuda:
         return nms_keep_plain(boxes, classes, valid, iou_threshold)
     k = boxes.shape[0]
@@ -51,15 +53,8 @@ def nms_keep(boxes: torch.Tensor, classes: torch.Tensor,
     check_cuda(valid, "valid", torch.bool, (k,))
     if not 0 < k <= MAX_K:
         raise ValueError(f"kernel takes 1..{MAX_K} candidates, got {k}")
-    kp = -(-k // 32) * 32
-    if kp != k:  # pad to whole 32-bit words with invalid candidates
-        pad = kp - k
-        boxes = torch.cat([boxes, boxes.new_zeros((pad, 4))])
-        classes = torch.cat([classes, classes.new_zeros(pad)])
-        valid = torch.cat([valid, valid.new_zeros(pad)])
-    mask = torch.empty(kp * kp // 32, dtype=torch.int32, device=boxes.device)
-    keep = torch.empty(kp, dtype=torch.bool, device=boxes.device)
+    keep = torch.empty(k, dtype=torch.bool, device=boxes.device)
     KERNEL.launch(boxes.data_ptr(), classes.data_ptr(), valid.data_ptr(),
-                  mask.data_ptr(), keep.data_ptr(), kp, float(iou_threshold),
+                  keep.data_ptr(), k, float(iou_threshold),
                   stream_ptr(boxes.device))
-    return keep[:k]
+    return keep

@@ -1,7 +1,7 @@
 """Frame -> boxes serving pipeline at batch 1.
 
     merged uint8 frame (S/2, S/4, 24), blocked on the host
-    -> normalize kernel (mean/std tiled 8x), f32
+    -> normalize kernel (mean/std tiled 8x), in the model's compute dtype
     -> detector (fused stem+stage1 kernel, bf16 and int8 layers)
     -> decode kernel x 3 levels -> stable masked top-k into K slots
     -> NMS kernel -> Detections
@@ -20,7 +20,11 @@ from ..models.config import (
     ModelConfig,
 )
 from ..models.detector import UninaYoloDla
-from ..ops.cuda.preprocess_kernel import channel_constants, normalize
+from ..ops.cuda.preprocess_kernel import (
+    OUT_DTYPES,
+    channel_constants,
+    normalize,
+)
 from ..ops.decode import Detections, decode_outputs
 from ..ops.nms import nms
 
@@ -38,10 +42,14 @@ def build_serving_fn(
     if not cfg.s2d_merged:
         raise NotImplementedError("the port serves the s2d_merged engine")
     mean, std = channel_constants(24)
+    # the kernel writes the model's compute dtype where it has that form,
+    # so the model's first cast is a no-op
+    out_dtype = (cfg.compute_dtype if cfg.compute_dtype in OUT_DTYPES
+                 else torch.float32)
 
     @torch.inference_mode()
     def serve(frame: torch.Tensor) -> Detections:
-        x = normalize(frame, mean, std)[None]
+        x = normalize(frame, mean, std, out_dtype=out_dtype)[None]
         outputs = model(x)
         dets = decode_outputs(outputs, cfg.strides, conf_threshold,
                               q_factor, max_detections)
