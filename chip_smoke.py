@@ -4,19 +4,22 @@
 
 Builds the port's CUDA kernels from ``unina_yolo_dla_torch/csrc``, holds
 each kernel against its plain PyTorch version on the card at the shapes of
-the serving paths, then serves two engines on a synthetic scene:
+the serving paths, then serves three paths:
 
 - the committed int8 engine (``artifacts/serving_artifact``: fused
-  stem+stage1, merged head);
+  stem+stage1, merged head) on a synthetic scene;
 - the fused-subgraph int8 engine ``int8_s2dm_fc`` (the same weights with
   ``s2d_merged`` but no ``fused_stem``, ``fused_c3k2``, ``fused_head``),
   built through ``load_msgpack_raw`` -> ``from_jax_variables`` ->
-  ``build_serving_fn``: stage1, C3k2, C3k2-cat and head kernels.
+  ``build_serving_fn``: stage1, C3k2, C3k2-cat and head kernels;
+- the batch-8 artifact (``artifacts/serving_artifact_b8``, the shipped
+  engine's weights) on 8 synthetic scenes in one call.
 
 For each it checks through the launch counters (set to 0 just before the
-engine's timed frames, read just after) that every frame went through the
+path's timed calls, read just after) that every call went through the
 path's kernels, checks the card's detections against the port's own CPU
-path on the same frame, and profiles a few frames.
+path on the same frames (and the batch's against the card's batch-1 path),
+and profiles a few calls.
 
 The five tensor-core kernels (stem+stage1, stage1, both C3k2 forms, head)
 are also run at ragged shapes that cut every tile edge, and the built
@@ -27,8 +30,12 @@ The three small kernels around the model (normalize, decode, NMS) are also
 timed inside a replayed CUDA graph (``graph_ms``: the card's time per launch
 under the host's launch cost), next to an empty kernel timed the same way
 (the ``launch_floor`` line): normalize in both output forms (bfloat16, the
-served one, in the row's main keys; float32 under ``f32_*``), NMS on the
-all-valid set and on the served frame's own candidate set (``served_*``).
+served one, in the row's main keys; float32 under ``f32_*``); decode (one
+launch for all levels and images, with the top-K compaction) on the served
+frame's head outputs in the main keys, on random all-valid levels
+(``all_valid_*``) and on 8 scenes at batch 8 (``b8_*``); NMS on the
+all-valid set, on the served frame's own candidate set (``served_*``) and
+on the 8 scenes' sets in one launch (``b8_served_*``).
 
 Prints one JSON line per kernel, a ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no
@@ -48,11 +55,12 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 ARTIFACT = REPO / "artifacts" / "serving_artifact"
+ARTIFACT_B8 = REPO / "artifacts" / "serving_artifact_b8"
 
 # the port's kernels by wrapper, as their device functions are named
 DEVICE_FUNCS = {"normalize": ("normalize_merged_kernel",),
                 "fused_stem_stage1": ("fused_stem_stage1_kernel",),
-                "decode_level": ("decode_kernel",),
+                "decode_topk": ("decode_topk_kernel",),
                 "nms": ("nms_kernel",),
                 "stage1_merged": ("stage1_mma_kernel",),
                 "fused_c3k2": ("c3k2_kernel<false>",),
@@ -65,14 +73,17 @@ MMA_KERNELS = ("fused_stem_stage1", "stage1_merged", "fused_c3k2",
 # template instantiations as cuobjdump lists them (mangled)
 SASS_NAMES = {"c3k2_kernel<false>": "c3k2_kernelILb0EE",
               "c3k2_kernel<true>": "c3k2_kernelILb1EE"}
-# launches per frame of each engine's path
+# launches per call of each path (a call is a frame, or a batch of 8)
 PER_FRAME = {
-    "shipped": {"normalize": 1, "fused_stem_stage1": 1, "decode_level": 3,
+    "shipped": {"normalize": 1, "fused_stem_stage1": 1, "decode_topk": 1,
                 "nms": 1, "stage1_merged": 0, "fused_c3k2": 0,
                 "fused_c3k2_cat": 0, "fused_head": 0},
     "int8_s2dm_fc": {"normalize": 1, "fused_stem_stage1": 0,
-                     "decode_level": 3, "nms": 1, "stage1_merged": 1,
+                     "decode_topk": 1, "nms": 1, "stage1_merged": 1,
                      "fused_c3k2": 1, "fused_c3k2_cat": 1, "fused_head": 1},
+    "b8": {"normalize": 1, "fused_stem_stage1": 1, "decode_topk": 1,
+           "nms": 1, "stage1_merged": 0, "fused_c3k2": 0,
+           "fused_c3k2_cat": 0, "fused_head": 0},
 }
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s, f32 CUDA-core FLOP/s
@@ -81,6 +92,8 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 FRAMES = 30
+BATCHES = 20
+SCENE_SEEDS = range(1, 9)   # the batch-8 path's scenes
 
 
 def log(msg: str) -> None:
@@ -110,11 +123,15 @@ def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
     launch cost is out of the way."""
     import torch
 
-    for _ in range(3):
-        fn()
+    # warmed up on the stream it is captured on (the decode kernel's
+    # scratch is the stream's own)
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(launches):
             fn()
     graph.replay()
@@ -296,18 +313,20 @@ def check_ragged(torch) -> dict:
     return worst
 
 
-def check_kernels(art, rgb, torch) -> list[dict]:
-    """Each kernel vs its plain version on the card, at serving shapes."""
+def check_kernels(art, rgb, scenes, torch) -> list[dict]:
+    """Each kernel vs its plain version on the card, at serving shapes
+    (decode and NMS also at batch 8, on ``scenes``)."""
     from unina_yolo_dla_torch.ops.cuda import (
         decode_kernel, nms_kernel, preprocess_kernel, stem_kernel)
-    from unina_yolo_dla_torch.ops.decode import decode_outputs
+    from unina_yolo_dla_torch.ops.decode import decode_batch, decode_outputs
+    from unina_yolo_dla_torch.ops.preprocess import merged_frame_np
 
     bf = torch.bfloat16
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     s = art.model_config.input_size
-    rows = []
+    rows_out = []
 
     # 1. normalize: merged uint8 frame (S/2, S/4, 24) -> bf16 (the served
     # form: the row's main keys) and f32 (the reference kernel's contract)
@@ -341,7 +360,7 @@ def check_kernels(art, rgb, torch) -> list[dict]:
         forms[dt] = dict(max_abs_err=err, ms=cuda_ms(run, 500),
                          graph_ms=graph_ms(run), plain_ms=cuda_ms(plain, 200),
                          bound_ms=b_ms, bound_by=b_by)
-    rows.append(dict(
+    rows_out.append(dict(
         name="normalize", route="cuda",
         source="unina_yolo_dla_torch/csrc/normalize.cu",
         replaces="unina_yolo_dla_tpu/ops/pallas/preprocess_kernel.py:66",
@@ -371,7 +390,7 @@ def check_kernels(art, rgb, torch) -> list[dict]:
               + (bb.stem_kernel.numel() + bb.stage1_kernel.numel()) * 2
               + (o2 + c2) * 4)
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-    rows.append(dict(
+    rows_out.append(dict(
         name="fused_stem_stage1", route="cuda",
         source="unina_yolo_dla_torch/csrc/stem.cu",
         replaces="unina_yolo_dla_tpu/ops/pallas/stem_kernel.py:192",
@@ -381,82 +400,121 @@ def check_kernels(art, rgb, torch) -> list[dict]:
             lambda: stem_kernel.fused_stem_stage1_plain(*plain_args), 20),
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
 
-    # 3. decode: the three levels of one frame (160^2, 80^2, 40^2 cells)
-    levels = []
-    for g_, st in zip(art.model_config.grid_sizes,
-                      art.model_config.strides):
-        cls = torch.from_numpy(rng.normal(0, 3, (g_, g_, 4)).astype(
-            np.float32)).to(dev)
-        reg = torch.from_numpy(rng.uniform(0.1, 3.0, (g_, g_, 4)).astype(
-            np.float32)).to(dev)
-        levels.append((cls, reg, st))
+    # 3. decode + top-K compaction, one launch for all levels and images:
+    # the served frame's head outputs (the row's main keys), random levels
+    # where ~94% of the 33,600 cells are valid (n > K: the radix select),
+    # and both at batch 8 (8 scenes)
     conf, q = art.config["conf_threshold"], art.config["q_factor"]
-    err = 0.0
-    for cls, reg, st in levels:
-        a = decode_kernel.decode_level_packed(cls, reg, st, conf, q)
-        b = decode_kernel.decode_level_plain(cls, reg, st, conf, q)
+    k_max, strides = art.config["max_detections"], art.model_config.strides
+    with torch.inference_mode():
+        served1 = art.model(preprocess_kernel.normalize(
+            art.stage(rgb), mean, std, out_dtype=bf)[None])
+        served8 = art.model(preprocess_kernel.normalize(
+            torch.from_numpy(merged_frame_np(scenes)).to(dev), mean, std,
+            out_dtype=bf))
+
+    def random_levels(b):
+        return [tuple(torch.from_numpy(a).to(dev) for a in (
+            rng.normal(0, 3, (b, g_, g_, 4)).astype(np.float32),
+            rng.uniform(0.1, 3.0, (b, g_, g_, 4)).astype(np.float32)))
+            for g_ in art.model_config.grid_sizes]
+
+    sets = {}
+    for which, outs in (("served", served1), ("all_valid", random_levels(1)),
+                        ("b8_served", served8),
+                        ("b8_all_valid", random_levels(8))):
+        def run(outs=outs):
+            return decode_kernel.decode_topk(outs, strides, conf, q, k_max)
+
+        def plain(outs=outs):
+            return decode_kernel.decode_topk_plain(outs, strides, conf, q,
+                                                   k_max)
+
+        got, want = run(), plain()
         torch.cuda.synchronize()
-        assert torch.equal(a[:, 5:], b[:, 5:]), "decode: class/valid differ"
-        err = max(err, float((a - b).abs().max()))
-        rel = float(((a - b).abs() / (1.0 + b.abs())).max())
-        assert rel <= 1e-6, f"decode: max |err|/(1+|ref|) {rel} > 1e-6"
-    cells = sum(c.shape[0] * c.shape[1] for c, _, _ in levels)
-    b_ms, b_by = bound(cells * (16 + 16 + 28), cells * 40, F32_FLOPS)
-    rows.append(dict(
-        name="decode_level", route="cuda",
+        for name, g_, w_ in zip(("boxes", "scores", "classes", "valid"), got,
+                                want):
+            assert torch.equal(g_, w_), f"decode ({which}): {name} differ"
+        b = outs[0][0].shape[0]
+        cells = sum(c.shape[1] * c.shape[2] for c, _ in outs)
+        k = got[1].shape[1]
+        # yardstick: the compaction alone as the library does it, a stable
+        # sort of the masked scores and one row gather, on the same scores
+        rows = torch.cat([decode_kernel.decode_level_plain(
+            c, r, st, conf, q) for (c, r), st in zip(outs, strides)], dim=1)
+        masked = torch.where(rows[..., 6] > 0.5, rows[..., 4],
+                             torch.full_like(rows[..., 4], -1.0))
+
+        def lib(rows=rows, masked=masked, k=k):
+            order = torch.sort(masked, dim=1, descending=True, stable=True)[1]
+            return rows.gather(1, order[:, :k, None].expand(-1, -1, 7))
+
+        # read each cell's class logits once and the distances of the K
+        # cells kept, write K slots of 25 B; ~40 f32 operations a cell
+        nc = outs[0][0].shape[-1]
+        b_ms, b_by = bound(b * (cells * nc * 4 + k * (16 + 25)),
+                           b * cells * 40, F32_FLOPS)
+        sets[which] = dict(
+            batch=b, valid=got[3].sum(dim=1).tolist(),
+            max_abs_err=max(float((g_.float() - w_.float()).abs().max())
+                            for g_, w_ in zip(got, want)),
+            ms=cuda_ms(run, 200), graph_ms=graph_ms(run),
+            plain_ms=cuda_ms(plain, 20), bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(lib, 50))
+    log(f"decode: the served frame has {sets['served']['valid']} valid "
+        f"cells, the 8 scenes {sets['b8_served']['valid']}")
+    rows_out.append(dict(
+        name="decode_topk", route="cuda",
         source="unina_yolo_dla_torch/csrc/decode.cu",
         replaces="unina_yolo_dla_tpu/ops/pallas/decode_kernel.py:94",
-        max_abs_err=err, tolerance="class/valid exact, boxes/scores "
-        "within 1e-6 relative", per="frame (3 levels)",
-        ms=cuda_ms(lambda: [decode_kernel.decode_level_packed(
-            c, r, st, conf, q) for c, r, st in levels], 200),
-        graph_ms=graph_ms(lambda: [decode_kernel.decode_level_packed(
-            c, r, st, conf, q) for c, r, st in levels]),
-        plain_ms=cuda_ms(lambda: [decode_kernel.decode_level_plain(
-            c, r, st, conf, q) for c, r, st in levels], 50),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        tolerance="exact (all four fields, every slot)",
+        per="served frame (3 levels, B = 1)", **sets["served"],
+        **{f"{w}_{k}": v for w in ("all_valid", "b8_served", "b8_all_valid")
+           for k, v in sets[w].items()}))
 
-    # 4. NMS: the sorted K = 1024 set of that random head output (every
-    # slot valid: the heaviest set the path can hand it), and the candidate
-    # set the served frame itself hands over (a few valid slots)
-    outs = [(c[None], r[None]) for c, r, _ in levels]
+    # 4. NMS: the sorted K = 1024 set of the random all-valid levels (every
+    # slot valid: the heaviest set the path can hand it), the candidate set
+    # the served frame itself hands over (a few valid slots), and the 8
+    # scenes' sets in one launch
     thr = art.config["iou_threshold"]
+    nsets = {}
     with torch.inference_mode():
-        x = preprocess_kernel.normalize(art.stage(rgb), mean, std,
-                                        out_dtype=bf)[None]
-        served = decode_outputs(art.model(x), art.model_config.strides, conf,
-                                q, art.config["max_detections"])
-    sets = {}
-    for which, dets in (("all_valid", decode_outputs(
-            outs, art.model_config.strides, conf, q, 1024)),
-            ("served", served)):
-        nargs = (dets.boxes, dets.classes, dets.valid, thr)
-        keep = nms_kernel.nms_keep(*nargs)
-        keep_plain = nms_kernel.nms_keep_plain(*nargs)
-        torch.cuda.synchronize()
-        assert torch.equal(keep, keep_plain), f"nms ({which}): masks differ"
-        k = dets.boxes.shape[0]
-        # IoU tests the kernel needs: later, same-class, both-valid pairs
-        same = ((dets.classes[:, None] == dets.classes[None, :])
-                & dets.valid[:, None] & dets.valid[None, :]).triu(1)
-        b_ms, b_by = bound(k * (16 + 4 + 1) + k, int(same.sum()) * 15,
-                           F32_FLOPS)
-        sets[which] = dict(
-            max_abs_err=float((keep.int() - keep_plain.int()).abs().max()),
-            kept=int(keep.sum()), valid=int(dets.valid.sum()),
-            ms=cuda_ms(lambda: nms_kernel.nms_keep(*nargs), 200),
-            graph_ms=graph_ms(lambda: nms_kernel.nms_keep(*nargs)),
-            plain_ms=cuda_ms(lambda: nms_kernel.nms_keep_plain(*nargs), 3, 1),
-            bound_ms=b_ms, bound_by=b_by)
-    log(f"nms: the served frame hands over {sets['served']['valid']} valid "
-        f"candidates of {served.boxes.shape[0]}, "
-        f"{sets['served']['kept']} kept")
-    rows.append(dict(
+        for which, dets in (
+                ("all_valid", decode_outputs(random_levels(1), strides, conf,
+                                             q, k_max)),
+                ("served", decode_outputs(served1, strides, conf, q, k_max)),
+                ("b8_served", decode_batch(served8, strides, conf, q,
+                                           k_max))):
+            nargs = (dets.boxes, dets.classes, dets.valid, thr)
+            keep = nms_kernel.nms_keep(*nargs)
+            keep_plain = nms_kernel.nms_keep_plain(*nargs)
+            torch.cuda.synchronize()
+            assert torch.equal(keep, keep_plain), f"nms ({which}): masks differ"
+            k = dets.valid.shape[-1]
+            cls, val = dets.classes.reshape(-1, k), dets.valid.reshape(-1, k)
+            # IoU tests the kernel needs: later, same-class, both-valid pairs
+            same = ((cls[:, :, None] == cls[:, None, :])
+                    & val[:, :, None] & val[:, None, :]).triu(1)
+            b_ms, b_by = bound(val.numel() * (16 + 4 + 1 + 1),
+                               int(same.sum()) * 15, F32_FLOPS)
+            nsets[which] = dict(
+                max_abs_err=float((keep.int() - keep_plain.int()).abs().max()),
+                kept=keep.reshape(-1, k).sum(dim=1).tolist(),
+                valid=val.sum(dim=1).tolist(),
+                ms=cuda_ms(lambda: nms_kernel.nms_keep(*nargs), 200),
+                graph_ms=graph_ms(lambda: nms_kernel.nms_keep(*nargs)),
+                plain_ms=cuda_ms(lambda: nms_kernel.nms_keep_plain(*nargs), 3,
+                                 1),
+                bound_ms=b_ms, bound_by=b_by)
+    log(f"nms: the served frame hands over {nsets['served']['valid']} valid "
+        f"candidates of {k_max}, {nsets['served']['kept']} kept")
+    rows_out.append(dict(
         name="nms", route="cuda", source="unina_yolo_dla_torch/csrc/nms.cu",
         replaces="unina_yolo_dla_tpu/ops/pallas/nms_kernel.py:111",
-        tolerance="keep mask exact", **sets["all_valid"], library_ms=None,
-        **{f"served_{k}": v for k, v in sets["served"].items()}))
-    return rows
+        tolerance="keep mask exact", **nsets["all_valid"], library_ms=None,
+        **{f"{w}_{k}": v for w in ("served", "b8_served")
+           for k, v in nsets[w].items()}))
+    return rows_out
 
 
 def capture_inputs(model, serve, frame, torch) -> dict:
@@ -617,26 +675,28 @@ def check_fc_kernels(model, serve, frame, torch) -> list[dict]:
     return rows
 
 
-def profile_frames(serve, rgb, torch, frames: int = 10) -> dict:
-    """Device time per frame by kernel (torch.profiler, CUDA activity),
-    against the host wall clock of the same frames."""
+def profile_calls(serve, arg, torch, calls: int = 10,
+                  unit: str = "frame") -> dict:
+    """Device time per call by kernel (torch.profiler, CUDA activity),
+    against the host wall clock of the same calls (a call serves a frame,
+    or a batch: ``unit``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    serve(rgb)
+    serve(arg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for _ in range(frames):
-            serve(rgb)
+        for _ in range(calls):
+            serve(arg)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3 / frames
+        wall = (time.perf_counter() - t) * 1e3 / calls
     by_name: dict[str, list] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             row = by_name.setdefault(e.name, [0.0, 0])
-            row[0] += e.time_range.elapsed_us() / 1e3 / frames
+            row[0] += e.time_range.elapsed_us() / 1e3 / calls
             row[1] += 1
     busy = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
@@ -647,17 +707,17 @@ def profile_frames(serve, rgb, torch, frames: int = 10) -> dict:
             for f in DEVICE_FUNCS[wrapper])]
 
     port = {w: sum(v[0] for v in ours(w)) for w in DEVICE_FUNCS}
-    port_calls = {w: sum(v[1] for v in ours(w)) / frames
+    port_calls = {w: sum(v[1] for v in ours(w)) / calls
                   for w in DEVICE_FUNCS}
-    return {"frames": frames, "wall_ms_per_frame": wall,
-            "device_busy_ms_per_frame": busy,
+    return {"calls": calls, "unit": unit, "wall_ms_per_call": wall,
+            "device_busy_ms_per_call": busy,
             "device_idle_share": 1.0 - busy / wall,
-            "port_kernels_device_ms_per_frame": port,
-            "port_kernels_calls_per_frame": port_calls,
-            "kernels_per_frame": sum(v[1] for v in by_name.values())
-            / frames,
-            "top": [{"name": n[:90], "ms_per_frame": v[0],
-                     "calls_per_frame": v[1] / frames}
+            "port_kernels_device_ms_per_call": port,
+            "port_kernels_calls_per_call": port_calls,
+            "kernels_per_call": sum(v[1] for v in by_name.values()) / calls,
+            "sort_kernels": [n[:90] for n in by_name if "sort" in n.lower()],
+            "top": [{"name": n[:90], "ms_per_call": v[0],
+                     "calls_per_call": v[1] / calls}
                     for n, v in top[:25]]}
 
 
@@ -719,6 +779,58 @@ def drive(serve, rgb, labels, kernels, per_frame, cpu_dets, torch) -> dict:
             "launches": launches}
 
 
+def drive_batch(serve, frames, labels, kernels, per_batch, b1_dets, cpu_dets,
+                torch) -> dict:
+    """The batch path end to end: warm-up, then BATCHES timed calls of the
+    whole batch with every launch counter set to 0 just before and read
+    just after; the path's launches per batch, and each image against the
+    card's batch-1 path and the port's CPU batch path on the same frame."""
+    for _ in range(3):
+        serve(frames)
+    torch.cuda.synchronize()
+    for kern in kernels.values():
+        kern.launches = 0
+    times = []
+    for _ in range(BATCHES):
+        t = time.perf_counter()
+        dets = serve(frames)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    for name, per in per_batch.items():
+        assert launches[name] == per * BATCHES, (
+            f"{name}: {launches[name]} launches in {BATCHES} batches, "
+            f"expected {per * BATCHES}")
+    b = len(frames)
+    assert dets.boxes.shape == (b, 1024, 4)
+    assert bool(torch.isfinite(dets.boxes).all())
+    assert bool(torch.isfinite(dets.scores).all())
+    counts = dets.counts().tolist()
+    assert sum(counts) >= 1, "no detection in the whole batch"
+    images, worst = [], {"b1": [0.0, 0.0], "cpu": [0.0, 0.0]}
+    for i in range(b):
+        mine = type(dets)(*(f[i] for f in dets))
+        vs = {}
+        for which, other in (("b1", b1_dets[i]),
+                             ("cpu", type(dets)(*(f[i] for f in cpu_dets)))):
+            vs[which] = match_detections(mine, other, box_tol=0.5,
+                                         score_tol=1e-2)
+            worst[which] = [max(worst[which][0], vs[which]["max_box_err_px"]),
+                            max(worst[which][1], vs[which]["max_score_err"])]
+        images.append({"valid": counts[i], "gt_cones": len(labels[i]),
+                       "vs_card_batch1": vs["b1"], "vs_cpu_batch": vs["cpu"]})
+    log(f"batch of {b}: max gaps to the card's batch-1 path "
+        f"{worst['b1'][0]} px / {worst['b1'][1]}, to the CPU batch path "
+        f"{worst['cpu'][0]} px / {worst['cpu'][1]}")
+    med = float(np.median(times))
+    return {"batches": BATCHES, "batch": b, "valid": counts,
+            "batch_ms_median": med, "batch_ms_min": float(np.min(times)),
+            "frames_per_s": b * 1e3 / med,
+            "max_gap_vs_card_batch1": worst["b1"],
+            "max_gap_vs_cpu_batch": worst["cpu"], "images": images,
+            "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -756,7 +868,7 @@ def main() -> int:
 
     kernels = {"normalize": preprocess_kernel.KERNEL,
                "fused_stem_stage1": stem_kernel.KERNEL,
-               "decode_level": decode_kernel.KERNEL,
+               "decode_topk": decode_kernel.KERNEL,
                "nms": nms_kernel.KERNEL,
                "stage1_merged": stage1_kernel.KERNEL,
                "fused_c3k2": c3k2_kernel.KERNEL,
@@ -781,11 +893,19 @@ def main() -> int:
     img, labels = generate_image(np.random.default_rng(7),
                                  SynthConfig(image_size=640, seed=7))
     rgb = np.ascontiguousarray(img[..., ::-1])
+    scenes, scene_labels = [], []
+    for seed in SCENE_SEEDS:
+        im, lb = generate_image(np.random.default_rng(seed),
+                                SynthConfig(image_size=640, seed=seed))
+        scenes.append(np.ascontiguousarray(im[..., ::-1]))
+        scene_labels.append(lb)
+    scenes = np.stack(scenes)
 
     # phase 2: each kernel against its plain version on the card
     floor = launch_floor(torch)
     print(json.dumps({"launch_floor": floor}), flush=True)
-    rows = [dict(r, path="shipped") for r in check_kernels(art, rgb, torch)]
+    rows = [dict(r, path="shipped")
+            for r in check_kernels(art, rgb, scenes, torch)]
     rows += [dict(r, path="int8_s2dm_fc") for r in check_fc_kernels(
         fc_model, fc_serve, art.stage(rgb), torch)]
     ragged = check_ragged(torch)
@@ -804,7 +924,7 @@ def main() -> int:
     print(json.dumps({"end_to_end": e2e}), flush=True)
 
     # phase 4: where the frame's time goes (profiler over a few frames)
-    prof = profile_frames(art, rgb, torch)
+    prof = profile_calls(art, rgb, torch)
     log(json.dumps({"profile": prof}, indent=1))
 
     # phase 5: end to end, batch 1, the fc engine
@@ -820,27 +940,53 @@ def main() -> int:
     print(json.dumps({"end_to_end_fc": e2e_fc}), flush=True)
 
     # phase 6: the fc engine's frame under the profiler
-    prof_fc = profile_frames(serve_fc, rgb, torch)
+    prof_fc = profile_calls(serve_fc, rgb, torch)
     log(json.dumps({"profile_fc": prof_fc}, indent=1))
 
-    runs = {"shipped": (e2e, prof), "int8_s2dm_fc": (e2e_fc, prof_fc)}
+    # phase 7: the batch-8 artifact, 8 scenes in one call, against the
+    # card's batch-1 path and the port's CPU batch path on the same frames
+    art8 = ServingArtifact(ARTIFACT_B8)
+    b1_dets = [art(frame) for frame in scenes]
+    cpu8 = ServingArtifact(ARTIFACT_B8, device="cpu")(scenes)
+    e2e_b8 = drive_batch(art8, scenes, scene_labels, kernels,
+                         PER_FRAME["b8"], b1_dets, cpu8, torch)
+
+    # phase 8: the batch under the profiler
+    prof_b8 = profile_calls(art8, scenes, torch, unit="batch of 8")
+    log(json.dumps({"profile_b8": prof_b8}, indent=1))
+    print(json.dumps({"batch8": {
+        k: e2e_b8[k] for k in ("batch_ms_median", "batch_ms_min",
+                               "frames_per_s", "valid",
+                               "max_gap_vs_card_batch1",
+                               "max_gap_vs_cpu_batch")} | {
+        k: prof_b8[k] for k in ("wall_ms_per_call", "device_busy_ms_per_call",
+                                "device_idle_share", "kernels_per_call")}}),
+        flush=True)
+
+    runs = {"shipped": (e2e, prof), "int8_s2dm_fc": (e2e_fc, prof_fc),
+            "b8": (e2e_b8, prof_b8)}
     for engine, (_, pr) in runs.items():
+        assert not pr["sort_kernels"], f"{engine}: {pr['sort_kernels']}"
         for name, per in PER_FRAME[engine].items():
-            dev_ms = pr["port_kernels_device_ms_per_frame"][name]
+            dev_ms = pr["port_kernels_device_ms_per_call"][name]
             assert (dev_ms > 0) == (per > 0), (
                 f"{engine}: {name} has {dev_ms} ms of profiled device time "
-                f"at {per} launches per frame")
+                f"at {per} launches per call")
             # one wrapper call is one kernel on the card (the profiler may
             # miss the first kernel launched inside its window)
-            calls = pr["port_kernels_calls_per_frame"][name]
-            assert per - 1 / pr["frames"] <= calls <= per, (
-                f"{engine}: {name} ran {calls} kernels per frame at {per} "
-                f"launches per frame")
+            calls = pr["port_kernels_calls_per_call"][name]
+            assert per - 1 / pr["calls"] <= calls <= per, (
+                f"{engine}: {name} ran {calls} kernels per call at {per} "
+                f"launches per call")
     for row in rows:
         run, pr = runs[row["path"]]
         row["launches"] = run["launches"][row["name"]]
         row["device_ms_per_frame"] = pr[
-            "port_kernels_device_ms_per_frame"][row["name"]]
+            "port_kernels_device_ms_per_call"][row["name"]]
+        if PER_FRAME["b8"][row["name"]]:
+            row["b8_launches"] = e2e_b8["launches"][row["name"]]
+            row["b8_device_ms_per_batch"] = prof_b8[
+                "port_kernels_device_ms_per_call"][row["name"]]
         print(json.dumps(row), flush=True)
     line = {"kernels": rows}
     out = REPO / "chiprun_out"
@@ -849,7 +995,7 @@ def main() -> int:
         {"card": smi, "build_s": build_s, "launch_floor": floor,
          "end_to_end": e2e,
          "profile": prof, "end_to_end_fc": e2e_fc, "profile_fc": prof_fc,
-         **line},
+         "end_to_end_b8": e2e_b8, "profile_b8": prof_b8, **line},
         indent=2))
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

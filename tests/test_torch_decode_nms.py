@@ -7,6 +7,7 @@ import torch
 
 from unina_yolo_dla_torch.ops import decode as td
 from unina_yolo_dla_torch.ops import nms as tn
+from unina_yolo_dla_torch.ops.cuda.decode_kernel import decode_level_plain
 from unina_yolo_dla_tpu.ops import decode as jd
 from unina_yolo_dla_tpu.ops.nms import nms as j_nms
 from unina_yolo_dla_tpu.ops.nms import nms_reference as j_nms_reference
@@ -29,8 +30,9 @@ def test_decode_level_matches_reference(rng, stride, q):
     cls, reg = _level(rng, 24, saturate=5)
     jb, js, jc, jv = map(np.asarray, jd.decode_level(
         jnp.asarray(cls), jnp.asarray(reg), stride, 0.5, q))
-    tb, ts, tc, tv = (t.numpy() for t in td.decode_level(
-        torch.from_numpy(cls), torch.from_numpy(reg), stride, 0.5, q))
+    rows = decode_level_plain(torch.from_numpy(cls), torch.from_numpy(reg),
+                              stride, 0.5, q).numpy()
+    tb, ts, tc, tv = rows[:, :4], rows[:, 4], rows[:, 5], rows[:, 6] > 0.5
     np.testing.assert_array_equal(tc, jc)
     np.testing.assert_array_equal(tv, jv)
     np.testing.assert_allclose(ts, js, rtol=RTOL, atol=RTOL)

@@ -25,6 +25,7 @@ from unina_yolo_dla_torch.ops.cuda import (
     stage1_kernel,
     stem_kernel,
 )
+from unina_yolo_dla_torch.ops import decode as td
 from unina_yolo_dla_torch.ops.preprocess import merged_frame_np
 from unina_yolo_dla_torch.quant.fake_quant import PERF_EXCLUDE, QuantSpec
 from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
@@ -35,6 +36,7 @@ pytestmark = pytest.mark.gpu
 
 ARTIFACT = Path(__file__).resolve().parents[1] / "artifacts" / \
     "serving_artifact"
+ARTIFACT_B8 = ARTIFACT.with_name("serving_artifact_b8")
 
 
 @pytest.fixture
@@ -141,18 +143,164 @@ def test_stem_kernel_batched(rng, cuda, shape):
         stem_kernel.fused_stem_stage1(xm, ks, bs, k1, b1)
 
 
-def test_decode_kernel_matches_plain(rng, cuda):
-    for g, stride in ((160, 4), (80, 8), (40, 16)):
-        cls = rng.normal(0, 3, (g, g, 4)).astype(np.float32)
-        cls.reshape(-1, 4)[rng.choice(g * g, 20, replace=False), 1] = 40.0
-        reg = rng.uniform(0.1, 3.0, (g, g, 4)).astype(np.float32)
-        c, r = torch.from_numpy(cls).to(cuda), torch.from_numpy(reg).to(cuda)
-        got = _launched(decode_kernel.KERNEL,
-                        lambda: decode_kernel.decode_level_packed(
-                            c, r, stride, 0.5, 0.2116))
-        want = decode_kernel.decode_level_plain(c, r, stride, 0.5, 0.2116)
-        assert torch.equal(got[:, 5:], want[:, 5:])
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+GRIDS, STRIDES = (160, 80, 40), (4, 8, 16)
+
+
+def _lift(rng, cls, cells, logits):
+    """Set one class logit of each of ``cells`` (flat over the
+    concatenated levels of every image) to ``logits``."""
+    flat = np.concatenate([c.reshape(c.shape[0], -1, c.shape[-1])
+                           for c in cls], axis=1)
+    for b in range(flat.shape[0]):
+        flat[b, cells[b], rng.integers(0, flat.shape[-1], len(cells[b]))] = (
+            logits[b])
+    at = 0
+    for c in cls:
+        n = c.shape[1] * c.shape[2]
+        c.reshape(c.shape[0], n, -1)[:] = flat[:, at:at + n]
+        at += n
+
+
+def _decode_levels(rng, b, case, grids=GRIDS, k=1024):
+    """(cls, reg) per level on the host for one of the decode cases."""
+    cells = sum(g * g for g in grids)
+    mu, sd = (0.0, 3.0) if case == "all_valid" else (-6.0, 1.0)
+    cls = [rng.normal(mu, sd, (b, g, g, 4)).astype(np.float32)
+           for g in grids]
+    reg = [rng.uniform(0.1, 3.0, (b, g, g, 4)).astype(np.float32)
+           for g in grids]
+    n = {"ties": 300, "exact_k": k, "k_plus_1": k + 1, "ragged": 40,
+         "all_valid": 0, "empty": 0}[case]
+    if n:
+        picks = [rng.choice(cells, n, replace=False) for _ in range(b)]
+        # saturated logits (score exactly 1.0, tied) on a third of them,
+        # two levels of moderate ties on the rest
+        logits = [np.where(np.arange(n) % 3 == 0, 40.0,
+                           np.where(np.arange(n) % 3 == 1, 2.0, 1.0))
+                  for _ in range(b)]
+        _lift(rng, cls, picks, logits)
+    return list(zip(cls, reg))
+
+
+def _check_decode(levels, strides, k, cuda):
+    """The kernel on the card vs its plain version: every field equal
+    bit for bit, one launch. -> the kernel's fields."""
+    outs = [(torch.from_numpy(c).to(cuda), torch.from_numpy(r).to(cuda))
+            for c, r in levels]
+    got = _launched(decode_kernel.KERNEL, lambda: decode_kernel.decode_topk(
+        outs, strides, 0.5, 0.2116, k))
+    want = decode_kernel.decode_topk_plain(outs, strides, 0.5, 0.2116, k)
+    for name, g, w in zip(("boxes", "scores", "classes", "valid"), got,
+                          want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), f"{name} differ"
+    return got
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("case,grids,k", [
+    ("all_valid", GRIDS, 1024), ("ties", GRIDS, 1024),
+    ("empty", GRIDS, 1024), ("exact_k", GRIDS, 1024),
+    ("k_plus_1", GRIDS, 1024), ("ragged", (37, 19, 10), 1024),
+    ("ties", (37, 19, 10), 100)])
+def test_decode_kernel_matches_plain(cuda, b, case, grids, k):
+    """One launch decodes and compacts every level of B images, bit for
+    bit the plain version in all four fields, the invalid slots included:
+    n > K (random all-valid levels), saturated ties spread across levels
+    and blocks, n = 0, n exactly K and K + 1, levels whose cell counts are
+    no multiple of the block (and K = 100 there)."""
+    rng = np.random.default_rng([b, k, *grids, *case.encode()])
+    levels = _decode_levels(rng, b, case, grids, k)
+    _, scores, _, valid = _check_decode(levels, STRIDES, k, cuda)
+    n = {"empty": 0, "exact_k": k, "k_plus_1": k, "all_valid": k,
+         "ties": min(k, 300), "ragged": 40}[case]
+    assert valid.sum(dim=1).tolist() == [n] * b
+    if case == "ties":
+        assert bool((scores[:, 0] == 1.0).all())
+
+
+def test_decode_kernel_on_served_head_outputs(cuda):
+    """The shipped engine's head outputs for 8 scenes (P2 contiguous, P3
+    and P4 channel-slice views with a cell stride of 8), at B = 1 and 8:
+    bit for bit the plain version, read without copies."""
+    art = ServingArtifact(ARTIFACT)
+    frames = np.stack([np.ascontiguousarray(generate_image(
+        np.random.default_rng(s), SynthConfig(image_size=640, seed=s))[0][
+            ..., ::-1]) for s in range(1, 9)])
+    mean, std = preprocess_kernel.channel_constants(24)
+    with torch.inference_mode():
+        x = preprocess_kernel.normalize(
+            torch.from_numpy(merged_frame_np(frames)).to(cuda), mean, std,
+            out_dtype=torch.bfloat16)
+        for xb in (x[:1], x):
+            outs = art.model(xb)
+            assert not outs[1][0].is_contiguous()   # read as it lies
+            got = _launched(decode_kernel.KERNEL,
+                            lambda: decode_kernel.decode_topk(
+                                outs, STRIDES, 0.5, 0.2116, 1024))
+            want = decode_kernel.decode_topk_plain(outs, STRIDES, 0.5,
+                                                   0.2116, 1024)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            assert bool((got[3].sum(dim=1) > 0).all())
+
+
+def test_decode_kernel_relaunch_and_graph_replay(cuda):
+    """The per-image ticket and counter reset themselves: two launches in
+    a row and three replays of a captured CUDA graph give equal outputs
+    (n > K at B = 8, where the radix select runs), and so does a launch on
+    the capture stream between the capture (which made that stream's
+    scratch) and the first replay."""
+    rng = np.random.default_rng(9)
+    levels = [(torch.from_numpy(c).to(cuda), torch.from_numpy(r).to(cuda))
+              for c, r in _decode_levels(rng, 8, "all_valid")]
+
+    def run():
+        return decode_kernel.decode_topk(levels, STRIDES, 0.5, 0.2116, 1024)
+
+    first, second = run(), run()
+    want = decode_kernel.decode_topk_plain(levels, STRIDES, 0.5, 0.2116,
+                                           1024)
+    assert all(torch.equal(a, w) and torch.equal(b, w)
+               for a, b, w in zip(first, second, want))
+    torch.cuda.synchronize()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    with torch.cuda.graph(graph, stream=stream):
+        out = run()
+    with torch.cuda.stream(stream):
+        eager = run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(e, w) for e, w in zip(eager, want))
+    for _ in range(3):
+        for t in out:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, w) for o, w in zip(out, want))
+
+
+def test_decode_kernel_two_streams_at_once(cuda):
+    """Launches on two streams at once (n > K at B = 1 on 33,600 cells,
+    the engines' shape, where the select runs longest), each stream with
+    its own inputs: every output bit for bit its plain version, so the
+    streams do not share a ticket or a counter."""
+    rng = np.random.default_rng(11)
+    sets = [[(torch.from_numpy(c).to(cuda), torch.from_numpy(r).to(cuda))
+             for c, r in _decode_levels(rng, 1, "all_valid")]
+            for _ in range(2)]
+    wants = [decode_kernel.decode_topk_plain(lv, STRIDES, 0.5, 0.2116, 1024)
+             for lv in sets]
+    streams = [torch.cuda.Stream() for _ in sets]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for got, stream, lv in zip(outs, streams, sets):
+            with torch.cuda.stream(stream):
+                got.append(decode_kernel.decode_topk(lv, STRIDES, 0.5,
+                                                     0.2116, 1024))
+    torch.cuda.synchronize()
+    for got, want in zip(outs, wants):
+        assert all(torch.equal(g, w) for call in got
+                   for g, w in zip(call, want))
 
 
 def _crowd(rng, k, span):
@@ -226,20 +374,79 @@ def test_nms_kernel_one_class_long_chain(cuda):
     assert got.tolist() == [i % 2 == 0 for i in range(k)]
 
 
+def _scenes(seeds):
+    return np.stack([np.ascontiguousarray(generate_image(
+        np.random.default_rng(s), SynthConfig(image_size=640, seed=s))[0][
+            ..., ::-1]) for s in seeds])
+
+
 def test_serving_path_launches_one_of_each(cuda):
-    """One served frame is one normalize launch (bf16 out: the backbone's
-    cast is a no-op), three decode launches and one NMS launch."""
-    art = ServingArtifact(ARTIFACT)
-    img, _ = generate_image(np.random.default_rng(7),
-                            SynthConfig(image_size=640, seed=7))
-    rgb = np.ascontiguousarray(img[..., ::-1])
-    art(rgb)
-    kernels = (preprocess_kernel.KERNEL, decode_kernel.KERNEL,
-               nms_kernel.KERNEL)
-    before = [kern.launches for kern in kernels]
-    art(rgb)
-    torch.cuda.synchronize()
-    assert [kern.launches - b for kern, b in zip(kernels, before)] == [1, 3, 1]
+    """One served frame is one launch each of normalize (bf16 out: the
+    backbone's cast is a no-op), the fused stem, decode and NMS; a served
+    batch of 8 too."""
+    kernels = (preprocess_kernel.KERNEL, stem_kernel.KERNEL,
+               decode_kernel.KERNEL, nms_kernel.KERNEL)
+    for art, frames in ((ServingArtifact(ARTIFACT), _scenes([7])[0]),
+                        (ServingArtifact(ARTIFACT_B8), _scenes(range(1, 9)))):
+        art(frames)
+        before = [kern.launches for kern in kernels]
+        art(frames)
+        torch.cuda.synchronize()
+        assert [kern.launches - b for kern, b in zip(kernels, before)] == [
+            1, 1, 1, 1]
+
+
+def _match(got, want, box_px=0.5, score_tol=1e-2):
+    """Same valid count; each of ``want``'s detections has a box of its
+    class in ``got`` within ``box_px`` and ``score_tol``."""
+    gv, wv = got.valid.cpu().numpy(), want.valid.cpu().numpy()
+    assert gv.sum() == wv.sum() >= 1
+    gb, gc = got.boxes.cpu().numpy()[gv], got.classes.cpu().numpy()[gv]
+    gs = got.scores.cpu().numpy()[gv]
+    for box, klass, score in zip(want.boxes.cpu().numpy()[wv],
+                                 want.classes.cpu().numpy()[wv],
+                                 want.scores.cpu().numpy()[wv]):
+        err = np.abs(gb - box).max(axis=1) + 1e9 * (gc != klass)
+        j = int(err.argmin())
+        assert err[j] <= box_px and abs(gs[j] - score) <= score_tol
+
+
+def test_batch_artifact_matches_batch1_path(cuda):
+    """The b8 artifact serves 8 scenes in one call; each image matches the
+    card's batch-1 path on the same frame (the bf16 convolutions may round
+    differently at another batch: same count, boxes within 0.5 px, scores
+    within 1e-2)."""
+    frames = _scenes(range(1, 9))
+    got = ServingArtifact(ARTIFACT_B8)(frames)
+    assert got.boxes.shape == (8, 1024, 4)
+    one = ServingArtifact(ARTIFACT)
+    for b in range(8):
+        _match(td.Detections(*(f[b] for f in got)), one(frames[b]))
+
+
+def test_batched_nms_kernel_exact(cuda):
+    """Eight images of scattered candidate sets in one launch, either side
+    of the one-block step, one with none valid: the plain version's keep
+    mask, image by image."""
+    rng = np.random.default_rng(17)
+    k = 1024
+    n_valid = (0, 29, 96, 97, 300, 1024, 5, 700)
+    bt = torch.tensor(np.stack([_crowd(rng, k, 40 + 12 * int(np.sqrt(n)))
+                                for n in n_valid]), dtype=torch.float32,
+                      device=cuda)
+    ct = torch.tensor(rng.integers(0, 4, (8, k)), dtype=torch.int32,
+                      device=cuda)
+    valid = np.zeros((8, k), bool)
+    for b, n in enumerate(n_valid):
+        valid[b, rng.choice(k, n, replace=False)] = True
+    vt = torch.from_numpy(valid).to(cuda)
+    got = _launched(nms_kernel.KERNEL,
+                    lambda: nms_kernel.nms_keep(bt, ct, vt, 0.45))
+    assert got.shape == (8, k)
+    assert torch.equal(got, nms_kernel.nms_keep_plain(bt, ct, vt, 0.45))
+    for b in range(8):
+        assert torch.equal(got[b], nms_kernel.nms_keep(bt[b], ct[b], vt[b],
+                                                       0.45))
 
 
 def test_served_artifact_matches_cpu_port(cuda):

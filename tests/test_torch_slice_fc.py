@@ -204,7 +204,8 @@ def test_config_from_artifact_accepts_merged_without_fused_stem():
     cfg = config_from_artifact(dict(base, fused_stem=False))
     assert cfg.s2d_merged and not cfg.fused_stem and cfg.quant is not None
     assert config_from_artifact(dict(base, fused_stem=True)).fused_stem
-    for bad in (dict(camera=[1080, 1920]), dict(batch=8),
-                dict(s2d_merged=False)):
+    # a batch artifact's engine is the batch-1 one
+    assert config_from_artifact(dict(base, fused_stem=False, batch=8)) == cfg
+    for bad in (dict(camera=[1080, 1920]), dict(s2d_merged=False)):
         with pytest.raises(NotImplementedError):
             config_from_artifact(dict(base, **bad))

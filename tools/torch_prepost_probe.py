@@ -1,6 +1,6 @@
 """Device time of the port's small kernels around the model (normalize,
-NMS) on one NVIDIA GPU, under the host's launch cost (PyTorch/CUDA port;
-imports no JAX).
+decode with its top-K compaction, NMS) on one NVIDIA GPU, under the host's
+launch cost (PyTorch/CUDA port; imports no JAX).
 
     python3 tools/torch_prepost_probe.py [--root DIR] [--define NAME]
                                          [--ablation] [--tag TAG]
@@ -14,11 +14,21 @@ host needs to enqueue it. Timed:
   the L2 cache) and rotating over sixteen pairs (more than the L2 holds);
 - ``nms_keep`` at K = 1024 on random boxes for several numbers of valid
   slots, each checked against the plain version first;
-- the library's empty kernel, where it has one: the floor of any launch.
+- the library's empty kernel, where it has one: the floor of any launch;
+- what the serving path runs after the model, on the shipped artifact's
+  head outputs for the seed-7 scene (B = 1) and for 8 scenes (seeds 1-8,
+  B = 8), and on random levels where ~94% of the cells are valid
+  (``all_valid``, N(0, 3) logits): ``decode`` is decode plus compaction,
+  ``post`` adds NMS. A tree whose ``ops/decode.py`` has no
+  ``decode_batch`` runs the batch image by image, as its serving path
+  would have to. Beside the graph time, kernels and device ms per call by
+  ``chip_smoke.py``'s profiler (20 calls), and the whole served frame at
+  B = 1 (10 frames).
 
 ``--root DIR`` imports ``unina_yolo_dla_torch`` from another tree (an
-unpacked parent commit) so two versions are timed by the same method on
-one card. ``--define NAME`` adds ``-DNAME`` to the kernels' build
+unpacked parent commit: ``git archive <commit> unina_yolo_dla_torch | tar
+-x -C build/parent``) so two versions are timed by the same method on one
+card; the artifacts are this tree's. ``--define NAME`` adds ``-DNAME`` to the kernels' build
 (``UNINA_NORMALIZE_DIVIDE``: normalize with two divisions per element
 instead of its table). ``--ablation`` builds
 ``tools/torch_normalize_ablation.cu`` (the port's first normalize kernel
@@ -40,6 +50,7 @@ import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parent
+ARTIFACT = HERE.parent / "artifacts" / "serving_artifact"
 LAUNCHES = 20
 ROTATE = 16
 NMS_VALID = (0, 4, 32, 64, 128, 256, 257, 512, 1024)
@@ -51,11 +62,15 @@ ABLATION = ("as it was", "32-bit index", "constants in shared memory",
 def graph_us(fns) -> float:
     """Mean device microseconds per call of ``fns`` (a list run round
     robin, ``LAUNCHES`` calls a graph) inside a replayed CUDA graph."""
-    for fn in fns[:3]:
-        fn()
+    # warmed up on the stream it is captured on (the decode kernel's
+    # scratch is the stream's own)
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for fn in fns[:3]:
+            fn()
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for i in range(LAUNCHES):
             fns[i % len(fns)]()
     graph.replay()
@@ -112,6 +127,76 @@ def ablation(frame, mean, std, want) -> list[dict]:
     return rows
 
 
+def post_model(dev) -> dict:
+    """Decode (+ compaction) and NMS after the shipped artifact's model,
+    graph-replayed and profiled; then the whole frame, profiled."""
+    from chip_smoke import profile_calls
+    from unina_yolo_dla_torch.data.synthetic import SynthConfig, generate_image
+    from unina_yolo_dla_torch.ops import decode as dmod
+    from unina_yolo_dla_torch.ops.cuda import preprocess_kernel
+    from unina_yolo_dla_torch.ops.nms import nms
+    from unina_yolo_dla_torch.ops.preprocess import merged_frame_np
+    from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
+
+    art = ServingArtifact(ARTIFACT)
+    c = art.config
+    kw = dict(strides=art.model_config.strides,
+              conf_threshold=c["conf_threshold"], q_factor=c["q_factor"],
+              max_detections=c["max_detections"])
+    iou = c["iou_threshold"]
+
+    def scene(seed):
+        img, _ = generate_image(np.random.default_rng(seed),
+                                SynthConfig(image_size=640, seed=seed))
+        return np.ascontiguousarray(img[..., ::-1])
+
+    rgb = scene(7)
+    mean, std = preprocess_kernel.channel_constants(24)
+    with torch.inference_mode():
+        outs1 = art.model(preprocess_kernel.normalize(
+            art.stage(rgb), mean, std, out_dtype=torch.bfloat16)[None])
+        outs8 = art.model(preprocess_kernel.normalize(
+            torch.from_numpy(merged_frame_np(np.stack(
+                [scene(s) for s in range(1, 9)]))).to(dev), mean, std,
+            out_dtype=torch.bfloat16))
+    rng = np.random.default_rng(0)
+    rand8 = [tuple(torch.from_numpy(a).to(dev) for a in (
+        rng.normal(0, 3, (8, g, g, 4)).astype(np.float32),
+        rng.uniform(0.1, 3.0, (8, g, g, 4)).astype(np.float32)))
+        for g in art.model_config.grid_sizes]
+    rand1 = [(cl[:1], rg[:1]) for cl, rg in rand8]
+
+    def decode1(outs=outs1):
+        return dmod.decode_outputs(outs, **kw)
+
+    def decode8(outs=outs8):
+        if hasattr(dmod, "decode_batch"):
+            return [dmod.decode_batch(outs, **kw)]
+        return [dmod.decode_outputs([(cl[i:i + 1], rg[i:i + 1])
+                                     for cl, rg in outs], **kw)
+                for i in range(8)]
+
+    fns = {"decode_b1": decode1,
+           "post_b1": lambda: nms(decode1(), iou),
+           "decode_b8": decode8,
+           "post_b8": lambda: [nms(d, iou) for d in decode8()],
+           "decode_all_valid_b1": lambda: decode1(rand1),
+           "decode_all_valid_b8": lambda: decode8(rand8)}
+    out = {"batch_path": hasattr(dmod, "decode_batch")}
+    with torch.inference_mode():
+        for name, fn in fns.items():
+            prof = profile_calls(lambda _, fn=fn: fn(), None, torch, 20,
+                                 unit="call")
+            out[name] = {"graph_ms": graph_us([fn]) / 1e3,
+                         **{k: prof[k] for k in (
+                             "kernels_per_call", "device_busy_ms_per_call",
+                             "top")}}
+        frame = profile_calls(art, rgb, torch)
+    out["frame_b1"] = {k: frame[k] for k in ("kernels_per_call",
+                                             "device_busy_ms_per_call")}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE.parent))
@@ -122,6 +207,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_prepost_probe: no CUDA device", file=sys.stderr)
         return 2
+    sys.path.insert(0, str(HERE.parent))   # chip_smoke's profiler
     sys.path.insert(0, str(Path(args.root).resolve()))
     from unina_yolo_dla_torch.ops.cuda import (
         _lib, nms_kernel, preprocess_kernel)
@@ -184,6 +270,7 @@ def main() -> int:
         empty = _lib.Kernel("unina_empty_launch", [_lib.P])
         out["empty_launch_device_us"] = graph_us(
             [lambda: empty.launch(_lib.stream_ptr(dev))])
+    out["post_model"] = post_model(dev)
     print(json.dumps(out, indent=1))
     dest = HERE.parent / "chiprun_out"
     dest.mkdir(exist_ok=True)

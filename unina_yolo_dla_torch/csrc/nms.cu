@@ -1,4 +1,5 @@
-// Exact greedy class-aware NMS over K <= 1024 score-sorted candidates.
+// Exact greedy class-aware NMS over K <= 1024 score-sorted candidates, for
+// each image of a batch.
 //
 // Replaces: unina_yolo_dla_tpu/ops/pallas/nms_kernel.py nms_pallas
 //   (_suppress_kernel, pallas_call at :111; _fixpoint_kernel, pallas_call
@@ -12,7 +13,8 @@
 //   is one launch's fixed cost unless the work follows the valid set; with
 //   every slot valid it is 524 k pair tests and a scan that is sequential in
 //   the kept set.
-// Design: one launch of one cluster of 8 blocks.
+// Design: one launch, one cluster of 8 blocks per image (the grid's y axis
+//   is the image; image b's candidates start at slot b * K).
 //   1. Every block compacts the valid slots (any mask, not only a prefix)
 //      by ballot and prefix count into shared memory, boxes, areas and
 //      classes beside them: n candidates, still in score order.
@@ -61,6 +63,9 @@ nms_kernel(const float* __restrict__ boxes, const int* __restrict__ classes,
   __shared__ uint32_t counts[WARPS];
   __shared__ uint32_t keep_w[WARPS];
 
+  // image blockIdx.y: its K candidates and its keep mask
+  const size_t at = (size_t)blockIdx.y * K;
+  boxes += 4 * at, classes += at, valid += at, keep += at;
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cluster.block_rank();
   const unsigned full = 0xffffffffu;
@@ -171,9 +176,10 @@ nms_kernel(const float* __restrict__ boxes, const int* __restrict__ classes,
 }  // namespace
 
 extern "C" int unina_nms(const void* boxes, const void* classes,
-                         const void* valid, void* keep, int K, float thr,
-                         void* stream) {
-  if (K <= 0 || K > MAX_K) return (int)cudaErrorInvalidValue;
+                         const void* valid, void* keep, int B, int K,
+                         float thr, void* stream) {
+  if (K <= 0 || K > MAX_K || B <= 0 || B > 65535)
+    return (int)cudaErrorInvalidValue;
   const int words = (K + 31) / 32;
   const size_t smem = (size_t)32 * words * (words | 1) * sizeof(uint32_t);
   static bool configured = false;  // once per process, not per call
@@ -184,7 +190,7 @@ extern "C" int unina_nms(const void* boxes, const void* classes,
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  nms_kernel<<<CLUSTER, THREADS, smem, (cudaStream_t)stream>>>(
+  nms_kernel<<<dim3(CLUSTER, B), THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)boxes, (const int*)classes, (const uint8_t*)valid,
       (uint8_t*)keep, K, thr);
   return (int)cudaGetLastError();

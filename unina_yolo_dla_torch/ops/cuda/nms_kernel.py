@@ -1,10 +1,11 @@
 """Kernel 4: exact greedy class-aware NMS (suppression bitmask + scan).
 
-CUDA source: ``csrc/nms.cu``. One wrapper call is one kernel launch: the
-kernel compacts the valid slots, builds the suppression bits of that set
-in shared memory and scans them greedily, so its work follows the number
-of valid candidates, not K. The plain version is the greedy recurrence
-over the same suppression relation.
+CUDA source: ``csrc/nms.cu``. One wrapper call is one kernel launch, for
+one image or a batch: the kernel gives each image a cluster of blocks,
+which compacts the valid slots, builds the suppression bits of that set in
+shared memory and scans them greedily, so its work follows the number of
+valid candidates, not K. The plain version is the greedy recurrence over
+the same suppression relation, image by image.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 from ...utils.boxes import pairwise_iou
 from ._lib import F, I, Kernel, P, check_cuda, stream_ptr
 
-KERNEL = Kernel("unina_nms", [P, P, P, P, I, F, P])
+KERNEL = Kernel("unina_nms", [P, P, P, P, I, I, F, P])
 MAX_K = 1024
 
 
@@ -33,7 +34,11 @@ def suppress_matrix(boxes: torch.Tensor, classes: torch.Tensor,
 def nms_keep_plain(boxes: torch.Tensor, classes: torch.Tensor,
                    valid: torch.Tensor, iou_threshold: float
                    ) -> torch.Tensor:
-    """Plain PyTorch version: the sequential greedy scan, K steps."""
+    """Plain PyTorch version: the sequential greedy scan, K steps, for
+    (K, ...) or, image by image, (B, K, ...) candidates."""
+    if boxes.ndim == 3:
+        return torch.stack([nms_keep_plain(*img, iou_threshold)
+                            for img in zip(boxes, classes, valid)])
     s = suppress_matrix(boxes.float(), classes, valid, iou_threshold)
     keep = valid.clone()
     for i in range(boxes.shape[0]):
@@ -43,18 +48,22 @@ def nms_keep_plain(boxes: torch.Tensor, classes: torch.Tensor,
 
 def nms_keep(boxes: torch.Tensor, classes: torch.Tensor,
              valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
-    """Keep mask (K,) bool of greedy NMS over score-sorted candidates;
-    ``valid`` may be any mask (not only a prefix), K anything in 1..1024."""
+    """Keep mask ([B,] K) bool of greedy NMS over score-sorted candidates
+    ([B,] K, 4) boxes, ([B,] K) classes and valid; ``valid`` may be any
+    mask (not only a prefix), K anything in 1..1024."""
     if not boxes.is_cuda:
         return nms_keep_plain(boxes, classes, valid, iou_threshold)
-    k = boxes.shape[0]
-    check_cuda(boxes, "boxes", torch.float32, (k, 4))
-    check_cuda(classes, "classes", torch.int32, (k,))
-    check_cuda(valid, "valid", torch.bool, (k,))
+    *lead, k, _ = boxes.shape
+    if len(lead) > 1:
+        raise ValueError(f"boxes: expected (K, 4) or (B, K, 4), got "
+                         f"{tuple(boxes.shape)}")
+    check_cuda(boxes, "boxes", torch.float32, (*lead, k, 4))
+    check_cuda(classes, "classes", torch.int32, (*lead, k))
+    check_cuda(valid, "valid", torch.bool, (*lead, k))
     if not 0 < k <= MAX_K:
         raise ValueError(f"kernel takes 1..{MAX_K} candidates, got {k}")
-    keep = torch.empty(k, dtype=torch.bool, device=boxes.device)
+    keep = torch.empty((*lead, k), dtype=torch.bool, device=boxes.device)
     KERNEL.launch(boxes.data_ptr(), classes.data_ptr(), valid.data_ptr(),
-                  keep.data_ptr(), k, float(iou_threshold),
-                  stream_ptr(boxes.device))
+                  keep.data_ptr(), lead[0] if lead else 1, k,
+                  float(iou_threshold), stream_ptr(boxes.device))
     return keep

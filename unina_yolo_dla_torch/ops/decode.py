@@ -1,11 +1,11 @@
 """Anchor-free head decode and compaction into a fixed detection set.
 
-Per level the decode kernel (``ops/cuda/decode_kernel.py``) writes packed
-rows ``[x1, y1, x2, y2, score, class, valid]``; the levels are
-concatenated, invalid cells sink to score -1 and a STABLE descending sort
-keeps the first ``max_detections`` rows (ties keep the lower cell index
-first, as ``lax.top_k`` does; sigmoid saturates to exactly 1.0 in f32, so
-ties among confident cones are real). One row gather returns the set.
+The decode kernel (``ops/cuda/decode_kernel.py``) takes every level of
+every image of a batch in one launch and writes each image's
+``max_detections`` slots: the valid cells by score descending, ties to the
+lower cell index (as a stable sort and ``lax.top_k`` order them; sigmoid
+saturates to exactly 1.0 in f32, so ties among confident cones are real),
+then the first invalid cells in index order.
 """
 from __future__ import annotations
 
@@ -18,31 +18,42 @@ from ..models.config import (
     DEFAULT_CP_Q,
     MAX_DETECTIONS,
 )
-from .cuda.decode_kernel import decode_level_packed
+from .cuda.decode_kernel import decode_topk
 
 
 class Detections(NamedTuple):
-    """Fixed-capacity detection set."""
+    """Fixed-capacity detection set of one image, or of a batch (every
+    field with a leading B axis)."""
 
-    boxes: torch.Tensor    # (K, 4) xyxy, pixels
-    scores: torch.Tensor   # (K,)
-    classes: torch.Tensor  # (K,) int32
-    valid: torch.Tensor    # (K,) bool
+    boxes: torch.Tensor    # ([B,] K, 4) xyxy, pixels
+    scores: torch.Tensor   # ([B,] K)
+    classes: torch.Tensor  # ([B,] K) int32
+    valid: torch.Tensor    # ([B,] K) bool
 
     @property
     def count(self) -> int:
+        """Valid detections of one image (a batch of one counts too)."""
+        if self.valid.ndim > 1 and self.valid.shape[0] != 1:
+            raise ValueError("count of a batch: use counts()")
         return int(self.valid.sum())
 
+    def counts(self) -> torch.Tensor:
+        """(B,) valid detections per image ((1,) for one image)."""
+        return self.valid.reshape(-1, self.valid.shape[-1]).sum(dim=-1)
 
-def decode_level(cls_logits: torch.Tensor, reg: torch.Tensor, stride: int,
+
+def decode_batch(outputs: Sequence[tuple[torch.Tensor, torch.Tensor]],
+                 strides: Sequence[int] = (4, 8, 16),
                  conf_threshold: float = DEFAULT_CONF_THRESHOLD,
-                 q_factor: float = DEFAULT_CP_Q):
-    """One pyramid level -> flat per-cell (boxes (HW,4), scores (HW,),
-    classes (HW,) int32, valid (HW,) bool)."""
-    rows = decode_level_packed(cls_logits, reg, stride, conf_threshold,
-                               q_factor)
-    return (rows[:, :4], rows[:, 4], rows[:, 5].to(torch.int32),
-            rows[:, 6] > 0.5)
+                 q_factor: float = DEFAULT_CP_Q,
+                 max_detections: int = MAX_DETECTIONS) -> Detections:
+    """Decode all levels of B images and compact each to
+    ``max_detections`` slots: one kernel launch on the card.
+
+    ``outputs`` is the model's ``[(cls (B, H, W, C), reg (B, H, W, 4)),
+    ...]``; every field of the result has a leading B axis."""
+    return Detections(*decode_topk(outputs, strides, conf_threshold,
+                                   q_factor, max_detections))
 
 
 def decode_outputs(outputs: Sequence[tuple[torch.Tensor, torch.Tensor]],
@@ -54,23 +65,10 @@ def decode_outputs(outputs: Sequence[tuple[torch.Tensor, torch.Tensor]],
 
     ``outputs`` is the model's ``[(cls, reg), ...]`` with a leading batch
     dim of 1 or none."""
-    packed = []
-    for (cls_l, reg_l), s in zip(outputs, strides):
-        if cls_l.ndim == 4:
-            cls_l, reg_l = cls_l[0], reg_l[0]
-        packed.append(decode_level_packed(cls_l.contiguous(),
-                                          reg_l.contiguous(), s,
-                                          conf_threshold, q_factor))
-    rows = torch.cat(packed, dim=0)
-    valid = rows[:, 6] > 0.5
-    masked = torch.where(valid, rows[:, 4], torch.full_like(rows[:, 4], -1.0))
-    k = min(max_detections, masked.shape[0])
-    top_scores, order = torch.sort(masked, descending=True, stable=True)
-    top_scores, top_idx = top_scores[:k], order[:k]
-    top = rows[top_idx]
-    return Detections(
-        boxes=top[:, :4].contiguous(),
-        scores=top[:, 4].contiguous(),
-        classes=top[:, 5].to(torch.int32),
-        valid=(top[:, 6] > 0.5) & (top_scores > -0.5),
-    )
+    outputs = [(c, r) if c.ndim == 4 else (c[None], r[None])
+               for c, r in outputs]
+    if outputs[0][0].shape[0] != 1:
+        raise ValueError("decode_outputs takes one image: use decode_batch")
+    dets = decode_batch(outputs, strides, conf_threshold, q_factor,
+                        max_detections)
+    return Detections(*(f[0] for f in dets))
