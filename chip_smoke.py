@@ -19,7 +19,20 @@ For each it checks through the launch counters (set to 0 just before the
 path's timed calls, read just after) that every call went through the
 path's kernels, checks the card's detections against the port's own CPU
 path on the same frames (and the batch's against the card's batch-1 path),
-and profiles a few calls.
+and profiles a few calls. Those three eager paths (``ServingArtifact(...,
+graph=False)`` and the plain ``build_serving_fn``) are then served again as
+one captured CUDA graph each (``runtime/aot.py``: ``ServingArtifact``'s
+default on the card, ``capture_serving_fn`` for the fc engine): the
+counters, set to 0 before the capture, must show one launch of each of the
+path's kernels per warm-up call and one in the capture, and none in the
+timed replays; the graph's strict fallback report must be clean, with each
+of the path's kernels among its nodes as often as a call launches it; the
+replayed detections must equal the eager ones bit for bit (8 scenes); and
+the profiler, under replay, must see each kernel once a call. Last come the
+lifecycle server (``runtime/serving.py``: configure, activate, 200 frames,
+p50/p99) and the native host's executor entry (``runtime/embed.py``: bytes
+per frame, the RGB, BGRA and geometry-sentinel forms), both on the shipped
+artifact's graph, their launches counted the same way.
 
 The five tensor-core kernels (stem+stage1, stage1, both C3k2 forms, head)
 are also run at ragged shapes that cut every tile edge, and the built
@@ -94,6 +107,7 @@ F32_FLOPS = 67e12
 FRAMES = 30
 BATCHES = 20
 SCENE_SEEDS = range(1, 9)   # the batch-8 path's scenes
+SERVER_FRAMES = 200
 
 
 def log(msg: str) -> None:
@@ -831,6 +845,176 @@ def drive_batch(serve, frames, labels, kernels, per_batch, b1_dets, cpu_dets,
             "launches": launches}
 
 
+def _zero(kernels) -> None:
+    for kern in kernels.values():
+        kern.launches = 0
+
+
+def _read(kernels) -> dict:
+    return {name: kern.launches for name, kern in kernels.items()}
+
+
+def _same(a, b) -> bool:
+    return all(x.shape == y.shape and bool((x == y).all())
+               for x, y in zip(a, b))
+
+
+def drive_graph(capture, call, eager, args, kernels, per_call, out_bytes,
+                torch, copies: bool, unit: str = "frame"):
+    """One path as a captured CUDA graph. ``capture()`` -> (the entry
+    point's object, its ``CapturedFrame``); ``call(owner, arg)`` serves one
+    call through the replayed graph (``copies``: its results are its own);
+    ``eager(arg)`` through the eager frame; ``args``: the calls' inputs (8
+    scenes, or one batch of them).
+
+    Counters are set to 0 just before the capture and read just after,
+    and again around the timed replays: the capture must launch each of the
+    path's kernels once per warm-up call and once into the graph, the
+    replays none. The graph's strict report must be clean, hold each kernel
+    as often as a call launches it, and read ``out_bytes`` of result; the
+    replayed detections equal the eager ones bit for bit.
+    -> (owner, graph, the phase's record)."""
+    from unina_yolo_dla_torch.runtime import aot
+
+    _zero(kernels)
+    t = time.perf_counter()
+    owner, graph = capture()
+    capture_s = time.perf_counter() - t
+    launches = _read(kernels)
+    rep = graph.report
+    aot.print_fallback_report(rep, strict=True, log_fn=log)
+    assert rep.output_bytes == out_bytes, (rep.output_bytes, out_bytes)
+    by_symbol = {kern.symbol: name for name, kern in kernels.items()}
+    in_capture = {by_symbol[s]: n for s, n in graph.capture_launches.items()
+                  if s in by_symbol}
+    for name, per in per_call.items():
+        assert launches[name] == (aot.WARMUP + 1) * per, (
+            f"{name}: {launches[name]} launches around the capture at "
+            f"{per} per call")
+        assert in_capture.get(name, 0) == per, (
+            f"{name}: {in_capture.get(name, 0)} launches in the capture")
+        assert rep.port_kernels[name] == per, (
+            f"{name}: {rep.port_kernels[name]} nodes in the graph, "
+            f"{per} launches per call")
+    bit_equal = []
+    for arg in args:
+        with torch.inference_mode():
+            got = [f.clone() for f in call(owner, arg)]
+        bit_equal.append(_same(got, eager(arg)))
+    assert all(bit_equal), f"replayed detections differ: {bit_equal}"
+    if copies:   # a later call leaves an earlier result as it was
+        first = call(owner, args[0])
+        kept = [f.clone() for f in first]
+        second = call(owner, args[-1])
+        torch.cuda.synchronize()
+        assert _same(first, kept)
+        assert all(a.data_ptr() != b.data_ptr()
+                   for a, b in zip(first, second))
+    n = FRAMES if unit == "frame" else BATCHES
+    for _ in range(3):
+        call(owner, args[0])
+    torch.cuda.synchronize()
+    _zero(kernels)
+    times = []
+    for i in range(n):
+        t = time.perf_counter()
+        call(owner, args[i % len(args)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    replay_launches = _read(kernels)
+    assert not any(replay_launches.values()), (
+        f"eager launches during replays: {replay_launches}")
+    return owner, graph, {
+        "unit": unit, "calls": n, "capture_s": capture_s,
+        "capture_inner_s": graph.capture_s,
+        "call_ms_median": float(np.median(times)),
+        "call_ms_min": float(np.min(times)),
+        "bit_equal_vs_eager": bit_equal, "report": vars(rep),
+        "launches_around_capture": launches,
+        "launches_in_capture": in_capture,
+        "launches_in_replays": replay_launches}
+
+
+def drive_server(kernels, per_call, scenes, eager_art, torch) -> dict:
+    """The lifecycle server on the shipped artifact's graph: counters set
+    to 0 before configure (which captures) and read after, and again
+    around SERVER_FRAMES frames (cycling through the scenes), which must
+    launch nothing eagerly; each scene's dict against the eager frame."""
+    from unina_yolo_dla_torch.runtime import aot
+    from unina_yolo_dla_torch.runtime.serving import (
+        LifecycleState,
+        PerceptionServer,
+    )
+
+    _zero(kernels)
+    srv = PerceptionServer(ARTIFACT, log_fn=lambda _m: None)
+    t = time.perf_counter()
+    srv.configure()
+    configure_s = time.perf_counter() - t
+    srv.activate()
+    assert srv.state == LifecycleState.ACTIVE
+    launches = _read(kernels)
+    for name, per in per_call.items():
+        assert launches[name] == (aot.WARMUP + 1) * per, (name, launches)
+    assert srv.process_frame(scenes[0][:320]) is None   # geometry guard
+    _zero(kernels)
+    outs = [srv.process_frame(scenes[i % len(scenes)])
+            for i in range(SERVER_FRAMES)]
+    frame_launches = _read(kernels)
+    assert not any(frame_launches.values()), frame_launches
+    for i, frame in enumerate(scenes):
+        want = eager_art(frame)
+        v = want.valid.cpu().numpy()
+        got = outs[i]
+        assert got["count"] == int(v.sum())
+        assert np.array_equal(got["boxes"], want.boxes.cpu().numpy()[v])
+        assert np.array_equal(got["scores"], want.scores.cpu().numpy()[v])
+        assert np.array_equal(got["classes"], want.classes.cpu().numpy()[v])
+    stats = srv.stats()
+    assert stats["frames_processed"] == SERVER_FRAMES
+    assert stats["frames_dropped"] == 1
+    srv.shutdown()
+    return {"configure_s": configure_s, "launches_in_configure": launches,
+            "launches_in_frames": frame_launches,
+            "counts": [o["count"] for o in outs[:len(scenes)]], **stats}
+
+
+def drive_executor(kernels, per_call, scenes, torch) -> dict:
+    """The native host's executor entry on the shipped artifact's graph:
+    RGB and BGRA frames give the same records, which equal the server's
+    packed result; a frame of the wrong geometry gets the sentinel."""
+    import struct
+
+    from unina_yolo_dla_torch.runtime import aot
+    from unina_yolo_dla_torch.runtime.embed import make_executor
+
+    _zero(kernels)
+    execute = make_executor(str(ARTIFACT))
+    launches = _read(kernels)
+    for name, per in per_call.items():
+        assert launches[name] == (aot.WARMUP + 1) * per, (name, launches)
+    _zero(kernels)
+    blobs, times = [], []
+    for rgb in scenes:
+        bgra = np.concatenate([rgb[..., ::-1], np.full(
+            rgb.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+        t = time.perf_counter()
+        blob = execute(memoryview(rgb.tobytes()), 640, 640, 3)
+        times.append((time.perf_counter() - t) * 1e3)
+        assert execute(memoryview(bgra.tobytes()), 640, 640, 4) == blob
+        count, = struct.unpack_from("<I", blob, 0)
+        assert len(blob) == 4 + 24 * count and count >= 1
+        blobs.append(blob)
+    wrong = execute(memoryview(scenes[0].tobytes()), 320, 640, 3)
+    assert wrong == struct.pack("<I", 0xFFFFFFFF), wrong
+    frame_launches = _read(kernels)
+    assert not any(frame_launches.values()), frame_launches
+    return {"bytes_per_frame": [len(b) for b in blobs],
+            "frame_ms_median": float(np.median(times)),
+            "launches_in_configure": launches,
+            "launches_in_frames": frame_launches, "sentinel_ok": True}
+
+
 def main() -> int:
     import torch
 
@@ -847,7 +1031,9 @@ def main() -> int:
         _lib, c3k2_kernel, decode_kernel, head_kernel, nms_kernel,
         preprocess_kernel, stage1_kernel, stem_kernel)
     from unina_yolo_dla_torch.quant.fake_quant import PERF_EXCLUDE, QuantSpec
+    from unina_yolo_dla_torch.runtime import aot
     from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
+    from unina_yolo_dla_torch.ops.preprocess import merged_frame_np
     from unina_yolo_dla_torch.runtime.pipeline import build_serving_fn
     from unina_yolo_dla_torch.utils.checkpoint import load_msgpack_raw
 
@@ -875,8 +1061,8 @@ def main() -> int:
                "fused_c3k2_cat": c3k2_kernel.KERNEL_CAT,
                "fused_head": head_kernel.KERNEL}
     # the shipped engine, and the fc engine from the same weights through
-    # the entry points (both on cuda)
-    art = ServingArtifact(ARTIFACT)
+    # the entry points (both on cuda), eager: each launch counted
+    art = ServingArtifact(ARTIFACT, graph=False)
     c = art.config
     serve_kw = dict(conf_threshold=c["conf_threshold"],
                     iou_threshold=c["iou_threshold"],
@@ -945,7 +1131,7 @@ def main() -> int:
 
     # phase 7: the batch-8 artifact, 8 scenes in one call, against the
     # card's batch-1 path and the port's CPU batch path on the same frames
-    art8 = ServingArtifact(ARTIFACT_B8)
+    art8 = ServingArtifact(ARTIFACT_B8, graph=False)
     b1_dets = [art(frame) for frame in scenes]
     cpu8 = ServingArtifact(ARTIFACT_B8, device="cpu")(scenes)
     e2e_b8 = drive_batch(art8, scenes, scene_labels, kernels,
@@ -963,30 +1149,123 @@ def main() -> int:
                                 "device_idle_share", "kernels_per_call")}}),
         flush=True)
 
+    # phases 9-11: the three paths again, each one captured CUDA graph
+    # replayed per call; the result sizes are the reference artifacts' own
+    out_bytes = {p.name: json.loads((p / "fallback_report.json").read_text(
+    ))["output_bytes"] for p in (ARTIFACT, ARTIFACT_B8)}
+
+    def artifact_graph(path):
+        owner = ServingArtifact(path)
+        return owner, owner.graph
+
+    art_g, graph_ship, g_ship = drive_graph(
+        lambda: artifact_graph(ARTIFACT), lambda a, f: a(f), art, scenes,
+        kernels, PER_FRAME["shipped"], out_bytes[ARTIFACT.name], torch,
+        copies=True)
+    prof_g = profile_calls(art_g, rgb, torch)
+    log(json.dumps({"graph_shipped": g_ship, "profile": prof_g}, indent=1))
+
+    def fc_capture():
+        cap = aot.capture_serving_fn(fc_serve, art.staged_shape, art.device)
+        return cap, cap
+
+    fc_g, graph_fc, g_fc = drive_graph(
+        fc_capture, lambda g, f: g(art.stage(f)), serve_fc, scenes, kernels,
+        PER_FRAME["int8_s2dm_fc"], out_bytes[ARTIFACT.name], torch,
+        copies=False)
+    prof_gfc = profile_calls(lambda f: fc_g(art.stage(f)), rgb, torch)
+    log(json.dumps({"graph_fc": g_fc, "profile": prof_gfc}, indent=1))
+
+    art8_g, graph_b8, g_b8 = drive_graph(
+        lambda: artifact_graph(ARTIFACT_B8), lambda a, f: a(f), art8,
+        [scenes], kernels, PER_FRAME["b8"], out_bytes[ARTIFACT_B8.name],
+        torch, copies=True, unit="batch of 8")
+    prof_gb8 = profile_calls(art8_g, scenes, torch, unit="batch of 8")
+    log(json.dumps({"graph_b8": g_b8, "profile": prof_gb8}, indent=1))
+    # host staging alone: block and merge into the pinned buffer
+    staging = {}
+    for engine, owner, frames in (("shipped", art_g, rgb),
+                                  ("int8_s2dm_fc", art_g, rgb),
+                                  ("b8", art8_g, scenes)):
+        pinned, times = owner._pinned.numpy(), []
+        for _ in range(FRAMES):
+            t = time.perf_counter()
+            merged_frame_np(frames, out=pinned)
+            times.append((time.perf_counter() - t) * 1e3)
+        staging[engine] = float(np.median(times))
+    graphs = {"shipped": (g_ship, prof_g, graph_ship),
+              "int8_s2dm_fc": (g_fc, prof_gfc, graph_fc),
+              "b8": (g_b8, prof_gb8, graph_b8)}
+    eager = {"shipped": (e2e, prof), "int8_s2dm_fc": (e2e_fc, prof_fc),
+             "b8": (e2e_b8, prof_b8)}
+    summary = {}
+    for engine, (g, pr, _) in graphs.items():
+        run, pe = eager[engine]
+        med = "frame_ms_median" if engine != "b8" else "batch_ms_median"
+        summary[engine] = {
+            "eager_ms_median": run[med],
+            "eager_ms_min": run[med.replace("median", "min")],
+            "graph_ms_median": g["call_ms_median"],
+            "graph_ms_min": g["call_ms_min"], "capture_s": g["capture_s"],
+            "host_staging_ms": staging[engine],
+            "eager_device_busy_ms": pe["device_busy_ms_per_call"],
+            "graph_device_busy_ms": pr["device_busy_ms_per_call"],
+            "eager_idle_share": pe["device_idle_share"],
+            "graph_idle_share": pr["device_idle_share"],
+            "eager_kernels_per_call": pe["kernels_per_call"],
+            "graph_kernels_per_call": pr["kernels_per_call"],
+            "graph_kernel_nodes": g["report"]["kernel_nodes"],
+            "graph_nodes": g["report"]["nodes"]}
+    print(json.dumps({"eager_vs_graph": summary}), flush=True)
+    del fc_g, art8_g
+
+    # phase 12: the lifecycle server, phase 13: the executor entry, both
+    # on the shipped artifact's graph
+    server = drive_server(kernels, PER_FRAME["shipped"], scenes, art, torch)
+    print(json.dumps({"server": {k: server[k] for k in (
+        "configure_s", "count", "p50_ms", "p90_ms", "p99_ms", "mean_ms",
+        "max_ms")}}), flush=True)
+    executor = drive_executor(kernels, PER_FRAME["shipped"], scenes, torch)
+    print(json.dumps({"executor": {k: executor[k] for k in (
+        "bytes_per_frame", "frame_ms_median", "sentinel_ok")}}), flush=True)
+
     runs = {"shipped": (e2e, prof), "int8_s2dm_fc": (e2e_fc, prof_fc),
             "b8": (e2e_b8, prof_b8)}
-    for engine, (_, pr) in runs.items():
-        assert not pr["sort_kernels"], f"{engine}: {pr['sort_kernels']}"
+    profiles = [(engine, pr) for engine, (_, pr) in runs.items()] + [
+        (f"{engine} graph", pr) for engine, (_, pr, _) in graphs.items()]
+    for label, pr in profiles:
+        engine = label.split()[0]
+        assert not pr["sort_kernels"], f"{label}: {pr['sort_kernels']}"
         for name, per in PER_FRAME[engine].items():
             dev_ms = pr["port_kernels_device_ms_per_call"][name]
             assert (dev_ms > 0) == (per > 0), (
-                f"{engine}: {name} has {dev_ms} ms of profiled device time "
+                f"{label}: {name} has {dev_ms} ms of profiled device time "
                 f"at {per} launches per call")
             # one wrapper call is one kernel on the card (the profiler may
             # miss the first kernel launched inside its window)
             calls = pr["port_kernels_calls_per_call"][name]
             assert per - 1 / pr["calls"] <= calls <= per, (
-                f"{engine}: {name} ran {calls} kernels per call at {per} "
+                f"{label}: {name} ran {calls} kernels per call at {per} "
                 f"launches per call")
     for row in rows:
         run, pr = runs[row["path"]]
+        g, pg, _ = graphs[row["path"]]
         row["launches"] = run["launches"][row["name"]]
         row["device_ms_per_frame"] = pr[
+            "port_kernels_device_ms_per_call"][row["name"]]
+        row["graph_nodes_per_frame"] = g["report"]["port_kernels"][
+            row["name"]]
+        row["graph_capture_launches"] = g["launches_in_capture"].get(
+            row["name"], 0)
+        row["graph_replay_launches"] = g["launches_in_replays"][row["name"]]
+        row["graph_device_ms_per_frame"] = pg[
             "port_kernels_device_ms_per_call"][row["name"]]
         if PER_FRAME["b8"][row["name"]]:
             row["b8_launches"] = e2e_b8["launches"][row["name"]]
             row["b8_device_ms_per_batch"] = prof_b8[
                 "port_kernels_device_ms_per_call"][row["name"]]
+            row["b8_graph_nodes_per_batch"] = g_b8["report"][
+                "port_kernels"][row["name"]]
         print(json.dumps(row), flush=True)
     line = {"kernels": rows}
     out = REPO / "chiprun_out"
@@ -995,8 +1274,13 @@ def main() -> int:
         {"card": smi, "build_s": build_s, "launch_floor": floor,
          "end_to_end": e2e,
          "profile": prof, "end_to_end_fc": e2e_fc, "profile_fc": prof_fc,
-         "end_to_end_b8": e2e_b8, "profile_b8": prof_b8, **line},
-        indent=2))
+         "end_to_end_b8": e2e_b8, "profile_b8": prof_b8,
+         "graph_shipped": g_ship, "profile_graph_shipped": prof_g,
+         "graph_fc": g_fc, "profile_graph_fc": prof_gfc,
+         "graph_b8": g_b8, "profile_graph_b8": prof_gb8,
+         "eager_vs_graph": summary, "server": server,
+         "executor": executor, **line},
+        indent=2, default=str))
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

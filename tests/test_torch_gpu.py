@@ -28,8 +28,12 @@ from unina_yolo_dla_torch.ops.cuda import (
 from unina_yolo_dla_torch.ops import decode as td
 from unina_yolo_dla_torch.ops.preprocess import merged_frame_np
 from unina_yolo_dla_torch.quant.fake_quant import PERF_EXCLUDE, QuantSpec
+from unina_yolo_dla_torch.ops.cuda import _lib
+from unina_yolo_dla_torch.runtime import aot
 from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
+from unina_yolo_dla_torch.runtime.embed import make_executor
 from unina_yolo_dla_torch.runtime.pipeline import build_serving_fn
+from unina_yolo_dla_torch.runtime.serving import PerceptionServer
 from unina_yolo_dla_torch.utils.checkpoint import load_msgpack_raw
 
 pytestmark = pytest.mark.gpu
@@ -381,13 +385,15 @@ def _scenes(seeds):
 
 
 def test_serving_path_launches_one_of_each(cuda):
-    """One served frame is one launch each of normalize (bf16 out: the
-    backbone's cast is a no-op), the fused stem, decode and NMS; a served
-    batch of 8 too."""
+    """One eagerly served frame is one launch each of normalize (bf16 out:
+    the backbone's cast is a no-op), the fused stem, decode and NMS; a
+    served batch of 8 too."""
     kernels = (preprocess_kernel.KERNEL, stem_kernel.KERNEL,
                decode_kernel.KERNEL, nms_kernel.KERNEL)
-    for art, frames in ((ServingArtifact(ARTIFACT), _scenes([7])[0]),
-                        (ServingArtifact(ARTIFACT_B8), _scenes(range(1, 9)))):
+    for art, frames in ((ServingArtifact(ARTIFACT, graph=False),
+                         _scenes([7])[0]),
+                        (ServingArtifact(ARTIFACT_B8, graph=False),
+                         _scenes(range(1, 9)))):
         art(frames)
         before = [kern.launches for kern in kernels]
         art(frames)
@@ -661,3 +667,176 @@ def test_fc_engine_frame_matches_cpu_port(cuda):
         err = np.abs(gb - box).max(axis=1) + 1e9 * (gc != klass)
         j = int(err.argmin())
         assert err[j] <= 0.5 and abs(gs[j] - score) <= 1e-2
+
+
+# ---- the frame as one captured CUDA graph (runtime/aot.py) ----
+
+FC_CFG = dict(quant=QuantSpec("int8_fused", exclude=PERF_EXCLUDE),
+              deploy=True, stem_s2d=True, s2d_host=True, stage1_s2d=True,
+              s2d_merged=True, fused_c3k2=True, fused_head=True)
+# launches per call, and so kernel nodes per graph, of each path
+PATH_KERNELS = {
+    "shipped": {"normalize": 1, "fused_stem_stage1": 1, "decode_topk": 1,
+                "nms": 1},
+    "fc": {"normalize": 1, "decode_topk": 1, "nms": 1, "stage1_merged": 1,
+           "fused_c3k2": 1, "fused_c3k2_cat": 1, "fused_head": 1},
+}
+PATH_KERNELS["b8"] = PATH_KERNELS["shipped"]
+
+
+def _fc_pair(device):
+    """(graph call, eager call, CapturedFrame) of the fc engine, each
+    taking an RGB frame."""
+    cfg = ModelConfig(**FC_CFG)
+    serve = build_serving_fn(
+        from_jax_variables(load_msgpack_raw(ARTIFACT / "variables.msgpack"),
+                           cfg), cfg, conf_threshold=0.5, iou_threshold=0.45,
+        q_factor=0.2116)
+    stager = ServingArtifact(ARTIFACT, graph=False)
+    cap = aot.capture_serving_fn(serve, stager.staged_shape, device)
+    return (lambda f: cap(stager.stage(f)), lambda f: serve(stager.stage(f)),
+            cap)
+
+
+@pytest.fixture(scope="module")
+def paths():
+    """path -> (graph call, eager call, CapturedFrame, inputs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scenes = _scenes(range(1, 9))
+    ship, ship8 = ServingArtifact(ARTIFACT), ServingArtifact(ARTIFACT_B8)
+    return {
+        "shipped": (ship, ServingArtifact(ARTIFACT, graph=False), ship.graph,
+                    list(scenes)),
+        "fc": (*_fc_pair(torch.device("cuda")), list(scenes)),
+        "b8": (ship8, ServingArtifact(ARTIFACT_B8, graph=False), ship8.graph,
+               [scenes]),
+    }
+
+
+@pytest.mark.parametrize("path", ["shipped", "fc", "b8"])
+def test_graph_replay_matches_eager_bit_for_bit(paths, path):
+    """The replayed frame is the eager frame: every field of every slot
+    equal, on 8 scenes (one batch of them for b8)."""
+    graph_call, eager_call, _, inputs = paths[path]
+    for frames in inputs:
+        got = [f.clone() for f in graph_call(frames)]
+        want = eager_call(frames)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("path", ["shipped", "b8"])
+def test_graph_results_do_not_alias(paths, path):
+    """ServingArtifact's results are its own: a later call leaves an
+    earlier result as it was."""
+    art, _, _, inputs = paths[path]
+    first = art(inputs[0])
+    kept = [f.clone() for f in first]
+    second = art(inputs[-1] if path != "b8" else inputs[0][::-1].copy())
+    torch.cuda.synchronize()
+    for a, b, k in zip(first, second, kept):
+        assert a.data_ptr() != b.data_ptr() and torch.equal(a, k)
+
+
+@pytest.mark.parametrize("path,out_bytes", [("shipped", 25600),
+                                            ("fc", 25600), ("b8", 204800)])
+def test_graph_report_clean_with_each_kernel(paths, path, out_bytes):
+    """The strict report of each captured frame: no host node, the
+    reference artifacts' result size, and each of the path's kernels among
+    the nodes as often as a call launches it (the others not at all)."""
+    cap = paths[path][2]
+    aot.print_fallback_report(cap.report, strict=True, log_fn=lambda s: None)
+    assert cap.report.clean and cap.report.output_bytes == out_bytes
+    want = PATH_KERNELS[path]
+    assert {k: n for k, n in cap.report.port_kernels.items() if n} == want
+    assert cap.report.kernel_nodes > 100
+
+
+@pytest.mark.parametrize("path", ["shipped", "fc", "b8"])
+def test_graph_replays_launch_nothing(paths, path):
+    """The capture launched each of the path's kernels once into the
+    graph; replays launch no kernel from Python."""
+    graph_call, _, cap, inputs = paths[path]
+    by_symbol = {k.symbol: k for k in _lib.KERNELS}
+    names = {"normalize": preprocess_kernel.KERNEL,
+             "fused_stem_stage1": stem_kernel.KERNEL,
+             "decode_topk": decode_kernel.KERNEL, "nms": nms_kernel.KERNEL,
+             "stage1_merged": stage1_kernel.KERNEL,
+             "fused_c3k2": c3k2_kernel.KERNEL,
+             "fused_c3k2_cat": c3k2_kernel.KERNEL_CAT,
+             "fused_head": head_kernel.KERNEL}
+    assert {n: cap.capture_launches.get(k.symbol, 0)
+            for n, k in names.items() if cap.capture_launches.get(
+                k.symbol)} == PATH_KERNELS[path]
+    before = {s: k.launches for s, k in by_symbol.items()}
+    for frames in inputs[:3]:
+        graph_call(frames)
+    torch.cuda.synchronize()
+    assert {s: k.launches for s, k in by_symbol.items()} == before
+
+
+def test_captured_frame_keeps_its_weights(cuda):
+    """A frame whose model only its ``serve`` closure holds stays right
+    after the caller drops both and the freed memory is taken again."""
+    import gc
+
+    from unina_yolo_dla_torch.runtime.artifact import config_from_artifact
+
+    stager = ServingArtifact(ARTIFACT, graph=False)
+    frame = stager.stage(_scenes([7])[0])
+    want = [f.clone() for f in stager._serve(frame)]
+    cfg = config_from_artifact(stager.config)
+    c = stager.config
+    cap = aot.capture_serving_fn(build_serving_fn(
+        from_jax_variables(load_msgpack_raw(ARTIFACT / "variables.msgpack"),
+                           cfg), cfg, c["conf_threshold"], c["iou_threshold"],
+        c["q_factor"], c["max_detections"]), stager.staged_shape, cuda)
+    gc.collect()
+    junk = torch.full((256 << 20,), 7, dtype=torch.uint8, device=cuda)
+    got = cap(frame)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    del junk
+
+
+def test_graph_report_flags_host_copies(cuda):
+    """The node walker sees a device-to-host copy captured into a graph,
+    and strict mode refuses it."""
+    x = torch.ones(256, device=cuda)
+    host = torch.empty(256, pin_memory=True)
+    graph, stream = torch.cuda.CUDAGraph(keep_graph=True), torch.cuda.Stream()
+    with torch.cuda.graph(graph, stream=stream):
+        host.copy_(x * 2, non_blocking=True)
+    dets = td.Detections(x[:4], x[:1], x[:1].int(), x[:1].bool())
+    rep = aot.analyze_graph(graph, dets)
+    assert rep.host_nodes and rep.nodes.get("kernel", 0) >= 1
+    with pytest.raises(RuntimeError, match="host"):
+        aot.print_fallback_report(rep, log_fn=lambda s: None)
+
+
+def test_server_and_executor_on_the_card(paths):
+    """The server's dict and the executor's records of a scene equal the
+    eager frame's valid detections; replays launch nothing."""
+    import struct
+
+    eager = paths["shipped"][1]
+    frame = paths["shipped"][3][6]
+    want = eager(frame)
+    v = want.valid.cpu().numpy()
+    srv = PerceptionServer(ARTIFACT, log_fn=lambda s: None)
+    srv.configure()
+    srv.activate()
+    got = srv.process_frame(frame)
+    assert got["count"] == int(v.sum()) >= 1
+    assert np.array_equal(got["boxes"], want.boxes.cpu().numpy()[v])
+    assert np.array_equal(got["classes"], want.classes.cpu().numpy()[v])
+    execute = make_executor(str(ARTIFACT))
+    blob = execute(memoryview(frame.tobytes()), 640, 640, 3)
+    assert struct.unpack_from("<I", blob, 0)[0] == got["count"]
+    rec = np.frombuffer(blob[4:], np.float32).reshape(-1, 6)
+    assert np.array_equal(rec[:, :4], got["boxes"])
+    assert np.array_equal(rec[:, 4], got["scores"])
+    assert execute(memoryview(frame.tobytes()), 320, 640, 3) == \
+        struct.pack("<I", 0xFFFFFFFF)

@@ -1,0 +1,353 @@
+"""The port's serving runtime (``runtime/aot.py``, ``serving.py``,
+``embed.py``) on the CPU, held against the reference's runtime.
+
+- The fallback report: strict mode raises on a host node; a synthetic node
+  list is classified as the captured graph's walker classifies it.
+- ``pack_detections`` against the reference's packed layout
+  (``serve_packed``: ``[x1, y1, x2, y2, score, cls, valid]``) on the small
+  shipped-flag engine of ``test_torch_slice.py``, within 1e-4.
+- ``PerceptionServer`` and ``make_executor`` on a small ``s2d_merged``
+  artifact exported by the reference in the test, against the reference's
+  server and executor: same count, detections matched one to one by class
+  within 0.5 px and 1e-2 (the port computes the float layers in bf16, the
+  small reference artifact in f32).
+- ``nv12_to_rgb`` against the reference within 1e-4.
+"""
+import dataclasses
+import json
+import struct
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_slice import SERVING_FLAGS, _fill, _scale_w_scales
+from unina_yolo_dla_torch.models import config as tconfig
+from unina_yolo_dla_torch.models.detector import from_jax_variables
+from unina_yolo_dla_torch.ops.decode import Detections
+from unina_yolo_dla_torch.ops.preprocess import merged_frame_np
+from unina_yolo_dla_torch.ops.preprocess import nv12_to_rgb as t_nv12
+from unina_yolo_dla_torch.quant.fake_quant import PERF_EXCLUDE as T_PERF
+from unina_yolo_dla_torch.quant.fake_quant import QuantSpec as TSpec
+from unina_yolo_dla_torch.runtime import aot as taot
+from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
+from unina_yolo_dla_torch.runtime.embed import make_executor
+from unina_yolo_dla_torch.runtime.pipeline import build_serving_fn
+from unina_yolo_dla_torch.runtime.serving import (
+    LifecycleState,
+    PerceptionServer,
+)
+from unina_yolo_dla_tpu.models import ModelConfig, init_model
+from unina_yolo_dla_tpu.models.detector import UninaYoloDla
+from unina_yolo_dla_tpu.ops.preprocess import nv12_to_rgb as j_nv12
+from unina_yolo_dla_tpu.quant.deploy import (
+    fold_batchnorm,
+    fold_downsample_space_to_depth,
+    fold_stem_space_to_depth,
+    merge_stem_columns,
+)
+from unina_yolo_dla_tpu.quant.fake_quant import PERF_EXCLUDE, QuantSpec
+from unina_yolo_dla_tpu.runtime.aot import export_serving_artifact
+from unina_yolo_dla_tpu.runtime.embed import make_executor as j_executor
+from unina_yolo_dla_tpu.runtime.pipeline import build_serving_fn as j_build
+from unina_yolo_dla_tpu.runtime.serving import PerceptionServer as JServer
+
+IMG = 32
+BOX_PX, SCORE_TOL = 0.5, 1e-2
+PACK_TOL = 1e-4
+CONF = 0.92          # a few detections on FRAME_SEED's frame
+
+
+def _frame(seed):
+    return np.random.default_rng(seed).integers(0, 256, (IMG, IMG, 3),
+                                                dtype=np.uint8)
+
+
+FRAME_SEED = 0
+
+
+@pytest.fixture(scope="module")
+def artifact_dir(tmp_path_factory):
+    """A float ``s2d_merged`` artifact exported by the reference: the
+    init model's folded weights, its class logits scaled 30x about 0 so
+    that scores spread over (0.5, 1) and a few cells pass ``CONF``."""
+    cfg = ModelConfig(num_classes=4, base_channels=16, input_size=IMG,
+                      compute_dtype=jnp.float32)
+    _, variables = init_model(jax.random.key(0), cfg)
+    merged = dataclasses.replace(cfg, deploy=True, stem_s2d=True,
+                                 s2d_host=True, stage1_s2d=True,
+                                 s2d_merged=True)
+    m_vars = jax.device_get(merge_stem_columns(
+        fold_downsample_space_to_depth(fold_stem_space_to_depth(
+            fold_batchnorm(variables)))))
+    for head in ("head_p2", "head_p3", "head_p4"):
+        pred = m_vars["params"][head]["cls_pred"]
+        pred["kernel"] = np.asarray(pred["kernel"]) * np.float32(30.0)
+        pred["bias"] = np.zeros_like(np.asarray(pred["bias"]))
+    out = tmp_path_factory.mktemp("s2dm_artifact")
+    export_serving_artifact(UninaYoloDla(merged), m_vars, out,
+                            conf_threshold=CONF, max_detections=64)
+    return out
+
+
+def _match(got, want):
+    """One-to-one match of two detection dicts by class and box."""
+    assert got["count"] == want["count"] >= 1
+    used = set()
+    for i in range(want["count"]):
+        cand = [j for j in range(got["count"]) if j not in used
+                and got["classes"][j] == want["classes"][i]]
+        assert cand, f"reference detection {i} unmatched"
+        j = min(cand, key=lambda j: np.abs(got["boxes"][j]
+                                           - want["boxes"][i]).max())
+        used.add(j)
+        assert np.abs(got["boxes"][j] - want["boxes"][i]).max() <= BOX_PX
+        assert abs(got["scores"][j] - want["scores"][i]) <= SCORE_TOL
+
+
+def _records(blob: bytes) -> dict:
+    count, = struct.unpack_from("<I", blob, 0)
+    assert len(blob) == 4 + 24 * count
+    rec = np.frombuffer(blob[4:], dtype=[
+        ("x1", "<f4"), ("y1", "<f4"), ("x2", "<f4"), ("y2", "<f4"),
+        ("score", "<f4"), ("cls", "<i4")])
+    return {"count": count,
+            "boxes": np.stack([rec[k] for k in ("x1", "y1", "x2", "y2")],
+                              axis=-1),
+            "scores": rec["score"], "classes": rec["cls"]}
+
+
+# ---- fallback report ----
+
+def _report(**kw):
+    base = dict(host_nodes=[], dynamic_shapes=[], output_bytes=25600,
+                kernel_nodes=3, port_kernels={}, nodes={"kernel": 3})
+    return taot.FallbackReport(**(base | kw))
+
+
+def test_strict_fallback_report_raises_on_host_node():
+    bad = _report(host_nodes=["host: "])
+    assert not bad.clean
+    with pytest.raises(RuntimeError, match="host"):
+        taot.print_fallback_report(bad, strict=True, log_fn=lambda s: None)
+    taot.print_fallback_report(bad, strict=False, log_fn=lambda s: None)
+    lines = []
+    taot.print_fallback_report(_report(), strict=True, log_fn=lines.append)
+    assert _report().clean and any("25600 B" in s for s in lines)
+
+
+def test_report_from_nodes_classifies_nodes():
+    """Host nodes and copies with a host end are host nodes; device
+    copies, memsets and library kernels are not; each port kernel is
+    counted by its device function, mangled or not."""
+    nodes = [("kernel", "_ZN12_GLOBAL__N_123normalize_merged_kernelI13"
+                        "__nv_bfloat16EEvPKhPT_x6Const3"),
+             ("kernel", "_ZN12_GLOBAL__N_117c3k2_kernelILb1EEEvNS_6ParamsE"),
+             ("kernel", "void (anonymous namespace)::c3k2_kernel<false>("
+                        "(anonymous namespace)::Params)"),
+             ("kernel", "_ZN12_GLOBAL__N_110nms_kernelEPKfPKiPKhPhif"),
+             ("kernel", "void at::native::vectorized_elementwise_kernel"),
+             ("memcpy", "1024 B"), ("memset", ""),
+             ("memcpy", "28672 B, host dst"), ("host", "")]
+    dets = Detections(torch.zeros(1024, 4), torch.zeros(1024),
+                      torch.zeros(1024, dtype=torch.int32),
+                      torch.zeros(1024, dtype=torch.bool))
+    rep = taot.report_from_nodes(nodes, dets)
+    assert rep.host_nodes == ["memcpy: 28672 B, host dst", "host: "]
+    assert rep.kernel_nodes == 5 and rep.output_bytes == 25600
+    assert rep.nodes == {"kernel": 5, "memcpy": 2, "memset": 1, "host": 1}
+    assert rep.port_kernels == {
+        "normalize": 1, "fused_stem_stage1": 0, "decode_topk": 0, "nms": 1,
+        "stage1_merged": 0, "fused_c3k2": 1, "fused_c3k2_cat": 1,
+        "fused_head": 0}
+    with pytest.raises(RuntimeError):
+        taot.print_fallback_report(rep, log_fn=lambda s: None)
+
+
+# ---- packed layout ----
+
+def test_pack_detections_matches_reference_layout():
+    """The reference's ``serve_packed`` concatenation of its Detections
+    (``runtime/aot.py`` of the JAX package) against ``pack_detections``
+    of the port's, on the small engine of ``test_torch_slice.py``."""
+    spec = QuantSpec("int8_fused", exclude=PERF_EXCLUDE)
+    jcfg = ModelConfig(num_classes=4, base_channels=8, input_size=64,
+                       compute_dtype=jnp.float32, quant=spec,
+                       **SERVING_FLAGS)
+    model = UninaYoloDla(jcfg)
+    shapes = model.init(jax.random.PRNGKey(0),
+                        jnp.zeros((1, 32, 16, 24), jnp.float32), train=False)
+    rng = np.random.default_rng(11)
+    variables = {k: _fill(jax.device_get(v), rng) for k, v in shapes.items()}
+    _scale_w_scales(variables["params"])
+    tcfg = tconfig.ModelConfig(num_classes=4, base_channels=8,
+                               input_size=64, compute_dtype=torch.float32,
+                               quant=TSpec("int8_fused", exclude=T_PERF),
+                               **SERVING_FLAGS)
+    port = from_jax_variables(variables, tcfg, device="cpu")
+    merged = merged_frame_np(np.random.default_rng(5).integers(
+        0, 256, (64, 64, 3), dtype=np.uint8))
+
+    dets = jax.jit(j_build(model, jcfg, q_factor=0.2))(variables,
+                                                      jnp.asarray(merged))
+    want = np.asarray(jnp.concatenate([
+        dets.boxes.astype(jnp.float32),
+        dets.scores.astype(jnp.float32)[..., None],
+        dets.classes.astype(jnp.float32)[..., None],
+        dets.valid.astype(jnp.float32)[..., None]], axis=-1))
+    got = taot.pack_detections(build_serving_fn(port, tcfg, q_factor=0.2)(
+        torch.from_numpy(merged)))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    valid = want[:, 6] > 0.5
+    assert valid.sum() > 0
+    np.testing.assert_array_equal(got.numpy()[:, 6], want[:, 6])
+    np.testing.assert_allclose(got.numpy()[valid], want[valid], rtol=0,
+                               atol=PACK_TOL)
+
+
+# ---- server ----
+
+def test_server_lifecycle_drops_guard_and_stats(artifact_dir):
+    logs = []
+    srv = PerceptionServer(artifact_dir, expected_input=IMG,
+                           expected_classes=4, log_fn=logs.append,
+                           warn_throttle_s=0.0, device="cpu")
+    assert srv.state == LifecycleState.UNCONFIGURED
+    frame = _frame(FRAME_SEED)
+    assert srv.process_frame(frame) is None          # before configure
+    assert srv.frames_dropped == 1
+    with pytest.raises(RuntimeError):
+        srv.activate()
+    srv.configure()
+    assert srv.state == LifecycleState.INACTIVE
+    with pytest.raises(RuntimeError):
+        srv.configure()
+    srv.activate()
+    assert srv.state == LifecycleState.ACTIVE
+
+    out = srv.process_frame(frame)
+    assert out["count"] == len(out["boxes"]) == len(out["scores"]) >= 1
+    assert out["boxes"].shape[1] == 4 and out["classes"].dtype == np.int32
+    assert srv.process_frame(np.zeros((IMG + 2, IMG, 3), np.uint8)) is None
+    assert srv.process_frame(np.zeros((IMG, IMG, 3), np.float32)) is None
+    assert srv.process_frame(None) is None
+    stats = srv.stats()
+    assert stats["frames_processed"] == 1 and stats["frames_dropped"] == 4
+    assert stats["count"] == 1 and stats["p99_ms"] > 0
+    assert any("WARNING: bad frame geometry" in s for s in logs)
+
+    srv.deactivate()
+    assert srv.process_frame(frame) is None
+    srv.cleanup()
+    assert srv.state == LifecycleState.UNCONFIGURED and srv.artifact is None
+    srv.shutdown()
+    assert srv.state == LifecycleState.FINALIZED
+
+
+def test_configure_rejects_wrong_dims(artifact_dir):
+    for size, classes in ((640, 4), (IMG, 7)):
+        srv = PerceptionServer(artifact_dir, expected_input=size,
+                               expected_classes=classes,
+                               log_fn=lambda s: None, device="cpu")
+        with pytest.raises(ValueError):
+            srv.configure()
+        assert srv.state == LifecycleState.UNCONFIGURED
+
+
+@pytest.mark.parametrize("seed", [FRAME_SEED, 1])
+def test_process_frame_matches_reference_server(artifact_dir, seed):
+    kw = dict(expected_input=IMG, log_fn=lambda s: None)
+    want_srv, got_srv = JServer(artifact_dir, **kw), PerceptionServer(
+        artifact_dir, device="cpu", **kw)
+    for srv in (want_srv, got_srv):
+        srv.configure()
+        srv.activate()
+    frame = _frame(seed)
+    want, got = want_srv.process_frame(frame), got_srv.process_frame(frame)
+    assert set(got) == set(want)
+    _match(got, want)
+
+
+def test_artifact_packed_equals_its_detections(artifact_dir):
+    art = ServingArtifact(artifact_dir, device="cpu")
+    assert art.graph is None
+    frame = _frame(FRAME_SEED)
+    dets = art(frame)
+    packed = art.packed(frame)
+    np.testing.assert_array_equal(
+        packed, taot.pack_detections(dets).numpy())
+    assert taot.output_bytes(dets) == json.loads(
+        (artifact_dir / "fallback_report.json").read_text())["output_bytes"]
+    taot.validate_artifact_shapes(art, IMG, 4)
+    with pytest.raises(ValueError):
+        taot.validate_artifact_shapes(art, IMG, 5)
+
+
+# ---- executor ----
+
+@pytest.fixture
+def executors(artifact_dir, monkeypatch):
+    monkeypatch.setenv("UNINA_FORCE_CPU", "1")
+    return (j_executor(str(artifact_dir), IMG, 4),
+            make_executor(str(artifact_dir), IMG, 4))
+
+
+def test_executor_bytes_match_reference(executors):
+    want_ex, got_ex = executors
+    rgb = _frame(FRAME_SEED)
+    bgra = np.concatenate([rgb[..., ::-1], np.full((IMG, IMG, 1), 255,
+                                                   np.uint8)], axis=-1)
+    for frame, ch in ((rgb, 3), (bgra, 4)):
+        buf = memoryview(np.ascontiguousarray(frame).tobytes())
+        want, got = want_ex(buf, IMG, IMG, ch), got_ex(buf, IMG, IMG, ch)
+        _match(_records(got), _records(want))
+    wrong = memoryview(np.zeros((IMG, IMG + 8, 3), np.uint8).tobytes())
+    sentinel = struct.pack("<I", 0xFFFFFFFF)
+    assert got_ex(wrong, IMG + 8, IMG, 3) == sentinel
+    assert want_ex(wrong, IMG + 8, IMG, 3) == sentinel
+
+
+def test_executor_nv12_matches_reference(executors):
+    """A random NV12 plane pair (a seed whose scores keep 0.005 from
+    ``CONF``), converted on the host and served."""
+    want_ex, got_ex = executors
+    rng = np.random.default_rng(6)
+    nv12 = memoryview(rng.integers(0, 256, IMG * IMG * 3 // 2,
+                                   dtype=np.uint8).tobytes())
+    want, got = want_ex(nv12, IMG, IMG, 0), got_ex(nv12, IMG, IMG, 0)
+    _match(_records(got), _records(want))
+
+
+def test_executor_refuses_camera_artifact(tmp_path, monkeypatch):
+    monkeypatch.setenv("UNINA_FORCE_CPU", "1")
+    (tmp_path / "config.json").write_text(json.dumps(
+        {"camera": {"height": 1080, "width": 1920, "format": "bgra"}}))
+    with pytest.raises(NotImplementedError):
+        make_executor(str(tmp_path))
+
+
+# ---- the rest ----
+
+def test_nv12_to_rgb_matches_reference():
+    rng = np.random.default_rng(9)
+    y = rng.integers(0, 256, (18, 22), dtype=np.uint8)
+    uv = rng.integers(0, 256, (9, 11, 2), dtype=np.uint8)
+    want = np.asarray(j_nv12(jnp.asarray(y), jnp.asarray(uv)))
+    got = t_nv12(torch.from_numpy(y), torch.from_numpy(uv))
+    assert got.dtype == torch.float32 and got.shape == (18, 22, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+
+
+def test_default_device_without_card_raises(artifact_dir, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-card error")
+    monkeypatch.delenv("UNINA_FORCE_CPU", raising=False)
+    srv = PerceptionServer(artifact_dir, expected_input=IMG,
+                           log_fn=lambda s: None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        srv.configure()
+    assert srv.state == LifecycleState.UNCONFIGURED
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_executor(str(artifact_dir), IMG, 4)

@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+KERNELS: list["Kernel"] = []   # every entry point made, in order
 
 
 def _nvcc() -> str:
@@ -97,6 +98,7 @@ class Kernel:
 
     ``launches`` is a plain int: ``launch`` adds one each time it launches
     the kernel, and nothing else touches it except a caller resetting it.
+    Every instance is listed in ``KERNELS``.
     """
 
     def __init__(self, symbol: str, argtypes: list) -> None:
@@ -104,6 +106,7 @@ class Kernel:
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
+        KERNELS.append(self)
 
     def launch(self, *args) -> None:
         if self._fn is None:

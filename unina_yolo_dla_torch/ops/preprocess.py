@@ -25,19 +25,54 @@ def normalize(rgb01: torch.Tensor, mean: Sequence[float] = IMAGENET_MEAN,
     return (rgb01.float() - m) / s
 
 
+def _blocked_view(x: np.ndarray, block: int) -> np.ndarray:
+    """(..., H, W, C) -> a strided (..., H/b, W/b, b, b, C) view whose
+    C-order copy is the space-to-depth layout."""
+    *lead, h, w, c = x.shape
+    y = x.reshape(*lead, h // block, block, w // block, block, c)
+    nd = len(lead)
+    return np.transpose(y, (*range(nd), nd, nd + 2, nd + 1, nd + 3, nd + 4))
+
+
 def space_to_depth_np(x: np.ndarray, block: int = 2) -> np.ndarray:
     """(..., H, W, C) -> (..., H/b, W/b, b*b*C), channels in (di, dj, c)
     order; one numpy transpose-copy on the host."""
     *lead, h, w, c = x.shape
-    y = x.reshape(*lead, h // block, block, w // block, block, c)
-    nd = len(lead)
-    perm = (*range(nd), nd, nd + 2, nd + 1, nd + 3, nd + 4)
-    return np.ascontiguousarray(np.transpose(y, perm)).reshape(
+    return np.ascontiguousarray(_blocked_view(x, block)).reshape(
         *lead, h // block, w // block, block * block * c)
 
 
-def merged_frame_np(frame: np.ndarray) -> np.ndarray:
-    """(..., S, S, 3) uint8 RGB -> (..., S/2, S/4, 24) merged host view."""
-    blocked = space_to_depth_np(np.asarray(frame))
-    *lead, hh, hw, c = blocked.shape
-    return blocked.reshape(*lead, hh, hw // 2, 2 * c)
+def merged_frame_np(frame: np.ndarray, out: np.ndarray | None = None
+                    ) -> np.ndarray:
+    """(..., S, S, 3) uint8 RGB -> (..., S/2, S/4, 24) merged host view.
+
+    ``out``: a contiguous uint8 array of the merged shape (a pinned
+    staging buffer) written in place, with no intermediate copy."""
+    frame = np.asarray(frame)
+    if out is None:
+        blocked = space_to_depth_np(frame)
+        *lead, hh, hw, c = blocked.shape
+        return blocked.reshape(*lead, hh, hw // 2, 2 * c)
+    view = _blocked_view(frame, 2)
+    np.copyto(out.reshape(view.shape), view)
+    return out
+
+
+def nv12_to_rgb(y_plane: torch.Tensor, uv_plane: torch.Tensor
+                ) -> torch.Tensor:
+    """NV12 -> RGB float32 in [0, 255], BT.601 (the reference's
+    ``nv12_to_rgb``).
+
+    ``y_plane``: (H, W) uint8; ``uv_plane``: (H/2, W/2, 2) interleaved
+    U, V, upsampled 2x nearest."""
+    y = y_plane.float()
+    uv = uv_plane.float()
+    u = uv[..., 0].repeat_interleave(2, 0).repeat_interleave(2, 1) - 128.0
+    v = uv[..., 1].repeat_interleave(2, 0).repeat_interleave(2, 1) - 128.0
+    u = u[:y.shape[0], :y.shape[1]]
+    v = v[:y.shape[0], :y.shape[1]]
+    c = y - 16.0
+    r = 1.164 * c + 1.596 * v
+    g = 1.164 * c - 0.392 * u - 0.813 * v
+    b = 1.164 * c + 2.017 * u
+    return torch.stack([r, g, b], dim=-1).clamp(0.0, 255.0)

@@ -4,8 +4,15 @@ exported engine directory -> a frame -> ``Detections`` callable.
 The port's counterpart of the reference ``ServingArtifact``: the same
 directory, the same call (one (S, S, 3) uint8 RGB frame, or (B, S, S, 3)
 for a batch artifact), served by the port's modules instead of the
-serialized program. Frames are blocked and merged on the host; the
-weights go to the device once, at load.
+serialized program. The weights go to the device once, at load.
+
+On the card the frame is captured at load as one CUDA graph at the
+artifact's static shape (``runtime/aot.py``), the counterpart of the
+reference compiling its program for the local chip; ``graph=False`` keeps
+the eager frame. Frames are blocked and merged on the host straight into a
+pinned staging buffer, and copied from it to the card without blocking the
+host. With ``device="cpu"`` the frame is eager and unpinned: the plain
+versions of the kernels.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from ..ops.preprocess import merged_frame_np
 from ..quant.fake_quant import PERF_EXCLUDE, QuantSpec
 from ..utils.checkpoint import load_msgpack_raw
 from ..utils.device import resolve_device
+from .aot import capture_serving_fn, pack_detections
 from .pipeline import build_batch_serving_fn, build_serving_fn
 
 
@@ -56,9 +64,15 @@ class ServingArtifact:
     """Frame(s) -> Detections with weights resident on ``device``.
 
     A batch artifact (``"batch": B`` in its config) takes (B, S, S, 3)
-    frames and returns Detections whose fields have a leading B axis."""
+    frames and returns Detections whose fields have a leading B axis.
 
-    def __init__(self, directory: str | Path, device=None) -> None:
+    On the card, ``graph=True`` (the default) captures the frame as one
+    CUDA graph at load and replays it per call; a failure to capture or to
+    replay raises. Calls come one at a time; each returns tensors of its
+    own, which later calls do not overwrite."""
+
+    def __init__(self, directory: str | Path, device=None,
+                 graph: bool = True) -> None:
         self.dir = Path(directory)
         missing = [f for f in ("config.json", "variables.msgpack")
                    if not (self.dir / f).exists()]
@@ -81,17 +95,80 @@ class ServingArtifact:
             c.get("iou_threshold", DEFAULT_IOU_THRESHOLD),
             c.get("q_factor", DEFAULT_CP_Q),
             c.get("max_detections", MAX_DETECTIONS))
+        s = self.model_config.input_size
+        lead = (self.batch,) if self.batch else ()
+        self.frame_shape = (*lead, s, s, 3)
+        self.staged_shape = (*lead, s // 2, s // 4, 24)
+        self.graph = None
+        if self.device.type == "cuda":
+            k = c.get("max_detections", MAX_DETECTIONS)
+            self._pinned = torch.empty(self.staged_shape, dtype=torch.uint8,
+                                       pin_memory=True)
+            self._result = torch.empty((*lead, k, 7), dtype=torch.float32,
+                                       pin_memory=True)
+            self._staged = torch.cuda.Event()   # the last copy out of
+            self._fetched = torch.cuda.Event()  # _pinned; into _result
+            if graph:
+                self.graph = capture_serving_fn(self._serve,
+                                                self.staged_shape,
+                                                self.device)
+
+    def _check(self, frames: np.ndarray) -> np.ndarray:
+        frames = np.asarray(frames)
+        if frames.shape != self.frame_shape or frames.dtype != np.uint8:
+            raise ValueError(f"expected {self.frame_shape} uint8 RGB "
+                             f"frames, got {frames.shape} {frames.dtype}")
+        return frames
+
+    def _stage_into(self, frames: np.ndarray, dst: torch.Tensor) -> None:
+        """Block and merge into the pinned buffer, then copy it to ``dst``
+        on the card without blocking the host."""
+        self._staged.synchronize()   # the previous copy out has run
+        merged_frame_np(self._check(frames), out=self._pinned.numpy())
+        with torch.inference_mode():
+            dst.copy_(self._pinned, non_blocking=True)
+        self._staged.record()
 
     def stage(self, frames: np.ndarray) -> torch.Tensor:
         """(S, S, 3) uint8 RGB -> merged (S/2, S/4, 24) on the device; a
         batch artifact takes (B, S, S, 3) -> (B, S/2, S/4, 24)."""
-        s = self.model_config.input_size
-        shape = (s, s, 3) if not self.batch else (self.batch, s, s, 3)
-        frames = np.asarray(frames)
-        if frames.shape != shape or frames.dtype != np.uint8:
-            raise ValueError(f"expected {shape} uint8 RGB frames, got "
-                             f"{frames.shape} {frames.dtype}")
-        return torch.from_numpy(merged_frame_np(frames)).to(self.device)
+        if self.device.type != "cuda":
+            return torch.from_numpy(merged_frame_np(self._check(frames)))
+        with torch.inference_mode():
+            dst = torch.empty(self.staged_shape, dtype=torch.uint8,
+                              device=self.device)
+        self._stage_into(frames, dst)
+        return dst
+
+    def _run(self, frames: np.ndarray) -> Detections:
+        """Serve; on the graph path the result is the graph's own static
+        outputs, overwritten by the next call."""
+        if self.graph is None:
+            return self._serve(self.stage(frames))
+        self._stage_into(frames, self.graph.frame)
+        self.graph.replay()
+        return self.graph.dets
 
     def __call__(self, frames: np.ndarray) -> Detections:
-        return self._serve(self.stage(frames))
+        dets = self._run(frames)
+        if self.graph is None:
+            return dets
+        with torch.inference_mode():
+            return Detections(*(t.clone() for t in dets))
+
+    def packed(self, frames: np.ndarray) -> np.ndarray:
+        """Frame(s) -> ([B,] K, 7) float32 ``[x1, y1, x2, y2, score, cls,
+        valid]`` on the host (``aot.pack_detections``): on the card one
+        device-to-host copy into pinned memory (the graph packs its own
+        result), then a host copy the caller keeps."""
+        if self.graph is not None:
+            self._run(frames)
+            packed = self.graph.packed
+        else:
+            packed = pack_detections(self._run(frames))
+        if self.device.type != "cuda":
+            return packed.numpy()
+        self._result.copy_(packed, non_blocking=True)
+        self._fetched.record()
+        self._fetched.synchronize()
+        return self._result.numpy().copy()
