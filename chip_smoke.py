@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from ``unina_yolo_dla_torch/csrc``, holds
 each kernel against its plain PyTorch version on the card at the shapes of
-the serving paths, then serves three paths:
+the serving paths, then serves four paths:
 
 - the committed int8 engine (``artifacts/serving_artifact``: fused
   stem+stage1, merged head) on a synthetic scene;
@@ -13,13 +13,18 @@ the serving paths, then serves three paths:
   built through ``load_msgpack_raw`` -> ``from_jax_variables`` ->
   ``build_serving_fn``: stage1, C3k2, C3k2-cat and head kernels;
 - the batch-8 artifact (``artifacts/serving_artifact_b8``, the shipped
-  engine's weights) on 8 synthetic scenes in one call.
+  engine's weights) on 8 synthetic scenes in one call;
+- the camera artifact (``artifacts/serving_artifact_cam``: the standard
+  stem, stage1 over its merged view, the same int8 chain) on raw
+  1080x1920 BGRA frames, letterboxed on the card by the camera kernel
+  (colour, bilinear resize, 114 pad, normalise in one pass), boxes in
+  camera pixels: camera, stage1, decode and NMS kernels.
 
 For each it checks through the launch counters (set to 0 just before the
 path's timed calls, read just after) that every call went through the
 path's kernels, checks the card's detections against the port's own CPU
 path on the same frames (and the batch's against the card's batch-1 path),
-and profiles a few calls. Those three eager paths (``ServingArtifact(...,
+and profiles a few calls. Those four eager paths (``ServingArtifact(...,
 graph=False)`` and the plain ``build_serving_fn``) are then served again as
 one captured CUDA graph each (``runtime/aot.py``: ``ServingArtifact``'s
 default on the card, ``capture_serving_fn`` for the fc engine): the
@@ -32,7 +37,16 @@ the profiler, under replay, must see each kernel once a call. Last come the
 lifecycle server (``runtime/serving.py``: configure, activate, 200 frames,
 p50/p99) and the native host's executor entry (``runtime/embed.py``: bytes
 per frame, the RGB, BGRA and geometry-sentinel forms), both on the shipped
-artifact's graph, their launches counted the same way.
+artifact's graph, their launches counted the same way, and the executor on
+the camera artifact (the ring's BGRA bytes as they are, records equal to
+``packed()``, the sentinel for any other geometry or format).
+
+The camera kernel is held against its plain version bit for bit at the
+served geometry and within one bf16 step at fractional weights (a
+stretched 1080x1920 BGRA frame, a 720x1280 RGB letterbox, a 480x640 NV12
+frame); the camera artifact's card path against the port's CPU path on
+the seed-7 scene within 1.5 camera px (the 0.5 px gate times the
+letterbox's scale of 3) and 1e-2.
 
 The five tensor-core kernels (stem+stage1, stage1, both C3k2 forms, head)
 are also run at ragged shapes that cut every tile edge, and the built
@@ -69,6 +83,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 ARTIFACT = REPO / "artifacts" / "serving_artifact"
 ARTIFACT_B8 = REPO / "artifacts" / "serving_artifact_b8"
+ARTIFACT_CAM = REPO / "artifacts" / "serving_artifact_cam"
 
 # the port's kernels by wrapper, as their device functions are named
 DEVICE_FUNCS = {"normalize": ("normalize_merged_kernel",),
@@ -78,7 +93,8 @@ DEVICE_FUNCS = {"normalize": ("normalize_merged_kernel",),
                 "stage1_merged": ("stage1_mma_kernel",),
                 "fused_c3k2": ("c3k2_kernel<false>",),
                 "fused_c3k2_cat": ("c3k2_kernel<true>",),
-                "fused_head": ("head_mma_kernel",)}
+                "fused_head": ("head_mma_kernel",),
+                "camera": ("camera_preprocess_kernel",)}
 # the kernels that run on the tensor cores: checked at ragged shapes too,
 # and their SASS read for the instruction they issue
 MMA_KERNELS = ("fused_stem_stage1", "stage1_merged", "fused_c3k2",
@@ -90,13 +106,17 @@ SASS_NAMES = {"c3k2_kernel<false>": "c3k2_kernelILb0EE",
 PER_FRAME = {
     "shipped": {"normalize": 1, "fused_stem_stage1": 1, "decode_topk": 1,
                 "nms": 1, "stage1_merged": 0, "fused_c3k2": 0,
-                "fused_c3k2_cat": 0, "fused_head": 0},
+                "fused_c3k2_cat": 0, "fused_head": 0, "camera": 0},
     "int8_s2dm_fc": {"normalize": 1, "fused_stem_stage1": 0,
                      "decode_topk": 1, "nms": 1, "stage1_merged": 1,
-                     "fused_c3k2": 1, "fused_c3k2_cat": 1, "fused_head": 1},
+                     "fused_c3k2": 1, "fused_c3k2_cat": 1, "fused_head": 1,
+                     "camera": 0},
     "b8": {"normalize": 1, "fused_stem_stage1": 1, "decode_topk": 1,
            "nms": 1, "stage1_merged": 0, "fused_c3k2": 0,
-           "fused_c3k2_cat": 0, "fused_head": 0},
+           "fused_c3k2_cat": 0, "fused_head": 0, "camera": 0},
+    "camera": {"normalize": 0, "fused_stem_stage1": 0, "decode_topk": 1,
+               "nms": 1, "stage1_merged": 1, "fused_c3k2": 0,
+               "fused_c3k2_cat": 0, "fused_head": 0, "camera": 1},
 }
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s, f32 CUDA-core FLOP/s
@@ -106,7 +126,8 @@ F32_FLOPS = 67e12
 
 FRAMES = 30
 BATCHES = 20
-SCENE_SEEDS = range(1, 9)   # the batch-8 path's scenes
+SCENE_SEEDS = range(1, 9)   # the batch-8 path's scenes (and the camera's)
+CAMERA_SHAPE = (1080, 1920)  # the camera artifact's frames
 SERVER_FRAMES = 200
 
 
@@ -689,6 +710,107 @@ def check_fc_kernels(model, serve, frame, torch) -> list[dict]:
     return rows
 
 
+def camera_bytes(geom, pre) -> int:
+    """Bytes the camera kernel must move for ``geom``: the source pixels
+    its taps touch (rows x columns of the tables; the NV12 chroma at half
+    resolution), the canvas it writes and its tables."""
+    rows = np.unique(pre.y_idx.cpu().numpy()).size
+    cols = np.unique(pre.x_idx.cpu().numpy()).size
+    if geom.fmt == "nv12":
+        half_r = np.unique(pre.y_idx.cpu().numpy() // 2).size
+        half_c = np.unique(pre.x_idx.cpu().numpy() // 2).size
+        src = rows * cols + half_r * half_c * 2
+    else:
+        src = rows * cols * {"rgb": 3, "bgra": 4}[geom.fmt]
+    out = geom.size * geom.size * 3 * (2 if pre.out_dtype.itemsize == 2
+                                       else 4)
+    tables = sum(t.numel() * t.element_size() for t in (
+        pre.y_idx, pre.y_wts, pre.x_idx, pre.x_wts))
+    return src + out + tables
+
+
+def check_camera_kernel(art_cam, frame, torch) -> dict:
+    """The camera kernel against its plain version on the card: bit for
+    bit at the served geometry (``frame``, 1080x1920 BGRA letterboxed,
+    bf16 and f32 out); within one bf16 step (f32 out: 1e-5) where the
+    weights are fractional: the stretched 1080x1920 BGRA frame, a
+    720x1280 RGB letterbox, a 480x640 NV12 frame stretched."""
+    import torch.nn.functional as F
+
+    from unina_yolo_dla_torch.ops.cuda import camera_kernel as ck
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    rng = np.random.default_rng(3)
+    geom = art_cam.geometry
+    served = torch.from_numpy(frame).to(dev)
+
+    def steps(got, want):   # |err| in bf16 steps of |ref|
+        got, want = got.float(), want.float()
+        step = torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp(min=1e-30)))) / 128
+        return float(((got - want).abs() / step).max())
+
+    forms, others = {}, {}
+    for dt in (bf, torch.float32):
+        pre = ck.CameraPreprocess(geom, dt).to(dev)
+        got = pre(served)
+        want = ck.camera_preprocess_plain(served, geom, out_dtype=dt)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        assert torch.equal(got, want), (
+            f"camera {dt} at the served geometry: |err| {err}")
+        b_ms, b_by = bound(camera_bytes(geom, pre),
+                           40 * geom.size * geom.size, F32_FLOPS)
+        forms[dt] = dict(
+            max_abs_err=err, ms=cuda_ms(lambda: pre(served), 200),
+            graph_ms=graph_ms(lambda: pre(served)),
+            plain_ms=cuda_ms(lambda: ck.camera_preprocess_plain(
+                served, geom, out_dtype=dt), 20),
+            bound_ms=b_ms, bound_by=b_by)
+    for h, w, fmt, lb in ((1080, 1920, "bgra", False),
+                          (720, 1280, "rgb", True),
+                          (480, 640, "nv12", False)):
+        g = ck.CameraGeometry(h, w, fmt, geom.size, lb)
+        f = torch.from_numpy(rng.integers(0, 256, g.frame_shape,
+                                          dtype=np.uint8)).to(dev)
+        res = {}
+        for dt in (bf, torch.float32):
+            got = ck.CameraPreprocess(g, dt).to(dev)(f)
+            want = ck.camera_preprocess_plain(f, g, out_dtype=dt)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            if dt == bf:
+                st = steps(got, want)
+                assert st <= 1.0, f"camera {g}: {st} bf16 steps"
+                res["bf16_max_steps"] = st
+            else:
+                assert err <= 1e-5, f"camera {g} f32: |err| {err}"
+            res[f"{'bf16' if dt == bf else 'f32'}_max_abs_err"] = err
+        others[f"{fmt}_{h}x{w}_{'letterbox' if lb else 'stretch'}"] = res
+    log(json.dumps({"camera_fractional": others}))
+    # yardstick: PyTorch's bilinear resize of the float RGB frame alone
+    # (no colour, pad or normalise), the same half-pixel coordinates
+    _, new_h, new_w, _, _ = geom.window
+    rgb = served[..., [2, 1, 0]].float().permute(2, 0, 1)[None].contiguous()
+
+    def lib():
+        return F.interpolate(rgb, size=(new_h, new_w), mode="bilinear",
+                             align_corners=False)
+
+    return dict(
+        name="camera", route="cuda",
+        source="unina_yolo_dla_torch/csrc/camera.cu",
+        replaces="unina_yolo_dla_tpu/ops/preprocess.py:97",
+        tolerance=("exact at the served geometry (both output forms); "
+                   "<= 1 bf16 step (f32 out: 1e-5) at fractional weights"),
+        form="bfloat16 out, 1080x1920 BGRA letterboxed to 640",
+        **forms[bf], library_ms=cuda_ms(lib, 50),
+        library="F.interpolate bilinear of the float RGB frame (resize "
+                "alone)",
+        **{f"f32_{k}": v for k, v in forms[torch.float32].items()},
+        fractional=others)
+
+
 def profile_calls(serve, arg, torch, calls: int = 10,
                   unit: str = "frame") -> dict:
     """Device time per call by kernel (torch.profiler, CUDA activity),
@@ -757,11 +879,14 @@ def match_detections(a, b, box_tol: float, score_tol: float) -> dict:
             "max_score_err": worst_score}
 
 
-def drive(serve, rgb, labels, kernels, per_frame, cpu_dets, torch) -> dict:
+def drive(serve, rgb, labels, kernels, per_frame, cpu_dets, torch,
+          box_tol: float = 0.5) -> dict:
     """One engine end to end at batch 1: warm-up, then FRAMES timed frames
     with every launch counter set to 0 just before and read just after;
     the path's launches per frame, its outputs' sanity and its match with
-    the port's CPU path on the same frame."""
+    the port's CPU path on the same frame (boxes within ``box_tol`` px:
+    0.5 in model space, 1.5 in the camera's pixels, the letterbox's
+    scale of 3)."""
     for _ in range(5):
         serve(rgb)
     torch.cuda.synchronize()
@@ -786,7 +911,7 @@ def drive(serve, rgb, labels, kernels, per_frame, cpu_dets, torch) -> dict:
     got_cls = {int(c) for c in dets.classes[dets.valid].tolist()}
     assert 1 <= n_valid <= len(labels) + 3, (n_valid, len(labels))
     assert got_cls <= gt, (got_cls, gt)
-    match = match_detections(dets, cpu_dets, box_tol=0.5, score_tol=1e-2)
+    match = match_detections(dets, cpu_dets, box_tol=box_tol, score_tol=1e-2)
     return {"frames": FRAMES, "valid": n_valid, "gt_cones": len(labels),
             "frame_ms_median": float(np.median(times)),
             "frame_ms_min": float(np.min(times)), "vs_cpu_port": match,
@@ -1015,6 +1140,42 @@ def drive_executor(kernels, per_call, scenes, torch) -> dict:
             "launches_in_frames": frame_launches, "sentinel_ok": True}
 
 
+def drive_camera_executor(kernels, per_call, art_g, frames, torch) -> dict:
+    """The executor entry on the camera artifact's graph: the ring's BGRA
+    bytes as they are give the records of the artifact's packed result;
+    another geometry or format gets the sentinel; frames launch nothing."""
+    import struct
+
+    from unina_yolo_dla_torch.runtime import aot
+    from unina_yolo_dla_torch.runtime.embed import make_executor, pack_records
+
+    _zero(kernels)
+    execute = make_executor(str(ARTIFACT_CAM))
+    launches = _read(kernels)
+    for name, per in per_call.items():
+        assert launches[name] == (aot.WARMUP + 1) * per, (name, launches)
+    h, w = CAMERA_SHAPE
+    wants = [pack_records(art_g.packed(f)) for f in frames]
+    _zero(kernels)
+    blobs, times = [], []
+    for frame, want in zip(frames, wants):
+        t = time.perf_counter()
+        blob = execute(memoryview(frame.tobytes()), w, h, 4)
+        times.append((time.perf_counter() - t) * 1e3)
+        assert blob == want, "camera executor records differ from packed()"
+        blobs.append(blob)
+    sentinel = struct.pack("<I", 0xFFFFFFFF)
+    for gw, gh, gc in ((w, h, 3), (w, h, 0), (640, 640, 3)):
+        assert execute(memoryview(frames[0].tobytes()), gw, gh, gc) == \
+            sentinel, (gw, gh, gc)
+    frame_launches = _read(kernels)
+    assert not any(frame_launches.values()), frame_launches
+    return {"bytes_per_frame": [len(b) for b in blobs],
+            "frame_ms_median": float(np.median(times)),
+            "launches_in_configure": launches,
+            "launches_in_frames": frame_launches, "sentinel_ok": True}
+
+
 def main() -> int:
     import torch
 
@@ -1028,12 +1189,11 @@ def main() -> int:
     from unina_yolo_dla_torch.models.config import ModelConfig
     from unina_yolo_dla_torch.models.detector import from_jax_variables
     from unina_yolo_dla_torch.ops.cuda import (
-        _lib, c3k2_kernel, decode_kernel, head_kernel, nms_kernel,
-        preprocess_kernel, stage1_kernel, stem_kernel)
+        _lib, c3k2_kernel, camera_kernel, decode_kernel, head_kernel,
+        nms_kernel, preprocess_kernel, stage1_kernel, stem_kernel)
     from unina_yolo_dla_torch.quant.fake_quant import PERF_EXCLUDE, QuantSpec
     from unina_yolo_dla_torch.runtime import aot
     from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
-    from unina_yolo_dla_torch.ops.preprocess import merged_frame_np
     from unina_yolo_dla_torch.runtime.pipeline import build_serving_fn
     from unina_yolo_dla_torch.utils.checkpoint import load_msgpack_raw
 
@@ -1059,7 +1219,8 @@ def main() -> int:
                "stage1_merged": stage1_kernel.KERNEL,
                "fused_c3k2": c3k2_kernel.KERNEL,
                "fused_c3k2_cat": c3k2_kernel.KERNEL_CAT,
-               "fused_head": head_kernel.KERNEL}
+               "fused_head": head_kernel.KERNEL,
+               "camera": camera_kernel.KERNEL}
     # the shipped engine, and the fc engine from the same weights through
     # the entry points (both on cuda), eager: each launch counted
     art = ServingArtifact(ARTIFACT, graph=False)
@@ -1086,6 +1247,19 @@ def main() -> int:
         scenes.append(np.ascontiguousarray(im[..., ::-1]))
         scene_labels.append(lb)
     scenes = np.stack(scenes)
+    # the camera artifact's frames: synthetic 1080x1920 scenes as the ring
+    # delivers them, BGRA (seed 7 against the CPU path, seeds 1-8 for
+    # replay against eager)
+    def camera_scene(seed):
+        bgr, lb = generate_image(np.random.default_rng(seed), SynthConfig(
+            image_size=CAMERA_SHAPE[0], image_width=CAMERA_SHAPE[1],
+            seed=seed))
+        return np.concatenate([bgr, np.full((*CAMERA_SHAPE, 1), 255,
+                                            np.uint8)], axis=-1), lb
+
+    cam7, cam_labels = camera_scene(7)
+    cam_scenes = [camera_scene(seed)[0] for seed in SCENE_SEEDS]
+    art_cam = ServingArtifact(ARTIFACT_CAM, graph=False)
 
     # phase 2: each kernel against its plain version on the card
     floor = launch_floor(torch)
@@ -1094,6 +1268,8 @@ def main() -> int:
             for r in check_kernels(art, rgb, scenes, torch)]
     rows += [dict(r, path="int8_s2dm_fc") for r in check_fc_kernels(
         fc_model, fc_serve, art.stage(rgb), torch)]
+    rows.append(dict(check_camera_kernel(art_cam, cam7, torch),
+                     path="camera"))
     ragged = check_ragged(torch)
     log(json.dumps({"ragged_max_rel_err": ragged}))
     lib_path = _lib.build()
@@ -1149,10 +1325,20 @@ def main() -> int:
                                 "device_idle_share", "kernels_per_call")}}),
         flush=True)
 
-    # phases 9-11: the three paths again, each one captured CUDA graph
+    # phase 8b: the camera artifact, eager: the raw 1080x1920 BGRA frame
+    # through the camera, stage1, decode and NMS kernels, against the port's
+    # CPU path on the seed-7 scene; then under the profiler
+    cpu_cam = ServingArtifact(ARTIFACT_CAM, device="cpu")(cam7)
+    e2e_cam = drive(art_cam, cam7, cam_labels, kernels, PER_FRAME["camera"],
+                    cpu_cam, torch, box_tol=1.5)
+    print(json.dumps({"end_to_end_camera": e2e_cam}), flush=True)
+    prof_cam = profile_calls(art_cam, cam7, torch)
+    log(json.dumps({"profile_camera": prof_cam}, indent=1))
+
+    # phases 9-11: the four paths again, each one captured CUDA graph
     # replayed per call; the result sizes are the reference artifacts' own
     out_bytes = {p.name: json.loads((p / "fallback_report.json").read_text(
-    ))["output_bytes"] for p in (ARTIFACT, ARTIFACT_B8)}
+    ))["output_bytes"] for p in (ARTIFACT, ARTIFACT_B8, ARTIFACT_CAM)}
 
     def artifact_graph(path):
         owner = ServingArtifact(path)
@@ -1182,22 +1368,31 @@ def main() -> int:
         torch, copies=True, unit="batch of 8")
     prof_gb8 = profile_calls(art8_g, scenes, torch, unit="batch of 8")
     log(json.dumps({"graph_b8": g_b8, "profile": prof_gb8}, indent=1))
-    # host staging alone: block and merge into the pinned buffer
+    cam_g, graph_cam, g_cam = drive_graph(
+        lambda: artifact_graph(ARTIFACT_CAM), lambda a, f: a(f), art_cam,
+        cam_scenes, kernels, PER_FRAME["camera"],
+        out_bytes[ARTIFACT_CAM.name], torch, copies=True)
+    prof_gcam = profile_calls(cam_g, cam7, torch)
+    log(json.dumps({"graph_camera": g_cam, "profile": prof_gcam}, indent=1))
+    # host staging alone: into the pinned buffer (blocked and merged; the
+    # camera's raw frame, one copy)
     staging = {}
     for engine, owner, frames in (("shipped", art_g, rgb),
                                   ("int8_s2dm_fc", art_g, rgb),
-                                  ("b8", art8_g, scenes)):
+                                  ("b8", art8_g, scenes),
+                                  ("camera", cam_g, cam7)):
         pinned, times = owner._pinned.numpy(), []
         for _ in range(FRAMES):
             t = time.perf_counter()
-            merged_frame_np(frames, out=pinned)
+            owner._host_stage(frames, out=pinned)
             times.append((time.perf_counter() - t) * 1e3)
         staging[engine] = float(np.median(times))
     graphs = {"shipped": (g_ship, prof_g, graph_ship),
               "int8_s2dm_fc": (g_fc, prof_gfc, graph_fc),
-              "b8": (g_b8, prof_gb8, graph_b8)}
+              "b8": (g_b8, prof_gb8, graph_b8),
+              "camera": (g_cam, prof_gcam, graph_cam)}
     eager = {"shipped": (e2e, prof), "int8_s2dm_fc": (e2e_fc, prof_fc),
-             "b8": (e2e_b8, prof_b8)}
+             "b8": (e2e_b8, prof_b8), "camera": (e2e_cam, prof_cam)}
     summary = {}
     for engine, (g, pr, _) in graphs.items():
         run, pe = eager[engine]
@@ -1217,6 +1412,8 @@ def main() -> int:
             "graph_kernel_nodes": g["report"]["kernel_nodes"],
             "graph_nodes": g["report"]["nodes"]}
     print(json.dumps({"eager_vs_graph": summary}), flush=True)
+    print(json.dumps({"camera": dict(summary["camera"], card=smi)}),
+          flush=True)
     del fc_g, art8_g
 
     # phase 12: the lifecycle server, phase 13: the executor entry, both
@@ -1228,9 +1425,14 @@ def main() -> int:
     executor = drive_executor(kernels, PER_FRAME["shipped"], scenes, torch)
     print(json.dumps({"executor": {k: executor[k] for k in (
         "bytes_per_frame", "frame_ms_median", "sentinel_ok")}}), flush=True)
+    executor_cam = drive_camera_executor(kernels, PER_FRAME["camera"], cam_g,
+                                         cam_scenes[:4], torch)
+    print(json.dumps({"executor_camera": {k: executor_cam[k] for k in (
+        "bytes_per_frame", "frame_ms_median", "sentinel_ok")}}), flush=True)
+    del cam_g
 
     runs = {"shipped": (e2e, prof), "int8_s2dm_fc": (e2e_fc, prof_fc),
-            "b8": (e2e_b8, prof_b8)}
+            "b8": (e2e_b8, prof_b8), "camera": (e2e_cam, prof_cam)}
     profiles = [(engine, pr) for engine, (_, pr) in runs.items()] + [
         (f"{engine} graph", pr) for engine, (_, pr, _) in graphs.items()]
     for label, pr in profiles:
@@ -1278,8 +1480,10 @@ def main() -> int:
          "graph_shipped": g_ship, "profile_graph_shipped": prof_g,
          "graph_fc": g_fc, "profile_graph_fc": prof_gfc,
          "graph_b8": g_b8, "profile_graph_b8": prof_gb8,
+         "end_to_end_camera": e2e_cam, "profile_camera": prof_cam,
+         "graph_camera": g_cam, "profile_graph_camera": prof_gcam,
          "eager_vs_graph": summary, "server": server,
-         "executor": executor, **line},
+         "executor": executor, "executor_camera": executor_cam, **line},
         indent=2, default=str))
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

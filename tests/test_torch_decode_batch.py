@@ -225,14 +225,18 @@ def _conf(name):
 
 def test_batch_artifact_config():
     """The b8 artifact describes the shipped engine with a batch of 8; the
-    camera artifact is still refused, and says why."""
+    camera artifact's engine loads (the standard stem with stage1_s2d);
+    a camera with a batch is refused, as the reference's export does."""
     b8, b1 = _conf("serving_artifact_b8"), _conf("serving_artifact")
     assert b8["batch"] == 8
     assert config_from_artifact(b8) == config_from_artifact(b1)
-    with pytest.raises(NotImplementedError, match="camera"):
-        config_from_artifact(_conf("serving_artifact_cam"))
-    with pytest.raises(NotImplementedError, match="camera"):
-        config_from_artifact(dict(b8, camera={"height": 1080}))
+    cam = _conf("serving_artifact_cam")
+    cfg = config_from_artifact(cam)
+    assert cfg.stage1_s2d and cfg.merged_head and cfg.quant is not None
+    assert not (cfg.stem_s2d or cfg.s2d_host or cfg.s2d_merged
+                or cfg.fused_stem)
+    with pytest.raises(ValueError, match="camera and batch"):
+        config_from_artifact(dict(cam, batch=8))
 
 
 def test_batch_artifact_stages_its_batch():

@@ -17,6 +17,7 @@ from unina_yolo_dla_torch.models.config import ModelConfig
 from unina_yolo_dla_torch.models.detector import from_jax_variables
 from unina_yolo_dla_torch.ops.cuda import (
     c3k2_kernel,
+    camera_kernel,
     decode_kernel,
     head_kernel,
     mma_pack,
@@ -41,6 +42,7 @@ pytestmark = pytest.mark.gpu
 ARTIFACT = Path(__file__).resolve().parents[1] / "artifacts" / \
     "serving_artifact"
 ARTIFACT_B8 = ARTIFACT.with_name("serving_artifact_b8")
+ARTIFACT_CAM = ARTIFACT.with_name("serving_artifact_cam")
 
 
 @pytest.fixture
@@ -384,6 +386,17 @@ def _scenes(seeds):
             ..., ::-1]) for s in seeds])
 
 
+def _camera_scenes(seeds):
+    """Synthetic 1080x1920 scenes as the camera ring delivers them: BGRA."""
+    out = []
+    for s in seeds:
+        bgr = generate_image(np.random.default_rng(s), SynthConfig(
+            image_size=1080, image_width=1920, seed=s))[0]
+        out.append(np.concatenate([bgr, np.full((1080, 1920, 1), 255,
+                                                np.uint8)], axis=-1))
+    return out
+
+
 def test_serving_path_launches_one_of_each(cuda):
     """One eagerly served frame is one launch each of normalize (bf16 out:
     the backbone's cast is a no-op), the fused stem, decode and NMS; a
@@ -468,6 +481,70 @@ def test_served_artifact_matches_cpu_port(cuda):
     for box, klass in zip(cb, cc):
         err = np.abs(gb - box).max(axis=1) + 1e9 * (gc != klass)
         assert err.min() <= 0.5
+
+
+def _bf16_steps(got, want):
+    """|got - want| in bf16 steps of |want| (elementwise max)."""
+    got, want = got.float(), want.float()
+    step = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))))
+    return float(((got - want).abs() / (step / 128)).max())
+
+
+def _camera_frame(rng, geom):
+    return torch.from_numpy(rng.integers(0, 256, geom.frame_shape,
+                                         dtype=np.uint8))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,w,fmt,size,letterbox", [
+    (1080, 1920, "bgra", 640, True),      # the served geometry: exact
+    (1080, 1920, "bgra", 640, False),
+    (720, 1280, "rgb", 640, True),
+    (480, 640, "nv12", 640, True),
+    (38, 54, "nv12", 40, False),          # ragged, upsampled
+])
+def test_camera_kernel_matches_plain(rng, cuda, h, w, fmt, size, letterbox,
+                                     out_dtype):
+    """The camera kernel against its plain version (colour, the two
+    interpolation matmuls in full f32, the 114 canvas, normalise): bit for
+    bit at the served geometry (every weight 0 or 1); elsewhere the two
+    sum the two taps of a matmul row in their own orders, within one bf16
+    step (bf16 out) and 1e-5 (f32 out). One call is one launch."""
+    geom = camera_kernel.CameraGeometry(h, w, fmt, size, letterbox)
+    pre = camera_kernel.CameraPreprocess(geom, out_dtype).to(cuda)
+    frame = _camera_frame(rng, geom).to(cuda)
+    got = _launched(camera_kernel.KERNEL, lambda: pre(frame))
+    want = camera_kernel.camera_preprocess_plain(frame, geom,
+                                                 out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (size, size, 3)
+    if (h, w, letterbox) == (1080, 1920, True):
+        assert torch.equal(got, want)
+    elif out_dtype == torch.bfloat16:
+        assert _bf16_steps(got, want) <= 1.0
+    else:
+        assert float((got - want).abs().max()) <= 1e-5
+    _, new_h, new_w, pad_y, pad_x = geom.window
+    if letterbox and pad_y:   # the pad rows are the normalised 114
+        assert torch.equal(got[:pad_y], want[:pad_y])
+
+
+def test_camera_artifact_matches_cpu_port(cuda):
+    """The camera artifact on the card (its graph) against the port's CPU
+    path on the seed-7 1080x1920 BGRA scene: the same count, boxes within
+    1.5 camera px, scores within 1e-2."""
+    bgra = _camera_scenes([7])[0]
+    gpu = ServingArtifact(ARTIFACT_CAM)(bgra)
+    cpu = ServingArtifact(ARTIFACT_CAM, device="cpu")(bgra)
+    gv, cv = gpu.valid.cpu().numpy(), cpu.valid.numpy()
+    assert gv.sum() == cv.sum() >= 1
+    gb, gc, gs = (a.cpu().numpy()[gv] for a in (gpu.boxes, gpu.classes,
+                                                 gpu.scores))
+    cb, cc, cs = (a.numpy()[cv] for a in (cpu.boxes, cpu.classes,
+                                           cpu.scores))
+    for box, klass, score in zip(cb, cc, cs):
+        err = np.abs(gb - box).max(axis=1) + 1e9 * (gc != klass)
+        j = int(err.argmin())
+        assert err[j] <= 1.5 and abs(gs[j] - score) <= 1e-2
 
 
 def _within(got, want, rel=1e-2):
@@ -682,6 +759,8 @@ PATH_KERNELS = {
            "fused_c3k2": 1, "fused_c3k2_cat": 1, "fused_head": 1},
 }
 PATH_KERNELS["b8"] = PATH_KERNELS["shipped"]
+PATH_KERNELS["camera"] = {"camera": 1, "stage1_merged": 1, "decode_topk": 1,
+                          "nms": 1}
 
 
 def _fc_pair(device):
@@ -707,7 +786,10 @@ def paths():
     torch.backends.cudnn.allow_tf32 = False
     scenes = _scenes(range(1, 9))
     ship, ship8 = ServingArtifact(ARTIFACT), ServingArtifact(ARTIFACT_B8)
+    cam = ServingArtifact(ARTIFACT_CAM)
     return {
+        "camera": (cam, ServingArtifact(ARTIFACT_CAM, graph=False), cam.graph,
+                   _camera_scenes(range(1, 9))),
         "shipped": (ship, ServingArtifact(ARTIFACT, graph=False), ship.graph,
                     list(scenes)),
         "fc": (*_fc_pair(torch.device("cuda")), list(scenes)),
@@ -716,7 +798,7 @@ def paths():
     }
 
 
-@pytest.mark.parametrize("path", ["shipped", "fc", "b8"])
+@pytest.mark.parametrize("path", ["shipped", "fc", "b8", "camera"])
 def test_graph_replay_matches_eager_bit_for_bit(paths, path):
     """The replayed frame is the eager frame: every field of every slot
     equal, on 8 scenes (one batch of them for b8)."""
@@ -728,7 +810,7 @@ def test_graph_replay_matches_eager_bit_for_bit(paths, path):
             assert g.shape == w.shape and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("path", ["shipped", "b8"])
+@pytest.mark.parametrize("path", ["shipped", "b8", "camera"])
 def test_graph_results_do_not_alias(paths, path):
     """ServingArtifact's results are its own: a later call leaves an
     earlier result as it was."""
@@ -742,7 +824,8 @@ def test_graph_results_do_not_alias(paths, path):
 
 
 @pytest.mark.parametrize("path,out_bytes", [("shipped", 25600),
-                                            ("fc", 25600), ("b8", 204800)])
+                                            ("fc", 25600), ("b8", 204800),
+                                            ("camera", 25600)])
 def test_graph_report_clean_with_each_kernel(paths, path, out_bytes):
     """The strict report of each captured frame: no host node, the
     reference artifacts' result size, and each of the path's kernels among
@@ -755,7 +838,7 @@ def test_graph_report_clean_with_each_kernel(paths, path, out_bytes):
     assert cap.report.kernel_nodes > 100
 
 
-@pytest.mark.parametrize("path", ["shipped", "fc", "b8"])
+@pytest.mark.parametrize("path", ["shipped", "fc", "b8", "camera"])
 def test_graph_replays_launch_nothing(paths, path):
     """The capture launched each of the path's kernels once into the
     graph; replays launch no kernel from Python."""
@@ -767,7 +850,8 @@ def test_graph_replays_launch_nothing(paths, path):
              "stage1_merged": stage1_kernel.KERNEL,
              "fused_c3k2": c3k2_kernel.KERNEL,
              "fused_c3k2_cat": c3k2_kernel.KERNEL_CAT,
-             "fused_head": head_kernel.KERNEL}
+             "fused_head": head_kernel.KERNEL,
+             "camera": camera_kernel.KERNEL}
     assert {n: cap.capture_launches.get(k.symbol, 0)
             for n, k in names.items() if cap.capture_launches.get(
                 k.symbol)} == PATH_KERNELS[path]
@@ -840,3 +924,27 @@ def test_server_and_executor_on_the_card(paths):
     assert np.array_equal(rec[:, 4], got["scores"])
     assert execute(memoryview(frame.tobytes()), 320, 640, 3) == \
         struct.pack("<I", 0xFFFFFFFF)
+
+
+def test_camera_executor_on_the_card(paths):
+    """The camera artifact's executor: the ring's BGRA bytes as they are ->
+    records of the eager frame's valid detections; another geometry or
+    format -> the sentinel; its frames launch nothing from Python."""
+    import struct
+
+    eager, scenes = paths["camera"][1], paths["camera"][3][:3]
+    wants = [eager(frame) for frame in scenes]
+    execute = make_executor(str(ARTIFACT_CAM))
+    by_symbol = {k.symbol: k for k in _lib.KERNELS}
+    before = {s: k.launches for s, k in by_symbol.items()}
+    for frame, want in zip(scenes, wants):
+        v = want.valid.cpu().numpy()
+        blob = execute(memoryview(frame.tobytes()), 1920, 1080, 4)
+        assert struct.unpack_from("<I", blob, 0)[0] == int(v.sum()) >= 1
+        rec = np.frombuffer(blob[4:], np.float32).reshape(-1, 6)
+        assert np.array_equal(rec[:, :4], want.boxes.cpu().numpy()[v])
+        assert np.array_equal(rec[:, 4], want.scores.cpu().numpy()[v])
+    for w, h, c in ((1920, 1080, 3), (1920, 1080, 0), (640, 640, 3)):
+        assert execute(memoryview(scenes[0].tobytes()), w, h, c) == \
+            struct.pack("<I", 0xFFFFFFFF)
+    assert {s: k.launches for s, k in by_symbol.items()} == before

@@ -16,6 +16,7 @@
 import dataclasses
 import json
 import struct
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +34,7 @@ from unina_yolo_dla_torch.quant.fake_quant import PERF_EXCLUDE as T_PERF
 from unina_yolo_dla_torch.quant.fake_quant import QuantSpec as TSpec
 from unina_yolo_dla_torch.runtime import aot as taot
 from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
-from unina_yolo_dla_torch.runtime.embed import make_executor
+from unina_yolo_dla_torch.runtime.embed import make_executor, pack_records
 from unina_yolo_dla_torch.runtime.pipeline import build_serving_fn
 from unina_yolo_dla_torch.runtime.serving import (
     LifecycleState,
@@ -148,6 +149,9 @@ def test_report_from_nodes_classifies_nodes():
              ("kernel", "void (anonymous namespace)::c3k2_kernel<false>("
                         "(anonymous namespace)::Params)"),
              ("kernel", "_ZN12_GLOBAL__N_110nms_kernelEPKfPKiPKhPhif"),
+             ("kernel", "_ZN41_GLOBAL__N__3c4cbb4f_9_camera_cu_7f14fb2d24"
+                        "camera_preprocess_kernelILi1E13__nv_bfloat16EEvPKh"
+                        "PT0_iiiiiiiPK4int2PK6float2S8_SB_NS_4NormE"),
              ("kernel", "void at::native::vectorized_elementwise_kernel"),
              ("memcpy", "1024 B"), ("memset", ""),
              ("memcpy", "28672 B, host dst"), ("host", "")]
@@ -156,12 +160,12 @@ def test_report_from_nodes_classifies_nodes():
                       torch.zeros(1024, dtype=torch.bool))
     rep = taot.report_from_nodes(nodes, dets)
     assert rep.host_nodes == ["memcpy: 28672 B, host dst", "host: "]
-    assert rep.kernel_nodes == 5 and rep.output_bytes == 25600
-    assert rep.nodes == {"kernel": 5, "memcpy": 2, "memset": 1, "host": 1}
+    assert rep.kernel_nodes == 6 and rep.output_bytes == 25600
+    assert rep.nodes == {"kernel": 6, "memcpy": 2, "memset": 1, "host": 1}
     assert rep.port_kernels == {
         "normalize": 1, "fused_stem_stage1": 0, "decode_topk": 0, "nms": 1,
         "stage1_merged": 0, "fused_c3k2": 1, "fused_c3k2_cat": 1,
-        "fused_head": 0}
+        "fused_head": 0, "camera": 1}
     with pytest.raises(RuntimeError):
         taot.print_fallback_report(rep, log_fn=lambda s: None)
 
@@ -320,12 +324,23 @@ def test_executor_nv12_matches_reference(executors):
     _match(_records(got), _records(want))
 
 
-def test_executor_refuses_camera_artifact(tmp_path, monkeypatch):
+def test_executor_refuses_camera_artifact(monkeypatch):
+    """A camera artifact's executor serves its camera's geometry (raw BGRA
+    bytes, records of the artifact's own packed result) and refuses every
+    other geometry or format with the sentinel."""
     monkeypatch.setenv("UNINA_FORCE_CPU", "1")
-    (tmp_path / "config.json").write_text(json.dumps(
-        {"camera": {"height": 1080, "width": 1920, "format": "bgra"}}))
-    with pytest.raises(NotImplementedError):
-        make_executor(str(tmp_path))
+    cam = Path(__file__).resolve().parents[1] / "artifacts" / \
+        "serving_artifact_cam"
+    execute = make_executor(str(cam))
+    frame = np.random.default_rng(8).integers(0, 256, (1080, 1920, 4),
+                                              dtype=np.uint8)
+    blob = execute(memoryview(frame.tobytes()), 1920, 1080, 4)
+    want = ServingArtifact(cam, device="cpu").packed(frame)
+    assert blob == pack_records(want)
+    sentinel = struct.pack("<I", 0xFFFFFFFF)
+    for w, h, c in ((1920, 1080, 3), (1920, 1080, 0), (1080, 1920, 4),
+                    (IMG, IMG, 3)):
+        assert execute(memoryview(frame.tobytes()), w, h, c) == sentinel
 
 
 # ---- the rest ----

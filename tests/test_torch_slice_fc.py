@@ -206,6 +206,12 @@ def test_config_from_artifact_accepts_merged_without_fused_stem():
     assert config_from_artifact(dict(base, fused_stem=True)).fused_stem
     # a batch artifact's engine is the batch-1 one
     assert config_from_artifact(dict(base, fused_stem=False, batch=8)) == cfg
-    for bad in (dict(camera=[1080, 1920]), dict(s2d_merged=False)):
-        with pytest.raises(NotImplementedError):
-            config_from_artifact(dict(base, **bad))
+    # a camera cannot take host space-to-depth frames (the reference's
+    # export refuses it); engines the port lacks say what is missing
+    with pytest.raises(ValueError, match="space-to-depth"):
+        config_from_artifact(dict(base, camera=[1080, 1920]))
+    with pytest.raises(NotImplementedError, match="stem_s2d without"):
+        config_from_artifact(dict(base, s2d_merged=False))
+    with pytest.raises(NotImplementedError, match="stage1_s2d"):
+        config_from_artifact(dict(base, stem_s2d=False, s2d_host=False,
+                                  stage1_s2d=False, s2d_merged=False))

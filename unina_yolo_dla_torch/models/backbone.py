@@ -1,11 +1,15 @@
 """CSP-Darknet backbone emitting P2 (s4), P3 (s8), P4 (s16) + SPPF(P4).
 
-The deployed ``s2d_merged`` engines only. With ``fused_stem`` the stem and
-the stage1 downsample run as ONE fused kernel over the merged frame
-(``ops/cuda/stem_kernel.py``); without it the stem is a shift-dot matmul
-emitting merged columns and stage1 is its own kernel over them
-(``ops/cuda/stage1_kernel.py``). ``fused_c3k2`` fuses the float-path
-C3k2s (``stage1_block`` in the int8 engine).
+Two deployed stems. The ``s2d_merged`` engines take the merged frame: with
+``fused_stem`` the stem and the stage1 downsample run as ONE fused kernel
+over it (``ops/cuda/stem_kernel.py``); without it the stem is a shift-dot
+matmul emitting merged columns and stage1 is its own kernel over them
+(``ops/cuda/stage1_kernel.py``). The camera engine (``stage1_s2d`` without
+``stem_s2d``) takes the (S, S, 3) model input: the standard 3x3 stride-2
+stem conv, then the blocked stage1 downsample, which is the same stage1
+kernel over the stem output viewed with adjacent column pairs merged (a
+free view of the contiguous NHWC tensor). ``fused_c3k2`` fuses the
+float-path C3k2s (``stage1_block`` in the int8 engine).
 """
 from __future__ import annotations
 
@@ -23,11 +27,16 @@ from .config import ModelConfig
 class Backbone(nn.Module):
     def __init__(self, tree: WeightTree, cfg: ModelConfig) -> None:
         super().__init__()
-        if not (cfg.s2d_merged and cfg.deploy):
+        if not cfg.deploy:
+            raise NotImplementedError("the port serves deploy engines")
+        if not cfg.s2d_merged and (cfg.stem_s2d or not cfg.stage1_s2d):
             raise NotImplementedError(
-                "the port serves the deploy s2d_merged engines")
+                "the port serves the s2d_merged engines and the standard "
+                "stem with stage1_s2d; stem_s2d without s2d_merged, and a "
+                "stage1 without stage1_s2d, need the deploy transforms")
         dt = cfg.compute_dtype
         self.fused_stem = cfg.fused_stem
+        self.standard_stem = not cfg.s2d_merged
         if self.fused_stem:
             stem = tree.node("backbone/stem/conv")
             s1 = tree.node("backbone/stage1_conv/conv")
@@ -50,7 +59,10 @@ class Backbone(nn.Module):
             self.register_buffer("stage1_kernel_mma", pack_stage1_mma(
                 self.stage1_kernel) if packs else None)
         else:
-            self.stem = ShiftDot2x2(tree, "backbone/stem/conv")
+            # the standard stem is quant-excluded: a bf16 conv
+            self.stem = (ConvBlock(tree, "backbone/stem", 3, 2)
+                         if self.standard_stem else
+                         ShiftDot2x2(tree, "backbone/stem/conv"))
             self.stage1_conv = MergedDownsample(
                 tree, "backbone/stage1_conv/conv")
         self.dtype = dt
@@ -77,6 +89,11 @@ class Backbone(nn.Module):
                       (self.stem_kernel, self.stage1_kernel))
             x = fused_stem_stage1(x, ks, self.stem_bias, k1,
                                   self.stage1_bias)
+        elif self.standard_stem:
+            # ReLU inside the block; the merged view needs contiguous NHWC
+            x = self.stem(x).contiguous()
+            b, h, w, c = x.shape
+            x = self.stage1_conv(x.view(b, h, w // 2, 2 * c))
         else:
             x = self.stage1_conv(torch.relu(self.stem(x)))
         p2 = self.stage1_block(x)

@@ -28,7 +28,9 @@ class ModelConfig:
         deploy: BatchNorm folded into conv weight + bias.
         stem_s2d / s2d_host / stage1_s2d / s2d_merged: the host
             space-to-depth input contract; with ``s2d_merged`` the frame
-            arrives as (S/2, S/4, 24) merged columns.
+            arrives as (S/2, S/4, 24) merged columns. ``stage1_s2d``
+            without ``stem_s2d`` is the camera engine: an (S, S, 3) input,
+            the standard stem conv, stage1 as the blocked downsample.
         fused_stem: stem + stage1 as one fused kernel over the merged frame;
             without it an ``s2d_merged`` engine runs the stem as a shift-dot
             matmul and stage1 as its own kernel.

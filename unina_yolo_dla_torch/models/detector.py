@@ -1,8 +1,10 @@
 """Full UNINA-YOLO-DLA detector: backbone + FPN/PAN neck + 3 heads, and
 the weight carrier from the reference's variable tree.
 
-Forward takes the normalised merged frame (B, S/2, S/4, 24) and returns
-``[(p2_cls, p2_reg), (p3_cls, p3_reg), (p4_cls, p4_reg)]`` NHWC float32.
+Forward takes the normalised model input, the merged frame (B, S/2, S/4,
+24) of an ``s2d_merged`` engine or (B, S, S, 3) of the camera engine, and
+returns ``[(p2_cls, p2_reg), (p3_cls, p3_reg), (p4_cls, p4_reg)]`` NHWC
+float32.
 """
 from __future__ import annotations
 

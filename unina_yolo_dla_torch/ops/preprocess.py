@@ -1,10 +1,16 @@
-"""Frame preprocessing: ImageNet normalisation and the host-side
-space-to-depth staging of the merged serving layout.
+"""Frame preprocessing: ImageNet normalisation, the host-side
+space-to-depth staging of the merged serving layout, and the plain forms
+of the camera path's bilinear resize and letterbox geometry.
 
 The serving engine takes the (S, S, 3) RGB frame blocked 2x2 on the host,
 ``(S/2, S/2, 12)`` in (di, dj, c) channel order, and viewed with adjacent
 column pairs merged into channels, ``(S/2, S/4, 24)`` (a free reshape of
 the same bytes). The normalize kernel then applies mean/std tiled 8x.
+
+A camera engine takes the raw camera frame instead; its preprocessing
+(colour, resize, pad, normalise) is one kernel
+(``ops/cuda/camera_kernel.py``) whose plain version is built from the
+functions here.
 """
 from __future__ import annotations
 
@@ -76,3 +82,87 @@ def nv12_to_rgb(y_plane: torch.Tensor, uv_plane: torch.Tensor
     g = 1.164 * c - 0.392 * u - 0.813 * v
     b = 1.164 * c + 2.017 * u
     return torch.stack([r, g, b], dim=-1).clamp(0.0, 255.0)
+
+
+def space_to_depth_rt(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """(..., H, W, C) -> (..., H/b, W/b, b*b*C) by reshape and transpose,
+    channels in (di, dj, c) order (the reference's on-device form)."""
+    *lead, h, w, c = x.shape
+    y = x.reshape(*lead, h // block, block, w // block, block, c)
+    nd = len(lead)
+    perm = (*range(nd), nd, nd + 2, nd + 1, nd + 3, nd + 4)
+    return y.permute(perm).reshape(*lead, h // block, w // block,
+                                   block * block * c)
+
+
+def _bilinear_coords(dst: int, src: int, device=None):
+    """Half-pixel source coordinates of one axis in float32: (i0, i1,
+    frac), i0/i1 as int64 indices."""
+    scale = src / dst
+    coords = (torch.arange(dst, dtype=torch.float32, device=device)
+              + 0.5) * scale - 0.5
+    coords = coords.clamp(0.0, src - 1.0)
+    i0 = torch.floor(coords).long()
+    i1 = torch.clamp(i0 + 1, max=src - 1)
+    return i0, i1, coords - i0.float()
+
+
+def resize_bilinear(img: torch.Tensor, dst_h: int, dst_w: int
+                    ) -> torch.Tensor:
+    """(H, W, C) -> (dst_h, dst_w, C) float32 bilinear, the gather form:
+    rows first, then columns."""
+    src_h, src_w = img.shape[0], img.shape[1]
+    img = img.float()
+    y0, y1, fy = _bilinear_coords(dst_h, src_h, img.device)
+    x0, x1, fx = _bilinear_coords(dst_w, src_w, img.device)
+    top, bot = img[y0], img[y1]
+    rows = top + (bot - top) * fy[:, None, None]
+    left, right = rows[:, x0], rows[:, x1]
+    return left + (right - left) * fx[None, :, None]
+
+
+def interp_matrix(dst: int, src: int) -> np.ndarray:
+    """(dst, src) float32 bilinear interpolation matrix, two nonzeros a
+    row at most (one where the two taps coincide at the clamped edge and
+    their weights add), the coordinates of ``_bilinear_coords`` in
+    float64 as the reference computes them."""
+    scale = src / dst
+    coords = (np.arange(dst) + 0.5) * scale - 0.5
+    coords = np.clip(coords, 0.0, src - 1.0)
+    i0 = np.floor(coords).astype(np.int64)
+    i1 = np.minimum(i0 + 1, src - 1)
+    frac = (coords - i0).astype(np.float32)
+    m = np.zeros((dst, src), np.float32)
+    m[np.arange(dst), i0] += 1.0 - frac
+    m[np.arange(dst), i1] += frac
+    return m
+
+
+def resize_bilinear_mxu(img: torch.Tensor, dst_h: int, dst_w: int
+                        ) -> torch.Tensor:
+    """(H, W, C) -> (dst_h, dst_w, C) float32 bilinear as two float32
+    interpolation matmuls, ``Ry @ img @ Rx^T`` (rows first); the same
+    function as ``resize_bilinear`` up to summation order."""
+    src_h, src_w = img.shape[0], img.shape[1]
+    ry = torch.from_numpy(interp_matrix(dst_h, src_h)).to(img.device)
+    rx = torch.from_numpy(interp_matrix(dst_w, src_w)).to(img.device)
+    x = img.float()
+    # full float32 products, no TF32, as the reference pins
+    # Precision.HIGHEST; the caller's setting is restored after
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        rows = torch.einsum("dh,hwc->dwc", ry, x)
+        return torch.einsum("ew,dwc->dec", rx, rows)
+    finally:
+        torch.set_float32_matmul_precision(before)
+
+
+def letterbox_geometry(ch: int, cw: int, s: int
+                       ) -> tuple[float, int, int, int, int]:
+    """A (ch, cw) camera frame letterboxed into an (s, s) canvas: (scale,
+    new_h, new_w, pad_y, pad_x), the aspect-preserving resize and the
+    centred pad, computed as the reference's camera program does."""
+    scale = min(s / ch, s / cw)
+    new_h, new_w = round(ch * scale), round(cw * scale)
+    return scale, new_h, new_w, (s - new_h) // 2, (s - new_w) // 2

@@ -42,6 +42,7 @@ PORT_KERNELS = {
     "fused_c3k2": r"c3k2_kernel(ILb0E|<false>)",
     "fused_c3k2_cat": r"c3k2_kernel(ILb1E|<true>)",
     "fused_head": r"head_mma_kernel",
+    "camera": r"camera_preprocess_kernel",
 }
 
 # CUgraphNodeType
@@ -339,7 +340,7 @@ class CapturedFrame:
 def capture_serving_fn(serve: Callable[[torch.Tensor], Detections],
                        frame_shape: tuple[int, ...], device) -> CapturedFrame:
     """``serve`` (any frame -> Detections function ``runtime/pipeline.py``
-    builds) captured as one CUDA graph over a static uint8 input of
-    ``frame_shape`` on ``device``; raises if the graph is not
-    host-fallback-free."""
+    builds: merged frames, or a raw camera frame) captured as one CUDA
+    graph over a static uint8 input of ``frame_shape`` on ``device``;
+    raises if the graph is not host-fallback-free."""
     return CapturedFrame(serve, frame_shape, device)

@@ -2,15 +2,17 @@
 exported engine directory -> a frame -> ``Detections`` callable.
 
 The port's counterpart of the reference ``ServingArtifact``: the same
-directory, the same call (one (S, S, 3) uint8 RGB frame, or (B, S, S, 3)
-for a batch artifact), served by the port's modules instead of the
-serialized program. The weights go to the device once, at load.
+directory, the same call (one (S, S, 3) uint8 RGB frame, (B, S, S, 3) for
+a batch artifact, or one raw camera frame for a camera artifact), served
+by the port's modules instead of the serialized program. The weights go to
+the device once, at load.
 
 On the card the frame is captured at load as one CUDA graph at the
 artifact's static shape (``runtime/aot.py``), the counterpart of the
 reference compiling its program for the local chip; ``graph=False`` keeps
-the eager frame. Frames are blocked and merged on the host straight into a
-pinned staging buffer, and copied from it to the card without blocking the
+the eager frame. Frames are staged on the host straight into a pinned
+buffer (blocked and merged for the s2d engines; the camera's raw bytes as
+they are, one copy) and copied from it to the card without blocking the
 host. With ``device="cpu"`` the frame is eager and unpinned: the plain
 versions of the kernels.
 """
@@ -30,23 +32,45 @@ from ..models.config import (
     ModelConfig,
 )
 from ..models.detector import from_jax_variables
+from ..ops.cuda.camera_kernel import CameraGeometry
 from ..ops.decode import Detections
 from ..ops.preprocess import merged_frame_np
 from ..quant.fake_quant import PERF_EXCLUDE, QuantSpec
 from ..utils.checkpoint import load_msgpack_raw
 from ..utils.device import resolve_device
 from .aot import capture_serving_fn, pack_detections
-from .pipeline import build_batch_serving_fn, build_serving_fn
+from .pipeline import (
+    build_batch_serving_fn,
+    build_camera_serving_fn,
+    build_serving_fn,
+)
 
 
 def config_from_artifact(conf: dict) -> ModelConfig:
     """The engine configuration an exported ``config.json`` describes
     (a batch artifact's engine is the batch-1 one; ``batch`` only sets
-    the leading axis of its frames)."""
+    the leading axis of its frames).
+
+    Two engines are served: the ``s2d_merged`` engines, and the standard
+    stem with ``stage1_s2d`` (the camera artifact's). Others raise
+    ``NotImplementedError``; a camera with a batch or with host
+    space-to-depth, which the reference never exports, ``ValueError``."""
     if conf.get("camera"):
-        raise NotImplementedError("camera artifacts are not ported yet")
-    if not conf.get("s2d_merged"):
-        raise NotImplementedError("the port serves s2d_merged artifacts")
+        if conf.get("batch"):
+            raise ValueError("camera and batch artifacts are mutually "
+                             "exclusive")
+        if conf.get("s2d_host") or conf.get("s2d_merged"):
+            raise ValueError("a camera artifact cannot take host "
+                             "space-to-depth frames")
+    merged = bool(conf.get("s2d_merged"))
+    if not merged and conf.get("stem_s2d"):
+        raise NotImplementedError(
+            "stem_s2d without s2d_merged: the port lacks that stem (it "
+            "needs the deploy transforms)")
+    if not merged and not conf.get("stage1_s2d"):
+        raise NotImplementedError(
+            "a stage1 without stage1_s2d: the port lacks the 3x3 stride-2 "
+            "stage1 conv (it needs the deploy transforms)")
     quant = (QuantSpec("int8_fused", exclude=PERF_EXCLUDE)
              if conf.get("quantized") else None)
     return ModelConfig(
@@ -54,9 +78,9 @@ def config_from_artifact(conf: dict) -> ModelConfig:
         base_channels=conf["base_channels"],
         lite_p2=conf.get("lite_p2", False),
         input_size=conf["input_size"],
-        quant=quant, deploy=True, stem_s2d=True, s2d_host=True,
-        stage1_s2d=True, s2d_merged=True,
-        fused_stem=conf.get("fused_stem", False),
+        quant=quant, deploy=True, stem_s2d=merged, s2d_host=merged,
+        stage1_s2d=True, s2d_merged=merged,
+        fused_stem=merged and conf.get("fused_stem", False),
         merged_head=conf.get("merged_head", False))
 
 
@@ -64,7 +88,9 @@ class ServingArtifact:
     """Frame(s) -> Detections with weights resident on ``device``.
 
     A batch artifact (``"batch": B`` in its config) takes (B, S, S, 3)
-    frames and returns Detections whose fields have a leading B axis.
+    frames and returns Detections whose fields have a leading B axis. A
+    camera artifact (``"camera"``) takes one raw frame of its camera:
+    rgb (H, W, 3), bgra (H, W, 4) or nv12 (H*3/2, W).
 
     On the card, ``graph=True`` (the default) captures the frame as one
     CUDA graph at load and replays it per call; a failure to capture or to
@@ -88,17 +114,30 @@ class ServingArtifact:
         self.model = from_jax_variables(variables, self.model_config,
                                         self.device)
         c = self.config
-        build = build_batch_serving_fn if self.batch else build_serving_fn
-        self._serve = build(
-            self.model, self.model_config,
-            c.get("conf_threshold", DEFAULT_CONF_THRESHOLD),
-            c.get("iou_threshold", DEFAULT_IOU_THRESHOLD),
-            c.get("q_factor", DEFAULT_CP_Q),
-            c.get("max_detections", MAX_DETECTIONS))
+        kw = dict(conf_threshold=c.get("conf_threshold",
+                                       DEFAULT_CONF_THRESHOLD),
+                  iou_threshold=c.get("iou_threshold", DEFAULT_IOU_THRESHOLD),
+                  q_factor=c.get("q_factor", DEFAULT_CP_Q),
+                  max_detections=c.get("max_detections", MAX_DETECTIONS))
         s = self.model_config.input_size
         lead = (self.batch,) if self.batch else ()
-        self.frame_shape = (*lead, s, s, 3)
-        self.staged_shape = (*lead, s // 2, s // 4, 24)
+        self.camera = c.get("camera")
+        if self.camera:
+            cam = self.camera
+            self.geometry = CameraGeometry(
+                cam["height"], cam["width"], cam["format"], s,
+                cam.get("letterbox", False))
+            self._serve = build_camera_serving_fn(
+                self.model, self.model_config, cam["height"], cam["width"],
+                cam["format"], letterbox=cam.get("letterbox", False),
+                box_space=cam.get("box_space", "model"), **kw)
+            self.frame_shape = self.staged_shape = self.geometry.frame_shape
+        else:
+            build = (build_batch_serving_fn if self.batch
+                     else build_serving_fn)
+            self._serve = build(self.model, self.model_config, **kw)
+            self.frame_shape = (*lead, s, s, 3)
+            self.staged_shape = (*lead, s // 2, s // 4, 24)
         self.graph = None
         if self.device.type == "cuda":
             k = c.get("max_detections", MAX_DETECTIONS)
@@ -116,24 +155,39 @@ class ServingArtifact:
     def _check(self, frames: np.ndarray) -> np.ndarray:
         frames = np.asarray(frames)
         if frames.shape != self.frame_shape or frames.dtype != np.uint8:
-            raise ValueError(f"expected {self.frame_shape} uint8 RGB "
+            kind = self.camera["format"] if self.camera else "RGB"
+            raise ValueError(f"expected {self.frame_shape} uint8 {kind} "
                              f"frames, got {frames.shape} {frames.dtype}")
         return frames
 
+    def _host_stage(self, frames: np.ndarray, out: np.ndarray | None = None
+                    ) -> np.ndarray:
+        """The staged host bytes: the s2d engines' blocked and merged
+        frame, or the camera's raw frame as it is (one copy into ``out``
+        where given)."""
+        frames = self._check(frames)
+        if not self.camera:
+            return merged_frame_np(frames, out=out)
+        if out is None:
+            return frames.copy()
+        np.copyto(out, frames)
+        return out
+
     def _stage_into(self, frames: np.ndarray, dst: torch.Tensor) -> None:
-        """Block and merge into the pinned buffer, then copy it to ``dst``
-        on the card without blocking the host."""
+        """Stage into the pinned buffer, then copy it to ``dst`` on the
+        card without blocking the host."""
         self._staged.synchronize()   # the previous copy out has run
-        merged_frame_np(self._check(frames), out=self._pinned.numpy())
+        self._host_stage(frames, out=self._pinned.numpy())
         with torch.inference_mode():
             dst.copy_(self._pinned, non_blocking=True)
         self._staged.record()
 
     def stage(self, frames: np.ndarray) -> torch.Tensor:
         """(S, S, 3) uint8 RGB -> merged (S/2, S/4, 24) on the device; a
-        batch artifact takes (B, S, S, 3) -> (B, S/2, S/4, 24)."""
+        batch artifact takes (B, S, S, 3) -> (B, S/2, S/4, 24); a camera
+        artifact's raw frame goes as it is."""
         if self.device.type != "cuda":
-            return torch.from_numpy(merged_frame_np(self._check(frames)))
+            return torch.from_numpy(self._host_stage(frames))
         with torch.inference_mode():
             dst = torch.empty(self.staged_shape, dtype=torch.uint8,
                               device=self.device)

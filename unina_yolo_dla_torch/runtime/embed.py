@@ -8,16 +8,16 @@ value is a packed bytes blob matching ``unina::Detection``
 i32 cls}; a frame of the wrong geometry gets the ``0xFFFFFFFF`` sentinel.
 
 Frames are RGB (3 channels), BGRA (4) or NV12 (channels 0: planar Y, then
-interleaved UV), converted on the host as the reference does. The frame
-runs on the card (its captured graph) unless ``UNINA_FORCE_CPU`` is set,
-which serves the plain path on the CPU.
+interleaved UV), converted on the host as the reference does. A camera
+artifact takes its camera's frames only (geometry and format), and their
+bytes go to the artifact as they are: colour and resize run on the card.
+The frame runs on the card (its captured graph) unless ``UNINA_FORCE_CPU``
+is set, which serves the plain path on the CPU.
 """
 from __future__ import annotations
 
-import json
 import os
 import struct
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ from .aot import validate_artifact_shapes
 from .artifact import ServingArtifact
 
 GEOMETRY_ERROR = struct.pack("<I", 0xFFFFFFFF)
+FORMAT_CHANNELS = {"rgb": 3, "bgra": 4, "nv12": 0}
 RECORD = np.dtype([("x1", "<f4"), ("y1", "<f4"), ("x2", "<f4"),
                    ("y2", "<f4"), ("score", "<f4"), ("cls", "<i4")])
 
@@ -46,15 +47,27 @@ def pack_records(packed: np.ndarray) -> bytes:
 def make_executor(artifact_dir: str, expected_input: int = 640,
                   expected_classes: int = 4):
     """-> ``execute(buf, width, height, channels) -> bytes``."""
-    conf = json.loads((Path(artifact_dir) / "config.json").read_text())
-    if conf.get("camera"):
-        raise NotImplementedError(
-            "camera artifacts are not served by the port yet")
     device = "cpu" if os.environ.get("UNINA_FORCE_CPU") else None
     artifact = ServingArtifact(artifact_dir, device=device)
     validate_artifact_shapes(artifact, expected_input, expected_classes)
     s = expected_input
-    artifact.packed(np.zeros((s, s, 3), np.uint8))   # warm
+    camera = artifact.camera
+    warm = artifact.frame_shape if camera else (s, s, 3)
+    artifact.packed(np.zeros(warm, np.uint8))
+    if camera:
+        geometry = (camera["height"], camera["width"],
+                    FORMAT_CHANNELS[camera["format"]])
+        n_bytes = int(np.prod(artifact.frame_shape))
+
+        def execute_camera(buf, width: int, height: int,
+                           channels: int) -> bytes:
+            if (height, width, channels) != geometry:
+                return GEOMETRY_ERROR
+            frame = np.frombuffer(buf, np.uint8)[:n_bytes]
+            return pack_records(artifact.packed(
+                frame.reshape(artifact.frame_shape)))
+
+        return execute_camera
 
     def execute(buf, width: int, height: int, channels: int) -> bytes:
         frame = np.frombuffer(buf, np.uint8)

@@ -1,4 +1,5 @@
-"""Frame -> boxes serving pipeline, at batch 1 and batch B.
+"""Frame -> boxes serving pipeline, at batch 1 and batch B, and from a
+raw camera frame.
 
     merged uint8 frames ([B,] S/2, S/4, 24), blocked on the host
     -> normalize kernel (mean/std tiled 8x), in the model's compute dtype
@@ -6,7 +7,11 @@
     -> decode kernel: every level of every image into K slots each
     -> NMS kernel -> Detections
 
-One launch of each of the four kernels per call, whatever B is.
+One launch of each of the four kernels per call, whatever B is. The camera
+path replaces the first step: the raw camera frame (BGRA, RGB or NV12 at
+camera resolution) -> camera kernel (colour, bilinear resize, letterbox
+pad, normalise) -> the camera engine (standard stem, stage1 kernel) ->
+decode -> NMS, with the boxes mapped back to camera pixels if asked.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from ..models.config import (
     ModelConfig,
 )
 from ..models.detector import UninaYoloDla
+from ..ops.cuda.camera_kernel import CameraGeometry, CameraPreprocess
 from ..ops.cuda.preprocess_kernel import (
     OUT_DTYPES,
     channel_constants,
@@ -29,6 +35,27 @@ from ..ops.cuda.preprocess_kernel import (
 )
 from ..ops.decode import Detections, decode_batch
 from ..ops.nms import nms
+
+
+def _out_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The preprocessing kernels write the model's compute dtype where they
+    have that form, so the model's first cast is a no-op."""
+    return (cfg.compute_dtype if cfg.compute_dtype in OUT_DTYPES
+            else torch.float32)
+
+
+def _build_detect(model: UninaYoloDla, cfg: ModelConfig,
+                  conf_threshold: float, iou_threshold: float,
+                  q_factor: float, max_detections: int
+                  ) -> Callable[[torch.Tensor], Detections]:
+    """Normalised model input (B, ...) -> Detections with a leading B."""
+
+    def detect(x: torch.Tensor) -> Detections:
+        dets = decode_batch(model(x), cfg.strides, conf_threshold, q_factor,
+                            max_detections)
+        return nms(dets, iou_threshold)
+
+    return detect
 
 
 def build_batch_serving_fn(
@@ -43,19 +70,17 @@ def build_batch_serving_fn(
     (B, S/2, S/4, 24) on the model's device; every field of the result
     has a leading B axis."""
     if not cfg.s2d_merged:
-        raise NotImplementedError("the port serves the s2d_merged engine")
+        raise NotImplementedError(
+            "merged frames are served by the s2d_merged engines; the camera "
+            "engine takes raw frames (build_camera_serving_fn)")
     mean, std = channel_constants(24)
-    # the kernel writes the model's compute dtype where it has that form,
-    # so the model's first cast is a no-op
-    out_dtype = (cfg.compute_dtype if cfg.compute_dtype in OUT_DTYPES
-                 else torch.float32)
+    out_dtype = _out_dtype(cfg)
+    detect = _build_detect(model, cfg, conf_threshold, iou_threshold,
+                           q_factor, max_detections)
 
     @torch.inference_mode()
     def serve(frames: torch.Tensor) -> Detections:
-        x = normalize(frames, mean, std, out_dtype=out_dtype)
-        dets = decode_batch(model(x), cfg.strides, conf_threshold, q_factor,
-                            max_detections)
-        return nms(dets, iou_threshold)
+        return detect(normalize(frames, mean, std, out_dtype=out_dtype))
 
     return serve
 
@@ -78,5 +103,63 @@ def build_serving_fn(
     @torch.inference_mode()
     def serve(frame: torch.Tensor) -> Detections:
         return Detections(*(f[0] for f in serve_batch(frame[None])))
+
+    return serve
+
+
+def build_camera_serving_fn(
+    model: UninaYoloDla,
+    cfg: ModelConfig,
+    camera_height: int,
+    camera_width: int,
+    camera_format: str = "bgra",
+    conf_threshold: float = DEFAULT_CONF_THRESHOLD,
+    iou_threshold: float = DEFAULT_IOU_THRESHOLD,
+    q_factor: float = DEFAULT_CP_Q,
+    max_detections: int = MAX_DETECTIONS,
+    letterbox: bool = False,
+    box_space: str = "model",
+) -> Callable[[torch.Tensor], Detections]:
+    """Returns ``serve(frame) -> Detections`` for one raw camera frame on
+    the model's device: rgb (H, W, 3), bgra (H, W, 4) or nv12 (H*3/2, W)
+    uint8 (``camera_format``).
+
+    ``letterbox=False`` stretches the frame to the square model input;
+    ``letterbox=True`` resizes it keeping its aspect and pads the rest
+    with 114, the training geometry. ``box_space="camera"`` maps the boxes
+    back to camera pixels (pad and scale undone, clamped to the frame);
+    ``"model"`` keeps model-space boxes."""
+    if cfg.s2d_host or cfg.s2d_merged:
+        raise ValueError(
+            "host space-to-depth engines cannot serve a camera: the frame "
+            "is resized on the card, so there is no host staging pass to "
+            "block it in")
+    if box_space not in ("model", "camera"):
+        raise ValueError(f"box_space: 'model' or 'camera', got {box_space!r}")
+    geom = CameraGeometry(camera_height, camera_width, camera_format,
+                          cfg.input_size, letterbox)
+    device = next(model.buffers()).device
+    pre = CameraPreprocess(geom, _out_dtype(cfg)).to(device)
+    detect = _build_detect(model, cfg, conf_threshold, iou_threshold,
+                           q_factor, max_detections)
+    ch, cw, s = camera_height, camera_width, cfg.input_size
+
+    def f32(values):
+        return torch.tensor(values, dtype=torch.float32, device=device)
+
+    scale, _, _, pad_y, pad_x = geom.window
+    # 0-d tensor divisor: a Python number would divide by its reciprocal
+    pads, scale_t = f32([pad_x, pad_y, pad_x, pad_y]), f32(scale)
+    stretch = f32([cw / s, ch / s, cw / s, ch / s])
+    lim = f32([cw, ch, cw, ch])
+
+    @torch.inference_mode()
+    def serve(frame: torch.Tensor) -> Detections:
+        dets = Detections(*(f[0] for f in detect(pre(frame)[None])))
+        if box_space == "model":
+            return dets
+        b = (dets.boxes - pads) / scale_t if letterbox else \
+            dets.boxes * stretch
+        return dets._replace(boxes=b.clamp(min=0.0).minimum(lim))
 
     return serve
