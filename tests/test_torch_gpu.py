@@ -495,21 +495,38 @@ def _camera_frame(rng, geom):
                                          dtype=np.uint8))
 
 
-@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("h,w,fmt,size,letterbox", [
-    (1080, 1920, "bgra", 640, True),      # the served geometry: exact
+# the lookup form (every weight 0 or 1), exact: the served geometry first
+CAMERA_LOOKUP = [
+    (1080, 1920, "bgra", 640, True),
+    (1080, 1920, "rgb", 640, True),       # 3-byte pixels, unaligned span
+    (640, 640, "rgb", 640, True),         # ratio 1, no pad
+    (2160, 3840, "bgra", 1280, True),     # 15 KB rows: two staged steps
+    (3840, 2160, "bgra", 1280, True),     # steps with pad columns
+]
+# then the division form (fractional weights, NV12)
+CAMERA_GEOMETRIES = CAMERA_LOOKUP + [
     (1080, 1920, "bgra", 640, False),
     (720, 1280, "rgb", 640, True),
     (480, 640, "nv12", 640, True),
     (38, 54, "nv12", 40, False),          # ragged, upsampled
-])
+    (722, 1282, "rgb", 640, True),        # rows of 3,846 B
+    (1282, 722, "rgb", 640, True),        # portrait: pad columns
+    (2160, 3840, "bgra", 640, True),      # ratio 6: weights 1/2
+    (3840, 2160, "bgra", 640, True),
+]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,w,fmt,size,letterbox", CAMERA_GEOMETRIES)
 def test_camera_kernel_matches_plain(rng, cuda, h, w, fmt, size, letterbox,
                                      out_dtype):
     """The camera kernel against its plain version (colour, the two
     interpolation matmuls in full f32, the 114 canvas, normalise): bit for
-    bit at the served geometry (every weight 0 or 1); elsewhere the two
-    sum the two taps of a matmul row in their own orders, within one bf16
-    step (bf16 out) and 1e-5 (f32 out). One call is one launch."""
+    bit in the lookup form (every weight 0 or 1, as at the served
+    geometry); elsewhere within one bf16 step (bf16 out) and 1e-5 (f32
+    out) of the plain version run on the CPU (on the card its matmuls sum
+    in another order, and where x / 255 cancels against the mean that is
+    many bf16 steps of a result near 0). One call is one launch."""
     geom = camera_kernel.CameraGeometry(h, w, fmt, size, letterbox)
     pre = camera_kernel.CameraPreprocess(geom, out_dtype).to(cuda)
     frame = _camera_frame(rng, geom).to(cuda)
@@ -517,15 +534,65 @@ def test_camera_kernel_matches_plain(rng, cuda, h, w, fmt, size, letterbox,
     want = camera_kernel.camera_preprocess_plain(frame, geom,
                                                  out_dtype=out_dtype)
     assert got.dtype == out_dtype and got.shape == (size, size, 3)
-    if (h, w, letterbox) == (1080, 1920, True):
+    assert pre.table is ((h, w, fmt, size, letterbox) in CAMERA_LOOKUP)
+    if pre.table:
         assert torch.equal(got, want)
-    elif out_dtype == torch.bfloat16:
-        assert _bf16_steps(got, want) <= 1.0
     else:
-        assert float((got - want).abs().max()) <= 1e-5
+        ref = camera_kernel.camera_preprocess_plain(
+            frame.cpu(), geom, out_dtype=out_dtype).to(cuda)
+        if out_dtype == torch.bfloat16:
+            assert _bf16_steps(got, ref) <= 1.0
+        else:
+            assert float((got - ref).abs().max()) <= 1e-5
     _, new_h, new_w, pad_y, pad_x = geom.window
     if letterbox and pad_y:   # the pad rows are the normalised 114
         assert torch.equal(got[:pad_y], want[:pad_y])
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,w,fmt,size,letterbox", CAMERA_GEOMETRIES)
+def test_camera_kernel_pad_region_exact(rng, cuda, h, w, fmt, size,
+                                        letterbox, out_dtype):
+    """Outside the resized window (pad rows and pad columns) the kernel
+    writes the plain version's normalised 114 bit for bit, whatever the
+    frame holds."""
+    geom = camera_kernel.CameraGeometry(h, w, fmt, size, letterbox)
+    pre = camera_kernel.CameraPreprocess(geom, out_dtype).to(cuda)
+    frame = _camera_frame(rng, geom).to(cuda)
+    got = pre(frame)
+    want = camera_kernel.camera_preprocess_plain(frame, geom,
+                                                 out_dtype=out_dtype)
+    _, new_h, new_w, pad_y, pad_x = geom.window
+    pad = torch.ones((size, size), dtype=torch.bool, device=cuda)
+    pad[pad_y:pad_y + new_h, pad_x:pad_x + new_w] = False
+    assert torch.equal(got[pad], want[pad])
+    assert int(pad.sum()) == size * size - new_h * new_w
+
+
+@pytest.mark.parametrize("letterbox,kernel", [
+    (True, "camera_preprocess_kernel"), (False, "camera_pixel_kernel")])
+def test_camera_kernel_one_launch_in_a_graph(cuda, letterbox, kernel):
+    """Captured into a CUDA graph, one call is one kernel node (the form's
+    camera kernel: the served letterbox takes the lookup form, the stretch
+    the division form) and nothing else; the replay equals the eager
+    call."""
+    geom = camera_kernel.CameraGeometry(1080, 1920, "bgra", 640, letterbox)
+    pre = camera_kernel.CameraPreprocess(geom, torch.bfloat16).to(cuda)
+    frame = _camera_frame(np.random.default_rng(9), geom).to(cuda)
+    want = pre(frame)
+    graph, stream = torch.cuda.CUDAGraph(keep_graph=True), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    before = camera_kernel.KERNEL.launches
+    with torch.cuda.graph(graph, stream=stream):
+        got = pre(frame)
+    assert camera_kernel.KERNEL.launches == before + 1
+    nodes = aot.graph_nodes(graph.raw_cuda_graph())
+    assert len(nodes) == 1 and nodes[0][0] == "kernel"
+    assert kernel in nodes[0][1]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert camera_kernel.KERNEL.launches == before + 1
 
 
 def test_camera_artifact_matches_cpu_port(cuda):

@@ -1,9 +1,11 @@
 """Device time of the port's small kernels around the model (normalize,
-decode with its top-K compaction, NMS) on one NVIDIA GPU, under the host's
-launch cost (PyTorch/CUDA port; imports no JAX).
+decode with its top-K compaction, NMS, the camera preprocessing) on one
+NVIDIA GPU, under the host's launch cost (PyTorch/CUDA port; imports no
+JAX).
 
     python3 tools/torch_prepost_probe.py [--root DIR] [--define NAME]
-                                         [--ablation] [--tag TAG]
+                                         [--ablation] [--camera-only]
+                                         [--tag TAG]
 
 Twenty launches are captured into one CUDA graph and the graph is
 replayed, so the number is what the card spends per launch, not what the
@@ -23,7 +25,17 @@ host needs to enqueue it. Timed:
   ``decode_batch`` runs the batch image by image, as its serving path
   would have to. Beside the graph time, kernels and device ms per call by
   ``chip_smoke.py``'s profiler (20 calls), and the whole served frame at
-  B = 1 (10 frames).
+  B = 1 (10 frames);
+- the camera kernel (``CameraPreprocess``, bf16 out) at each geometry of
+  ``CAMERA_SWEEP`` (random frames; checked against the plain version
+  first: bit for bit in the lookup form, elsewhere within one bf16 step
+  of it run on the CPU, as ``chip_smoke.py`` holds it; the pad bit for
+  bit), and at the served geometry (1080x1920
+  BGRA letterboxed to 640), bf16 and f32 out, on ``chip_smoke.py``'s three
+  clocks: CUDA events over back-to-back calls (host cost included), a
+  replayed graph, the profiler; beside it ``F.interpolate`` (bilinear, the
+  float RGB frame: the resize alone) and a PyTorch fill of the same bf16
+  canvas on the same clocks. ``--camera-only`` times nothing else.
 
 ``--root DIR`` imports ``unina_yolo_dla_torch`` from another tree (an
 unpacked parent commit: ``git archive <commit> unina_yolo_dla_torch | tar
@@ -54,6 +66,16 @@ ARTIFACT = HERE.parent / "artifacts" / "serving_artifact"
 LAUNCHES = 20
 ROTATE = 16
 NMS_VALID = (0, 4, 32, 64, 128, 256, 257, 512, 1024)
+# (height, width, format, size, letterbox): the served geometry first
+CAMERA_SWEEP = ((1080, 1920, "bgra", 640, True),
+                (1080, 1920, "rgb", 640, True),
+                (640, 640, "bgra", 640, True),     # every row a window row
+                (3, 1920, "bgra", 640, True),      # nearly every row pad
+                (2160, 3840, "bgra", 1280, True),  # two staged steps a row
+                (1080, 1920, "bgra", 640, False),  # fractional rows
+                (720, 1280, "rgb", 640, True),     # weights 1/2
+                (1080, 1920, "nv12", 640, True),
+                (480, 640, "nv12", 640, False))
 ABLATION = ("as it was", "32-bit index", "constants in shared memory",
             "no IEEE division", "32-bit index + shared constants",
             "all three")
@@ -197,11 +219,65 @@ def post_model(dev) -> dict:
     return out
 
 
+def camera(dev) -> dict:
+    """The camera kernel: checked and timed at each geometry of
+    CAMERA_SWEEP, then on three clocks at the served one, with its
+    yardsticks."""
+    import torch.nn.functional as F
+
+    from chip_smoke import (bf16_steps, cuda_ms, graph_ms, pad_equal,
+                            profiled_ms)
+    from unina_yolo_dla_torch.ops.cuda import camera_kernel as ck
+
+    rng = np.random.default_rng(7)
+    bf = torch.bfloat16
+    out = {"sweep": []}
+    for h, w, fmt, size, lb in CAMERA_SWEEP:
+        g = ck.CameraGeometry(h, w, fmt, size, lb)
+        f = torch.from_numpy(rng.integers(0, 256, g.frame_shape,
+                                          dtype=np.uint8)).to(dev)
+        pre = ck.CameraPreprocess(g, bf).to(dev)
+        got = pre(f)
+        table = getattr(pre, "table", None)   # a tree of one form: None
+        want = ck.camera_preprocess_plain(f if table else f.cpu(), g,
+                                          out_dtype=bf).to(dev)
+        steps = bf16_steps(got, want)
+        out["sweep"].append(dict(
+            geometry=f"{fmt} {h}x{w} to {size} "
+                     f"{'letterbox' if lb else 'stretch'}",
+            table=table, bf16_max_steps=steps,
+            pad_exact=pad_equal(g, got, want),
+            ok=pad_equal(g, got, want) and (
+                steps == 0.0 if table else steps <= 1.0),
+            graph_ms=graph_ms(lambda: pre(f))))
+    g = ck.CameraGeometry(*CAMERA_SWEEP[0])
+    served = torch.from_numpy(rng.integers(0, 256, g.frame_shape,
+                                           dtype=np.uint8)).to(dev)
+    for dt in (bf, torch.float32):
+        pre = ck.CameraPreprocess(g, dt).to(dev)
+        out[str(dt).split(".")[-1]] = dict(
+            ms=cuda_ms(lambda: pre(served), 500),
+            graph_ms=graph_ms(lambda: pre(served)),
+            device_ms=profiled_ms(lambda: pre(served), torch))
+    _, new_h, new_w, _, _ = g.window
+    rgb = served[..., [2, 1, 0]].float().permute(2, 0, 1)[None].contiguous()
+    canvas = torch.empty((g.size, g.size, 3), dtype=bf, device=dev)
+    for name, fn in (
+            ("interpolate", lambda: F.interpolate(
+                rgb, size=(new_h, new_w), mode="bilinear",
+                align_corners=False)),
+            ("fill", lambda: canvas.fill_(0.5))):
+        out[name] = dict(ms=cuda_ms(fn, 500), graph_ms=graph_ms(fn),
+                         device_ms=profiled_ms(fn, torch))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE.parent))
     ap.add_argument("--define", action="append", default=[])
     ap.add_argument("--ablation", action="store_true")
+    ap.add_argument("--camera-only", action="store_true")
     ap.add_argument("--tag", default="this")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -221,6 +297,10 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     out = {"card": smi, "root": args.root, "defines": args.define,
            "launches_per_graph": LAUNCHES}
+    out["camera"] = camera(dev)
+    ok = all(r["ok"] for r in out["camera"]["sweep"])
+    if args.camera_only:
+        return finish(out, args.tag, ok)
 
     frames = [torch.from_numpy(rng.integers(
         0, 256, (320, 160, 24), dtype=np.uint8)).to(dev)
@@ -271,12 +351,16 @@ def main() -> int:
         out["empty_launch_device_us"] = graph_us(
             [lambda: empty.launch(_lib.stream_ptr(dev))])
     out["post_model"] = post_model(dev)
+    return finish(out, args.tag, ok and all(
+        r["exact"] for r in out["normalize"] + out["nms"]))
+
+
+def finish(out: dict, tag: str, ok: bool) -> int:
     print(json.dumps(out, indent=1))
     dest = HERE.parent / "chiprun_out"
     dest.mkdir(exist_ok=True)
-    (dest / f"torch_prepost_probe_{args.tag}.json").write_text(
+    (dest / f"torch_prepost_probe_{tag}.json").write_text(
         json.dumps(out, indent=1))
-    ok = all(r["exact"] for r in out["normalize"] + out["nms"])
     return 0 if ok else 1
 
 

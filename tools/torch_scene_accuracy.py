@@ -3,14 +3,20 @@ path (PyTorch/CUDA port; imports no JAX).
 
     python3 tools/torch_scene_accuracy.py [--seeds N]
 
-Serves the synthetic scenes of seeds 1..N (``data/synthetic.py``, 640²,
-default N = 16) through two engines from the committed int8 weights:
+Serves the synthetic scenes of seeds 1..N (``data/synthetic.py``,
+default N = 16) through three engines from the committed int8 weights:
 
 - the shipped artifact (``artifacts/serving_artifact``): on the card its
   captured CUDA graph (``ServingArtifact``), on the CPU the plain path;
 - ``int8_s2dm_fc`` (the same weights with the fused C3k2 and head
   kernels, no fused stem): on the card ``build_serving_fn`` captured by
-  ``runtime/aot.py``, on the CPU the plain path.
+  ``runtime/aot.py``, on the CPU the plain path;
+- the camera artifact (``artifacts/serving_artifact_cam``) on 1080x1920
+  BGRA scenes as ``chip_smoke.py`` builds them (boxes and ground truth in
+  camera pixels): on the card its captured graph, on the CPU the plain
+  path.
+
+The first two take the 640² RGB scenes.
 
 For each engine it reports the worst box and score gap between card and
 CPU over detections matched one to one by class and box, the scenes whose
@@ -59,7 +65,9 @@ from unina_yolo_dla_torch.utils.checkpoint import (  # noqa: E402
 )
 
 ARTIFACT = REPO / "artifacts" / "serving_artifact"
+ARTIFACT_CAM = REPO / "artifacts" / "serving_artifact_cam"
 SIZE = 640
+CAMERA = (1080, 1920)
 
 
 def scene(seed: int):
@@ -70,6 +78,21 @@ def scene(seed: int):
                     (cx + w / 2) * SIZE, (cy + h / 2) * SIZE]
                    for c, cx, cy, w, h in labels], np.float32).reshape(-1, 5)
     return np.ascontiguousarray(img[..., ::-1]), gt
+
+
+def camera_scene(seed: int):
+    """(1080x1920 BGRA frame as a camera ring delivers it, ground truth
+    (M, 5) [cls, x1, y1, x2, y2] in camera pixels)."""
+    h, w = CAMERA
+    bgr, labels = generate_image(np.random.default_rng(seed), SynthConfig(
+        image_size=h, image_width=w, seed=seed))
+    frame = np.concatenate([bgr, np.full((h, w, 1), 255, np.uint8)],
+                           axis=-1)
+    gt = np.array([[c, (cx - bw / 2) * w, (cy - bh / 2) * h,
+                    (cx + bw / 2) * w, (cy + bh / 2) * h]
+                   for c, cx, cy, bw, bh in labels],
+                  np.float32).reshape(-1, 5)
+    return frame, gt
 
 
 def valid_set(dets) -> np.ndarray:
@@ -122,7 +145,9 @@ def engines():
     def fc_plain(rgb):
         return fc_cpu(torch.from_numpy(merged_frame_np(rgb)))
 
-    return {"shipped": (card, cpu), "int8_s2dm_fc": (fc_card, fc_plain)}
+    return {"shipped": (card, cpu), "int8_s2dm_fc": (fc_card, fc_plain),
+            "camera": (ServingArtifact(ARTIFACT_CAM),
+                       ServingArtifact(ARTIFACT_CAM, device="cpu"))}
 
 
 def main() -> int:
@@ -133,13 +158,16 @@ def main() -> int:
         print("torch_scene_accuracy: no CUDA device", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    scenes = [scene(s) for s in range(1, args.seeds + 1)]
+    seeds = range(1, args.seeds + 1)
+    square = [scene(s) for s in seeds]
+    camera = [camera_scene(s) for s in seeds]
     result = {"seeds": [1, args.seeds], "engines": {}}
     for name, (on_card, on_cpu) in engines().items():
+        scenes = camera if name == "camera" else square
         per_scene, card_sets, cpu_sets = [], [], []
-        for seed, (rgb, gt) in enumerate(scenes, start=1):
+        for seed, (frame, gt) in enumerate(scenes, start=1):
             with torch.inference_mode():
-                a, b = valid_set(on_card(rgb)), valid_set(on_cpu(rgb))
+                a, b = valid_set(on_card(frame)), valid_set(on_cpu(frame))
             card_sets.append(a)
             cpu_sets.append(b)
             box, score, unmatched = gaps(a, b)

@@ -66,6 +66,8 @@ class FallbackReport:
     kernel_nodes: int
     port_kernels: dict[str, int]   # kernel nodes of each port kernel
     nodes: dict[str, int]          # every node, by type
+    memsets: list[str] = dataclasses.field(default_factory=list)
+    # each memset node: its bytes and the kernels that wait for it
 
     @property
     def clean(self) -> bool:
@@ -81,6 +83,8 @@ def print_fallback_report(report: FallbackReport, strict: bool = True,
     log_fn(f"  kernel nodes:     {report.kernel_nodes} "
            f"(port kernels {report.port_kernels})")
     log_fn(f"  nodes by type:    {report.nodes}")
+    if report.memsets:
+        log_fn(f"  memsets:          {report.memsets}")
     log_fn(f"  result transfer:  {report.output_bytes} B device->host")
     if not report.clean and strict:
         raise RuntimeError(
@@ -136,6 +140,12 @@ def _memcpy_side() -> list:
             ("height", ctypes.c_size_t)]
 
 
+class _MemsetParams(ctypes.Structure):       # CUDA_MEMSET_NODE_PARAMS
+    _fields_ = [("dst", ctypes.c_void_p), ("pitch", ctypes.c_size_t),
+                ("value", ctypes.c_uint), ("element_size", ctypes.c_uint),
+                ("width", ctypes.c_size_t), ("height", ctypes.c_size_t)]
+
+
 class _MemcpySide(ctypes.Structure):
     _fields_ = _memcpy_side()
 
@@ -160,6 +170,8 @@ def _driver() -> ctypes.CDLL:
             "cuGraphKernelNodeGetParams_v2": [
                 P, ctypes.POINTER(_KernelNodeParams)],
             "cuGraphMemcpyNodeGetParams": [P, ctypes.POINTER(_Memcpy3D)],
+            "cuGraphMemsetNodeGetParams": [P, ctypes.POINTER(_MemsetParams)],
+            "cuGraphNodeGetDependentNodes": [P, ctypes.POINTER(P), S],
             "cuGraphChildGraphNodeGetGraph": [P, ctypes.POINTER(P)],
             "cuFuncGetName": [ctypes.POINTER(ctypes.c_char_p), P],
             "cuKernelGetName": [ctypes.POINTER(ctypes.c_char_p), P],
@@ -201,10 +213,34 @@ def _on_host(cu, side: _MemcpySide) -> bool:
     return err != 0 or kind.value == _MEM_HOST   # unknown: pageable host
 
 
+def _memset_detail(cu, node) -> str:
+    """A memset node's bytes and value, and the kernel nodes that wait
+    for it: what the zeroed buffer is for."""
+    m = _MemsetParams()
+    _check(cu.cuGraphMemsetNodeGetParams(node, ctypes.byref(m)),
+           "cuGraphMemsetNodeGetParams")
+    count = ctypes.c_size_t(0)
+    _check(cu.cuGraphNodeGetDependentNodes(node, None, ctypes.byref(count)),
+           "cuGraphNodeGetDependentNodes")
+    after = (ctypes.c_void_p * max(count.value, 1))()
+    _check(cu.cuGraphNodeGetDependentNodes(node, after, ctypes.byref(count)),
+           "cuGraphNodeGetDependentNodes")
+    names = []
+    for dep in after[:count.value]:
+        t = ctypes.c_int(-1)
+        _check(cu.cuGraphNodeGetType(dep, ctypes.byref(t)),
+               "cuGraphNodeGetType")
+        names.append(_kernel_name(cu, dep) if t.value == 0
+                     else _NODE_TYPES[t.value])
+    size = m.width * m.element_size * max(m.height, 1)
+    return f"{size} B of {m.value}, then {'; '.join(names) or 'nothing'}"
+
+
 def graph_nodes(raw_graph: int) -> list[tuple[str, str]]:
     """(type, detail) of every node of a ``cudaGraph_t``, child graphs
     walked in: a kernel's detail is its device function's name; a copy's
-    says whether an end lies in host memory (``"host"``)."""
+    says whether an end lies in host memory (``"host"``); a memset's, its
+    bytes and the kernels that wait for it."""
     cu = _driver()
     count = ctypes.c_size_t(0)
     _check(cu.cuGraphGetNodes(raw_graph, None, ctypes.byref(count)),
@@ -230,6 +266,8 @@ def graph_nodes(raw_graph: int) -> list[tuple[str, str]]:
                     if _on_host(cu, side)]
             detail = f"{m.width_in_bytes * max(m.height, 1)} B" + (
                 f", host {'+'.join(ends)}" if ends else "")
+        elif kind == "memset":
+            detail = _memset_detail(cu, node)
         elif kind == "graph":
             child = ctypes.c_void_p()
             _check(cu.cuGraphChildGraphNodeGetGraph(node,
@@ -255,7 +293,8 @@ def report_from_nodes(nodes: list[tuple[str, str]], dets: Detections
         kernel_nodes=len(names),
         port_kernels={w: sum(bool(re.search(pat, n)) for n in names)
                       for w, pat in PORT_KERNELS.items()},
-        nodes=by_type)
+        nodes=by_type,
+        memsets=[d for k, d in nodes if k == "memset"])
 
 
 def analyze_graph(graph: torch.cuda.CUDAGraph, dets: Detections
