@@ -56,10 +56,32 @@ held against the port's CPU path on the seed-7 scene within 1.5 camera px
 profile names the ops that issued memsets on the card, and each graph's
 report its memset nodes with the kernels that wait for them.
 
+Then the port's own export (``python -m unina_yolo_dla_torch.export``,
+run in this process on the card) from ``artifacts/engine_source.msgpack``
+with each committed artifact's flags (shipped; shipped at batch 8;
+camera): each ``variables.msgpack`` equal to the committed one (bytes for
+the shipped artifact, every leaf for all three), each ``config.json`` on
+every key the reference writes but ``platforms``, each strict report of a
+captured graph clean; the port-exported shipped artifact, served from its
+directory, gives the committed artifact's Detections bit for bit on the 8
+scenes. Then the float checkpoint (the same file without ``quant`` and
+``calib_meta``, written by the port's ``save_msgpack`` to a temporary
+directory) is exported as the two bf16 engines, ``bf16_s2dm_mh`` (merged
+head) and ``bf16_s2dm_fc`` (every C3k2 and head fused, at 64, 128 and 256
+channels), each served eager (counted launches, against the port's CPU
+path on the seed-7 scene: same count, 0.5 px, 1e-2) and as one captured
+graph (the same gates as the int8 paths, each kernel among the nodes as
+often as a frame launches it: 3 C3k2, 4 C3k2-cat and 3 head launches in
+the fc engine), and profiled; each of the fc engine's ten fused modules
+runs its kernel on the served frame's own activations against its plain
+version (|err| <= 1e-2 (1 + |ref|)) and is timed, which gives rows 6-8 of
+the kernels line a ``widths`` list.
+
 The five tensor-core kernels (stem+stage1, stage1, both C3k2 forms, head)
 are also run at ragged shapes that cut every tile edge, and the built
 library's SASS is read for the tensor-core instruction each of them issues
-(``mma`` in their rows).
+(``mma`` in their rows; ``mma_wide`` for the C3k2 and head kernels' wide
+form).
 
 The three small kernels around the model (normalize, decode, NMS) are also
 timed inside a replayed CUDA graph (``graph_ms``: the card's time per launch
@@ -83,6 +105,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -99,9 +122,11 @@ DEVICE_FUNCS = {"normalize": ("normalize_merged_kernel",),
                 "decode_topk": ("decode_topk_kernel",),
                 "nms": ("nms_kernel",),
                 "stage1_merged": ("stage1_mma_kernel",),
-                "fused_c3k2": ("c3k2_kernel<false>",),
-                "fused_c3k2_cat": ("c3k2_kernel<true>",),
-                "fused_head": ("head_mma_kernel",),
+                "fused_c3k2": ("c3k2_kernel<false>",
+                               "c3k2_wide_kernel<false>"),
+                "fused_c3k2_cat": ("c3k2_kernel<true>",
+                                   "c3k2_wide_kernel<true>"),
+                "fused_head": ("head_mma_kernel", "head_wide_kernel"),
                 "camera": ("camera_preprocess_kernel",
                            "camera_pixel_kernel")}
 # the kernels that run on the tensor cores: checked at ragged shapes too,
@@ -110,7 +135,9 @@ MMA_KERNELS = ("fused_stem_stage1", "stage1_merged", "fused_c3k2",
                "fused_c3k2_cat", "fused_head")
 # template instantiations as cuobjdump lists them (mangled)
 SASS_NAMES = {"c3k2_kernel<false>": "c3k2_kernelILb0EE",
-              "c3k2_kernel<true>": "c3k2_kernelILb1EE"}
+              "c3k2_kernel<true>": "c3k2_kernelILb1EE",
+              "c3k2_wide_kernel<false>": "c3k2_wide_kernelILb0EE",
+              "c3k2_wide_kernel<true>": "c3k2_wide_kernelILb1EE"}
 # launches per call of each path (a call is a frame, or a batch of 8)
 PER_FRAME = {
     "shipped": {"normalize": 1, "fused_stem_stage1": 1, "decode_topk": 1,
@@ -126,6 +153,42 @@ PER_FRAME = {
     "camera": {"normalize": 0, "fused_stem_stage1": 0, "decode_topk": 1,
                "nms": 1, "stage1_merged": 1, "fused_c3k2": 0,
                "fused_c3k2_cat": 0, "fused_head": 0, "camera": 1},
+    "bf16_s2dm_mh": {"normalize": 1, "fused_stem_stage1": 0,
+                     "decode_topk": 1, "nms": 1, "stage1_merged": 1,
+                     "fused_c3k2": 0, "fused_c3k2_cat": 0, "fused_head": 0,
+                     "camera": 0},
+    # every C3k2 and head of the bf16 engine fuses, at 64, 128 and 256
+    "bf16_s2dm_fc": {"normalize": 1, "fused_stem_stage1": 0,
+                     "decode_topk": 1, "nms": 1, "stage1_merged": 1,
+                     "fused_c3k2": 3, "fused_c3k2_cat": 4, "fused_head": 3,
+                     "camera": 0},
+}
+# the port's export, from the committed calibrated checkpoint, with each
+# committed artifact's flags
+SOURCE = REPO / "artifacts" / "engine_source.msgpack"
+CP_CALIBRATION = REPO / "artifacts" / "cp_calibration.json"
+EXPORT_FLAGS = {
+    "serving_artifact": ["--int8", "--s2d-merged", "--fused-stem",
+                         "--merged-head"],
+    "serving_artifact_b8": ["--int8", "--s2d-merged", "--fused-stem",
+                            "--merged-head", "--batch", "8"],
+    "serving_artifact_cam": ["--int8", "--merged-head", "--stage1-s2d",
+                             "--camera", "1080x1920", "--format", "bgra"],
+}
+# config.json keys the reference does not write, or writes for itself
+OWN_KEYS = ("platforms", "fused_c3k2", "fused_head")
+# the bf16 engines, exported from the float checkpoint (engine_source
+# without quant and calib_meta)
+BF16_FLAGS = {"bf16_s2dm_mh": ["--s2d-merged", "--merged-head"],
+              "bf16_s2dm_fc": ["--s2d-merged", "--fused-c3k2",
+                               "--fused-head"]}
+# the bf16 fc engine's fused modules, by kernel
+FC_MODULES = {
+    "fused_c3k2": ("backbone.stage1_block", "backbone.stage2_c3k2",
+                   "backbone.stage3_c3k2"),
+    "fused_c3k2_cat": ("neck.fpn_c3k2_1", "neck.fpn_c3k2_2",
+                       "neck.pan_c3k2_1", "neck.pan_c3k2_2"),
+    "fused_head": ("head_p2", "head_p3", "head_p4"),
 }
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s, f32 CUDA-core FLOP/s
@@ -1276,6 +1339,245 @@ def drive_camera_executor(kernels, per_call, art_g, frames, torch) -> dict:
             "launches_in_frames": frame_launches, "sentinel_ok": True}
 
 
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, np.asarray(tree)
+
+
+def trees_equal(a, b) -> bool:
+    """The same paths in the same order, every leaf equal in dtype, shape
+    and value."""
+    la, lb = list(_leaves(a)), list(_leaves(b))
+    return (len(la) == len(lb) > 0 and all(
+        pa == pb and x.dtype == y.dtype and x.shape == y.shape
+        and np.array_equal(x, y) for (pa, x), (pb, y) in zip(la, lb)))
+
+
+def run_export(argv) -> float:
+    """``python -m unina_yolo_dla_torch.export`` in this process, on the
+    card, its log on stderr; -> wall seconds."""
+    import contextlib
+
+    from unina_yolo_dla_torch import export
+
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        export.main([str(a) for a in argv])
+    return time.perf_counter() - t
+
+
+def drive_export(tmp: Path, scenes, art_g, torch) -> dict:
+    """The port's export on the card from the committed checkpoint with
+    each committed artifact's flags: variables equal to the committed ones
+    (bytes for the shipped artifact, every leaf for all three), config.json
+    equal on every key the reference writes but ``platforms``, a clean
+    strict report of a captured graph; then the port-exported shipped
+    artifact served from its directory, its Detections on the scenes equal
+    to the committed artifact's bit for bit."""
+    from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
+    from unina_yolo_dla_torch.utils.checkpoint import load_msgpack_raw
+
+    out = {}
+    for name, flags in EXPORT_FLAGS.items():
+        d = tmp / name
+        secs = run_export(["--weights", SOURCE, *flags, "--cp-calibration",
+                           CP_CALIBRATION, "--output", d])
+        ref = REPO / "artifacts" / name
+        same_bytes = ((d / "variables.msgpack").read_bytes()
+                      == (ref / "variables.msgpack").read_bytes())
+        leaves = trees_equal(load_msgpack_raw(d / "variables.msgpack"),
+                             load_msgpack_raw(ref / "variables.msgpack"))
+        got, want = (json.loads((p / "config.json").read_text())
+                     for p in (d, ref))
+        differ = sorted(k for k in set(got) | set(want)
+                        if k not in OWN_KEYS and got.get(k) != want.get(k))
+        rep = json.loads((d / "fallback_report.json").read_text())
+        assert leaves, f"{name}: exported variables differ"
+        assert name != "serving_artifact" or same_bytes, (
+            f"{name}: exported variables.msgpack differs in its bytes")
+        assert not differ, f"{name}: config.json differs on {differ}"
+        assert got["platforms"] == ["cuda"], got["platforms"]
+        assert rep["captured"] and not rep["host_nodes"], rep
+        out[name] = {"export_s": secs, "bytes_equal": same_bytes,
+                     "leaves_equal": leaves, "config_keys_differ": differ,
+                     "report": {k: rep[k] for k in (
+                         "host_nodes", "kernel_nodes", "port_kernels",
+                         "output_bytes", "captured")}}
+    mine = ServingArtifact(tmp / "serving_artifact")
+    equal = []
+    for frame in scenes:
+        with torch.inference_mode():
+            got = [f.clone() for f in mine(frame)]
+        equal.append(_same(got, art_g(frame)))
+    assert all(equal), f"port-exported artifact differs: {equal}"
+    out["served_bit_equal_vs_committed"] = equal
+    del mine
+    return out
+
+
+def check_wide_kernels(model, serve, frame, torch) -> list[dict]:
+    """Each fused module of the bf16 fc engine (seven C3k2s, three heads,
+    at 64, 128 and 256 channels) on the activations and weights of one
+    served frame: its kernel against its plain version on the card, |err|
+    <= 1e-2 (1 + |ref|); its time by CUDA events and inside a replayed
+    graph, the plain version's, and its bound."""
+    from unina_yolo_dla_torch.ops.cuda import c3k2_kernel, head_kernel
+    from unina_yolo_dla_torch.quant.qtensor import QTensor
+
+    bf = torch.bfloat16
+    mods = {path: model.get_submodule(path)
+            for paths in FC_MODULES.values() for path in paths}
+    caps = {}
+
+    def keep(path):
+        def hook(_module, args, kwargs):
+            caps[path] = (args, kwargs)
+        return hook
+
+    hooks = [m.register_forward_pre_hook(keep(p), with_kwargs=True)
+             for p, m in mods.items()]
+    try:
+        serve(frame)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+
+    def dev(t):
+        t = t.dequant(bf) if isinstance(t, QTensor) else t
+        return t.to(bf).contiguous()
+
+    def size(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    rows = []
+    for kernel, paths in FC_MODULES.items():
+        for path in paths:
+            mod = mods[path]
+            args, kwargs = caps[path]
+            ws = [getattr(mod, n) for n in mod._FUSED]
+            if kernel == "fused_head":
+                x = dev(args[0])
+                px = x.shape[1] * x.shape[2]
+                npred = ws[4].shape[1] + ws[10].shape[1]
+                nbytes = 2 * x.numel() + 4 * px * npred + size(ws)
+                macs = px * sum(ws[i].numel() for i in (0, 2, 4, 6, 8, 10))
+                shape = dict(x=list(x.shape), c=x.shape[-1])
+
+                def fn(x=x, ws=ws, mod=mod):
+                    return head_kernel.fused_head(x, *ws, w33=mod.w33)
+
+                def plain(x=x, ws=ws):
+                    return head_kernel.fused_head_plain(x, *ws)
+            else:
+                _, _, wb1, _, wb2, *_ = ws
+                tail = (wb1[0].numel() * len(wb1) + wb2[0].numel() * len(wb2)
+                        + ws[8].numel())
+                if kernel == "fused_c3k2":
+                    x = dev(args[0])
+                    px = x.shape[1] * x.shape[2]
+                    nbytes = 2 * x.numel() + 2 * px * ws[8].shape[1] + size(
+                        ws)
+                    macs = px * 2 * ws[0].numel() + px * tail
+                    shape = dict(x=list(x.shape))
+
+                    def fn(x=x, ws=ws, mod=mod):
+                        return c3k2_kernel.fused_c3k2(
+                            x, *ws, shortcut=mod.shortcut, wpk=mod.wpk)
+
+                    def plain(x=x, ws=ws, mod=mod):
+                        return c3k2_kernel.fused_c3k2_plain(
+                            x, *ws, shortcut=mod.shortcut)
+                else:
+                    xa, xb = dev(args[0]), dev(kwargs["x2"])
+                    up = kwargs.get("up_x", False)
+                    pa = xa.shape[1] * xa.shape[2]
+                    pb = xb.shape[1] * xb.shape[2]
+                    nbytes = 2 * (xa.numel() + xb.numel()
+                                  + pb * ws[8].shape[1]) + size(ws)
+                    macs = (2 * ws[0].shape[1] * (pa * xa.shape[-1]
+                                                  + pb * xb.shape[-1])
+                            + pb * tail)
+                    shape = dict(xa=list(xa.shape), xb=list(xb.shape),
+                                 up_a=up)
+
+                    def fn(xa=xa, xb=xb, ws=ws, mod=mod, up=up):
+                        return c3k2_kernel.fused_c3k2_cat(
+                            xa, xb, *ws, shortcut=mod.shortcut, up_a=up,
+                            wpk=mod.wpk)
+
+                    def plain(xa=xa, xb=xb, ws=ws, mod=mod, up=up):
+                        return c3k2_kernel.fused_c3k2_cat_plain(
+                            xa, xb, *ws, shortcut=mod.shortcut, up_a=up)
+                shape.update(hidden=ws[0].shape[1], f=ws[8].shape[1],
+                             n=len(wb1))
+            outs, wants = fn(), plain()
+            torch.cuda.synchronize()
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            wants = wants if isinstance(wants, tuple) else (wants,)
+            err = rel = 0.0
+            for g, w in zip(outs, wants):
+                g, w = g.float(), w.float()
+                err = max(err, float((g - w).abs().max()))
+                rel = max(rel, float(((g - w).abs() / (1 + w.abs())).max()))
+            assert rel <= 1e-2, (
+                f"{path} ({kernel}): max |err|/(1+|ref|) {rel} > 1e-2")
+            b_ms, b_by = bound(nbytes, 2 * macs, BF16_FLOPS)
+            rows.append(dict(
+                block=path, kernel=kernel, **shape,
+                form="tiled wgmma" if mod_is_narrow(kernel, ws) else
+                "wide mma.sync", max_abs_err=err, max_rel_err=rel,
+                ms=cuda_ms(fn, 50), graph_ms=graph_ms(fn, 10, 5),
+                plain_ms=cuda_ms(plain, 5, 2), bound_ms=b_ms, bound_by=b_by,
+                library_ms=None))
+            log(json.dumps(rows[-1]))
+    return rows
+
+
+def mod_is_narrow(kernel: str, ws) -> bool:
+    """Whether these weights go to the tiled (64-wide) kernel."""
+    if kernel == "fused_head":
+        return ws[0].shape[-1] == 64
+    return ws[0].shape[1] == 32 and ws[8].shape[1] == 64
+
+
+def drive_bf16(name: str, ckpt: Path, tmp: Path, rgb, labels, scenes,
+               kernels, torch) -> dict:
+    """One bf16 engine exported from the float checkpoint by the port's
+    export on the card, then served from its directory: eager FRAMES
+    frames against the port's CPU path (0.5 px, 1e-2), profiled; then as
+    one captured graph (``drive_graph``: clean strict report, each kernel
+    among the nodes as often as a frame launches it, replay bit for bit
+    the eager frame on the scenes), profiled."""
+    from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
+
+    d = tmp / name
+    secs = run_export(["--weights", ckpt, *BF16_FLAGS[name],
+                       "--cp-calibration", CP_CALIBRATION, "--output", d])
+    conf = json.loads((d / "config.json").read_text())
+    assert not conf["quantized"], conf
+    eager = ServingArtifact(d, graph=False)
+    cpu = ServingArtifact(d, device="cpu")(rgb)
+    e2e = drive(eager, rgb, labels, kernels, PER_FRAME[name], cpu, torch)
+    prof = profile_calls(eager, rgb, torch)
+
+    def capture():
+        owner = ServingArtifact(d)
+        return owner, owner.graph
+
+    owner, graph, g = drive_graph(capture, lambda a, f: a(f), eager, scenes,
+                                  kernels, PER_FRAME[name], 25600, torch,
+                                  copies=True)
+    prof_g = profile_calls(owner, rgb, torch)
+    return {"dir": d, "export_s": secs, "config": conf, "eager": eager,
+            "e2e": e2e, "profile": prof, "graph": g, "profile_graph": prof_g,
+            "graph_owner": owner}
+
+
+
 def main() -> int:
     import torch
 
@@ -1295,7 +1597,10 @@ def main() -> int:
     from unina_yolo_dla_torch.runtime import aot
     from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
     from unina_yolo_dla_torch.runtime.pipeline import build_serving_fn
-    from unina_yolo_dla_torch.utils.checkpoint import load_msgpack_raw
+    from unina_yolo_dla_torch.utils.checkpoint import (
+        load_msgpack_raw,
+        save_msgpack,
+    )
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1533,10 +1838,61 @@ def main() -> int:
         "bytes_per_frame", "frame_ms_median", "sentinel_ok")}}), flush=True)
     del cam_g
 
+    # phase 14: the port's export on the card, from the committed
+    # calibrated checkpoint, with the three committed artifacts' flags;
+    # the exported shipped artifact served against the committed one
+    # phase 15: the bf16 engines, exported from the float checkpoint (the
+    # committed one without quant and calib_meta, written by the port's
+    # save_msgpack), served eager and as graphs; the fc engine's ten fused
+    # modules at every width against their plain versions
+    with tempfile.TemporaryDirectory() as tmpname:
+        tmp = Path(tmpname)
+        exported = drive_export(tmp, scenes, art_g, torch)
+        print(json.dumps({"export": exported}), flush=True)
+        ckpt = tmp / "float_checkpoint.msgpack"
+        src = load_msgpack_raw(SOURCE)
+        save_msgpack({k: v for k, v in src.items()
+                      if k not in ("quant", "calib_meta")}, ckpt)
+        bf16 = {name: drive_bf16(name, ckpt, tmp, rgb, labels, scenes,
+                                 kernels, torch) for name in BF16_FLAGS}
+        fc16 = bf16["bf16_s2dm_fc"]["eager"]
+        wide_rows = check_wide_kernels(fc16.model, fc16._serve,
+                                       fc16.stage(rgb), torch)
+        for name, rec in bf16.items():
+            rec.pop("eager"), rec.pop("graph_owner")
+            rec["dir"] = str(rec["dir"])
+    bf16_summary = {}
+    for name, rec in bf16.items():
+        e, g, pe, pg = (rec["e2e"], rec["graph"], rec["profile"],
+                        rec["profile_graph"])
+        bf16_summary[name] = {
+            "export_s": rec["export_s"],
+            "eager_ms_median": e["frame_ms_median"],
+            "eager_ms_min": e["frame_ms_min"],
+            "graph_ms_median": g["call_ms_median"],
+            "graph_ms_min": g["call_ms_min"], "capture_s": g["capture_s"],
+            "eager_device_busy_ms": pe["device_busy_ms_per_call"],
+            "graph_device_busy_ms": pg["device_busy_ms_per_call"],
+            "eager_idle_share": pe["device_idle_share"],
+            "graph_idle_share": pg["device_idle_share"],
+            "eager_kernels_per_call": pe["kernels_per_call"],
+            "graph_kernels_per_call": pg["kernels_per_call"],
+            "graph_kernel_nodes": g["report"]["kernel_nodes"],
+            "graph_port_kernels": g["report"]["port_kernels"],
+            "report_clean": not g["report"]["host_nodes"],
+            "bit_equal_vs_eager": g["bit_equal_vs_eager"],
+            "vs_cpu_port": e["vs_cpu_port"], "valid": e["valid"],
+            "launches": {k: v for k, v in e["launches"].items() if v}}
+    print(json.dumps({"bf16_engines": bf16_summary, "card": smi}),
+          flush=True)
+
     runs = {"shipped": (e2e, prof), "int8_s2dm_fc": (e2e_fc, prof_fc),
             "b8": (e2e_b8, prof_b8), "camera": (e2e_cam, prof_cam)}
     profiles = [(engine, pr) for engine, (_, pr) in runs.items()] + [
         (f"{engine} graph", pr) for engine, (_, pr, _) in graphs.items()]
+    for name, rec in bf16.items():
+        profiles += [(name, rec["profile"]),
+                     (f"{name} graph", rec["profile_graph"])]
     for label, pr in profiles:
         engine = label.split()[0]
         assert not pr["sort_kernels"], f"{label}: {pr['sort_kernels']}"
@@ -1564,6 +1920,27 @@ def main() -> int:
         row["graph_replay_launches"] = g["launches_in_replays"][row["name"]]
         row["graph_device_ms_per_frame"] = pg[
             "port_kernels_device_ms_per_call"][row["name"]]
+        if row["name"] in FC_MODULES:
+            fc_rec = bf16["bf16_s2dm_fc"]
+            row["widths"] = [dict(
+                block="int8_s2dm_fc " + {"fused_c3k2": "backbone.stage1_block",
+                                         "fused_c3k2_cat": "neck.fpn_c3k2_2",
+                                         "fused_head": "head_p2"}[row["name"]],
+                form="tiled wgmma", ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                max_abs_err=row["max_abs_err"], library_ms=None)] + [
+                dict(w, block="bf16_s2dm_fc " + w["block"])
+                for w in wide_rows if w["kernel"] == row["name"]]
+            row["bf16_fc_launches"] = fc_rec["e2e"]["launches"][row["name"]]
+            row["bf16_fc_graph_nodes_per_frame"] = fc_rec["graph"][
+                "report"]["port_kernels"][row["name"]]
+            row["bf16_fc_device_ms_per_frame"] = fc_rec["profile"][
+                "port_kernels_device_ms_per_call"][row["name"]]
+            row["bf16_fc_graph_device_ms_per_frame"] = fc_rec[
+                "profile_graph"]["port_kernels_device_ms_per_call"][
+                row["name"]]
+            row["mma_wide"] = mma_route(lib_path, DEVICE_FUNCS[row["name"]][1],
+                                        REPO / row["source"])
         if PER_FRAME["b8"][row["name"]]:
             row["b8_launches"] = e2e_b8["launches"][row["name"]]
             row["b8_device_ms_per_batch"] = prof_b8[
@@ -1585,7 +1962,9 @@ def main() -> int:
          "end_to_end_camera": e2e_cam, "profile_camera": prof_cam,
          "graph_camera": g_cam, "profile_graph_camera": prof_gcam,
          "eager_vs_graph": summary, "server": server,
-         "executor": executor, "executor_camera": executor_cam, **line},
+         "executor": executor, "executor_camera": executor_cam,
+         "export": exported, "bf16_engines": bf16,
+         "bf16_fc_fused_modules": wide_rows, **line},
         indent=2, default=str))
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,7 @@ ARTIFACTS = Path(__file__).resolve().parents[1] / "artifacts"
     "serving_artifact_b8/variables.msgpack",
     "serving_artifact_cam/variables.msgpack",
     "int8_engine_vars.msgpack",
+    "engine_source.msgpack",
 ])
 def test_every_leaf_equals_reference_loader(rel):
     """Same tree structure, and every leaf equal in dtype, shape and

@@ -779,6 +779,134 @@ def test_head_kernel(rng, cuda, shape):
     assert _within(cls, wc) and _within(reg, wr)
 
 
+# ---- the wide forms (hidden != 32 or F != 64; head width != 64) ----
+
+def _grid_act(rng, shape, cuda):
+    """Activations on a binary grid (k/2): with grid weights every f32
+    sum is exact in any order."""
+    a = (rng.integers(0, 5, shape) * 0.5).astype(np.float32)
+    return torch.from_numpy(a).to(cuda, torch.bfloat16)
+
+
+def _grid_kb(rng, shape):
+    fan = int(np.prod(shape[:-1]))
+    k = np.where(rng.random(shape) < min(1.0, 8 / fan),
+                 rng.choice([-.5, -.25, .25, .5], shape), 0.0)
+    return (k.astype(np.float32),
+            (rng.integers(-2, 3, shape[-1]) / 8).astype(np.float32))
+
+
+def _wide_c3k2_weights(rng, cin, hd, f, n, cuda, ca=0, kb=_kb):
+    ws = _to(c3k2_kernel.pack_c3k2_weights(
+        kb(rng, (1, 1, cin, hd)), kb(rng, (1, 1, cin, hd)),
+        kb(rng, (1, 1, 2 * hd, f)),
+        [(kb(rng, (1, 1, hd, hd)), kb(rng, (3, 3, hd, hd)))
+         for _ in range(n)], torch.bfloat16), cuda)
+    return ws, mma_pack.pack_c3k2_mma(ws[0], ws[6], ws[2], ws[4], ws[8], ca)
+
+
+# (batch, H, W, Cin, hidden, F, n): stage2_c3k2 and stage3_c3k2 of the bf16
+# engines at 640, then ragged images that cut the 8 x 8 tile's edges
+WIDE_C3K2 = [(1, 80, 80, 128, 64, 128, 2), (1, 40, 40, 256, 128, 256, 2),
+             (2, 37, 45, 128, 64, 128, 2), (2, 5, 3, 256, 128, 256, 1),
+             (1, 13, 22, 64, 64, 128, 1)]
+
+
+@pytest.mark.parametrize("b,h,w,cin,hd,f,n", WIDE_C3K2)
+def test_c3k2_wide_kernel(rng, cuda, b, h, w, cin, hd, f, n):
+    """The wide form against the plain version: bit for bit on binary-grid
+    inputs, within 1e-2 (1 + |ref|) on normal ones with one bottleneck
+    (two chain far enough for a single bf16 flip to grow past that)."""
+    x = _grid_act(rng, (b, h, w, cin), cuda)
+    ws, wpk = _wide_c3k2_weights(rng, cin, hd, f, n, cuda, kb=_grid_kb)
+    got = _launched(c3k2_kernel.KERNEL,
+                    lambda: c3k2_kernel.fused_c3k2(x, *ws, wpk=wpk))
+    want = c3k2_kernel.fused_c3k2_plain(x, *ws)
+    assert got.shape == (b, h, w, f)
+    assert float(want.float().abs().max()) > 1.0   # not a degenerate case
+    assert torch.equal(got, want)
+    if n == 1:
+        x = _act(rng, (b, h, w, cin), cuda)
+        ws, wpk = _wide_c3k2_weights(rng, cin, hd, f, n, cuda)
+        got = c3k2_kernel.fused_c3k2(x, *ws, wpk=wpk)
+        assert _within(got, c3k2_kernel.fused_c3k2_plain(x, *ws))
+
+
+# (batch, H, W, Ca, Cb, hidden, F, up_a): fpn_c3k2_1, pan_c3k2_1 and
+# pan_c3k2_2 of the bf16 engines at 640, then ragged ones
+WIDE_CAT = [(1, 80, 80, 128, 128, 64, 128, True),
+            (1, 80, 80, 64, 128, 64, 128, False),
+            (1, 40, 40, 128, 256, 128, 256, False),
+            (2, 38, 46, 128, 128, 64, 128, True),
+            (2, 37, 45, 64, 128, 64, 128, False),
+            (1, 6, 10, 8, 8, 32, 32, True)]
+
+
+@pytest.mark.parametrize("b,h,w,ca,cb,hd,f,up", WIDE_CAT)
+def test_c3k2_cat_wide_kernel(rng, cuda, b, h, w, ca, cb, hd, f, up):
+    """The pair form's wide kernel against the plain version, bit for bit
+    on binary-grid inputs and within 1e-2 (1 + |ref|) on normal ones."""
+    sa = (h // 2, w // 2) if up else (h, w)
+    for act, kb, exact in ((_grid_act, _grid_kb, True), (_act, _kb, False)):
+        xa, xb = act(rng, (b, *sa, ca), cuda), act(rng, (b, h, w, cb), cuda)
+        ws, wpk = _wide_c3k2_weights(rng, ca + cb, hd, f, 1, cuda, ca, kb)
+        got = _launched(c3k2_kernel.KERNEL_CAT,
+                        lambda: c3k2_kernel.fused_c3k2_cat(
+                            xa, xb, *ws, up_a=up, wpk=wpk))
+        want = c3k2_kernel.fused_c3k2_cat_plain(xa, xb, *ws, up_a=up)
+        assert got.shape == (b, h, w, f)
+        if exact:
+            assert float(want.float().abs().max()) > 1.0
+            assert torch.equal(got, want)
+        else:
+            assert _within(got, want)
+
+
+def test_c3k2_wide_kernel_refuses_other_shapes(rng, cuda):
+    """A width the wide form does not take raises, as does a window past
+    shared memory: no fallback to the plain version."""
+    x = _act(rng, (1, 8, 8, 64), cuda)
+    ws, wpk = _wide_c3k2_weights(rng, 64, 64, 128, 1, cuda)
+    bad = list(ws)
+    bad[0] = bad[0][:, :40].contiguous()   # hidden 40, not a multiple of 16
+    with pytest.raises(ValueError):
+        c3k2_kernel.fused_c3k2(x, *bad, wpk=wpk)
+    big = _act(rng, (1, 8, 8, 1024), cuda)
+    ws, wpk = _wide_c3k2_weights(rng, 1024, 128, 256, 2, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        c3k2_kernel.fused_c3k2(big, *ws, wpk=wpk)
+
+
+def _head_ws(rng, c, cuda, kb=_kb):
+    ws = _to(head_kernel.pack_head_weights(
+        [kb(rng, (3, 3, c, c)), kb(rng, (3, 3, c, c))], kb(rng, (1, 1, c, 4)),
+        [kb(rng, (3, 3, c, c)), kb(rng, (3, 3, c, c))], kb(rng, (1, 1, c, 4)),
+        torch.bfloat16), cuda)
+    return ws, mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8])
+
+
+@pytest.mark.parametrize("shape", [(1, 80, 80, 128), (1, 40, 40, 256),
+                                   (2, 37, 45, 128), (2, 5, 3, 256),
+                                   (1, 9, 17, 32)])
+def test_head_wide_kernel(rng, cuda, shape):
+    """head_p3 and head_p4 of the bf16 engines, ragged images at batch 2
+    and a narrow width: bit for bit on binary-grid inputs, within 1e-2
+    (1 + |ref|) on normal ones."""
+    c = shape[-1]
+    for act, kb, exact in ((_grid_act, _grid_kb, True), (_act, _kb, False)):
+        x = act(rng, shape, cuda)
+        ws, w33 = _head_ws(rng, c, cuda, kb)
+        cls, reg = _launched(head_kernel.KERNEL,
+                             lambda: head_kernel.fused_head(x, *ws, w33=w33))
+        wc, wr = head_kernel.fused_head_plain(x, *ws)
+        assert cls.shape == reg.shape == (*shape[:-1], 4)
+        assert cls.is_contiguous() and reg.is_contiguous()
+        if exact:
+            assert torch.equal(cls, wc) and torch.equal(reg, wr)
+        else:
+            assert _within(cls, wc) and _within(reg, wr)
+
+
 def test_fc_engine_frame_matches_cpu_port(cuda):
     """The int8_s2dm_fc engine (committed weights) on the card through
     the new kernels, against the port's CPU path on the same frame."""
@@ -1015,3 +1143,137 @@ def test_camera_executor_on_the_card(paths):
         assert execute(memoryview(scenes[0].tobytes()), w, h, c) == \
             struct.pack("<I", 0xFFFFFFFF)
     assert {s: k.launches for s, k in by_symbol.items()} == before
+
+
+# ---- the port's export on the card ----
+
+SOURCE = ARTIFACT.with_name("engine_source.msgpack")
+CP = ARTIFACT.with_name("cp_calibration.json")
+
+
+def test_export_on_the_card_reproduces_the_shipped_artifact(cuda, tmp_path):
+    """The shipped flags through the port's export on the card: the
+    committed variables byte for byte, the committed config on every key
+    the reference writes but ``platforms``, a clean report of a captured
+    graph."""
+    import json
+
+    from unina_yolo_dla_torch import export
+
+    out = tmp_path / "shipped"
+    export.main(["--weights", str(SOURCE), "--int8", "--s2d-merged",
+                 "--fused-stem", "--merged-head", "--cp-calibration",
+                 str(CP), "--output", str(out)])
+    assert (out / "variables.msgpack").read_bytes() == \
+        (ARTIFACT / "variables.msgpack").read_bytes()
+    got, want = (json.loads((d / "config.json").read_text())
+                 for d in (out, ARTIFACT))
+    own = ("platforms", "fused_c3k2", "fused_head")
+    assert {k: v for k, v in got.items() if k not in own} == \
+        {k: v for k, v in want.items() if k not in own}
+    assert got["platforms"] == ["cuda"]
+    report = json.loads((out / "fallback_report.json").read_text())
+    assert report["captured"] and not report["host_nodes"]
+    assert report["port_kernels"]["fused_stem_stage1"] == 1
+
+
+@pytest.mark.parametrize("flags,stem,stage1", [
+    (["--int8", "--stem-s2d-host", "--merged-head"], "ShiftDot2x2",
+     "MergedDownsample"),
+    (["--int8", "--merged-head"], "ConvBlock", "ConvBlock")])
+def test_exported_engine_graph_matches_eager(cuda, tmp_path, flags, stem,
+                                             stage1):
+    """An unmerged s2d_host export (frames staged (320, 320, 12)) and a
+    standard-stem export (the 3x3 stride-2 stage1 conv), served from their
+    directories: the captured graph equals the eager frame bit for bit on
+    three scenes, and the card agrees with the port's CPU path."""
+    from unina_yolo_dla_torch import export
+
+    out = tmp_path / "art"
+    export.main(["--weights", str(SOURCE), *flags, "--cp-calibration",
+                 str(CP), "--output", str(out)])
+    graph, eager = ServingArtifact(out), ServingArtifact(out, graph=False)
+    bb = eager.model.backbone
+    assert (type(bb.stem).__name__, type(bb.stage1_conv).__name__) == \
+        (stem, stage1)
+    assert graph.graph.report.clean
+    for frame in _scenes([1, 2, 7]):
+        got = graph(frame)
+        want = eager(frame)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    frame = _scenes([7])[0]
+    _match(graph(frame), ServingArtifact(out, device="cpu")(frame))
+
+
+# ---- the 64-wide kernels give the bits they gave before the wide form ----
+
+# SHA-256 of ``_narrow_outputs``' tensors as the tiled kernels computed them
+# before the wide form was added beside them (the parent tree's kernels on
+# an NVIDIA H100 80GB HBM3, 700 W)
+NARROW_DIGESTS = {
+    "fused_c3k2":
+        "47ac0da9f23dda118fb4b16785ceeafac7ee65d6a6b9c3da77bbb48d552b1b33",
+    "fused_c3k2_cat":
+        "9dc0a212e167f9e2abb1dbf8cbce310c99610fc28674c7fc13b6a66bb1187ca0",
+    "fused_head":
+        "8dbb775ceca75497da991ffcc82aebcbe67384ccb21bf85503b21363e5303148",
+}
+
+
+def _narrow_outputs(device):
+    """The tiled C3k2, C3k2-cat and head kernels (hidden 32, F 64; head 64)
+    on seeded normal inputs at ragged shapes, batch 2: name -> tensors."""
+    rng = np.random.default_rng(2024)
+
+    def act(shape):
+        a = np.maximum(rng.normal(0, 1, shape), 0).astype(np.float32)
+        return torch.from_numpy(a).to(device, torch.bfloat16)
+
+    def ws_c3k2(cin, n):
+        ws = [w.to(device) for w in c3k2_kernel.pack_c3k2_weights(
+            _kb(rng, (1, 1, cin, 32)), _kb(rng, (1, 1, cin, 32)),
+            _kb(rng, (1, 1, 64, 64)),
+            [(_kb(rng, (1, 1, 32, 32)), _kb(rng, (3, 3, 32, 32)))
+             for _ in range(n)], torch.bfloat16)]
+        return ws
+
+    out = {}
+    x = act((2, 37, 45, 64))
+    ws = ws_c3k2(64, 2)
+    out["fused_c3k2"] = (c3k2_kernel.fused_c3k2(
+        x, *ws, wpk=mma_pack.pack_c3k2_mma(ws[0], ws[6], ws[2], ws[4],
+                                           ws[8])),)
+    xa, xb = act((2, 19, 23, 64)), act((2, 38, 46, 64))
+    ws = ws_c3k2(128, 1)
+    out["fused_c3k2_cat"] = (c3k2_kernel.fused_c3k2_cat(
+        xa, xb, *ws, up_a=True, wpk=mma_pack.pack_c3k2_mma(
+            ws[0], ws[6], ws[2], ws[4], ws[8], 64)),)
+    x = act((2, 37, 45, 64))
+    ws = [w.to(device) for w in head_kernel.pack_head_weights(
+        [_kb(rng, (3, 3, 64, 64)), _kb(rng, (3, 3, 64, 64))],
+        _kb(rng, (1, 1, 64, 4)),
+        [_kb(rng, (3, 3, 64, 64)), _kb(rng, (3, 3, 64, 64))],
+        _kb(rng, (1, 1, 64, 4)), torch.bfloat16)]
+    out["fused_head"] = head_kernel.fused_head(
+        x, *ws, w33=mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8]))
+    torch.cuda.synchronize()
+    return out
+
+
+def narrow_digests(device) -> dict:
+    import hashlib
+
+    digests = {}
+    for name, tensors in _narrow_outputs(device).items():
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        digests[name] = h.hexdigest()
+    return digests
+
+
+def test_narrow_kernels_unchanged_by_the_wide_form(cuda):
+    """The tiled kernels' outputs on normal (not grid) inputs, where the
+    tensor cores' summation order shows in the bits, equal those the
+    parent tree's kernels gave on the same inputs."""
+    assert narrow_digests(cuda) == NARROW_DIGESTS

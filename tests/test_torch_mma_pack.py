@@ -116,17 +116,27 @@ def test_head_pack_inverts_and_plain_is_bit_equal(dtype):
 
 
 def test_head_pack_other_width_has_no_tiles():
-    """Only the kernel's width packs into B tiles; the CPU path needs
-    none."""
+    """Only the tiled kernel's width packs into B tiles: another multiple
+    of 16 packs into the wide form's flat fragment image, any other width
+    into nothing; the CPU path needs neither."""
     rng = np.random.default_rng(3)
-    ws = head_kernel.pack_head_weights(
-        [_kb(rng, (3, 3, 16, 16)), _kb(rng, (3, 3, 16, 16))],
-        _kb(rng, (1, 1, 16, 4)),
-        [_kb(rng, (3, 3, 16, 16)), _kb(rng, (3, 3, 16, 16))],
-        _kb(rng, (1, 1, 16, 4)), torch.float32)
+
+    def ws_at(c):
+        return head_kernel.pack_head_weights(
+            [_kb(rng, (3, 3, c, c)), _kb(rng, (3, 3, c, c))],
+            _kb(rng, (1, 1, c, 4)),
+            [_kb(rng, (3, 3, c, c)), _kb(rng, (3, 3, c, c))],
+            _kb(rng, (1, 1, c, 4)), torch.float32)
+
+    ws = ws_at(16)
     assert len(ws) == 12
+    w33 = _w33(ws)
+    assert w33.shape == mma_pack.head_mma_shape(16) == (4 * 9 * 16 * 16,)
+    for got, want in zip(mma_pack.unpack_head_mma(w33),
+                         (ws[0], ws[6], ws[2], ws[8])):
+        assert torch.equal(got, want)
     with pytest.raises(ValueError):
-        _w33(ws)
+        _w33(ws_at(8))
     x = torch.from_numpy(rng.normal(0, 1, (5, 6, 16)).astype(np.float32))
     cls, reg = head_kernel.fused_head(x, *ws)
     assert cls.shape == reg.shape == (5, 6, 4)
@@ -500,6 +510,60 @@ def _c3k2_tiled(xa, xb, ws, tr, tw, *, up_a=False, shortcut=True,
 def _img(rng, shape):
     return torch.from_numpy(np.maximum(rng.normal(0, 1, shape), 0).astype(
         np.float32))
+
+
+def _frag(p, k, nt, ks, lane):
+    """The four values lane ``lane`` reads for n8 tile ``nt`` and k16 step
+    ``ks`` of a ``pack_frag`` image of a (k, N) matrix: one 8-byte load at
+    ((nt * k/16 + ks) * 32 + lane) * 4 elements, as csrc/wide_mma.cuh."""
+    base = ((nt * (k // 16) + ks) * 32 + lane) * 4
+    return p[base:base + 4]
+
+
+@pytest.mark.parametrize("k,n", [(16, 8), (48, 24), (1152, 128)])
+def test_frag_image_is_the_mma_b_fragment(k, n):
+    """Lane 4g + tq holds W[16ks + 2tq (+1)][8nt + g], then the same 8
+    rows down: the m16n8k16 B fragment; ``unpack_frag`` inverts it."""
+    w = torch.arange(k * n, dtype=torch.float32).reshape(k, n)
+    p = mma_pack.pack_frag(w)
+    assert p.shape == (k * n,)
+    assert torch.equal(mma_pack.unpack_frag(p, k, n), w)
+    for nt, ks, lane in ((0, 0, 0), (n // 8 - 1, k // 16 - 1, 31),
+                         (n // 16, k // 32, 13)):
+        g, tq = lane >> 2, lane & 3
+        rows = [16 * ks + 2 * tq, 16 * ks + 2 * tq + 1,
+                16 * ks + 8 + 2 * tq, 16 * ks + 9 + 2 * tq]
+        assert torch.equal(_frag(p, k, nt, ks, lane), w[rows, 8 * nt + g])
+    with pytest.raises(ValueError):
+        mma_pack.pack_frag(w[:, :4])
+
+
+# (Cin, Ca, hidden, F, n): widths of the bf16 engines' C3k2s
+@pytest.mark.parametrize("cin,ca,hd,f,n", [(128, 0, 64, 128, 2),
+                                           (384, 128, 128, 256, 1),
+                                           (32, 16, 16, 24, 2)])
+def test_c3k2_wide_pack_inverts_and_holds_the_fragments(cin, ca, hd, f, n):
+    """At any width but hidden 32 / F 64 the image is the wide form's:
+    [w1 | w2], then per bottleneck wb1 and the 3x3 as (9h, h) (K = tap * h
+    + channel), then w3, each a fragment image."""
+    rng = np.random.default_rng(12)
+    ws = c3k2_kernel.pack_c3k2_weights(
+        _kb(rng, (1, 1, cin, hd)), _kb(rng, (1, 1, cin, hd)),
+        _kb(rng, (1, 1, 2 * hd, f)),
+        [(_kb(rng, (1, 1, hd, hd)), _kb(rng, (3, 3, hd, hd)))
+         for _ in range(n)], torch.float32)
+    w1, _, wb1, _, wb2, _, w2, _, w3, _ = ws
+    p = _wpk(ws, ca)
+    assert p.shape == (mma_pack.c3k2_mma_numel(cin, n, ca, hd, f),)
+    for got, want in zip(mma_pack.unpack_c3k2_mma(p, cin, n, ca, hd, f),
+                         (w1, w2, wb1, wb2, w3)):
+        assert torch.equal(got, want)
+    # the last bottleneck's 3x3, tap (2, 1): its k16 step 0 of n8 tile 0
+    off = cin * 2 * hd + (n - 1) * 10 * hd * hd + hd * hd
+    tap, g, tq = 7, 0, 1
+    got = _frag(p[off:], 9 * hd, 0, tap * hd // 16, 4 * g + tq)
+    rows = [2 * tq, 2 * tq + 1, 8 + 2 * tq, 9 + 2 * tq]
+    assert torch.equal(got, wb2[n - 1, 2, 1][rows, g])
 
 
 @pytest.mark.parametrize("tr,tw", TILES)

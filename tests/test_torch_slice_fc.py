@@ -207,11 +207,18 @@ def test_config_from_artifact_accepts_merged_without_fused_stem():
     # a batch artifact's engine is the batch-1 one
     assert config_from_artifact(dict(base, fused_stem=False, batch=8)) == cfg
     # a camera cannot take host space-to-depth frames (the reference's
-    # export refuses it); engines the port lacks say what is missing
+    # export refuses it); every other form the export writes is built as
+    # written: the unmerged s2d_host stem, the standard stem with the 3x3
+    # stage1 conv
     with pytest.raises(ValueError, match="space-to-depth"):
         config_from_artifact(dict(base, camera=[1080, 1920]))
-    with pytest.raises(NotImplementedError, match="stem_s2d without"):
-        config_from_artifact(dict(base, s2d_merged=False))
-    with pytest.raises(NotImplementedError, match="stage1_s2d"):
-        config_from_artifact(dict(base, stem_s2d=False, s2d_host=False,
-                                  stage1_s2d=False, s2d_merged=False))
+    s2dh = config_from_artifact(dict(base, s2d_merged=False))
+    assert s2dh.stem_s2d and s2dh.s2d_host and s2dh.stage1_s2d
+    assert not s2dh.s2d_merged and not s2dh.fused_stem
+    std = config_from_artifact(dict(base, stem_s2d=False, s2d_host=False,
+                                    stage1_s2d=False, s2d_merged=False))
+    assert not (std.stem_s2d or std.s2d_host or std.stage1_s2d
+                or std.s2d_merged)
+    assert not (std.fused_c3k2 or std.fused_head)
+    assert config_from_artifact(dict(base, fused_c3k2=True,
+                                     fused_head=True)).fused_head

@@ -1,0 +1,207 @@
+"""Two trees of the PyTorch/CUDA port on one NVIDIA GPU, the int8 paths
+served the same way: their graph times and whether their outputs are
+the same bits (imports no JAX).
+
+    python3 tools/torch_parent_ab.py [--root DIR] [--tag TAG]
+
+``--root DIR`` imports ``unina_yolo_dla_torch`` from another tree (an
+unpacked parent commit: ``git archive <commit> unina_yolo_dla_torch | tar
+-x -C build/parent``); the artifacts, scenes and method are this tree's.
+For each int8 path that ``chip_smoke.py`` serves (the shipped artifact,
+the ``int8_s2dm_fc`` engine from the same weights, the batch-8 artifact
+and the camera artifact), captured as one CUDA graph:
+
+- ``call_ms_median``/``call_ms_min``: host clock around ``FRAMES`` calls
+  (staging, copy, replay, synchronise), as ``chip_smoke.py`` times them;
+- ``replay_ms``: CUDA events around ``FRAMES`` back-to-back replays of the
+  graph alone;
+- ``digest``: SHA-256 of every Detections field of every scene (seeds 1-8;
+  one batch of them for b8; the camera's 1080x1920 BGRA scenes).
+
+And the fc engine's three fused kernels at 64 channels (stage1_block,
+fpn_c3k2_2, head_p2) on the seed-7 frame's own activations: the SHA-256
+of each output and its time inside a replayed graph. Run parent, change,
+change, parent in one call and compare digests (equal: the same bits) and
+times (within the spread of the two runs of one tree). Prints one JSON
+object and writes it to ``chiprun_out/torch_parent_ab_<tag>.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent
+REPO = HERE.parent
+FRAMES = 30
+
+
+def digest(tensors) -> str:
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def timed_calls(call, args, torch) -> dict:
+    for _ in range(3):
+        call(args[0])
+    torch.cuda.synchronize()
+    times = []
+    for i in range(FRAMES):
+        t = time.perf_counter()
+        call(args[i % len(args)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return {"call_ms_median": float(np.median(times)),
+            "call_ms_min": float(np.min(times))}
+
+
+def replay_ms(graph, torch) -> float:
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(FRAMES):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / FRAMES
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(REPO))
+    ap.add_argument("--tag", default="tree")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    sys.path.insert(1, str(REPO))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import chip_smoke as cs
+    from unina_yolo_dla_torch.data.synthetic import SynthConfig, \
+        generate_image
+    from unina_yolo_dla_torch.models.config import ModelConfig
+    from unina_yolo_dla_torch.models.detector import from_jax_variables
+    from unina_yolo_dla_torch.ops.cuda import _lib, c3k2_kernel, head_kernel
+    from unina_yolo_dla_torch.quant.fake_quant import PERF_EXCLUDE, \
+        QuantSpec
+    from unina_yolo_dla_torch.runtime import aot
+    from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
+    from unina_yolo_dla_torch.runtime.pipeline import build_serving_fn
+    from unina_yolo_dla_torch.utils.checkpoint import load_msgpack_raw
+
+    import unina_yolo_dla_torch
+    pkg = Path(unina_yolo_dla_torch.__file__).resolve().parent
+    assert pkg.parent == Path(args.root).resolve(), pkg
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    _lib.library()
+    build_s = time.perf_counter() - t0
+
+    scenes = [np.ascontiguousarray(generate_image(
+        np.random.default_rng(s), SynthConfig(image_size=640, seed=s))[0][
+            ..., ::-1]) for s in range(1, 9)]
+    cams = []
+    for s in range(1, 9):
+        bgr = generate_image(np.random.default_rng(s), SynthConfig(
+            image_size=1080, image_width=1920, seed=s))[0]
+        cams.append(np.concatenate(
+            [bgr, np.full((1080, 1920, 1), 255, np.uint8)], axis=-1))
+
+    out = {"card": smi, "root": args.root, "tag": args.tag,
+           "build_s": build_s, "paths": {}}
+    ship = ServingArtifact(cs.ARTIFACT)
+    cfg = ModelConfig(quant=QuantSpec("int8_fused", exclude=PERF_EXCLUDE),
+                      deploy=True, stem_s2d=True, s2d_host=True,
+                      stage1_s2d=True, s2d_merged=True, fused_c3k2=True,
+                      fused_head=True)
+    c = ship.config
+    model = from_jax_variables(
+        load_msgpack_raw(cs.ARTIFACT / "variables.msgpack"), cfg)
+    serve = build_serving_fn(model, cfg, c["conf_threshold"],
+                             c["iou_threshold"], c["q_factor"],
+                             c["max_detections"])
+    fc = aot.capture_serving_fn(serve, ship.staged_shape, ship.device)
+    b8 = ServingArtifact(cs.ARTIFACT_B8)
+    cam = ServingArtifact(cs.ARTIFACT_CAM)
+    paths = {
+        "shipped": (lambda f: ship(f), ship.graph.graph, scenes),
+        "int8_s2dm_fc": (lambda f: fc(ship.stage(f)), fc.graph, scenes),
+        "b8": (lambda f: b8(f), b8.graph.graph, [np.stack(scenes)]),
+        "camera": (lambda f: cam(f), cam.graph.graph, cams),
+    }
+    for name, (call, graph, inputs) in paths.items():
+        dets = []
+        for frame in inputs:
+            with torch.inference_mode():
+                dets += [f.clone() for f in call(frame)]
+        rec = timed_calls(call, inputs, torch)
+        rec["replay_ms"] = replay_ms(graph, torch)
+        rec["digest"] = digest(dets)
+        out["paths"][name] = rec
+
+    # the fc engine's 64-wide kernels on the seed-7 frame's activations
+    caps = cs.capture_inputs(model, serve, ship.stage(scenes[6]), torch)
+    kernels = {}
+    for name in ("fused_c3k2", "fused_c3k2_cat", "fused_head"):
+        mod, a, kw = caps[name]
+        ws = [getattr(mod, n) for n in mod._FUSED]
+        bf = torch.bfloat16
+
+        def dev(t):
+            t = t.dequant(bf) if hasattr(t, "dequant") else t
+            return t.to(bf).contiguous()
+
+        if name == "fused_head":
+            x = dev(a[0])
+
+            def fn(x=x, ws=ws, mod=mod):
+                return head_kernel.fused_head(x, *ws, w33=mod.w33)
+        elif name == "fused_c3k2":
+            x = dev(a[0])
+
+            def fn(x=x, ws=ws, mod=mod):
+                return c3k2_kernel.fused_c3k2(x, *ws, shortcut=mod.shortcut,
+                                              wpk=mod.wpk)
+        else:
+            xa, xb = dev(a[0]), dev(kw["x2"])
+
+            def fn(xa=xa, xb=xb, ws=ws, mod=mod, up=kw["up_x"]):
+                return c3k2_kernel.fused_c3k2_cat(
+                    xa, xb, *ws, shortcut=mod.shortcut, up_a=up,
+                    wpk=mod.wpk)
+        res = fn()
+        torch.cuda.synchronize()
+        res = res if isinstance(res, tuple) else (res,)
+        kernels[name] = {"digest": digest(res),
+                         "graph_ms": cs.graph_ms(fn)}
+    out["kernels_64"] = kernels
+    text = json.dumps(out)
+    dst = REPO / "chiprun_out"
+    dst.mkdir(exist_ok=True)
+    (dst / f"torch_parent_ab_{args.tag}.json").write_text(text)
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

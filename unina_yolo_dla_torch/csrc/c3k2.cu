@@ -51,11 +51,16 @@
 //   Halo pixels outside the image are set to 0 after every stage, so each
 //   3x3 sees the image's zero padding in rows and columns. Edge tiles are
 //   masked: any H, W and batch; n = 1 or 2; Ca, Cb multiples of 8.
+// That tiled kernel is compiled for hidden 32 and F 64 (the int8 engine's
+// float blocks); every other width goes to the wide form at the end of
+// this file (warp-level products, csrc/wide_mma.cuh). The entry points
+// pick the form by (hidden, F).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "wide_mma.cuh"
 
 namespace {
 
@@ -468,18 +473,310 @@ int launch(Params P, int B, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// ---- the wide form: any other (hidden, F), warp-level products ----
+//
+// The shapes of the bf16 engines' other C3k2s (hidden 64 or 128, F 128 or
+// 256, inputs of 128 to 384 channels) do not fit the tiled weights of the
+// kernel above in shared memory. This form keeps only activations there
+// and reads each weight as m16n8k16 B fragments from global memory (L2,
+// csrc/wide_mma.cuh). One block of eight warps a 8 x 8 output tile, the
+// same stages and rounding points on the tile plus a halo of n pixels:
+//   A  [p1 | p2] = ReLU(xwin @ [w1 | w2] + [b1 | b2]) on the window (the
+//      input window staged by cp.async, xa's channels ahead of xb's and
+//      read at the coarse pixel (r >> 1, c >> 1) when upsampled);
+//   B  t = ReLU(p1 @ wb1 + bb1) on the window less i pixels;
+//   C  the 3x3 over t, K = 9 taps x hidden, on one pixel less, then the
+//      residual into p1;
+//   D  out = ReLU([p1 | p2] @ w3 + b3) on the tile, stored from registers.
+// Each stage is a set of 16-row x 64-column blocks handed to the warps in
+// turn; halo pixels outside the image are 0 after every stage. Bound on
+// the H100 at stage3_c3k2 (40 x 40 x 256, hidden 128, n = 2): 1.47 GFLOP
+// over 1.7 MB, about 1.5 us at the bf16 peak; the 25 tiles of a 40 x 40
+// image leave most SMs idle, which this simple form accepts.
+namespace wide_c3k2 {
+
+using namespace wide;
+
+constexpr int TR = 8, TW = 8;   // output tile
+constexpr int WARPS = 8, THREADS = WARPS * 32;
+
+struct Params {
+  const bf16* xa;   // (B, Ha, Wa, ca), pair form only
+  const bf16* xb;   // (B, H, W, cb)
+  const bf16* wimg; // pack_c3k2_mma image (fragment form)
+  const float *b1, *bb1, *bb2, *b2, *b3;
+  bf16* out;        // (B, H, W, fo)
+  int ca, cb, up_a, H, W, n, shortcut, hid, fo, tiles_x, tiles_y;
+};
+
+__host__ __device__ inline int window_pixels(int n) {
+  return (TR + 2 * n) * (TW + 2 * n);
+}
+// shared memory: the input window (later the t window), then [p1 | p2]
+__host__ __device__ inline int smem_bytes(int cin, int hid, int n) {
+  const int wp = window_pixels(n);
+  const int x = wp * row_bytes(cin), t = wp * row_bytes(hid);
+  return (x > t ? x : t) + wp * row_bytes(2 * hid);
+}
+
+// CAT: the pair form, a template parameter (as above) so that the two
+// forms are two device functions, told apart by name
+template <bool CAT>
+__global__ void __launch_bounds__(THREADS, 1)
+c3k2_wide_kernel(const Params P) {
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int n = P.n, H = P.H, W = P.W, hid = P.hid, fo = P.fo;
+  const int cin = P.ca + P.cb;
+  const int WC = TW + 2 * n, WP = window_pixels(n);
+  const int XB = row_bytes(cin), PB = row_bytes(2 * hid), TB = row_bytes(hid);
+  const uint32_t x_s = smem_u32(wide_smem);
+  const uint32_t t_s = x_s;  // the t window reuses the input's
+  const int xt = WP * XB > WP * TB ? WP * XB : WP * TB;
+  const uint32_t p_s = x_s + xt;
+  unsigned char* p_p = wide_smem + xt;
+  unsigned char* t_p = wide_smem;
+
+  const int tile = blockIdx.x;
+  const int b = tile / (P.tiles_x * P.tiles_y);
+  const int rem = tile - b * P.tiles_x * P.tiles_y;
+  const int R0 = (rem / P.tiles_x) * TR, W0 = (rem % P.tiles_x) * TW;
+  const bool up = P.up_a != 0;
+  const int Ha = up ? H / 2 : H, Wa = up ? W / 2 : W;
+  const bf16* xa_b = P.xa + (size_t)b * Ha * Wa * P.ca;
+  const bf16* xb_b = P.xb + (size_t)b * H * W * P.cb;
+
+  // input window: pixel (wr, wc) <- image (R0-n+wr, W0-n+wc), xa's
+  // channels then xb's; zeros outside the image
+  const int c8 = cin >> 3;
+  for (int i = threadIdx.x; i < WP * c8; i += THREADS) {
+    const int p = i / c8, q = i - p * c8;
+    const int wr = p / WC, wc = p - wr * WC;
+    const int gy = R0 - n + wr, gx = W0 - n + wc;
+    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const int c = q * 8;
+    const bf16* src = xb_b;
+    if (ok) {
+      if (CAT && c < P.ca)
+        src = up ? xa_b + ((size_t)(gy >> 1) * Wa + (gx >> 1)) * P.ca + c
+                 : xa_b + ((size_t)gy * W + gx) * P.ca + c;
+      else
+        src = xb_b + ((size_t)gy * W + gx) * P.cb + (c - P.ca);
+    }
+    cp_async16(x_s + p * XB + c * 2, src, ok ? 16 : 0);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const uint2* w12 = reinterpret_cast<const uint2*>(P.wimg);
+  const int KSA = cin >> 4, KSH = hid >> 4;
+  const uint2* wbn = w12 + (size_t)(cin * 2 * hid) / 4;  // 4 bf16 a uint2
+  const uint2* w3 = wbn + (size_t)n * 10 * hid * hid / 4;
+  const int lrow = lane & 15, lhalf = (lane >> 4) * 16;
+
+  // ---- A: [p1 | p2] on the window ----
+  {
+    const int mt = (WP + 15) >> 4, nc = (2 * hid + 63) >> 6;
+    for (int item = warp; item < mt * nc; item += WARPS) {
+      const int m0 = (item / nc) * 16, nt0 = (item % nc) * 8;
+      const int nj = min(NJ, (2 * hid >> 3) - nt0);
+      const int m = min(m0 + lrow, WP - 1);
+      float acc[NJ][4];
+      zero(acc);
+      gemm_k(acc, x_s + m * XB + lhalf, KSA, w12, KSA, 0, nt0, nj, lane);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int mm = m0 + g + 8 * half;
+        if (mm >= WP) continue;
+        const int gy = R0 - n + mm / WC, gx = W0 - n + mm % WC;
+        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          if (j >= nj) continue;
+          const int col = (nt0 + j) * 8 + 2 * tq;
+          const float* bias = col < hid ? P.b1 + col : P.b2 + col - hid;
+          const uint32_t v =
+              relu_pack(acc[j][2 * half], acc[j][2 * half + 1], bias);
+          *reinterpret_cast<uint32_t*>(p_p + mm * PB + col * 2) =
+              inside ? v : 0u;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    const uint2* wb1 = wbn + (size_t)i * 10 * hid * hid / 4;
+    const uint2* wb2 = wb1 + (size_t)hid * hid / 4;
+    // ---- B: t = ReLU(p1 @ wb1 + bb1) on the window less i pixels ----
+    {
+      const int RC = TW + 2 * (n - i), RP = (TR + 2 * (n - i)) * RC;
+      const int mt = (RP + 15) >> 4, nc = (hid + 63) >> 6;
+      for (int item = warp; item < mt * nc; item += WARPS) {
+        const int m0 = (item / nc) * 16, nt0 = (item % nc) * 8;
+        const int nj = min(NJ, (hid >> 3) - nt0);
+        const int m = min(m0 + lrow, RP - 1);
+        const int pw = (m / RC + i) * WC + m % RC + i;
+        float acc[NJ][4];
+        zero(acc);
+        gemm_k(acc, p_s + pw * PB + lhalf, KSH, wb1, KSH, 0, nt0, nj, lane);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int mm = m0 + g + 8 * half;
+          if (mm >= RP) continue;
+          const int wr = mm / RC + i, wc = mm % RC + i;
+          const int gy = R0 - n + wr, gx = W0 - n + wc;
+          const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            if (j >= nj) continue;
+            const int col = (nt0 + j) * 8 + 2 * tq;
+            const uint32_t v = relu_pack(acc[j][2 * half],
+                                         acc[j][2 * half + 1],
+                                         P.bb1 + i * hid + col);
+            *reinterpret_cast<uint32_t*>(t_p + (wr * WC + wc) * TB +
+                                         col * 2) = inside ? v : 0u;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // ---- C: u = ReLU(conv3x3(t) + bb2), p1 = p1 + u (or u) ----
+    {
+      const int hh = n - 1 - i, off = i + 1;
+      const int RC = TW + 2 * hh, RP = (TR + 2 * hh) * RC;
+      const int mt = (RP + 15) >> 4, nc = (hid + 63) >> 6;
+      for (int item = warp; item < mt * nc; item += WARPS) {
+        const int m0 = (item / nc) * 16, nt0 = (item % nc) * 8;
+        const int nj = min(NJ, (hid >> 3) - nt0);
+        const int m = min(m0 + lrow, RP - 1);
+        // the top-left tap of this lane's row
+        const int tp = (m / RC + off - 1) * WC + m % RC + off - 1;
+        float acc[NJ][4];
+        zero(acc);
+#pragma unroll 1
+        for (int tap = 0; tap < 9; ++tap)
+          gemm_k(acc, t_s + (tp + (tap / 3) * WC + tap % 3) * TB + lhalf,
+                 KSH, wb2, 9 * KSH, tap * KSH, nt0, nj, lane);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int mm = m0 + g + 8 * half;
+          if (mm >= RP) continue;
+          const int wr = mm / RC + off, wc = mm % RC + off;
+          const int gy = R0 - n + wr, gx = W0 - n + wc;
+          const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            if (j >= nj) continue;
+            const int col = (nt0 + j) * 8 + 2 * tq;
+            uint32_t* dst = reinterpret_cast<uint32_t*>(
+                p_p + (wr * WC + wc) * PB + col * 2);
+            uint32_t u = relu_pack(acc[j][2 * half], acc[j][2 * half + 1],
+                                   P.bb2 + i * hid + col);
+            if (P.shortcut) {
+              const uint32_t old = *dst;
+              u = pack_bf16(__fadd_rn(bf16_lo(old), bf16_lo(u)),
+                            __fadd_rn(bf16_hi(old), bf16_hi(u)));
+            }
+            *dst = inside ? u : 0u;
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- D: out = ReLU([p1 | p2] @ w3 + b3) on the tile ----
+  {
+    const int KS3 = (2 * hid) >> 4;
+    const int mt = (TR * TW) >> 4, nc = (fo + 63) >> 6;
+    bf16* out_b = P.out + (size_t)b * H * W * fo;
+    for (int item = warp; item < mt * nc; item += WARPS) {
+      const int m0 = (item / nc) * 16, nt0 = (item % nc) * 8;
+      const int nj = min(NJ, (fo >> 3) - nt0);
+      const int m = m0 + lrow;
+      const int pw = (m / TW + n) * WC + m % TW + n;
+      float acc[NJ][4];
+      zero(acc);
+      gemm_k(acc, p_s + pw * PB + lhalf, KS3, w3, KS3, 0, nt0, nj, lane);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int mm = m0 + g + 8 * half;
+        const int gy = R0 + mm / TW, gx = W0 + mm % TW;
+        if (gy >= H || gx >= W) continue;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          if (j >= nj) continue;
+          const int col = (nt0 + j) * 8 + 2 * tq;
+          *reinterpret_cast<uint32_t*>(
+              out_b + ((size_t)gy * W + gx) * fo + col) =
+              relu_pack(acc[j][2 * half], acc[j][2 * half + 1], P.b3 + col);
+        }
+      }
+    }
+  }
+}
+
+template <bool CAT>
+int launch(Params P, int B, void* stream) {
+  const int cin = P.ca + P.cb;
+  if (B <= 0 || P.H <= 0 || P.W <= 0 || P.n < 1 || P.n > NMAX ||
+      P.cb <= 0 || P.ca % 8 || cin % 16 || P.hid <= 0 || P.hid % 16 ||
+      P.fo <= 0 || P.fo % 8 || (P.up_a && (P.H % 2 || P.W % 2)))
+    return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(cin, P.hid, P.n);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(
+        c3k2_wide_kernel<CAT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  P.tiles_x = (P.W + TW - 1) / TW;
+  P.tiles_y = (P.H + TR - 1) / TR;
+  const int ntiles = P.tiles_x * P.tiles_y * B;
+  c3k2_wide_kernel<CAT><<<ntiles, THREADS, smem, (cudaStream_t)stream>>>(P);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wide_c3k2
+
+// the tiled kernel above at its compiled widths, the wide form otherwise
+int dispatch(bool cat, const bf16* xa, const bf16* xb, int ca, int cb,
+             int up_a, const void* wpk, const void* b1, const void* bb1,
+             const void* bb2, const void* b2, const void* b3, void* out,
+             int B, int H, int W, int n, int shortcut, int hid, int fo,
+             void* stream) {
+  if (hid == HID && fo == FO) {
+    Params P{xa, xb, (const bf16*)wpk, (const float*)b1, (const float*)bb1,
+             (const float*)bb2, (const float*)b2, (const float*)b3,
+             (bf16*)out, ca, cb, up_a, H, W, n, shortcut, 0, 0, 0};
+    return cat ? launch<true>(P, B, stream) : launch<false>(P, B, stream);
+  }
+  wide_c3k2::Params P{xa, xb, (const bf16*)wpk, (const float*)b1,
+                      (const float*)bb1, (const float*)bb2,
+                      (const float*)b2, (const float*)b3, (bf16*)out,
+                      ca, cb, up_a, H, W, n, shortcut, hid, fo, 0, 0};
+  if (cat && ca <= 0) return (int)cudaErrorInvalidValue;
+  return cat ? wide_c3k2::launch<true>(P, B, stream)
+             : wide_c3k2::launch<false>(P, B, stream);
+}
+
 }  // namespace
 
 extern "C" int unina_fused_c3k2(const void* x, int cin, const void* wpk,
                                 const void* b1, const void* bb1,
                                 const void* bb2, const void* b2,
                                 const void* b3, void* out, int B, int H,
-                                int W, int n, int shortcut, void* stream) {
-  Params P{nullptr, (const bf16*)x, (const bf16*)wpk, (const float*)b1,
-           (const float*)bb1, (const float*)bb2, (const float*)b2,
-           (const float*)b3, (bf16*)out, 0, cin, 0, H, W, n, shortcut,
-           0, 0, 0};
-  return launch<false>(P, B, stream);
+                                int W, int n, int shortcut, int hid, int fo,
+                                void* stream) {
+  return dispatch(false, nullptr, (const bf16*)x, 0, cin, 0, wpk, b1, bb1,
+                  bb2, b2, b3, out, B, H, W, n, shortcut, hid, fo, stream);
 }
 
 extern "C" int unina_fused_c3k2_cat(const void* xa, const void* xb, int ca,
@@ -487,11 +784,9 @@ extern "C" int unina_fused_c3k2_cat(const void* xa, const void* xb, int ca,
                                     const void* b1, const void* bb1,
                                     const void* bb2, const void* b2,
                                     const void* b3, void* out, int B, int H,
-                                    int W, int n, int shortcut,
-                                    void* stream) {
-  Params P{(const bf16*)xa, (const bf16*)xb, (const bf16*)wpk,
-           (const float*)b1, (const float*)bb1, (const float*)bb2,
-           (const float*)b2, (const float*)b3, (bf16*)out, ca, cb, up_a, H,
-           W, n, shortcut, 0, 0, 0};
-  return launch<true>(P, B, stream);
+                                    int W, int n, int shortcut, int hid,
+                                    int fo, void* stream) {
+  return dispatch(true, (const bf16*)xa, (const bf16*)xb, ca, cb, up_a, wpk,
+                  b1, bb1, bb2, b2, b3, out, B, H, W, n, shortcut, hid, fo,
+                  stream);
 }

@@ -34,11 +34,15 @@
 //   - conv2's accumulators become the A fragments of a warp-level
 //     m16n8k16 product with the 1x1 pred weights (bf16-rounded c2, f32
 //     accumulate, up to 8 outputs), so c2 never leaves registers.
+// That tiled kernel is compiled for C = 64 (P2); any other width goes to
+// the wide form at the end of this file (warp-level products,
+// csrc/wide_mma.cuh). The entry point picks the form by C.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "wide_mma.cuh"
 
 namespace {
 
@@ -251,6 +255,209 @@ head_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w33,
   }
 }
 
+// ---- the wide form: any other width C, warp-level products ----
+//
+// The P3/P4 heads of the bf16 engines (C = 128 and 256) do not fit the
+// tiled kernel above: its conv1 accumulators alone would be 2-4x the
+// registers. This form keeps the activations in shared memory and reads
+// the weights as m16n8k16 B fragments from global memory (L2,
+// csrc/wide_mma.cuh). A block is one branch of one 8 x 8 output tile
+// (blockIdx.y: 0 cls, 1 reg), eight warps:
+//   conv1 on the tile plus a 1-pixel halo (100 pixels), K = 9 x C, over
+//     the x window with a 2-pixel halo; c1 = bf16(ReLU(acc + b1)), 0
+//     outside the image, into shared memory;
+//   conv2 on the tile (64 pixels) over c1; c2 = bf16(ReLU(acc + b2)) into
+//     the x window's space;
+//   pred = c2 @ wp + bp, f32, one n8 tile (up to 8 outputs), four warps.
+// Bound on the H100 at head_p4 (40 x 40 x 256): 3.8 GFLOP over 1 MB of
+// activations and 4.7 MB of weights, about 4 us at the bf16 peak.
+namespace wide_head {
+
+using namespace wide;
+
+constexpr int TR = 8, TW = 8;
+constexpr int XR = TR + 4, XC = TW + 4;   // x window (halo 2)
+constexpr int CR = TR + 2, CC = TW + 2;   // conv1 region (halo 1)
+constexpr int WARPS = 8, THREADS = WARPS * 32;
+
+__host__ __device__ inline int smem_bytes(int c) {
+  return (XR * XC + CR * CC) * row_bytes(c);
+}
+
+struct Branch {
+  const float* b1;
+  const float* b2;
+  const bf16* wp;   // (C, no)
+  const float* bp;  // (no,)
+  int no;
+  float* out;       // (B, H, W, no)
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+head_wide_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w33,
+                 Branch cls, Branch reg, int C, int H, int W, int tiles_x,
+                 int tiles_y) {
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int br_i = blockIdx.y;
+  const Branch br = br_i == 0 ? cls : reg;
+  const int RB = row_bytes(C), KS = C >> 4;
+  const uint32_t x_s = smem_u32(wide_smem);
+  const uint32_t c1_s = x_s + XR * XC * RB;
+  const uint32_t c2_s = x_s;  // conv2's output reuses the x window
+  unsigned char* c1_p = wide_smem + XR * XC * RB;
+  unsigned char* c2_p = wide_smem;
+  // the branch's 3x3 weights: w33 = [wc1 | wr1 | wc2 | wr2] fragment images
+  const size_t mat = (size_t)9 * C * C / 4;  // uint2 of one (9C, C) image
+  const uint2* wq1 = reinterpret_cast<const uint2*>(w33) + br_i * mat;
+  const uint2* wq2 = reinterpret_cast<const uint2*>(w33) + (2 + br_i) * mat;
+
+  const int tile = blockIdx.x;
+  const int b = tile / (tiles_x * tiles_y);
+  const int rem = tile - b * tiles_x * tiles_y;
+  const int R0 = (rem / tiles_x) * TR, W0 = (rem % tiles_x) * TW;
+  const bf16* xb = x + (size_t)b * H * W * C;
+  const int lrow = lane & 15, lhalf = (lane >> 4) * 16;
+
+  // x window: row R0-2+xr, column W0-2+xc; zeros outside the image
+  const int c8 = C >> 3;
+  for (int i = threadIdx.x; i < XR * XC * c8; i += THREADS) {
+    const int p = i / c8, q = i - p * c8;
+    const int xr = p / XC, xc = p - xr * XC;
+    const int gy = R0 - 2 + xr, gx = W0 - 2 + xc;
+    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const bf16* src = ok ? xb + ((size_t)gy * W + gx) * C + q * 8 : xb;
+    cp_async16(x_s + p * RB + q * 16, src, ok ? 16 : 0);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int nc = (C + 63) >> 6;
+  // ---- conv1 on the tile plus a 1-pixel halo ----
+  {
+    constexpr int RP = CR * CC;
+    const int mt = (RP + 15) >> 4;
+    for (int item = warp; item < mt * nc; item += WARPS) {
+      const int m0 = (item / nc) * 16, nt0 = (item % nc) * 8;
+      const int nj = min(NJ, (C >> 3) - nt0);
+      const int m = min(m0 + lrow, RP - 1);
+      const int xp = (m / CC) * XC + m % CC;  // its top-left tap
+      float acc[NJ][4];
+      zero(acc);
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap)
+        gemm_k(acc, x_s + (xp + (tap / 3) * XC + tap % 3) * RB + lhalf, KS,
+               wq1, 9 * KS, tap * KS, nt0, nj, lane);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int mm = m0 + g + 8 * half;
+        if (mm >= RP) continue;
+        const int gy = R0 - 1 + mm / CC, gx = W0 - 1 + mm % CC;
+        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          if (j >= nj) continue;
+          const int col = (nt0 + j) * 8 + 2 * tq;
+          const uint32_t v =
+              relu_pack(acc[j][2 * half], acc[j][2 * half + 1], br.b1 + col);
+          *reinterpret_cast<uint32_t*>(c1_p + mm * RB + col * 2) =
+              inside ? v : 0u;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // ---- conv2 on the tile ----
+  {
+    constexpr int RP = TR * TW;
+    const int mt = RP >> 4;
+    for (int item = warp; item < mt * nc; item += WARPS) {
+      const int m0 = (item / nc) * 16, nt0 = (item % nc) * 8;
+      const int nj = min(NJ, (C >> 3) - nt0);
+      const int m = m0 + lrow;
+      const int cp = (m / TW) * CC + m % TW;  // its top-left tap in c1
+      float acc[NJ][4];
+      zero(acc);
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap)
+        gemm_k(acc, c1_s + (cp + (tap / 3) * CC + tap % 3) * RB + lhalf, KS,
+               wq2, 9 * KS, tap * KS, nt0, nj, lane);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int mm = m0 + g + 8 * half;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          if (j >= nj) continue;
+          const int col = (nt0 + j) * 8 + 2 * tq;
+          *reinterpret_cast<uint32_t*>(c2_p + mm * RB + col * 2) =
+              relu_pack(acc[j][2 * half], acc[j][2 * half + 1], br.b2 + col);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // ---- pred = c2 @ wp + bp (f32), warps 0-3 one m16 tile each ----
+  if (warp < (TR * TW) / 16) {
+    const int m0 = warp * 16;
+    const uint32_t arow = c2_s + (m0 + lrow) * RB + lhalf;
+    float pd[4] = {0.f, 0.f, 0.f, 0.f};
+    const bf16 zero_bf = __float2bfloat16_rn(0.f);
+#pragma unroll 1
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t a[4];
+      ldmatrix_x4(a, arow + ks * 32);
+      uint32_t bfr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = 16 * ks + 8 * h + 2 * tq;
+        const bf16 lo = g < br.no ? br.wp[k * br.no + g] : zero_bf;
+        const bf16 hi = g < br.no ? br.wp[(k + 1) * br.no + g] : zero_bf;
+        bfr[h] = (uint32_t)__bfloat16_as_ushort(lo) |
+                 ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+      }
+      mma_m16n8k16(pd, a, bfr);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int mm = m0 + g + 8 * half;
+      const int gy = R0 + mm / TW, gx = W0 + mm % TW;
+      if (gy < H && gx < W) {
+        float* o = br.out + (((size_t)b * H + gy) * W + gx) * br.no;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 2 * tq + e;
+          if (col < br.no)
+            o[col] = __fadd_rn(pd[2 * half + e], __ldg(br.bp + col));
+        }
+      }
+    }
+  }
+}
+
+int launch(const bf16* x, const bf16* w33, Branch cls, Branch reg, int C,
+           int B, int H, int W, void* stream) {
+  if (C <= 0 || C % 16) return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(C);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(
+        head_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        232448);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TR - 1) / TR;
+  const dim3 grid(tiles_x * tiles_y * B, 2);
+  head_wide_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      x, w33, cls, reg, C, H, W, tiles_x, tiles_y);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wide_head
+
 }  // namespace
 
 extern "C" int unina_fused_head(const void* x, const void* w33,
@@ -259,10 +466,20 @@ extern "C" int unina_fused_head(const void* x, const void* w33,
                                 const void* br1, const void* br2,
                                 const void* wrp, const void* brp, int nr,
                                 void* out_cls, void* out_reg, int B, int H,
-                                int W, void* stream) {
+                                int W, int c, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || nc < 1 || nc > NOMAX || nr < 1 ||
       nr > NOMAX)
     return (int)cudaErrorInvalidValue;
+  if (c != C) {
+    wide_head::Branch wc{(const float*)bc1, (const float*)bc2,
+                         (const bf16*)wcp, (const float*)bcp, nc,
+                         (float*)out_cls};
+    wide_head::Branch wr{(const float*)br1, (const float*)br2,
+                         (const bf16*)wrp, (const float*)brp, nr,
+                         (float*)out_reg};
+    return wide_head::launch((const bf16*)x, (const bf16*)w33, wc, wr, c, B,
+                             H, W, stream);
+  }
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;

@@ -1,15 +1,22 @@
 """CSP-Darknet backbone emitting P2 (s4), P3 (s8), P4 (s16) + SPPF(P4).
 
-Two deployed stems. The ``s2d_merged`` engines take the merged frame: with
-``fused_stem`` the stem and the stage1 downsample run as ONE fused kernel
-over it (``ops/cuda/stem_kernel.py``); without it the stem is a shift-dot
-matmul emitting merged columns and stage1 is its own kernel over them
-(``ops/cuda/stage1_kernel.py``). The camera engine (``stage1_s2d`` without
-``stem_s2d``) takes the (S, S, 3) model input: the standard 3x3 stride-2
-stem conv, then the blocked stage1 downsample, which is the same stage1
-kernel over the stem output viewed with adjacent column pairs merged (a
-free view of the contiguous NHWC tensor). ``fused_c3k2`` fuses the
-float-path C3k2s (``stage1_block`` in the int8 engine).
+The deploy stems and stage1 downsamples, as the reference's export writes
+them:
+
+- ``s2d_merged`` + ``fused_stem``: stem and stage1 as ONE fused kernel
+  over the merged frame (``ops/cuda/stem_kernel.py``).
+- ``s2d_merged``: the stem as a shift-dot matmul emitting merged columns,
+  then stage1 as its own kernel over them (``ops/cuda/stage1_kernel.py``).
+- ``stem_s2d``: the stem as a shift-dot matmul with c1 outputs over the
+  (S/2, S/2, 12) blocked frame, blocked on the host (``s2d_host``) or here
+  (``ops.preprocess.space_to_depth``).
+- otherwise the standard 3x3 stride-2 stem conv.
+
+After an unmerged stem, ``stage1_s2d`` runs the blocked stage1 downsample
+as the same stage1 kernel over the stem output viewed with adjacent column
+pairs merged (a free view of the contiguous NHWC tensor); without it
+stage1 is the standard 3x3 stride-2 conv. ``fused_c3k2`` fuses the
+float-path C3k2s.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from torch import nn
 
 from ..ops.cuda.mma_pack import pack_stage1_mma, pack_stem_mma
 from ..ops.cuda.stem_kernel import fused_stem_stage1
+from ..ops.preprocess import space_to_depth
 from .blocks import C3k2, ConvBlock, MergedDownsample, ShiftDot2x2, SPPF, \
     WeightTree
 from .config import ModelConfig
@@ -28,15 +36,15 @@ class Backbone(nn.Module):
     def __init__(self, tree: WeightTree, cfg: ModelConfig) -> None:
         super().__init__()
         if not cfg.deploy:
-            raise NotImplementedError("the port serves deploy engines")
-        if not cfg.s2d_merged and (cfg.stem_s2d or not cfg.stage1_s2d):
             raise NotImplementedError(
-                "the port serves the s2d_merged engines and the standard "
-                "stem with stage1_s2d; stem_s2d without s2d_merged, and a "
-                "stage1 without stage1_s2d, need the deploy transforms")
+                "the port serves deploy engines (BatchNorm folded); the "
+                "BatchNorm model comes with training")
         dt = cfg.compute_dtype
-        self.fused_stem = cfg.fused_stem
-        self.standard_stem = not cfg.s2d_merged
+        self.fused_stem = cfg.s2d_merged and cfg.fused_stem
+        self.merged = cfg.s2d_merged
+        # the stem's input arrives blocked from the host, or is blocked here
+        self.device_s2d = cfg.stem_s2d and not cfg.s2d_host
+        self.blocked_stage1 = cfg.s2d_merged or cfg.stage1_s2d
         if self.fused_stem:
             stem = tree.node("backbone/stem/conv")
             s1 = tree.node("backbone/stage1_conv/conv")
@@ -59,12 +67,15 @@ class Backbone(nn.Module):
             self.register_buffer("stage1_kernel_mma", pack_stage1_mma(
                 self.stage1_kernel) if packs else None)
         else:
-            # the standard stem is quant-excluded: a bf16 conv
-            self.stem = (ConvBlock(tree, "backbone/stem", 3, 2)
-                         if self.standard_stem else
-                         ShiftDot2x2(tree, "backbone/stem/conv"))
-            self.stage1_conv = MergedDownsample(
-                tree, "backbone/stage1_conv/conv")
+            # the stem is quant-excluded: a shift-dot matmul (ReLU after)
+            # or the standard conv block in the compute dtype
+            self.stem = (ShiftDot2x2(tree, "backbone/stem/conv")
+                         if cfg.stem_s2d or cfg.s2d_merged else
+                         ConvBlock(tree, "backbone/stem", 3, 2))
+            self.stage1_conv = (
+                MergedDownsample(tree, "backbone/stage1_conv/conv")
+                if self.blocked_stage1 else
+                ConvBlock(tree, "backbone/stage1_conv", 3, 2))
         self.dtype = dt
 
         def c3k2(name):
@@ -89,13 +100,18 @@ class Backbone(nn.Module):
                       (self.stem_kernel, self.stage1_kernel))
             x = fused_stem_stage1(x, ks, self.stem_bias, k1,
                                   self.stage1_bias)
-        elif self.standard_stem:
-            # ReLU inside the block; the merged view needs contiguous NHWC
-            x = self.stem(x).contiguous()
-            b, h, w, c = x.shape
-            x = self.stage1_conv(x.view(b, h, w // 2, 2 * c))
         else:
-            x = self.stage1_conv(torch.relu(self.stem(x)))
+            if self.device_s2d:
+                x = space_to_depth(x, 2)
+            x = self.stem(x)
+            if isinstance(self.stem, ShiftDot2x2):
+                x = torch.relu(x)   # a ConvBlock's ReLU is its own
+            if self.blocked_stage1 and not self.merged:
+                # the merged view needs contiguous NHWC
+                x = x.contiguous()
+                b, h, w, c = x.shape
+                x = x.view(b, h, w // 2, 2 * c)
+            x = self.stage1_conv(x)
         p2 = self.stage1_block(x)
         p3 = self.stage2_c3k2(self.stage2_conv(p2))
         p4 = self.stage3_c3k2(self.stage3_conv(p3))

@@ -21,10 +21,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda.c3k2_kernel import (
-    KERNEL_F,
-    KERNEL_HID,
     fused_c3k2,
     fused_c3k2_cat,
+    kernel_takes,
     pack_c3k2_weights,
 )
 from ..ops.cuda.mma_pack import pack_c3k2_mma, pack_stage1_mma
@@ -240,7 +239,8 @@ class C3k2(nn.Module):
             for name, t in zip(self._FUSED, ws):
                 self.register_buffer(name, t)
             w1, _, wb1, _, wb2, _, w2, _, w3, _ = ws
-            packs = w1.shape[1] == KERNEL_HID and w3.shape[1] == KERNEL_F
+            packs = kernel_takes(w1.shape[0], w1.shape[1], w3.shape[1],
+                                 wb1.shape[0], split)
             self.register_buffer("wpk", pack_c3k2_mma(
                 w1, w2, wb1, wb2, w3, split) if packs else None)
             return

@@ -26,11 +26,13 @@ class ModelConfig:
         compute_dtype: activation dtype of the float layers.
         quant: int8 behaviour; None is the float model.
         deploy: BatchNorm folded into conv weight + bias.
-        stem_s2d / s2d_host / stage1_s2d / s2d_merged: the host
-            space-to-depth input contract; with ``s2d_merged`` the frame
-            arrives as (S/2, S/4, 24) merged columns. ``stage1_s2d``
-            without ``stem_s2d`` is the camera engine: an (S, S, 3) input,
-            the standard stem conv, stage1 as the blocked downsample.
+        stem_s2d / s2d_host / stage1_s2d / s2d_merged: the space-to-depth
+            stem and its input contract: with ``s2d_merged`` the frame
+            arrives as (S/2, S/4, 24) merged columns, with ``s2d_host``
+            alone as (S/2, S/2, 12) blocked pixels, otherwise as (S, S, 3)
+            (``stem_s2d`` without ``s2d_host`` blocks it on the device).
+            ``stage1_s2d`` runs stage1 as the blocked downsample, else it
+            is the standard 3x3 stride-2 conv.
         fused_stem: stem + stage1 as one fused kernel over the merged frame;
             without it an ``s2d_merged`` engine runs the stem as a shift-dot
             matmul and stage1 as its own kernel.

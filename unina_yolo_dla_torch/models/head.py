@@ -16,7 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.cuda.head_kernel import KERNEL_C, fused_head, pack_head_weights
+from ..ops.cuda.head_kernel import fused_head, kernel_takes, \
+    pack_head_weights
 from ..ops.cuda.mma_pack import pack_head_mma
 from ..quant.fake_quant import QuantConv
 from ..quant.qtensor import QTensor
@@ -52,10 +53,9 @@ class DetectionHead(nn.Module):
                 kb("reg_pred"), self.dtype)
             for n, t in zip(self._FUSED, ws):
                 self.register_buffer(n, t)
-            # the 3x3s once more as the CUDA kernel's B tiles
+            # the 3x3s once more as the CUDA kernel's B operand
             w33 = (ws[0], ws[6], ws[2], ws[8])
-            packs = all(tuple(w.shape) == (3, 3, KERNEL_C, KERNEL_C)
-                        for w in w33)
+            packs = kernel_takes(ws[0].shape[-1])
             self.register_buffer("w33", pack_head_mma(*w33) if packs else None)
             return
         self.cls_conv1 = ConvBlock(tree, f"{name}/cls_conv1", 3)

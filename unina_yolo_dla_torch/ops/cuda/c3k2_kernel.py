@@ -3,6 +3,10 @@ over ``concat([upsample2x?(xa), xb])``.
 
 CUDA source: ``csrc/c3k2.cu`` (tensor cores; entry points
 ``unina_fused_c3k2`` and ``unina_fused_c3k2_cat``, counted separately).
+Each entry point launches one of two kernels by width: the tiled
+``wgmma`` kernel at hidden 32 and F 64 (the int8 engine's float blocks),
+the wide form (warp-level products, weights read from L2) at every other
+width of the bf16 engines.
 ``fused_c3k2`` and ``fused_c3k2_cat`` launch them for CUDA tensors; for
 CPU tensors they run ``fused_c3k2_plain`` / ``fused_c3k2_cat_plain``,
 which follow the reference's XLA form step by step:
@@ -21,7 +25,7 @@ Weights come packed by ``pack_c3k2_weights`` (once, at load):
 ``(w1, b1, wb1, bb1, wb2, bb2, w2, b2, w3, b3)`` with w1/w2 (Cin, h),
 wb1 (n, h, h), wb2 (n, 3, 3, h, h), w3 (2h, F) in the compute dtype and
 the biases (h,), (n, h), (n, h), (h,), (F,) in float32. The CUDA kernel
-reads the five weights as its B tiles instead, ``wpk =
+reads the five weights as its B tiles (or fragments) instead, ``wpk =
 mma_pack.pack_c3k2_mma(w1, w2, wb1, wb2, w3, ca)`` (``ca`` = ``xa``'s
 channels in the pair form, else 0), which the caller packs once at load as
 well, and sums each split product of the plain version in one accumulator.
@@ -36,14 +40,23 @@ from ._lib import I, Kernel, P, check_cuda, stream_ptr
 from .mma_pack import c3k2_mma_numel
 
 KERNEL = Kernel("unina_fused_c3k2",
-                [P, I, P, P, P, P, P, P, P, I, I, I, I, I, P])
+                [P, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P])
 KERNEL_CAT = Kernel("unina_fused_c3k2_cat",
                     [P, P, I, I, I, P, P, P, P, P, P, P,
-                     I, I, I, I, I, P])
+                     I, I, I, I, I, I, I, P])
 
-# the widths the CUDA kernel is compiled for (csrc/c3k2.cu): hidden h,
-# output F, bottlenecks n <= KERNEL_NMAX, input channels a multiple of 8
+# the widths the tiled kernel is compiled for (csrc/c3k2.cu): hidden h,
+# output F; both forms take bottlenecks n <= KERNEL_NMAX
 KERNEL_HID, KERNEL_F, KERNEL_NMAX = 32, 64, 2
+# the wide form: an 8 x 8 output tile, its windows in at most SMEM_MAX
+# bytes of shared memory (csrc/c3k2.cu wide_c3k2)
+WIDE_TILE, SMEM_MAX = 8, 232448
+
+
+def wide_smem_bytes(cin: int, hid: int, n: int) -> int:
+    """Shared memory of one block of the wide form (rows padded by 8)."""
+    wp = (WIDE_TILE + 2 * n) ** 2
+    return (max(wp * (cin + 8), wp * (hid + 8)) + wp * (2 * hid + 8)) * 2
 
 
 def pack_c3k2_weights(cv1, cv2, cv3, bottlenecks, dtype: torch.dtype):
@@ -137,21 +150,48 @@ def fused_c3k2_cat_plain(xa, xb, w1, b1, wb1, bb1, wb2, bb2, w2, b2, w3, b3,
     return out.reshape(*xb.shape[:-1], out.shape[-1])
 
 
-def _check_weights(ws, wpk, cin: int, ca: int = 0) -> int:
+def kernel_takes(cin: int, hid: int, fo: int, n: int, ca: int = 0) -> bool:
+    """Whether a CUDA kernel takes these widths (what ``_check_weights``
+    asks of them): the caller packs ``wpk`` only then."""
+    if not 1 <= n <= KERNEL_NMAX:
+        return False
+    if (hid, fo) == (KERNEL_HID, KERNEL_F):
+        return cin % 8 == 0 and ca % 8 == 0
+    return (hid % 16 == 0 and fo % 8 == 0 and cin % 16 == 0 and ca % 8 == 0
+            and wide_smem_bytes(cin, hid, n) <= SMEM_MAX)
+
+
+def _check_weights(ws, wpk, cin: int, ca: int = 0) -> tuple[int, int, int]:
+    """-> (n, hidden, F), after the checks of the form these widths take:
+    the tiled kernel at hidden 32 and F 64 (Cin a multiple of 8); the wide
+    form otherwise (hidden and Cin multiples of 16, F of 8, Ca of 8, its
+    windows within shared memory)."""
     w1, b1, wb1, bb1, wb2, bb2, w2, b2, w3, b3 = ws
-    n = wb1.shape[0]
-    hd, fo = KERNEL_HID, KERNEL_F
+    n, hd, fo = wb1.shape[0], w1.shape[-1], w3.shape[-1]
     if not 1 <= n <= KERNEL_NMAX:
         raise ValueError(f"kernel takes 1..{KERNEL_NMAX} bottlenecks, got {n}")
+    if (hd, fo) == (KERNEL_HID, KERNEL_F):
+        if cin % 8:
+            raise ValueError(f"kernel takes Cin a multiple of 8, got {cin}")
+    else:
+        if hd % 16 or fo % 8 or cin % 16 or ca % 8:
+            raise ValueError(
+                f"wide form takes hidden and Cin multiples of 16, F of 8 and "
+                f"Ca of 8, got hidden {hd}, F {fo}, Cin {cin}, Ca {ca}")
+        smem = wide_smem_bytes(cin, hd, n)
+        if smem > SMEM_MAX:
+            raise ValueError(f"wide form: {smem} bytes of shared memory for "
+                             f"Cin {cin}, hidden {hd}, n {n} (max {SMEM_MAX})")
     if wpk is None:
         raise ValueError("the CUDA kernel needs wpk = pack_c3k2_mma(w1, w2, "
                          "wb1, wb2, w3, ca)")
-    check_cuda(wpk, "wpk", torch.bfloat16, (c3k2_mma_numel(cin, n, ca),))
+    check_cuda(wpk, "wpk", torch.bfloat16,
+               (c3k2_mma_numel(cin, n, ca, hd, fo),))
     for t, name, shape in ((b1, "b1", (hd,)), (b2, "b2", (hd,)),
                            (bb1, "bb1", (n, hd)), (bb2, "bb2", (n, hd)),
                            (b3, "b3", (fo,))):
         check_cuda(t, name, torch.float32, shape)
-    return n
+    return n, hd, fo
 
 
 def _ptrs(ws, wpk):
@@ -163,24 +203,23 @@ def fused_c3k2(x: torch.Tensor, *ws, shortcut: bool = True,
                wpk: torch.Tensor | None = None) -> torch.Tensor:
     """The fused C3k2 over ``x`` (..., H, W, Cin) -> (..., H, W, F).
 
-    The CUDA kernel takes bf16 ``x`` with Cin a multiple of 8, hidden 32,
-    F 64, 1 or 2 bottlenecks; batch rides on its tile index. Of ``ws`` it
-    reads the biases, and the weights from ``wpk``. A block keeps a window
-    of every 64-channel chunk of the input in shared memory, so the launch
-    is refused (RuntimeError) beyond 5 chunks with one bottleneck, 3 with
-    two."""
+    The CUDA kernel takes bf16 ``x`` and 1 or 2 bottlenecks; batch rides
+    on its tile index. At hidden 32 and F 64 the tiled kernel takes Cin a
+    multiple of 8; it keeps a window of every 64-channel chunk of the input
+    in shared memory, so its launch is refused (RuntimeError) beyond 5
+    chunks with one bottleneck, 3 with two. Every other width goes to the
+    wide form (see ``_check_weights``). Of ``ws`` the kernel reads the
+    biases, and the weights from ``wpk``."""
     if not x.is_cuda:
         return fused_c3k2_plain(x, *ws, shortcut=shortcut)
     check_cuda(x, "x", torch.bfloat16)
     h, w, cin = x.shape[-3:]
-    if cin % 8:
-        raise ValueError(f"kernel takes Cin a multiple of 8, got {cin}")
-    n = _check_weights(ws, wpk, cin)
+    n, hd, fo = _check_weights(ws, wpk, cin)
     bsz = x.numel() // (h * w * cin)
-    out = torch.empty((*x.shape[:-1], KERNEL_F), dtype=torch.bfloat16,
+    out = torch.empty((*x.shape[:-1], fo), dtype=torch.bfloat16,
                       device=x.device)
     KERNEL.launch(x.data_ptr(), cin, *_ptrs(ws, wpk), out.data_ptr(), bsz, h,
-                  w, n, int(shortcut), stream_ptr(x.device))
+                  w, n, int(shortcut), hd, fo, stream_ptr(x.device))
     return out
 
 
@@ -191,8 +230,9 @@ def fused_c3k2_cat(xa: torch.Tensor, xb: torch.Tensor, *ws,
     (..., H/2, W/2, Ca) when ``up_a`` else (..., H, W, Ca), ``xb``
     (..., H, W, Cb) -> (..., H, W, F). The CUDA kernel takes bf16 inputs
     with Ca and Cb multiples of 8 and the widths and limits of
-    ``fused_c3k2`` (``xa``'s and ``xb``'s chunks count separately);
-    ``wpk`` is packed with ``ca = Ca``."""
+    ``fused_c3k2`` (the tiled kernel counts ``xa``'s and ``xb``'s chunks
+    separately; the wide form takes Ca + Cb as its Cin); ``wpk`` is packed
+    with ``ca = Ca``."""
     if not xb.is_cuda:
         return fused_c3k2_cat_plain(xa, xb, *ws, shortcut=shortcut,
                                     up_a=up_a)
@@ -206,11 +246,11 @@ def fused_c3k2_cat(xa: torch.Tensor, xb: torch.Tensor, *ws,
         raise ValueError(f"kernel takes Ca, Cb multiples of 8 (and even H, "
                          f"W to upsample), got xa {tuple(xa.shape)}, xb "
                          f"{tuple(xb.shape)}")
-    n = _check_weights(ws, wpk, ca + cb, ca)
+    n, hd, fo = _check_weights(ws, wpk, ca + cb, ca)
     bsz = xb.numel() // (h * w * cb)
-    out = torch.empty((*lead, h, w, KERNEL_F), dtype=torch.bfloat16,
+    out = torch.empty((*lead, h, w, fo), dtype=torch.bfloat16,
                       device=xb.device)
     KERNEL_CAT.launch(xa.data_ptr(), xb.data_ptr(), ca, cb, int(up_a),
                       *_ptrs(ws, wpk), out.data_ptr(), bsz, h, w, n,
-                      int(shortcut), stream_ptr(xb.device))
+                      int(shortcut), hd, fo, stream_ptr(xb.device))
     return out

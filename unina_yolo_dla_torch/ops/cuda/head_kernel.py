@@ -1,9 +1,11 @@
 """Kernel 8: the decoupled detection head, both branches in one pass.
 
-CUDA source: ``csrc/head.cu`` (tensor cores). ``fused_head`` launches it
-for a CUDA tensor; for a CPU tensor it runs ``fused_head_plain``, which
-follows the reference's XLA form step by step. Per branch over the same
-input:
+CUDA source: ``csrc/head.cu`` (tensor cores): the tiled ``wgmma`` kernel
+at width 64 (P2), the wide form (warp-level products, weights read from
+L2) at any other width (P3/P4 of the bf16 engines). ``fused_head``
+launches one of them for a CUDA tensor; for a CPU tensor it runs
+``fused_head_plain``, which follows the reference's XLA form step by step.
+Per branch over the same input:
 
     c1   = ReLU(conv3x3(x)  + b1)  -> compute dtype
     c2   = ReLU(conv3x3(c1) + b2)  -> compute dtype
@@ -27,12 +29,28 @@ import torch
 
 from ._lib import I, Kernel, P, check_cuda, stream_ptr
 from .c3k2_kernel import _conv3x3, _dot
+from .mma_pack import head_mma_shape
 
 KERNEL = Kernel("unina_fused_head",
-                [P, P, P, P, P, P, I, P, P, P, P, I, P, P, I, I, I, P])
+                [P, P, P, P, P, P, I, P, P, P, P, I, P, P, I, I, I, I, P])
 
-# the widths the CUDA kernel is compiled for (csrc/head.cu)
+# the width the tiled kernel is compiled for (csrc/head.cu) and the pred
+# outputs both forms take; the wide form's 8 x 8 tile and shared memory
 KERNEL_C, KERNEL_NOMAX = 64, 8
+WIDE_TILE, SMEM_MAX = 8, 232448
+
+
+def wide_smem_bytes(c: int) -> int:
+    """Shared memory of one block of the wide form: the x window (halo 2)
+    and conv1's region (halo 1), rows padded by 8."""
+    t = WIDE_TILE
+    return ((t + 4) ** 2 + (t + 2) ** 2) * (c + 8) * 2
+
+
+def kernel_takes(c: int) -> bool:
+    """Whether a CUDA kernel takes head width ``c``: the caller packs
+    ``w33`` only then."""
+    return c == KERNEL_C or (c % 16 == 0 and wide_smem_bytes(c) <= SMEM_MAX)
 
 
 def pack_head_weights(cls_convs, cls_pred, reg_convs, reg_pred,
@@ -69,20 +87,23 @@ def fused_head_plain(x: torch.Tensor, *ws):
 def fused_head(x: torch.Tensor, *ws, w33: torch.Tensor | None = None):
     """Both head branches over ``x`` (..., H, W, h) -> ``(cls, reg)``,
     (..., H, W, Ccls) logits and (..., H, W, 4) distances in float32,
-    each contiguous. The CUDA kernel takes bf16 ``x`` with h = 64 and up
-    to 8 outputs per pred; batch rides on its tile index. Of ``ws`` it
-    reads the biases and the preds, and the 3x3s from ``w33``."""
+    each contiguous. The CUDA kernel takes bf16 ``x`` with h = 64 (the
+    tiled kernel) or any other multiple of 16 whose windows fit in shared
+    memory (the wide form), and up to 8 outputs per pred; batch rides on
+    its tile index. Of ``ws`` it reads the biases and the preds, and the
+    3x3s from ``w33``."""
     if not x.is_cuda:
         return fused_head_plain(x, *ws)
     check_cuda(x, "x", torch.bfloat16)
     h, w, c = x.shape[-3:]
-    if c != KERNEL_C:
-        raise ValueError(f"kernel takes {KERNEL_C} channels, got {c}")
+    if not kernel_takes(c):
+        raise ValueError(f"kernel takes {KERNEL_C} channels, or a multiple "
+                         f"of 16 up to {SMEM_MAX} bytes of windows, got {c}")
     if w33 is None:
         raise ValueError("the CUDA kernel needs w33 = pack_head_mma(wc1, "
                          "wr1, wc2, wr2)")
     bf = torch.bfloat16
-    check_cuda(w33, "w33", bf, (18, 2 * c, c))
+    check_cuda(w33, "w33", bf, head_mma_shape(c))
     (_, bc1, _, bc2, wcp, bcp, _, br1, _, br2, wrp, brp) = ws
     outs = []
     for name, b1, b2, wp, bp in (("cls", bc1, bc2, wcp, bcp),
@@ -102,6 +123,6 @@ def fused_head(x: torch.Tensor, *ws, w33: torch.Tensor | None = None):
                   bc2.data_ptr(), wcp.data_ptr(), bcp.data_ptr(),
                   wcp.shape[-1], br1.data_ptr(), br2.data_ptr(),
                   wrp.data_ptr(), brp.data_ptr(), wrp.shape[-1],
-                  outs[0].data_ptr(), outs[1].data_ptr(), bsz, h, w,
+                  outs[0].data_ptr(), outs[1].data_ptr(), bsz, h, w, c,
                   stream_ptr(x.device))
     return outs[0], outs[1]

@@ -1,11 +1,12 @@
-"""Frame preprocessing: ImageNet normalisation, the host-side
-space-to-depth staging of the merged serving layout, and the plain forms
-of the camera path's bilinear resize and letterbox geometry.
+"""Frame preprocessing: ImageNet normalisation, the space-to-depth
+staging of the s2d serving layouts, and the plain forms of the camera
+path's bilinear resize and letterbox geometry.
 
-The serving engine takes the (S, S, 3) RGB frame blocked 2x2 on the host,
-``(S/2, S/2, 12)`` in (di, dj, c) channel order, and viewed with adjacent
-column pairs merged into channels, ``(S/2, S/4, 24)`` (a free reshape of
-the same bytes). The normalize kernel then applies mean/std tiled 8x.
+The merged serving engine takes the (S, S, 3) RGB frame blocked 2x2 on
+the host, ``(S/2, S/2, 12)`` in (di, dj, c) channel order, and viewed with
+adjacent column pairs merged into channels, ``(S/2, S/4, 24)`` (a free
+reshape of the same bytes). The normalize kernel then applies mean/std
+tiled 8x (4x for the unmerged blocked frame of an ``s2d_host`` engine).
 
 A camera engine takes the raw camera frame instead; its preprocessing
 (colour, resize, pad, normalise) is one kernel
@@ -40,11 +41,17 @@ def _blocked_view(x: np.ndarray, block: int) -> np.ndarray:
     return np.transpose(y, (*range(nd), nd, nd + 2, nd + 1, nd + 3, nd + 4))
 
 
-def space_to_depth_np(x: np.ndarray, block: int = 2) -> np.ndarray:
+def space_to_depth_np(x: np.ndarray, block: int = 2,
+                      out: np.ndarray | None = None) -> np.ndarray:
     """(..., H, W, C) -> (..., H/b, W/b, b*b*C), channels in (di, dj, c)
-    order; one numpy transpose-copy on the host."""
+    order; one numpy transpose-copy on the host (into ``out``, a contiguous
+    array of the blocked shape, where given)."""
     *lead, h, w, c = x.shape
-    return np.ascontiguousarray(_blocked_view(x, block)).reshape(
+    view = _blocked_view(x, block)
+    if out is not None:
+        np.copyto(out.reshape(view.shape), view)
+        return out
+    return np.ascontiguousarray(view).reshape(
         *lead, h // block, w // block, block * block * c)
 
 
@@ -82,6 +89,15 @@ def nv12_to_rgb(y_plane: torch.Tensor, uv_plane: torch.Tensor
     g = 1.164 * c - 0.392 * u - 0.813 * v
     b = 1.164 * c + 2.017 * u
     return torch.stack([r, g, b], dim=-1).clamp(0.0, 255.0)
+
+
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """(..., H, W, C) -> (..., H/b, W/b, b*b*C), channels in (di, dj, c)
+    order, as strided slices concatenated along channels: the on-device
+    shuffle of a ``stem_s2d`` engine without ``s2d_host``."""
+    parts = [x[..., di::block, dj::block, :]
+             for di in range(block) for dj in range(block)]
+    return torch.cat(parts, dim=-1)
 
 
 def space_to_depth_rt(x: torch.Tensor, block: int = 2) -> torch.Tensor:

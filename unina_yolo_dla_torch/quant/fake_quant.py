@@ -45,6 +45,9 @@ class QuantSpec:
 
     mode: str = "off"
     exclude: tuple[str, ...] = DEFAULT_EXCLUDE
+    # int8 weight scales per output channel (the last axis of an HWIO
+    # kernel), or one per tensor (quant/deploy.py quantize_weights_int8)
+    per_channel_weights: bool = True
 
     def __post_init__(self):
         if self.mode not in ("off", "int8_fused"):

@@ -15,6 +15,12 @@ from host memory are what would take the frame off the card; a graph has
 no dynamic shapes. ``print_fallback_report`` refuses a graph with a host
 node in strict mode.
 
+``export_serving_artifact`` writes an artifact directory (the
+reference's ``config.json`` keys, ``variables.msgpack`` and
+``fallback_report.json``): on the card after capturing the frame and
+checking its report, on the CPU after one eager frame (its report then
+says no graph was taken).
+
 Capturing needs the card; ``FallbackReport``, ``print_fallback_report``,
 ``pack_detections`` and ``validate_artifact_shapes`` work anywhere.
 """
@@ -22,14 +28,30 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import json
 import re
 import time
-from typing import Callable
+from pathlib import Path
+from typing import Any, Callable
 
 import torch
 
+from ..models.config import (
+    DEFAULT_CONF_THRESHOLD,
+    DEFAULT_CP_Q,
+    DEFAULT_IOU_THRESHOLD,
+    MAX_DETECTIONS,
+)
 from ..ops.cuda import _lib
+from ..ops.cuda.camera_kernel import CameraGeometry
 from ..ops.decode import Detections
+from ..utils.checkpoint import save_msgpack
+from .pipeline import (
+    build_batch_serving_fn,
+    build_camera_serving_fn,
+    build_serving_fn,
+    staged_shape,
+)
 
 # each of the port's kernels by wrapper, as the graph's kernel nodes name
 # their device functions (mangled or not)
@@ -39,9 +61,9 @@ PORT_KERNELS = {
     "decode_topk": r"decode_topk_kernel",
     "nms": r"(?<![a-z_])nms_kernel",
     "stage1_merged": r"stage1_mma_kernel",
-    "fused_c3k2": r"c3k2_kernel(ILb0E|<false>)",
-    "fused_c3k2_cat": r"c3k2_kernel(ILb1E|<true>)",
-    "fused_head": r"head_mma_kernel",
+    "fused_c3k2": r"c3k2_(wide_)?kernel(ILb0E|<false>)",
+    "fused_c3k2_cat": r"c3k2_(wide_)?kernel(ILb1E|<true>)",
+    "fused_head": r"head_(mma|wide)_kernel",
     "camera": r"camera_preprocess_kernel",
 }
 
@@ -68,6 +90,7 @@ class FallbackReport:
     nodes: dict[str, int]          # every node, by type
     memsets: list[str] = dataclasses.field(default_factory=list)
     # each memset node: its bytes and the kernels that wait for it
+    captured: bool = True      # False: one eager frame, no graph taken
 
     @property
     def clean(self) -> bool:
@@ -78,6 +101,8 @@ def print_fallback_report(report: FallbackReport, strict: bool = True,
                           log_fn: Callable[[str], None] = print) -> None:
     """Log the report; in strict mode a graph with a host node raises."""
     log_fn("=== serving-graph fallback report ===")
+    if not report.captured:
+        log_fn("  graph:            none taken (one eager frame)")
     log_fn(f"  host nodes:       {report.host_nodes or 'none'}")
     log_fn(f"  dynamic shapes:   {report.dynamic_shapes or 'none'}")
     log_fn(f"  kernel nodes:     {report.kernel_nodes} "
@@ -324,7 +349,8 @@ class CapturedFrame:
     stream's."""
 
     def __init__(self, serve: Callable[[torch.Tensor], Detections],
-                 frame_shape: tuple[int, ...], device) -> None:
+                 frame_shape: tuple[int, ...], device,
+                 strict: bool = True) -> None:
         t0 = time.perf_counter()
         self.device = torch.device(device)
         if self.device.type != "cuda":
@@ -358,7 +384,8 @@ class CapturedFrame:
                                  if after[s] != before.get(s, 0)}
         self.graph.instantiate()
         self.report = analyze_graph(self.graph, self.dets)
-        print_fallback_report(self.report, log_fn=lambda _msg: None)
+        print_fallback_report(self.report, strict=strict,
+                              log_fn=lambda _msg: None)
         self.replay()
         torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0
@@ -377,9 +404,124 @@ class CapturedFrame:
 
 
 def capture_serving_fn(serve: Callable[[torch.Tensor], Detections],
-                       frame_shape: tuple[int, ...], device) -> CapturedFrame:
+                       frame_shape: tuple[int, ...], device,
+                       strict: bool = True) -> CapturedFrame:
     """``serve`` (any frame -> Detections function ``runtime/pipeline.py``
-    builds: merged frames, or a raw camera frame) captured as one CUDA
+    builds: staged frames, or a raw camera frame) captured as one CUDA
     graph over a static uint8 input of ``frame_shape`` on ``device``;
-    raises if the graph is not host-fallback-free."""
-    return CapturedFrame(serve, frame_shape, device)
+    raises if the graph is not host-fallback-free (``strict``)."""
+    return CapturedFrame(serve, frame_shape, device, strict)
+
+
+def _sorted_tree(tree: Any) -> Any:
+    """Every dict level with its keys sorted: the order JAX's tree
+    utilities give the reference's written variables."""
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def export_serving_artifact(
+    model,
+    variables: dict[str, Any],
+    output_dir: str | Path,
+    conf_threshold: float = DEFAULT_CONF_THRESHOLD,
+    iou_threshold: float = DEFAULT_IOU_THRESHOLD,
+    q_factor: float = DEFAULT_CP_Q,
+    max_detections: int = MAX_DETECTIONS,
+    strict: bool = True,
+    camera: tuple[int, int, str] | None = None,
+    batch: int | None = None,
+    camera_letterbox: bool = False,
+    box_space: str = "model",
+) -> Path:
+    """Write the artifact directory of ``model`` (the port's detector,
+    built from ``variables`` on its device) and ``variables``.
+
+    ``camera=(height, width, format)``: the camera program (raw rgb, bgra
+    or nv12 frames at camera resolution); ``batch=N``: the multi-stream
+    program taking N frames; mutually exclusive, and a camera does not go
+    with a host space-to-depth engine. On the card the serving function is
+    captured as one CUDA graph at the artifact's static input shape and
+    its fallback report is checked (strict: findings raise); on the CPU
+    one eager frame of zeros gives the result size, and the report says no
+    graph was taken. Writes ``variables.msgpack`` (the ``params``,
+    ``batch_stats`` and ``quant`` collections, keys sorted as the
+    reference writes them), ``fallback_report.json`` and ``config.json``
+    (the reference's keys with ``"platforms"`` the device the frame ran
+    on, plus ``fused_c3k2`` and ``fused_head``, from which the port
+    rebuilds the model)."""
+    cfg = model.config
+    output_dir = Path(output_dir)
+    if camera is not None and batch is not None:
+        raise ValueError("camera and batch exports are mutually exclusive")
+    if cfg.s2d_host and camera is not None:
+        raise ValueError(
+            "s2d_host is incompatible with camera exports: the camera "
+            "frame is resized on the card, so there is no host staging "
+            "pass to block it in")
+    device = next(model.buffers()).device
+    kw = dict(conf_threshold=conf_threshold, iou_threshold=iou_threshold,
+              q_factor=q_factor, max_detections=max_detections)
+    if camera is not None:
+        cam_h, cam_w, cam_fmt = camera
+        if cam_fmt not in ("rgb", "bgra", "nv12"):
+            raise ValueError(f"unknown camera format {cam_fmt!r}")
+        if cam_fmt == "nv12" and (cam_h % 2 or cam_w % 2):
+            raise ValueError("NV12 camera dims must be even")
+        serve = build_camera_serving_fn(
+            model, cfg, cam_h, cam_w, cam_fmt, letterbox=camera_letterbox,
+            box_space=box_space, **kw)
+        frame_shape = CameraGeometry(cam_h, cam_w, cam_fmt, cfg.input_size,
+                                     camera_letterbox).frame_shape
+    elif batch is not None:
+        serve = build_batch_serving_fn(model, cfg, **kw)
+        frame_shape = (batch, *staged_shape(cfg))
+    else:
+        serve = build_serving_fn(model, cfg, **kw)
+        frame_shape = staged_shape(cfg)
+
+    if device.type == "cuda":
+        report = capture_serving_fn(serve, frame_shape, device,
+                                    strict=strict).report
+    else:
+        with torch.inference_mode():
+            dets = serve(torch.zeros(frame_shape, dtype=torch.uint8))
+        report = FallbackReport(host_nodes=[], dynamic_shapes=[],
+                                output_bytes=output_bytes(dets),
+                                kernel_nodes=0, port_kernels={}, nodes={},
+                                captured=False)
+    print_fallback_report(report, strict=strict)
+
+    output_dir.mkdir(parents=True, exist_ok=True)
+    v = {k: variables[k] for k in ("params", "batch_stats", "quant")
+         if k in variables}
+    save_msgpack(_sorted_tree(v), output_dir / "variables.msgpack")
+    (output_dir / "config.json").write_text(json.dumps({
+        "num_classes": cfg.num_classes,
+        "base_channels": cfg.base_channels,
+        "lite_p2": cfg.lite_p2,
+        "input_size": cfg.input_size,
+        "stem_s2d": cfg.stem_s2d,
+        "s2d_host": cfg.s2d_host,
+        "stage1_s2d": cfg.stage1_s2d,
+        "s2d_merged": cfg.s2d_merged,
+        "fused_stem": cfg.fused_stem,
+        "merged_head": cfg.merged_head,
+        "quantized": "quant" in v,
+        "conf_threshold": conf_threshold,
+        "iou_threshold": iou_threshold,
+        "q_factor": q_factor,
+        "max_detections": max_detections,
+        "output_bytes": report.output_bytes,
+        "platforms": [device.type],
+        "camera": ({"height": camera[0], "width": camera[1],
+                    "format": camera[2], "letterbox": camera_letterbox,
+                    "box_space": box_space} if camera else None),
+        "batch": batch,
+        "fused_c3k2": cfg.fused_c3k2,
+        "fused_head": cfg.fused_head,
+    }, indent=2))
+    (output_dir / "fallback_report.json").write_text(json.dumps(
+        dataclasses.asdict(report), indent=2))
+    return output_dir

@@ -5,16 +5,18 @@ The port's counterpart of the reference ``ServingArtifact``: the same
 directory, the same call (one (S, S, 3) uint8 RGB frame, (B, S, S, 3) for
 a batch artifact, or one raw camera frame for a camera artifact), served
 by the port's modules instead of the serialized program. The weights go to
-the device once, at load.
+the device once, at load. Every engine configuration the port's export
+writes loads (``config_from_artifact``); the reference's ``config.json``
+files load unchanged.
 
 On the card the frame is captured at load as one CUDA graph at the
 artifact's static shape (``runtime/aot.py``), the counterpart of the
 reference compiling its program for the local chip; ``graph=False`` keeps
 the eager frame. Frames are staged on the host straight into a pinned
-buffer (blocked and merged for the s2d engines; the camera's raw bytes as
-they are, one copy) and copied from it to the card without blocking the
-host. With ``device="cpu"`` the frame is eager and unpinned: the plain
-versions of the kernels.
+buffer (blocked, and merged, for the s2d_host engines; the RGB frame or
+the camera's raw bytes as they are, one copy) and copied from it to the
+card without blocking the host. With ``device="cpu"`` the frame is eager
+and unpinned: the plain versions of the kernels.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from ..models.config import (
 from ..models.detector import from_jax_variables
 from ..ops.cuda.camera_kernel import CameraGeometry
 from ..ops.decode import Detections
-from ..ops.preprocess import merged_frame_np
+from ..ops.preprocess import merged_frame_np, space_to_depth_np
 from ..quant.fake_quant import PERF_EXCLUDE, QuantSpec
 from ..utils.checkpoint import load_msgpack_raw
 from ..utils.device import resolve_device
@@ -43,6 +45,7 @@ from .pipeline import (
     build_batch_serving_fn,
     build_camera_serving_fn,
     build_serving_fn,
+    staged_shape,
 )
 
 
@@ -51,10 +54,11 @@ def config_from_artifact(conf: dict) -> ModelConfig:
     (a batch artifact's engine is the batch-1 one; ``batch`` only sets
     the leading axis of its frames).
 
-    Two engines are served: the ``s2d_merged`` engines, and the standard
-    stem with ``stage1_s2d`` (the camera artifact's). Others raise
-    ``NotImplementedError``; a camera with a batch or with host
-    space-to-depth, which the reference never exports, ``ValueError``."""
+    The deploy flags are read as written (``fused_c3k2``/``fused_head``,
+    which the port's export records, default to false); a quantised
+    artifact is the fused int8 chain with the measured exclusion list, as
+    the export's ``--int8`` writes it. A camera with a batch or with host
+    space-to-depth, which the export never writes, raises ``ValueError``."""
     if conf.get("camera"):
         if conf.get("batch"):
             raise ValueError("camera and batch artifacts are mutually "
@@ -62,26 +66,16 @@ def config_from_artifact(conf: dict) -> ModelConfig:
         if conf.get("s2d_host") or conf.get("s2d_merged"):
             raise ValueError("a camera artifact cannot take host "
                              "space-to-depth frames")
-    merged = bool(conf.get("s2d_merged"))
-    if not merged and conf.get("stem_s2d"):
-        raise NotImplementedError(
-            "stem_s2d without s2d_merged: the port lacks that stem (it "
-            "needs the deploy transforms)")
-    if not merged and not conf.get("stage1_s2d"):
-        raise NotImplementedError(
-            "a stage1 without stage1_s2d: the port lacks the 3x3 stride-2 "
-            "stage1 conv (it needs the deploy transforms)")
     quant = (QuantSpec("int8_fused", exclude=PERF_EXCLUDE)
              if conf.get("quantized") else None)
+    flags = {k: bool(conf.get(k, False)) for k in (
+        "stem_s2d", "s2d_host", "stage1_s2d", "s2d_merged", "fused_stem",
+        "merged_head", "fused_c3k2", "fused_head")}
     return ModelConfig(
         num_classes=conf["num_classes"],
         base_channels=conf["base_channels"],
         lite_p2=conf.get("lite_p2", False),
-        input_size=conf["input_size"],
-        quant=quant, deploy=True, stem_s2d=merged, s2d_host=merged,
-        stage1_s2d=True, s2d_merged=merged,
-        fused_stem=merged and conf.get("fused_stem", False),
-        merged_head=conf.get("merged_head", False))
+        input_size=conf["input_size"], quant=quant, deploy=True, **flags)
 
 
 class ServingArtifact:
@@ -137,7 +131,7 @@ class ServingArtifact:
                      else build_serving_fn)
             self._serve = build(self.model, self.model_config, **kw)
             self.frame_shape = (*lead, s, s, 3)
-            self.staged_shape = (*lead, s // 2, s // 4, 24)
+            self.staged_shape = (*lead, *staged_shape(self.model_config))
         self.graph = None
         if self.device.type == "cuda":
             k = c.get("max_detections", MAX_DETECTIONS)
@@ -162,12 +156,15 @@ class ServingArtifact:
 
     def _host_stage(self, frames: np.ndarray, out: np.ndarray | None = None
                     ) -> np.ndarray:
-        """The staged host bytes: the s2d engines' blocked and merged
-        frame, or the camera's raw frame as it is (one copy into ``out``
-        where given)."""
+        """The staged host bytes: the s2d_host engines' blocked (and
+        merged) frame, or the RGB or raw camera frame as it is (one copy
+        into ``out`` where given)."""
         frames = self._check(frames)
-        if not self.camera:
+        cfg = self.model_config
+        if cfg.s2d_merged:
             return merged_frame_np(frames, out=out)
+        if cfg.s2d_host:
+            return space_to_depth_np(frames, out=out)
         if out is None:
             return frames.copy()
         np.copyto(out, frames)
@@ -183,9 +180,10 @@ class ServingArtifact:
         self._staged.record()
 
     def stage(self, frames: np.ndarray) -> torch.Tensor:
-        """(S, S, 3) uint8 RGB -> merged (S/2, S/4, 24) on the device; a
-        batch artifact takes (B, S, S, 3) -> (B, S/2, S/4, 24); a camera
-        artifact's raw frame goes as it is."""
+        """(S, S, 3) uint8 RGB -> the engine's input layout on the device
+        (merged (S/2, S/4, 24), blocked (S/2, S/2, 12) or as it is); a
+        batch artifact takes (B, S, S, 3) -> (B, ...); a camera artifact's
+        raw frame goes as it is."""
         if self.device.type != "cuda":
             return torch.from_numpy(self._host_stage(frames))
         with torch.inference_mode():

@@ -1,9 +1,12 @@
 """Frame -> boxes serving pipeline, at batch 1 and batch B, and from a
 raw camera frame.
 
-    merged uint8 frames ([B,] S/2, S/4, 24), blocked on the host
-    -> normalize kernel (mean/std tiled 8x), in the model's compute dtype
-    -> detector (fused stem+stage1 kernel, bf16 and int8 layers)
+    uint8 frames in the engine's input layout (``staged_shape``): merged
+    ([B,] S/2, S/4, 24) or blocked ([B,] S/2, S/2, 12), both blocked on
+    the host, or plain ([B,] S, S, 3) RGB
+    -> normalize kernel (mean/std tiled to the layout), in the model's
+       compute dtype
+    -> detector (stem and stage1 kernels, bf16 and int8 layers)
     -> decode kernel: every level of every image into K slots each
     -> NMS kernel -> Detections
 
@@ -44,6 +47,18 @@ def _out_dtype(cfg: ModelConfig) -> torch.dtype:
             else torch.float32)
 
 
+def staged_shape(cfg: ModelConfig) -> tuple[int, int, int]:
+    """One frame in the engine's input layout: merged (S/2, S/4, 24) for
+    ``s2d_merged``, blocked (S/2, S/2, 12) for ``s2d_host``, else (S, S, 3)
+    RGB (blocked on the device when ``stem_s2d``)."""
+    s = cfg.input_size
+    if cfg.s2d_merged:
+        return (s // 2, s // 4, 24)
+    if cfg.s2d_host:
+        return (s // 2, s // 2, 12)
+    return (s, s, 3)
+
+
 def _build_detect(model: UninaYoloDla, cfg: ModelConfig,
                   conf_threshold: float, iou_threshold: float,
                   q_factor: float, max_detections: int
@@ -66,14 +81,10 @@ def build_batch_serving_fn(
     q_factor: float = DEFAULT_CP_Q,
     max_detections: int = MAX_DETECTIONS,
 ) -> Callable[[torch.Tensor], Detections]:
-    """Returns ``serve(frames) -> Detections`` for merged uint8 frames
-    (B, S/2, S/4, 24) on the model's device; every field of the result
-    has a leading B axis."""
-    if not cfg.s2d_merged:
-        raise NotImplementedError(
-            "merged frames are served by the s2d_merged engines; the camera "
-            "engine takes raw frames (build_camera_serving_fn)")
-    mean, std = channel_constants(24)
+    """Returns ``serve(frames) -> Detections`` for uint8 frames (B,
+    *``staged_shape(cfg)``) on the model's device; every field of the
+    result has a leading B axis."""
+    mean, std = channel_constants(staged_shape(cfg)[-1])
     out_dtype = _out_dtype(cfg)
     detect = _build_detect(model, cfg, conf_threshold, iou_threshold,
                            q_factor, max_detections)
@@ -93,9 +104,9 @@ def build_serving_fn(
     q_factor: float = DEFAULT_CP_Q,
     max_detections: int = MAX_DETECTIONS,
 ) -> Callable[[torch.Tensor], Detections]:
-    """Returns ``serve(frame) -> Detections`` for one merged uint8 frame
-    (S/2, S/4, 24) on the model's device: the batch path at B = 1, the
-    leading axis dropped from the result (views)."""
+    """Returns ``serve(frame) -> Detections`` for one uint8 frame of
+    ``staged_shape(cfg)`` on the model's device: the batch path at B = 1,
+    the leading axis dropped from the result (views)."""
     serve_batch = build_batch_serving_fn(model, cfg, conf_threshold,
                                          iou_threshold, q_factor,
                                          max_detections)
