@@ -74,14 +74,20 @@ graph (the same gates as the int8 paths, each kernel among the nodes as
 often as a frame launches it: 3 C3k2, 4 C3k2-cat and 3 head launches in
 the fc engine), and profiled; each of the fc engine's ten fused modules
 runs its kernel on the served frame's own activations against its plain
-version (|err| <= 1e-2 (1 + |ref|)) and is timed, which gives rows 6-8 of
-the kernels line a ``widths`` list.
+version (|err| <= 1e-2 (1 + |ref|)) and is timed, beside the same block of
+``bf16_s2dm_mh`` (unfused: cuDNN convolutions and elementwise kernels) on
+the same activations (``unfused_ms``); each row names the grid, cluster
+shape, threads and shared memory its launch used, as the library
+recorded them. That gives rows 6-8 of the kernels line a ``widths``
+list. The first wide form's times are quoted from PERF.md beside them in
+``chip_smoke.json`` (``before_redesign_graph_ms_quoted``), never in the
+kernels line.
 
 The five tensor-core kernels (stem+stage1, stage1, both C3k2 forms, head)
 are also run at ragged shapes that cut every tile edge, and the built
 library's SASS is read for the tensor-core instruction each of them issues
 (``mma`` in their rows; ``mma_wide`` for the C3k2 and head kernels' wide
-form).
+form): every one must issue ``wgmma`` (HGMMA).
 
 The three small kernels around the model (normalize, decode, NMS) are also
 timed inside a replayed CUDA graph (``graph_ms``: the card's time per launch
@@ -176,7 +182,8 @@ EXPORT_FLAGS = {
                              "--camera", "1080x1920", "--format", "bgra"],
 }
 # config.json keys the reference does not write, or writes for itself
-OWN_KEYS = ("platforms", "fused_c3k2", "fused_head")
+OWN_KEYS = ("platforms", "fused_c3k2", "fused_head", "compute_dtype",
+            "quant_mode")
 # the bf16 engines, exported from the float checkpoint (engine_source
 # without quant and calib_meta)
 BF16_FLAGS = {"bf16_s2dm_mh": ["--s2d-merged", "--merged-head"],
@@ -190,6 +197,20 @@ FC_MODULES = {
                        "neck.pan_c3k2_1", "neck.pan_c3k2_2"),
     "fused_head": ("head_p2", "head_p3", "head_p4"),
 }
+# replayed-graph ms of each bf16_s2dm_fc block before the wide form was
+# redesigned, quoted in chip_smoke.json beside this run's numbers and
+# never measured by it
+BEFORE_ORIGIN = (
+    "quoted from PERF.md, not measured in this run: the first wide form "
+    "(warp-level mma.sync, weights read from L2) on the frame's own "
+    "activations, NVIDIA H100 80GB HBM3 at 700 W; the 64-wide blocks ran "
+    "the tiled kernels then as now")
+BEFORE_GRAPH_MS = {
+    "backbone.stage1_block": 0.00961, "backbone.stage2_c3k2": 0.06237,
+    "backbone.stage3_c3k2": 0.18012, "neck.fpn_c3k2_1": 0.04503,
+    "neck.fpn_c3k2_2": 0.01131, "neck.pan_c3k2_1": 0.04142,
+    "neck.pan_c3k2_2": 0.11467, "head_p2": 0.03049, "head_p3": 0.11639,
+    "head_p4": 0.36462}
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s, f32 CUDA-core FLOP/s
 HBM_BPS = 3.35e12
@@ -364,7 +385,7 @@ def check_ragged(torch) -> dict:
     ws = [w.to(dev) for w in head_kernel.pack_head_weights(
         [kb((3, 3, 64, 64)), kb((3, 3, 64, 64))], kb((1, 1, 64, 4)),
         [kb((3, 3, 64, 64)), kb((3, 3, 64, 64))], kb((1, 1, 64, 4)), bf)]
-    w33 = mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8])
+    w33 = mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8], ws[4], ws[10])
     got = head_kernel.fused_head(x, *ws, w33=w33)
     torch.cuda.synchronize()
     want = head_kernel.fused_head_plain(x, *ws)
@@ -1418,12 +1439,15 @@ def drive_export(tmp: Path, scenes, art_g, torch) -> dict:
     return out
 
 
-def check_wide_kernels(model, serve, frame, torch) -> list[dict]:
+def check_wide_kernels(model, serve, frame, unfused, torch) -> list[dict]:
     """Each fused module of the bf16 fc engine (seven C3k2s, three heads,
     at 64, 128 and 256 channels) on the activations and weights of one
     served frame: its kernel against its plain version on the card, |err|
     <= 1e-2 (1 + |ref|); its time by CUDA events and inside a replayed
-    graph, the plain version's, and its bound."""
+    graph, the plain version's, its bound, its launch's grid as the
+    library recorded it, and inside a replayed graph the same block of
+    ``unfused`` (the bf16_s2dm_mh model: cuDNN convolutions) on the same
+    activations."""
     from unina_yolo_dla_torch.ops.cuda import c3k2_kernel, head_kernel
     from unina_yolo_dla_torch.quant.qtensor import QTensor
 
@@ -1514,7 +1538,11 @@ def check_wide_kernels(model, serve, frame, torch) -> list[dict]:
                             xa, xb, *ws, shortcut=mod.shortcut, up_a=up)
                 shape.update(hidden=ws[0].shape[1], f=ws[8].shape[1],
                              n=len(wb1))
-            outs, wants = fn(), plain()
+            outs = fn()
+            # the shape the launch used, as the library recorded it
+            launch = (head_kernel if kernel == "fused_head"
+                      else c3k2_kernel).last_launch()
+            wants = plain()
             torch.cuda.synchronize()
             outs = outs if isinstance(outs, tuple) else (outs,)
             wants = wants if isinstance(wants, tuple) else (wants,)
@@ -1526,11 +1554,19 @@ def check_wide_kernels(model, serve, frame, torch) -> list[dict]:
             assert rel <= 1e-2, (
                 f"{path} ({kernel}): max |err|/(1+|ref|) {rel} > 1e-2")
             b_ms, b_by = bound(nbytes, 2 * macs, BF16_FLOPS)
+            mh = unfused.get_submodule(path)
+            assert not getattr(mh, "fused", False), f"{path}: mh is fused"
+
+            def unfused_fn(mh=mh, args=args, kwargs=kwargs):
+                return mh(*args, **kwargs)
+
             rows.append(dict(
                 block=path, kernel=kernel, **shape,
                 form="tiled wgmma" if mod_is_narrow(kernel, ws) else
-                "wide mma.sync", max_abs_err=err, max_rel_err=rel,
+                "wide wgmma", grid=launch,
+                max_abs_err=err, max_rel_err=rel,
                 ms=cuda_ms(fn, 50), graph_ms=graph_ms(fn, 10, 5),
+                unfused_ms=graph_ms(unfused_fn, 10, 5),
                 plain_ms=cuda_ms(plain, 5, 2), bound_ms=b_ms, bound_by=b_by,
                 library_ms=None))
             log(json.dumps(rows[-1]))
@@ -1683,6 +1719,8 @@ def main() -> int:
             row["ragged_max_rel_err"] = ragged[row["name"]]
             row["mma"] = mma_route(lib_path, DEVICE_FUNCS[row["name"]][0],
                                    REPO / row["source"])
+            assert row["mma"] == "wgmma", (
+                f"{row['name']}: issues {row['mma']}, not wgmma")
 
     # phase 3: end to end, batch 1, the committed engine
     cpu_dets = ServingArtifact(ARTIFACT, device="cpu")(rgb)
@@ -1856,8 +1894,9 @@ def main() -> int:
         bf16 = {name: drive_bf16(name, ckpt, tmp, rgb, labels, scenes,
                                  kernels, torch) for name in BF16_FLAGS}
         fc16 = bf16["bf16_s2dm_fc"]["eager"]
-        wide_rows = check_wide_kernels(fc16.model, fc16._serve,
-                                       fc16.stage(rgb), torch)
+        wide_rows = check_wide_kernels(
+            fc16.model, fc16._serve, fc16.stage(rgb),
+            bf16["bf16_s2dm_mh"]["eager"].model, torch)
         for name, rec in bf16.items():
             rec.pop("eager"), rec.pop("graph_owner")
             rec["dir"] = str(rec["dir"])
@@ -1941,6 +1980,8 @@ def main() -> int:
                 row["name"]]
             row["mma_wide"] = mma_route(lib_path, DEVICE_FUNCS[row["name"]][1],
                                         REPO / row["source"])
+            assert row["mma_wide"] == "wgmma", (
+                f"{row['name']}: the wide form issues {row['mma_wide']}")
         if PER_FRAME["b8"][row["name"]]:
             row["b8_launches"] = e2e_b8["launches"][row["name"]]
             row["b8_device_ms_per_batch"] = prof_b8[
@@ -1964,7 +2005,9 @@ def main() -> int:
          "eager_vs_graph": summary, "server": server,
          "executor": executor, "executor_camera": executor_cam,
          "export": exported, "bf16_engines": bf16,
-         "bf16_fc_fused_modules": wide_rows, **line},
+         "bf16_fc_fused_modules": wide_rows,
+         "before_redesign_graph_ms_quoted": {
+             "quoted": BEFORE_ORIGIN, "ms": BEFORE_GRAPH_MS}, **line},
         indent=2, default=str))
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

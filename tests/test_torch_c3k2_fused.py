@@ -151,3 +151,48 @@ def test_plain_batched_equals_per_frame(rng):
     per = torch.stack([tk.fused_c3k2_cat(xa[i], x[i], *wc, up_a=True)
                        for i in range(3)])
     torch.testing.assert_close(whole, per, rtol=0, atol=0)
+
+
+# ---- the wide kernels' tiling (emulated in tests/test_torch_mma_pack.py)
+# against the reference, bf16 on binary-grid inputs ----
+
+@pytest.mark.parametrize("hw,cin,hd,n", [(40, 256, 128, 2), (40, 128, 64, 1)])
+def test_wide_tiling_matches_reference_bf16(hw, cin, hd, n):
+    """The wide kernel's tiling, cluster split and rounding points (the
+    plain-torch emulation of ``csrc/c3k2.cu``'s wide form) against the
+    reference's bf16 XLA form: within 1e-2 (1 + |ref|), the products exact
+    on grid inputs and only the reference's own bf16 rounding between."""
+    from test_torch_mma_pack import _c3k2_wide_tiled, _grid_img, _grid_kb
+
+    rng = np.random.default_rng(30)
+    x = _grid_img(rng, (1, hw, hw, cin))
+    kbs = [_grid_kb(rng, (1, 1, cin, hd)), _grid_kb(rng, (1, 1, cin, hd)),
+           _grid_kb(rng, (1, 1, 2 * hd, 2 * hd)),
+           [(_grid_kb(rng, (1, 1, hd, hd)), _grid_kb(rng, (3, 3, hd, hd)))
+            for _ in range(n)]]
+    ws = tk.pack_c3k2_weights(*kbs, torch.bfloat16)
+    got = _c3k2_wide_tiled(None, x, ws)[0].to(torch.bfloat16)
+    want = fused_c3k2(jnp.asarray(x.float().numpy()[0]).astype(jnp.bfloat16),
+                      *_jax(kbs), use_pallas=False)
+    _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("up_a", [True, False])
+def test_wide_cat_tiling_matches_reference_bf16(up_a):
+    from test_torch_mma_pack import _c3k2_wide_tiled, _grid_img, _grid_kb
+
+    rng = np.random.default_rng(31)
+    ca, cb, hd = 128, 128, 64
+    xa = _grid_img(rng, (1, 20, 20, ca) if up_a else (1, 40, 40, ca))
+    xb = _grid_img(rng, (1, 40, 40, cb))
+    kbs = [_grid_kb(rng, (1, 1, ca + cb, hd)),
+           _grid_kb(rng, (1, 1, ca + cb, hd)),
+           _grid_kb(rng, (1, 1, 2 * hd, 2 * hd)),
+           [(_grid_kb(rng, (1, 1, hd, hd)), _grid_kb(rng, (3, 3, hd, hd)))]]
+    ws = tk.pack_c3k2_weights(*kbs, torch.bfloat16)
+    got = _c3k2_wide_tiled(xa, xb, ws, up_a=up_a)[0].to(torch.bfloat16)
+    bf = jnp.bfloat16
+    want = fused_c3k2_cat(jnp.asarray(xa.float().numpy()[0]).astype(bf),
+                          jnp.asarray(xb.float().numpy()[0]).astype(bf),
+                          *_jax(kbs), upsample_a=up_a, use_pallas=False)
+    _close_bf16(got, want)

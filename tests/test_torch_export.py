@@ -8,7 +8,7 @@
   and read back equal by the reference's reader.
 - ``export.main`` with ``--device cpu`` and the committed artifacts' flags
   (shipped, batch 8, camera): ``variables.msgpack`` byte for byte and leaf
-  for leaf, ``config.json`` on every key but ``platforms`` and the two
+  for leaf, ``config.json`` on every key but ``platforms`` and the four
   keys the port adds.
 - The export's refusals.
 - The plain fused C3k2, C3k2-cat and head at the bf16 engines' widths
@@ -74,7 +74,8 @@ FLAGS = {
 OUTPUT_BYTES = {"serving_artifact": 25600, "serving_artifact_b8": 204800,
                 "serving_artifact_cam": 25600}
 # keys the reference does not have, or writes for its own platforms
-OWN_KEYS = ("platforms", "fused_c3k2", "fused_head")
+OWN_KEYS = ("platforms", "fused_c3k2", "fused_head", "compute_dtype",
+            "quant_mode")
 
 
 def _leaves(tree, path=()):
@@ -184,6 +185,8 @@ def test_export_cli_reproduces_committed_artifact(tmp_path, artifact):
     assert got["output_bytes"] == OUTPUT_BYTES[artifact]
     assert got["platforms"] == ["cpu"]
     assert not got["fused_c3k2"] and not got["fused_head"]
+    assert (got["compute_dtype"], got["quant_mode"]) == ("bfloat16",
+                                                         "int8_fused")
     assert {k: v for k, v in got.items() if k not in OWN_KEYS} == \
         {k: v for k, v in want.items() if k not in OWN_KEYS}
     report = json.loads((out / "fallback_report.json").read_text())

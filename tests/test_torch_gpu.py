@@ -769,7 +769,8 @@ def test_head_kernel(rng, cuda, shape):
         [_kb(rng, (3, 3, 64, 64)), _kb(rng, (3, 3, 64, 64))],
         _kb(rng, (1, 1, 64, 4)), torch.bfloat16)
     ws = _to(ws, cuda)
-    w33 = mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8])
+    w33 = mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8], ws[4],
+                                 ws[10])
     cls, reg = _launched(head_kernel.KERNEL,
                          lambda: head_kernel.fused_head(x, *ws, w33=w33))
     wc, wr = head_kernel.fused_head_plain(x, *ws)
@@ -806,10 +807,13 @@ def _wide_c3k2_weights(rng, cin, hd, f, n, cuda, ca=0, kb=_kb):
 
 
 # (batch, H, W, Cin, hidden, F, n): stage2_c3k2 and stage3_c3k2 of the bf16
-# engines at 640, then ragged images that cut the 8 x 8 tile's edges
+# engines at 640, stage1_block and stage3_c3k2 of a base-16 engine, then
+# ragged images that cut the 8 x 8 tile's edges
 WIDE_C3K2 = [(1, 80, 80, 128, 64, 128, 2), (1, 40, 40, 256, 128, 256, 2),
+             (1, 160, 160, 32, 16, 32, 1), (1, 40, 40, 128, 64, 128, 2),
              (2, 37, 45, 128, 64, 128, 2), (2, 5, 3, 256, 128, 256, 1),
-             (1, 13, 22, 64, 64, 128, 1)]
+             (1, 13, 22, 64, 64, 128, 1), (2, 11, 9, 64, 128, 256, 2),
+             (2, 9, 14, 40, 16, 32, 2)]
 
 
 @pytest.mark.parametrize("b,h,w,cin,hd,f,n", WIDE_C3K2)
@@ -833,13 +837,17 @@ def test_c3k2_wide_kernel(rng, cuda, b, h, w, cin, hd, f, n):
 
 
 # (batch, H, W, Ca, Cb, hidden, F, up_a): fpn_c3k2_1, pan_c3k2_1 and
-# pan_c3k2_2 of the bf16 engines at 640, then ragged ones
+# pan_c3k2_2 of the bf16 engines at 640, fpn_c3k2_2 and pan_c3k2_2 of a
+# base-16 engine, then ragged ones
 WIDE_CAT = [(1, 80, 80, 128, 128, 64, 128, True),
             (1, 80, 80, 64, 128, 64, 128, False),
             (1, 40, 40, 128, 256, 128, 256, False),
+            (1, 160, 160, 32, 32, 16, 32, True),
+            (1, 40, 40, 64, 128, 64, 128, False),
             (2, 38, 46, 128, 128, 64, 128, True),
             (2, 37, 45, 64, 128, 64, 128, False),
-            (1, 6, 10, 8, 8, 32, 32, True)]
+            (2, 14, 22, 128, 64, 128, 256, True),
+            (1, 6, 10, 8, 8, 16, 32, True)]
 
 
 @pytest.mark.parametrize("b,h,w,ca,cb,hd,f,up", WIDE_CAT)
@@ -882,16 +890,18 @@ def _head_ws(rng, c, cuda, kb=_kb):
         [kb(rng, (3, 3, c, c)), kb(rng, (3, 3, c, c))], kb(rng, (1, 1, c, 4)),
         [kb(rng, (3, 3, c, c)), kb(rng, (3, 3, c, c))], kb(rng, (1, 1, c, 4)),
         torch.bfloat16), cuda)
-    return ws, mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8])
+    return ws, mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8], ws[4],
+                                      ws[10])
 
 
 @pytest.mark.parametrize("shape", [(1, 80, 80, 128), (1, 40, 40, 256),
+                                   (1, 160, 160, 32), (1, 40, 40, 128),
                                    (2, 37, 45, 128), (2, 5, 3, 256),
-                                   (1, 9, 17, 32)])
+                                   (1, 9, 17, 32), (2, 13, 6, 256)])
 def test_head_wide_kernel(rng, cuda, shape):
-    """head_p3 and head_p4 of the bf16 engines, ragged images at batch 2
-    and a narrow width: bit for bit on binary-grid inputs, within 1e-2
-    (1 + |ref|) on normal ones."""
+    """head_p3 and head_p4 of the bf16 engines, head_p2 and head_p4 of a
+    base-16 engine, ragged images at batch 2 and a narrow width: bit for
+    bit on binary-grid inputs, within 1e-2 (1 + |ref|) on normal ones."""
     c = shape[-1]
     for act, kb, exact in ((_grid_act, _grid_kb, True), (_act, _kb, False)):
         x = act(rng, shape, cuda)
@@ -905,6 +915,60 @@ def test_head_wide_kernel(rng, cuda, shape):
             assert torch.equal(cls, wc) and torch.equal(reg, wr)
         else:
             assert _within(cls, wc) and _within(reg, wr)
+
+
+# a block's dynamic shared memory on the H100 (227 KB)
+SMEM_OPTIN = 232448
+
+
+def test_wide_planes_match_the_library(cuda):
+    """``kernel_takes`` admits a wide C3k2 exactly where the library's own
+    shared-memory plan fits (an upsampled ``xa`` counted at full
+    resolution: admitted only where it fits), and every wide head width
+    fits."""
+    for (hd, n), pl in c3k2_kernel.WIDE_PLANES.items():
+        for cin in range(8, 64 * (pl + 2), 8):
+            for ca in (0, 8, 64, 128):
+                if ca >= cin:
+                    continue
+                takes = c3k2_kernel.kernel_takes(cin, hd, 2 * hd, n, ca)
+                smem = c3k2_kernel.wide_smem(ca, cin - ca, False, hd, n)
+                assert smem > 0 and takes == (smem <= SMEM_OPTIN), (
+                    cin, ca, hd, n, smem)
+                if takes and ca:
+                    assert 0 < c3k2_kernel.wide_smem(
+                        ca, cin - ca, True, hd, n) <= SMEM_OPTIN
+    assert c3k2_kernel.wide_smem(0, 64, False, 32, 1) == -1
+    for c in (16, 32, 48, 96, 128, 256, 512):
+        smem = head_kernel.wide_smem(c)
+        assert head_kernel.kernel_takes(c) == (0 < smem <= SMEM_OPTIN), (
+            c, smem)
+
+
+def test_last_launch_records_the_grid(rng, cuda):
+    """The library records the grid, cluster, threads and shared memory of
+    each launch as it made it: the tiled C3k2 one block a tile where the
+    tiles are fewer than the SMs, the wide C3k2 at stage3_c3k2 one cluster of four per
+    8 x 8 tile, the wide head at head_p4 one cluster of two per tile and
+    branch."""
+    x = _act(rng, (2, 37, 45, 64), cuda)
+    ws, wpk = _wide_c3k2_weights(rng, 64, 32, 64, 1, cuda)
+    c3k2_kernel.fused_c3k2(x, *ws, wpk=wpk)
+    rec = c3k2_kernel.last_launch()
+    assert rec["grid"] == [2 * 5 * 3, 1, 1]   # 8 x 16 tiles, < the SMs
+    assert rec["cluster"] == [1, 1, 1] and rec["threads"] == 256
+    x = _act(rng, (1, 40, 40, 256), cuda)
+    ws, wpk = _wide_c3k2_weights(rng, 256, 128, 256, 2, cuda)
+    c3k2_kernel.fused_c3k2(x, *ws, wpk=wpk)
+    assert c3k2_kernel.last_launch() == dict(
+        grid=[25 * 4, 1, 1], cluster=[4, 1, 1], threads=256,
+        smem_bytes=c3k2_kernel.wide_smem(0, 256, False, 128, 2))
+    ws, w33 = _head_ws(rng, 256, cuda)
+    head_kernel.fused_head(x, *ws, w33=w33)
+    torch.cuda.synchronize()
+    assert head_kernel.last_launch() == dict(
+        grid=[25 * 2, 2, 1], cluster=[2, 1, 1], threads=256,
+        smem_bytes=head_kernel.wide_smem(256))
 
 
 def test_fc_engine_frame_matches_cpu_port(cuda):
@@ -1255,7 +1319,8 @@ def _narrow_outputs(device):
         [_kb(rng, (3, 3, 64, 64)), _kb(rng, (3, 3, 64, 64))],
         _kb(rng, (1, 1, 64, 4)), torch.bfloat16)]
     out["fused_head"] = head_kernel.fused_head(
-        x, *ws, w33=mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8]))
+        x, *ws, w33=mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8],
+                                           ws[4], ws[10]))
     torch.cuda.synchronize()
     return out
 

@@ -95,3 +95,26 @@ def test_plain_batched_equals_per_frame(rng):
     for k in range(2):
         torch.testing.assert_close(whole[k], torch.stack([p[k] for p in per]),
                                    rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("hw,c", [(40, 256), (24, 128), (16, 32)])
+def test_wide_tiling_matches_reference_bf16(hw, c):
+    """The wide head's tiling, cluster split and f32 preds (the plain-torch
+    emulation of ``csrc/head.cu``'s wide form, tests/test_torch_mma_pack.py)
+    against the reference's bf16 XLA form within 1e-2 (1 + |ref|), on
+    binary-grid inputs."""
+    from test_torch_mma_pack import _grid_img, _grid_kb, _head_wide_tiled
+
+    rng = np.random.default_rng(32)
+    x = _grid_img(rng, (1, hw, hw, c))
+    kbs = ([_grid_kb(rng, (3, 3, c, c)), _grid_kb(rng, (3, 3, c, c))],
+           _grid_kb(rng, (1, 1, c, 4)),
+           [_grid_kb(rng, (3, 3, c, c)), _grid_kb(rng, (3, 3, c, c))],
+           _grid_kb(rng, (1, 1, c, 4)))
+    got = _head_wide_tiled(x, tk.pack_head_weights(*kbs, torch.bfloat16))
+    want = fused_head(jnp.asarray(x.float().numpy()[0]).astype(
+        jnp.bfloat16), *_jax(kbs), use_pallas=False)
+    for g, w in zip(got, want):
+        g, w = g[0].numpy(), np.asarray(w, np.float32)
+        assert g.shape == w.shape
+        assert np.all(np.abs(g - w) <= REL_BF16 * (1 + np.abs(w)))

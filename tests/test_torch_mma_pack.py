@@ -36,7 +36,7 @@ def _head_ws(rng, dtype=torch.float32):
 
 
 def _w33(ws):
-    return mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8])
+    return mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8], ws[4], ws[10])
 
 
 def _b_tile(tile: torch.Tensor) -> torch.Tensor:
@@ -116,9 +116,10 @@ def test_head_pack_inverts_and_plain_is_bit_equal(dtype):
 
 
 def test_head_pack_other_width_has_no_tiles():
-    """Only the tiled kernel's width packs into B tiles: another multiple
-    of 16 packs into the wide form's flat fragment image, any other width
-    into nothing; the CPU path needs neither."""
+    """Only the tiled kernel's width packs into its (18, 128, 64) slabs:
+    the wide form's widths (32, 128, 256) pack into one flat image, its
+    weight stream and the preds' fragments (up to 8 outputs a pred); any
+    other width packs into nothing; the CPU path needs neither."""
     rng = np.random.default_rng(3)
 
     def ws_at(c):
@@ -128,16 +129,26 @@ def test_head_pack_other_width_has_no_tiles():
             [_kb(rng, (3, 3, c, c)), _kb(rng, (3, 3, c, c))],
             _kb(rng, (1, 1, c, 4)), torch.float32)
 
-    ws = ws_at(16)
+    ws = ws_at(32)
     assert len(ws) == 12
-    w33 = _w33(ws)
-    assert w33.shape == mma_pack.head_mma_shape(16) == (4 * 9 * 16 * 16,)
-    for got, want in zip(mma_pack.unpack_head_mma(w33),
-                         (ws[0], ws[6], ws[2], ws[8])):
-        assert torch.equal(got, want)
-    with pytest.raises(ValueError):
-        _w33(ws_at(8))
-    x = torch.from_numpy(rng.normal(0, 1, (5, 6, 16)).astype(np.float32))
+    w33 = mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8], ws[4], ws[10])
+    # per branch 18 taps x one plane x 64 k x 32 n, then two (32, 8) preds
+    assert w33.shape == mma_pack.head_mma_shape(32) == (
+        2 * 18 * 64 * 32 + 2 * 32 * 8,)
+    got = mma_pack.unpack_head_mma(w33)
+    for g, want in zip(got, (ws[0], ws[6], ws[2], ws[8])):
+        assert torch.equal(g, want)
+    for g, want in zip(got[4:], (ws[4], ws[10])):
+        assert torch.equal(g[:, :4], want) and not g[:, 4:].any()
+    with pytest.raises(ValueError, match="preds"):
+        mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8],
+                               torch.zeros(32, 9), ws[10])
+    for c in (16, 8):
+        w = ws_at(c)
+        with pytest.raises(ValueError):
+            mma_pack.pack_head_mma(w[0], w[6], w[2], w[8], w[4], w[10])
+        assert not head_kernel.kernel_takes(c)
+    x = torch.from_numpy(rng.normal(0, 1, (5, 6, 32)).astype(np.float32))
     cls, reg = head_kernel.fused_head(x, *ws)
     assert cls.shape == reg.shape == (5, 6, 4)
 
@@ -515,7 +526,8 @@ def _img(rng, shape):
 def _frag(p, k, nt, ks, lane):
     """The four values lane ``lane`` reads for n8 tile ``nt`` and k16 step
     ``ks`` of a ``pack_frag`` image of a (k, N) matrix: one 8-byte load at
-    ((nt * k/16 + ks) * 32 + lane) * 4 elements, as csrc/wide_mma.cuh."""
+    ((nt * k/16 + ks) * 32 + lane) * 4 elements, as the wide head reads
+    its preds (csrc/head.cu)."""
     base = ((nt * (k // 16) + ks) * 32 + lane) * 4
     return p[base:base + 4]
 
@@ -538,14 +550,42 @@ def test_frag_image_is_the_mma_b_fragment(k, n):
         mma_pack.pack_frag(w[:, :4])
 
 
-# (Cin, Ca, hidden, F, n): widths of the bf16 engines' C3k2s
+def _b_tile_n(tile: torch.Tensor) -> torch.Tensor:
+    """One packed [NS n][64 k] tile -> B (64 k, NS n), by the address the
+    device computes (as ``_b_tile``, any NS)."""
+    n = torch.arange(tile.shape[0])[None, :]
+    k = torch.arange(64)[:, None]
+    return tile[n, (((k >> 3) ^ (n & 7)) << 3) + (k & 7)]
+
+
+def _stream_b(img, shapes, s):
+    """The wide kernels' weight stream read as cluster block r reads it:
+    ``[r][stage][chunk]`` -> B (64, N/s), each chunk a contiguous
+    [N/s][64] tile, block r's chunks one contiguous range."""
+    per = sum(k * n // s for k, n in shapes)
+    out = []
+    for r in range(s):
+        off, stages = r * per, []
+        for k, n in shapes:
+            ns, kc = n // s, k // 64
+            tiles = img[off:off + kc * ns * 64].reshape(kc, ns, 64)
+            stages.append([_b_tile_n(t) for t in tiles])
+            off += kc * ns * 64
+        out.append(stages)
+    return out
+
+
+# (Cin, Ca, hidden, F, n): widths of the bf16 engines' C3k2s (base 32 and
+# base 16)
 @pytest.mark.parametrize("cin,ca,hd,f,n", [(128, 0, 64, 128, 2),
                                            (384, 128, 128, 256, 1),
-                                           (32, 16, 16, 24, 2)])
+                                           (32, 16, 16, 32, 2)])
 def test_c3k2_wide_pack_inverts_and_holds_the_fragments(cin, ca, hd, f, n):
-    """At any width but hidden 32 / F 64 the image is the wide form's:
-    [w1 | w2], then per bottleneck wb1 and the 3x3 as (9h, h) (K = tap * h
-    + channel), then w3, each a fragment image."""
+    """At the wide widths the image is the weight stream of the cluster's
+    blocks: per block ``r`` its columns ``r N/s ..`` of [w1 | w2] over
+    xa's then xb's 64-deep chunks, of each bottleneck's wb1 and 3x3 (K
+    chunk tap * planes + plane), and of w3, each chunk one swizzled tile;
+    ``unpack_c3k2_mma`` inverts it."""
     rng = np.random.default_rng(12)
     ws = c3k2_kernel.pack_c3k2_weights(
         _kb(rng, (1, 1, cin, hd)), _kb(rng, (1, 1, cin, hd)),
@@ -558,12 +598,293 @@ def test_c3k2_wide_pack_inverts_and_holds_the_fragments(cin, ca, hd, f, n):
     for got, want in zip(mma_pack.unpack_c3k2_mma(p, cin, n, ca, hd, f),
                          (w1, w2, wb1, wb2, w3)):
         assert torch.equal(got, want)
-    # the last bottleneck's 3x3, tap (2, 1): its k16 step 0 of n8 tile 0
-    off = cin * 2 * hd + (n - 1) * 10 * hd * hd + hd * hd
-    tap, g, tq = 7, 0, 1
-    got = _frag(p[off:], 9 * hd, 0, tap * hd // 16, 4 * g + tq)
-    rows = [2 * tq, 2 * tq + 1, 8 + 2 * tq, 9 + 2 * tq]
-    assert torch.equal(got, wb2[n - 1, 2, 1][rows, g])
+    s, pl = mma_pack.C3K2_SPLIT[hd], -(-hd // 64)
+    ka, kb_ = -(-ca // 64), -(-(cin - ca) // 64)
+    shapes = ([((ka + kb_) * 64, 2 * hd)] + [(pl * 64, hd),
+                                             (9 * pl * 64, hd)] * n
+              + [(-(-2 * hd // 64) * 64, f)])
+    blocks = _stream_b(p, shapes, s)
+    r = s - 1
+    ns = 2 * hd // s
+    # xb's first chunk, block r's columns of [w1 | w2]
+    rows = min(64, cin - ca)
+    wa = torch.cat([w1, w2], dim=-1)[:, r * ns:(r + 1) * ns]
+    b = blocks[r][0][ka]
+    assert torch.equal(b[:rows], wa[ca:ca + rows]) and not b[rows:].any()
+    # the last bottleneck's 3x3, tap (2, 1), plane 0
+    nb = hd // s
+    b = blocks[r][2 * n][7 * pl]
+    assert torch.equal(b[:min(64, hd)], wb2[n - 1, 2, 1][:64, r * nb:
+                                                           (r + 1) * nb])
+    assert torch.equal(blocks[r][-1][0][:min(64, 2 * hd)],
+                       w3[:64, r * ns:(r + 1) * ns])
+
+
+# ---- (f) the wide forms: clusters of blocks splitting the columns ----
+
+WT = 8   # the wide kernels' output tile
+
+
+def _windows(x, halo, step=WT, size=None, lead=None, grid=None):
+    """(B, H, W, C) -> (tiles, size^2, C): per 8 x 8 output tile (of a
+    ``grid`` of tiles, by default the image's) the window of ``size``
+    pixels (8 + 2 halo) from (step ty - lead, step tx - lead), zero
+    outside the image."""
+    size = size or WT + 2 * halo
+    lead = halo if lead is None else lead
+    bsz, h, w, c = x.shape
+    ty, tx = grid or (-(-h // WT), -(-w // WT))
+    hp, wp = (ty - 1) * step + size, (tx - 1) * step + size
+    xp = torch.zeros(bsz, max(hp, h + lead), max(wp, w + lead), c,
+                     dtype=x.dtype)
+    xp[:, lead:lead + h, lead:lead + w] = x
+    win = xp.unfold(1, size, step).unfold(2, size, step)[:, :ty, :tx]
+    return win.permute(0, 1, 2, 4, 5, 3).reshape(-1, size * size, c)
+
+
+def _planes_of(win, c):
+    """Channels zero-padded to whole 64-channel planes: [plane](..., 64)."""
+    win = F.pad(win, (0, -c % 64))
+    return list(win.split(64, dim=-1))
+
+
+def _m64(rows, count):
+    """Row indices of ``count`` region rows padded to whole m64 products,
+    the padding repeating the last row (the kernels' clamped rows)."""
+    return torch.clamp(torch.arange(-(-count // 64) * 64), max=count - 1)
+
+
+def _gemm(chunks, bs):
+    """f32 sum over K chunks of A (tiles, M, 64) @ B (64, NS)."""
+    acc = 0
+    for a, b in zip(chunks, bs):
+        acc = acc + a @ b.float()
+    return acc
+
+
+def _bf(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _c3k2_wide_tiled(xa, xb, ws, *, up_a=False, shortcut=True):
+    """csrc/c3k2.cu's wide form: per 8 x 8 tile (+ halo n) and per block
+    r of its cluster, r's columns of each stage from the weight stream,
+    over windows of 64-channel planes, M padded to m64 products, 0 outside
+    the image after every stage, bf16 at every stage; the blocks' columns
+    assembled (the distributed shared memory) before the next stage reads
+    them. ``xa`` None is the single form."""
+    _, b1, wb1, bb1, _, bb2, _, b2, _, b3 = ws
+    n, hd, fo = wb1.shape[0], b1.shape[0], b3.shape[0]
+    ca = 0 if xa is None else xa.shape[-1]
+    cb = xb.shape[-1]
+    s = mma_pack.C3K2_SPLIT[hd]
+    ka, kb_ = -(-ca // 64), -(-cb // 64)
+    pl, pp = -(-hd // 64), -(-2 * hd // 64)
+    shapes = ([((ka + kb_) * 64, 2 * hd)] + [(pl * 64, hd),
+                                             (9 * pl * 64, hd)] * n
+              + [(pp * 64, fo)])
+    blocks = _stream_b(_wpk(ws, ca), shapes, s)
+    bsz, h, w, _ = xb.shape
+    wc = WT + 2 * n
+    wpx = wc * wc
+    xf = xb.float()
+    inside = _windows(torch.ones(bsz, h, w, 1), n)[..., 0] > 0   # (T, wp)
+    chunks = _planes_of(_windows(xf, n), cb)
+    if xa is not None and up_a:
+        coarse = _windows(xa.float(), 1, step=WT // 2, size=WT // 2 + 2,
+                          lead=1, grid=(-(-h // WT), -(-w // WT)))
+        r = torch.arange(wc)
+        cr = ((r - n) >> 1) + 1
+        idx = (cr[:, None] * (WT // 2 + 2) + cr[None, :]).reshape(-1)
+        chunks = _planes_of(coarse[:, idx], ca) + chunks
+    elif xa is not None:
+        chunks = _planes_of(_windows(xa.float(), n), ca) + chunks
+    stages = iter(range(len(shapes)))
+
+    def run(src, rows, bias, ncols, st):
+        """Every block's columns of stage ``st`` over A rows ``rows`` of
+        the source chunks, assembled, ReLU(acc + bias), bf16."""
+        m = _m64(None, len(rows))
+        parts = [_gemm([c[:, rows[m]] for c in src], blocks[r][st])
+                 for r in range(s)]
+        acc = torch.cat(parts, dim=-1)[:, :len(rows), :ncols]
+        return _bf(torch.relu(acc + bias))
+
+    def region(hh):
+        rc = WT + 2 * hh
+        off = n - hh
+        rr, cc = torch.meshgrid(torch.arange(rc), torch.arange(rc),
+                                indexing="ij")
+        return ((rr + off) * wc + cc + off).reshape(-1)
+
+    full = region(n)
+    p = run(chunks, full, torch.cat([b1, b2]), 2 * hd, next(stages))
+    p = p * inside[..., None]                           # (T, wp, 2h)
+    for i in range(n):
+        rows = region(n - i)
+        t = torch.zeros(p.shape[0], wpx, hd)
+        t[:, rows] = run(_planes_of(p[..., :hd], hd), rows, bb1[i], hd,
+                         next(stages)) * inside[:, rows, None]
+        st, rows = next(stages), region(n - 1 - i)
+        tpl = _planes_of(t, hd)
+        taps = [c[:, rows + (kh - 1) * wc + kw - 1] for kh in range(3)
+                for kw in range(3) for c in tpl]
+        m = _m64(None, len(rows))
+        acc = torch.cat([_gemm([a[:, m] for a in taps], blocks[r][st])
+                         for r in range(s)], dim=-1)[:, :len(rows)]
+        u = _bf(torch.relu(acc + bb2[i]))
+        new = _bf(p[:, rows, :hd] + u) if shortcut else u
+        p = p.clone()
+        p[:, rows, :hd] = new * inside[:, rows, None]
+    res = run(_planes_of(p, 2 * hd), region(0), b3, fo, next(stages))
+    ty, tx = -(-h // WT), -(-w // WT)
+    out = res.reshape(bsz, ty, tx, WT, WT, fo).permute(0, 1, 3, 2, 4, 5)
+    return out.reshape(bsz, ty * WT, tx * WT, fo)[:, :h, :w]
+
+
+def _rect_windows(x, halo, tr, tw):
+    """(B, H, W, C) -> (tiles, (tr + 2 halo)(tw + 2 halo), C): the window of
+    each tr x tw output tile, zero outside the image."""
+    bsz, h, w, c = x.shape
+    ty, tx = -(-h // tr), -(-w // tw)
+    rows, cols = tr + 2 * halo, tw + 2 * halo
+    xp = torch.zeros(bsz, ty * tr + 2 * halo, tx * tw + 2 * halo, c,
+                     dtype=x.dtype)
+    xp[:, halo:halo + h, halo:halo + w] = x
+    win = xp.unfold(1, rows, tr).unfold(2, cols, tw)
+    return win.permute(0, 1, 2, 4, 5, 3).reshape(-1, rows * cols, c)
+
+
+def _head_wide_tiled(x, ws):
+    """csrc/head.cu's wide form: per tile (``head_kernel.wide_tile``) and
+    branch, each block r of the cluster r's channels of conv1 (tile + 1, M
+    padded to m64) and conv2 from the weight stream, the blocks' channels
+    assembled between the two; c1 0 outside the image; the pred per m16
+    row tile from the fragment image, f32."""
+    c = x.shape[-1]
+    s, pl = mma_pack.HEAD_SPLIT[c], -(-c // 64)
+    tr, tw = head_kernel.wide_tile(c)
+    w33 = mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8], ws[4], ws[10])
+    k = 9 * pl * 64
+    per = 2 * k * c
+    bsz, h, w, _ = x.shape
+    xw = _planes_of(_rect_windows(x.float(), 2, tr, tw), c)
+    inside = _rect_windows(torch.ones(bsz, h, w, 1), 1, tr, tw)[..., 0] > 0
+    ty, tx = -(-h // tr), -(-w // tw)
+    outs = []
+    for br, i in ((0, 0), (1, 6)):
+        _, b1, _, b2, wp, bp = ws[i:i + 6]
+        blocks = _stream_b(w33[br * per:(br + 1) * per], [(k, c), (k, c)],
+                           s)
+        rr, cc = torch.meshgrid(torch.arange(tr + 2), torch.arange(tw + 2),
+                                indexing="ij")
+        rows = (rr * (tw + 4) + cc).reshape(-1)
+        n1 = (tr + 2) * (tw + 2)
+        m = _m64(None, n1)
+        taps = [q[:, rows[m] + kh * (tw + 4) + kw] for kh in range(3)
+                for kw in range(3) for q in xw]
+        acc = torch.cat([_gemm(taps, blocks[r][0]) for r in range(s)],
+                        dim=-1)[:, :n1, :c]
+        c1 = _bf(torch.relu(acc + b1)) * inside[..., None]
+        c1p = _planes_of(c1, c)
+        rr, cc = torch.meshgrid(torch.arange(tr), torch.arange(tw),
+                                indexing="ij")
+        rows = (rr * (tw + 2) + cc).reshape(-1)
+        taps = [q[:, rows + kh * (tw + 2) + kw] for kh in range(3)
+                for kw in range(3) for q in c1p]
+        acc = torch.cat([_gemm(taps, blocks[r][1]) for r in range(s)],
+                        dim=-1)
+        c2 = _bf(torch.relu(acc + b2))
+        frag = w33[2 * per + br * c * 8:2 * per + (br + 1) * c * 8]
+        # the lanes' fragments (rows 2tq, 2tq+1, 8+2tq, 9+2tq of k16 step
+        # ks, column g) read back into the (C, 8) matrix they hold
+        wq = torch.zeros(c, 8)
+        for ks in range(c // 16):
+            for g in range(8):
+                for tq in range(4):
+                    vals = _frag(frag, c, 0, ks, 4 * g + tq)
+                    for e, r_ in enumerate((2 * tq, 2 * tq + 1, 8 + 2 * tq,
+                                            9 + 2 * tq)):
+                        wq[16 * ks + r_, g] = vals[e]
+        no = wp.shape[1]
+        pred = (c2 @ wq)[..., :no] + bp
+        out = pred.reshape(bsz, ty, tx, tr, tw, no).permute(0, 1, 3, 2, 4, 5)
+        outs.append(out.reshape(bsz, ty * tr, tx * tw, no)[:, :h, :w])
+    return outs
+
+
+def _grid_img(rng, shape):
+    """bf16 activations on a binary grid (k/2): with grid weights every
+    f32 sum is exact in any order, so the tiling must agree bit for bit."""
+    return torch.from_numpy((rng.integers(0, 5, shape) * 0.5).astype(
+        np.float32)).to(torch.bfloat16)
+
+
+def _grid_kb(rng, shape):
+    fan = int(np.prod(shape[:-1]))
+    k = np.where(rng.random(shape) < min(1.0, 8 / fan),
+                 rng.choice([-.5, -.25, .25, .5], shape), 0.0)
+    return (k.astype(np.float32),
+            (rng.integers(-2, 3, shape[-1]) / 8).astype(np.float32))
+
+
+def _grid_c3k2_ws(rng, cin, hd, n):
+    return c3k2_kernel.pack_c3k2_weights(
+        _grid_kb(rng, (1, 1, cin, hd)), _grid_kb(rng, (1, 1, cin, hd)),
+        _grid_kb(rng, (1, 1, 2 * hd, 2 * hd)),
+        [(_grid_kb(rng, (1, 1, hd, hd)), _grid_kb(rng, (3, 3, hd, hd)))
+         for _ in range(n)], torch.bfloat16)
+
+
+# (batch, H, W, Cin, hidden, n): stage3_c3k2 and stage2_c3k2 (base 32),
+# stage1_block at base 16 cut to 40 x 40, ragged images at batch 2
+@pytest.mark.parametrize("b,h,w,cin,hd,n", [(1, 40, 40, 256, 128, 2),
+                                            (1, 80, 80, 128, 64, 2),
+                                            (1, 40, 40, 32, 16, 1),
+                                            (2, 13, 22, 128, 64, 1),
+                                            (2, 11, 9, 64, 128, 2)])
+def test_c3k2_wide_tiling_matches_plain(b, h, w, cin, hd, n):
+    rng = np.random.default_rng(20)
+    x = _grid_img(rng, (b, h, w, cin))
+    ws = _grid_c3k2_ws(rng, cin, hd, n)
+    got = _c3k2_wide_tiled(None, x, ws)
+    want = c3k2_kernel.fused_c3k2_plain(x, *ws)
+    assert float(want.float().abs().max()) > 1.0   # not a degenerate case
+    assert torch.equal(got.to(torch.bfloat16), want)
+
+
+# (batch, H, W, Ca, Cb, hidden, up_a): fpn_c3k2_1, pan_c3k2_1, pan_c3k2_2
+# (base 32), a ragged image at batch 2, base 16's fpn_c3k2_2 cut to 40
+@pytest.mark.parametrize("b,h,w,ca,cb,hd,up", [
+    (1, 80, 80, 128, 128, 64, True), (1, 80, 80, 64, 128, 64, False),
+    (1, 40, 40, 128, 256, 128, False), (2, 14, 22, 128, 64, 128, True),
+    (1, 40, 40, 32, 32, 16, True)])
+def test_c3k2_cat_wide_tiling_matches_plain(b, h, w, ca, cb, hd, up):
+    rng = np.random.default_rng(21)
+    xa = _grid_img(rng, (b, h // 2, w // 2, ca) if up else (b, h, w, ca))
+    xb = _grid_img(rng, (b, h, w, cb))
+    ws = _grid_c3k2_ws(rng, ca + cb, hd, 1 if hd != 128 or not up else 2)
+    got = _c3k2_wide_tiled(xa, xb, ws, up_a=up)
+    want = c3k2_kernel.fused_c3k2_cat_plain(xa, xb, *ws, up_a=up)
+    assert float(want.float().abs().max()) > 1.0
+    assert torch.equal(got.to(torch.bfloat16), want)
+
+
+@pytest.mark.parametrize("b,h,w,c", [(1, 40, 40, 256), (1, 80, 80, 128),
+                                     (2, 9, 17, 32), (2, 13, 6, 256)])
+def test_head_wide_tiling_matches_plain(b, h, w, c):
+    rng = np.random.default_rng(22)
+    x = _grid_img(rng, (b, h, w, c))
+    ws = head_kernel.pack_head_weights(
+        [_grid_kb(rng, (3, 3, c, c)), _grid_kb(rng, (3, 3, c, c))],
+        _grid_kb(rng, (1, 1, c, 4)),
+        [_grid_kb(rng, (3, 3, c, c)), _grid_kb(rng, (3, 3, c, c))],
+        _grid_kb(rng, (1, 1, c, 4)), torch.bfloat16)
+    got = _head_wide_tiled(x, ws)
+    want = head_kernel.fused_head_plain(x, *ws)
+    for g, w_ in zip(got, want):
+        assert g.shape == w_.shape == (b, h, w, 4)
+        assert torch.equal(g, w_)
 
 
 @pytest.mark.parametrize("tr,tw", TILES)
@@ -609,3 +930,36 @@ def test_c3k2_halo_mask_is_needed():
     err = (_c3k2_tiled(None, x, ws, 8, 16, mask=False)[0] - want).abs()
     assert float(err[1:-1, 1:-1].max()) <= 1e-5
     assert float(err[0].max()) > 1e-3 and float(err[:, 0].max()) > 1e-3
+
+
+def test_wide_forms_take_the_served_widths_only():
+    """The wide kernels are compiled for the bf16 engines' widths at base
+    32 and base 16 (C3k2 hidden 16, 64, 128 with F = 2 hidden; heads 32,
+    128, 256), the tiled kernels for hidden 32 / F 64 and head 64; any
+    other width packs nothing and the card path raises. The wide C3k2
+    takes its input up to the 64-channel planes it holds in shared memory
+    (``WIDE_PLANES``, held against the library on the card), not past."""
+    served_c3k2 = [(128, 64, 128, 2, 0), (256, 128, 256, 2, 0),
+                   (256, 64, 128, 1, 128), (192, 64, 128, 1, 64),
+                   (384, 128, 256, 1, 128), (32, 16, 32, 1, 0),
+                   (128, 64, 128, 2, 0), (64, 16, 32, 1, 32),
+                   (192, 64, 128, 1, 64), (64, 32, 64, 1, 0)]
+    for cin, hd, f, n, ca in served_c3k2:
+        assert c3k2_kernel.kernel_takes(cin, hd, f, n, ca), (cin, hd, f, n)
+    for cin, hd, f, n in ((64, 32, 32, 1), (64, 48, 96, 1), (64, 64, 64, 1),
+                          (64, 8, 16, 1), (1024, 128, 256, 2),
+                          (128, 64, 128, 3)):
+        assert not c3k2_kernel.kernel_takes(cin, hd, f, n), (cin, hd, f, n)
+    for c in (32, 64, 128, 256):
+        assert head_kernel.kernel_takes(c)
+    for c in (16, 48, 96, 512):
+        assert not head_kernel.kernel_takes(c)
+    # the input planes the wide form holds: Cin up to them, not past
+    for (hd, n), pl in c3k2_kernel.WIDE_PLANES.items():
+        assert c3k2_kernel.kernel_takes(64 * pl, hd, 2 * hd, n)
+        assert not c3k2_kernel.kernel_takes(64 * pl + 8, hd, 2 * hd, n)
+        assert not c3k2_kernel.kernel_takes(64 * pl, hd, 2 * hd, n, ca=8)
+    with pytest.raises(ValueError, match="compiled"):
+        mma_pack.pack_c3k2_mma(*(torch.zeros(s) for s in (
+            (64, 48), (64, 48), (1, 48, 48), (1, 3, 3, 48, 48),
+            (96, 96))))

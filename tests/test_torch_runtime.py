@@ -7,10 +7,17 @@
   (``serve_packed``: ``[x1, y1, x2, y2, score, cls, valid]``) on the small
   shipped-flag engine of ``test_torch_slice.py``, within 1e-4.
 - ``PerceptionServer`` and ``make_executor`` on a small ``s2d_merged``
-  artifact exported by the reference in the test, against the reference's
-  server and executor: same count, detections matched one to one by class
-  within 0.5 px and 1e-2 (the port computes the float layers in bf16, the
-  small reference artifact in f32).
+  float32 artifact exported by the reference in the test, served in
+  float32 as the caller says (the reference's ``config.json`` does not
+  record the compute dtype), against the reference's server and executor:
+  same count, detections matched one to one by class within 1e-4 px and
+  1e-5 (measured: 1.9e-6 px, 2.4e-7; the port's f32 sums run in another
+  order).
+- Loading what the port cannot serve right: an artifact of an unfolded
+  (BatchNorm) model and one of the unfused int8 chain are refused; a
+  ``config.json`` and a caller that disagree raise; the three committed
+  artifacts load as before; a ``--fused-c3k2 --fused-head`` export of the
+  reference served with those flags equals the reference's artifact.
 - ``nv12_to_rgb`` against the reference within 1e-4.
 """
 import dataclasses
@@ -50,13 +57,15 @@ from unina_yolo_dla_tpu.quant.deploy import (
     merge_stem_columns,
 )
 from unina_yolo_dla_tpu.quant.fake_quant import PERF_EXCLUDE, QuantSpec
+from unina_yolo_dla_tpu.runtime.aot import ServingArtifact as JArtifact
 from unina_yolo_dla_tpu.runtime.aot import export_serving_artifact
 from unina_yolo_dla_tpu.runtime.embed import make_executor as j_executor
 from unina_yolo_dla_tpu.runtime.pipeline import build_serving_fn as j_build
 from unina_yolo_dla_tpu.runtime.serving import PerceptionServer as JServer
 
 IMG = 32
-BOX_PX, SCORE_TOL = 0.5, 1e-2
+BOX_PX, SCORE_TOL = 1e-4, 1e-5
+F32 = dict(compute_dtype=torch.float32)   # how the reference built it
 PACK_TOL = 1e-4
 CONF = 0.92          # a few detections on FRAME_SEED's frame
 
@@ -217,7 +226,7 @@ def test_server_lifecycle_drops_guard_and_stats(artifact_dir):
     logs = []
     srv = PerceptionServer(artifact_dir, expected_input=IMG,
                            expected_classes=4, log_fn=logs.append,
-                           warn_throttle_s=0.0, device="cpu")
+                           warn_throttle_s=0.0, device="cpu", **F32)
     assert srv.state == LifecycleState.UNCONFIGURED
     frame = _frame(FRAME_SEED)
     assert srv.process_frame(frame) is None          # before configure
@@ -254,7 +263,7 @@ def test_configure_rejects_wrong_dims(artifact_dir):
     for size, classes in ((640, 4), (IMG, 7)):
         srv = PerceptionServer(artifact_dir, expected_input=size,
                                expected_classes=classes,
-                               log_fn=lambda s: None, device="cpu")
+                               log_fn=lambda s: None, device="cpu", **F32)
         with pytest.raises(ValueError):
             srv.configure()
         assert srv.state == LifecycleState.UNCONFIGURED
@@ -264,7 +273,7 @@ def test_configure_rejects_wrong_dims(artifact_dir):
 def test_process_frame_matches_reference_server(artifact_dir, seed):
     kw = dict(expected_input=IMG, log_fn=lambda s: None)
     want_srv, got_srv = JServer(artifact_dir, **kw), PerceptionServer(
-        artifact_dir, device="cpu", **kw)
+        artifact_dir, device="cpu", **F32, **kw)
     for srv in (want_srv, got_srv):
         srv.configure()
         srv.activate()
@@ -275,8 +284,9 @@ def test_process_frame_matches_reference_server(artifact_dir, seed):
 
 
 def test_artifact_packed_equals_its_detections(artifact_dir):
-    art = ServingArtifact(artifact_dir, device="cpu")
+    art = ServingArtifact(artifact_dir, device="cpu", **F32)
     assert art.graph is None
+    assert art.model_config.compute_dtype == torch.float32
     frame = _frame(FRAME_SEED)
     dets = art(frame)
     packed = art.packed(frame)
@@ -295,7 +305,7 @@ def test_artifact_packed_equals_its_detections(artifact_dir):
 def executors(artifact_dir, monkeypatch):
     monkeypatch.setenv("UNINA_FORCE_CPU", "1")
     return (j_executor(str(artifact_dir), IMG, 4),
-            make_executor(str(artifact_dir), IMG, 4))
+            make_executor(str(artifact_dir), IMG, 4, **F32))
 
 
 def test_executor_bytes_match_reference(executors):
@@ -341,6 +351,104 @@ def test_executor_refuses_camera_artifact(monkeypatch):
     for w, h, c in ((1920, 1080, 3), (1920, 1080, 0), (1080, 1920, 4),
                     (IMG, IMG, 3)):
         assert execute(memoryview(frame.tobytes()), w, h, c) == sentinel
+
+
+# ---- what an artifact's config.json does not say ----
+
+COMMITTED = Path(__file__).resolve().parents[1] / "artifacts"
+
+
+def test_unfolded_jax_export_is_refused(tmp_path):
+    """The reference exports an unfolded model (BatchNorm nodes and
+    statistics in its tree) when no deploy flag is given, as
+    ``tests/test_native_host.py`` does; the port has no BatchNorm and
+    refuses it before building a model."""
+    cfg = ModelConfig(num_classes=4, base_channels=16, input_size=64,
+                      compute_dtype=jnp.float32)
+    model, variables = init_model(jax.random.key(0), cfg)
+    assert variables["batch_stats"]
+    export_serving_artifact(model, variables, tmp_path, max_detections=64)
+    with pytest.raises(NotImplementedError, match="Queue A item 8a"):
+        ServingArtifact(tmp_path, device="cpu", **F32)
+
+
+@pytest.mark.parametrize("name", ["serving_artifact", "serving_artifact_b8",
+                                  "serving_artifact_cam"])
+def test_committed_artifacts_still_load(name):
+    """The committed artifacts (written by the reference, no build keys)
+    load as before: bf16, unfused, the fused int8 chain."""
+    art = ServingArtifact(COMMITTED / name, device="cpu")
+    cfg = art.model_config
+    assert cfg.compute_dtype == torch.bfloat16
+    assert not cfg.fused_c3k2 and not cfg.fused_head
+    assert cfg.quant.mode == "int8_fused" and cfg.quant.exclude == T_PERF
+
+
+def test_build_keys_from_config_or_caller():
+    """Each build key comes from config.json where it has it, else from
+    the caller; the two disagreeing raises; the unfused int8 chain is
+    refused, by either; a quant mode that contradicts ``quantized``
+    raises."""
+    from unina_yolo_dla_torch.runtime.artifact import config_from_artifact
+
+    conf = json.loads((COMMITTED / "serving_artifact" /
+                       "config.json").read_text())
+    cfg = config_from_artifact(conf, compute_dtype="float32",
+                               fused_c3k2=True, fused_head=True)
+    assert cfg.compute_dtype == torch.float32
+    assert cfg.fused_c3k2 and cfg.fused_head
+    own = dict(conf, compute_dtype="bfloat16", quant_mode="int8_fused",
+               fused_c3k2=False, fused_head=False)
+    assert config_from_artifact(own, compute_dtype=torch.bfloat16) == \
+        config_from_artifact(conf)
+    for key, value in (("compute_dtype", torch.float32),
+                       ("quant_mode", "off"), ("fused_c3k2", True),
+                       ("fused_head", True)):
+        with pytest.raises(ValueError, match=key):
+            config_from_artifact(own, **{key: value})
+    with pytest.raises(ValueError, match="quantized"):
+        config_from_artifact(conf, quant_mode="off")
+    for src, kw in ((conf, {"quant_mode": "int8"}),
+                    (dict(own, quant_mode="int8"), {})):
+        with pytest.raises(NotImplementedError, match="Queue A item 8c"):
+            config_from_artifact(src, **kw)
+    with pytest.raises(TypeError):
+        config_from_artifact(conf, fused_stem=True)
+
+
+def test_fused_jax_export_served_fused_equals_reference(tmp_path):
+    """A ``--fused-c3k2 --fused-head`` float32 export of the reference
+    (its config.json records neither flag nor the dtype), served by the
+    port with those flags given, against the reference's artifact."""
+    cfg = ModelConfig(num_classes=4, base_channels=16, input_size=IMG,
+                      compute_dtype=jnp.float32)
+    _, variables = init_model(jax.random.key(0), cfg)
+    fused = dataclasses.replace(cfg, deploy=True, fused_c3k2=True,
+                                fused_head=True)
+    f_vars = jax.device_get(fold_batchnorm(variables))
+    for head in ("head_p2", "head_p3", "head_p4"):
+        pred = f_vars["params"][head]["cls_pred"]
+        pred["kernel"] = np.asarray(pred["kernel"]) * np.float32(30.0)
+        pred["bias"] = np.zeros_like(np.asarray(pred["bias"]))
+    export_serving_artifact(UninaYoloDla(fused), f_vars, tmp_path,
+                            conf_threshold=0.6, max_detections=64)
+    conf = json.loads((tmp_path / "config.json").read_text())
+    assert not set(conf) & {"compute_dtype", "fused_c3k2", "fused_head"}
+    got_art = ServingArtifact(tmp_path, device="cpu", fused_c3k2=True,
+                              fused_head=True, **F32)
+    assert got_art.model_config.fused_c3k2 and got_art.model_config.fused_head
+    want_art = JArtifact(tmp_path)
+    for seed in (FRAME_SEED, 1):
+        frame = _frame(seed)
+        _match(_dets(got_art(frame)), _dets(want_art(frame)))
+
+
+def _dets(d) -> dict:
+    valid = np.asarray(d.valid)
+    return {"count": int(valid.sum()),
+            "boxes": np.asarray(d.boxes, np.float32)[valid],
+            "scores": np.asarray(d.scores, np.float32)[valid],
+            "classes": np.asarray(d.classes)[valid]}
 
 
 # ---- the rest ----

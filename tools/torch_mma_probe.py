@@ -79,7 +79,7 @@ def main() -> int:
     ws = [w.to(dev) for w in head_kernel.pack_head_weights(
         [kb((3, 3, 64, 64)), kb((3, 3, 64, 64))], kb((1, 1, 64, 4)),
         [kb((3, 3, 64, 64)), kb((3, 3, 64, 64))], kb((1, 1, 64, 4)), bf)]
-    w33 = pack_head_mma(ws[0], ws[6], ws[2], ws[8])
+    w33 = pack_head_mma(ws[0], ws[6], ws[2], ws[8], ws[4], ws[10])
 
     rows = []
     # stage1: 4 x 16 output tiles, two warpgroups (tiles in flight) per SM

@@ -1,4 +1,4 @@
-"""Two trees of the PyTorch/CUDA port on one NVIDIA GPU, the int8 paths
+"""Two trees of the PyTorch/CUDA port on one NVIDIA GPU, the six engines
 served the same way: their graph times and whether their outputs are
 the same bits (imports no JAX).
 
@@ -18,20 +18,30 @@ and the camera artifact), captured as one CUDA graph:
 - ``digest``: SHA-256 of every Detections field of every scene (seeds 1-8;
   one batch of them for b8; the camera's 1080x1920 BGRA scenes).
 
-And the fc engine's three fused kernels at 64 channels (stage1_block,
-fpn_c3k2_2, head_p2) on the seed-7 frame's own activations: the SHA-256
-of each output and its time inside a replayed graph. Run parent, change,
-change, parent in one call and compare digests (equal: the same bits) and
-times (within the spread of the two runs of one tree). Prints one JSON
-object and writes it to ``chiprun_out/torch_parent_ab_<tag>.json``.
+The same for the two bf16 engines (``bf16_s2dm_mh``, ``bf16_s2dm_fc``),
+each exported by the tree's own export from the float checkpoint
+(``artifacts/engine_source.msgpack`` without ``quant``) with
+``chip_smoke.py``'s flags and served from its directory.
+
+And the int8 fc engine's three fused kernels at 64 channels (stage1_block,
+fpn_c3k2_2, head_p2) on the seed-7 frame's own activations, and the bf16
+fc engine's ten fused blocks (``blocks``: the wide C3k2 and head kernels
+at 128 and 256 channels among them) on its seed-7 frame's activations:
+the SHA-256 of each output and its time inside a replayed graph. Run
+parent, change, change, parent in one call and compare digests (equal:
+the same bits) and times (within the spread of the two runs of one
+tree). Prints one JSON object and writes it to
+``chiprun_out/torch_parent_ab_<tag>.json``.
 """
 from __future__ import annotations
 
 import argparse
 import hashlib
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -104,7 +114,8 @@ def main() -> int:
     from unina_yolo_dla_torch.runtime import aot
     from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
     from unina_yolo_dla_torch.runtime.pipeline import build_serving_fn
-    from unina_yolo_dla_torch.utils.checkpoint import load_msgpack_raw
+    from unina_yolo_dla_torch.utils.checkpoint import (load_msgpack_raw,
+                                                       save_msgpack)
 
     import unina_yolo_dla_torch
     pkg = Path(unina_yolo_dla_torch.__file__).resolve().parent
@@ -143,12 +154,23 @@ def main() -> int:
     fc = aot.capture_serving_fn(serve, ship.staged_shape, ship.device)
     b8 = ServingArtifact(cs.ARTIFACT_B8)
     cam = ServingArtifact(cs.ARTIFACT_CAM)
+    tmp = Path(tempfile.mkdtemp())
+    ckpt = tmp / "float_checkpoint.msgpack"
+    save_msgpack({k: v for k, v in load_msgpack_raw(cs.SOURCE).items()
+                  if k not in ("quant", "calib_meta")}, ckpt)
+    bf16 = {}
+    for name, flags in cs.BF16_FLAGS.items():
+        cs.run_export(["--weights", ckpt, *flags, "--cp-calibration",
+                       cs.CP_CALIBRATION, "--output", tmp / name])
+        bf16[name] = ServingArtifact(tmp / name)
     paths = {
         "shipped": (lambda f: ship(f), ship.graph.graph, scenes),
         "int8_s2dm_fc": (lambda f: fc(ship.stage(f)), fc.graph, scenes),
         "b8": (lambda f: b8(f), b8.graph.graph, [np.stack(scenes)]),
         "camera": (lambda f: cam(f), cam.graph.graph, cams),
     }
+    for name, art in bf16.items():
+        paths[name] = (art, art.graph.graph, scenes)
     for name, (call, graph, inputs) in paths.items():
         dets = []
         for frame in inputs:
@@ -195,12 +217,59 @@ def main() -> int:
         kernels[name] = {"digest": digest(res),
                          "graph_ms": cs.graph_ms(fn)}
     out["kernels_64"] = kernels
+    out["blocks"] = fc_blocks(bf16["bf16_s2dm_fc"], scenes[6], cs, torch)
     text = json.dumps(out)
+    shutil.rmtree(tmp)
     dst = REPO / "chiprun_out"
     dst.mkdir(exist_ok=True)
     (dst / f"torch_parent_ab_{args.tag}.json").write_text(text)
     print(text)
     return 0
+
+
+def fc_blocks(art, scene, cs, torch) -> dict:
+    """The bf16 fc engine's ten fused blocks on the activations its eager
+    frame gives them for ``scene``: each output's SHA-256 and its time
+    inside a replayed graph."""
+    from unina_yolo_dla_torch.ops.cuda import c3k2_kernel, head_kernel
+
+    mods = {p: art.model.get_submodule(p)
+            for ps in cs.FC_MODULES.values() for p in ps}
+    caps = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda _m, a, kw, p=p: caps.__setitem__(p, (a, kw)),
+        with_kwargs=True) for p, m in mods.items()]
+    try:
+        with torch.inference_mode():
+            art._serve(art.stage(scene))
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    out = {}
+    for kernel, ps in cs.FC_MODULES.items():
+        for p in ps:
+            mod, (a, kw) = mods[p], caps[p]
+            ws = [getattr(mod, n) for n in mod._FUSED]
+            if kernel == "fused_head":
+                def fn(x=a[0], ws=ws, mod=mod):
+                    return head_kernel.fused_head(x, *ws, w33=mod.w33)
+            elif kernel == "fused_c3k2":
+                def fn(x=a[0], ws=ws, mod=mod):
+                    return c3k2_kernel.fused_c3k2(
+                        x, *ws, shortcut=mod.shortcut, wpk=mod.wpk)
+            else:
+                def fn(xa=a[0], xb=kw["x2"], ws=ws, mod=mod,
+                       up=kw.get("up_x", False)):
+                    return c3k2_kernel.fused_c3k2_cat(
+                        xa, xb, *ws, shortcut=mod.shortcut, up_a=up,
+                        wpk=mod.wpk)
+            res = fn()
+            torch.cuda.synchronize()
+            res = res if isinstance(res, tuple) else (res,)
+            out[p] = {"digest": digest(res), "graph_ms": cs.graph_ms(fn,
+                                                                     10, 5)}
+    return out
 
 
 if __name__ == "__main__":

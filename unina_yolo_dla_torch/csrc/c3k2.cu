@@ -52,12 +52,14 @@
 //   3x3 sees the image's zero padding in rows and columns. Edge tiles are
 //   masked: any H, W and batch; n = 1 or 2; Ca, Cb multiples of 8.
 // That tiled kernel is compiled for hidden 32 and F 64 (the int8 engine's
-// float blocks); every other width goes to the wide form at the end of
-// this file (warp-level products, csrc/wide_mma.cuh). The entry points
-// pick the form by (hidden, F).
+// float blocks); hidden 16, 64 and 128 go to the wide form at the end of
+// this file (weights streamed, clusters, csrc/wide_mma.cuh). The entry
+// points pick the form by (hidden, F).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_sm90.cuh"
 #include "wide_mma.cuh"
@@ -65,6 +67,10 @@
 namespace {
 
 using namespace mma90;
+
+// the last launch's shape, for the host to read
+wide::LaunchShape last_launch{};
+
 typedef __nv_bfloat16 bf16;
 
 constexpr int HID = 32;   // hidden width (C3k2 features // 2)
@@ -469,279 +475,380 @@ int launch(Params P, int B, void* stream) {
   P.tiles_y = (P.H + TR - 1) / TR;
   P.ntiles = P.tiles_x * P.tiles_y * B;
   const int blocks = P.ntiles < sms * per_sm ? P.ntiles : sms * per_sm;
+  last_launch = wide::LaunchShape{blocks, 1, 1, THREADS, smem};
   c3k2_kernel<CAT><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
 }
 
-// ---- the wide form: any other (hidden, F), warp-level products ----
+// ---- the wide form: hidden 16, 64 and 128 (F = 2 hidden), wgmma ----
 //
 // The shapes of the bf16 engines' other C3k2s (hidden 64 or 128, F 128 or
-// 256, inputs of 128 to 384 channels) do not fit the tiled weights of the
-// kernel above in shared memory. This form keeps only activations there
-// and reads each weight as m16n8k16 B fragments from global memory (L2,
-// csrc/wide_mma.cuh). One block of eight warps a 8 x 8 output tile, the
-// same stages and rounding points on the tile plus a halo of n pixels:
-//   A  [p1 | p2] = ReLU(xwin @ [w1 | w2] + [b1 | b2]) on the window (the
-//      input window staged by cp.async, xa's channels ahead of xb's and
-//      read at the coarse pixel (r >> 1, c >> 1) when upsampled);
-//   B  t = ReLU(p1 @ wb1 + bb1) on the window less i pixels;
-//   C  the 3x3 over t, K = 9 taps x hidden, on one pixel less, then the
-//      residual into p1;
-//   D  out = ReLU([p1 | p2] @ w3 + b3) on the tile, stored from registers.
-// Each stage is a set of 16-row x 64-column blocks handed to the warps in
-// turn; halo pixels outside the image are 0 after every stage. Bound on
-// the H100 at stage3_c3k2 (40 x 40 x 256, hidden 128, n = 2): 1.47 GFLOP
-// over 1.7 MB, about 1.5 us at the bf16 peak; the 25 tiles of a 40 x 40
-// image leave most SMs idle, which this simple form accepts.
+// 256, inputs of 128 to 384 channels; hidden 16 at base 16) do not fit the
+// tiled kernel's resident weights in shared memory. This form streams them
+// (csrc/wide_mma.cuh): one 8 x 8 output tile per block at hidden 16 and 64,
+// per cluster of 4 blocks at hidden 128 (the 40 x 40 stages, 25 tiles:
+// each block computes a quarter of every stage's output columns and
+// stores them into the windows of all four). The same stages and
+// rounding points as above, on the tile plus a halo of n:
+//   A  [p1 | p2] = ReLU(xwin @ [w1 | w2] + [b1 | b2]) on the (8+2n)^2
+//      window (xa's planes ahead of xb's, xa read at the coarse pixel
+//      (r >> 1, c >> 1) of a 6 x 6 window when upsampled), 0 outside the
+//      image;
+//   B  t = ReLU(p1 @ wb1 + bb1) on the window less i pixels, into the
+//      input's space (dead after A);
+//   C  the 3x3 over t, K = 9 taps x hidden, on one pixel less, then
+//      p1 = bf16(p1 + u) (or u) in place;
+//   D  out = ReLU([p1 | p2] @ w3 + b3) on the tile, from registers to
+//      global memory.
+// M is every region padded to whole m64 products (3, 3, 2, 2, 1, 1 at
+// n = 2), the items of a stage spread over the two warpgroups.
+// Bound on the H100 at stage3_c3k2 (40 x 40 x 256, hidden 128, n = 2):
+// 1.47 GFLOP over 1.7 MB, about 1.5 us at the bf16 peak. 25 tiles x 4 = 100
+// blocks there (pan_c3k2_2 as well), 100 at 80 x 80 and hidden 64: one
+// block an SM, 164-228 KB of shared memory.
 namespace wide_c3k2 {
 
 using namespace wide;
 
-constexpr int TR = 8, TW = 8;   // output tile
-constexpr int WARPS = 8, THREADS = WARPS * 32;
+constexpr int TR = 8, TW = 8;                   // output tile
+constexpr int AR = TR / 2 + 2, AC = TW / 2 + 2; // coarse xa window
 
 struct Params {
   const bf16* xa;   // (B, Ha, Wa, ca), pair form only
   const bf16* xb;   // (B, H, W, cb)
-  const bf16* wimg; // pack_c3k2_mma image (fragment form)
+  const bf16* wimg; // pack_c3k2_mma image (the wide stream)
   const float *b1, *bb1, *bb2, *b2, *b3;
   bf16* out;        // (B, H, W, fo)
   int ca, cb, up_a, H, W, n, shortcut, hid, fo, tiles_x, tiles_y;
 };
 
-__host__ __device__ inline int window_pixels(int n) {
-  return (TR + 2 * n) * (TW + 2 * n);
-}
-// shared memory: the input window (later the t window), then [p1 | p2]
-__host__ __device__ inline int smem_bytes(int cin, int hid, int n) {
-  const int wp = window_pixels(n);
-  const int x = wp * row_bytes(cin), t = wp * row_bytes(hid);
-  return (x > t ? x : t) + wp * row_bytes(2 * hid);
+// the widths this form is compiled for, and their cluster size
+__host__ __device__ inline int split(int hid, int fo) {
+  if (fo != 2 * hid) return 0;
+  return hid == 128 ? 4 : hid == 64 || hid == 16 ? 1 : 0;
 }
 
-// CAT: the pair form, a template parameter (as above) so that the two
-// forms are two device functions, told apart by name
-template <bool CAT>
-__global__ void __launch_bounds__(THREADS, 1)
-c3k2_wide_kernel(const Params P) {
-  extern __shared__ __align__(16) unsigned char wide_smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int n = P.n, H = P.H, W = P.W, hid = P.hid, fo = P.fo;
-  const int cin = P.ca + P.cb;
-  const int WC = TW + 2 * n, WP = window_pixels(n);
-  const int XB = row_bytes(cin), PB = row_bytes(2 * hid), TB = row_bytes(hid);
-  const uint32_t x_s = smem_u32(wide_smem);
-  const uint32_t t_s = x_s;  // the t window reuses the input's
-  const int xt = WP * XB > WP * TB ? WP * XB : WP * TB;
-  const uint32_t p_s = x_s + xt;
-  unsigned char* p_p = wide_smem + xt;
-  unsigned char* t_p = wide_smem;
+// pixels of the region of stage A (i < 0), B_i, C_i (c) or D (i = n)
+__host__ __device__ constexpr int region(int n, int i, bool c) {
+  return i < 0 ? (TR + 2 * n) * (TW + 2 * n)
+         : i >= n ? TR * TW
+         : c ? (TR + 2 * (n - 1 - i)) * (TW + 2 * (n - 1 - i))
+             : (TR + 2 * (n - i)) * (TW + 2 * (n - i));
+}
+// the widest warpgroup part of any stage: sets the ring's slots
+__host__ __device__ constexpr int ring_cols(int hid, int s, int n) {
+  int cols = cmax(stage_cols(2 * hid / s, region(n, -1, false)),
+                  stage_cols(2 * hid / s, region(n, n, false)));
+  for (int i = 0; i < n; ++i)
+    cols = cmax(cols, cmax(stage_cols(hid / s, region(n, i, false)),
+                           stage_cols(hid / s, region(n, i, true))));
+  return cols;
+}
 
-  const int tile = blockIdx.x;
+// shared memory: the block's stream table and alignment, the ring, the
+// [p1 | p2] window, the input windows (later the t window)
+__host__ __device__ inline int smem_bytes(int ca, int cb, int up_a, int hid,
+                                          int n) {
+  const int wp = region(n, -1, false);
+  const int x = planes(ca) * (up_a ? AR * AC : wp) + planes(cb) * wp;
+  const int t = planes(hid) * wp;
+  return wide::SMEM_HEAD + ring_bytes(ring_cols(hid, split(hid, 2 * hid), n)) +
+         (planes(2 * hid) * wp + (x > t ? x : t)) * PIX_BYTES;
+}
+
+// N: the bottlenecks, a template parameter so that every stage's region,
+// and so its count of items, is known at compile time
+template <bool CAT, int HID, int N>
+__device__ __forceinline__ void body(const Params& P,
+                                     unsigned char* smem_raw, Stream& st) {
+  constexpr int S = HID == 128 ? 4 : 1;
+  constexpr int PP = (2 * HID + 63) / 64, PT = (HID + 63) / 64;
+  constexpr int NSA = 2 * HID / S, NSB = HID / S;  // F = 2 hidden: D as A
+  constexpr int WC = TW + 2 * N, WP = (TR + 2 * N) * WC;  // window
+  using G = Ring<ring_slot(ring_cols(HID, S, N))>;
+  static_assert(HID % 64 == 0 || S == 1, "padded planes are zeroed locally");
+  const Lane L;
+  const int rank = cluster_rank<S>();
+  const int H = P.H, W = P.W;
+  const int tile = blockIdx.x / S;
   const int b = tile / (P.tiles_x * P.tiles_y);
   const int rem = tile - b * P.tiles_x * P.tiles_y;
   const int R0 = (rem / P.tiles_x) * TR, W0 = (rem % P.tiles_x) * TW;
-  const bool up = P.up_a != 0;
+  const bool up = CAT && P.up_a;
+  const int APX = up ? AR * AC : WP;
+  const int KA = CAT ? planes(P.ca) : 0, KB = planes(P.cb);
   const int Ha = up ? H / 2 : H, Wa = up ? W / 2 : W;
-  const bf16* xa_b = P.xa + (size_t)b * Ha * Wa * P.ca;
-  const bf16* xb_b = P.xb + (size_t)b * H * W * P.cb;
+  // coarse window origin (up): fine rows R0-N.. start at (R0 >> 1) - 1
+  const int ay0 = up ? (R0 >> 1) - 1 : R0 - N;
+  const int ax0 = up ? (W0 >> 1) - 1 : W0 - N;
 
-  // input window: pixel (wr, wc) <- image (R0-n+wr, W0-n+wc), xa's
-  // channels then xb's; zeros outside the image
-  const int c8 = cin >> 3;
-  for (int i = threadIdx.x; i < WP * c8; i += THREADS) {
-    const int p = i / c8, q = i - p * c8;
-    const int wr = p / WC, wc = p - wr * WC;
-    const int gy = R0 - n + wr, gx = W0 - n + wc;
-    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    const int c = q * 8;
-    const bf16* src = xb_b;
-    if (ok) {
-      if (CAT && c < P.ca)
-        src = up ? xa_b + ((size_t)(gy >> 1) * Wa + (gx >> 1)) * P.ca + c
-                 : xa_b + ((size_t)gy * W + gx) * P.ca + c;
-      else
-        src = xb_b + ((size_t)gy * W + gx) * P.cb + (c - P.ca);
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = ring_base(raw);
+  const uint32_t p_s = ring + G::BYTES;                // [p1 | p2]
+  const uint32_t xa_s = p_s + PP * WP * PIX_BYTES;     // KA planes
+  const uint32_t xb_s = xa_s + KA * APX * PIX_BYTES;   // KB planes
+  const uint32_t t_s = xa_s;                           // after A
+  const uint32_t p_off = p_s - raw, t_off = t_s - raw;
+
+  if (L.tid == 0) {
+    st.nst = 0;
+    st.first[0] = 0;
+    st.add(KA + KB, NSA * 128, stage_nh(NSA, region(N, -1, false)));
+    for (int i = 0; i < N; ++i) {
+      st.add(PT, NSB * 128, stage_nh(NSB, region(N, i, false)));
+      st.add(9 * PT, NSB * 128, stage_nh(NSB, region(N, i, true)));
     }
-    cp_async16(x_s + p * XB + c * 2, src, ok ? 16 : 0);
+    st.add(PP, NSA * 128, stage_nh(NSA, region(N, N, false)));
+    st.src = reinterpret_cast<const unsigned char*>(P.wimg) +
+             rank * st.total_bytes();
+  }
+  // the weights' first chunks are on their way before the windows
+  init_rings<G>(raw, L);
+  __syncthreads();  // the stream's table, the rings' barriers
+  Feeder<G> fd(st, ring, raw + BARS, L);
+  for (int g = 0; g < G::DIST; ++g) fd.issue();
+  // input windows: pixel (wr, wc) <- image (R0-N+wr, W0-N+wc), 64 channels
+  // a plane; zeros outside the image and past the last channel
+  const bf16* xb_b = P.xb + (size_t)b * H * W * P.cb;
+  for (int i = L.tid; i < KB * WP * 8; i += wide::THREADS) {
+    const int ch = i & 7, pq = i >> 3;
+    const int q = pq / WP, p = pq - q * WP;
+    const int wr = p / WC, wc = p - wr * WC;
+    const int gy = R0 - N + wr, gx = W0 - N + wc, c0 = q * 64 + ch * 8;
+    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c0 < P.cb;
+    const bf16* src = ok ? xb_b + ((size_t)gy * W + gx) * P.cb + c0 : xb_b;
+    cp_async16(xb_s + q * WP * PIX_BYTES + pix_chunk(p, ch), src,
+               ok ? 16 : 0);
+  }
+  if constexpr (CAT) {
+    const bf16* xa_b = P.xa + (size_t)b * Ha * Wa * P.ca;
+    const int AWC = up ? AC : WC;
+    for (int i = L.tid; i < KA * APX * 8; i += wide::THREADS) {
+      const int ch = i & 7, pq = i >> 3;
+      const int q = pq / APX, p = pq - q * APX;
+      const int ar = p / AWC, ac = p - ar * AWC;
+      const int ay = ay0 + ar, ax = ax0 + ac, c0 = q * 64 + ch * 8;
+      const bool ok = ay >= 0 && ay < Ha && ax >= 0 && ax < Wa && c0 < P.ca;
+      const bf16* src = ok ? xa_b + ((size_t)ay * Wa + ax) * P.ca + c0 : xa_b;
+      cp_async16(xa_s + q * APX * PIX_BYTES + pix_chunk(p, ch), src,
+                 ok ? 16 : 0);
+    }
   }
   cp_async_commit();
+  if constexpr (PP * 64 != 2 * HID)  // p2 ends inside a plane
+    zero_smem(smem_raw + p_off, PP * WP * PIX_BYTES, L.tid);
   cp_async_wait<0>();
   __syncthreads();
-
-  const uint2* w12 = reinterpret_cast<const uint2*>(P.wimg);
-  const int KSA = cin >> 4, KSH = hid >> 4;
-  const uint2* wbn = w12 + (size_t)(cin * 2 * hid) / 4;  // 4 bf16 a uint2
-  const uint2* w3 = wbn + (size_t)n * 10 * hid * hid / 4;
-  const int lrow = lane & 15, lhalf = (lane >> 4) * 16;
+  cluster_sync<S>();  // every block runs before any stores into it
+  const Peers<S> peers(smem_raw);
+  int g0 = 0;
 
   // ---- A: [p1 | p2] on the window ----
   {
-    const int mt = (WP + 15) >> 4, nc = (2 * hid + 63) >> 6;
-    for (int item = warp; item < mt * nc; item += WARPS) {
-      const int m0 = (item / nc) * 16, nt0 = (item % nc) * 8;
-      const int nj = min(NJ, (2 * hid >> 3) - nt0);
-      const int m = min(m0 + lrow, WP - 1);
-      float acc[NJ][4];
-      zero(acc);
-      gemm_k(acc, x_s + m * XB + lhalf, KSA, w12, KSA, 0, nt0, nj, lane);
+    constexpr int NHA = stage_nh(NSA, WP), NIA = NSA / NHA;
+    constexpr int NA = stage_items<NHA>(WP);
+    const Items<NIA, NHA, share(NA)> items{NA};
+    int pix[share(NA)], pa[share(NA)];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int mm = m0 + g + 8 * half;
-        if (mm >= WP) continue;
-        const int gy = R0 - n + mm / WC, gx = W0 - n + mm % WC;
-        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          if (j >= nj) continue;
-          const int col = (nt0 + j) * 8 + 2 * tq;
-          const float* bias = col < hid ? P.b1 + col : P.b2 + col - hid;
-          const uint32_t v =
-              relu_pack(acc[j][2 * half], acc[j][2 * half + 1], bias);
-          *reinterpret_cast<uint32_t*>(p_p + mm * PB + col * 2) =
-              inside ? v : 0u;
-        }
+    for (int i = 0; i < share(NA); ++i) {
+      const int m = min(items.arow(i, L), WP - 1);
+      pix[i] = m;
+      pa[i] = m;
+      if (up) {
+        const int wr = m / WC, wc = m - wr * WC;
+        pa[i] = (((R0 - N + wr) >> 1) - ay0) * AC + (((W0 - N + wc) >> 1) - ax0);
       }
     }
+    float acc[share(NA)][NIA / 2];
+    gemm(acc, items, g0, KA + KB, fd, L,
+         [&](int i, int kc, uint32_t& win, int& px) {
+           if (kc < KA) {
+             win = xa_s + kc * APX * PIX_BYTES;
+             px = pa[i];
+           } else {
+             win = xb_s + (kc - KA) * WP * PIX_BYTES;
+             px = pix[i];
+           }
+         });
+    g0 += KA + KB;
+    each_pair(
+        acc, items, L,
+        [&](int c) {
+          const int col = rank * NSA + c;
+          return col < HID ? P.b1 + col : P.b2 + col - HID;
+        },
+        [&](int m) {
+          const int gy = R0 - N + m / WC, gx = W0 - N + m % WC;
+          return Row{p_off + m * PIX_BYTES, m & 7, m < WP,
+                     gy >= 0 && gy < H && gx >= 0 && gx < W};
+        },
+        [&](const Row& r, int c, uint32_t v) {
+          peers.put(r.off + col_off(rank * NSA + c, WP, r.x),
+                    r.inside ? v : 0u);
+        });
+    cluster_sync<S>();
   }
-  __syncthreads();
+  if constexpr (PT * 64 != HID)  // t ends inside a plane: the rest 0
+    zero_smem(smem_raw + t_off, PT * WP * PIX_BYTES, L.tid);
 
-#pragma unroll 1
-  for (int i = 0; i < n; ++i) {
-    const uint2* wb1 = wbn + (size_t)i * 10 * hid * hid / 4;
-    const uint2* wb2 = wb1 + (size_t)hid * hid / 4;
-    // ---- B: t = ReLU(p1 @ wb1 + bb1) on the window less i pixels ----
+  // bottleneck I: B on the window less I pixels, then C one pixel less
+  auto bottleneck = [&](auto ic) {
+    constexpr int I = decltype(ic)::value;
     {
-      const int RC = TW + 2 * (n - i), RP = (TR + 2 * (n - i)) * RC;
-      const int mt = (RP + 15) >> 4, nc = (hid + 63) >> 6;
-      for (int item = warp; item < mt * nc; item += WARPS) {
-        const int m0 = (item / nc) * 16, nt0 = (item % nc) * 8;
-        const int nj = min(NJ, (hid >> 3) - nt0);
-        const int m = min(m0 + lrow, RP - 1);
-        const int pw = (m / RC + i) * WC + m % RC + i;
-        float acc[NJ][4];
-        zero(acc);
-        gemm_k(acc, p_s + pw * PB + lhalf, KSH, wb1, KSH, 0, nt0, nj, lane);
+      // ---- B: t = ReLU(p1 @ wb1 + bb1) on the window less I pixels ----
+      constexpr int RC = TW + 2 * (N - I), RP = (TR + 2 * (N - I)) * RC;
+      constexpr int NHB = stage_nh(NSB, RP), NIB = NSB / NHB;
+      constexpr int NB = stage_items<NHB>(RP);
+      const Items<NIB, NHB, share(NB)> items{NB};
+      int pw[share(NB)];
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int mm = m0 + g + 8 * half;
-          if (mm >= RP) continue;
-          const int wr = mm / RC + i, wc = mm % RC + i;
-          const int gy = R0 - n + wr, gx = W0 - n + wc;
-          const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            if (j >= nj) continue;
-            const int col = (nt0 + j) * 8 + 2 * tq;
-            const uint32_t v = relu_pack(acc[j][2 * half],
-                                         acc[j][2 * half + 1],
-                                         P.bb1 + i * hid + col);
-            *reinterpret_cast<uint32_t*>(t_p + (wr * WC + wc) * TB +
-                                         col * 2) = inside ? v : 0u;
-          }
-        }
+      for (int j = 0; j < share(NB); ++j) {
+        const int m = min(items.arow(j, L), RP - 1);
+        pw[j] = (m / RC + I) * WC + m % RC + I;
       }
+      float acc[share(NB)][NIB / 2];
+      gemm(acc, items, g0, PT, fd, L,
+           [&](int j, int kc, uint32_t& win, int& px) {
+             win = p_s + kc * WP * PIX_BYTES;
+             px = pw[j];
+           });
+      g0 += PT;
+      each_pair(
+          acc, items, L,
+          [&](int c) { return P.bb1 + I * HID + rank * NSB + c; },
+          [&](int m) {
+            const int wr = m / RC + I, wc = m % RC + I, p = wr * WC + wc;
+            const int gy = R0 - N + wr, gx = W0 - N + wc;
+            return Row{t_off + p * PIX_BYTES, p & 7, m < RP,
+                       gy >= 0 && gy < H && gx >= 0 && gx < W};
+          },
+          [&](const Row& r, int c, uint32_t v) {
+            peers.put(r.off + col_off(rank * NSB + c, WP, r.x),
+                      r.inside ? v : 0u);
+          });
+      cluster_sync<S>();
     }
-    __syncthreads();
-    // ---- C: u = ReLU(conv3x3(t) + bb2), p1 = p1 + u (or u) ----
     {
-      const int hh = n - 1 - i, off = i + 1;
-      const int RC = TW + 2 * hh, RP = (TR + 2 * hh) * RC;
-      const int mt = (RP + 15) >> 4, nc = (hid + 63) >> 6;
-      for (int item = warp; item < mt * nc; item += WARPS) {
-        const int m0 = (item / nc) * 16, nt0 = (item % nc) * 8;
-        const int nj = min(NJ, (hid >> 3) - nt0);
-        const int m = min(m0 + lrow, RP - 1);
-        // the top-left tap of this lane's row
-        const int tp = (m / RC + off - 1) * WC + m % RC + off - 1;
-        float acc[NJ][4];
-        zero(acc);
-#pragma unroll 1
-        for (int tap = 0; tap < 9; ++tap)
-          gemm_k(acc, t_s + (tp + (tap / 3) * WC + tap % 3) * TB + lhalf,
-                 KSH, wb2, 9 * KSH, tap * KSH, nt0, nj, lane);
+      // ---- C: u = ReLU(conv3x3(t) + bb2), p1 = p1 + u (or u) ----
+      constexpr int HH = N - 1 - I, OFF = I + 1;
+      constexpr int RC = TW + 2 * HH, RP = (TR + 2 * HH) * RC;
+      constexpr int NHB = stage_nh(NSB, RP), NIB = NSB / NHB;
+      constexpr int NC = stage_items<NHB>(RP);
+      const Items<NIB, NHB, share(NC)> items{NC};
+      int tp[share(NC)];  // the top-left tap of this lane's row
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int mm = m0 + g + 8 * half;
-          if (mm >= RP) continue;
-          const int wr = mm / RC + off, wc = mm % RC + off;
-          const int gy = R0 - n + wr, gx = W0 - n + wc;
-          const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            if (j >= nj) continue;
-            const int col = (nt0 + j) * 8 + 2 * tq;
-            uint32_t* dst = reinterpret_cast<uint32_t*>(
-                p_p + (wr * WC + wc) * PB + col * 2);
-            uint32_t u = relu_pack(acc[j][2 * half], acc[j][2 * half + 1],
-                                   P.bb2 + i * hid + col);
+      for (int j = 0; j < share(NC); ++j) {
+        const int m = min(items.arow(j, L), RP - 1);
+        tp[j] = (m / RC + OFF - 1) * WC + m % RC + OFF - 1;
+      }
+      float acc[share(NC)][NIB / 2];
+      gemm(acc, items, g0, 9 * PT, fd, L,
+           [&](int j, int kc, uint32_t& win, int& px) {
+             const int tap = kc / PT, q = kc - tap * PT;
+             win = t_s + q * WP * PIX_BYTES;
+             px = tp[j] + (tap / 3) * WC + tap % 3;
+           });
+      g0 += 9 * PT;
+      each_pair(
+          acc, items, L,
+          [&](int c) { return P.bb2 + I * HID + rank * NSB + c; },
+          [&](int m) {
+            const int wr = m / RC + OFF, wc = m % RC + OFF;
+            const int p = wr * WC + wc;
+            const int gy = R0 - N + wr, gx = W0 - N + wc;
+            return Row{p_off + p * PIX_BYTES, p & 7, m < RP,
+                       gy >= 0 && gy < H && gx >= 0 && gx < W};
+          },
+          [&](const Row& r, int c, uint32_t u) {
+            const uint32_t o = r.off + col_off(rank * NSB + c, WP, r.x);
             if (P.shortcut) {
-              const uint32_t old = *dst;
+              const uint32_t old =
+                  *reinterpret_cast<const uint32_t*>(smem_raw + o);
               u = pack_bf16(__fadd_rn(bf16_lo(old), bf16_lo(u)),
                             __fadd_rn(bf16_hi(old), bf16_hi(u)));
             }
-            *dst = inside ? u : 0u;
-          }
-        }
-      }
+            peers.put(o, r.inside ? u : 0u);
+          });
+      cluster_sync<S>();
     }
-    __syncthreads();
-  }
+  };
+  bottleneck(std::integral_constant<int, 0>{});
+  if constexpr (N == 2) bottleneck(std::integral_constant<int, 1>{});
 
   // ---- D: out = ReLU([p1 | p2] @ w3 + b3) on the tile ----
   {
-    const int KS3 = (2 * hid) >> 4;
-    const int mt = (TR * TW) >> 4, nc = (fo + 63) >> 6;
-    bf16* out_b = P.out + (size_t)b * H * W * fo;
-    for (int item = warp; item < mt * nc; item += WARPS) {
-      const int m0 = (item / nc) * 16, nt0 = (item % nc) * 8;
-      const int nj = min(NJ, (fo >> 3) - nt0);
-      const int m = m0 + lrow;
-      const int pw = (m / TW + n) * WC + m % TW + n;
-      float acc[NJ][4];
-      zero(acc);
-      gemm_k(acc, p_s + pw * PB + lhalf, KS3, w3, KS3, 0, nt0, nj, lane);
+    constexpr int NHA = stage_nh(NSA, TR * TW), NIA = NSA / NHA;
+    constexpr int ND = stage_items<NHA>(TR * TW);
+    const Items<NIA, NHA, share(ND)> items{ND};
+    int pw[share(ND)];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int mm = m0 + g + 8 * half;
-        const int gy = R0 + mm / TW, gx = W0 + mm % TW;
-        if (gy >= H || gx >= W) continue;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          if (j >= nj) continue;
-          const int col = (nt0 + j) * 8 + 2 * tq;
-          *reinterpret_cast<uint32_t*>(
-              out_b + ((size_t)gy * W + gx) * fo + col) =
-              relu_pack(acc[j][2 * half], acc[j][2 * half + 1], P.b3 + col);
-        }
-      }
+    for (int j = 0; j < share(ND); ++j) {
+      const int m = min(items.arow(j, L), TR * TW - 1);
+      pw[j] = (m / TW + N) * WC + m % TW + N;
     }
+    float acc[share(ND)][NIA / 2];
+    gemm(acc, items, g0, PP, fd, L,
+         [&](int j, int kc, uint32_t& win, int& px) {
+           win = p_s + kc * WP * PIX_BYTES;
+           px = pw[j];
+         });
+    bf16* out_b = P.out + (size_t)b * H * W * (2 * HID);
+    each_pair(
+        acc, items, L, [&](int c) { return P.b3 + rank * NSA + c; },
+        [&](int m) {
+          const int gy = R0 + m / TW, gx = W0 + m % TW;
+          return Row{(uint32_t)(gy * W + gx), 0, m < TR * TW && gy < H &&
+                                                      gx < W, true};
+        },
+        [&](const Row& r, int c, uint32_t v) {
+          *reinterpret_cast<uint32_t*>(out_b + (size_t)r.off * (2 * HID) +
+                                       rank * NSA + c) = v;
+        });
+  }
+}
+
+// CAT: the pair form, a template parameter (as above) so that the two
+// forms are two device functions, told apart by name; the width and the
+// bottlenecks pick the compiled body
+template <bool CAT>
+__global__ void __launch_bounds__(wide::THREADS, 1)
+c3k2_wide_kernel(const Params P) {
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  Stream& st = *reinterpret_cast<Stream*>(wide_smem);
+  if (P.hid == 128) {
+    if (P.n == 2) body<CAT, 128, 2>(P, wide_smem, st);
+    else body<CAT, 128, 1>(P, wide_smem, st);
+  } else if (P.hid == 64) {
+    if (P.n == 2) body<CAT, 64, 2>(P, wide_smem, st);
+    else body<CAT, 64, 1>(P, wide_smem, st);
+  } else {
+    if (P.n == 2) body<CAT, 16, 2>(P, wide_smem, st);
+    else body<CAT, 16, 1>(P, wide_smem, st);
   }
 }
 
 template <bool CAT>
 int launch(Params P, int B, void* stream) {
-  const int cin = P.ca + P.cb;
+  const int S = split(P.hid, P.fo);
   if (B <= 0 || P.H <= 0 || P.W <= 0 || P.n < 1 || P.n > NMAX ||
-      P.cb <= 0 || P.ca % 8 || cin % 16 || P.hid <= 0 || P.hid % 16 ||
-      P.fo <= 0 || P.fo % 8 || (P.up_a && (P.H % 2 || P.W % 2)))
+      P.cb <= 0 || P.cb % 8 || P.ca % 8 || S == 0 || (CAT && P.ca <= 0) ||
+      (P.up_a && (P.H % 2 || P.W % 2)))
     return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes(cin, P.hid, P.n);
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  static bool ready = false;
+  const int smem = smem_bytes(P.ca, P.cb, P.up_a, P.hid, P.n);
+  if (smem > wide::SMEM_MAX) return (int)cudaErrorInvalidValue;
+  static bool ready = false;  // one per form
   if (!ready) {
     cudaError_t err = cudaFuncSetAttribute(
         c3k2_wide_kernel<CAT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_MAX);
+        wide::SMEM_MAX);
     if (err != cudaSuccess) return (int)err;
     ready = true;
   }
   P.tiles_x = (P.W + TW - 1) / TW;
   P.tiles_y = (P.H + TR - 1) / TR;
   const int ntiles = P.tiles_x * P.tiles_y * B;
-  c3k2_wide_kernel<CAT><<<ntiles, THREADS, smem, (cudaStream_t)stream>>>(P);
-  return (int)cudaGetLastError();
+  return launch_cluster(last_launch, c3k2_wide_kernel<CAT>, S, ntiles * S,
+                        1, smem, stream, P);
 }
 
 }  // namespace wide_c3k2
@@ -768,6 +875,23 @@ int dispatch(bool cat, const bf16* xa, const bf16* xb, int ca, int cb,
 }
 
 }  // namespace
+
+// the last launch of either entry point: grid x, grid y, cluster x,
+// threads, dynamic shared memory
+extern "C" int unina_c3k2_last_launch(int* out) {
+  const wide::LaunchShape& l = last_launch;
+  out[0] = l.grid_x, out[1] = l.grid_y, out[2] = l.cluster;
+  out[3] = l.threads, out[4] = l.smem;
+  return 0;
+}
+
+// the wide form's dynamic shared memory at these widths, -1 at a hidden
+// width it is not compiled for
+extern "C" int unina_c3k2_wide_smem(int ca, int cb, int up_a, int hid,
+                                    int n) {
+  if (wide_c3k2::split(hid, 2 * hid) == 0 || n < 1 || n > NMAX) return -1;
+  return wide_c3k2::smem_bytes(ca, cb, up_a, hid, n);
+}
 
 extern "C" int unina_fused_c3k2(const void* x, int cin, const void* wpk,
                                 const void* b1, const void* bb1,

@@ -34,9 +34,10 @@
 //   - conv2's accumulators become the A fragments of a warp-level
 //     m16n8k16 product with the 1x1 pred weights (bf16-rounded c2, f32
 //     accumulate, up to 8 outputs), so c2 never leaves registers.
-// That tiled kernel is compiled for C = 64 (P2); any other width goes to
-// the wide form at the end of this file (warp-level products,
-// csrc/wide_mma.cuh). The entry point picks the form by C.
+// That tiled kernel is compiled for C = 64 (P2); C = 32, 128 and 256 go to
+// the wide form at the end of this file (weights streamed, clusters,
+// csrc/wide_mma.cuh; the preds' weights come from its packed image). The
+// entry point picks the form by C.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,6 +48,10 @@
 namespace {
 
 using namespace mma90;
+
+// the last launch's shape, for the host to read
+wide::LaunchShape last_launch{};
+
 typedef __nv_bfloat16 bf16;
 
 constexpr int C = 64;            // head width (P2 channels)
@@ -255,179 +260,214 @@ head_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w33,
   }
 }
 
-// ---- the wide form: any other width C, warp-level products ----
+// ---- the wide form: C = 32, 128 and 256, wgmma ----
 //
-// The P3/P4 heads of the bf16 engines (C = 128 and 256) do not fit the
-// tiled kernel above: its conv1 accumulators alone would be 2-4x the
-// registers. This form keeps the activations in shared memory and reads
-// the weights as m16n8k16 B fragments from global memory (L2,
-// csrc/wide_mma.cuh). A block is one branch of one 8 x 8 output tile
-// (blockIdx.y: 0 cls, 1 reg), eight warps:
-//   conv1 on the tile plus a 1-pixel halo (100 pixels), K = 9 x C, over
-//     the x window with a 2-pixel halo; c1 = bf16(ReLU(acc + b1)), 0
-//     outside the image, into shared memory;
-//   conv2 on the tile (64 pixels) over c1; c2 = bf16(ReLU(acc + b2)) into
-//     the x window's space;
-//   pred = c2 @ wp + bp, f32, one n8 tile (up to 8 outputs), four warps.
-// Bound on the H100 at head_p4 (40 x 40 x 256): 3.8 GFLOP over 1 MB of
-// activations and 4.7 MB of weights, about 4 us at the bf16 peak.
+// The P3/P4 heads of the bf16 engines (C = 128 and 256; 32 at base 16) do
+// not fit the tiled kernel above: its conv1 accumulators alone would be
+// 2-4x the registers. This form streams the weights (csrc/wide_mma.cuh):
+// one branch of one output tile (blockIdx.y: 0 cls, 1 reg; 8 x 16 at
+// C = 128, 8 x 8 otherwise, `tile_w`) per block at C = 32 and 128, per
+// cluster of 2 blocks at C = 256 (head_p4, 25 tiles: each block computes
+// half of every conv's output channels and stores them into both
+// windows):
+//   conv1 on the tile plus a 1-pixel halo (100 or 180 pixels, two or three
+//     m64 products), K = 9 x C, over the x window (halo 2); c1 =
+//     bf16(ReLU(acc + b1)), 0 outside the image;
+//   conv2 on the tile (one or two m64 products) over c1; c2 =
+//     bf16(ReLU(acc + b2)) into the x window's space;
+//   pred = c2 @ wp + bp, f32: warp-level m16n8k16 over the tile's m16 row
+//     tiles, spread over the cluster's blocks and their warps, the pred
+//     weights read as fragments packed at load (8-byte loads).
+// Bound on the H100 at head_p4 (40 x 40 x 256): 2 branches x 2 convs x 9 x
+// 256 x 256 MACs a pixel, 3.8 G MACs = 7.6 GFLOP over 1 MB of activations
+// and 4.7 MB of weights, about 7.6 us at the bf16 peak. 25 tiles x 2
+// branches x 2 = 100 blocks there, 50 x 2 = 100 at head_p3: one wave of
+// blocks, one block an SM (a cluster of four, 200 blocks, took two waves
+// and longer).
 namespace wide_head {
 
 using namespace wide;
 
-constexpr int TR = 8, TW = 8;
-constexpr int XR = TR + 4, XC = TW + 4;   // x window (halo 2)
-constexpr int CR = TR + 2, CC = TW + 2;   // conv1 region (halo 1)
-constexpr int WARPS = 8, THREADS = WARPS * 32;
+constexpr int TR = 8;  // output tile rows
+// The output tile's width: 16 at C = 128 (head_p3: 50 tiles x 2 branches,
+// one wave of blocks on the H100's 132 SMs where 8 x 8 tiles make two), 8
+// otherwise (at 256 the wider windows would not fit in shared memory).
+__host__ __device__ constexpr int tile_w(int c) { return c == 128 ? 16 : 8; }
+// pixels of the x window (halo 2) and of conv1's region (halo 1)
+__host__ __device__ constexpr int x_px(int tw) { return (TR + 4) * (tw + 4); }
+__host__ __device__ constexpr int c1_px(int tw) {
+  return (TR + 2) * (tw + 2);
+}
 
+__host__ __device__ inline int split(int c) {
+  return c == 256 ? 2 : c == 128 || c == 32 ? 1 : 0;
+}
+// the widest warpgroup part of the two convs: sets the ring's slots
+__host__ __device__ constexpr int ring_cols(int ns, int tw) {
+  return cmax(stage_cols(ns, c1_px(tw)), stage_cols(ns, TR * tw));
+}
+// shared memory: the block's stream table and alignment, the ring, the x
+// window, c1
 __host__ __device__ inline int smem_bytes(int c) {
-  return (XR * XC + CR * CC) * row_bytes(c);
+  const int tw = tile_w(c);
+  return wide::SMEM_HEAD + ring_bytes(ring_cols(c / split(c), tw)) +
+         (x_px(tw) + c1_px(tw)) * planes(c) * PIX_BYTES;
 }
 
 struct Branch {
   const float* b1;
   const float* b2;
-  const bf16* wp;   // (C, no)
   const float* bp;  // (no,)
   int no;
   float* out;       // (B, H, W, no)
 };
 
-__global__ void __launch_bounds__(THREADS, 1)
-head_wide_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w33,
-                 Branch cls, Branch reg, int C, int H, int W, int tiles_x,
-                 int tiles_y) {
-  extern __shared__ __align__(16) unsigned char wide_smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int br_i = blockIdx.y;
-  const Branch br = br_i == 0 ? cls : reg;
-  const int RB = row_bytes(C), KS = C >> 4;
-  const uint32_t x_s = smem_u32(wide_smem);
-  const uint32_t c1_s = x_s + XR * XC * RB;
-  const uint32_t c2_s = x_s;  // conv2's output reuses the x window
-  unsigned char* c1_p = wide_smem + XR * XC * RB;
-  unsigned char* c2_p = wide_smem;
-  // the branch's 3x3 weights: w33 = [wc1 | wr1 | wc2 | wr2] fragment images
-  const size_t mat = (size_t)9 * C * C / 4;  // uint2 of one (9C, C) image
-  const uint2* wq1 = reinterpret_cast<const uint2*>(w33) + br_i * mat;
-  const uint2* wq2 = reinterpret_cast<const uint2*>(w33) + (2 + br_i) * mat;
-
-  const int tile = blockIdx.x;
+template <int C>
+__device__ __forceinline__ void body(const bf16* __restrict__ x,
+                                     const bf16* __restrict__ w33,
+                                     const Branch& br, int H, int W,
+                                     int tiles_x, int tiles_y,
+                                     unsigned char* smem_raw, Stream& st) {
+  constexpr int S = C == 256 ? 2 : 1;
+  constexpr int PC = (C + 63) / 64;                 // planes
+  constexpr int NS = C / S;
+  constexpr int TW = tile_w(C);
+  constexpr int XC = TW + 4, XP = x_px(TW);         // x window
+  constexpr int CC = TW + 2, CP = c1_px(TW);        // conv1 region
+  using G = Ring<ring_slot(ring_cols(NS, TW))>;
+  static_assert(C % 64 == 0 || S == 1, "padded planes are zeroed locally");
+  const Lane L;
+  const int rank = cluster_rank<S>();
+  const int tile = blockIdx.x / S;
   const int b = tile / (tiles_x * tiles_y);
   const int rem = tile - b * tiles_x * tiles_y;
   const int R0 = (rem / tiles_x) * TR, W0 = (rem % tiles_x) * TW;
-  const bf16* xb = x + (size_t)b * H * W * C;
-  const int lrow = lane & 15, lhalf = (lane >> 4) * 16;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = ring_base(raw);
+  const uint32_t x_s = ring + G::BYTES;
+  const uint32_t c1_s = x_s + PC * XP * PIX_BYTES;
+  const uint32_t c2_s = x_s;  // after conv1
+  const uint32_t c1_off = c1_s - raw, c2_off = c2_s - raw;
+  // the branch's weights: [cls | reg] streams of S blocks, then the preds
+  const long long per_block = 18LL * PC * NS * 128;
+  const unsigned char* img = reinterpret_cast<const unsigned char*>(w33);
+  const uint2* wpf = reinterpret_cast<const uint2*>(
+                         img + 2 * S * per_block) + blockIdx.y * C * 2;
 
-  // x window: row R0-2+xr, column W0-2+xc; zeros outside the image
-  const int c8 = C >> 3;
-  for (int i = threadIdx.x; i < XR * XC * c8; i += THREADS) {
-    const int p = i / c8, q = i - p * c8;
+  if (L.tid == 0) {
+    st.nst = 0;
+    st.first[0] = 0;
+    st.add(9 * PC, NS * 128, stage_nh(NS, CP));
+    st.add(9 * PC, NS * 128, stage_nh(NS, TR * TW));
+    st.src = img + (blockIdx.y * S + rank) * per_block;
+  }
+  // the weights' first chunks are on their way before the windows
+  init_rings<G>(raw, L);
+  __syncthreads();  // the stream's table, the rings' barriers
+  Feeder<G> fd(st, ring, raw + BARS, L);
+  for (int g = 0; g < G::DIST; ++g) fd.issue();
+  // x window: row R0-2+xr, column W0-2+xc; zeros outside the image and
+  // past the last channel
+  const bf16* xb = x + (size_t)b * H * W * C;
+  for (int i = L.tid; i < PC * XP * 8; i += wide::THREADS) {
+    const int ch = i & 7, pq = i >> 3;
+    const int q = pq / XP, p = pq - q * XP;
     const int xr = p / XC, xc = p - xr * XC;
-    const int gy = R0 - 2 + xr, gx = W0 - 2 + xc;
-    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    const bf16* src = ok ? xb + ((size_t)gy * W + gx) * C + q * 8 : xb;
-    cp_async16(x_s + p * RB + q * 16, src, ok ? 16 : 0);
+    const int gy = R0 - 2 + xr, gx = W0 - 2 + xc, c0 = q * 64 + ch * 8;
+    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c0 < C;
+    const bf16* src = ok ? xb + ((size_t)gy * W + gx) * C + c0 : xb;
+    cp_async16(x_s + q * XP * PIX_BYTES + pix_chunk(p, ch), src, ok ? 16 : 0);
   }
   cp_async_commit();
+  if constexpr (PC * 64 != C)  // c1 ends inside a plane: the rest 0
+    zero_smem(smem_raw + c1_off, PC * CP * PIX_BYTES, L.tid);
   cp_async_wait<0>();
   __syncthreads();
+  cluster_sync<S>();  // every block runs before any stores into it
+  const Peers<S> peers(smem_raw);
 
-  const int nc = (C + 63) >> 6;
   // ---- conv1 on the tile plus a 1-pixel halo ----
   {
-    constexpr int RP = CR * CC;
-    const int mt = (RP + 15) >> 4;
-    for (int item = warp; item < mt * nc; item += WARPS) {
-      const int m0 = (item / nc) * 16, nt0 = (item % nc) * 8;
-      const int nj = min(NJ, (C >> 3) - nt0);
-      const int m = min(m0 + lrow, RP - 1);
-      const int xp = (m / CC) * XC + m % CC;  // its top-left tap
-      float acc[NJ][4];
-      zero(acc);
-#pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap)
-        gemm_k(acc, x_s + (xp + (tap / 3) * XC + tap % 3) * RB + lhalf, KS,
-               wq1, 9 * KS, tap * KS, nt0, nj, lane);
+    constexpr int NH = stage_nh(NS, CP), NI = NS / NH;
+    constexpr int N1 = stage_items<NH>(CP);
+    const Items<NI, NH, share(N1)> items{N1};
+    int xp[share(N1)];  // the top-left tap of this lane's row
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int mm = m0 + g + 8 * half;
-        if (mm >= RP) continue;
-        const int gy = R0 - 1 + mm / CC, gx = W0 - 1 + mm % CC;
-        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          if (j >= nj) continue;
-          const int col = (nt0 + j) * 8 + 2 * tq;
-          const uint32_t v =
-              relu_pack(acc[j][2 * half], acc[j][2 * half + 1], br.b1 + col);
-          *reinterpret_cast<uint32_t*>(c1_p + mm * RB + col * 2) =
-              inside ? v : 0u;
-        }
-      }
+    for (int i = 0; i < share(N1); ++i) {
+      const int m = min(items.arow(i, L), CP - 1);
+      xp[i] = (m / CC) * XC + m % CC;
     }
+    float acc[share(N1)][NI / 2];
+    gemm(acc, items, 0, 9 * PC, fd, L,
+         [&](int i, int kc, uint32_t& win, int& px) {
+           const int tap = kc / PC, q = kc - tap * PC;
+           win = x_s + q * XP * PIX_BYTES;
+           px = xp[i] + (tap / 3) * XC + tap % 3;
+         });
+    each_pair(
+        acc, items, L, [&](int c) { return br.b1 + rank * NS + c; },
+        [&](int m) {
+          const int gy = R0 - 1 + m / CC, gx = W0 - 1 + m % CC;
+          return Row{c1_off + m * PIX_BYTES, m & 7, m < CP,
+                     gy >= 0 && gy < H && gx >= 0 && gx < W};
+        },
+        [&](const Row& r, int c, uint32_t v) {
+          peers.put(r.off + col_off(rank * NS + c, CP, r.x),
+                    r.inside ? v : 0u);
+        });
+    cluster_sync<S>();
   }
-  __syncthreads();
   // ---- conv2 on the tile ----
   {
-    constexpr int RP = TR * TW;
-    const int mt = RP >> 4;
-    for (int item = warp; item < mt * nc; item += WARPS) {
-      const int m0 = (item / nc) * 16, nt0 = (item % nc) * 8;
-      const int nj = min(NJ, (C >> 3) - nt0);
-      const int m = m0 + lrow;
-      const int cp = (m / TW) * CC + m % TW;  // its top-left tap in c1
-      float acc[NJ][4];
-      zero(acc);
-#pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap)
-        gemm_k(acc, c1_s + (cp + (tap / 3) * CC + tap % 3) * RB + lhalf, KS,
-               wq2, 9 * KS, tap * KS, nt0, nj, lane);
+    constexpr int NH = stage_nh(NS, TR * TW), NI = NS / NH;
+    constexpr int N2 = stage_items<NH>(TR * TW);
+    const Items<NI, NH, share(N2)> items{N2};
+    int cp[share(N2)];  // the top-left tap of this lane's row in c1
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int mm = m0 + g + 8 * half;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          if (j >= nj) continue;
-          const int col = (nt0 + j) * 8 + 2 * tq;
-          *reinterpret_cast<uint32_t*>(c2_p + mm * RB + col * 2) =
-              relu_pack(acc[j][2 * half], acc[j][2 * half + 1], br.b2 + col);
-        }
-      }
+    for (int i = 0; i < share(N2); ++i) {
+      const int m = min(items.arow(i, L), TR * TW - 1);
+      cp[i] = (m / TW) * CC + m % TW;
     }
+    float acc[share(N2)][NI / 2];
+    gemm(acc, items, 9 * PC, 9 * PC, fd, L,
+         [&](int i, int kc, uint32_t& win, int& px) {
+           const int tap = kc / PC, q = kc - tap * PC;
+           win = c1_s + q * CP * PIX_BYTES;
+           px = cp[i] + (tap / 3) * CC + tap % 3;
+         });
+    each_pair(
+        acc, items, L, [&](int c) { return br.b2 + rank * NS + c; },
+        [&](int m) {
+          return Row{c2_off + m * PIX_BYTES, m & 7, m < TR * TW, true};
+        },
+        [&](const Row& r, int c, uint32_t v) {
+          peers.put(r.off + col_off(rank * NS + c, TR * TW, r.x), v);
+        });
+    cluster_sync<S>();
   }
-  __syncthreads();
-  // ---- pred = c2 @ wp + bp (f32), warps 0-3 one m16 tile each ----
-  if (warp < (TR * TW) / 16) {
-    const int m0 = warp * 16;
-    const uint32_t arow = c2_s + (m0 + lrow) * RB + lhalf;
+  // ---- pred = c2 @ wp + bp (f32): m16 row tile `rank + S * warp` ----
+  const int mt = rank + S * (L.tid >> 5);
+  if (mt < (TR * TW) / 16) {
     float pd[4] = {0.f, 0.f, 0.f, 0.f};
-    const bf16 zero_bf = __float2bfloat16_rn(0.f);
-#pragma unroll 1
-    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll 4
+    for (int ks = 0; ks < C / 16; ++ks) {
       uint32_t a[4];
-      ldmatrix_x4(a, arow + ks * 32);
-      uint32_t bfr[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = 16 * ks + 8 * h + 2 * tq;
-        const bf16 lo = g < br.no ? br.wp[k * br.no + g] : zero_bf;
-        const bf16 hi = g < br.no ? br.wp[(k + 1) * br.no + g] : zero_bf;
-        bfr[h] = (uint32_t)__bfloat16_as_ushort(lo) |
-                 ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-      }
+      ldmatrix_x4(a, c2_s + (ks >> 2) * TR * TW * PIX_BYTES +
+                         pix_chunk(mt * 16 + (L.lane & 15),
+                                   2 * (ks & 3) + (L.lane >> 4)));
+      const uint2 f = __ldg(wpf + ks * 32 + L.lane);
+      const uint32_t bfr[2] = {f.x, f.y};
       mma_m16n8k16(pd, a, bfr);
     }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int mm = m0 + g + 8 * half;
-      const int gy = R0 + mm / TW, gx = W0 + mm % TW;
+      const int m = mt * 16 + L.g + 8 * half;
+      const int gy = R0 + m / TW, gx = W0 + m % TW;
       if (gy < H && gx < W) {
         float* o = br.out + (((size_t)b * H + gy) * W + gx) * br.no;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int col = 2 * tq + e;
+          const int col = 2 * L.tq + e;
           if (col < br.no)
             o[col] = __fadd_rn(pd[2 * half + e], __ldg(br.bp + col));
         }
@@ -436,29 +476,60 @@ head_wide_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w33,
   }
 }
 
+__global__ void __launch_bounds__(wide::THREADS, 1)
+head_wide_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w33,
+                 Branch cls, Branch reg, int C, int H, int W, int tiles_x,
+                 int tiles_y) {
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  Stream& st = *reinterpret_cast<Stream*>(wide_smem);
+  const Branch& br = blockIdx.y == 0 ? cls : reg;
+  if (C == 256)
+    body<256>(x, w33, br, H, W, tiles_x, tiles_y, wide_smem, st);
+  else if (C == 128)
+    body<128>(x, w33, br, H, W, tiles_x, tiles_y, wide_smem, st);
+  else
+    body<32>(x, w33, br, H, W, tiles_x, tiles_y, wide_smem, st);
+}
+
 int launch(const bf16* x, const bf16* w33, Branch cls, Branch reg, int C,
            int B, int H, int W, void* stream) {
-  if (C <= 0 || C % 16) return (int)cudaErrorInvalidValue;
+  const int S = split(C);
+  if (S == 0) return (int)cudaErrorInvalidValue;
   const int smem = smem_bytes(C);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  if (smem > wide::SMEM_MAX) return (int)cudaErrorInvalidValue;
   static bool ready = false;
   if (!ready) {
     cudaError_t err = cudaFuncSetAttribute(
         head_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        232448);
+        wide::SMEM_MAX);
     if (err != cudaSuccess) return (int)err;
     ready = true;
   }
-  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TR - 1) / TR;
-  const dim3 grid(tiles_x * tiles_y * B, 2);
-  head_wide_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, w33, cls, reg, C, H, W, tiles_x, tiles_y);
-  return (int)cudaGetLastError();
+  const int tw = tile_w(C);
+  const int tiles_x = (W + tw - 1) / tw, tiles_y = (H + TR - 1) / TR;
+  return launch_cluster(last_launch, head_wide_kernel, S,
+                        tiles_x * tiles_y * B * S, 2, smem, stream, x, w33,
+                        cls, reg, C, H, W, tiles_x, tiles_y);
 }
 
 }  // namespace wide_head
 
 }  // namespace
+
+// the last launch: grid x, grid y, cluster x, threads, dynamic shared
+// memory
+extern "C" int unina_head_last_launch(int* out) {
+  const wide::LaunchShape& l = last_launch;
+  out[0] = l.grid_x, out[1] = l.grid_y, out[2] = l.cluster;
+  out[3] = l.threads, out[4] = l.smem;
+  return 0;
+}
+
+// the wide form's dynamic shared memory at width c, -1 at a width it is
+// not compiled for
+extern "C" int unina_head_wide_smem(int c) {
+  return wide_head::split(c) == 0 ? -1 : wide_head::smem_bytes(c);
+}
 
 extern "C" int unina_fused_head(const void* x, const void* w33,
                                 const void* bc1, const void* bc2,
@@ -472,11 +543,9 @@ extern "C" int unina_fused_head(const void* x, const void* w33,
     return (int)cudaErrorInvalidValue;
   if (c != C) {
     wide_head::Branch wc{(const float*)bc1, (const float*)bc2,
-                         (const bf16*)wcp, (const float*)bcp, nc,
-                         (float*)out_cls};
+                         (const float*)bcp, nc, (float*)out_cls};
     wide_head::Branch wr{(const float*)br1, (const float*)br2,
-                         (const bf16*)wrp, (const float*)brp, nr,
-                         (float*)out_reg};
+                         (const float*)brp, nr, (float*)out_reg};
     return wide_head::launch((const bf16*)x, (const bf16*)w33, wc, wr, c, B,
                              H, W, stream);
   }
@@ -502,6 +571,7 @@ extern "C" int unina_fused_head(const void* x, const void* w33,
   const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TR - 1) / TR;
   const int ntiles = tiles_x * tiles_y * B;
   const int blocks = ntiles < sms ? ntiles : sms;
+  last_launch = wide::LaunchShape{blocks, 1, 1, THREADS, SMEM_BYTES};
   head_mma_kernel<<<blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       (const bf16*)x, (const bf16*)w33, cls, reg, H, W, tiles_x, tiles_y,
       ntiles);

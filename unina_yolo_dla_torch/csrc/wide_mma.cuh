@@ -1,23 +1,45 @@
-// Shared device code of the wide C3k2 and head kernels (sm_90a): warp-level
-// m16n8k16 bf16 products over NHWC windows in shared memory, the weights
-// read as fragments straight from global memory (L2). Included by c3k2.cu
-// and head.cu; not compiled on its own.
+// Shared device code of the wide C3k2 and head kernels (sm_90a): `wgmma`
+// products over NHWC windows in shared memory, the weights streamed by
+// bulk copies (TMA) through rings of shared-memory slots, and at the
+// widest widths every product's output columns split over the blocks of a
+// thread-block cluster. Included by c3k2.cu and head.cu; not compiled on
+// its own.
 //
-//   A (activations)  a window of pixels in shared memory, C bf16 channels a
-//     pixel, rows padded to C + 8 elements (16 bytes): for C a multiple of
-//     64 the eight rows of one ldmatrix phase then fall on eight different
-//     16-byte bank groups. Every lane hands ldmatrix.x4 the address of its
-//     own row (row = lane % 16 of the m16 tile, the upper 8 channels of the
-//     k16 step for lanes 16-31), so a 3x3 tap is a shift of that address.
-//   B (weights)  a (K, N) matrix, K a multiple of 16 and N of 8, stored as
-//     its m16n8k16 B fragments (ops/cuda/mma_pack.py `pack_frag`): for n8
-//     tile `nt` and k16 step `ks` the 32 lanes' 8-byte fragments lie
-//     contiguous at ((nt * K/16 + ks) * 32 + lane) * 8 bytes, lane (g, tq)
-//     holding W[16ks + 2tq (+1)][8nt + g] then W[16ks + 8 + 2tq (+1)][..]:
-//     one coalesced 256-byte read per warp and product.
-//   D  f32 accumulators in registers, a 16 x 64 block a warp at a time:
-//     acc[j][0..1] row g, columns 8j + 2tq (+1); acc[j][2..3] row g + 8.
+// What bounds them on the H100: weights of 0.3-4.7 MB a launch against
+// 0.5-1.6 MB of activations and 1-7.6 GFLOP, so the tensor cores (1-8 us)
+// once every weight is read from L2 once per block and every A fragment
+// once per warpgroup; in practice the latency of each block's chain of
+// stages (window copies, chunk steps, epilogues, barriers) on one block an
+// SM. Measured times: PERF.md.
+//
+//   Windows  every activation window is a stack of 64-channel planes, each
+//     plane `pixels x 128 bytes` with the 16-byte chunks of pixel p at
+//     chunk ^ (p & 7) (mma_sm90.cuh `pix_chunk`). A channel count that is
+//     no multiple of 64 leaves the rest of its last plane zero.
+//   A (activations)  `ldmatrix` rows of window pixels (mma_sm90.cuh
+//     `load_a64`): every lane names its own pixel, so a 3x3 tap is a shift
+//     of that pixel and the halo needs no copy.
+//   B (weights)  per 64-deep K chunk one swizzled [NS n][64 k] tile of this
+//     block's NS output columns (ops/cuda/mma_pack.py `_wide_stream`); a
+//     block's chunks lie contiguous in the order it consumes them, stage
+//     after stage. Each warpgroup keeps its own ring of the columns it
+//     multiplies: `Feeder` copies its part of chunk g + DIST by one bulk
+//     copy into slot g % RING while chunk g multiplies, completing on the
+//     slot's mbarrier, so the two warpgroups meet only between stages.
+//   Products  a stage is a set of items, an item one m64 row tile times NI
+//     of the block's columns (wgmma m64nNIk16, NI 16 to 64), item i of a
+//     stage belongs to warpgroup i % 2: all columns of alternate m64 tiles
+//     where the tiles split evenly (`stage_nh`), else half of the columns
+//     of every tile. Every count is known at compile time, so no product
+//     sits behind a branch; A has one set of registers, loaded after the
+//     warpgroup's previous products are done (wgmma runs unserialized only
+//     while nothing else defines its operands); two chunks a step.
+//   Cluster  the blocks of a cluster share one output tile; each computes
+//     its columns of every stage and stores them, bf16, into the window of
+//     every block of the cluster (distributed shared memory), then the
+//     cluster meets at a barrier before the next stage reads the window.
 #pragma once
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -26,64 +48,461 @@
 namespace wide {
 
 using namespace mma90;
+namespace cg = cooperative_groups;
 
-constexpr int NJ = 8;  // n8 tiles of one warp's 16 x 64 block
+constexpr int THREADS = 256;             // two warpgroups
+constexpr int KSTEP = 2;                 // chunks multiplied a step
+constexpr int MAX_RING = 8;              // slots of a warpgroup's ring
+constexpr int MAX_STAGES = 6;            // C3k2: A, 2 x (B, C), D
+constexpr int SMEM_MAX = 232448;         // 227 KB a block
+// shared memory ahead of a wide kernel's ring: the block's `Stream`, the
+// ring's mbarriers at BARS, and the slack that aligns the ring to 1024
+constexpr int SMEM_HEAD = 2048;
+constexpr int BARS = 512;
 
-// bytes of one padded pixel row of C bf16 channels
-__host__ __device__ inline int row_bytes(int c) { return (c + 8) * 2; }
+__host__ __device__ inline int planes(int c) { return (c + 63) >> 6; }
 
-__device__ __forceinline__ void zero(float (&acc)[NJ][4]) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+// A warpgroup's ring: RING slots of SLOT bytes (its columns of one 64-deep
+// K chunk: [<= 64 n][64 k]); chunks copied DIST ahead of the step that
+// multiplies them. Eight 4 KB slots, or six of 8 KB at 64 columns.
+template <int SLOT_>
+struct Ring {
+  static constexpr int SLOT = SLOT_;
+  static constexpr int RING = SLOT_ > 4096 ? 6 : MAX_RING;
+  static constexpr int DIST = RING - KSTEP;
+  static constexpr int BYTES = 2 * RING * SLOT;  // both warpgroups'
+  static_assert(SLOT % 1024 == 0 && RING <= MAX_RING, "ring geometry");
+};
+// Column parts of a stage of `ns` block columns over `pixels` rows: one
+// (each warpgroup multiplies all columns of its own m64 tiles, so every A
+// fragment is loaded once) where the m64 tiles split evenly between the
+// two warpgroups and a slot holds the columns (8 KB: 64); else two (each
+// warpgroup all m64 tiles, half of the columns). A stage narrower than 32
+// columns is one part.
+__host__ __device__ constexpr int stage_nh(int ns, int pixels) {
+  return ns >= 32 && ((((pixels + 63) / 64) & 1) || ns * 128 > 8192) ? 2
+                                                                       : 1;
+}
+// the columns a warpgroup multiplies in such a stage
+__host__ __device__ constexpr int stage_cols(int ns, int pixels) {
+  return ns / stage_nh(ns, pixels);
+}
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+// the ring of a kernel whose widest warpgroup part is `cols` columns
+__host__ __device__ constexpr int ring_slot(int cols) {
+  return cols * 128 > 4096 ? 8192 : 4096;
+}
+__host__ __device__ constexpr int ring_bytes(int cols) {
+  return ring_slot(cols) > 4096 ? 2 * 6 * 8192 : 2 * MAX_RING * 4096;
 }
 
-// acc[j] += A(16 rows x 16 ksteps) @ B(k16 steps ks0.., n8 tiles nt0 +
-// j < nj). `arow`: this lane's row address in shared memory with its
-// 16-byte half of the first k16 step already added; consecutive k16 steps
-// are 32 bytes apart. `bmat` is the fragment image of a matrix of KS k16
-// steps. The next step's B fragments are read while this step multiplies.
-__device__ __forceinline__ void gemm_k(float (&acc)[NJ][4], uint32_t arow,
-                                       int ksteps,
-                                       const uint2* __restrict__ bmat,
-                                       int KS, int ks0, int nt0, int nj,
-                                       int lane) {
-  const uint2* bp = bmat + ((size_t)nt0 * KS + ks0) * 32 + lane;
-  const size_t jstride = (size_t)KS * 32;
-  uint2 bcur[NJ], bnext[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) bnext[j] = make_uint2(0u, 0u);
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-    bcur[j] = j < nj ? __ldg(bp + j * jstride) : make_uint2(0u, 0u);
-#pragma unroll 1
-  for (int ks = 0; ks < ksteps; ++ks) {
-    if (ks + 1 < ksteps) {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        bnext[j] = j < nj ? __ldg(bp + (ks + 1) * 32 + j * jstride)
-                          : make_uint2(0u, 0u);
+// where this thread is: its warpgroup, warp in the warpgroup, lane
+struct Lane {
+  int tid, wg, warp, lane, g, tq;
+  __device__ Lane()
+      : tid(threadIdx.x), wg(threadIdx.x >> 7), warp((threadIdx.x >> 5) & 3),
+        lane(threadIdx.x & 31), g((threadIdx.x & 31) >> 2),
+        tq(threadIdx.x & 3) {}
+};
+
+// this block's weight chunks, stage after stage; each warpgroup copies the
+// columns it multiplies into a ring of its own
+struct Stream {
+  const unsigned char* src;       // the block's first chunk
+  int nst;                        // stages
+  int first[MAX_STAGES + 1];      // first chunk of stage s; [nst] = total
+  int bytes[MAX_STAGES];          // bytes of one chunk of stage s
+  int halves[MAX_STAGES];         // 2: each warpgroup takes its half
+  long long off[MAX_STAGES];      // byte offset of stage s's first chunk
+
+  __device__ void add(int nchunks, int chunk_bytes, int nh) {
+    off[nst] = nst ? off[nst - 1] +
+                         (long long)(first[nst] - first[nst - 1]) *
+                             bytes[nst - 1]
+                   : 0;
+    bytes[nst] = chunk_bytes;
+    halves[nst] = nh;
+    first[nst + 1] = first[nst] + nchunks;
+    ++nst;
+  }
+  __device__ long long total_bytes() const {
+    return off[nst - 1] +
+           (long long)(first[nst] - first[nst - 1]) * bytes[nst - 1];
+  }
+};
+
+// ---- mbarriers and bulk copies (TMA without a tensor map) ----
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+// `bytes` (a multiple of 16) from global `src` to shared `dst`; completes
+// on the mbarrier `bar`
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A warpgroup's copying side of its ring: a cursor over the block's
+// stream, one chunk (the warpgroup's part of it) a call, copied by one
+// bulk copy into slot g % RING, which completes on that slot's mbarrier.
+// The slots' barriers lie at `bars` (RING for each warpgroup).
+template <class G>
+struct Feeder {
+  static constexpr int RING = G::RING, SLOT = G::SLOT;
+  const Stream* st;
+  const unsigned char* src;  // this warpgroup's part of the next chunk
+  int part, chunk;           // its bytes; a whole chunk's
+  int left, s, g;            // chunks left in stage s; the next chunk
+  uint32_t ring, bars;       // this warpgroup's first slot and barrier
+  bool lead;                 // the warpgroup's thread that copies
+  int wg;
+
+  __device__ Feeder(const Stream& stream, uint32_t ring0, uint32_t bars0,
+                    const Lane& L)
+      : st(&stream), g(0), ring(ring0 + L.wg * RING * SLOT),
+        bars(bars0 + L.wg * RING * 8), lead((L.tid & 127) == 0), wg(L.wg) {
+    enter(0);
+  }
+  __device__ void enter(int stage) {
+    s = stage;
+    if (s < st->nst) {
+      chunk = st->bytes[s];
+      part = chunk / st->halves[s];
+      left = st->first[s + 1] - st->first[s];
+      src = st->src + st->off[s] + (st->halves[s] == 2 ? wg * part : 0);
     }
-    uint32_t a[4];
-    ldmatrix_x4(a, arow + ks * 32);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      if (j < nj) {
-        const uint32_t b[2] = {bcur[j].x, bcur[j].y};
-        mma_m16n8k16(acc[j], a, b);
+  }
+  __device__ void issue() {
+    if (s < st->nst) {
+      if (lead) {
+        const uint32_t bar = bars + (g % RING) * 8;
+        mbar_expect(bar, part);
+        bulk_copy(ring + (g % RING) * SLOT, src, part, bar);
       }
+      src += chunk;
+      if (--left == 0) enter(s + 1);
     }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) bcur[j] = bnext[j];
+    ++g;
+  }
+  __device__ uint32_t slot(int chunk_index) const {
+    return ring + (chunk_index % RING) * SLOT;
+  }
+  // chunk `chunk_index` has landed in its slot
+  __device__ void wait(int chunk_index) const {
+    mbar_wait(bars + (chunk_index % RING) * 8, (chunk_index / RING) & 1);
+  }
+};
+
+static_assert(sizeof(Stream) <= BARS && BARS + 2 * MAX_RING * 8 + 1023 <=
+                  SMEM_HEAD, "the stream table and the ring's barriers");
+
+// the first slot of the rings: past the head, 1024-byte aligned
+__device__ __forceinline__ uint32_t ring_base(uint32_t raw) {
+  return (raw + BARS + 2 * MAX_RING * 8 + 1023u) & ~1023u;
+}
+
+// Set up the block's rings: each warpgroup's first thread initialises its
+// slots' barriers. Before the block's first barrier.
+template <class G>
+__device__ __forceinline__ void init_rings(uint32_t raw, const Lane& L) {
+  if ((L.tid & 127) == 0) {
+    for (int i = 0; i < G::RING; ++i)
+      mbar_init(raw + BARS + (L.wg * G::RING + i) * 8, 1);
+    mbar_init_fence();
   }
 }
 
-// ReLU(acc + bias) of two adjacent columns, packed to two bf16
-__device__ __forceinline__ uint32_t relu_pack(float a0, float a1,
-                                              const float* bias) {
-  return pack_bf16(fmaxf(__fadd_rn(a0, __ldg(bias)), 0.f),
-                   fmaxf(__fadd_rn(a1, __ldg(bias + 1)), 0.f));
+// ---- wgmma m64nNk16, A from registers, N = 16, 32 or 64 ----
+template <int N>
+__device__ __forceinline__ void wgmma_n(float (&d)[N / 2],
+                                        const uint32_t (&a)[4],
+                                        uint64_t desc);
+template <>
+__device__ __forceinline__ void wgmma_n<32>(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc) {
+  wgmma_m64n32k16(d, a, desc);
+}
+template <>
+__device__ __forceinline__ void wgmma_n<64>(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc) {
+  wgmma_m64n64k16(d, a, desc);
+}
+template <>
+__device__ __forceinline__ void wgmma_n<16>(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+      : "memory");
+}
+
+// One stage's items: `mt * NH + nh` for m64 row tile mt and NI-column part
+// nh of the block's columns; warpgroup w holds items w, w + 2, ..., MINE
+// of them, a compile-time count: a warpgroup whose share is short computes
+// the stage's last item again and drops it in the epilogue, so no product
+// sits behind a branch that depends on the thread (`wgmma` behind such a
+// branch is serialized by the compiler).
+template <int NI, int NH, int MINE>
+struct Items {
+  int count;  // of the stage
+  __device__ static int raw(int i, int wg) { return wg + 2 * i; }
+  __device__ int item(int i, int wg) const {
+    return min(raw(i, wg), count - 1);
+  }
+  // the A row (0..64 MT) of this lane's ldmatrix address for item i
+  __device__ int arow(int i, const Lane& L) const {
+    return (item(i, L.wg) / NH) * 64 + L.warp * 16 + (L.lane & 15);
+  }
+};
+
+// KS chunks of the products: wait for their slots, let the ring run on,
+// then A by ldmatrix and the wgmma of every item this warpgroup holds. The
+// warpgroup's previous products are done first (A has one set of
+// registers: wgmma runs unserialized only while nothing else defines its
+// operands); the other warpgroup runs on its own ring meanwhile and fills
+// the tensor cores.
+template <int KS, int NI, int MINE, class G, class AFn>
+__device__ __forceinline__ void chunk_step(
+    float (&acc)[MINE][NI / 2], uint32_t (&a)[KS][MINE][4][4], int g,
+    int kc, Feeder<G>& fd, const Lane& L, AFn afn) {
+#pragma unroll
+  for (int k = 0; k < KS; ++k) fd.wait(g + k);  // the step's chunks landed
+  wgmma_wait<0>();             // the previous step is done with A, slots
+  warpgroup_barrier(1 + L.wg);
+#pragma unroll
+  for (int k = 0; k < KS; ++k) fd.issue();  // chunks g + G::DIST ..
+  uint64_t desc[KS][4];
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      desc[k][ks] = b_desc(fd.slot(g + k)) + (uint64_t)(ks * 32 >> 4);
+#pragma unroll
+    for (int i = 0; i < MINE; ++i) {
+      uint32_t win;
+      int pix;
+      afn(i, kc + k, win, pix);
+      load_a64(a[k][i], win, pix, L.lane);
+    }
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < KS; ++k)
+#pragma unroll
+    for (int i = 0; i < MINE; ++i)
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_n<NI>(acc[i], a[k][i][ks], desc[k][ks]);
+  wgmma_commit();
+}
+
+// A stage's products over `nk` chunks, the first the stream's chunk g0.
+// `afn(i, kc, win, pix)` names this lane's A row of item i in chunk kc:
+// the plane's shared address and the pixel.
+template <int NI, int NH, int MINE, class G, class AFn>
+__device__ __forceinline__ void gemm(float (&acc)[MINE][NI / 2],
+                                     const Items<NI, NH, MINE>& items,
+                                     int g0, int nk, Feeder<G>& fd,
+                                     const Lane& L, AFn afn) {
+  static_assert(NI * 128 <= G::SLOT, "a warpgroup's columns fit its slot");
+#pragma unroll
+  for (int i = 0; i < MINE; ++i)
+#pragma unroll
+    for (int j = 0; j < NI / 2; ++j) acc[i][j] = 0.f;
+  uint32_t a[KSTEP][MINE][4][4];
+  int kc = 0;
+#pragma unroll 1
+  for (; kc + KSTEP <= nk; kc += KSTEP)
+    chunk_step<KSTEP, NI>(acc, a, g0 + kc, kc, fd, L, afn);
+  if (kc < nk) {
+    uint32_t a1[1][MINE][4][4];
+    chunk_step<1, NI>(acc, a1, g0 + kc, kc, fd, L, afn);
+  }
+  wgmma_wait<0>();
+  (void)items;
+}
+
+// One output row of an epilogue: whether it is stored, whether its pixel
+// lies inside the image, where it goes (`off`) and its swizzle (`x`).
+struct Row {
+  uint32_t off;
+  int x;
+  bool keep, inside;
+};
+
+// byte offset of channel c (even) inside the row of a pixel whose
+// swizzle is x, in a window of `pix` pixels (planes of 64 channels)
+__device__ __forceinline__ uint32_t col_off(int c, int pix, int x) {
+  return (uint32_t)((c >> 6) * pix * PIX_BYTES) +
+         ((((c & 63) >> 3) ^ x) << 4) + (c & 7) * 2;
+}
+
+// The epilogue's walk over this thread's accumulators (its real items):
+// `row(m)` describes row m of the stage's rows once, then f(row, column c
+// of the block's columns, the two bf16 of ReLU(acc + bias) at columns c
+// and c + 1) for each of the row's columns. `bias(c)` points at the bias
+// of block column c; this thread's columns are the same in every item it
+// holds, so their biases are loaded once, ahead of the stores.
+template <int NI, int NH, int MINE, class B, class R, class F>
+__device__ __forceinline__ void each_pair(const float (&acc)[MINE][NI / 2],
+                                          const Items<NI, NH, MINE>& items,
+                                          const Lane& L, B bias, R row,
+                                          F f) {
+  const int c0 = (NH == 2 ? L.wg : 0) * NI + 2 * L.tq;
+  float2 bv[NI / 8];
+#pragma unroll
+  for (int j = 0; j < NI / 8; ++j) {
+    const float* p = bias(c0 + 8 * j);
+    bv[j] = make_float2(__ldg(p), __ldg(p + 1));
+  }
+#pragma unroll
+  for (int i = 0; i < MINE; ++i) {
+    const int it = Items<NI, NH, MINE>::raw(i, L.wg);
+    if (it < items.count) {
+      const int mt = it / NH;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const Row r = row(mt * 64 + L.warp * 16 + L.g + 8 * half);
+        if (!r.keep) continue;
+#pragma unroll
+        for (int j = 0; j < NI / 8; ++j)
+          f(r, c0 + 8 * j,
+            pack_bf16(
+                fmaxf(__fadd_rn(acc[i][4 * j + 2 * half], bv[j].x), 0.f),
+                fmaxf(__fadd_rn(acc[i][4 * j + 2 * half + 1], bv[j].y),
+                      0.f)));
+      }
+    }
+  }
+}
+
+// items of a stage of `pixels` rows and NH column parts, and this
+// warpgroup's share of them
+template <int NH>
+__host__ __device__ constexpr int stage_items(int pixels) {
+  return (pixels + 63) / 64 * NH;
+}
+__host__ __device__ constexpr int share(int items) { return (items + 1) / 2; }
+
+template <int S>
+struct Peers {
+  uint32_t base[S];  // shared::cluster address of each block's smem_raw
+  __device__ explicit Peers(unsigned char* smem_raw) {
+    const uint32_t raw = smem_u32(smem_raw);
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      if constexpr (S == 1)
+        base[r] = raw;
+      else
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                     : "=r"(base[r])
+                     : "r"(raw), "r"(r));
+    }
+  }
+  __device__ void put(uint32_t off, uint32_t v) const {
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      if constexpr (S == 1)
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(base[r] + off),
+                     "r"(v)
+                     : "memory");
+      else
+        asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(
+                         base[r] + off),
+                     "r"(v)
+                     : "memory");
+    }
+  }
+};
+
+// every block's stores are visible to every block of the cluster
+template <int S>
+__device__ __forceinline__ void cluster_sync() {
+  if constexpr (S == 1)
+    __syncthreads();
+  else
+    cg::this_cluster().sync();
+}
+
+template <int S>
+__device__ __forceinline__ int cluster_rank() {
+  if constexpr (S == 1)
+    return 0;
+  else
+    return (int)cg::this_cluster().block_rank();
+}
+
+// zero `bytes` (a multiple of 16) of shared memory from `p`
+__device__ __forceinline__ void zero_smem(unsigned char* p, int bytes,
+                                          int tid) {
+  for (int i = tid * 16; i < bytes; i += THREADS * 16)
+    *reinterpret_cast<uint4*>(p + i) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// The shape of a launch as it was made: grid, cluster along x, threads a
+// block, dynamic shared memory. Each source file keeps its last one for
+// the host to read (`unina_*_last_launch`).
+struct LaunchShape {
+  int grid_x, grid_y, cluster, threads, smem;
+};
+
+// Launch a wide kernel: `blocks` x `grid_y` blocks of THREADS, in
+// clusters of S along x (S = 1: no cluster), recorded in `shape`. The
+// caller has raised the kernel's dynamic shared memory limit.
+template <class... Args>
+int launch_cluster(LaunchShape& shape, void (*kernel)(Args...), int S,
+                   int blocks, int grid_y, int smem, void* stream,
+                   Args... args) {
+  shape = LaunchShape{blocks, grid_y, S, THREADS, smem};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, grid_y, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = S > 1 ? 1 : 0;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace wide

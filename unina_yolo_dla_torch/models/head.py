@@ -53,8 +53,9 @@ class DetectionHead(nn.Module):
                 kb("reg_pred"), self.dtype)
             for n, t in zip(self._FUSED, ws):
                 self.register_buffer(n, t)
-            # the 3x3s once more as the CUDA kernel's B operand
-            w33 = (ws[0], ws[6], ws[2], ws[8])
+            # the 3x3s (and the preds) once more as the CUDA kernel's B
+            # operand
+            w33 = (ws[0], ws[6], ws[2], ws[8], ws[4], ws[10])
             packs = kernel_takes(ws[0].shape[-1])
             self.register_buffer("w33", pack_head_mma(*w33) if packs else None)
             return

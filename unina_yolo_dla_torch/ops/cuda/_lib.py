@@ -125,6 +125,26 @@ I = ctypes.c_int
 F = ctypes.c_float
 
 
+def query(symbol: str, argtypes: list, *args) -> int:
+    """Call an exported C function that launches nothing (a question to
+    the library, such as a launch's shape); no kernel's count moves."""
+    fn = getattr(library(), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn(*args)
+
+
+def last_launch(symbol: str) -> dict:
+    """The shape of the last launch a source file made, as its C function
+    ``symbol`` records it: grid, cluster, threads a block, dynamic shared
+    memory."""
+    out = (ctypes.c_int * 5)()
+    query(symbol, [ctypes.POINTER(ctypes.c_int)], out)
+    gx, gy, cl, threads, smem = out
+    return dict(grid=[gx, gy, 1], cluster=[cl, 1, 1], threads=threads,
+                smem_bytes=smem)
+
+
 def stream_ptr(device) -> int:
     """The handle of ``device``'s current CUDA stream (the capture stream
     inside a graph capture). The raw accessor skips building a

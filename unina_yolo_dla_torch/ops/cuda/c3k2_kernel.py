@@ -5,8 +5,10 @@ CUDA source: ``csrc/c3k2.cu`` (tensor cores; entry points
 ``unina_fused_c3k2`` and ``unina_fused_c3k2_cat``, counted separately).
 Each entry point launches one of two kernels by width: the tiled
 ``wgmma`` kernel at hidden 32 and F 64 (the int8 engine's float blocks),
-the wide form (warp-level products, weights read from L2) at every other
-width of the bf16 engines.
+the wide ``wgmma`` form (weights streamed through shared memory; at hidden
+128 each output tile one cluster of four blocks splitting the columns) at
+hidden 16, 64 and 128 with F = 2 hidden: every other C3k2 of the bf16
+engines at base 32 and base 16.
 ``fused_c3k2`` and ``fused_c3k2_cat`` launch them for CUDA tensors; for
 CPU tensors they run ``fused_c3k2_plain`` / ``fused_c3k2_cat_plain``,
 which follow the reference's XLA form step by step:
@@ -36,8 +38,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import _lib
 from ._lib import I, Kernel, P, check_cuda, stream_ptr
-from .mma_pack import c3k2_mma_numel
+from .mma_pack import C3K2_SPLIT, c3k2_mma_numel
 
 KERNEL = Kernel("unina_fused_c3k2",
                 [P, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P])
@@ -48,15 +51,29 @@ KERNEL_CAT = Kernel("unina_fused_c3k2_cat",
 # the widths the tiled kernel is compiled for (csrc/c3k2.cu): hidden h,
 # output F; both forms take bottlenecks n <= KERNEL_NMAX
 KERNEL_HID, KERNEL_F, KERNEL_NMAX = 32, 64, 2
-# the wide form: an 8 x 8 output tile, its windows in at most SMEM_MAX
-# bytes of shared memory (csrc/c3k2.cu wide_c3k2)
-WIDE_TILE, SMEM_MAX = 8, 232448
+# the wide form holds its input windows beside its other windows and
+# rings in 227 KB of shared memory: the 64-channel planes of input it
+# takes by (hidden, n), from csrc/c3k2.cu ``wide_c3k2::smem_bytes`` (held
+# against it on the card: tests/test_torch_gpu.py); an upsampled ``xa`` is
+# counted at full resolution, so it is refused a little early
+WIDE_PLANES = {(16, 1): 11, (16, 2): 7, (64, 1): 8, (64, 2): 5,
+               (128, 1): 6, (128, 2): 4}
 
 
-def wide_smem_bytes(cin: int, hid: int, n: int) -> int:
-    """Shared memory of one block of the wide form (rows padded by 8)."""
-    wp = (WIDE_TILE + 2 * n) ** 2
-    return (max(wp * (cin + 8), wp * (hid + 8)) + wp * (2 * hid + 8)) * 2
+def _planes(c: int) -> int:
+    return -(-c // 64)
+
+
+def last_launch() -> dict:
+    """The shape of the last C3k2 launch (either entry point)."""
+    return _lib.last_launch("unina_c3k2_last_launch")
+
+
+def wide_smem(ca: int, cb: int, up_a: bool, hid: int, n: int) -> int:
+    """The wide form's shared memory at these widths, from the library
+    (-1 at a hidden width it is not compiled for)."""
+    return _lib.query("unina_c3k2_wide_smem", [I] * 5, ca, cb, int(up_a),
+                      hid, n)
 
 
 def pack_c3k2_weights(cv1, cv2, cv3, bottlenecks, dtype: torch.dtype):
@@ -157,15 +174,16 @@ def kernel_takes(cin: int, hid: int, fo: int, n: int, ca: int = 0) -> bool:
         return False
     if (hid, fo) == (KERNEL_HID, KERNEL_F):
         return cin % 8 == 0 and ca % 8 == 0
-    return (hid % 16 == 0 and fo % 8 == 0 and cin % 16 == 0 and ca % 8 == 0
-            and wide_smem_bytes(cin, hid, n) <= SMEM_MAX)
+    return (hid in C3K2_SPLIT and fo == 2 * hid and cin % 8 == 0
+            and ca % 8 == 0
+            and _planes(ca) + _planes(cin - ca) <= WIDE_PLANES[hid, n])
 
 
 def _check_weights(ws, wpk, cin: int, ca: int = 0) -> tuple[int, int, int]:
     """-> (n, hidden, F), after the checks of the form these widths take:
     the tiled kernel at hidden 32 and F 64 (Cin a multiple of 8); the wide
-    form otherwise (hidden and Cin multiples of 16, F of 8, Ca of 8, its
-    windows within shared memory)."""
+    form at hidden 16, 64 and 128 with F = 2 hidden (Cin and Ca multiples
+    of 8, its windows within shared memory); nothing else."""
     w1, b1, wb1, bb1, wb2, bb2, w2, b2, w3, b3 = ws
     n, hd, fo = wb1.shape[0], w1.shape[-1], w3.shape[-1]
     if not 1 <= n <= KERNEL_NMAX:
@@ -174,14 +192,16 @@ def _check_weights(ws, wpk, cin: int, ca: int = 0) -> tuple[int, int, int]:
         if cin % 8:
             raise ValueError(f"kernel takes Cin a multiple of 8, got {cin}")
     else:
-        if hd % 16 or fo % 8 or cin % 16 or ca % 8:
+        if hd not in C3K2_SPLIT or fo != 2 * hd or cin % 8 or ca % 8:
             raise ValueError(
-                f"wide form takes hidden and Cin multiples of 16, F of 8 and "
-                f"Ca of 8, got hidden {hd}, F {fo}, Cin {cin}, Ca {ca}")
-        smem = wide_smem_bytes(cin, hd, n)
-        if smem > SMEM_MAX:
-            raise ValueError(f"wide form: {smem} bytes of shared memory for "
-                             f"Cin {cin}, hidden {hd}, n {n} (max {SMEM_MAX})")
+                f"wide form takes hidden in {sorted(C3K2_SPLIT)} with F = 2 "
+                f"hidden, Cin and Ca multiples of 8, got hidden {hd}, F "
+                f"{fo}, Cin {cin}, Ca {ca}")
+        if _planes(ca) + _planes(cin - ca) > WIDE_PLANES[hd, n]:
+            raise ValueError(
+                f"wide form: Cin {cin} (Ca {ca}) past the "
+                f"{WIDE_PLANES[hd, n]} input planes of shared memory at "
+                f"hidden {hd}, n {n}")
     if wpk is None:
         raise ValueError("the CUDA kernel needs wpk = pack_c3k2_mma(w1, w2, "
                          "wb1, wb2, w3, ca)")

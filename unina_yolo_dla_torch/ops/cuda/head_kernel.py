@@ -1,8 +1,10 @@
 """Kernel 8: the decoupled detection head, both branches in one pass.
 
 CUDA source: ``csrc/head.cu`` (tensor cores): the tiled ``wgmma`` kernel
-at width 64 (P2), the wide form (warp-level products, weights read from
-L2) at any other width (P3/P4 of the bf16 engines). ``fused_head``
+at width 64 (P2), the wide ``wgmma`` form (weights streamed through shared
+memory; at 256 each output tile one cluster of two blocks splitting the
+channels) at widths 32, 128 and 256 (P3/P4 of the bf16 engines, base 32
+and base 16). ``fused_head``
 launches one of them for a CUDA tensor; for a CPU tensor it runs
 ``fused_head_plain``, which follows the reference's XLA form step by step.
 Per branch over the same input:
@@ -19,38 +21,52 @@ Weights come packed by ``pack_head_weights`` (once, at load):
 ``(wc1, bc1, wc2, bc2, wcp, bcp, wr1, br1, wr2, br2, wrp, brp)`` with the
 3x3 kernels (3, 3, h, h) and the preds (h, co) in the compute dtype and
 the biases float32. The CUDA kernel reads the four 3x3 kernels as its B
-tiles instead, ``w33 = mma_pack.pack_head_mma(wc1, wr1, wc2, wr2)``, which
-the caller packs once at load as well.
+tiles instead, ``w33 = mma_pack.pack_head_mma(wc1, wr1, wc2, wr2, wcp,
+wrp)`` (the wide form's image holds the preds too), which the caller packs
+once at load as well.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import _lib
 from ._lib import I, Kernel, P, check_cuda, stream_ptr
 from .c3k2_kernel import _conv3x3, _dot
-from .mma_pack import head_mma_shape
+from .mma_pack import HEAD_SPLIT, head_mma_shape
 
 KERNEL = Kernel("unina_fused_head",
                 [P, P, P, P, P, P, I, P, P, P, P, I, P, P, I, I, I, I, P])
 
 # the width the tiled kernel is compiled for (csrc/head.cu) and the pred
-# outputs both forms take; the wide form's 8 x 8 tile and shared memory
+# outputs both forms take; the wide form's 8-row tile
 KERNEL_C, KERNEL_NOMAX = 64, 8
-WIDE_TILE, SMEM_MAX = 8, 232448
+WIDE_TILE = 8
 
 
-def wide_smem_bytes(c: int) -> int:
-    """Shared memory of one block of the wide form: the x window (halo 2)
-    and conv1's region (halo 1), rows padded by 8."""
-    t = WIDE_TILE
-    return ((t + 4) ** 2 + (t + 2) ** 2) * (c + 8) * 2
+def wide_tile(c: int) -> tuple[int, int]:
+    """The wide form's output tile at width ``c``: 8 x 16 at 128 (one wave
+    of blocks at 80 x 80), 8 x 8 otherwise (csrc/head.cu ``tile_w``)."""
+    return WIDE_TILE, 2 * WIDE_TILE if c == 128 else WIDE_TILE
 
 
 def kernel_takes(c: int) -> bool:
-    """Whether a CUDA kernel takes head width ``c``: the caller packs
-    ``w33`` only then."""
-    return c == KERNEL_C or (c % 16 == 0 and wide_smem_bytes(c) <= SMEM_MAX)
+    """Whether a CUDA kernel takes head width ``c`` (the wide form's
+    windows and ring fit in shared memory at each of its widths: held
+    against the library on the card): the caller packs ``w33`` only
+    then."""
+    return c == KERNEL_C or c in HEAD_SPLIT
+
+
+def last_launch() -> dict:
+    """The shape of the last head launch."""
+    return _lib.last_launch("unina_head_last_launch")
+
+
+def wide_smem(c: int) -> int:
+    """The wide form's shared memory at width ``c``, from the library (-1
+    at a width it is not compiled for)."""
+    return _lib.query("unina_head_wide_smem", [I], c)
 
 
 def pack_head_weights(cls_convs, cls_pred, reg_convs, reg_pred,
@@ -88,20 +104,20 @@ def fused_head(x: torch.Tensor, *ws, w33: torch.Tensor | None = None):
     """Both head branches over ``x`` (..., H, W, h) -> ``(cls, reg)``,
     (..., H, W, Ccls) logits and (..., H, W, 4) distances in float32,
     each contiguous. The CUDA kernel takes bf16 ``x`` with h = 64 (the
-    tiled kernel) or any other multiple of 16 whose windows fit in shared
-    memory (the wide form), and up to 8 outputs per pred; batch rides on
-    its tile index. Of ``ws`` it reads the biases and the preds, and the
-    3x3s from ``w33``."""
+    tiled kernel) or 32, 128, 256 (the wide form), and up to 8 outputs per
+    pred; batch rides on its tile index. Of ``ws`` it reads the biases, the
+    3x3s from ``w33``, and the preds from ``ws`` (tiled) or ``w33``
+    (wide)."""
     if not x.is_cuda:
         return fused_head_plain(x, *ws)
     check_cuda(x, "x", torch.bfloat16)
     h, w, c = x.shape[-3:]
     if not kernel_takes(c):
-        raise ValueError(f"kernel takes {KERNEL_C} channels, or a multiple "
-                         f"of 16 up to {SMEM_MAX} bytes of windows, got {c}")
+        raise ValueError(f"kernel takes {KERNEL_C} channels, or one of "
+                         f"{sorted(HEAD_SPLIT)}, got {c}")
     if w33 is None:
         raise ValueError("the CUDA kernel needs w33 = pack_head_mma(wc1, "
-                         "wr1, wc2, wr2)")
+                         "wr1, wc2, wr2, wcp, wrp)")
     bf = torch.bfloat16
     check_cuda(w33, "w33", bf, head_mma_shape(c))
     (_, bc1, _, bc2, wcp, bcp, _, br1, _, br2, wrp, brp) = ws

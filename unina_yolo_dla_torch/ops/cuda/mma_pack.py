@@ -3,11 +3,13 @@
 ``csrc/mma_sm90.cuh`` reads a weight tile from shared memory as
 ``[64 n][64 k]``, K contiguous (128 bytes a row in bf16), with the eight
 16-byte chunks of row ``n`` stored at ``chunk ^ (n & 7)`` (the 128-byte
-swizzle). The wide C3k2 and head kernels (``csrc/wide_mma.cuh``) read a
-(K, N) matrix as its m16n8k16 B fragments straight from global memory
-(``pack_frag``). The functions here build exactly those images once at
-load, so the device reads them flat, and invert them. All are pure
-permutations: they work in any dtype and on any device.
+swizzle). The wide C3k2 and head kernels (``csrc/wide_mma.cuh``) stream
+the same tiles through a ring in shared memory, one 64-deep K chunk of
+one cluster block's output columns at a time (``_wide_stream``), and read
+the head's 1x1 preds as m16n8k16 B fragments (``pack_frag``). The
+functions here build exactly those images once at load, so the device
+copies them flat, and invert them. All are pure permutations (with zero
+padding): they work in any dtype and on any device.
 """
 from __future__ import annotations
 
@@ -93,39 +95,123 @@ def unpack_stem_mma(p: torch.Tensor) -> torch.Tensor:
     return unpack_b_tiles(p)[:, :48].reshape(2, 2, 24, TILE).contiguous()
 
 
+# The wide kernels split every product's output columns over a cluster
+# of blocks (csrc/wide_mma.cuh) at the widest widths, whose 40 x 40 images
+# have too few tiles for the SMs: blocks of a cluster by the C3k2's hidden
+# width and by the head's width. These are the widths they are compiled
+# for.
+C3K2_SPLIT = {16: 1, 64: 1, 128: 4}
+HEAD_SPLIT = {32: 1, 128: 1, 256: 2}
+PRED_N = 8         # pred outputs the wide head's fragment image holds
+
+
+def _planes(c: int) -> int:
+    """64-channel planes of a window of ``c`` channels."""
+    return -(-c // TILE)
+
+
+def _wide_tiles(w: torch.Tensor, s: int) -> torch.Tensor:
+    """(64 kc, N) -> (s, kc, N/s, 64): per cluster block ``r`` (output
+    columns ``r N/s ..``) and 64-deep K chunk, one swizzled B tile."""
+    k, n = w.shape
+    t = w.reshape(k // TILE, TILE, s, n // s).permute(2, 0, 1, 3)
+    return pack_b_tiles(t)
+
+
+def _untiles(t: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``_wide_tiles``."""
+    s, kc, ns, _ = t.shape
+    return unpack_b_tiles(t).permute(1, 2, 0, 3).reshape(kc * TILE, s * ns)
+
+
+def _wide_stream(mats: list[torch.Tensor], s: int) -> torch.Tensor:
+    """The wide kernels' weight stream: per cluster block, every stage's
+    chunks in the order the block consumes them, blocks one after the
+    other (so block ``r``'s stream is one contiguous range)."""
+    tiles = [_wide_tiles(m, s) for m in mats]
+    return torch.cat([t[r].reshape(-1) for r in range(s) for t in tiles])
+
+
+def _unstream(p: torch.Tensor, shapes: list[tuple[int, int]], s: int
+              ) -> list[torch.Tensor]:
+    """Inverse of ``_wide_stream`` for stage matrices of ``shapes``."""
+    per = [k * n // s for k, n in shapes]
+    blocks = p.reshape(s, sum(per))
+    return [_untiles(part.reshape(s, k // TILE, n // s, TILE))
+            for part, (k, n) in zip(blocks.split(per, dim=1), shapes)]
+
+
+def _taps(w: torch.Tensor) -> torch.Tensor:
+    """(3, 3, C, N) -> (9 * 64 planes, N): K chunk ``tap * planes + q``
+    holds input channels ``64 q ..`` of tap ``tap``, zero-padded."""
+    return torch.cat([_pad_k(w[kh, kw]) for kh in range(3)
+                      for kw in range(3)])
+
+
+def _untaps(m: torch.Tensor, c: int) -> torch.Tensor:
+    rows = _planes(c) * TILE
+    return torch.stack([m[t * rows:t * rows + c] for t in range(9)]
+                       ).reshape(3, 3, c, m.shape[-1])
+
+
 def head_mma_shape(c: int) -> tuple[int, ...]:
     """Shape of ``pack_head_mma``'s image at head width ``c``."""
-    return (18, 2 * TILE, TILE) if c == TILE else (4 * 9 * c * c,)
+    if c == TILE:
+        return (18, 2 * TILE, TILE)
+    return (2 * 18 * _planes(c) * TILE * c + 2 * c * PRED_N,)
 
 
 def pack_head_mma(wc1: torch.Tensor, wr1: torch.Tensor, wc2: torch.Tensor,
-                  wr2: torch.Tensor) -> torch.Tensor:
-    """The head's four 3x3 kernels (3, 3, C, C) -> the CUDA kernel's image.
+                  wr2: torch.Tensor, wcp: torch.Tensor, wrp: torch.Tensor
+                  ) -> torch.Tensor:
+    """The head's four 3x3 kernels (3, 3, C, C) and its preds ``wcp``,
+    ``wrp`` (C, no <= 8) -> the CUDA kernel's image.
 
     At C = 64 (the tiled kernel) (18, 128, 64): slab ``s < 9`` is tap ``s``
     of conv1 with the branches concatenated along n (``cls | reg``), slab
-    ``9 + s`` the same of conv2. At any other C, a multiple of 16 (the wide
-    kernel), ``pack_frag`` of each kernel as a (9C, C) matrix, K = tap * C
-    + input channel, in the order ``wc1, wr1, wc2, wr2``, flat."""
+    ``9 + s`` the same of conv2; the tiled kernel reads the preds from the
+    flat operands, not from here. At the wide kernel's widths
+    (``HEAD_SPLIT``) a flat image: per branch (cls, reg) the weight stream
+    of its cluster's blocks, conv1's nine taps then conv2's, each a (9 * 64
+    planes, C) matrix split by output columns (``_wide_stream``); then the
+    preds as m16n8k16 B fragments of (C, 8), zero-padded (``pack_frag``)."""
     c = wc1.shape[-1]
     for w in (wc1, wr1, wc2, wr2):
         if tuple(w.shape) != (3, 3, c, c) or c % 16:
             raise ValueError(f"expected four (3, 3, C, C), C a multiple of "
                              f"16, got {tuple(w.shape)}")
-    if c != TILE:
-        return torch.cat([pack_frag(w.reshape(9 * c, c))
-                          for w in (wc1, wr1, wc2, wr2)])
-    slabs = torch.cat([torch.cat([wc1, wr1], dim=-1),
-                       torch.cat([wc2, wr2], dim=-1)])  # (6, 3, 64, 128)
-    return pack_b_tiles(slabs.reshape(18, TILE, 2 * TILE))
+    for wp in (wcp, wrp):
+        if wp.dim() != 2 or wp.shape[0] != c or not (
+                1 <= wp.shape[1] <= PRED_N):
+            raise ValueError(f"expected preds (C, 1..{PRED_N}), got "
+                             f"{tuple(wp.shape)}")
+    if c == TILE:
+        slabs = torch.cat([torch.cat([wc1, wr1], dim=-1),
+                           torch.cat([wc2, wr2], dim=-1)])  # (6, 3, 64, 128)
+        return pack_b_tiles(slabs.reshape(18, TILE, 2 * TILE))
+    if c not in HEAD_SPLIT:
+        raise ValueError(f"the wide head is compiled for C in "
+                         f"{sorted(HEAD_SPLIT)}, got {c}")
+    s = HEAD_SPLIT[c]
+    return torch.cat([_wide_stream([_taps(w1), _taps(w2)], s)
+                      for w1, w2 in ((wc1, wc2), (wr1, wr2))]
+                     + [pack_frag(F.pad(wp, (0, PRED_N - wp.shape[1])))
+                        for wp in (wcp, wrp)])
 
 
 def unpack_head_mma(p: torch.Tensor):
-    """Inverse of ``pack_head_mma``: ``(wc1, wr1, wc2, wr2)``."""
+    """Inverse of ``pack_head_mma``: ``(wc1, wr1, wc2, wr2)``, and at the
+    wide widths the preds zero-padded to (C, 8) after them."""
     if p.dim() == 1:
-        c = int(round((p.numel() // 36) ** 0.5))
-        return tuple(unpack_frag(q, 9 * c, c).reshape(3, 3, c, c)
-                     for q in p.split(9 * c * c))
+        c = next(c for c in HEAD_SPLIT if head_mma_shape(c)[0] == p.numel())
+        s, k = HEAD_SPLIT[c], 9 * _planes(c) * TILE
+        per = 2 * k * c
+        (c1, c2), (r1, r2) = (_unstream(q, [(k, c), (k, c)], s)
+                              for q in p[:2 * per].split(per))
+        preds = [unpack_frag(q, c, PRED_N) for q in p[2 * per:].split(
+            c * PRED_N)]
+        return (_untaps(c1, c), _untaps(r1, c), _untaps(c2, c),
+                _untaps(r2, c), *preds)
     w = unpack_b_tiles(p).reshape(2, 3, 3, TILE, 2 * TILE)
     return (w[0, ..., :TILE].contiguous(), w[0, ..., TILE:].contiguous(),
             w[1, ..., :TILE].contiguous(), w[1, ..., TILE:].contiguous())
@@ -144,14 +230,26 @@ def _c3k2_chunks(ca: int, cin: int) -> list[tuple[int, int]]:
             for lo in range(start, hi, TILE)]
 
 
-def _c3k2_wide(w1, w2, wb1, wb2, w3) -> list[torch.Tensor]:
-    """The wide kernel's matrices in image order: ``[w1 | w2]``, then per
-    bottleneck ``wb1`` and the 3x3 as a (9h, h) matrix, then ``w3``."""
-    n, hd = wb1.shape[0], wb1.shape[-1]
-    mats = [torch.cat([w1, w2], dim=-1)]
-    for i in range(n):
-        mats += [wb1[i], wb2[i].reshape(9 * hd, hd)]
-    return mats + [w3]
+def _c3k2_wide(w1, w2, wb1, wb2, w3, ca: int) -> list[torch.Tensor]:
+    """The wide kernel's stage matrices in stream order, K in 64-deep
+    chunks: [w1 | w2] over ``xa``'s chunks then ``xb``'s; per bottleneck
+    ``wb1`` and the 3x3 (``_taps``); then ``w3`` over the [p1 | p2]
+    window's planes."""
+    cin = w1.shape[0]
+    wa = torch.cat([w1, w2], dim=-1)
+    mats = [torch.cat([_pad_k(wa[lo:hi]) for lo, hi in
+                       _c3k2_chunks(ca, cin)])]
+    for i in range(wb1.shape[0]):
+        mats += [_pad_k(wb1[i]), _taps(wb2[i])]
+    return mats + [_pad_k(w3)]
+
+
+def _c3k2_wide_shapes(cin: int, n: int, ca: int, hid: int, fo: int
+                      ) -> list[tuple[int, int]]:
+    first = len(_c3k2_chunks(ca, cin)) * TILE
+    pt = _planes(hid) * TILE
+    return ([(first, 2 * hid)] + [(pt, hid), (9 * pt, hid)] * n
+            + [(_planes(2 * hid) * TILE, fo)])
 
 
 def pack_c3k2_mma(w1: torch.Tensor, w2: torch.Tensor, wb1: torch.Tensor,
@@ -170,11 +268,11 @@ def pack_c3k2_mma(w1: torch.Tensor, w2: torch.Tensor, wb1: torch.Tensor,
       two a tile along k: ``wb1``, then the nine 3x3 taps;
     - one ``[64 n][64 k]`` tile of ``w3`` (k = ``[p1 | p2]``).
 
-    At any other (hidden, F), hidden and Cin multiples of 16 and F of 8
-    (the wide form), ``pack_frag`` of ``[w1 | w2]`` (Cin, 2h), of each
-    bottleneck's ``wb1`` (h, h) and 3x3 (9h, h; K = tap * h + channel),
-    and of ``w3`` (2h, F), concatenated; ``ca`` changes nothing there (the
-    rows are already ``xa``'s then ``xb``'s)."""
+    At the wide kernel's widths (hidden in ``C3K2_SPLIT``, F = 2 hidden)
+    the weight stream of its cluster's blocks (``_wide_stream``) over the
+    stage matrices of ``_c3k2_wide``: the same chunks of ``xa`` and
+    ``xb``, every K zero-padded to whole 64-deep chunks of the windows'
+    planes, every stage's output columns split evenly over the blocks."""
     cin, n = w1.shape[0], wb1.shape[0]
     hd, fo = w1.shape[-1], w3.shape[-1]
     if (tuple(w1.shape) != (cin, hd) or tuple(w2.shape) != (cin, hd)
@@ -185,8 +283,12 @@ def pack_c3k2_mma(w1: torch.Tensor, w2: torch.Tensor, wb1: torch.Tensor,
         raise ValueError("expected pack_c3k2_weights' layouts and 0 <= ca "
                          f"< Cin, got {shapes}, ca {ca}")
     if (hd, fo) != (HID, F_OUT):
-        return torch.cat([pack_frag(m) for m in
-                          _c3k2_wide(w1, w2, wb1, wb2, w3)])
+        if hd not in C3K2_SPLIT or fo != 2 * hd:
+            raise ValueError(f"the wide C3k2 is compiled for hidden in "
+                             f"{sorted(C3K2_SPLIT)} and F = 2 hidden, got "
+                             f"hidden {hd}, F {fo}")
+        return _wide_stream(_c3k2_wide(w1, w2, wb1, wb2, w3, ca),
+                            C3K2_SPLIT[hd])
     wa = torch.cat([w1, w2], dim=-1)
     first = torch.stack([_pad_k(wa[lo:hi]) for lo, hi in
                          _c3k2_chunks(ca, cin)])
@@ -201,7 +303,7 @@ def c3k2_mma_numel(cin: int, n: int, ca: int = 0, hid: int = HID,
                    fo: int = F_OUT) -> int:
     """Elements of ``pack_c3k2_mma``'s image."""
     if (hid, fo) != (HID, F_OUT):
-        return cin * 2 * hid + n * 10 * hid * hid + 2 * hid * fo
+        return sum(k * m for k, m in _c3k2_wide_shapes(cin, n, ca, hid, fo))
     return (len(_c3k2_chunks(ca, cin)) + 1) * TILE * TILE \
         + n * 5 * HID * TILE
 
@@ -210,14 +312,14 @@ def unpack_c3k2_mma(p: torch.Tensor, cin: int, n: int, ca: int = 0,
                     hid: int = HID, fo: int = F_OUT):
     """Inverse of ``pack_c3k2_mma``: ``(w1, w2, wb1, wb2, w3)``."""
     if (hid, fo) != (HID, F_OUT):
-        dims = [(cin, 2 * hid)] + [(hid, hid), (9 * hid, hid)] * n + [
-            (2 * hid, fo)]
-        mats = [unpack_frag(q, k, m) for q, (k, m) in
-                zip(p.split([k * m for k, m in dims]), dims)]
-        wb1 = torch.stack(mats[1:-1:2])
-        wb2 = torch.stack(mats[2:-1:2]).reshape(n, 3, 3, hid, hid)
-        return (mats[0][:, :hid].contiguous(), mats[0][:, hid:].contiguous(),
-                wb1, wb2, mats[-1])
+        mats = _unstream(p, _c3k2_wide_shapes(cin, n, ca, hid, fo),
+                         C3K2_SPLIT[hid])
+        wa = torch.cat([mats[0][q * TILE:q * TILE + hi - lo] for q, (lo, hi)
+                        in enumerate(_c3k2_chunks(ca, cin))])
+        wb1 = torch.stack([m[:hid] for m in mats[1:-1:2]])
+        wb2 = torch.stack([_untaps(m, hid) for m in mats[2:-1:2]])
+        return (wa[:, :hid].contiguous(), wa[:, hid:].contiguous(), wb1,
+                wb2, mats[-1][:2 * hid].contiguous())
     chunks = _c3k2_chunks(ca, cin)
     kc = len(chunks)
     first, mid, last = p.split([kc * TILE * TILE, n * 5 * HID * TILE,

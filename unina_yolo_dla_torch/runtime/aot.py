@@ -449,8 +449,9 @@ def export_serving_artifact(
     ``batch_stats`` and ``quant`` collections, keys sorted as the
     reference writes them), ``fallback_report.json`` and ``config.json``
     (the reference's keys with ``"platforms"`` the device the frame ran
-    on, plus ``fused_c3k2`` and ``fused_head``, from which the port
-    rebuilds the model)."""
+    on, plus ``fused_c3k2``, ``fused_head``, ``compute_dtype`` and
+    ``quant_mode``, which the reference does not record and from which the
+    port rebuilds the model: ``artifact.config_from_artifact``)."""
     cfg = model.config
     output_dir = Path(output_dir)
     if camera is not None and batch is not None:
@@ -521,6 +522,8 @@ def export_serving_artifact(
         "batch": batch,
         "fused_c3k2": cfg.fused_c3k2,
         "fused_head": cfg.fused_head,
+        "compute_dtype": str(cfg.compute_dtype).removeprefix("torch."),
+        "quant_mode": cfg.quant.mode if cfg.quant is not None else "off",
     }, indent=2))
     (output_dir / "fallback_report.json").write_text(json.dumps(
         dataclasses.asdict(report), indent=2))

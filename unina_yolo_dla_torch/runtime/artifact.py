@@ -49,16 +49,64 @@ from .pipeline import (
 )
 
 
-def config_from_artifact(conf: dict) -> ModelConfig:
+# how an engine was built, where an exported config.json may lack it: the
+# reference's export records none of these, the port's records all four
+BUILD_KEYS = ("compute_dtype", "quant_mode", "fused_c3k2", "fused_head")
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _build_value(conf: dict, key: str, override):
+    """``key`` as ``config.json`` says it, else as the caller says it;
+    both present and different raises."""
+    if key == "compute_dtype" and isinstance(override, torch.dtype):
+        override = str(override).removeprefix("torch.")
+    if key in conf and override is not None and conf[key] != override:
+        raise ValueError(f"the artifact's config.json says {key}="
+                         f"{conf[key]!r}, the caller {override!r}")
+    return conf.get(key, override)
+
+
+def _quant(conf: dict, mode) -> QuantSpec | None:
+    """The quantisation an artifact was built with. A known ``mode``
+    (``config.json``'s ``quant_mode`` or the caller's) is checked against
+    ``quantized``; ``int8`` (the unfused int8 chain) is refused. Without a
+    mode, a quantised artifact is the fused int8 chain with the measured
+    exclusion list, as the export's ``--int8`` writes it: the reference's
+    ``config.json`` says only ``"quantized"``, so an ``--int8-unfused``
+    export of the reference is read so too unless the caller says
+    ``quant_mode="int8"``."""
+    quantized = conf.get("quantized")
+    if mode is None:
+        mode = "int8_fused" if quantized else "off"
+    if mode not in ("off", "int8_fused", "int8"):
+        raise ValueError(f"unknown quant mode {mode!r}")
+    if quantized is not None and bool(quantized) != (mode != "off"):
+        raise ValueError(f"the artifact's config.json says quantized="
+                         f"{quantized}, its quant mode is {mode!r}")
+    if mode == "int8":
+        raise NotImplementedError(
+            "an unfused int8 artifact (quant mode 'int8') is served once "
+            "the port has the unfused int8 chain (ROADMAP Queue A item 8c)")
+    return (QuantSpec("int8_fused", exclude=PERF_EXCLUDE)
+            if mode == "int8_fused" else None)
+
+
+def config_from_artifact(conf: dict, **build) -> ModelConfig:
     """The engine configuration an exported ``config.json`` describes
     (a batch artifact's engine is the batch-1 one; ``batch`` only sets
     the leading axis of its frames).
 
-    The deploy flags are read as written (``fused_c3k2``/``fused_head``,
-    which the port's export records, default to false); a quantised
-    artifact is the fused int8 chain with the measured exclusion list, as
-    the export's ``--int8`` writes it. A camera with a batch or with host
+    The deploy flags are read as written. ``build`` gives what the
+    reference's ``config.json`` does not record (``BUILD_KEYS``:
+    ``compute_dtype`` a dtype or its name, ``quant_mode``, ``fused_c3k2``,
+    ``fused_head``); each is used where the file lacks its key, and
+    raises where the file says otherwise. Where neither says, the compute
+    dtype is bfloat16, the C3k2s and heads unfused, and the quantisation
+    as ``_quant`` reads it. A camera with a batch or with host
     space-to-depth, which the export never writes, raises ``ValueError``."""
+    unknown = set(build) - set(BUILD_KEYS)
+    if unknown:
+        raise TypeError(f"unknown build keys {sorted(unknown)}")
     if conf.get("camera"):
         if conf.get("batch"):
             raise ValueError("camera and batch artifacts are mutually "
@@ -66,16 +114,42 @@ def config_from_artifact(conf: dict) -> ModelConfig:
         if conf.get("s2d_host") or conf.get("s2d_merged"):
             raise ValueError("a camera artifact cannot take host "
                              "space-to-depth frames")
-    quant = (QuantSpec("int8_fused", exclude=PERF_EXCLUDE)
-             if conf.get("quantized") else None)
+    got = {k: _build_value(conf, k, build.get(k)) for k in BUILD_KEYS}
+    dtype = got["compute_dtype"] or "bfloat16"
+    if dtype not in _DTYPES:
+        raise ValueError(f"unknown compute dtype {dtype!r}")
     flags = {k: bool(conf.get(k, False)) for k in (
         "stem_s2d", "s2d_host", "stage1_s2d", "s2d_merged", "fused_stem",
-        "merged_head", "fused_c3k2", "fused_head")}
+        "merged_head")}
     return ModelConfig(
         num_classes=conf["num_classes"],
         base_channels=conf["base_channels"],
         lite_p2=conf.get("lite_p2", False),
-        input_size=conf["input_size"], quant=quant, deploy=True, **flags)
+        input_size=conf["input_size"], compute_dtype=_DTYPES[dtype],
+        quant=_quant(conf, got["quant_mode"]), deploy=True,
+        fused_c3k2=bool(got["fused_c3k2"]),
+        fused_head=bool(got["fused_head"]), **flags)
+
+
+def _check_folded(variables: dict) -> None:
+    """Refuse an artifact written from an unfolded (BatchNorm) model: the
+    port's modules are the deploy form, which has no BatchNorm. The weight
+    tree is the only evidence (``config.json`` records no such flag): a
+    non-empty ``batch_stats`` collection, or BatchNorm nodes (``bn``, or
+    ``scale`` without ``kernel``) under ``params``."""
+    def has_bn(node) -> bool:
+        if not isinstance(node, dict):
+            return False
+        if "bn" in node or ("scale" in node and "kernel" not in node):
+            return True
+        return any(has_bn(v) for v in node.values())
+
+    if variables.get("batch_stats") or has_bn(variables.get("params", {})):
+        raise NotImplementedError(
+            "this artifact holds an unfolded model (BatchNorm statistics "
+            "or nodes): the port serves folded (deploy) weights only, until "
+            "the train-form model lands (ROADMAP Queue A item 8a); export "
+            "with --fold-bn or an engine flag that implies it")
 
 
 class ServingArtifact:
@@ -89,10 +163,16 @@ class ServingArtifact:
     On the card, ``graph=True`` (the default) captures the frame as one
     CUDA graph at load and replays it per call; a failure to capture or to
     replay raises. Calls come one at a time; each returns tensors of its
-    own, which later calls do not overwrite."""
+    own, which later calls do not overwrite.
+
+    ``build`` says how the engine was built where ``config.json`` does not
+    (``compute_dtype``, ``quant_mode``, ``fused_c3k2``, ``fused_head``:
+    ``config_from_artifact``); an artifact of an unfolded model, or of the
+    unfused int8 chain, raises ``NotImplementedError`` before any model is
+    built."""
 
     def __init__(self, directory: str | Path, device=None,
-                 graph: bool = True) -> None:
+                 graph: bool = True, **build) -> None:
         self.dir = Path(directory)
         missing = [f for f in ("config.json", "variables.msgpack")
                    if not (self.dir / f).exists()]
@@ -102,9 +182,10 @@ class ServingArtifact:
                 f"{', '.join(missing)}")
         self.device = resolve_device(device)
         self.config = json.loads((self.dir / "config.json").read_text())
-        self.model_config = config_from_artifact(self.config)
+        self.model_config = config_from_artifact(self.config, **build)
         self.batch = self.config.get("batch")
         variables = load_msgpack_raw(self.dir / "variables.msgpack")
+        _check_folded(variables)
         self.model = from_jax_variables(variables, self.model_config,
                                         self.device)
         c = self.config

@@ -45,10 +45,11 @@ def pack_records(packed: np.ndarray) -> bytes:
 
 
 def make_executor(artifact_dir: str, expected_input: int = 640,
-                  expected_classes: int = 4):
-    """-> ``execute(buf, width, height, channels) -> bytes``."""
+                  expected_classes: int = 4, **build):
+    """-> ``execute(buf, width, height, channels) -> bytes``; ``build``
+    goes to ``ServingArtifact``."""
     device = "cpu" if os.environ.get("UNINA_FORCE_CPU") else None
-    artifact = ServingArtifact(artifact_dir, device=device)
+    artifact = ServingArtifact(artifact_dir, device=device, **build)
     validate_artifact_shapes(artifact, expected_input, expected_classes)
     s = expected_input
     camera = artifact.camera

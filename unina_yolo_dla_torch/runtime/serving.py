@@ -74,7 +74,9 @@ def unpack(packed: np.ndarray) -> dict:
 
 class PerceptionServer:
     """Lifecycle-managed frame -> detections server over an artifact;
-    ``device`` None is the card, ``"cpu"`` the plain path."""
+    ``device`` None is the card, ``"cpu"`` the plain path; ``build`` goes
+    to ``ServingArtifact`` (how the engine was built, where its
+    ``config.json`` does not say)."""
 
     def __init__(
         self,
@@ -84,8 +86,10 @@ class PerceptionServer:
         log_fn: Callable[[str], None] = print,
         warn_throttle_s: float = 5.0,
         device=None,
+        **build,
     ) -> None:
         self.artifact_dir = Path(artifact_dir)
+        self.build = build
         self.expected_input = expected_input
         self.expected_classes = expected_classes
         self.device = device
@@ -103,7 +107,8 @@ class PerceptionServer:
     def configure(self) -> None:
         if self.state != LifecycleState.UNCONFIGURED:
             raise RuntimeError(f"configure() in state {self.state}")
-        artifact = ServingArtifact(self.artifact_dir, device=self.device)
+        artifact = ServingArtifact(self.artifact_dir, device=self.device,
+                                   **self.build)
         validate_artifact_shapes(artifact, self.expected_input,
                                  self.expected_classes)
         dummy = np.zeros((self.expected_input, self.expected_input, 3),
