@@ -100,6 +100,24 @@ frame's head outputs in the main keys, on random all-valid levels
 all-valid set, on the served frame's own candidate set (``served_*``) and
 on the 8 scenes' sets in one launch (``b8_served_*``).
 
+At the end, the native perception host (``runtime/native``): it is built with
+``g++`` (the time printed), then its CUDA-graph executor, through the
+host's C ABI in this process, is held byte for byte against the Python
+entry points: on the shipped artifact the executor entry's records of the
+8 scenes, RGB and BGRA, at depth 1 and at depth 2 (every frame submitted,
+then collected in order), and the sentinel for a wrong geometry; on the
+camera artifact the 4 BGRA frames of the camera executor entry; on the
+exported ``bf16_s2dm_fc`` artifact ``pack_records`` of its ``packed()``
+result. Counters set to 0 before each executor's configure show the path's
+kernels captured into its graph, and set to 0 before its frames, no launch
+from Python. Then ``ring_tool produce`` (640x640 RGB, 4 slots, 1000
+frames/s, above every executor's rate) feeds ``perception_host`` for 200
+frames three times: ``--executor python``, ``--executor cuda --pipeline
+1`` and ``--pipeline 2``; each shutdown line's p50/p90/p99, fps and drops
+are printed with the card's name and power limit, and the out block's
+records equal ``make_executor``'s on the regenerated frame of its
+``result_seq``. The hosts' logs go to ``chiprun_out/native_host_*.log``.
+
 Prints one JSON line per kernel, a ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no
 result) without a CUDA device or when any phase fails. A copy of the
@@ -222,6 +240,17 @@ BATCHES = 20
 SCENE_SEEDS = range(1, 9)   # the batch-8 path's scenes (and the camera's)
 CAMERA_SHAPE = (1080, 1920)  # the camera artifact's frames
 SERVER_FRAMES = 200
+# phase 16: the native host fed by the ring tool; the producer publishes at
+# a fixed rate above every executor's frame rate and runs until the host
+# has served HOST_FRAMES (it must also outlast the host's configure)
+HOST_FRAMES = 200
+PRODUCER_FPS = 1000
+PRODUCER_FRAMES = 180_000
+HOST_RUNS = (("python", None), ("cuda", 1), ("cuda", 2))
+SHUTDOWN = re.compile(
+    r"frames=(\d+) dropped=(\d+) \(torn=(\d+) geom=(\d+)\) "
+    r"p50=([\d.]+)ms p90=([\d.]+)ms p99=([\d.]+)ms fps=([\d.]+) "
+    r"pipeline=(\d+)")
 
 
 def log(msg: str) -> None:
@@ -1321,7 +1350,8 @@ def drive_executor(kernels, per_call, scenes, torch) -> dict:
     return {"bytes_per_frame": [len(b) for b in blobs],
             "frame_ms_median": float(np.median(times)),
             "launches_in_configure": launches,
-            "launches_in_frames": frame_launches, "sentinel_ok": True}
+            "launches_in_frames": frame_launches, "sentinel_ok": True,
+            "blobs": blobs}
 
 
 def drive_camera_executor(kernels, per_call, art_g, frames, torch) -> dict:
@@ -1357,7 +1387,8 @@ def drive_camera_executor(kernels, per_call, art_g, frames, torch) -> dict:
     return {"bytes_per_frame": [len(b) for b in blobs],
             "frame_ms_median": float(np.median(times)),
             "launches_in_configure": launches,
-            "launches_in_frames": frame_launches, "sentinel_ok": True}
+            "launches_in_frames": frame_launches, "sentinel_ok": True,
+            "blobs": blobs}
 
 
 def _leaves(tree, path=()):
@@ -1612,6 +1643,167 @@ def drive_bf16(name: str, ckpt: Path, tmp: Path, rgb, labels, scenes,
             "e2e": e2e, "profile": prof, "graph": g, "profile_graph": prof_g,
             "graph_owner": owner}
 
+
+def _bgra(rgb):
+    return np.ascontiguousarray(np.concatenate(
+        [rgb[..., ::-1], np.full(rgb.shape[:2] + (1,), 255, np.uint8)],
+        axis=-1))
+
+
+def native_records(kernels, per_call, artifact, frames, width, height,
+                   channels, wants, wrong=None) -> dict:
+    """The native CUDA executor (``runtime/native``, through its C ABI) on
+    one artifact. Counters set to 0 before its configure and read after
+    show each of the path's kernels captured into its graph (once per
+    warm-up call and once in the capture); at depth 1 (``infer``) and at
+    depth 2 (every frame submitted, then collected in order) its records
+    equal ``wants`` byte for byte; ``wrong`` geometries get the sentinel;
+    counters set to 0 before the frames and read after show no launch from
+    Python. At ``channels`` 3 each frame's BGRA form is served too."""
+    from unina_yolo_dla_torch.runtime import aot
+    from unina_yolo_dla_torch.runtime.native import capi
+
+    _zero(kernels)
+    t = time.perf_counter()
+    ex = capi.Executor("cuda", str(artifact))
+    configure_s = time.perf_counter() - t
+    launches = _read(kernels)
+    for name, per in per_call.items():
+        assert launches[name] == (aot.WARMUP + 1) * per, (name, launches)
+    assert ex.depth == 2, ex.depth
+    _zero(kernels)
+    times = []
+    for frame, want in zip(frames, wants):
+        t = time.perf_counter()
+        got = ex.infer(frame, width, height, channels)
+        times.append((time.perf_counter() - t) * 1e3)
+        assert got == want, f"{artifact.name}: depth-1 records differ"
+        if channels == 3:   # the same scene as the ring's BGRA bytes
+            assert ex.infer(_bgra(frame), width, height, 4) == want, (
+                f"{artifact.name}: BGRA records differ")
+    for frame in frames:
+        assert ex.submit(frame, width, height, channels)
+    depth2 = [ex.collect() for _ in frames]
+    assert depth2 == wants, f"{artifact.name}: depth-2 records differ"
+    # throughput at depth 2: a window of two frames in flight, as the host
+    # keeps it, over the frames three times
+    t, pending = time.perf_counter(), 0
+    for _ in range(3):
+        for frame in frames:
+            assert ex.submit(frame, width, height, channels)
+            pending += 1
+            if pending == 2:
+                ex.collect()
+                pending -= 1
+    ex.collect()
+    depth2_ms = (time.perf_counter() - t) * 1e3 / (3 * len(frames))
+    for frame, w, h, ch in wrong or ():
+        assert ex.infer(frame, w, h, ch) == capi.SENTINEL, (w, h, ch)
+    frame_launches = _read(kernels)
+    assert not any(frame_launches.values()), frame_launches
+    ex.close()
+    return {"frames": len(frames), "configure_s": configure_s,
+            "depth1_ms_median": float(np.median(times)),
+            "depth2_ms_per_frame": depth2_ms, "depth1_equal": True, "depth2_equal": True,
+            "sentinel_ok": bool(wrong), "launches_in_configure": launches,
+            "launches_in_frames": frame_launches,
+            "counts": [int.from_bytes(b[:4], "little") for b in wants]}
+
+
+def run_host(native, kind: str, pipeline, tmp: Path, execute) -> dict:
+    """``ring_tool produce`` (640x640 RGB, 4 slots, PRODUCER_FPS) feeding
+    ``perception_host --executor kind [--pipeline N] --max-frames
+    HOST_FRAMES``; the out block's records against ``execute`` (the
+    card's ``make_executor``) on the regenerated frame of its
+    ``result_seq``. The producer starts first (the host waits for its
+    ring), and is stopped once the host has exited."""
+    import struct
+
+    from unina_yolo_dla_torch.runtime.native import build
+
+    tag = f"{kind}{pipeline or ''}"
+    ring, out = tmp / f"{tag}.ring", tmp / f"{tag}.out"
+    env = build.host_env()
+    env.pop("UNINA_FORCE_CPU", None)
+    producer = subprocess.Popen(
+        [str(native / build.RING_TOOL), "produce", "--ring", str(ring),
+         "--width", "640", "--height", "640", "--frames",
+         str(PRODUCER_FRAMES), "--fps", str(PRODUCER_FPS), "--slots", "4"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    cmd = [str(native / build.HOST), "--artifact", str(ARTIFACT), "--ring",
+           str(ring), "--out", str(out), "--input", "640", "--classes", "4",
+           "--executor", kind, "--max-frames", str(HOST_FRAMES)]
+    if pipeline:
+        cmd += ["--pipeline", str(pipeline)]
+    t = time.perf_counter()
+    try:
+        host = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=300)
+    finally:
+        producer.terminate()
+        producer.wait(timeout=30)
+    wall_s = time.perf_counter() - t
+    logdir = REPO / "chiprun_out"
+    logdir.mkdir(exist_ok=True)
+    (logdir / f"native_host_{tag}.log").write_text(host.stderr)
+    assert host.returncode == 0, f"host {tag} failed:\n{host.stderr[-4000:]}"
+    m = SHUTDOWN.search(host.stderr)
+    assert m, host.stderr[-2000:]
+    frames, dropped, torn, geom = (int(x) for x in m.groups()[:4])
+    p50, p90, p99, fps = (float(x) for x in m.groups()[4:8])
+    depth = int(m.group(9))
+    assert frames == HOST_FRAMES and geom == 0, m.group(0)
+    assert depth == (pipeline or (2 if kind == "cuda" else 1)), m.group(0)
+    assert fps < PRODUCER_FPS, f"host {tag} outran the producer: {fps}"
+    raw = out.read_bytes()
+    _, seq, count = struct.unpack_from("<QQI", raw, 0)
+    frame = np.full((640, 640, 3), (seq - 1) * 37 % 256, np.uint8)
+    want = execute(memoryview(frame.tobytes()), 640, 640, 3)
+    got = struct.pack("<I", count) + raw[32:32 + 24 * count]
+    assert got == want, f"host {tag}: result of seq {seq} differs"
+    return {"executor": kind, "pipeline": depth, "frames": frames,
+            "dropped": dropped, "torn": torn, "p50_ms": p50, "p90_ms": p90,
+            "p99_ms": p99, "fps": fps, "wall_s": wall_s,
+            "result_seq": seq, "result_count": count,
+            "result_equal_make_executor": True,
+            "configured": "[perception_host] configured" in host.stderr}
+
+
+def drive_native(kernels, scenes, ship_blobs, cam_frames, cam_blobs,
+                 fc_dir: Path, tmp: Path, smi: str) -> dict:
+    """Phase 16: build the native host, hold the CUDA executor's records
+    against the Python entry points on the shipped, camera and bf16 fc
+    artifacts, then serve the ring through the binary with each
+    executor."""
+    from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
+    from unina_yolo_dla_torch.runtime.embed import make_executor, pack_records
+    from unina_yolo_dla_torch.runtime.native import build
+
+    t = time.perf_counter()
+    native = build.build()
+    build_s = time.perf_counter() - t
+    log(f"native host build: {build_s:.1f} s ({native})")
+    h, w = CAMERA_SHAPE
+    ship = native_records(
+        kernels, PER_FRAME["shipped"], ARTIFACT, scenes, 640, 640, 3,
+        ship_blobs, wrong=[(scenes[0], 640, 320, 3), (scenes[0], 640, 640, 2)])
+    cam = native_records(
+        kernels, PER_FRAME["camera"], ARTIFACT_CAM, cam_frames, w, h, 4,
+        cam_blobs, wrong=[(cam_frames[0], w, h, 3), (cam_frames[0], w, h, 0),
+                          (cam_frames[0], 640, 640, 4)])
+    fc_art = ServingArtifact(fc_dir)
+    fc_wants = [pack_records(fc_art.packed(s)) for s in scenes]
+    del fc_art
+    fc = native_records(kernels, PER_FRAME["bf16_s2dm_fc"], fc_dir, scenes,
+                        640, 640, 3, fc_wants)
+    execute = make_executor(str(ARTIFACT))
+    runs = [run_host(native, kind, pipeline, tmp, execute)
+            for kind, pipeline in HOST_RUNS]
+    return {"card": smi, "build_s": build_s, "records": {
+        "shipped": ship, "camera": cam, "bf16_s2dm_fc": fc},
+        "producer": {"fps": PRODUCER_FPS, "frames": PRODUCER_FRAMES,
+                     "geometry": "640x640 rgb", "slots": 4},
+        "host_runs": runs}
 
 
 def main() -> int:
@@ -1872,6 +2064,7 @@ def main() -> int:
         "bytes_per_frame", "frame_ms_median", "sentinel_ok")}}), flush=True)
     executor_cam = drive_camera_executor(kernels, PER_FRAME["camera"], cam_g,
                                          cam_scenes[:4], torch)
+    ship_blobs, cam_blobs = executor.pop("blobs"), executor_cam.pop("blobs")
     print(json.dumps({"executor_camera": {k: executor_cam[k] for k in (
         "bytes_per_frame", "frame_ms_median", "sentinel_ok")}}), flush=True)
     del cam_g
@@ -1897,6 +2090,13 @@ def main() -> int:
         wide_rows = check_wide_kernels(
             fc16.model, fc16._serve, fc16.stage(rgb),
             bf16["bf16_s2dm_mh"]["eager"].model, torch)
+        # phase 16: the native host (its C++ staging and CUDA-graph
+        # executor against the Python entry points on the shipped, camera
+        # and bf16 fc artifacts; then the binary over the frame ring)
+        native = drive_native(kernels, scenes, ship_blobs, cam_scenes[:4],
+                              cam_blobs, bf16["bf16_s2dm_fc"]["dir"], tmp,
+                              smi)
+        print(json.dumps({"native_host": native}), flush=True)
         for name, rec in bf16.items():
             rec.pop("eager"), rec.pop("graph_owner")
             rec["dir"] = str(rec["dir"])
@@ -2004,6 +2204,7 @@ def main() -> int:
          "graph_camera": g_cam, "profile_graph_camera": prof_gcam,
          "eager_vs_graph": summary, "server": server,
          "executor": executor, "executor_camera": executor_cam,
+         "native_host": native,
          "export": exported, "bf16_engines": bf16,
          "bf16_fc_fused_modules": wide_rows,
          "before_redesign_graph_ms_quoted": {

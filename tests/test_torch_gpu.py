@@ -6,6 +6,7 @@ installed (``--noconftest``: the suite's conftest sets up JAX):
 
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 """
+import struct
 from pathlib import Path
 
 import numpy as np
@@ -1232,10 +1233,15 @@ def test_export_on_the_card_reproduces_the_shipped_artifact(cuda, tmp_path):
         (ARTIFACT / "variables.msgpack").read_bytes()
     got, want = (json.loads((d / "config.json").read_text())
                  for d in (out, ARTIFACT))
-    own = ("platforms", "fused_c3k2", "fused_head")
+    # the keys the port writes for itself (the last two since it records
+    # how the engine was built)
+    own = ("platforms", "fused_c3k2", "fused_head", "compute_dtype",
+           "quant_mode")
     assert {k: v for k, v in got.items() if k not in own} == \
         {k: v for k, v in want.items() if k not in own}
     assert got["platforms"] == ["cuda"]
+    assert (got["compute_dtype"], got["quant_mode"]) == ("bfloat16",
+                                                         "int8_fused")
     report = json.loads((out / "fallback_report.json").read_text())
     assert report["captured"] and not report["host_nodes"]
     assert report["port_kernels"]["fused_stem_stage1"] == 1
@@ -1342,3 +1348,62 @@ def test_narrow_kernels_unchanged_by_the_wide_form(cuda):
     tensor cores' summation order shows in the bits, equal those the
     parent tree's kernels gave on the same inputs."""
     assert narrow_digests(cuda) == NARROW_DIGESTS
+
+
+def _bgra(rgb):
+    return np.ascontiguousarray(np.concatenate(
+        [rgb[..., ::-1], np.full(rgb.shape[:2] + (1,), 255, np.uint8)],
+        axis=-1))
+
+
+def test_cuda_executor_matches_make_executor(cuda):
+    """The native CUDA executor (``runtime/native``, through its C ABI) on
+    the shipped artifact: at depth 1 (``infer``) and at depth 2 (four
+    frames submitted, then collected in order) its records equal
+    ``make_executor``'s byte for byte, RGB and BGRA; a frame of another
+    geometry gets the sentinel; frames launch no kernel from Python."""
+    from unina_yolo_dla_torch.runtime.native import capi
+
+    execute = make_executor(str(ARTIFACT))
+    scenes = list(_scenes(range(1, 5)))
+    wants = [execute(memoryview(s.tobytes()), 640, 640, 3) for s in scenes]
+    with capi.Executor("cuda", str(ARTIFACT)) as ex:
+        assert ex.depth == 2
+        before = {k.symbol: k.launches for k in _lib.KERNELS}
+        for scene, want in zip(scenes, wants):
+            assert ex.infer(scene, 640, 640, 3) == want
+            assert ex.infer(_bgra(scene), 640, 640, 4) == want
+        for scene in scenes:
+            assert ex.submit(scene, 640, 640, 3)
+        assert [ex.collect() for _ in scenes] == wants
+        assert ex.infer(scenes[0], 640, 320, 3) == capi.SENTINEL
+        assert not ex.submit(scenes[0], 640, 640, 2)
+        assert {k.symbol: k.launches for k in _lib.KERNELS} == before
+    assert all(struct.unpack_from("<I", w)[0] >= 1 for w in wants)
+
+
+def test_cuda_executor_camera_artifact(cuda):
+    """On the camera artifact the ring's BGRA bytes go to the graph as they
+    are: records equal the artifact's packed result; another geometry or
+    format gets the sentinel."""
+    from unina_yolo_dla_torch.runtime.embed import pack_records
+    from unina_yolo_dla_torch.runtime.native import capi
+
+    art = ServingArtifact(ARTIFACT_CAM)
+    frames = _camera_scenes(range(1, 3))
+    wants = [pack_records(art.packed(f)) for f in frames]
+    with capi.Executor("cuda", str(ARTIFACT_CAM)) as ex:
+        for frame, want in zip(frames, wants):
+            assert ex.infer(frame, 1920, 1080, 4) == want
+        for frame in frames:
+            assert ex.submit(frame, 1920, 1080, 4)
+        assert [ex.collect() for _ in frames] == wants
+        assert ex.infer(frames[0], 1920, 1080, 3) == capi.SENTINEL
+        assert ex.infer(frames[0], 640, 640, 4) == capi.SENTINEL
+
+
+def test_cuda_executor_refuses_a_batch_artifact(cuda):
+    from unina_yolo_dla_torch.runtime.native import capi
+
+    with pytest.raises(RuntimeError, match="batch artifact"):
+        capi.Executor("cuda", str(ARTIFACT_B8))

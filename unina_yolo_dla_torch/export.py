@@ -17,7 +17,9 @@ Refused, each with the ROADMAP.md item it waits for: a quantised
 checkpoint without ``--int8`` (the reference exports its QAT fake-quant
 model: item 8), ``--int8-unfused`` (quant mode ``int8``: item 8), an
 unfolded float export (the BatchNorm model: item 8) and ``--platforms``
-(the reference's lowering targets: item 6).
+(the reference's lowering targets: the port's native host replays the
+artifact's captured graph, ``runtime/native``, and needs no compiled
+program).
 """
 from __future__ import annotations
 
@@ -139,8 +141,8 @@ def main(argv=None) -> None:
         raise SystemExit(
             "--platforms names the reference's lowering targets; the "
             "port's artifact is its weights and configuration, served by "
-            "the port on the card or the CPU (a compiled program for a "
-            "native host is ROADMAP.md Queue A item 6)")
+            "the port on the card or the CPU; its native host replays the "
+            "graph captured at load and needs no compiled program)")
     if args.int8_unfused:
         raise SystemExit(
             "--int8-unfused (quant mode 'int8', dequantised between "

@@ -12,7 +12,14 @@ interleaved UV), converted on the host as the reference does. A camera
 artifact takes its camera's frames only (geometry and format), and their
 bytes go to the artifact as they are: colour and resize run on the card.
 The frame runs on the card (its captured graph) unless ``UNINA_FORCE_CPU``
-is set, which serves the plain path on the CPU.
+is set, which serves the plain path on the CPU. The NV12 conversion
+truncates to uint8, as the reference's ``embed.py`` does (the CUDA
+executor rounds, as the reference's PJRT executor does).
+
+``make_graph_executor`` is the native CUDA executor's configure step: it
+loads the artifact on the card and hands the host its captured graph and
+static buffers as plain integers; the host then replays the graph with no
+Python in the frame loop.
 """
 from __future__ import annotations
 
@@ -90,3 +97,70 @@ def make_executor(artifact_dir: str, expected_input: int = 640,
         return pack_records(artifact.packed(frame))
 
     return execute
+
+
+class GraphHandle:
+    """What the native CUDA executor needs of an artifact's captured frame,
+    as plain integers, with the artifact kept alive (the graph reads its
+    weights and owns its memory pool).
+
+    ``graph_exec``: the ``cudaGraphExec_t``; ``input_ptr``/``input_bytes``:
+    the static uint8 input; ``packed_ptr``/``max_detections``: the static
+    (K, 7) float32 packed result; ``stream``: the stream the graph was
+    captured on (the decode kernel's scratch is that stream's);
+    ``device_index``; ``layout``: how a frame is staged (``merged``,
+    ``blocked``, ``rgb``, or ``camera``: the raw frame of ``frame_width``
+    x ``frame_height``, ``frame_channels`` 3 RGB, 4 BGRA or 0 NV12);
+    ``input_size``: the model's."""
+
+    def __init__(self, artifact: ServingArtifact) -> None:
+        cap = artifact.graph
+        self.artifact = artifact
+        self.graph_exec = cap.graph.raw_cuda_graph_exec()
+        if not self.graph_exec:
+            raise RuntimeError("the captured graph has no executable")
+        frame, packed = cap.frame, cap.packed
+        if frame.dtype != torch.uint8 or not frame.is_contiguous():
+            raise RuntimeError("the graph's input is no contiguous uint8 "
+                               "tensor")
+        if packed.dtype != torch.float32 or not packed.is_contiguous() or \
+                packed.dim() != 2 or packed.shape[1] != 7:
+            raise RuntimeError(f"the graph's packed result is "
+                               f"{tuple(packed.shape)} {packed.dtype}")
+        self.input_ptr = frame.data_ptr()
+        self.input_bytes = frame.numel()
+        self.packed_ptr = packed.data_ptr()
+        self.max_detections = packed.shape[0]
+        self.stream = cap.stream.cuda_stream
+        self.device_index = cap.device.index or 0
+        cfg = artifact.model_config
+        self.input_size = cfg.input_size
+        cam = artifact.camera
+        if cam:
+            self.layout = "camera"
+            self.frame_width, self.frame_height = cam["width"], cam["height"]
+            self.frame_channels = FORMAT_CHANNELS[cam["format"]]
+        else:
+            self.layout = ("merged" if cfg.s2d_merged else
+                           "blocked" if cfg.s2d_host else "rgb")
+
+
+def make_graph_executor(artifact_dir: str, expected_input: int = 640,
+                        expected_classes: int = 4, **build) -> GraphHandle:
+    """Load an artifact on the card for the native CUDA executor, which
+    replays its captured graph from C++ -> ``GraphHandle``. Refuses
+    ``UNINA_FORCE_CPU``, a host without a card and batch artifacts (the
+    host serves one frame a call); ``build`` goes to ``ServingArtifact``."""
+    if os.environ.get("UNINA_FORCE_CPU"):
+        raise RuntimeError("UNINA_FORCE_CPU is set: the CUDA executor serves "
+                           "the card only (the python executor serves the "
+                           "CPU)")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the CUDA executor serves the "
+                           "card only")
+    artifact = ServingArtifact(artifact_dir, graph=True, **build)
+    if artifact.batch:
+        raise ValueError(f"a batch artifact ({artifact.batch} frames a "
+                         "call): the native host serves one frame a call")
+    validate_artifact_shapes(artifact, expected_input, expected_classes)
+    return GraphHandle(artifact)
