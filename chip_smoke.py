@@ -118,6 +118,25 @@ are printed with the card's name and power limit, and the out block's
 records equal ``make_executor``'s on the regenerated frame of its
 ``result_seq``. The hosts' logs go to ``chiprun_out/native_host_*.log``.
 
+Last, the port's two-phase training (phase 17) at full width (base 32,
+640^2, bf16 compute) from ``artifacts/engine_source.msgpack`` on a batch
+of 16 synthetic scenes (seeds 1-16, labels padded to 100 boxes): 10 FP32
+steps of the trainer's recipe with the EMA (warmup 3 steps: the default
+300 needs more than 10 total steps, as optax requires), the launch
+counters set to 0 before and read after (one normalize launch a step, in
+its float32 form, held bit for bit against the plain formula on the
+batch: the ``train_path`` of the normalize row), step ms, images/s and
+peak memory, every loss term finite, the batch statistics moved, all
+state on the card; one float32 step of 2 scenes on the card and on the
+port's CPU path (num_fg equal, loss within 1e-3, gradient norm within
+1e-2 relative); ``prepare_qat_variables`` on 4 batches of 16 (keys equal
+to the committed quant collection's, every amax positive, the median
+ratio to the committed amaxes printed); 5 QAT steps from the committed
+quant collection (lr0 1e-3, one warmup step, no EMA); the QAT state saved
+through ``CheckpointManager`` and reloaded with a template bit for bit,
+exported with the shipped artifact's flags on the card (strict report),
+and served on the seed-7 scene beside the shipped artifact's count.
+
 Prints one JSON line per kernel, a ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no
 result) without a CUDA device or when any phase fails. A copy of the
@@ -125,6 +144,7 @@ measurements is written to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -247,6 +267,14 @@ HOST_FRAMES = 200
 PRODUCER_FPS = 1000
 PRODUCER_FRAMES = 180_000
 HOST_RUNS = (("python", None), ("cuda", 1), ("cuda", 2))
+# phase 17: the two-phase training step at full width from the committed
+# checkpoint: a batch of TRAIN_BATCH scenes (the train CLI's --batch
+# default), labels padded to TRAIN_MAX_BOXES (YoloDataset's max_boxes)
+TRAIN_BATCH = 16
+TRAIN_MAX_BOXES = 100
+FP32_STEPS = 10
+QAT_STEPS = 5
+CALIB_BATCHES = 4
 SHUTDOWN = re.compile(
     r"frames=(\d+) dropped=(\d+) \(torn=(\d+) geom=(\d+)\) "
     r"p50=([\d.]+)ms p90=([\d.]+)ms p99=([\d.]+)ms fps=([\d.]+) "
@@ -319,6 +347,11 @@ def launch_floor(torch) -> dict:
         empty.launch(_lib.stream_ptr(dev))
 
     out = {"ms": cuda_ms(fn, 500), "graph_ms": graph_ms(fn)}
+    # the process's first profiler window can drop its first kernel (the
+    # tracer starting up): one window of one launch first, not counted
+    with profile(activities=[ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
     calls = 100
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1806,6 +1839,323 @@ def drive_native(kernels, scenes, ship_blobs, cam_frames, cam_blobs,
         "host_runs": runs}
 
 
+def train_batch(seeds, size: int = 640) -> dict:
+    """Synthetic scenes as a training batch (numpy): uint8 RGB images, the
+    YOLO labels as xyxy pixels padded to TRAIN_MAX_BOXES with a mask. The
+    dataset loader (``data/dataset.py`` ``YoloDataset``) is ROADMAP Queue A
+    item 9; until then the batch is built here."""
+    from unina_yolo_dla_torch.data.synthetic import SynthConfig, \
+        generate_image
+
+    n = len(seeds)
+    images = np.empty((n, size, size, 3), np.uint8)
+    boxes = np.zeros((n, TRAIN_MAX_BOXES, 4), np.float32)
+    labels = np.zeros((n, TRAIN_MAX_BOXES), np.int32)
+    mask = np.zeros((n, TRAIN_MAX_BOXES), bool)
+    for i, seed in enumerate(seeds):
+        bgr, lab = generate_image(np.random.default_rng(seed),
+                                  SynthConfig(image_size=size, seed=seed))
+        images[i] = bgr[..., ::-1]
+        for j, (c, cx, cy, w, h) in enumerate(lab[:TRAIN_MAX_BOXES]):
+            boxes[i, j] = np.array([cx - w / 2, cy - h / 2, cx + w / 2,
+                                    cy + h / 2], np.float32) * size
+            labels[i, j], mask[i, j] = c, True
+    return {"images": images, "boxes": boxes, "labels": labels,
+            "mask": mask}
+
+
+def _to(batch: dict, device, torch) -> dict:
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _aux(aux) -> dict:
+    return {k: float(v) for k, v in aux.items()}
+
+
+def run_steps(step, state, batch, n: int, torch):
+    """``n`` train steps, each timed on the host clock to its end
+    (synchronised); -> (state, per-step aux, per-step ms)."""
+    auxes, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, aux = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        auxes.append(aux)
+    return state, [_aux(a) for a in auxes], ms
+
+
+def step_breakdown(model, cfg, tx, tc, state, batch, torch,
+                   reps: int = 3) -> dict:
+    """The FP32 train step's stages run one after another as
+    ``make_train_step`` runs them, each segment timed by CUDA events on the
+    stream (median of ``reps``): normalize, forward (train mode), loss
+    (assigner included), backward, optimiser, EMA. A segment includes any
+    time the card waits for the host to launch it."""
+    from torch.func import functional_call
+
+    from unina_yolo_dla_torch.ops.preprocess import ensure_normalized
+    from unina_yolo_dla_torch.train.losses import detection_loss
+    from unina_yolo_dla_torch.train.trainer import ema_update
+
+    names = ("normalize", "forward", "loss", "backward", "optimizer", "ema")
+    runs = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        torch.cuda.synchronize()
+        model.train()
+        params = {k: p.detach().requires_grad_()
+                  for k, p in state.params.items()}
+        stats = {k: v.clone() for k, v in state.batch_stats.items()}
+        ev[0].record()
+        x = ensure_normalized(batch["images"])
+        ev[1].record()
+        outs = functional_call(model, {**params, **stats}, (x,))
+        ev[2].record()
+        loss, _ = detection_loss(outs, batch["boxes"], batch["labels"],
+                                 batch["mask"], cfg)
+        ev[3].record()
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        ev[4].record()
+        with torch.no_grad():
+            upd, _ = tx.update(grads, state.opt_state, state.params)
+            new = {k: state.params[k] + u for k, u in upd.items()}
+            ev[5].record()
+            ema_update(state.ema_params, new, state.step, tc.ema_decay)
+        ev[6].record()
+        torch.cuda.synchronize()
+        runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(6)])
+        del outs, loss, grads, upd, new
+    med = np.median(np.array(runs), axis=0)
+    return dict(zip(names, map(float, med)), total=float(med.sum()))
+
+
+def _finite(auxes) -> bool:
+    return all(np.isfinite(v) for a in auxes for v in a.values())
+
+
+def drive_training(kernels, smi: str, rgb, art_g, tmp: Path, torch) -> dict:
+    """Phase 17, the port's two-phase training at full width (base 32,
+    640^2, bf16 compute) from ``artifacts/engine_source.msgpack``:
+
+    a. FP32 phase: FP32_STEPS steps of a batch of 16 scenes (seeds 1-16),
+       the trainer's recipe with the EMA (TrainConfig's 300 warmup steps
+       need total_steps above 300, as optax does: warmup_steps=3, the
+       train CLI's 3 epochs of one 16-image step); the launch counters set
+       to 0 before and read after (one normalize launch a step);
+    b. one float32 step (TF32 off) of 2 of the scenes on the card and on
+       the port's CPU path from the same state;
+    c. prepare_qat_variables (two passes, entropy) on 4 batches of 16,
+       and the "max" method of the train CLI's default beside it;
+    d. QAT_STEPS QAT steps from the committed quant collection (lr0 1e-3,
+       warmup_steps 1, no EMA);
+    e. the QAT state saved through CheckpointManager, reloaded with a
+       template, exported as the shipped engine on the card and served on
+       the seed-7 scene.
+
+    Every gate asserts; the times stand beside ``smi``."""
+    from unina_yolo_dla_torch.models.config import ModelConfig
+    from unina_yolo_dla_torch.models.detector import (
+        UninaYoloDla, from_jax_variables, variables_from_jax,
+        to_jax_variables, variables_of)
+    from unina_yolo_dla_torch.quant.calibrate import calibrate
+    from unina_yolo_dla_torch.ops.cuda.preprocess_kernel import \
+        normalize_plain
+    from unina_yolo_dla_torch.ops.preprocess import ensure_normalized
+    from unina_yolo_dla_torch.quant.qat import make_qat_model, \
+        prepare_qat_variables
+    from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
+    from unina_yolo_dla_torch.train.trainer import (
+        TrainConfig, create_train_state, make_optimizer, make_train_step)
+    from unina_yolo_dla_torch.utils.checkpoint import (
+        CheckpointManager, load_msgpack_raw)
+
+    dev = torch.device("cuda")
+    src = load_msgpack_raw(SOURCE)
+    fp = {k: src[k] for k in ("params", "batch_stats")}
+    cfg = ModelConfig()
+    t = time.perf_counter()
+    batch_np = train_batch(range(1, TRAIN_BATCH + 1))
+    batch = _to(batch_np, dev, torch)
+    out = {"card": smi, "batch": list(batch_np["images"].shape),
+           "batch_build_s": time.perf_counter() - t}
+
+    # a. the FP32 phase
+    model = from_jax_variables(fp, cfg)
+    tc = TrainConfig(total_steps=FP32_STEPS, warmup_steps=3)
+    tx = make_optimizer(tc)
+    state = create_train_state(variables_of(model), tx, tc)
+    step = make_train_step(model, cfg, tx, tc)
+    stats0 = {k: v.clone() for k, v in state.batch_stats.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    state, auxes, ms = run_steps(step, state, batch, FP32_STEPS, torch)
+    launches = _read(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    assert launches["normalize"] == FP32_STEPS, launches
+    assert not any(v for k, v in launches.items() if k != "normalize"), (
+        launches)
+    assert _finite(auxes), auxes
+    assert all(torch.isfinite(p).all() for p in state.params.values())
+    assert all(t.is_cuda for tree in (state.params, state.batch_stats,
+                                      state.ema_params, batch)
+               for t in tree.values()), "a training tensor left the card"
+    moved = sum(not torch.equal(stats0[k], v)
+                for k, v in state.batch_stats.items())
+    assert moved == len(stats0), f"{moved} of {len(stats0)} stats moved"
+    med = float(np.median(ms[2:]))
+    out["fp32"] = {
+        "steps": FP32_STEPS, "train_config": {
+            "total_steps": tc.total_steps, "warmup_steps": tc.warmup_steps,
+            "lr0": tc.lr0, "optimizer": tc.optimizer,
+            "use_ema": tc.use_ema},
+        "step_ms": ms, "step_ms_median_3_10": med,
+        "images_per_s": TRAIN_BATCH / med * 1e3,
+        "peak_allocated_bytes": peak, "launches": launches,
+        "batch_stats_moved": moved, "per_step": auxes}
+    # where the step's time goes: its stages by CUDA events, and three
+    # steps under the profiler (device busy, idle share, top kernels)
+    out["fp32"]["stages_ms"] = step_breakdown(model, cfg, tx, tc, state,
+                                              batch, torch)
+    out["fp32"]["profile"] = profile_calls(
+        lambda b: step(state, b), batch, torch, calls=3, unit="train step")
+    print(json.dumps({"train_fp32": out["fp32"], "card": smi}), flush=True)
+
+    # the normalize kernel's float32 form on the training batch, against
+    # its plain formula on the port's CPU path, bit for bit
+    images = batch["images"]
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    got = ensure_normalized(images)
+    want = normalize_plain(batch["images"].cpu(), mean, std)
+    err = float((got.cpu() - want).abs().max())
+    assert torch.equal(got.cpu(), want), f"normalize differs by {err}"
+    from unina_yolo_dla_torch.ops.cuda.preprocess_kernel import normalize
+    nbytes = images.numel() * (1 + 4)
+    b_ms, b_by = bound(nbytes, 3 * images.numel(), F32_FLOPS)
+    out["normalize"] = {
+        "launches": launches["normalize"], "shape": list(images.shape),
+        "out_dtype": "float32", "max_abs_err": err,
+        "ms": cuda_ms(lambda: normalize(images, out_dtype=torch.float32),
+                      20),
+        "plain_ms": cuda_ms(lambda: normalize_plain(images, mean, std), 20),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    del got, want
+
+    # b. the card against the port's CPU path: one float32 step, 2 scenes
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    tc32 = TrainConfig(total_steps=FP32_STEPS, warmup_steps=3)
+    two = {k: v[:2] for k, v in batch_np.items()}
+    pair = {}
+    for where in ("cuda", "cpu"):
+        m = from_jax_variables(fp, cfg32, where)
+        tx32 = make_optimizer(tc32)
+        st = create_train_state(variables_of(m), tx32, tc32)
+        t = time.perf_counter()
+        _, aux = make_train_step(m, cfg32, tx32, tc32)(
+            st, _to(two, where, torch))
+        pair[where] = dict(_aux(aux), s=time.perf_counter() - t)
+        del m, st
+    gap = {k: abs(pair["cuda"][k] - pair["cpu"][k]) / abs(pair["cpu"][k])
+           for k in ("loss", "cls_loss", "box_loss", "grad_norm")}
+    assert pair["cuda"]["num_fg"] == pair["cpu"]["num_fg"], pair
+    assert gap["loss"] <= 1e-3 and gap["grad_norm"] <= 1e-2, gap
+    out["card_vs_cpu"] = {"card": pair["cuda"], "cpu": pair["cpu"],
+                          "relative_gap": gap}
+    print(json.dumps({"train_card_vs_cpu": out["card_vs_cpu"]}), flush=True)
+
+    # c. calibration of the FP32 phase's result (EMA params)
+    calib = [_to(train_batch(range(1 + i * TRAIN_BATCH,
+                                   1 + (i + 1) * TRAIN_BATCH)), dev, torch)
+             for i in range(CALIB_BATCHES)]
+    fp_vars = {"params": state.ema_params, "batch_stats": state.batch_stats}
+    _zero(kernels)
+    t = time.perf_counter()
+    _, qvars = prepare_qat_variables(model, fp_vars, lambda: iter(calib),
+                                     min_images=CALIB_BATCHES * TRAIN_BATCH)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t
+    calib_launches = _read(kernels)
+    new_q = to_jax_variables({"quant": qvars["quant"]})["quant"]
+    ref_q = dict(_leaves(src["quant"]))
+    got_q = dict(_leaves(new_q))
+    assert sorted(got_q) == sorted(ref_q), "calibrated keys differ"
+    assert all(float(v) > 0 for v in got_q.values())
+    assert calib_launches["normalize"] == 2 * CALIB_BATCHES, calib_launches
+    # the train CLI's default method, "max" (the committed collection's
+    # amaxes are running maxima of bf16 activations): one pass
+    t = time.perf_counter()
+    max_q = dict(_leaves(calibrate(
+        UninaYoloDla(None, cfg.with_quant("calib_max")).to(dev), fp_vars,
+        lambda: iter(calib), method="max",
+        min_images=CALIB_BATCHES * TRAIN_BATCH)))
+    max_s = time.perf_counter() - t
+
+    def ratios(q):
+        r = [float(q[k]) / float(ref_q[k]) for k in ref_q]
+        return {"median": float(np.median(r)), "min": min(r), "max": max(r)}
+
+    out["calibration"] = {
+        "images": CALIB_BATCHES * TRAIN_BATCH, "quantisers": len(got_q),
+        "entropy_seconds": calib_s, "launches": calib_launches,
+        "entropy_ratio_to_committed": ratios(got_q),
+        "max_seconds": max_s, "max_ratio_to_committed": ratios(max_q)}
+    print(json.dumps({"train_calibration": out["calibration"]}), flush=True)
+    del calib, model, state, step, qvars
+
+    # d. QAT from the committed quant collection
+    qtrees = variables_from_jax(src, dev)
+    quant = {"quant": qtrees["quant"]}
+    qmodel = make_qat_model(cfg)
+    qtc = TrainConfig(lr0=1e-3, warmup_steps=1, use_ema=False)
+    qtx = make_optimizer(qtc)
+    qstate = create_train_state(qtrees, qtx, qtc)
+    qstep = make_train_step(qmodel, qmodel.config, qtx, qtc,
+                            extra_variables=quant)
+    _zero(kernels)
+    qstate, qaux, qms = run_steps(qstep, qstate, batch, QAT_STEPS, torch)
+    qlaunch = _read(kernels)
+    assert _finite(qaux), qaux
+    assert qlaunch["normalize"] == QAT_STEPS, qlaunch
+    qmed = float(np.median(qms[1:]))
+    out["qat"] = {"steps": QAT_STEPS, "step_ms": qms,
+                  "step_ms_median_2_5": qmed,
+                  "images_per_s": TRAIN_BATCH / qmed * 1e3,
+                  "qat_over_fp32_step_time": qmed / med,
+                  "launches": qlaunch, "per_step": qaux}
+    print(json.dumps({"train_qat": out["qat"], "card": smi}), flush=True)
+
+    # e. the hand-off: checkpoint, reload, export, serve
+    tree = to_jax_variables({"params": qstate.params,
+                             "batch_stats": qstate.batch_stats,
+                             "quant": quant["quant"]})
+    mgr = CheckpointManager(tmp / "qat_checkpoints")
+    path = mgr.save(QAT_STEPS, tree)
+    assert trees_equal(tree, mgr.load_last(tree)), "reloaded tree differs"
+    art_dir = tmp / "qat_serving_artifact"
+    export_s = run_export(["--weights", path,
+                           *EXPORT_FLAGS["serving_artifact"],
+                           "--cp-calibration", CP_CALIBRATION,
+                           "--output", art_dir])
+    rep = json.loads((art_dir / "fallback_report.json").read_text())
+    assert rep["captured"] and not rep["host_nodes"], rep
+    art = ServingArtifact(art_dir)
+    count = int(art(rgb).count)
+    shipped = int(art_g(rgb).count)
+    out["handoff"] = {"checkpoint": path.name, "reload_bit_equal": True,
+                      "export_s": export_s, "report": {k: rep[k] for k in (
+                          "host_nodes", "kernel_nodes", "port_kernels",
+                          "captured")},
+                      "seed7_detections": count,
+                      "shipped_seed7_detections": shipped}
+    print(json.dumps({"train_handoff": out["handoff"]}), flush=True)
+    del art, qmodel, qstate, qstep
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2097,6 +2447,10 @@ def main() -> int:
                               cam_blobs, bf16["bf16_s2dm_fc"]["dir"], tmp,
                               smi)
         print(json.dumps({"native_host": native}), flush=True)
+        # phase 17: the two-phase training step at full width from the
+        # committed checkpoint (FP32 steps, card against CPU, calibration,
+        # QAT steps, checkpoint hand-off to the export)
+        training = drive_training(kernels, smi, rgb, art_g, tmp, torch)
         for name, rec in bf16.items():
             rec.pop("eager"), rec.pop("graph_owner")
             rec["dir"] = str(rec["dir"])
@@ -2182,6 +2536,9 @@ def main() -> int:
                                         REPO / row["source"])
             assert row["mma_wide"] == "wgmma", (
                 f"{row['name']}: the wide form issues {row['mma_wide']}")
+        if row["name"] == "normalize":
+            # the training batch's float32 form (phase 17)
+            row["train_path"] = training["normalize"]
         if PER_FRAME["b8"][row["name"]]:
             row["b8_launches"] = e2e_b8["launches"][row["name"]]
             row["b8_device_ms_per_batch"] = prof_b8[
@@ -2204,7 +2561,7 @@ def main() -> int:
          "graph_camera": g_cam, "profile_graph_camera": prof_gcam,
          "eager_vs_graph": summary, "server": server,
          "executor": executor, "executor_camera": executor_cam,
-         "native_host": native,
+         "native_host": native, "training": training,
          "export": exported, "bf16_engines": bf16,
          "bf16_fc_fused_modules": wide_rows,
          "before_redesign_graph_ms_quoted": {

@@ -1407,3 +1407,81 @@ def test_cuda_executor_refuses_a_batch_artifact(cuda):
 
     with pytest.raises(RuntimeError, match="batch artifact"):
         capi.Executor("cuda", str(ARTIFACT_B8))
+
+
+def _train_batch(size: int, seeds, max_boxes: int = 16):
+    """Synthetic scenes as a training batch: uint8 RGB, xyxy px labels."""
+    n = len(seeds)
+    images = np.empty((n, size, size, 3), np.uint8)
+    boxes = np.zeros((n, max_boxes, 4), np.float32)
+    labels = np.zeros((n, max_boxes), np.int32)
+    mask = np.zeros((n, max_boxes), bool)
+    for i, seed in enumerate(seeds):
+        bgr, lab = generate_image(np.random.default_rng(seed), SynthConfig(
+            image_size=size, seed=seed, min_height=6, max_height=24,
+            min_cones=2, max_cones=5))
+        images[i] = bgr[..., ::-1]
+        for j, (c, cx, cy, w, h) in enumerate(lab[:max_boxes]):
+            boxes[i, j] = np.array([cx - w / 2, cy - h / 2, cx + w / 2,
+                                    cy + h / 2], np.float32) * size
+            labels[i, j], mask[i, j] = c, True
+    return {"images": images, "boxes": boxes, "labels": labels,
+            "mask": mask}
+
+
+def test_train_step_card_vs_cpu(cuda):
+    """One float32 train step of the small model (base 16, 64^2, batch 2,
+    TF32 off) on the card and on the CPU from the same initial variables:
+    the same assignment, the loss within 1e-4 and the gradient norm within
+    1e-3 relative, the step's update as a whole within 1e-2 relative (the
+    float32 train-mode gradient is ill-conditioned: BatchNorm over a
+    batch of 2 at 64^2), all of the card's state on the card."""
+    from unina_yolo_dla_torch.models.detector import (
+        init_model, load_variables, variables_of)
+    from unina_yolo_dla_torch.train import trainer as tr
+
+    cfg = ModelConfig(base_channels=16, input_size=64,
+                      compute_dtype=torch.float32)
+    _, variables = init_model(cfg, device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+    batch = _train_batch(64, [11, 12])
+    tc = tr.TrainConfig(warmup_steps=1, total_steps=10)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        model, _ = init_model(cfg, device=dev)
+        load_variables(model, variables)
+        tx = tr.make_optimizer(tc)
+        state = tr.create_train_state(variables_of(model), tx, tc)
+        before = preprocess_kernel.KERNEL.launches
+        new, aux = tr.make_train_step(model, cfg, tx, tc)(
+            state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        if dev == "cuda":
+            assert preprocess_kernel.KERNEL.launches == before + 1
+            assert all(t.is_cuda for tree in (new.params, new.batch_stats)
+                       for t in tree.values())
+        got[dev] = ({k: float(v) for k, v in aux.items()},
+                    torch.cat([(new.params[k] - state.params[k]).cpu().ravel()
+                               for k in state.params]))
+    (ga, gu), (ca, cu) = got["cuda"], got["cpu"]
+    assert ga["num_fg"] == ca["num_fg"] > 0
+    assert abs(ga["loss"] - ca["loss"]) <= 1e-4 * abs(ca["loss"])
+    assert abs(ga["grad_norm"] - ca["grad_norm"]) <= 1e-3 * ca["grad_norm"]
+    assert (gu - cu).norm() <= 1e-2 * cu.norm()
+
+
+@pytest.mark.parametrize("shape", [(16, 640, 640, 3), (2, 64, 64, 3),
+                                   (3, 7, 5, 3)])
+def test_ensure_normalized_kernel_bit_equal(rng, cuda, shape):
+    """ensure_normalized on a card batch: one normalize launch, float32,
+    bit for bit the plain formula on the CPU (the training batch's shape,
+    the tests' and a ragged one)."""
+    from unina_yolo_dla_torch.ops.preprocess import ensure_normalized
+
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    before = preprocess_kernel.KERNEL.launches
+    got = ensure_normalized(torch.from_numpy(img).to(cuda))
+    torch.cuda.synchronize()
+    assert preprocess_kernel.KERNEL.launches == before + 1
+    assert got.dtype == torch.float32 and got.is_cuda
+    want = ensure_normalized(torch.from_numpy(img))
+    assert torch.equal(got.cpu(), want)

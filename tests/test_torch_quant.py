@@ -123,5 +123,9 @@ def test_quant_spec_paths():
     assert spec.active("backbone/stage2_c3k2/cv1/conv")
     assert not spec.active("backbone/stage2_conv/conv")
     assert not dataclasses.replace(spec, mode="off").active("neck/down2")
+    # the train form's modes are ported; the unfused int8 engine is not
+    assert TSpec("quantize").qmax == 127.0
+    with pytest.raises(ValueError, match="8d"):
+        TSpec("int8")
     with pytest.raises(ValueError):
-        TSpec("quantize")
+        TSpec("quantise")

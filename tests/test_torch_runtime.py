@@ -368,7 +368,7 @@ def test_unfolded_jax_export_is_refused(tmp_path):
     model, variables = init_model(jax.random.key(0), cfg)
     assert variables["batch_stats"]
     export_serving_artifact(model, variables, tmp_path, max_detections=64)
-    with pytest.raises(NotImplementedError, match="Queue A item 8a"):
+    with pytest.raises(NotImplementedError, match="Queue A item 8d"):
         ServingArtifact(tmp_path, device="cpu", **F32)
 
 
@@ -410,7 +410,7 @@ def test_build_keys_from_config_or_caller():
         config_from_artifact(conf, quant_mode="off")
     for src, kw in ((conf, {"quant_mode": "int8"}),
                     (dict(own, quant_mode="int8"), {})):
-        with pytest.raises(NotImplementedError, match="Queue A item 8c"):
+        with pytest.raises(NotImplementedError, match="Queue A item 8d"):
             config_from_artifact(src, **kw)
     with pytest.raises(TypeError):
         config_from_artifact(conf, fused_stem=True)

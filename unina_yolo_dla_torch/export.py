@@ -15,8 +15,9 @@ capturing the frame as one CUDA graph and checking its fallback report
 
 Refused, each with the ROADMAP.md item it waits for: a quantised
 checkpoint without ``--int8`` (the reference exports its QAT fake-quant
-model: item 8), ``--int8-unfused`` (quant mode ``int8``: item 8), an
-unfolded float export (the BatchNorm model: item 8) and ``--platforms``
+model: item 8d), ``--int8-unfused`` (quant mode ``int8``: item 8d), an
+unfolded float export (serving the BatchNorm model: item 8d) and
+``--platforms``
 (the reference's lowering targets: the port's native host replays the
 artifact's captured graph, ``runtime/native``, and needs no compiled
 program).
@@ -147,7 +148,7 @@ def main(argv=None) -> None:
         raise SystemExit(
             "--int8-unfused (quant mode 'int8', dequantised between "
             "layers) is not ported; the port serves the fused int8 chain "
-            "(--int8). It waits for ROADMAP.md Queue A item 8")
+            "(--int8). It waits for ROADMAP.md Queue A item 8d")
     device = resolve_device(args.device)
 
     variables = load_msgpack_raw(args.weights)
@@ -182,13 +183,13 @@ def main(argv=None) -> None:
     if quantized and not args.int8:
         raise SystemExit(
             "a quantised checkpoint without --int8 exports the QAT "
-            "fake-quant model, which the port lacks (ROADMAP.md Queue A "
-            "item 8); pass --int8 for the int8 engine")
+            "fake-quant model, which the port does not serve yet (ROADMAP.md "
+            "Queue A item 8d); pass --int8 for the int8 engine")
     if not fold:
         raise SystemExit(
             "an unfolded float export serves the BatchNorm model, which "
-            "the port lacks (ROADMAP.md Queue A item 8); pass --fold-bn "
-            "or a deploy flag")
+            "the port does not serve yet (ROADMAP.md Queue A item 8d); "
+            "pass --fold-bn or a deploy flag")
 
     variables = fold_batchnorm(variables)
     cfg = dataclasses.replace(cfg, deploy=True)

@@ -1,6 +1,8 @@
 """CSP-Darknet backbone emitting P2 (s4), P3 (s8), P4 (s16) + SPPF(P4).
 
-The deploy stems and stage1 downsamples, as the reference's export writes
+``TrainBackbone`` is the train form (BatchNorm blocks, the standard 3x3
+stride-2 stem and stage1, widths ``base_channels * {1, 2, 4, 8}``);
+``Backbone`` the deploy form. The deploy stems and stage1 downsamples, as the reference's export writes
 them:
 
 - ``s2d_merged`` + ``fused_stem``: stem and stage1 as ONE fused kernel
@@ -28,17 +30,49 @@ from ..ops.cuda.mma_pack import pack_stage1_mma, pack_stem_mma
 from ..ops.cuda.stem_kernel import fused_stem_stage1
 from ..ops.preprocess import space_to_depth
 from .blocks import C3k2, ConvBlock, MergedDownsample, ShiftDot2x2, SPPF, \
-    WeightTree
+    TrainC3k2, TrainConvBlock, TrainSPPF, WeightTree
 from .config import ModelConfig
+
+# deploy-graph stem forms, which the train form does not take
+_DEPLOY_STEMS = ("stem_s2d", "s2d_host", "stage1_s2d", "s2d_merged",
+                 "fused_stem")
+
+
+class TrainBackbone(nn.Module):
+    def __init__(self, cfg: ModelConfig) -> None:
+        super().__init__()
+        flags = [f for f in _DEPLOY_STEMS if getattr(cfg, f)]
+        if flags:
+            raise ValueError(f"{flags} are deploy-graph forms: the train "
+                             "form has the standard stem and stage1")
+        c1, c2, c3, c4, _ = cfg.widths
+
+        def conv(name, cin, cout, k, s=1):
+            return TrainConvBlock(cin, cout, k, s, cfg, f"backbone/{name}")
+
+        def c3k2(name, c, n):
+            return TrainC3k2(c, c, n, cfg, f"backbone/{name}")
+
+        self.stem = conv("stem", 3, c1, 3, 2)
+        self.stage1_conv = conv("stage1_conv", c1, c2, 3, 2)
+        self.stage1_block = (conv("stage1_block", c2, c2, 3) if cfg.lite_p2
+                             else c3k2("stage1_block", c2, 1))
+        self.stage2_conv = conv("stage2_conv", c2, c3, 3, 2)
+        self.stage2_c3k2 = c3k2("stage2_c3k2", c3, 2)
+        self.stage3_conv = conv("stage3_conv", c3, c4, 3, 2)
+        self.stage3_c3k2 = c3k2("stage3_c3k2", c4, 2)
+        self.sppf = TrainSPPF(c4, c4, cfg, "backbone/sppf")
+
+    def forward(self, x: torch.Tensor):
+        p2 = self.stage1_block(self.stage1_conv(self.stem(x)))
+        p3 = self.stage2_c3k2(self.stage2_conv(p2))
+        p4 = self.stage3_c3k2(self.stage3_conv(p3))
+        return p2, p3, p4, self.sppf(p4)
 
 
 class Backbone(nn.Module):
     def __init__(self, tree: WeightTree, cfg: ModelConfig) -> None:
         super().__init__()
-        if not cfg.deploy:
-            raise NotImplementedError(
-                "the port serves deploy engines (BatchNorm folded); the "
-                "BatchNorm model comes with training")
         dt = cfg.compute_dtype
         self.fused_stem = cfg.s2d_merged and cfg.fused_stem
         self.merged = cfg.s2d_merged

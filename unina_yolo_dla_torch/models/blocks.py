@@ -1,14 +1,22 @@
-"""Building blocks of the deployed engines: ConvBlock, Bottleneck, C3k2
-(standard and fused), SPPF, the merged-layout stem (ShiftDot2x2) and
-stage1 downsample (MergedDownsample), nearest 2x upsample and the
-int8-aware concat.
+"""Building blocks of the deployed engines and of the train form.
 
-Deploy mode only (BatchNorm folded into conv weight + bias). Each block is
-built from the reference's variable tree by ``WeightTree`` at the block's
-scope path (``backbone/stage2_c3k2``, ...), which also decides, with the
+Deploy form (BatchNorm folded into conv weight + bias): ConvBlock,
+Bottleneck, C3k2 (standard and fused), SPPF, the merged-layout stem
+(ShiftDot2x2) and stage1 downsample (MergedDownsample), nearest 2x
+upsample and the int8-aware concat. Each block is built from the
+reference's variable tree by ``WeightTree`` at the block's scope path
+(``backbone/stage2_c3k2``, ...), which also decides, with the
 ``QuantSpec``, whether each conv runs the int8 or the float branch and
 which activation quantisers exist. Activations are NHWC tensors or
 ``QTensor``s between blocks.
+
+Train form (``Train*``, and ``BatchNorm``): conv (no bias) + BatchNorm +
+ReLU blocks whose parameters are ``nn.Parameter``s and whose statistics
+are buffers, named as the reference's variable tree names them (module
+attribute ``bottleneck_0``, parameter ``kernel``: ``.../bottleneck_0/cv1/
+conv/kernel``). ``train()`` / ``eval()`` pick batch or running statistics.
+Each block takes its scope path, which decides with the ``QuantSpec``
+which quantisers exist (calibration and QAT modes).
 """
 from __future__ import annotations
 
@@ -28,7 +36,14 @@ from ..ops.cuda.c3k2_kernel import (
 )
 from ..ops.cuda.mma_pack import pack_c3k2_mma, pack_stage1_mma
 from ..ops.cuda.stage1_kernel import fused_downsample_merged
-from ..quant.fake_quant import ActQuant, QuantConv, QuantSpec
+from ..quant.fake_quant import (
+    CALIB_MODES,
+    ActQuant,
+    QuantConv,
+    QuantSpec,
+    TrainActQuant,
+    TrainQuantConv,
+)
 from ..quant.qtensor import (
     QTensor,
     fma_f32,
@@ -48,6 +63,11 @@ class WeightTree:
         self.params = variables["params"]
         self.quant = variables.get("quant", {})
         self.spec = spec or QuantSpec()
+        if self.spec.mode not in ("off", "int8_fused"):
+            raise NotImplementedError(
+                f"a deploy model in quant mode {self.spec.mode!r} (the QAT "
+                "fake-quant engine) is not ported (ROADMAP.md Queue A item "
+                "8d); the train form takes it (deploy=False)")
         self.dtype = dtype
 
     @staticmethod
@@ -298,3 +318,145 @@ class SPPF(nn.Module):
         y2 = self._pool(y1)
         y3 = self._pool(y2)
         return self.cv2(concat_features([x, y1, y2, y3]))
+
+
+# ---------------------------------------------------------------- train form
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the channels (last axis) of an NHWC tensor, as the
+    reference's (flax, momentum 0.9, eps 1e-5) computes it:
+
+    - statistics in float32 at least (float64 stays float64), the
+      variance in the fast form E[x^2] - E[x]^2 floored at 0;
+    - in training the running statistics take 0.1 of the batch's, the
+      variance biased (``nn.BatchNorm2d`` keeps it unbiased);
+    - ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in that type,
+      the result in ``dtype``.
+
+    ``scale``/``bias`` are parameters, ``mean``/``var`` the buffers of the
+    ``batch_stats`` collection."""
+
+    collection = "batch_stats"
+
+    def __init__(self, features: int, dtype: torch.dtype,
+                 momentum: float = 0.9, eps: float = 1e-5) -> None:
+        super().__init__()
+        self.dtype, self.momentum, self.eps = dtype, momentum, eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training:
+            mean = xf.mean(dim=(0, 1, 2))
+            mean2 = (xf * xf).mean(dim=(0, 1, 2))
+            var = torch.maximum(mean2 - mean * mean, mean.new_zeros(()))
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale)
+        return (y + self.bias).to(self.dtype)
+
+
+class TrainConvBlock(nn.Module):
+    """Conv (no bias) + BatchNorm + ReLU; in the calibration modes an
+    ``out_q`` quantiser collects the block's output."""
+
+    def __init__(self, cin: int, features: int, kernel_size: int,
+                 stride: int, cfg, path: str) -> None:
+        super().__init__()
+        dt, spec = cfg.compute_dtype, cfg.quant
+        self.conv = TrainQuantConv(cin, features, kernel_size, stride,
+                                   kernel_size // 2, dtype=dt, spec=spec,
+                                   path=path + "/conv")
+        self.bn = BatchNorm(features, dt)
+        self.out_q = (TrainActQuant.at(spec, path + "/out_q", CALIB_MODES)
+                      if spec is not None and not spec.excluded(path)
+                      else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.bn(self.conv(x)))
+        return self.out_q(y) if self.out_q is not None else y
+
+
+class TrainBottleneck(nn.Module):
+    """1x1 -> 3x3, with the residual where the widths allow it; the
+    residual input gets its own quantiser (calibration and QAT) and the
+    sum an ``add_q`` (calibration, for the int8 engine's requant)."""
+
+    def __init__(self, cin: int, features: int, shortcut: bool,
+                 expansion: float, cfg, path: str) -> None:
+        super().__init__()
+        hidden = int(features * expansion)
+        self.cv1 = TrainConvBlock(cin, hidden, 1, 1, cfg, path + "/cv1")
+        self.cv2 = TrainConvBlock(hidden, features, 3, 1, cfg, path + "/cv2")
+        self.add = shortcut and cin == features
+        spec = cfg.quant if self.add else None
+        self.residual_q = TrainActQuant.at(spec, path + "/residual_q")
+        self.add_q = TrainActQuant.at(spec, path + "/add_q", CALIB_MODES)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.cv2(self.cv1(x))
+        if not self.add:
+            return out
+        if self.residual_q is not None:
+            x = self.residual_q(x)
+        out = x + out
+        return self.add_q(out) if self.add_q is not None else out
+
+
+class TrainC3k2(nn.Module):
+    """Cross-stage-partial block: two 1x1 projections to ``features // 2``,
+    ``n`` bottlenecks (expansion 1) on one path, concat, 1x1 out conv.
+    ``x2``/``up_x``: the block's input is ``concat([upsample2x?(x), x2])``
+    (``cin`` counts both)."""
+
+    def __init__(self, cin: int, features: int, n: int, cfg, path: str,
+                 shortcut: bool = True) -> None:
+        super().__init__()
+        hidden = int(features * 0.5)
+        self.n = n
+        self.cv1 = TrainConvBlock(cin, hidden, 1, 1, cfg, path + "/cv1")
+        for i in range(n):
+            self.add_module(f"bottleneck_{i}", TrainBottleneck(
+                hidden, hidden, shortcut, 1.0, cfg, f"{path}/bottleneck_{i}"))
+        self.cv2 = TrainConvBlock(cin, hidden, 1, 1, cfg, path + "/cv2")
+        self.cv3 = TrainConvBlock(2 * hidden, features, 1, 1, cfg,
+                                  path + "/cv3")
+
+    def forward(self, x, x2=None, up_x: bool = False):
+        if x2 is not None:
+            x = torch.cat([_upsample_tensor(x) if up_x else x, x2], dim=-1)
+        path1 = self.cv1(x)
+        for i in range(self.n):
+            path1 = getattr(self, f"bottleneck_{i}")(path1)
+        return self.cv3(torch.cat([path1, self.cv2(x)], dim=-1))
+
+
+class TrainSPPF(nn.Module):
+    """Spatial pyramid pooling (fast): 1x1 to half width, three chained
+    5x5 stride-1 max-pools (-inf padding), concat, 1x1."""
+
+    def __init__(self, cin: int, features: int, cfg, path: str,
+                 pool_size: int = 5) -> None:
+        super().__init__()
+        hidden = cin // 2
+        self.cv1 = TrainConvBlock(cin, hidden, 1, 1, cfg, path + "/cv1")
+        self.cv2 = TrainConvBlock(4 * hidden, features, 1, 1, cfg,
+                                  path + "/cv2")
+        self.k = pool_size
+
+    def forward(self, x):
+        x = self.cv1(x)
+        ys = [x]
+        for _ in range(3):
+            y = F.max_pool2d(ys[-1].permute(0, 3, 1, 2), self.k, 1,
+                             self.k // 2)
+            ys.append(y.permute(0, 2, 3, 1))
+        return self.cv2(torch.cat(ys, dim=-1))

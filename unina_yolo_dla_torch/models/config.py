@@ -1,9 +1,10 @@
 """Model configuration and serving constants.
 
-The serving subset of the reference ``ModelConfig``: architecture widths,
-the deploy-graph flags of the served engines (``s2d_merged``,
-``fused_stem``, ``merged_head``, ``fused_c3k2``, ``fused_head``,
-``fused_only``) and the int8 ``QuantSpec``.
+The reference ``ModelConfig`` but ``param_dtype`` (always float32) and
+``fused_impl`` (the XLA form, which here is the plain version):
+architecture widths, the deploy-graph flags of the served engines
+(``s2d_merged``, ``fused_stem``, ``merged_head``, ``fused_c3k2``,
+``fused_head``, ``fused_only``) and the ``QuantSpec``.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from ..quant.fake_quant import QuantSpec
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Static architecture + numerics configuration (serving subset).
+    """Static architecture + numerics configuration.
 
     Attributes:
         num_classes: number of object classes (4 cone classes).
@@ -24,8 +25,9 @@ class ModelConfig:
         lite_p2: P2 stage as one plain conv instead of a C3k2.
         input_size: static square input resolution.
         compute_dtype: activation dtype of the float layers.
-        quant: int8 behaviour; None is the float model.
-        deploy: BatchNorm folded into conv weight + bias.
+        quant: quantisation behaviour; None is the float model.
+        deploy: BatchNorm folded into conv weight + bias (the served
+            engines); False is the train form (BatchNorm, trainable).
         stem_s2d / s2d_host / stage1_s2d / s2d_merged: the space-to-depth
             stem and its input contract: with ``s2d_merged`` the frame
             arrives as (S/2, S/4, 24) merged columns, with ``s2d_host``
@@ -61,6 +63,14 @@ class ModelConfig:
     fused_c3k2: bool = False
     fused_head: bool = False
     fused_only: tuple[str, ...] | None = None
+
+    def with_quant(self, mode: str, **kw) -> "ModelConfig":
+        """The same architecture in quant mode ``mode`` (``QuantSpec``
+        fields in ``kw``): the QAT and calibration twins share this
+        config's parameter tree."""
+        base = self.quant or QuantSpec()
+        return dataclasses.replace(
+            self, quant=dataclasses.replace(base, mode=mode, **kw))
 
     def fuses(self, flag: bool, name: str) -> bool:
         """The per-block fusion gate: ``flag`` (``fused_c3k2`` or

@@ -8,9 +8,12 @@ output channels, conv2 and the preds are block-diagonal over the doubled
 channels, built once at load exactly as the reference builds them. Float
 levels of a ``fused_head`` engine (without ``merged_head``) run both
 branches as one kernel (``ops/cuda/head_kernel.py``), whose preds stay
-float32.
+float32. ``TrainHead`` is the train form: BatchNorm conv blocks, the preds
+with a bias (the cls bias initialised to a 0.01 prior).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -19,10 +22,40 @@ from torch import nn
 from ..ops.cuda.head_kernel import fused_head, kernel_takes, \
     pack_head_weights
 from ..ops.cuda.mma_pack import pack_head_mma
-from ..quant.fake_quant import QuantConv
+from ..quant.fake_quant import QuantConv, TrainQuantConv
 from ..quant.qtensor import QTensor
-from .blocks import ConvBlock, WeightTree
+from .blocks import ConvBlock, TrainConvBlock, WeightTree
 from .config import ModelConfig
+
+# sigmoid(CLS_BIAS_INIT) ~= 0.01 prior
+CLS_BIAS_INIT = -math.log((1 - 0.01) / 0.01)
+
+
+class TrainHead(nn.Module):
+    """Decoupled head over a ``hidden``-channel level: two 3x3 blocks and a
+    1x1 pred a branch; float32 logits."""
+
+    def __init__(self, hidden: int, cfg: ModelConfig, name: str) -> None:
+        super().__init__()
+        na = cfg.num_anchors
+
+        def block(sub):
+            return TrainConvBlock(hidden, hidden, 3, 1, cfg, f"{name}/{sub}")
+
+        def pred(sub, n, bias):
+            return TrainQuantConv(hidden, n, 1, use_bias=True, bias_init=bias,
+                                  dtype=cfg.compute_dtype, spec=cfg.quant,
+                                  path=f"{name}/{sub}")
+
+        self.cls_conv1, self.cls_conv2 = block("cls_conv1"), block("cls_conv2")
+        self.cls_pred = pred("cls_pred", cfg.num_classes * na, CLS_BIAS_INIT)
+        self.reg_conv1, self.reg_conv2 = block("reg_conv1"), block("reg_conv2")
+        self.reg_pred = pred("reg_pred", 4 * na, 0.0)
+
+    def forward(self, x):
+        cls = self.cls_pred(self.cls_conv2(self.cls_conv1(x)))
+        reg = self.reg_pred(self.reg_conv2(self.reg_conv1(x)))
+        return cls.float(), reg.float()
 
 
 class DetectionHead(nn.Module):

@@ -1,4 +1,6 @@
-"""Frame preprocessing: ImageNet normalisation, the space-to-depth
+"""Frame preprocessing: ImageNet normalisation (``ensure_normalized``,
+the training batch's, on the card through the normalize kernel), the
+space-to-depth
 staging of the s2d serving layouts, and the plain forms of the camera
 path's bilinear resize and letterbox geometry.
 
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from ..models.config import IMAGENET_MEAN, IMAGENET_STD
+from .cuda.preprocess_kernel import normalize as normalize_kernel
 
 
 def normalize(rgb01: torch.Tensor, mean: Sequence[float] = IMAGENET_MEAN,
@@ -30,6 +33,18 @@ def normalize(rgb01: torch.Tensor, mean: Sequence[float] = IMAGENET_MEAN,
     m = torch.tensor(mean, dtype=torch.float32, device=dev)
     s = torch.tensor(std, dtype=torch.float32, device=dev)
     return (rgb01.float() - m) / s
+
+
+def ensure_normalized(images: torch.Tensor) -> torch.Tensor:
+    """uint8 RGB frames -> ImageNet-normalised float32, ``(x / 255 -
+    mean) / std``; a float batch passes through (already normalised).
+
+    On the card the uint8 batch goes through the normalize kernel in its
+    float32 form (``ops/cuda/preprocess_kernel.py``), on the CPU through
+    its plain version: the same formula, divisions included."""
+    if images.dtype != torch.uint8:
+        return images
+    return normalize_kernel(images, out_dtype=torch.float32)
 
 
 def _blocked_view(x: np.ndarray, block: int) -> np.ndarray:

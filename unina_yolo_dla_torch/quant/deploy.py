@@ -16,9 +16,8 @@ variable tree (nested dicts of numpy arrays) onto the tree a deploy
   merge_stem_columns              s2d stem (2,2,C,O) -> (2,2,2C,2O)
   quantize_weights_int8           non-excluded kernels -> int8 + w_scale
 
-The reference's ``folded_equivalence_report`` compares the BatchNorm
-(train-form) model with the deploy model; the port has no BatchNorm model
-yet (it comes with training), so it is not here.
+``folded_equivalence_report`` holds the train-form (BatchNorm) model in
+eval mode against the deploy model built from its folded weights.
 """
 from __future__ import annotations
 
@@ -227,3 +226,22 @@ def quantize_weights_int8(
     out = dict(deploy_variables)
     out["params"] = walk(deploy_variables["params"], "")
     return out
+
+
+def folded_equivalence_report(model_train, model_deploy, x) -> float:
+    """Max |train-form eval output - deploy output| over every level's cls
+    and reg maps, each model carrying its own weights (the train form's
+    unfolded, the deploy form's from ``fold_batchnorm`` of them)."""
+    import torch
+
+    was_training = model_train.training
+    model_train.eval()
+    try:
+        with torch.no_grad():
+            train_out = model_train(x)
+            dep_out = model_deploy(x)
+    finally:
+        model_train.train(was_training)
+    return max(float((a - b).abs().max())
+               for pa, pb in zip(train_out, dep_out)
+               for a, b in zip(pa, pb))

@@ -1,13 +1,30 @@
-"""The int8 engine's conv and activation quantiser (inference only).
+"""Int8 quantisation: the deployed engine's conv and activation
+quantiser, and the fake-quantisation of the train form (calibration and
+QAT).
 
-``QuantSpec`` and the exclusion lists follow the reference; of the
-quantisation modes only the deployed ``int8_fused`` engine is ported:
+``QuantSpec`` and the exclusion lists follow the reference. The deployed
+``int8_fused`` engine (inference only):
 
 - ``ActQuant``: float -> QTensor boundary at a calibrated amax
   (``in_q``, ``out_q``, ``add_q``).
 - ``QuantConv``: the int8 branch (int8 x int8 -> int32, then
   ``acc * (x_scale * w_scale) + bias`` in f32) and the float branch
   (excluded layers, in the compute dtype).
+
+The train form (``models/blocks.py`` ``Train*`` blocks), in the modes
+``calib_max`` / ``calib_hist`` (pass-through, collecting a running max|x|
+and a 2048-bin |x| histogram per quantiser: the ``quant_calib``
+collection) and ``quantize`` (QAT: symmetric per-tensor fake-quant of each
+conv input at its calibrated amax, the ``quant`` collection, and of its
+weight per output channel at max|w|, with a straight-through round):
+
+- ``TrainActQuant``: one quantiser and its collection's buffers.
+- ``TrainQuantConv``: an HWIO ``kernel`` parameter (and ``bias``), its
+  input quantiser ``in_q`` where the layer is quantised.
+
+Numerics as the reference computes them: the clip's gradient is split at
+a tie (``torch.clamp`` would pass all of it), and a bf16 activation is
+quantised in float32 against its float32 amax, then cast back.
 
 The int8 conv is im2col plus one integer matrix product (``torch._int_mm``
 on the card and on the CPU alike); a hand-written Hopper int8 conv is
@@ -16,6 +33,7 @@ later work.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 
 import numpy as np
@@ -39,20 +57,36 @@ PERF_EXCLUDE = DEFAULT_EXCLUDE + (
 )
 
 
+HIST_BINS = 2048
+# quant modes of the train form, and those that collect calibration stats
+TRAIN_MODES = ("off", "calib_max", "calib_hist", "quantize")
+CALIB_MODES = ("calib_max", "calib_hist")
+
+
 @dataclasses.dataclass(frozen=True)
 class QuantSpec:
-    """Quantisation behaviour: ``mode`` is "off" or "int8_fused"."""
+    """Quantisation behaviour: ``mode`` is "off", "calib_max",
+    "calib_hist", "quantize" (the train form) or "int8_fused" (the
+    deployed engine)."""
 
     mode: str = "off"
     exclude: tuple[str, ...] = DEFAULT_EXCLUDE
     # int8 weight scales per output channel (the last axis of an HWIO
     # kernel), or one per tensor (quant/deploy.py quantize_weights_int8)
     per_channel_weights: bool = True
+    num_bits: int = 8
 
     def __post_init__(self):
-        if self.mode not in ("off", "int8_fused"):
-            raise ValueError(f"unsupported quant mode {self.mode!r} "
-                             "(the port serves 'off' and 'int8_fused')")
+        if self.mode == "int8":
+            raise ValueError(
+                "quant mode 'int8' (the unfused int8 engine) is not ported "
+                "(ROADMAP.md Queue A item 8d)")
+        if self.mode not in TRAIN_MODES + ("int8_fused",):
+            raise ValueError(f"unknown quant mode {self.mode!r}")
+
+    @property
+    def qmax(self) -> float:
+        return float(2 ** (self.num_bits - 1) - 1)
 
     def excluded(self, path: str) -> bool:
         return any(re.search(pat, path) for pat in self.exclude)
@@ -183,3 +217,142 @@ class QuantConv(nn.Module):
         y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), self.weight,
                      stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 1) + self.bias
+
+
+def ste_round(x: torch.Tensor) -> torch.Tensor:
+    """Round half to even, with a straight-through gradient."""
+    return x + (torch.round(x) - x).detach()
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """clip(x, lo, hi) as min(max(x, lo), hi): at a bound the gradient is
+    split in half, as the reference's ``jnp.clip`` splits it."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def fake_quant_tensor(x: torch.Tensor, amax: torch.Tensor, qmax: float
+                      ) -> torch.Tensor:
+    """Symmetric fake-quant at ``amax`` (0-d, or per channel broadcast
+    against ``x``); amax <= 1e-8 passes ``x`` through. The scale in
+    ``amax``'s dtype, the rest in the promoted type of ``x`` and ``amax``
+    (float32 for a bf16 activation), the result in ``x``'s dtype. The
+    gradient reaches ``amax`` where it carries one (the weights'
+    max|w|)."""
+    dt = torch.promote_types(x.dtype, amax.dtype)
+    amax = torch.maximum(amax, amax.new_tensor(1e-9))
+    scale = amax / amax.new_tensor(qmax)
+    q = ste_round(_clip(x.to(dt) / scale, -qmax, qmax)) * scale
+    return torch.where(amax > 1e-8, q, x.to(dt)).to(x.dtype)
+
+
+def quant_weight(w: torch.Tensor, spec: QuantSpec, path: str
+                 ) -> torch.Tensor:
+    """The QAT weight fake-quant: amax = max|w| per output channel (the
+    last axis of an HWIO kernel) or per tensor, not detached; ``w`` as it
+    is outside ``quantize`` mode or on an excluded path."""
+    if spec.mode != "quantize" or spec.excluded(path):
+        return w
+    if spec.per_channel_weights:
+        amax = torch.amax(w.abs(), dim=(0, 1, 2), keepdim=True).float()
+    else:
+        amax = w.abs().max().float()
+    return fake_quant_tensor(w, amax, spec.qmax)
+
+
+class TrainActQuant(nn.Module):
+    """An activation quantiser of the train form.
+
+    ``calib_max``: passes ``x`` through, ``amax`` (0-d) takes the running
+    max|x|. ``calib_hist``: passes ``x`` through, ``hist`` (2048 bins over
+    [0, amax], a strided subsample of at most 2^21 elements a call) counts
+    |x|. Both buffers form the ``quant_calib`` collection. ``quantize``:
+    fake-quant at ``amax``, the calibrated threshold of the ``quant``
+    collection (frozen: not a parameter)."""
+
+    def __init__(self, spec: QuantSpec) -> None:
+        super().__init__()
+        if spec.mode not in TRAIN_MODES[1:]:
+            raise ValueError(f"no activation quantiser in mode {spec.mode!r}")
+        self.mode = spec.mode
+        self.qmax = spec.qmax
+        self.collection = ("quant_calib" if spec.mode in CALIB_MODES
+                           else "quant")
+        self.register_buffer("amax", torch.zeros((), dtype=torch.float32))
+        if spec.mode == "calib_hist":
+            self.register_buffer("hist", torch.zeros(HIST_BINS,
+                                                     dtype=torch.float32))
+
+    @staticmethod
+    def at(spec: QuantSpec | None, path: str,
+           modes: tuple[str, ...] = TRAIN_MODES[1:]
+           ) -> "TrainActQuant | None":
+        """The quantiser at ``path``, or None where ``spec``'s mode is not
+        in ``modes`` or the path is excluded."""
+        if spec is None or spec.mode not in modes or spec.excluded(path):
+            return None
+        return TrainActQuant(spec)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mode == "quantize":
+            return fake_quant_tensor(x, self.amax, self.qmax)
+        with torch.no_grad():
+            if self.mode == "calib_max":
+                self.amax.copy_(torch.maximum(self.amax,
+                                              x.abs().max().float()))
+                return x
+            absx = x.float().abs().reshape(-1)
+            n, cap = absx.numel(), 1 << 21
+            if n > cap:
+                absx = absx[::-(-n // cap)]
+            upper = torch.maximum(self.amax, self.amax.new_tensor(1e-9))
+            idx = (absx / upper * HIST_BINS).to(torch.int32).clamp(
+                0, HIST_BINS - 1)
+            self.hist.add_(torch.bincount(idx, minlength=HIST_BINS).float())
+        return x
+
+
+class TrainQuantConv(nn.Module):
+    """Conv of the train form: an HWIO ``kernel`` (float32 parameter,
+    lecun-normal) and optional ``bias``, computed in ``dtype`` (input and
+    kernel cast to it, the bias added in it). Where ``spec`` quantises
+    ``path`` (any mode but "off", the path not excluded), the input goes
+    through the ``in_q`` quantiser and, in ``quantize`` mode, the float32
+    kernel through ``quant_weight`` before the cast."""
+
+    def __init__(self, cin: int, features: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, *, use_bias: bool = False,
+                 bias_init: float = 0.0, dtype: torch.dtype = torch.bfloat16,
+                 spec: QuantSpec | None = None, path: str = "") -> None:
+        super().__init__()
+        k = kernel_size
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.spec, self.path = spec or QuantSpec(), path
+        self.kernel = nn.Parameter(torch.empty(k, k, cin, features))
+        self.bias_init = bias_init
+        self.bias = (nn.Parameter(torch.full((features,), bias_init))
+                     if use_bias else None)
+        self.in_q = TrainActQuant.at(self.spec, path + "/in_q")
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None
+                         ) -> None:
+        """lecun_normal (variance 1/fan_in, truncated at 2 sigma, as the
+        reference initialises), the bias at its constant."""
+        kh, kw, cin, _ = self.kernel.shape
+        std = math.sqrt(1.0 / (kh * kw * cin)) / 0.87962566103423978
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.kernel, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            if self.bias is not None:
+                self.bias.fill_(self.bias_init)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kernel = self.kernel
+        if self.in_q is not None:
+            x = self.in_q(x)
+            kernel = quant_weight(kernel, self.spec, self.path)
+        w = kernel.to(self.dtype).permute(3, 2, 0, 1)
+        y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w,
+                     stride=self.stride, padding=self.padding)
+        y = y.permute(0, 2, 3, 1)
+        return y + self.bias.to(self.dtype) if self.bias is not None else y

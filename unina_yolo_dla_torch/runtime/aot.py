@@ -45,7 +45,7 @@ from ..models.config import (
 from ..ops.cuda import _lib
 from ..ops.cuda.camera_kernel import CameraGeometry
 from ..ops.decode import Detections
-from ..utils.checkpoint import save_msgpack
+from ..utils.checkpoint import save_msgpack, sorted_tree
 from .pipeline import (
     build_batch_serving_fn,
     build_camera_serving_fn,
@@ -413,14 +413,6 @@ def capture_serving_fn(serve: Callable[[torch.Tensor], Detections],
     return CapturedFrame(serve, frame_shape, device, strict)
 
 
-def _sorted_tree(tree: Any) -> Any:
-    """Every dict level with its keys sorted: the order JAX's tree
-    utilities give the reference's written variables."""
-    if isinstance(tree, dict):
-        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
-    return tree
-
-
 def export_serving_artifact(
     model,
     variables: dict[str, Any],
@@ -497,7 +489,7 @@ def export_serving_artifact(
     output_dir.mkdir(parents=True, exist_ok=True)
     v = {k: variables[k] for k in ("params", "batch_stats", "quant")
          if k in variables}
-    save_msgpack(_sorted_tree(v), output_dir / "variables.msgpack")
+    save_msgpack(sorted_tree(v), output_dir / "variables.msgpack")
     (output_dir / "config.json").write_text(json.dumps({
         "num_classes": cfg.num_classes,
         "base_channels": cfg.base_channels,

@@ -86,7 +86,7 @@ def _quant(conf: dict, mode) -> QuantSpec | None:
     if mode == "int8":
         raise NotImplementedError(
             "an unfused int8 artifact (quant mode 'int8') is served once "
-            "the port has the unfused int8 chain (ROADMAP Queue A item 8c)")
+            "the port has the unfused int8 chain (ROADMAP Queue A item 8d)")
     return (QuantSpec("int8_fused", exclude=PERF_EXCLUDE)
             if mode == "int8_fused" else None)
 
@@ -133,7 +133,8 @@ def config_from_artifact(conf: dict, **build) -> ModelConfig:
 
 def _check_folded(variables: dict) -> None:
     """Refuse an artifact written from an unfolded (BatchNorm) model: the
-    port's modules are the deploy form, which has no BatchNorm. The weight
+    port serves the deploy form only (serving the train form is ROADMAP
+    Queue A item 8d). The weight
     tree is the only evidence (``config.json`` records no such flag): a
     non-empty ``batch_stats`` collection, or BatchNorm nodes (``bn``, or
     ``scale`` without ``kernel``) under ``params``."""
@@ -148,8 +149,8 @@ def _check_folded(variables: dict) -> None:
         raise NotImplementedError(
             "this artifact holds an unfolded model (BatchNorm statistics "
             "or nodes): the port serves folded (deploy) weights only, until "
-            "the train-form model lands (ROADMAP Queue A item 8a); export "
-            "with --fold-bn or an engine flag that implies it")
+            "it serves the train-form model (ROADMAP Queue A item 8d); "
+            "export with --fold-bn or an engine flag that implies it")
 
 
 class ServingArtifact:

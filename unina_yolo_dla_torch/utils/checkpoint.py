@@ -1,4 +1,5 @@
-"""Reader and writer of the flax msgpack variable files, without flax.
+"""Reader and writer of the flax msgpack variable files, without flax,
+and the reference's step-checkpoint directory (``CheckpointManager``).
 
 flax writes a nested dict whose array leaves are msgpack ext type 1
 (``(shape, dtype name, raw C-order bytes)`` packed as msgpack), numpy
@@ -10,6 +11,7 @@ order, as strings) with numpy leaves.
 """
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Any
 
@@ -75,21 +77,30 @@ def _ext_default(x):
             raise ValueError(f"a {x.nbytes}-byte leaf would need flax's "
                              "chunked form, which this writer lacks")
         return msgpack.ExtType(_EXT_NDARRAY, _ndarray_to_bytes(x))
-    if isinstance(x, np.generic):
-        return msgpack.ExtType(_EXT_NPSCALAR,
-                               _ndarray_to_bytes(np.asarray(x)))
     if isinstance(x, complex):
         return msgpack.ExtType(_EXT_COMPLEX, msgpack.packb((x.real, x.imag)))
     raise TypeError(f"cannot write a {type(x).__name__} leaf")
 
 
 def _state_dict(tree: Any) -> Any:
-    """Dict keys as strings, order kept (flax's state dict of a dict)."""
+    """Dict keys as strings, order kept (flax's state dict of a dict);
+    numpy scalars as 0-d arrays, as the reference's ``jax.device_get``
+    hands them to flax."""
     if isinstance(tree, dict):
         out = {str(k): _state_dict(v) for k, v in tree.items()}
         if len(out) != len(tree):
             raise ValueError("dict keys without unique string forms")
         return out
+    if isinstance(tree, np.generic):
+        return np.asarray(tree)
+    return tree
+
+
+def sorted_tree(tree: Any) -> Any:
+    """Every dict level with its keys sorted: the order JAX's tree
+    utilities give the reference's written variables."""
+    if isinstance(tree, dict):
+        return {k: sorted_tree(tree[k]) for k in sorted(tree)}
     return tree
 
 
@@ -108,3 +119,82 @@ def load_msgpack_raw(path: str | Path) -> dict[str, Any]:
     tree = msgpack.unpackb(Path(path).read_bytes(), ext_hook=_ext_hook,
                            raw=False)
     return _unchunk_in_place(tree)
+
+
+def _restore(template: Any, state: Any, path: str) -> Any:
+    """flax's ``from_state_dict`` over dicts: every template key must be
+    in the file (extra keys are dropped); leaves are the file's."""
+    if not isinstance(template, dict):
+        return state
+    if not isinstance(state, dict):
+        raise ValueError(f"expected a dict at {path or '/'}, the file has "
+                         f"a {type(state).__name__}")
+    missing = set(map(str, template)) - set(state)
+    if missing:
+        raise ValueError(
+            f"The target dict keys and state dict keys do not match, target "
+            f"dict contains keys {missing} which are not present in state "
+            f"dict at path {path or '/'}")
+    return {k: _restore(v, state[str(k)], f"{path}/{k}")
+            for k, v in template.items()}
+
+
+def load_msgpack(path: str | Path, template: Any) -> Any:
+    """Restore a tree saved with ``save_msgpack`` into ``template``'s
+    structure (nested dicts; its leaves are not read), as flax's
+    ``serialization.from_bytes`` does."""
+    return _restore(template, load_msgpack_raw(path), "")
+
+
+class CheckpointManager:
+    """Step checkpoints under ``directory`` with last/best selection, the
+    reference's layout: ``step_<N>.msgpack`` (``save_msgpack``) and
+    ``state.json`` recording {step: fitness} and the best/last pointers.
+    ``keep`` checkpoints besides the best and the last survive a save. A
+    directory written by the reference loads here and the other way
+    round."""
+
+    def __init__(self, directory: str | Path, keep: int = 3) -> None:
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self._meta_path = self.dir / "state.json"
+        self.meta = (json.loads(self._meta_path.read_text())
+                     if self._meta_path.exists()
+                     else {"steps": {}, "best_step": None, "last_step": None})
+
+    def save(self, step: int, tree: Any, fitness: float | None = None
+             ) -> Path:
+        path = self.dir / f"step_{step}.msgpack"
+        save_msgpack(tree, path)
+        self.meta["steps"][str(step)] = fitness
+        self.meta["last_step"] = step
+        if fitness is not None:
+            best = self.meta.get("best_step")
+            best_fit = (self.meta["steps"].get(str(best))
+                        if best is not None else None)
+            if best_fit is None or fitness > best_fit:
+                self.meta["best_step"] = step
+        self._gc()
+        self._meta_path.write_text(json.dumps(self.meta, indent=2))
+        return path
+
+    def _gc(self) -> None:
+        steps = sorted(int(s) for s in self.meta["steps"])
+        protected = {self.meta.get("best_step"), self.meta.get("last_step")}
+        removable = [s for s in steps if s not in protected]
+        for s in removable[:max(0, len(removable) - self.keep)]:
+            (self.dir / f"step_{s}.msgpack").unlink(missing_ok=True)
+            del self.meta["steps"][str(s)]
+
+    def _load(self, step: int | None, template: Any) -> Any:
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint recorded in {self.dir}")
+        return load_msgpack(self.dir / f"step_{step}.msgpack", template)
+
+    def load_last(self, template: Any) -> Any:
+        return self._load(self.meta.get("last_step"), template)
+
+    def load_best(self, template: Any) -> Any:
+        return self._load(self.meta.get("best_step")
+                          or self.meta.get("last_step"), template)
