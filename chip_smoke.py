@@ -137,6 +137,28 @@ through ``CheckpointManager`` and reloaded with a template bit for bit,
 exported with the shipped artifact's flags on the card (strict report),
 and served on the seed-7 scene beside the shipped artifact's count.
 
+Then the train CLI's path (phase 18) at full width: the reference's
+round-5 XHARD set regenerated by the port's ``generate_dataset`` (seed 42,
+400 train and 200 val scenes, JPEG), the host loader's images/s with
+augmentation off and with mosaic 0.5; the committed QAT model
+(``engine_source.msgpack``) evaluated on the card over the 200 val images
+(``evaluate_model``: one normalize, decode and NMS launch a batch of 16)
+against ``artifacts/xhard_run_r5/engine_compare.json`` ``qat_sim`` within
+0.01 on mAP50, mAP50-95 and small-object F1, and CP-calibrated
+(``calibrate_conformal_prediction``) against its ``cp_calibration.json``
+(q_hat within 0.01, the number of scores within 2%); 4 val images against
+the port's CPU path (the FP32 model in float32 compute: same counts, 0.5
+px, 1e-2; the QAT model's differences measured); the eval path's
+normalize, decode (K = 300, conf 0.25 and 0.001) and NMS held bit for bit
+against their plain versions on a val batch and the model's own logits
+and timed (the ``eval_path`` of their rows); the train CLI
+(``train.main``, in this process) from the float checkpoint on a 64 / 32
+subset with ``--epochs 1 --qat-epochs 1 --batch 16 --calib-batches 2
+--calib-min-images 0 --calibrate-cp --export``, its exported QAT
+train-form artifact served as one captured CUDA graph (strict report
+clean) on the seed-7 scene beside the shipped artifact's count; one DP
+step under a one-rank NCCL group bit for bit the plain step's.
+
 Prints one JSON line per kernel, a ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no
 result) without a CUDA device or when any phase fails. A copy of the
@@ -275,6 +297,19 @@ TRAIN_MAX_BOXES = 100
 FP32_STEPS = 10
 QAT_STEPS = 5
 CALIB_BATCHES = 4
+# phase 18: the train CLI's path at full width on the reference's round-5
+# XHARD set (regenerated: seed 42, 400 train scenes drawn before the 200
+# val ones, JPEG), against the reference run's own recorded results
+R5 = REPO / "artifacts" / "xhard_run_r5"
+R5_TRAIN, R5_VAL = 400, 200
+EVAL_BATCH = 16
+EVAL_MAX_BOXES = 60        # tools/compare_engines.py's --max-boxes
+METRIC_GATE, Q_GATE, NUM_SCORES_GATE = 0.01, 0.01, 0.02
+LOADER_BATCHES = 6
+CLI_TRAIN, CLI_VAL = 64, 32
+CLI_ARGS = ["--epochs", "1", "--qat-epochs", "1", "--batch", "16",
+            "--calib-batches", "2", "--calib-min-images", "0",
+            "--calibrate-cp", "--export"]
 SHUTDOWN = re.compile(
     r"frames=(\d+) dropped=(\d+) \(torn=(\d+) geom=(\d+)\) "
     r"p50=([\d.]+)ms p90=([\d.]+)ms p99=([\d.]+)ms fps=([\d.]+) "
@@ -1840,10 +1875,10 @@ def drive_native(kernels, scenes, ship_blobs, cam_frames, cam_blobs,
 
 
 def train_batch(seeds, size: int = 640) -> dict:
-    """Synthetic scenes as a training batch (numpy): uint8 RGB images, the
-    YOLO labels as xyxy pixels padded to TRAIN_MAX_BOXES with a mask. The
-    dataset loader (``data/dataset.py`` ``YoloDataset``) is ROADMAP Queue A
-    item 9; until then the batch is built here."""
+    """Synthetic scenes as a training batch built in memory (numpy, no
+    JPEG round trip): uint8 RGB images, the YOLO labels as xyxy pixels
+    padded to TRAIN_MAX_BOXES with a mask. Phase 18 runs the loader
+    (``data/dataset.py``) over written files."""
     from unina_yolo_dla_torch.data.synthetic import SynthConfig, \
         generate_image
 
@@ -2156,6 +2191,443 @@ def drive_training(kernels, smi: str, rgb, art_g, tmp: Path, torch) -> dict:
     return out
 
 
+def _matched(got, want, box_tol: float, score_tol: float,
+             gate: bool = True) -> dict:
+    """Two images' prediction rows (N, 6) [x1, y1, x2, y2, score, cls]
+    matched one to one by class and nearest box; -> counts, how many
+    matched within the tolerances, the worst errors (asserted within them
+    with ``gate``)."""
+    free = np.ones(len(got), bool)
+    worst_box = worst_score = 0.0
+    within = 0
+    for w in want:
+        d = np.where(free & (got[:, 5] == w[5]),
+                     np.abs(got[:, :4] - w[:4]).max(1), np.inf)
+        j = int(np.argmin(d)) if len(d) else -1
+        if j < 0 or not np.isfinite(d[j]):
+            continue
+        free[j] = False
+        err = float(abs(got[j, 4] - w[4]))
+        within += int(d[j] <= box_tol and err <= score_tol)
+        worst_box, worst_score = max(worst_box, float(d[j])), max(
+            worst_score, err)
+    rec = {"count": len(got), "cpu_count": len(want), "within_tol": within,
+           "max_box_err_px": worst_box, "max_score_err": worst_score}
+    if gate:
+        assert len(got) == len(want) == within, rec
+    return rec
+
+
+def loader_rate(ds, **kw) -> float:
+    """Images/s of the host loader (``batch_iterator``, one thread) over
+    LOADER_BATCHES batches of EVAL_BATCH."""
+    from unina_yolo_dla_torch.data.dataset import batch_iterator
+
+    t, n = time.perf_counter(), 0
+    for b in batch_iterator(ds, EVAL_BATCH, np.random.default_rng(0),
+                            steps=LOADER_BATCHES, **kw):
+        n += len(b["images"])
+    return n / (time.perf_counter() - t)
+
+
+def eval_path_kernels(model, variables, images, launches, n_batches,
+                      torch) -> dict:
+    """The eval path's three kernels on one batch of val images and the
+    full-width model's own logits: normalize (float32 form), decode (K =
+    300, q = 0) at the evaluation's conf 0.25 and CP's 0.001, NMS on both
+    candidate sets; each bit for bit against its plain version, timed
+    (CUDA events, and inside a replayed graph), beside its bound and the
+    library's time where one call computes the same function."""
+    from torch.func import functional_call
+
+    from unina_yolo_dla_torch.models.detector import model_inputs
+    from unina_yolo_dla_torch.ops.cuda import decode_kernel, nms_kernel
+    from unina_yolo_dla_torch.ops.cuda.preprocess_kernel import (
+        normalize, normalize_plain)
+
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    cfg = model.config
+    per_batch = {k: v / n_batches for k, v in launches.items()}
+    got = normalize(images, out_dtype=torch.float32)
+    want = normalize_plain(images, mean, std)
+    assert torch.equal(got, want), "normalize (eval batch) differs"
+    b_ms, b_by = bound(images.numel() * (1 + 4), 3 * images.numel(),
+                       F32_FLOPS)
+    out = {"normalize": {
+        "shape": list(images.shape), "out_dtype": "float32",
+        "max_abs_err": 0.0, "launches_per_batch": per_batch["normalize"],
+        "ms": cuda_ms(lambda: normalize(images, out_dtype=torch.float32),
+                      20),
+        "graph_ms": graph_ms(lambda: normalize(images,
+                                               out_dtype=torch.float32)),
+        "plain_ms": cuda_ms(lambda: normalize_plain(images, mean, std), 20),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}}
+    with torch.no_grad():
+        outs = functional_call(model, model_inputs(model, variables),
+                               (normalize(images, out_dtype=torch.float32),))
+    assert all(c.dtype == torch.float32 and r.dtype == torch.float32
+               for c, r in outs), "the head must hand decode float32"
+    dec, nms = {}, {}
+    for conf in (0.25, 0.001):
+        args = (outs, cfg.strides, conf, 0.0, 300)
+        got = decode_kernel.decode_topk(*args)
+        want = decode_kernel.decode_topk_plain(*args)
+        torch.cuda.synchronize()
+        for name, g_, w_ in zip(("boxes", "scores", "classes", "valid"),
+                                got, want):
+            assert torch.equal(g_, w_), f"decode (conf {conf}): {name}"
+        b = images.shape[0]
+        cells = sum(c.shape[1] * c.shape[2] for c, _ in outs)
+        rows = torch.cat([decode_kernel.decode_level_plain(c, r, st, conf,
+                                                           0.0)
+                          for (c, r), st in zip(outs, cfg.strides)], dim=1)
+        masked = torch.where(rows[..., 6] > 0.5, rows[..., 4],
+                             torch.full_like(rows[..., 4], -1.0))
+
+        def lib(rows=rows, masked=masked):
+            order = torch.sort(masked, dim=1, descending=True, stable=True)[1]
+            return rows.gather(1, order[:, :300, None].expand(-1, -1, 7))
+
+        nc = outs[0][0].shape[-1]
+        b_ms, b_by = bound(b * (cells * nc * 4 + 300 * (16 + 25)),
+                           b * cells * 40, F32_FLOPS)
+        valid = int((rows[..., 6] > 0.5).sum())
+        dec[f"conf_{conf}"] = dict(
+            batch=b, cells=cells, k=300, valid_cells=valid,
+            valid_share=valid / (b * cells),
+            slots_valid=got[3].sum(dim=1).tolist(), max_abs_err=0.0,
+            ms=cuda_ms(lambda: decode_kernel.decode_topk(*args), 50),
+            graph_ms=graph_ms(lambda: decode_kernel.decode_topk(*args)),
+            plain_ms=cuda_ms(lambda: decode_kernel.decode_topk_plain(*args),
+                             5, 1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 20))
+        boxes, _, classes, valid_m = got
+        nargs = (boxes, classes, valid_m, 0.45)
+        keep = nms_kernel.nms_keep(*nargs)
+        keep_plain = nms_kernel.nms_keep_plain(*nargs)
+        torch.cuda.synchronize()
+        assert torch.equal(keep, keep_plain), f"nms (conf {conf}) differs"
+        same = ((classes[:, :, None] == classes[:, None, :])
+                & valid_m[:, :, None] & valid_m[:, None, :]).triu(1)
+        b_ms, b_by = bound(valid_m.numel() * (16 + 4 + 1 + 1),
+                           int(same.sum()) * 15, F32_FLOPS)
+        nms[f"conf_{conf}"] = dict(
+            shape=list(valid_m.shape), valid=valid_m.sum(dim=1).tolist(),
+            kept=keep.sum(dim=1).tolist(), max_abs_err=0.0,
+            ms=cuda_ms(lambda: nms_kernel.nms_keep(*nargs), 100),
+            graph_ms=graph_ms(lambda: nms_kernel.nms_keep(*nargs)),
+            plain_ms=cuda_ms(lambda: nms_kernel.nms_keep_plain(*nargs), 2,
+                             1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    out["decode_topk"] = dict(launches_per_batch=per_batch["decode_topk"],
+                              tolerance="exact (all four fields)", **dec)
+    out["nms"] = dict(launches_per_batch=per_batch["nms"],
+                      tolerance="keep mask exact", **nms)
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def drive_train_cli(kernels, smi: str, rgb, art_g, tmp: Path, ckpt: Path,
+                    torch) -> dict:
+    """Phase 18, the train CLI's path at full width (``ModelConfig()``,
+    640², bf16, batch 16):
+
+    a. the reference's round-5 XHARD set regenerated by the port's
+       ``generate_dataset`` (seed 42, 400 train / 200 val, JPEG through
+       cv2); the host loader's images/s, augmentation off and on (mosaic
+       0.5);
+    b. the committed QAT model (``engine_source.msgpack``) evaluated on the
+       card over the 200 val images against ``engine_compare.json``
+       ``qat_sim`` (|delta| <= METRIC_GATE on map50, map50_95 and
+       small-object F1), one decode and one NMS launch a batch; 4 val
+       images against the port's CPU path: the FP32 model in float32
+       compute gated (same counts, 0.5 px, 1e-2), the QAT model measured
+       in float32 and bf16; the eval path's kernels on a val batch
+       (``eval_path``);
+    c. CP calibration over the same images against ``cp_calibration.json``
+       (|delta q_hat| <= Q_GATE, num_scores within NUM_SCORES_GATE);
+    d. the CLI (``train.main``, in this process, on the card) from the
+       float checkpoint on a 64 / 32 subset of the set, then its exported
+       QAT train-form artifact served as one captured CUDA graph;
+    e. one DP step under a one-rank NCCL group, bit-equal to the plain
+       step on the same batch (cuDNN deterministic; the plain step run
+       twice shows it is).
+
+    Every gate asserts; the times stand beside ``smi``."""
+    import dataclasses as dc
+    import shutil
+
+    import torch.distributed as dist
+
+    from unina_yolo_dla_torch.data.dataset import (
+        YoloDataset, batch_iterator, load_dataset_yaml)
+    from unina_yolo_dla_torch.data.synthetic import (
+        CLASS_NAMES, XHARD, generate_dataset)
+    from unina_yolo_dla_torch.evaluate import evaluate_model, predict_batches
+    from unina_yolo_dla_torch.models.config import ModelConfig
+    from unina_yolo_dla_torch.models.detector import (
+        create_model, from_jax_variables, variables_from_jax, variables_of)
+    from unina_yolo_dla_torch.parallel import (
+        create_mesh, make_parallel_train_step)
+    from unina_yolo_dla_torch.quant.qat import make_qat_model
+    from unina_yolo_dla_torch.runtime import aot
+    from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
+    from unina_yolo_dla_torch.train import train as train_cli
+    from unina_yolo_dla_torch.train.conformal import \
+        calibrate_conformal_prediction
+    from unina_yolo_dla_torch.train.trainer import (
+        TrainConfig, create_train_state, make_optimizer, make_train_step)
+    from unina_yolo_dla_torch.utils.checkpoint import load_msgpack_raw
+
+    dev = torch.device("cuda")
+    out = {"card": smi}
+
+    # a. the round-5 set
+    t = time.perf_counter()
+    yaml = generate_dataset(tmp / "xhard_r5", R5_TRAIN, R5_VAL,
+                            dc.replace(XHARD, image_size=640, seed=42))
+    out["dataset"] = {"train": R5_TRAIN, "val": R5_VAL, "jpeg": True,
+                      "generate_s": time.perf_counter() - t}
+    spec = load_dataset_yaml(yaml)
+    train_ds = YoloDataset(spec["train"], 640, 100)
+    val_ds = YoloDataset(spec["val"], 640, EVAL_MAX_BOXES)
+    assert (len(train_ds), len(val_ds)) == (R5_TRAIN, R5_VAL)
+    out["loader_images_per_s"] = {
+        "augment_off": loader_rate(val_ds),
+        "augment_mosaic_0.5": loader_rate(train_ds, augment=True,
+                                          mosaic_p=0.5)}
+    print(json.dumps({"train_cli_loader": out["loader_images_per_s"],
+                      "card": smi}), flush=True)
+
+    # b. the committed QAT model over the 200 val images
+    src = load_msgpack_raw(SOURCE)
+    qtree = {k: src[k] for k in ("params", "batch_stats", "quant")}
+    qvars = variables_from_jax(qtree, dev)
+    qmodel = make_qat_model(ModelConfig())
+
+    def val_batches():
+        return batch_iterator(val_ds, EVAL_BATCH, np.random.default_rng(0),
+                              shuffle=False, augment=False)
+
+    n_batches = -(-R5_VAL // EVAL_BATCH)
+    evaluate_model(qmodel, qvars, lambda: iter([next(val_batches())]))
+    torch.cuda.synchronize()
+    _zero(kernels)
+    t = time.perf_counter()
+    metrics = evaluate_model(qmodel, qvars, val_batches)
+    eval_s = time.perf_counter() - t
+    launches = _read(kernels)
+    for name in ("normalize", "decode_topk", "nms"):
+        assert launches[name] == n_batches, launches
+    assert not any(v for k, v in launches.items()
+                   if k not in ("normalize", "decode_topk", "nms")), launches
+    ref = json.loads((R5 / "engine_compare.json").read_text())["qat_sim"]
+    delta = {k: metrics[k] - ref[k] for k in (
+        "map50", "map50_95", "small_object_precision",
+        "small_object_recall", "small_object_f1")}
+    first = next(val_batches())
+    images = torch.from_numpy(first["images"]).to(dev)
+    # one batch as predict_batches runs it: upload, forward, decode, NMS,
+    # one read-back
+    prof = profile_calls(lambda b: list(predict_batches(qmodel, qvars, [b])),
+                         first, torch, calls=3, unit="eval batch of 16")
+    out["evaluate"] = {
+        "images": R5_VAL, "batch": EVAL_BATCH, "batches": n_batches,
+        "metrics": {k: v for k, v in metrics.items()
+                    if not isinstance(v, list)},
+        "reference_qat_sim": ref, "delta": delta, "eval_s": eval_s,
+        "images_per_s": R5_VAL / eval_s, "launches": launches,
+        "device_ms_per_batch": prof["device_busy_ms_per_call"],
+        "wall_ms_per_batch": prof["wall_ms_per_call"],
+        "idle_share": prof["device_idle_share"], "top": prof["top"][:8]}
+    print(json.dumps({"train_cli_evaluate": {
+        k: out["evaluate"][k] for k in ("metrics", "delta", "eval_s",
+                                        "images_per_s",
+                                        "device_ms_per_batch",
+                                        "idle_share")}, "card": smi}),
+        flush=True)
+    for k in ("map50", "map50_95", "small_object_f1"):
+        assert abs(delta[k]) <= METRIC_GATE, (
+            f"{k}: {metrics[k]} against qat_sim {ref[k]}")
+    # 4 val images, the card against the port's CPU path: gated on the
+    # FP32 model (float32 compute); the QAT model's measured in bf16 and
+    # float32: its fake-quantisers turn the backends' different rounding
+    # of a convolution into whole int8 steps where a value sits near a
+    # rounding boundary, and near-equal overlapping candidates then swap
+    four = {k: v[:4] for k, v in first.items()}
+    out["card_vs_cpu"] = {}
+    fp_tree = {k: qtree[k] for k in ("params", "batch_stats")}
+    for name, make, tree, dtype in (
+            ("fp32_float32", create_model, fp_tree, torch.float32),
+            ("qat_float32", make_qat_model, qtree, torch.float32),
+            ("qat_bfloat16", make_qat_model, qtree, torch.bfloat16)):
+        cfg = ModelConfig(compute_dtype=dtype)
+        card = list(predict_batches(make(cfg), variables_from_jax(tree, dev),
+                                    [four]))
+        cpu = list(predict_batches(make(cfg, device="cpu"),
+                                   variables_from_jax(tree, "cpu"), [four]))
+        out["card_vs_cpu"][name] = [
+            _matched(g[0], w[0], 0.5, 1e-2, gate=name.startswith("fp32"))
+            for g, w in zip(card, cpu)]
+    print(json.dumps({"train_cli_card_vs_cpu": out["card_vs_cpu"]}),
+          flush=True)
+    out["eval_path"] = eval_path_kernels(qmodel, qvars, images, launches,
+                                         n_batches, torch)
+
+    # c. CP calibration over the same images
+    cp_ref = json.loads((R5 / "cp_calibration.json").read_text())
+    t = time.perf_counter()
+    cp = calibrate_conformal_prediction(qmodel, qvars, val_batches())
+    out["cp"] = {"q_hat": cp["q_hat"], "num_scores": cp["num_scores"],
+                 "num_images": cp["num_images"], "seconds":
+                 time.perf_counter() - t,
+                 "reference_q_hat": cp_ref["q_hat"],
+                 "reference_num_scores": cp_ref["num_scores"]}
+    print(json.dumps({"train_cli_cp": out["cp"], "card": smi}), flush=True)
+    assert abs(cp["q_hat"] - cp_ref["q_hat"]) <= Q_GATE, out["cp"]
+    assert abs(cp["num_scores"] - cp_ref["num_scores"]) <= \
+        NUM_SCORES_GATE * cp_ref["num_scores"], out["cp"]
+    del qmodel, qvars
+
+    # d. the CLI on a 64 / 32 subset, from the float checkpoint
+    sub = tmp / "xhard_r5_subset"
+    for split, n in (("train", CLI_TRAIN), ("val", CLI_VAL)):
+        for kind, ext in (("images", ".jpg"), ("labels", ".txt")):
+            (sub / kind / split).mkdir(parents=True, exist_ok=True)
+            for i in range(n):
+                shutil.copy(Path(spec["root"]) / kind / split /
+                            f"synth_{i:04d}{ext}", sub / kind / split)
+    names = "\n".join(f"  {i}: {n}" for i, n in enumerate(CLASS_NAMES))
+    (sub / "data.yaml").write_text(
+        f"path: {sub}\ntrain: images/train\nval: images/val\n"
+        f"names:\n{names}\nnc: 4\n")
+    timings = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timings[name] = time.perf_counter() - t0
+            return r
+        return run
+
+    patched = {(train_cli, "prepare_qat_variables"): "calibration_s",
+               (train_cli, "calibrate_conformal_prediction"): "cp_s",
+               (aot, "export_serving_artifact"): "export_s"}
+    saved = {key: getattr(*key) for key in patched}
+    for (mod, attr), name in patched.items():
+        setattr(mod, attr, timed(name, saved[(mod, attr)]))
+    cli_dir = tmp / "cli_run"
+    _zero(kernels)
+    t = time.perf_counter()
+    try:
+        import contextlib
+
+        with contextlib.redirect_stdout(sys.stderr):
+            results = train_cli.main(
+                ["--data", str(sub / "data.yaml"), "--weights", str(ckpt),
+                 "--output-dir", str(cli_dir), *CLI_ARGS])
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+    cli_s = time.perf_counter() - t
+    cli_launches = _read(kernels)
+    assert "cp" in results and (cli_dir / "cp_calibration.json").exists()
+    for name in ("normalize", "decode_topk", "nms"):
+        assert cli_launches[name] > 0, cli_launches
+    phases = {}
+    for phase in ("fp32", "qat"):
+        m = results[phase]
+        phases[phase] = {
+            "epoch_s": m["time_s"], "train_s": m["train_s"],
+            "train_images_per_s": CLI_TRAIN // EVAL_BATCH * EVAL_BATCH
+            / m["train_s"], "eval_s": m["eval_s"], "loss": m["loss"],
+            "map50": m["map50"], "small_object_f1": m["small_object_f1"]}
+    art_dir = cli_dir / "serving_artifact"
+    conf = json.loads((art_dir / "config.json").read_text())
+    rep = json.loads((art_dir / "fallback_report.json").read_text())
+    assert conf["quant_mode"] == "quantize" and rep["captured"], conf
+    assert not rep["host_nodes"] and not rep["dynamic_shapes"], rep
+    art = ServingArtifact(art_dir)
+    assert art.graph is not None and art.graph.report.clean
+    assert not art.model_config.deploy
+    count = int(art(rgb).count)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        art.graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(20):
+        art.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    out["cli"] = {
+        "subset": [CLI_TRAIN, CLI_VAL], "args": CLI_ARGS, "cli_s": cli_s,
+        "phases": phases, **timings, "launches": cli_launches,
+        "q_hat": results["cp"]["q_hat"],
+        "num_scores": results["cp"]["num_scores"],
+        "artifact": {"quant_mode": conf["quant_mode"],
+                     "report": {k: rep[k] for k in (
+                         "host_nodes", "kernel_nodes", "port_kernels",
+                         "captured")},
+                     "graph_kernel_nodes": art.graph.report.kernel_nodes,
+                     "graph_ms": start.elapsed_time(end) / 20,
+                     "seed7_detections": count,
+                     "shipped_seed7_detections": int(art_g(rgb).count)}}
+    print(json.dumps({"train_cli": out["cli"], "card": smi}), flush=True)
+    del art
+
+    # e. one DP step under a one-rank NCCL group
+    fp = {k: src[k] for k in ("params", "batch_stats")}
+    model = from_jax_variables(fp, ModelConfig())
+    tc = TrainConfig(total_steps=10, warmup_steps=3)
+    tx = make_optimizer(tc)
+    state = create_train_state(variables_of(model), tx, tc)
+    step = make_train_step(model, model.config, tx, tc)
+    sub_ds = YoloDataset(sub / "images" / "train", 640, 100)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(batch_iterator(
+        sub_ds, EVAL_BATCH, np.random.default_rng(0), steps=1)).items()
+        if k not in ("sample_valid", "indices")}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        runs = [step(state, batch), step(state, batch),
+                make_parallel_train_step(step, create_mesh())(state, batch)]
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = deterministic
+
+    def equal(a, b) -> bool:
+        (sa, xa), (sb, xb) = a, b
+        return (all(torch.equal(xa[k], xb[k]) for k in xa)
+                and all(torch.equal(getattr(sa, f)[k], getattr(sb, f)[k])
+                        for f in ("params", "batch_stats", "ema_params")
+                        for k in getattr(sa, f)))
+
+    out["dp"] = {"backend": "nccl", "world_size": 1,
+                 "plain_repeat_bit_equal": equal(runs[0], runs[1]),
+                 "dp_bit_equal": equal(runs[0], runs[2]),
+                 "loss": float(runs[2][1]["loss"]),
+                 "grad_norm": float(runs[2][1]["grad_norm"])}
+    print(json.dumps({"train_cli_dp": out["dp"]}), flush=True)
+    assert out["dp"]["dp_bit_equal"], out["dp"]
+    del model, state, runs
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2451,6 +2923,11 @@ def main() -> int:
         # committed checkpoint (FP32 steps, card against CPU, calibration,
         # QAT steps, checkpoint hand-off to the export)
         training = drive_training(kernels, smi, rgb, art_g, tmp, torch)
+        # phase 18: the train CLI's path (the round-5 set, evaluation and
+        # CP of the committed QAT model against the reference run's
+        # results, the CLI from the float checkpoint, its artifact served,
+        # one DP step)
+        cli = drive_train_cli(kernels, smi, rgb, art_g, tmp, ckpt, torch)
         for name, rec in bf16.items():
             rec.pop("eager"), rec.pop("graph_owner")
             rec["dir"] = str(rec["dir"])
@@ -2539,6 +3016,9 @@ def main() -> int:
         if row["name"] == "normalize":
             # the training batch's float32 form (phase 17)
             row["train_path"] = training["normalize"]
+        if row["name"] in cli["eval_path"]:
+            # the eval and CP batches of the train CLI's path (phase 18)
+            row["eval_path"] = cli["eval_path"][row["name"]]
         if PER_FRAME["b8"][row["name"]]:
             row["b8_launches"] = e2e_b8["launches"][row["name"]]
             row["b8_device_ms_per_batch"] = prof_b8[
@@ -2561,7 +3041,7 @@ def main() -> int:
          "graph_camera": g_cam, "profile_graph_camera": prof_gcam,
          "eager_vs_graph": summary, "server": server,
          "executor": executor, "executor_camera": executor_cam,
-         "native_host": native, "training": training,
+         "native_host": native, "training": training, "train_cli": cli,
          "export": exported, "bf16_engines": bf16,
          "bf16_fc_fused_modules": wide_rows,
          "before_redesign_graph_ms_quoted": {

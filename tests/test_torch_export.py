@@ -10,7 +10,8 @@
   (shipped, batch 8, camera): ``variables.msgpack`` byte for byte and leaf
   for leaf, ``config.json`` on every key but ``platforms`` and the four
   keys the port adds.
-- The export's refusals.
+- The export's refusals; without a deploy flag, the unfolded float and
+  QAT models exported as the reference exports them and served.
 - The plain fused C3k2, C3k2-cat and head at the bf16 engines' widths
   (hidden 64/128, F 128/256, head 128/256) against the reference's XLA
   form, f32 within 1e-5 (the same products, f32 sums in another order).
@@ -222,10 +223,88 @@ def test_export_refusals(tmp_path, float_ckpt, case):
         "platforms": ["--weights", str(SOURCE), "--int8", "--platforms",
                       "cpu,tpu"],
     }[case]
+    if case == "unfolded_float":
+        # exported as it stands since the port serves the train form
+        _unfolded_parity(tmp_path, float_ckpt, quantized=False)
+        return
     with pytest.raises(SystemExit) as e:
         texport.main(argv + base)
     assert isinstance(e.value.code, str)   # a message, not an exit code
     assert not (tmp_path / "out").exists()
+
+
+def test_export_unfolded_qat_model(tmp_path):
+    """A quantised checkpoint without ``--int8`` or a deploy flag: the QAT
+    fake-quant model, as the train CLI's ``--export`` writes it."""
+    _unfolded_parity(tmp_path, SOURCE, quantized=True)
+
+
+# bf16 detections of the port (eager CPU) against the reference's compiled
+# artifact: XLA's CPU backend runs bf16 convolutions in float32 without
+# the intermediate bf16 roundings PyTorch's CPU convolutions keep
+# (measured on seeds 1 and 7 at 64^2: 0.80 px and 0.0069 in score for the
+# float model, 0.098 px and 0.029 for the QAT one; at 128^2 on seeds 1,
+# 2, 3, 7: 0.60 px and 0.012, 0.78 px and 0.044)
+BF16_BOX_PX, BF16_SCORE = 1.0, 0.05
+
+
+def _unfolded_parity(tmp_path, ckpt, quantized: bool):
+    """The port's export without a deploy flag (``--imgsz 64``) against
+    the reference's export of the same checkpoint's unfolded model (its
+    float or QAT model, as its CLI picks it): the same variable tree leaf
+    for leaf, ``config.json`` equal on the reference's keys; the port
+    serves both artifacts alike bit for bit, and finds the reference
+    artifact's detections on two scenes (the same count, boxes and scores
+    within the bf16 tolerances above)."""
+    from unina_yolo_dla_torch.data.synthetic import SynthConfig, \
+        generate_image
+    from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
+    from unina_yolo_dla_torch.utils.checkpoint import sorted_tree
+    from unina_yolo_dla_tpu.models import ModelConfig as JCfg
+    from unina_yolo_dla_tpu.models.detector import UninaYoloDla as JModel
+    from unina_yolo_dla_tpu.quant.qat import make_qat_model
+    from unina_yolo_dla_tpu.runtime.aot import ServingArtifact as JArtifact
+    from unina_yolo_dla_tpu.runtime.aot import export_serving_artifact
+
+    out, ref = tmp_path / "out", tmp_path / "ref"
+    texport.main(["--weights", str(ckpt), "--imgsz", "64", "--device",
+                  "cpu", "--output", str(out)])
+    v = load_msgpack_raw(ckpt)
+    v.pop("calib_meta", None)
+    jcfg = JCfg(input_size=64)
+    export_serving_artifact(make_qat_model(jcfg) if quantized
+                            else JModel(jcfg), v, ref, conf_threshold=0.5,
+                            q_factor=0.1, max_detections=1024)
+    _assert_trees_equal(sorted_tree(load_msgpack_raw(out / "variables.msgpack")),
+                        sorted_tree(ref_load(ref / "variables.msgpack")))
+    got, want = (json.loads((d / "config.json").read_text())
+                 for d in (out, ref))
+    assert (got["quant_mode"], got["compute_dtype"]) == (
+        "quantize" if quantized else "off", "bfloat16")
+    assert {k: v for k, v in got.items() if k not in OWN_KEYS} == \
+        {k: v for k, v in want.items() if k not in OWN_KEYS}
+    own, theirs = (ServingArtifact(d, device="cpu") for d in (out, ref))
+    assert not own.model_config.deploy
+    jart = JArtifact(ref)
+    for seed in (1, 7):
+        bgr, _ = generate_image(np.random.default_rng(seed), SynthConfig(
+            image_size=64, seed=seed, min_height=8, max_height=20))
+        rgb = np.ascontiguousarray(bgr[..., ::-1])
+        a, b = own(rgb), theirs(rgb)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        w = jart(rgb)
+        gv, wv = a.valid.numpy(), np.asarray(w.valid)
+        assert gv.sum() == wv.sum() > 0
+        gb, gs = a.boxes.numpy()[gv], a.scores.numpy()[gv]
+        gc = a.classes.numpy()[gv]
+        free = np.ones(len(gb), bool)
+        for box, score, cls in zip(np.asarray(w.boxes)[wv],
+                                   np.asarray(w.scores)[wv],
+                                   np.asarray(w.classes)[wv]):
+            d = np.where(free & (gc == cls), np.abs(gb - box).max(1), np.inf)
+            j = int(np.argmin(d))
+            assert d[j] <= BF16_BOX_PX and abs(gs[j] - score) <= BF16_SCORE
+            free[j] = False
 
 
 def _kb(rng, shape):

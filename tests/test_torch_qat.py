@@ -363,7 +363,7 @@ def test_qat_step(small64):
     qm.train()
     outs = torch.func.functional_call(qm, {
         **params, **{k: t.clone() for k, t in tv["batch_stats"].items()},
-        **ttr._model_inputs(qm, tq)}, (tb["images"],))
+        **tdet.model_inputs(qm, tq)}, (tb["images"],))
     loss, taux = tl.detection_loss(outs, tb["boxes"], tb["labels"],
                                    tb["mask"], qm.config)
     grads = torch.autograd.grad(loss, list(params.values()))

@@ -13,11 +13,13 @@
   same count, detections matched one to one by class within 1e-4 px and
   1e-5 (measured: 1.9e-6 px, 2.4e-7; the port's f32 sums run in another
   order).
-- Loading what the port cannot serve right: an artifact of an unfolded
-  (BatchNorm) model and one of the unfused int8 chain are refused; a
-  ``config.json`` and a caller that disagree raise; the three committed
-  artifacts load as before; a ``--fused-c3k2 --fused-head`` export of the
-  reference served with those flags equals the reference's artifact.
+- Loading by what the weight tree holds: the reference's exports of an
+  unfolded (BatchNorm) model and of the QAT fake-quant model are served as
+  the train form against the reference's artifacts (the same tolerances);
+  one of the unfused int8 chain is refused; a ``config.json`` and a caller
+  that disagree raise; the three committed artifacts load as before; a
+  ``--fused-c3k2 --fused-head`` export of the reference served with those
+  flags equals the reference's artifact.
 - ``nv12_to_rgb`` against the reference within 1e-4.
 """
 import dataclasses
@@ -37,6 +39,7 @@ from unina_yolo_dla_torch.models.detector import from_jax_variables
 from unina_yolo_dla_torch.ops.decode import Detections
 from unina_yolo_dla_torch.ops.preprocess import merged_frame_np
 from unina_yolo_dla_torch.ops.preprocess import nv12_to_rgb as t_nv12
+from unina_yolo_dla_torch.quant.fake_quant import DEFAULT_EXCLUDE as T_DEFAULT
 from unina_yolo_dla_torch.quant.fake_quant import PERF_EXCLUDE as T_PERF
 from unina_yolo_dla_torch.quant.fake_quant import QuantSpec as TSpec
 from unina_yolo_dla_torch.runtime import aot as taot
@@ -57,6 +60,7 @@ from unina_yolo_dla_tpu.quant.deploy import (
     merge_stem_columns,
 )
 from unina_yolo_dla_tpu.quant.fake_quant import PERF_EXCLUDE, QuantSpec
+from unina_yolo_dla_tpu.quant.qat import make_qat_model
 from unina_yolo_dla_tpu.runtime.aot import ServingArtifact as JArtifact
 from unina_yolo_dla_tpu.runtime.aot import export_serving_artifact
 from unina_yolo_dla_tpu.runtime.embed import make_executor as j_executor
@@ -358,18 +362,71 @@ def test_executor_refuses_camera_artifact(monkeypatch):
 COMMITTED = Path(__file__).resolve().parents[1] / "artifacts"
 
 
-def test_unfolded_jax_export_is_refused(tmp_path):
-    """The reference exports an unfolded model (BatchNorm nodes and
-    statistics in its tree) when no deploy flag is given, as
-    ``tests/test_native_host.py`` does; the port has no BatchNorm and
-    refuses it before building a model."""
-    cfg = ModelConfig(num_classes=4, base_channels=16, input_size=64,
+def _unfolded_export(tmp_path, qat: bool):
+    """The reference's export of an unfolded (train-form) model, float32,
+    as its train CLI's ``--export`` and ``tests/test_native_host.py``
+    write it (no deploy flag): BatchNorm nodes and statistics in its tree;
+    with ``qat`` the QAT fake-quant model (its exclusions) with a ``quant``
+    collection of amaxes drawn in [2, 6]. The class logits are scaled so a
+    random model detects at confidence 0.6."""
+    cfg = ModelConfig(num_classes=4, base_channels=16, input_size=IMG,
                       compute_dtype=jnp.float32)
-    model, variables = init_model(jax.random.key(0), cfg)
+    model = make_qat_model(cfg) if qat else UninaYoloDla(cfg)
+    variables = jax.device_get(model.init(
+        jax.random.key(0), jnp.zeros((1, IMG, IMG, 3)), train=False))
+    variables = jax.tree.map(np.asarray, variables)
     assert variables["batch_stats"]
-    export_serving_artifact(model, variables, tmp_path, max_detections=64)
+    for head in ("head_p2", "head_p3", "head_p4"):
+        pred = variables["params"][head]["cls_pred"]
+        pred["kernel"] = pred["kernel"] * np.float32(30.0)
+        pred["bias"] = np.zeros_like(pred["bias"])
+    if qat:
+        rng = np.random.default_rng(3)
+        variables["quant"] = jax.tree.map(
+            lambda a: rng.uniform(2, 6, np.shape(a)).astype(np.float32),
+            variables["quant"])
+    export_serving_artifact(model, variables, tmp_path, conf_threshold=0.6,
+                            max_detections=64)
+    return tmp_path
+
+
+def test_unfolded_jax_export_is_refused(tmp_path):
+    """The reference's unfolded float export, which the port refused until
+    it served the train form, is served (the weight tree says which form
+    to build): the train form in eval mode, float32 as the caller says,
+    against the reference's artifact on two frames."""
+    art = _unfolded_export(tmp_path, qat=False)
+    got_art = ServingArtifact(art, device="cpu", **F32)
+    cfg = got_art.model_config
+    assert not cfg.deploy and cfg.quant is None
+    want_art = JArtifact(art)
+    for seed in (FRAME_SEED, 1):
+        frame = _frame(seed)
+        _match(_dets(got_art(frame)), _dets(want_art(frame)))
+
+
+def test_unfolded_qat_jax_export_is_served(tmp_path):
+    """The reference's export of the QAT fake-quant model (a quantised
+    unfolded tree, as its train CLI exports after QAT): served as the
+    train form in the ``quantize`` mode with the train CLI's exclusions,
+    against the reference's artifact on two frames."""
+    art = _unfolded_export(tmp_path, qat=True)
+    got_art = ServingArtifact(art, device="cpu", **F32)
+    cfg = got_art.model_config
+    assert not cfg.deploy and cfg.quant.mode == "quantize"
+    assert cfg.quant.exclude == T_DEFAULT
+    want_art = JArtifact(art)
+    for seed in (FRAME_SEED, 1):
+        frame = _frame(seed)
+        _match(_dets(got_art(frame)), _dets(want_art(frame)))
+    conf = json.loads((art / "config.json").read_text())
+    from unina_yolo_dla_torch.runtime.artifact import config_from_artifact
+
+    for bad in ({"merged_head": True}, {"quant_mode": "int8_fused"}):
+        with pytest.raises(ValueError):
+            config_from_artifact(dict(conf, **bad), unfolded=True)
     with pytest.raises(NotImplementedError, match="Queue A item 8d"):
-        ServingArtifact(tmp_path, device="cpu", **F32)
+        config_from_artifact(dict(conf, quant_mode="quantize"))
 
 
 @pytest.mark.parametrize("name", ["serving_artifact", "serving_artifact_b8",

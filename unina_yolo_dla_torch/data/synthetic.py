@@ -1,13 +1,21 @@
-"""Synthetic FSD cone scenes (numpy only): noise background, four cone
-classes drawn as triangles, sizes down to ~8 px, YOLO-format labels.
+"""Synthetic FSD cone scenes: noise background, four cone classes drawn
+as triangles, sizes down to ~5 px, YOLO-format labels; and the dataset
+writer and its CLI.
 
-A copy of the reference generator's ``SynthConfig``/``generate_image``
-(same drawing, same random stream for the same seed), so the port can make
-its test scenes without the JAX package. Images are BGR (cv2 convention).
+A copy of the reference generator (``SynthConfig``, the ``HARD`` and
+``XHARD`` presets, ``generate_image``, ``validate_labels``,
+``generate_dataset``; the same drawing and random stream for the same
+seed, the same files), so the port makes its scenes and datasets without
+the JAX package. Images are BGR (cv2 convention); drawing is numpy only,
+writing a dataset needs cv2 (JPEG).
+
+    python -m unina_yolo_dla_torch.data.synthetic --output synth_data \
+        --num-train 400 --num-val 200 --xhard --seed 42
 """
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 
@@ -194,3 +202,87 @@ def generate_image(
         labels.append((cls, cx / sw, (y1b + y2b) / 2 / s, w / sw, h / s))
 
     return img, labels
+
+
+def validate_labels(labels, tolerance: float = 1e-6) -> bool:
+    """Every label's class in 0-3, its box normalised within [0, 1] and of
+    positive size."""
+    for cls, cx, cy, w, h in labels:
+        if not 0 <= cls <= 3:
+            return False
+        for v in (cx, cy, w, h):
+            if v < -tolerance or v > 1.0 + tolerance:
+                return False
+        if w <= 0 or h <= 0:
+            return False
+    return True
+
+
+def generate_dataset(
+    output_dir: str | Path,
+    num_train: int = 50,
+    num_val: int = 10,
+    cfg: SynthConfig = SynthConfig(),
+) -> Path:
+    """Write images/{train,val}, labels/{train,val} and a dataset YAML
+    (the train split's scenes drawn first, from one stream seeded by
+    ``cfg.seed``). Returns the YAML's path (``data.dataset.YoloDataset``
+    reads it)."""
+    import cv2
+
+    output_dir = Path(output_dir)
+    rng = np.random.default_rng(cfg.seed)
+    for split, count in (("train", num_train), ("val", num_val)):
+        img_dir = output_dir / "images" / split
+        lbl_dir = output_dir / "labels" / split
+        img_dir.mkdir(parents=True, exist_ok=True)
+        lbl_dir.mkdir(parents=True, exist_ok=True)
+        for i in range(count):
+            img, labels = generate_image(rng, cfg)
+            if not validate_labels(labels):
+                continue
+            cv2.imwrite(str(img_dir / f"synth_{i:04d}.jpg"), img)
+            with open(lbl_dir / f"synth_{i:04d}.txt", "w") as f:
+                for cls, cx, cy, w, h in labels:
+                    f.write(f"{cls} {cx:.6f} {cy:.6f} {w:.6f} {h:.6f}\n")
+
+    yaml_path = output_dir / "fsd_synth.yaml"
+    names = "\n".join(f"  {i}: {n}" for i, n in enumerate(CLASS_NAMES))
+    yaml_path.write_text(
+        f"# Synthetic FSD dataset (auto-generated)\n"
+        f"path: {output_dir.resolve()}\n"
+        f"train: images/train\nval: images/val\n"
+        f"names:\n{names}\nnc: 4\n")
+    return yaml_path
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    p = argparse.ArgumentParser(description="Generate synthetic FSD dataset")
+    p.add_argument("--output", default="synth_data")
+    p.add_argument("--num-train", type=int, default=50)
+    p.add_argument("--num-val", type=int, default=10)
+    p.add_argument("--image-size", type=int, default=640,
+                   help="image height (and width unless --image-width)")
+    p.add_argument("--image-width", type=int, default=None,
+                   help="rectangular camera-aspect rendering, e.g. "
+                        "--image-size 540 --image-width 960")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--hard", action="store_true",
+                   help="hard regime: 70%% cones in the 8-15 px band, "
+                        "clutter, occlusion (the mAP_small stress set)")
+    p.add_argument("--xhard", action="store_true",
+                   help="extreme regime: 85%% cones at 5-12 px, dense, "
+                        "heavy clutter/occlusion")
+    args = p.parse_args(argv)
+    base = XHARD if args.xhard else (HARD if args.hard else SynthConfig())
+    cfg = dataclasses.replace(base, image_size=args.image_size,
+                              image_width=args.image_width,
+                              seed=args.seed)
+    path = generate_dataset(args.output, args.num_train, args.num_val, cfg)
+    print(f"dataset yaml: {path}")
+
+
+if __name__ == "__main__":
+    main()

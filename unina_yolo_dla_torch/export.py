@@ -13,14 +13,17 @@ artifact (``runtime/aot.py export_serving_artifact``): on the card after
 capturing the frame as one CUDA graph and checking its fallback report
 (strict unless ``--no-strict``), on the CPU with ``--device cpu``.
 
+Without a deploy flag the checkpoint is exported as it stands, as the
+reference does: the unfolded (BatchNorm) model, and for a quantised
+checkpoint without ``--int8`` the QAT fake-quant model with the train
+CLI's exclusions (what the train CLI's ``--export`` writes).
+
 Refused, each with the ROADMAP.md item it waits for: a quantised
-checkpoint without ``--int8`` (the reference exports its QAT fake-quant
-model: item 8d), ``--int8-unfused`` (quant mode ``int8``: item 8d), an
-unfolded float export (serving the BatchNorm model: item 8d) and
-``--platforms``
-(the reference's lowering targets: the port's native host replays the
-artifact's captured graph, ``runtime/native``, and needs no compiled
-program).
+checkpoint with a deploy flag but without ``--int8`` (a deploy model in
+the QAT mode: item 8d), ``--int8-unfused`` (quant mode ``int8``: item 8d)
+and ``--platforms`` (the reference's lowering targets: the port's native
+host replays the artifact's captured graph, ``runtime/native``, and needs
+no compiled program).
 """
 from __future__ import annotations
 
@@ -136,61 +139,9 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> None:
-    args = _parser().parse_args(argv)
-    if args.platforms:
-        raise SystemExit(
-            "--platforms names the reference's lowering targets; the "
-            "port's artifact is its weights and configuration, served by "
-            "the port on the card or the CPU; its native host replays the "
-            "graph captured at load and needs no compiled program)")
-    if args.int8_unfused:
-        raise SystemExit(
-            "--int8-unfused (quant mode 'int8', dequantised between "
-            "layers) is not ported; the port serves the fused int8 chain "
-            "(--int8). It waits for ROADMAP.md Queue A item 8d")
-    device = resolve_device(args.device)
-
-    variables = load_msgpack_raw(args.weights)
-    # calibration provenance stamped by the train CLI, popped before any
-    # transform sees the tree
-    calib_meta = variables.pop("calib_meta", None)
-    quantized = "quant" in variables
-    cfg = ModelConfig(num_classes=args.num_classes,
-                      base_channels=args.base_channels,
-                      lite_p2=args.lite_p2, input_size=args.imgsz)
-    if args.int8 and not quantized:
-        raise SystemExit("--int8 requires a calibrated checkpoint "
-                         "(quant collection with activation amax; run "
-                         "phase-2 QAT or prepare_qat_variables first)")
-    if args.int8 and calib_meta is not None:
-        n_calib = int(np.asarray(calib_meta["images"]))
-        if n_calib < args.calib_min_images:
-            raise SystemExit(
-                f"--int8 refused: checkpoint was calibrated on only "
-                f"{n_calib} images (>= {args.calib_min_images} required; "
-                "short calibration data exports a confidently-wrong "
-                "engine). Re-calibrate with more data or pass "
-                "--calib-min-images 0 for a deliberate smoke export.")
-    if args.s2d_merged:
-        args.stem_s2d_host = True
-    if args.fused_stem and not args.s2d_merged:
-        raise SystemExit("--fused-stem requires --s2d-merged (the "
-                         "kernel consumes the column-merged frame)")
-    fold = (args.fold_bn or args.int8 or args.stem_s2d
-            or args.stem_s2d_host or args.stage1_s2d or args.fused_c3k2
-            or args.fused_head or args.merged_head)
-    if quantized and not args.int8:
-        raise SystemExit(
-            "a quantised checkpoint without --int8 exports the QAT "
-            "fake-quant model, which the port does not serve yet (ROADMAP.md "
-            "Queue A item 8d); pass --int8 for the int8 engine")
-    if not fold:
-        raise SystemExit(
-            "an unfolded float export serves the BatchNorm model, which "
-            "the port does not serve yet (ROADMAP.md Queue A item 8d); "
-            "pass --fold-bn or a deploy flag")
-
+def _deploy(args, variables: dict, cfg: ModelConfig
+            ) -> tuple[dict, ModelConfig]:
+    """The deploy transforms the flags ask for, BatchNorm folded first."""
     variables = fold_batchnorm(variables)
     cfg = dataclasses.replace(cfg, deploy=True)
     print(">>> BatchNorm folded into conv weights")
@@ -235,6 +186,69 @@ def main(argv=None) -> None:
         cfg = dataclasses.replace(cfg, quant=spec)
         print(f">>> int8 engine ({spec.mode}): weights quantised, "
               "integer conv path on")
+    return variables, cfg
+
+
+def main(argv=None) -> None:
+    args = _parser().parse_args(argv)
+    if args.platforms:
+        raise SystemExit(
+            "--platforms names the reference's lowering targets; the "
+            "port's artifact is its weights and configuration, served by "
+            "the port on the card or the CPU; its native host replays the "
+            "graph captured at load and needs no compiled program)")
+    if args.int8_unfused:
+        raise SystemExit(
+            "--int8-unfused (quant mode 'int8', dequantised between "
+            "layers) is not ported; the port serves the fused int8 chain "
+            "(--int8). It waits for ROADMAP.md Queue A item 8d")
+    device = resolve_device(args.device)
+
+    variables = load_msgpack_raw(args.weights)
+    # calibration provenance stamped by the train CLI, popped before any
+    # transform sees the tree
+    calib_meta = variables.pop("calib_meta", None)
+    quantized = "quant" in variables
+    cfg = ModelConfig(num_classes=args.num_classes,
+                      base_channels=args.base_channels,
+                      lite_p2=args.lite_p2, input_size=args.imgsz)
+    if args.int8 and not quantized:
+        raise SystemExit("--int8 requires a calibrated checkpoint "
+                         "(quant collection with activation amax; run "
+                         "phase-2 QAT or prepare_qat_variables first)")
+    if args.int8 and calib_meta is not None:
+        n_calib = int(np.asarray(calib_meta["images"]))
+        if n_calib < args.calib_min_images:
+            raise SystemExit(
+                f"--int8 refused: checkpoint was calibrated on only "
+                f"{n_calib} images (>= {args.calib_min_images} required; "
+                "short calibration data exports a confidently-wrong "
+                "engine). Re-calibrate with more data or pass "
+                "--calib-min-images 0 for a deliberate smoke export.")
+    if args.s2d_merged:
+        args.stem_s2d_host = True
+    if args.fused_stem and not args.s2d_merged:
+        raise SystemExit("--fused-stem requires --s2d-merged (the "
+                         "kernel consumes the column-merged frame)")
+    fold = (args.fold_bn or args.int8 or args.stem_s2d
+            or args.stem_s2d_host or args.stage1_s2d or args.fused_c3k2
+            or args.fused_head or args.merged_head)
+    if quantized and not args.int8 and fold:
+        raise SystemExit(
+            "a quantised checkpoint with a deploy flag but without --int8 "
+            "exports a deploy model in the QAT mode, which the port does "
+            "not build yet (ROADMAP.md Queue A item 8d); export the "
+            "unfolded QAT model (no deploy flag) or pass --int8")
+    if fold:
+        variables, cfg = _deploy(args, variables, cfg)
+    elif quantized:
+        # the train CLI's QAT model: the same tree, the quantisers on, its
+        # exclusions (quant/qat.py make_qat_model)
+        cfg = cfg.with_quant("quantize")
+        print(">>> quantized checkpoint detected: exporting the int8-QAT "
+              "(fake-quant) model")
+    else:
+        print(">>> exporting the unfolded (BatchNorm) model")
 
     q = (load_cp_q(args.cp_calibration, args.q)
          if args.cp_calibration else args.q)

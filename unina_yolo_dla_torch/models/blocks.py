@@ -20,11 +20,13 @@ which quantisers exist (calibration and QAT modes).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -36,6 +38,7 @@ from ..ops.cuda.c3k2_kernel import (
 )
 from ..ops.cuda.mma_pack import pack_c3k2_mma, pack_stage1_mma
 from ..ops.cuda.stage1_kernel import fused_downsample_merged
+from ..parallel.distributed import all_reduce_sum
 from ..quant.fake_quant import (
     CALIB_MODES,
     ActQuant,
@@ -335,7 +338,13 @@ class BatchNorm(nn.Module):
       the result in ``dtype``.
 
     ``scale``/``bias`` are parameters, ``mean``/``var`` the buffers of the
-    ``batch_stats`` collection."""
+    ``batch_stats`` collection.
+
+    ``process_group`` (None by default, set by ``batchnorm_group``): in
+    training, each process's batch mean and E[x^2] are averaged over the
+    group's processes (equal rows each) before use, differentiably, so the
+    statistics are the global batch's, as the reference's SPMD program
+    computes them over a sharded batch."""
 
     collection = "batch_stats"
 
@@ -343,6 +352,7 @@ class BatchNorm(nn.Module):
                  momentum: float = 0.9, eps: float = 1e-5) -> None:
         super().__init__()
         self.dtype, self.momentum, self.eps = dtype, momentum, eps
+        self.process_group = None
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -353,6 +363,11 @@ class BatchNorm(nn.Module):
         if self.training:
             mean = xf.mean(dim=(0, 1, 2))
             mean2 = (xf * xf).mean(dim=(0, 1, 2))
+            if self.process_group is not None:
+                ws = dist.get_world_size(self.process_group)
+                both = all_reduce_sum(torch.stack([mean, mean2]),
+                                      self.process_group)
+                mean, mean2 = both / both.new_tensor(ws)
             var = torch.maximum(mean2 - mean * mean, mean.new_zeros(()))
             with torch.no_grad():
                 m = self.momentum
@@ -362,6 +377,21 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale)
         return (y + self.bias).to(self.dtype)
+
+
+@contextlib.contextmanager
+def batchnorm_group(model: nn.Module, group):
+    """Within the block, every ``BatchNorm`` of ``model`` takes its
+    training statistics over ``group``'s processes (None: this process's
+    batch alone, as without the block)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.process_group = group
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.process_group = None
 
 
 class TrainConvBlock(nn.Module):

@@ -114,6 +114,16 @@ def variables_of(model: nn.Module) -> dict[str, dict[str, torch.Tensor]]:
     return out
 
 
+def model_inputs(model: nn.Module, variables) -> dict[str, torch.Tensor]:
+    """The entries of port ``variables`` ({collection: {name: tensor}})
+    that the model holds, as ``torch.func.functional_call`` takes them (a
+    calibrated ``quant`` collection names quantisers only the int8 engine
+    has); None gives none: the model's own tensors."""
+    own = variables_of(model)
+    return {name: t for coll, tree in (variables or {}).items()
+            for name, t in tree.items() if name in own.get(coll, {})}
+
+
 def to_jax_variables(variables) -> dict[str, Any]:
     """Port variables (or a train-form model's) -> the reference's
     variable tree: nested dicts of numpy arrays in the tensors' dtypes,

@@ -224,10 +224,16 @@ def ste_round(x: torch.Tensor) -> torch.Tensor:
     return x + (torch.round(x) - x).detach()
 
 
+def _const(like: torch.Tensor, value: float) -> torch.Tensor:
+    """A 0-d tensor of ``value`` in ``like``'s dtype and device, filled on
+    the device (no host copy: a captured CUDA graph can hold it)."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """clip(x, lo, hi) as min(max(x, lo), hi): at a bound the gradient is
     split in half, as the reference's ``jnp.clip`` splits it."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    return torch.minimum(torch.maximum(x, _const(x, lo)), _const(x, hi))
 
 
 def fake_quant_tensor(x: torch.Tensor, amax: torch.Tensor, qmax: float
@@ -239,8 +245,8 @@ def fake_quant_tensor(x: torch.Tensor, amax: torch.Tensor, qmax: float
     gradient reaches ``amax`` where it carries one (the weights'
     max|w|)."""
     dt = torch.promote_types(x.dtype, amax.dtype)
-    amax = torch.maximum(amax, amax.new_tensor(1e-9))
-    scale = amax / amax.new_tensor(qmax)
+    amax = torch.maximum(amax, _const(amax, 1e-9))
+    scale = amax / _const(amax, qmax)
     q = ste_round(_clip(x.to(dt) / scale, -qmax, qmax)) * scale
     return torch.where(amax > 1e-8, q, x.to(dt)).to(x.dtype)
 

@@ -445,6 +445,7 @@ def export_serving_artifact(
     ``quant_mode``, which the reference does not record and from which the
     port rebuilds the model: ``artifact.config_from_artifact``)."""
     cfg = model.config
+    model.eval()
     output_dir = Path(output_dir)
     if camera is not None and batch is not None:
         raise ValueError("camera and batch exports are mutually exclusive")

@@ -7,7 +7,11 @@ a batch artifact, or one raw camera frame for a camera artifact), served
 by the port's modules instead of the serialized program. The weights go to
 the device once, at load. Every engine configuration the port's export
 writes loads (``config_from_artifact``); the reference's ``config.json``
-files load unchanged.
+files load unchanged. The weight tree says which form to build: folded
+weights the deploy engine its flags describe, an unfolded tree (BatchNorm
+statistics, as the train CLI's ``--export`` writes it) the train form in
+eval mode, float or, with a ``quant`` collection, the QAT fake-quant
+model.
 
 On the card the frame is captured at load as one CUDA graph at the
 artifact's static shape (``runtime/aot.py``), the counterpart of the
@@ -37,7 +41,7 @@ from ..models.detector import from_jax_variables
 from ..ops.cuda.camera_kernel import CameraGeometry
 from ..ops.decode import Detections
 from ..ops.preprocess import merged_frame_np, space_to_depth_np
-from ..quant.fake_quant import PERF_EXCLUDE, QuantSpec
+from ..quant.fake_quant import DEFAULT_EXCLUDE, PERF_EXCLUDE, QuantSpec
 from ..utils.checkpoint import load_msgpack_raw
 from ..utils.device import resolve_device
 from .aot import capture_serving_fn, pack_detections
@@ -66,44 +70,68 @@ def _build_value(conf: dict, key: str, override):
     return conf.get(key, override)
 
 
-def _quant(conf: dict, mode) -> QuantSpec | None:
+def _quant(conf: dict, mode, unfolded: bool = False) -> QuantSpec | None:
     """The quantisation an artifact was built with. A known ``mode``
     (``config.json``'s ``quant_mode`` or the caller's) is checked against
     ``quantized``; ``int8`` (the unfused int8 chain) is refused. Without a
-    mode, a quantised artifact is the fused int8 chain with the measured
-    exclusion list, as the export's ``--int8`` writes it: the reference's
-    ``config.json`` says only ``"quantized"``, so an ``--int8-unfused``
-    export of the reference is read so too unless the caller says
-    ``quant_mode="int8"``."""
+    mode, a quantised artifact is read from its weight tree: a folded one
+    is the fused int8 chain with the measured exclusion list, as the
+    export's ``--int8`` writes it (the reference's ``config.json`` says
+    only ``"quantized"``, so an ``--int8-unfused`` export of the reference
+    is read so too unless the caller says ``quant_mode="int8"``); an
+    ``unfolded`` one is the QAT fake-quant model with the train CLI's
+    exclusions (``quantize``). A deploy mode with an unfolded tree, or
+    ``quantize`` with a folded one, raises."""
     quantized = conf.get("quantized")
     if mode is None:
-        mode = "int8_fused" if quantized else "off"
-    if mode not in ("off", "int8_fused", "int8"):
+        mode = (("quantize" if unfolded else "int8_fused") if quantized
+                else "off")
+    if mode not in ("off", "int8_fused", "int8", "quantize"):
         raise ValueError(f"unknown quant mode {mode!r}")
     if quantized is not None and bool(quantized) != (mode != "off"):
         raise ValueError(f"the artifact's config.json says quantized="
                          f"{quantized}, its quant mode is {mode!r}")
+    if unfolded and mode not in ("off", "quantize"):
+        raise ValueError(f"quant mode {mode!r} is a deploy mode; this "
+                         "artifact holds an unfolded (train-form) model")
+    if mode == "quantize" and not unfolded:
+        raise NotImplementedError(
+            "a deploy (folded) model in the QAT mode 'quantize' is served "
+            "once the port builds it (ROADMAP Queue A item 8d)")
     if mode == "int8":
         raise NotImplementedError(
             "an unfused int8 artifact (quant mode 'int8') is served once "
             "the port has the unfused int8 chain (ROADMAP Queue A item 8d)")
+    if mode == "quantize":
+        return QuantSpec("quantize", exclude=DEFAULT_EXCLUDE)
     return (QuantSpec("int8_fused", exclude=PERF_EXCLUDE)
             if mode == "int8_fused" else None)
 
 
-def config_from_artifact(conf: dict, **build) -> ModelConfig:
+# the deploy transforms an engine's config.json may record; the train form
+# (an unfolded artifact) has none of them
+DEPLOY_FLAGS = ("stem_s2d", "s2d_host", "stage1_s2d", "s2d_merged",
+                "fused_stem", "merged_head")
+
+
+def config_from_artifact(conf: dict, unfolded: bool = False, **build
+                         ) -> ModelConfig:
     """The engine configuration an exported ``config.json`` describes
     (a batch artifact's engine is the batch-1 one; ``batch`` only sets
     the leading axis of its frames).
 
-    The deploy flags are read as written. ``build`` gives what the
-    reference's ``config.json`` does not record (``BUILD_KEYS``:
-    ``compute_dtype`` a dtype or its name, ``quant_mode``, ``fused_c3k2``,
-    ``fused_head``); each is used where the file lacks its key, and
-    raises where the file says otherwise. Where neither says, the compute
-    dtype is bfloat16, the C3k2s and heads unfused, and the quantisation
-    as ``_quant`` reads it. A camera with a batch or with host
-    space-to-depth, which the export never writes, raises ``ValueError``."""
+    ``unfolded``: the weight tree holds the train form (BatchNorm
+    statistics; ``is_unfolded``): the model is then the train form, in
+    float or, quantised, as the QAT fake-quant model, and no deploy flag
+    may be set. Otherwise the deploy flags are read as written. ``build``
+    gives what the reference's ``config.json`` does not record
+    (``BUILD_KEYS``: ``compute_dtype`` a dtype or its name,
+    ``quant_mode``, ``fused_c3k2``, ``fused_head``); each is used where
+    the file lacks its key, and raises where the file says otherwise.
+    Where neither says, the compute dtype is bfloat16, the C3k2s and heads
+    unfused, and the quantisation as ``_quant`` reads it. A camera with a
+    batch or with host space-to-depth, which the export never writes,
+    raises ``ValueError``."""
     unknown = set(build) - set(BUILD_KEYS)
     if unknown:
         raise TypeError(f"unknown build keys {sorted(unknown)}")
@@ -118,26 +146,28 @@ def config_from_artifact(conf: dict, **build) -> ModelConfig:
     dtype = got["compute_dtype"] or "bfloat16"
     if dtype not in _DTYPES:
         raise ValueError(f"unknown compute dtype {dtype!r}")
-    flags = {k: bool(conf.get(k, False)) for k in (
-        "stem_s2d", "s2d_host", "stage1_s2d", "s2d_merged", "fused_stem",
-        "merged_head")}
+    flags = {k: bool(conf.get(k, False)) for k in DEPLOY_FLAGS}
+    fused = {k: bool(got[k]) for k in ("fused_c3k2", "fused_head")}
+    if unfolded and any({**flags, **fused}.values()):
+        raise ValueError(
+            "an unfolded (train-form) artifact with deploy flags "
+            f"{sorted(k for k, v in {**flags, **fused}.items() if v)}: "
+            "every deploy transform folds BatchNorm first")
     return ModelConfig(
         num_classes=conf["num_classes"],
         base_channels=conf["base_channels"],
         lite_p2=conf.get("lite_p2", False),
         input_size=conf["input_size"], compute_dtype=_DTYPES[dtype],
-        quant=_quant(conf, got["quant_mode"]), deploy=True,
-        fused_c3k2=bool(got["fused_c3k2"]),
-        fused_head=bool(got["fused_head"]), **flags)
+        quant=_quant(conf, got["quant_mode"], unfolded),
+        deploy=not unfolded, **fused, **flags)
 
 
-def _check_folded(variables: dict) -> None:
-    """Refuse an artifact written from an unfolded (BatchNorm) model: the
-    port serves the deploy form only (serving the train form is ROADMAP
-    Queue A item 8d). The weight
-    tree is the only evidence (``config.json`` records no such flag): a
-    non-empty ``batch_stats`` collection, or BatchNorm nodes (``bn``, or
-    ``scale`` without ``kernel``) under ``params``."""
+def is_unfolded(variables: dict) -> bool:
+    """Whether an artifact's weight tree holds an unfolded (train-form,
+    BatchNorm) model. The tree is the only evidence (``config.json``
+    records no such flag): a non-empty ``batch_stats`` collection, or
+    BatchNorm nodes (``bn``, or ``scale`` without ``kernel``) under
+    ``params``."""
     def has_bn(node) -> bool:
         if not isinstance(node, dict):
             return False
@@ -145,12 +175,8 @@ def _check_folded(variables: dict) -> None:
             return True
         return any(has_bn(v) for v in node.values())
 
-    if variables.get("batch_stats") or has_bn(variables.get("params", {})):
-        raise NotImplementedError(
-            "this artifact holds an unfolded model (BatchNorm statistics "
-            "or nodes): the port serves folded (deploy) weights only, until "
-            "it serves the train-form model (ROADMAP Queue A item 8d); "
-            "export with --fold-bn or an engine flag that implies it")
+    return bool(variables.get("batch_stats")) or has_bn(
+        variables.get("params", {}))
 
 
 class ServingArtifact:
@@ -168,9 +194,9 @@ class ServingArtifact:
 
     ``build`` says how the engine was built where ``config.json`` does not
     (``compute_dtype``, ``quant_mode``, ``fused_c3k2``, ``fused_head``:
-    ``config_from_artifact``); an artifact of an unfolded model, or of the
-    unfused int8 chain, raises ``NotImplementedError`` before any model is
-    built."""
+    ``config_from_artifact``); an artifact of the unfused int8 chain, or
+    of a folded model in the QAT mode, raises ``NotImplementedError``
+    before any model is built."""
 
     def __init__(self, directory: str | Path, device=None,
                  graph: bool = True, **build) -> None:
@@ -183,10 +209,10 @@ class ServingArtifact:
                 f"{', '.join(missing)}")
         self.device = resolve_device(device)
         self.config = json.loads((self.dir / "config.json").read_text())
-        self.model_config = config_from_artifact(self.config, **build)
-        self.batch = self.config.get("batch")
         variables = load_msgpack_raw(self.dir / "variables.msgpack")
-        _check_folded(variables)
+        self.model_config = config_from_artifact(
+            self.config, unfolded=is_unfolded(variables), **build)
+        self.batch = self.config.get("batch")
         self.model = from_jax_variables(variables, self.model_config,
                                         self.device)
         c = self.config

@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import NamedTuple, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..models.config import ModelConfig
@@ -43,10 +44,16 @@ def sigmoid_binary_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
 def detection_loss(outputs, gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
                    gt_mask: torch.Tensor, cfg: ModelConfig,
                    loss_cfg: LossConfig = LossConfig(),
-                   grid_sizes: Sequence[int] | None = None
+                   grid_sizes: Sequence[int] | None = None,
+                   group=None
                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """(scalar loss, aux {loss, cls_loss, box_loss, num_fg}); gt_boxes
-    (B, G, 4) xyxy px, gt_labels (B, G) int, gt_mask (B, G) bool."""
+    (B, G, 4) xyxy px, gt_labels (B, G) int, gt_mask (B, G) bool.
+
+    ``group``: a process group whose processes hold the other rows of the
+    global batch; the normaliser is then the global sum of the target
+    scores, so the loss is this process's term of the global loss (the
+    terms sum to it)."""
     cls_logits, reg = flatten_outputs(outputs)
     anchors, strides = make_anchors(tuple(grid_sizes or cfg.grid_sizes),
                                     cfg.strides, cls_logits.device)
@@ -55,7 +62,10 @@ def detection_loss(outputs, gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
                  anchors, gt_boxes, gt_labels, gt_mask, cfg.num_classes,
                  topk=loss_cfg.assigner_topk, alpha=loss_cfg.assigner_alpha,
                  beta=loss_cfg.assigner_beta)
-    score_sum = torch.clamp(res.target_scores.sum(), min=1.0)
+    score_sum = res.target_scores.sum()
+    if group is not None:
+        dist.all_reduce(score_sum, group=group)
+    score_sum = torch.clamp(score_sum, min=1.0)
     cls_loss = sigmoid_binary_cross_entropy(
         cls_logits, res.target_scores).sum() / score_sum
     ciou = box_ciou(pred_boxes, res.target_boxes)

@@ -15,15 +15,18 @@ calibrated ``quant`` collection frozen in ``extra_variables``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from ..models.config import ModelConfig
-from ..models.detector import variables_of
+from ..models.blocks import batchnorm_group
+from ..models.detector import model_inputs
 from ..ops.preprocess import ensure_normalized
 from .losses import LossConfig, detection_loss
 
@@ -164,39 +167,57 @@ def create_train_state(variables: dict[str, Tensors], tx: Optimizer,
                       ema_params=_copy(params) if tc.use_ema else params)
 
 
-def _model_inputs(model, extra: dict[str, Tensors] | None) -> Tensors:
-    """The frozen collections' entries the model reads (a calibrated
-    ``quant`` tree holds amaxes of quantisers only the int8 engine has)."""
-    own = variables_of(model)
-    return {name: t for coll, tree in (extra or {}).items()
-            for name, t in tree.items() if name in own.get(coll, {})}
+def _sum_over(group, grads: Tensors, aux: dict[str, torch.Tensor]
+              ) -> tuple[Tensors, dict[str, torch.Tensor]]:
+    """Gradients and aux values summed over ``group``'s processes in one
+    all-reduce of one flat buffer (in the gradients' widest type; every
+    piece returns to its own)."""
+    parts = list(grads.values()) + list(aux.values())
+    dt = functools.reduce(torch.promote_types,
+                          (t.dtype for t in grads.values()), torch.float32)
+    flat = torch.cat([t.reshape(-1).to(dt) for t in parts])
+    dist.all_reduce(flat, group=group)
+    out, i = [], 0
+    for t in parts:
+        out.append(flat[i:i + t.numel()].reshape(t.shape).to(t.dtype))
+        i += t.numel()
+    return (dict(zip(grads, out[:len(grads)])),
+            dict(zip(aux, out[len(grads):])))
 
 
 def make_train_step(model, cfg: ModelConfig, tx: Optimizer,
                     tc: TrainConfig, loss_cfg: LossConfig = LossConfig(),
                     grid_sizes=None,
                     extra_variables: dict[str, Tensors] | None = None
-                    ) -> Callable[[TrainState, dict[str, torch.Tensor]],
-                                  tuple[TrainState, dict[str, Any]]]:
-    """A pure ``(state, batch) -> (state, aux)`` step; ``state`` is not
-    changed. ``batch``: images (B, H, W, 3) uint8 RGB (normalised on the
-    device; float32 taken as normalised), boxes (B, G, 4) xyxy px, labels
-    (B, G) int, mask (B, G) bool. ``extra_variables``: frozen collections
-    (the calibrated ``quant`` amaxes during QAT). aux: loss, cls_loss,
-    box_loss, num_fg and grad_norm (of the raw gradients)."""
-    extra = _model_inputs(model, extra_variables)
+                    ) -> Callable[..., tuple[TrainState, dict[str, Any]]]:
+    """A pure ``(state, batch, group=None) -> (state, aux)`` step;
+    ``state`` is not changed. ``batch``: images (B, H, W, 3) uint8 RGB
+    (normalised on the device; float32 taken as normalised), boxes (B, G,
+    4) xyxy px, labels (B, G) int, mask (B, G) bool. ``extra_variables``:
+    frozen collections (the calibrated ``quant`` amaxes during QAT). aux:
+    loss, cls_loss, box_loss, num_fg and grad_norm (of the raw gradients).
 
-    def train_step(state: TrainState, batch):
+    ``group``: a process group whose processes step together, each on its
+    rows of the global batch (``parallel/dp.py``): BatchNorm statistics,
+    the loss normaliser, the gradients (summed) and the aux are the global
+    batch's, and the new state is the same on every process."""
+    extra = model_inputs(model, extra_variables)
+
+    def train_step(state: TrainState, batch, group=None):
         params = {k: p.detach().requires_grad_() for k, p in
                   state.params.items()}
         stats = _copy(state.batch_stats)    # updated in place by BatchNorm
         model.train()
-        outputs = functional_call(model, {**params, **stats, **extra},
-                                  (ensure_normalized(batch["images"]),))
+        with batchnorm_group(model, group):
+            outputs = functional_call(model, {**params, **stats, **extra},
+                                      (ensure_normalized(batch["images"]),))
         loss, aux = detection_loss(outputs, batch["boxes"], batch["labels"],
-                                   batch["mask"], cfg, loss_cfg, grid_sizes)
+                                   batch["mask"], cfg, loss_cfg, grid_sizes,
+                                   group)
         grads = dict(zip(params, torch.autograd.grad(
             loss, list(params.values()))))
+        if group is not None:
+            grads, aux = _sum_over(group, grads, aux)
         with torch.no_grad():
             updates, opt_state = tx.update(grads, state.opt_state,
                                            state.params)
@@ -214,19 +235,23 @@ def make_eval_step(model, cfg: ModelConfig,
                    loss_cfg: LossConfig = LossConfig(), grid_sizes=None,
                    use_ema: bool = True,
                    extra_variables: dict[str, Tensors] | None = None):
-    """``(state, batch) -> (outputs, aux)``: eval mode (running
-    statistics), the EMA params by default."""
-    extra = _model_inputs(model, extra_variables)
+    """``(state, batch, group=None) -> (outputs, aux)``: eval mode
+    (running statistics), the EMA params by default; with ``group`` the
+    aux is the global batch's (as the train step's)."""
+    extra = model_inputs(model, extra_variables)
 
     @torch.no_grad()
-    def eval_step(state: TrainState, batch):
+    def eval_step(state: TrainState, batch, group=None):
         params = state.ema_params if use_ema else state.params
         model.eval()
         outputs = functional_call(model, {**params, **state.batch_stats,
                                           **extra},
                                   (ensure_normalized(batch["images"]),))
         _, aux = detection_loss(outputs, batch["boxes"], batch["labels"],
-                                batch["mask"], cfg, loss_cfg, grid_sizes)
+                                batch["mask"], cfg, loss_cfg, grid_sizes,
+                                group)
+        if group is not None:
+            _, aux = _sum_over(group, {}, aux)
         return outputs, aux
 
     return eval_step

@@ -196,5 +196,8 @@ class CheckpointManager:
         return self._load(self.meta.get("last_step"), template)
 
     def load_best(self, template: Any) -> Any:
-        return self._load(self.meta.get("best_step")
-                          or self.meta.get("last_step"), template)
+        """The best checkpoint, else the last. (The reference's ``or``
+        skipped a best checkpoint at step 0.)"""
+        best = self.meta.get("best_step")
+        return self._load(best if best is not None
+                          else self.meta.get("last_step"), template)
