@@ -159,6 +159,38 @@ train-form artifact served as one captured CUDA graph (strict report
 clean) on the seed-7 scene beside the shipped artifact's count; one DP
 step under a one-rank NCCL group bit for bit the plain step's.
 
+Then the last modules (phases 19-22). Phase 19: the two deploy modes the
+export writes beside the fused int8 chain, exported on the card from the
+committed checkpoint at 640^2, batch 1, with ``--s2d-merged
+--fused-stem``: the unfused int8 engine (``--int8 --int8-unfused``) and
+the folded QAT model (``--merged-head`` without ``--int8``); each with a
+clean strict report, eager FRAMES frames (one normalize, stem, decode and
+NMS launch a frame) against the port's CPU path on the seed-7 scene (same
+count, 0.5 px, 1e-2), one captured graph equal to the eager frame on the
+8 scenes. Phase 20: the stem and stage1 kernels at base 16 and 64 (C =
+32 and 128): on binary-grid inputs bit for bit their plain versions, the
+64-wide kernels' SHA-256 digests unchanged; random-initialised engines
+(the port's seeded ``init_model`` at each base, BatchNorm scales at
+WIDTH_BN_GAIN so the activations keep their scale through the depth)
+exported with ``--s2d-merged --fused-stem`` (row 2) and ``--stage1-s2d
+--merged-head`` (row 5) at a confidence threshold set in the widest gap
+of the seed-7 frame's top cell logits at which the card and the CPU path
+pass the same cells, each served eager (the width's
+kernel launched once a frame) against the port's CPU path (same count,
+0.5 px, 1e-2) and as one captured graph equal to the eager frame on the 8
+scenes; each width's kernel on that frame's own activations against its
+plain version and timed (one more entry of the kernels line each). Phase
+21: the batch-8 artifact's model served as a fleet
+(``parallel.make_sharded_batch_serving_fn``) over ``[cuda:0]`` and over
+the card listed twice (two programs, two streams, two graphs), both bit
+for bit the batch-8 graph's Detections, one fleet call under
+``utils.trace`` with an ``annotate`` span (the written trace holds the
+span and the stem kernel, and no collective). Phase 22: curation from the
+float checkpoint on the card: ``curation.mine`` over phase 18's 200 val
+images in both modes, read back by ``load_difficulty_weights``, a K-Center
+coreset of 32, and ``AutoLabeler`` with a mock detector over 4 scenes at
+1080x1920 (host work: seconds only).
+
 Prints one JSON line per kernel, a ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero (and prints no
 result) without a CUDA device or when any phase fails. A copy of the
@@ -184,10 +216,10 @@ ARTIFACT_CAM = REPO / "artifacts" / "serving_artifact_cam"
 
 # the port's kernels by wrapper, as their device functions are named
 DEVICE_FUNCS = {"normalize": ("normalize_merged_kernel",),
-                "fused_stem_stage1": ("fused_stem_stage1_kernel",),
+                "fused_stem_stage1": ("fused_stem_stage1_kernel<64>",),
                 "decode_topk": ("decode_topk_kernel",),
                 "nms": ("nms_kernel",),
-                "stage1_merged": ("stage1_mma_kernel",),
+                "stage1_merged": ("stage1_mma_kernel<64>",),
                 "fused_c3k2": ("c3k2_kernel<false>",
                                "c3k2_wide_kernel<false>"),
                 "fused_c3k2_cat": ("c3k2_kernel<true>",
@@ -200,7 +232,10 @@ DEVICE_FUNCS = {"normalize": ("normalize_merged_kernel",),
 MMA_KERNELS = ("fused_stem_stage1", "stage1_merged", "fused_c3k2",
                "fused_c3k2_cat", "fused_head")
 # template instantiations as cuobjdump lists them (mangled)
-SASS_NAMES = {"c3k2_kernel<false>": "c3k2_kernelILb0EE",
+SASS_NAMES = {**{f"{k}<{c}>": f"{k}ILi{c}EE"
+                for k in ("fused_stem_stage1_kernel", "stage1_mma_kernel")
+                for c in (32, 64, 128)},
+              "c3k2_kernel<false>": "c3k2_kernelILb0EE",
               "c3k2_kernel<true>": "c3k2_kernelILb1EE",
               "c3k2_wide_kernel<false>": "c3k2_wide_kernelILb0EE",
               "c3k2_wide_kernel<true>": "c3k2_wide_kernelILb1EE"}
@@ -310,6 +345,46 @@ CLI_TRAIN, CLI_VAL = 64, 32
 CLI_ARGS = ["--epochs", "1", "--qat-epochs", "1", "--batch", "16",
             "--calib-batches", "2", "--calib-min-images", "0",
             "--calibrate-cp", "--export"]
+# phase 19: the two deploy modes beside the fused int8 chain, exported from
+# the committed calibrated checkpoint
+MODE_FLAGS = {
+    "int8_unfused": ["--int8", "--int8-unfused", "--s2d-merged",
+                     "--fused-stem"],
+    "qat_deploy": ["--s2d-merged", "--fused-stem", "--merged-head"],
+}
+MODE_PER_FRAME = {"normalize": 1, "fused_stem_stage1": 1, "decode_topk": 1,
+                  "nms": 1, "stage1_merged": 0, "fused_c3k2": 0,
+                  "fused_c3k2_cat": 0, "fused_head": 0, "camera": 0}
+# phase 20: the stem and stage1 kernels at the other base widths, in
+# random-initialised engines (seed = base) whose BatchNorm scales keep the
+# activations' scale through the depth; the threshold is set in a gap of
+# the seed-7 frame's top cell logits between these ranks
+# (``gap_threshold``)
+WIDTH_BASES = (16, 64)
+WIDTH_BN_GAIN = 1.3
+WIDTH_FLAGS = {"fused_stem_stage1": ["--s2d-merged", "--fused-stem"],
+               "stage1_merged": ["--stage1-s2d", "--merged-head"]}
+WIDTH_GAP_RANKS = (1, 60)
+# SHA-256 of the 64-wide stem and stage1 kernels' outputs on seeded normal
+# inputs (``width_inputs``), as the kernels computed them before they took
+# other widths (on an NVIDIA H100 80GB HBM3, 700 W). To record them again
+# from the kernels of another commit, unpack that commit into a directory
+# and call ``width64_digests(torch)`` on the card with that directory first
+# on ``sys.path`` (this file's helpers, that commit's package).
+WIDTH64_DIGESTS = {
+    "stem_1x320x160":
+        "c402c8cc7209ea7de25a2ac2eb5e5bfb6a4ff335f53961af4ed93da09545d94f",
+    "stage1_1x320x160":
+        "0e5637cd6dc70b3249b8a7a49ca2ff3877fd45410b0f29cd5806048dca2a1367",
+    "stem_2x10x37":
+        "f0420fd53b7b81f04e6bbc330d3369b3093bd75a9e3d2796538494b5fe4b012c",
+    "stage1_2x10x37":
+        "cbe071e224f13573d70a2d6e027aa5d975cf40e29fad3415aec19e807f0a273c",
+}
+# phase 22: curation
+CORESET = 32
+LABEL_SCENES = 4
+
 SHUTDOWN = re.compile(
     r"frames=(\d+) dropped=(\d+) \(torn=(\d+) geom=(\d+)\) "
     r"p50=([\d.]+)ms p90=([\d.]+)ms p99=([\d.]+)ms fps=([\d.]+) "
@@ -2628,6 +2703,525 @@ def drive_train_cli(kernels, smi: str, rgb, art_g, tmp: Path, ckpt: Path,
     return out
 
 
+def drive_mode(name: str, tmp: Path, rgb, labels, scenes, kernels,
+               torch) -> dict:
+    """Phase 19, one deploy mode: exported by the port on the card from the
+    committed checkpoint (a clean strict report), served eager FRAMES
+    frames against the port's CPU path on the seed-7 scene (``drive``:
+    same count, 0.5 px, 1e-2; one normalize, stem, decode and NMS launch a
+    frame), then as one captured graph equal to the eager frame on the 8
+    scenes (``drive_graph``)."""
+    from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
+
+    d = tmp / name
+    secs = run_export(["--weights", SOURCE, *MODE_FLAGS[name],
+                       "--cp-calibration", CP_CALIBRATION, "--output", d])
+    conf = json.loads((d / "config.json").read_text())
+    rep = json.loads((d / "fallback_report.json").read_text())
+    mode = "int8" if name == "int8_unfused" else "quantize"
+    assert conf["quant_mode"] == mode and conf["quantized"], conf
+    assert rep["captured"] and not rep["host_nodes"], rep
+    eager = ServingArtifact(d, graph=False)
+    assert eager.model_config.quant.mode == mode
+    cpu = ServingArtifact(d, device="cpu")(rgb)
+    e2e = drive(eager, rgb, labels, kernels, MODE_PER_FRAME, cpu, torch)
+
+    def capture():
+        owner = ServingArtifact(d)
+        return owner, owner.graph
+
+    _owner, _graph, g = drive_graph(capture, lambda a, f: a(f), eager,
+                                    scenes, kernels, MODE_PER_FRAME, 25600,
+                                    torch, copies=True)
+    return {"export_s": secs, "quant_mode": mode,
+            "report": {k: rep[k] for k in ("host_nodes", "kernel_nodes",
+                                           "port_kernels", "captured")},
+            "e2e": {k: e2e[k] for k in ("valid", "gt_cones",
+                                        "frame_ms_median", "frame_ms_min",
+                                        "vs_cpu_port")},
+            "launches": {k: v for k, v in e2e["launches"].items() if v},
+            "graph": {k: g[k] for k in ("call_ms_median", "call_ms_min",
+                                        "capture_s", "bit_equal_vs_eager")},
+            "graph_kernel_nodes": g["report"]["kernel_nodes"]}
+
+
+def width_inputs(rng, c, shape, grid, dev, torch):
+    """Frame (B, H, W2, 24), merged stem output (B, H, W2, C), stem and
+    stage1 kernels and biases: seeded normal (activations ReLU'd), or on
+    binary grids (activations k/2, sparse weights k/4, biases k/8: every
+    f32 sum exact in any order)."""
+    bf = torch.bfloat16
+
+    def act(sh, relu):
+        if grid:
+            a = rng.integers(0 if relu else -4, 5, sh) * 0.5
+        else:
+            a = rng.normal(0, 1, sh)
+            a = np.maximum(a, 0) if relu else a
+        return torch.from_numpy(a.astype(np.float32)).to(dev, bf)
+
+    def kb(sh):
+        fan = int(np.prod(sh[:-1]))
+        if grid:
+            k = np.where(rng.random(sh) < min(1.0, 8 / fan),
+                         rng.choice([-.5, -.25, .25, .5], sh), 0.0)
+            b = rng.integers(-2, 3, sh[-1]) / 8
+        else:
+            k = rng.normal(0, np.sqrt(2 / fan), sh)
+            b = rng.normal(0, .1, sh[-1])
+        return (torch.from_numpy(k.astype(np.float32)).to(dev, bf),
+                torch.from_numpy(b.astype(np.float32)).to(dev))
+
+    frame = act((*shape, 24), relu=False)
+    xm = act((*shape, c), relu=True)
+    ks, bs = kb((2, 2, 24, c))
+    k1, b1 = kb((2, 2, 2 * c, c))
+    return frame, xm, ks, bs, k1, b1
+
+
+def width_outputs(c, shape, grid, seed, torch):
+    """The stem and stage1 kernels and their plain versions at width
+    ``c`` on ``width_inputs``: name -> (kernel's, plain's)."""
+    from unina_yolo_dla_torch.ops.cuda import mma_pack, stage1_kernel, \
+        stem_kernel
+
+    dev = torch.device("cuda")
+    frame, xm, ks, bs, k1, b1 = width_inputs(np.random.default_rng(seed), c,
+                                             shape, grid, dev, torch)
+    ksp, k1p = mma_pack.pack_stem_mma(ks), mma_pack.pack_stage1_mma(k1)
+    out = {"stem": (stem_kernel.fused_stem_stage1(frame, ksp, bs, k1p, b1),
+                    stem_kernel.fused_stem_stage1_plain(frame, ks, bs, k1,
+                                                        b1)),
+           "stage1": (stage1_kernel.fused_downsample_merged(xm, k1p, b1),
+                      stage1_kernel.fused_downsample_merged_plain(xm, k1,
+                                                                  b1))}
+    torch.cuda.synchronize()
+    return out
+
+
+def check_widths_grid(torch) -> dict:
+    """Every compiled width of the stem and stage1 kernels on binary-grid
+    inputs at the served shape, a ragged batch of 2 and a single output
+    pixel: bit for bit their plain versions; and the 64-wide kernels'
+    outputs on seeded normal inputs: the digests they had before."""
+    from unina_yolo_dla_torch.ops.cuda import mma_pack
+
+    exact = {}
+    for c in mma_pack.STEM_STAGE1_WIDTHS:
+        for shape in ((1, 320, 160), (2, 10, 37), (3, 2, 1)):
+            for name, (got, want) in width_outputs(c, shape, True, 100 + c,
+                                                   torch).items():
+                # a single output pixel a row may be small, never all 0
+                assert float(want.float().abs().max()) > (
+                    1.0 if shape[1] > 2 else 0.0), "degenerate grid inputs"
+                key = f"{name}_c{c}_{'x'.join(map(str, shape))}"
+                exact[key] = bool(torch.equal(got, want))
+                assert exact[key], f"{key}: kernel differs from plain"
+    digests = width64_digests(torch)
+    assert digests == WIDTH64_DIGESTS, f"64-wide digests moved: {digests}"
+    return {"grid_bit_equal": exact, "digests_64_unchanged": True}
+
+
+def width64_digests(torch) -> dict:
+    """SHA-256 of the 64-wide kernels' outputs on seeded normal inputs at
+    the served shape and at a ragged batch of 2 (WIDTH64_DIGESTS)."""
+    import hashlib
+
+    digests = {}
+    for shape, seed in (((1, 320, 160), 11), ((2, 10, 37), 12)):
+        for name, (got, _) in width_outputs(64, shape, False, seed,
+                                            torch).items():
+            key = f"{name}_{'x'.join(map(str, shape))}"
+            digests[key] = hashlib.sha256(
+                got.contiguous().view(torch.int16).cpu().numpy().tobytes()
+            ).hexdigest()
+    return digests
+
+
+def width_checkpoint(base: int, tmp: Path, torch) -> Path:
+    """A random-initialised checkpoint at ``base``: the port's seeded
+    ``init_model`` (seed = base), its BatchNorm scales at WIDTH_BN_GAIN,
+    written as the reference's variable tree."""
+    from unina_yolo_dla_torch.models.blocks import BatchNorm
+    from unina_yolo_dla_torch.models.config import ModelConfig
+    from unina_yolo_dla_torch.models.detector import init_model, \
+        to_jax_variables
+    from unina_yolo_dla_torch.utils.checkpoint import save_msgpack
+
+    model, _ = init_model(ModelConfig(base_channels=base),
+                          generator=torch.Generator().manual_seed(base),
+                          device="cpu")
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.scale.fill_(WIDTH_BN_GAIN)
+    path = tmp / f"init_base{base}.msgpack"
+    save_msgpack(to_jax_variables(model), path)
+    return path
+
+
+def _top_logits(art, rgb, torch):
+    """The served frame's per-cell max class logits (every level), as
+    ``art``'s model computes them on its device."""
+    from unina_yolo_dla_torch.ops.cuda.preprocess_kernel import (
+        channel_constants, normalize)
+
+    staged = art.stage(rgb)
+    mean, std = channel_constants(staged.shape[-1])
+    with torch.inference_mode():
+        outs = art.model(normalize(staged[None], mean, std,
+                                   out_dtype=torch.bfloat16))
+    return torch.cat([c.float().amax(-1).reshape(-1) for c, _ in outs]).cpu()
+
+
+def gap_threshold(card, cpu, rgb, torch) -> tuple[float, dict]:
+    """The confidence threshold of a random-initialised engine, whose cell
+    scores crowd together: the midpoint of the widest gap between
+    consecutive top cell logits of the served frame (the card's ranking,
+    ranks WIDTH_GAP_RANKS) at which the card and the CPU path pass the
+    same cells (a bf16 step of difference between the two must not decide
+    the comparison); raises where no gap does."""
+    a, b = _top_logits(card, rgb, torch), _top_logits(cpu, rgb, torch)
+    lo, hi = WIDTH_GAP_RANKS
+    top = a.sort(descending=True).values[:hi + 1]
+    gaps = top[lo - 1:hi] - top[lo:hi + 1]
+    for i in gaps.argsort(descending=True).tolist():
+        mid = float((top[lo - 1 + i] + top[lo + i]) / 2)
+        if gaps[i] > 0 and torch.equal(a > mid, b > mid):
+            break
+    else:
+        raise AssertionError("no threshold at which the card and the CPU "
+                             "path pass the same cells")
+    conf = float(1 / (1 + np.exp(-mid)))
+    return conf, {"rank": lo + i, "gap_logit": float(gaps[i]),
+                  "widest_gap_logit": float(gaps.max()),
+                  "card_cpu_max_logit_diff": float((a - b).abs().max()),
+                  "threshold_logit": mid, "conf": conf,
+                  "top_logit": float(top[0])}
+
+
+def _width_module(kernel: str, model):
+    return (model.backbone if kernel == "fused_stem_stage1"
+            else model.backbone.stage1_conv)
+
+
+def width_row(kernel: str, base: int, eager, rgb, torch) -> dict:
+    """The width's kernel on the served frame's own activations and the
+    engine's weights against its plain version (|err| <= 1e-2 (1 +
+    |ref|)), timed; the stage1 row beside one cuDNN conv computing the
+    same function."""
+    from functools import partial
+
+    import torch.nn.functional as F
+
+    from unina_yolo_dla_torch.ops.cuda import stage1_kernel, stem_kernel
+
+    bf = torch.bfloat16
+    mod = _width_module(kernel, eager.model)
+    caps = {}
+    hook = mod.register_forward_pre_hook(
+        lambda _m, args: caps.setdefault("x", args[0]))
+    try:
+        eager(rgb)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    xm = caps["x"].to(bf).contiguous()
+    library_ms = None
+    if kernel == "fused_stem_stage1":
+        args = (xm, mod.stem_kernel_mma, mod.stem_bias, mod.stage1_kernel_mma,
+                mod.stage1_bias)
+        plain_args = (xm, mod.stem_kernel, mod.stem_bias, mod.stage1_kernel,
+                      mod.stage1_bias)
+        fn = partial(stem_kernel.fused_stem_stage1, *args)
+        plain = partial(stem_kernel.fused_stem_stage1_plain, *plain_args)
+        h, w2, cm = xm.shape[1:]
+        o2, c2 = mod.stem_kernel.shape[-1], mod.stage1_kernel.shape[-1]
+        flops = 2 * (h * w2 * o2 * 4 * cm + (h // 2) * w2 * c2 * 8 * o2)
+        nbytes = (xm.numel() * 2 + (h // 2) * w2 * c2 * 2
+                  + (mod.stem_kernel.numel() + mod.stage1_kernel.numel()) * 2
+                  + (o2 + c2) * 4)
+        replaces = "stem_kernel.py:192"
+    else:
+        wb, bias, wb_mma = mod.kernel, mod.bias, mod.kernel_mma
+        fn = partial(stage1_kernel.fused_downsample_merged, xm, wb_mma, bias)
+        plain = partial(stage1_kernel.fused_downsample_merged_plain, xm, wb,
+                        bias)
+        _, h, w2, cm = xm.shape
+        c = cm // 2
+        xs = xm.reshape(1, h, 2 * w2, c).permute(0, 3, 1, 2)
+        k4 = wb.reshape(2, 2, 2, 2, c, -1).permute(5, 4, 0, 2, 1, 3).reshape(
+            -1, c, 4, 4).contiguous()
+
+        def lib():
+            return F.conv2d(xs, k4, bias.to(bf), stride=2,
+                            padding=2)[..., :h // 2, :w2]
+
+        ref = torch.relu(lib()).permute(0, 2, 3, 1).float()
+        lib_rel = float(((fn().float() - ref).abs() / (1 + ref.abs())).max())
+        assert lib_rel <= 1e-2, f"stage1 yardstick disagrees: {lib_rel}"
+        library_ms = cuda_ms(lib, 50)
+        out_numel = (h // 2) * w2 * wb.shape[-1]
+        nbytes = (xm.numel() * 2 + out_numel * 2 + wb.numel() * 2
+                  + bias.numel() * 4)
+        flops = 2 * out_numel * wb.shape[0] * wb.shape[1] * wb.shape[2]
+        replaces = "stage1_kernel.py:127"
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    rel = float(((g - w).abs() / (1.0 + w.abs())).max())
+    assert rel <= 1e-2, f"{kernel} base {base}: |err|/(1+|ref|) {rel}"
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    source = "stem.cu" if kernel == "fused_stem_stage1" else "stage1.cu"
+    return dict(
+        name=f"{kernel}_b{base}", route="cuda",
+        source=f"unina_yolo_dla_torch/csrc/{source}",
+        replaces=f"unina_yolo_dla_tpu/ops/pallas/{replaces}",
+        width=2 * base, max_abs_err=err,
+        tolerance="|err| <= 1e-2 * (1 + |ref|); bit for bit on grid inputs",
+        ms=cuda_ms(fn, 100), graph_ms=graph_ms(fn),
+        plain_ms=cuda_ms(plain, 10), bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_ms)
+
+
+def drive_width(kernel: str, base: int, ckpt: Path, tmp: Path, rgb,
+                scenes, torch) -> tuple[dict, dict]:
+    """Phase 20, one engine at ``base``: exported on the card, its
+    threshold set in a gap (``gap_threshold``), re-exported with it; eager
+    FRAMES frames with every launch count at 0 before and read after (the
+    width's kernel, normalize, decode and NMS once a frame) against the
+    port's CPU path on the seed-7 scene (same count > 0, 0.5 px, 1e-2);
+    one captured graph (clean strict report, the width's kernel captured
+    once, no launch in replays) equal to the eager frame on the 8 scenes.
+    -> (the engine's record, the kernel's row)."""
+    from unina_yolo_dla_torch.ops.cuda import (
+        _lib, decode_kernel, nms_kernel, preprocess_kernel, stage1_kernel,
+        stem_kernel)
+    from unina_yolo_dla_torch.runtime import aot
+    from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
+
+    c = 2 * base
+    wrap = stem_kernel if kernel == "fused_stem_stage1" else stage1_kernel
+    kern = wrap.KERNELS[c]
+    counted = {"normalize": preprocess_kernel.KERNEL,
+               "decode_topk": decode_kernel.KERNEL, "nms": nms_kernel.KERNEL,
+               f"{kernel}_b{base}": kern}
+    flags = ["--weights", ckpt, "--base-channels", base,
+             *WIDTH_FLAGS[kernel], "--cp-calibration", CP_CALIBRATION]
+    first = tmp / f"{kernel}_b{base}_first"
+    run_export([*flags, "--output", first])
+    probe = ServingArtifact(first, graph=False)
+    conf, gap = gap_threshold(probe, ServingArtifact(first, device="cpu"),
+                              rgb, torch)
+    log(f"base {base} {kernel}: threshold {json.dumps(gap)}")
+    del probe
+    d = tmp / f"{kernel}_b{base}"
+    secs = run_export([*flags, "--conf", conf, "--output", d])
+    rep = json.loads((d / "fallback_report.json").read_text())
+    assert rep["captured"] and not rep["host_nodes"], rep
+    eager = ServingArtifact(d, graph=False)
+    bb = eager.model.backbone
+    assert (bb.fused_stem if kernel == "fused_stem_stage1" else
+            type(bb.stage1_conv).__name__ == "MergedDownsample"), kernel
+    cpu = ServingArtifact(d, device="cpu")(rgb)
+    for _ in range(3):
+        eager(rgb)
+    torch.cuda.synchronize()
+    for k in _lib.KERNELS:
+        k.launches = 0
+    times = []
+    for _ in range(FRAMES):
+        t = time.perf_counter()
+        dets = eager(rgb)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    launches = {k.symbol: k.launches for k in _lib.KERNELS if k.launches}
+    for name, k in counted.items():
+        assert k.launches == FRAMES, (
+            f"base {base} {kernel}: {name} launched {k.launches} times in "
+            f"{FRAMES} frames")
+    assert bool(torch.isfinite(dets.boxes).all())
+    match = match_detections(dets, cpu, box_tol=0.5, score_tol=1e-2)
+    assert match["count"] > 0, "no detection to compare"
+    t = time.perf_counter()
+    owner = ServingArtifact(d)
+    capture_s = time.perf_counter() - t
+    g = owner.graph
+    aot.print_fallback_report(g.report, strict=True, log_fn=log)
+    assert g.capture_launches.get(kern.symbol) == 1, g.capture_launches
+    assert g.report.port_kernels[kernel] == 1, g.report.port_kernels
+    wants = [eager(frame) for frame in scenes]
+    for k in _lib.KERNELS:
+        k.launches = 0
+    bit_equal, gtimes = [], []
+    for frame, want in zip(scenes, wants):
+        t = time.perf_counter()
+        got = owner(frame)
+        torch.cuda.synchronize()
+        gtimes.append((time.perf_counter() - t) * 1e3)
+        bit_equal.append(_same(got, want))
+    replays = {k.symbol: k.launches for k in _lib.KERNELS if k.launches}
+    assert not replays, f"eager launches during replays: {replays}"
+    assert all(bit_equal), f"base {base} {kernel}: replay differs"
+    row = width_row(kernel, base, eager, rgb, torch)
+    row["launches"] = launches[kern.symbol]
+    rec = {"base": base, "kernel": kernel, "flags": WIDTH_FLAGS[kernel],
+           "export_s": secs, "threshold": gap, "frames": FRAMES,
+           "frame_ms_median": float(np.median(times)),
+           "valid": dets.count, "vs_cpu_port": match, "launches": launches,
+           "graph_capture_s": capture_s,
+           "graph_call_ms_median": float(np.median(gtimes)),
+           "graph_kernel_nodes": g.report.kernel_nodes,
+           "graph_port_kernels": g.report.port_kernels,
+           "bit_equal_vs_eager": bit_equal}
+    del owner, eager
+    return rec, row
+
+
+def drive_fleet(art8_model, cfg, conf: dict, scenes, b8_dets, tmp: Path,
+                torch) -> dict:
+    """Phase 21: the batch-8 artifact's model as a fleet over [cuda:0] and
+    over the card listed twice (two programs with their own weights,
+    streams and graphs), each call bit for bit the batch-8 graph's
+    Detections; counts at 0 before the timed calls and read after (graph
+    replays: none); one call of the two-program fleet under
+    ``utils.trace`` with an ``annotate`` span: the written Chrome trace
+    holds the span and the stem kernel, and no collective."""
+    import torch.distributed as dist
+
+    from unina_yolo_dla_torch.ops.cuda import _lib
+    from unina_yolo_dla_torch.ops.preprocess import merged_frame_np
+    from unina_yolo_dla_torch.parallel import (
+        make_sharded_batch_serving_fn, shard_streams)
+    from unina_yolo_dla_torch.utils import annotate, trace
+
+    staged = merged_frame_np(scenes)
+    kw = dict(conf_threshold=conf["conf_threshold"],
+              iou_threshold=conf["iou_threshold"], q_factor=conf["q_factor"],
+              max_detections=conf["max_detections"])
+    out = {}
+    for label, devices in (("one_program", ["cuda:0"]),
+                           ("two_programs", ["cuda:0", "cuda:0"])):
+        t = time.perf_counter()
+        fleet = make_sharded_batch_serving_fn(art8_model, cfg, devices,
+                                              **kw)
+        fleet(shard_streams(staged, devices))   # captures each program
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        assert all(p.graph.report.clean for p in fleet.programs)
+        assert len({id(p.graph.stream) for p in fleet.programs}) == \
+            len(devices)
+        for k in _lib.KERNELS:
+            k.launches = 0
+        times, equal = [], []
+        for _ in range(BATCHES):
+            t = time.perf_counter()
+            shards = shard_streams(staged, devices)
+            got = fleet(shards)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            equal.append(_same(got, b8_dets))
+        assert all(equal), f"fleet {label} differs from the batch-8 graph"
+        replay_launches = {k.symbol: k.launches for k in _lib.KERNELS
+                           if k.launches}
+        assert not replay_launches, replay_launches
+        out[label] = {"devices": devices, "build_and_capture_s": build_s,
+                      "batch_ms_median": float(np.median(times)),
+                      "batch_ms_min": float(np.min(times)),
+                      "frames_per_s": len(scenes) * 1e3
+                      / float(np.median(times)),
+                      "bit_equal_vs_b8_graph": all(equal),
+                      "graph_kernel_nodes": [p.graph.report.kernel_nodes
+                                             for p in fleet.programs]}
+    assert not dist.is_initialized()
+    with trace(tmp / "fleet_trace") as tr:
+        with annotate("fleet_call"):
+            fleet(shard_streams(staged, ["cuda:0", "cuda:0"]))
+            torch.cuda.synchronize()
+    text = tr.path.read_text()
+    names = [e.name for e in tr.profile.events()]
+    assert "fleet_call" in text, "the annotate span is not in the trace"
+    assert "fused_stem_stage1_kernel" in text, "no stem kernel in the trace"
+    assert not any(w in n.lower() for n in names
+                   for w in ("nccl", "all_reduce", "allreduce", "c10d")), \
+        "a collective in the fleet's trace"
+    out["trace"] = {"path": tr.path.name, "bytes": len(text),
+                    "events": len(names),
+                    "stem_kernel_events": sum(
+                        "fused_stem_stage1_kernel" in n for n in names)}
+    return out
+
+
+def drive_curation(ckpt: Path, tmp: Path, cam_scenes, torch) -> dict:
+    """Phase 22: from the float checkpoint (the train form on the card),
+    ``curation.mine`` over phase 18's 200 val images in both modes, each
+    map read back by ``load_difficulty_weights``; a K-Center coreset of
+    CORESET from the same images; ``AutoLabeler`` with a mock detector over
+    LABEL_SCENES scenes at 1080x1920 (host work)."""
+    import contextlib
+
+    from unina_yolo_dla_torch.curation import ActiveLearner, AutoLabeler
+    from unina_yolo_dla_torch.curation import mine
+    from unina_yolo_dla_torch.data.dataset import (
+        YoloDataset, load_dataset_yaml, load_difficulty_weights)
+    from unina_yolo_dla_torch.models.config import ModelConfig
+    from unina_yolo_dla_torch.models.detector import from_jax_variables
+    from unina_yolo_dla_torch.utils import Timer
+    from unina_yolo_dla_torch.utils.checkpoint import load_msgpack_raw
+
+    spec = load_dataset_yaml(next((tmp / "xhard_r5").glob("*.yaml")))
+    val = Path(spec["val"])
+    ds = YoloDataset(val, 640)
+    timer = Timer()
+    out = {"images": len(ds)}
+    for mode in ("entropy", "loc_var"):
+        path = tmp / f"difficulty_{mode}.json"
+        with timer(f"mine_{mode}"), contextlib.redirect_stdout(sys.stderr):
+            mine.main(["--weights", str(ckpt), "--images", str(val),
+                       "--output", str(path), "--mode", mode,
+                       "--batch", "16"])
+        dm = json.loads(path.read_text())
+        assert len(dm) == len(ds) and all(np.isfinite(list(dm.values())))
+        w = load_difficulty_weights(ds, path)
+        want = np.maximum([dm[p.stem] for p in ds.image_paths], 0.1)
+        assert np.array_equal(w, want), "weights differ from the map"
+        out[mode] = {"min": float(min(dm.values())),
+                     "max": float(max(dm.values())),
+                     "weights_mean": float(w.mean())}
+    model = from_jax_variables(load_msgpack_raw(ckpt), ModelConfig())
+    learner = ActiveLearner(model)
+    with timer("coreset"):
+        picked = learner.coreset_selection(
+            lambda: mine.unlabeled_batches(val, 640, 16), CORESET)
+    assert len(set(picked)) == CORESET
+    out["coreset"] = {"size": CORESET, "method": "kcenter",
+                      "embedding_dim": int(
+                          learner._cached_embeddings.shape[1])}
+
+    def detector(tile, prompts):
+        # a stand-in for the open-vocabulary model: the tile's brightest
+        # 32-pixel block as one cone of class 1
+        g = tile.mean(axis=2)[:tile.shape[0] // 32 * 32,
+                              :tile.shape[1] // 32 * 32]
+        blocks = g.reshape(g.shape[0] // 32, 32, -1, 32).mean(axis=(1, 3))
+        y, x = np.unravel_index(int(blocks.argmax()), blocks.shape)
+        return (np.asarray([[32 * x, 32 * y, 32 * x + 32, 32 * y + 32]],
+                           np.float32), np.asarray([0.9]), np.asarray([1]))
+
+    labeler = AutoLabeler(detector)
+    labels = []
+    with timer("auto_label"):
+        for frame in cam_scenes[:LABEL_SCENES]:
+            labels.append(labeler.label_image(
+                np.ascontiguousarray(frame[..., 2::-1])))
+    assert all(lb.shape[1] == 5 and len(lb) > 0 for lb in labels)
+    out["auto_label"] = {"scenes": LABEL_SCENES, "size": list(CAMERA_SHAPE),
+                         "labels": [len(lb) for lb in labels]}
+    out["seconds"] = {k: v["total_s"] for k, v in timer.summary().items()}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2873,6 +3467,7 @@ def main() -> int:
         summary["camera"], card=smi,
         graph_memsets=g_cam["report"]["memsets"],
         eager_memsets_per_call=prof_cam["memsets_per_call"])}), flush=True)
+    b8_graph_dets = art8_g(scenes)   # the fleet's reference (phase 21)
     del fc_g, art8_g
 
     # phase 12: the lifecycle server, phase 13: the executor entry, both
@@ -2928,6 +3523,38 @@ def main() -> int:
         # results, the CLI from the float checkpoint, its artifact served,
         # one DP step)
         cli = drive_train_cli(kernels, smi, rgb, art_g, tmp, ckpt, torch)
+        # phase 19: the unfused int8 engine and the folded QAT model
+        phase_s = {}
+        t = time.perf_counter()
+        modes = {name: drive_mode(name, tmp, rgb, labels, scenes, kernels,
+                                  torch) for name in MODE_FLAGS}
+        phase_s["deploy_modes"] = time.perf_counter() - t
+        print(json.dumps({"deploy_modes": modes, "card": smi}), flush=True)
+        # phase 20: the stem and stage1 kernels at base 16 and 64
+        t = time.perf_counter()
+        widths = {"grid": check_widths_grid(torch), "engines": []}
+        width_rows = []
+        for base in WIDTH_BASES:
+            wckpt = width_checkpoint(base, tmp, torch)
+            for kernel in WIDTH_FLAGS:
+                rec, wrow = drive_width(kernel, base, wckpt, tmp, rgb,
+                                        scenes, torch)
+                widths["engines"].append(rec)
+                width_rows.append(wrow)
+        phase_s["widths"] = time.perf_counter() - t
+        print(json.dumps({"widths": widths, "card": smi}), flush=True)
+        # phase 21: the batch-8 model as a fleet, one program and two
+        t = time.perf_counter()
+        fleet = drive_fleet(art8.model, art8.model_config, art8.config,
+                            scenes, b8_graph_dets, tmp, torch)
+        phase_s["fleet"] = time.perf_counter() - t
+        print(json.dumps({"fleet": fleet, "card": smi}), flush=True)
+        # phase 22: curation from the float checkpoint
+        t = time.perf_counter()
+        curation = drive_curation(ckpt, tmp, cam_scenes, torch)
+        phase_s["curation"] = time.perf_counter() - t
+        print(json.dumps({"curation": curation, "card": smi}), flush=True)
+        print(json.dumps({"phases_19_22_s": phase_s}), flush=True)
         for name, rec in bf16.items():
             rec.pop("eager"), rec.pop("graph_owner")
             rec["dir"] = str(rec["dir"])
@@ -3026,6 +3653,13 @@ def main() -> int:
             row["b8_graph_nodes_per_batch"] = g_b8["report"][
                 "port_kernels"][row["name"]]
         print(json.dumps(row), flush=True)
+    for row in width_rows:
+        kernel, base = row["name"].rsplit("_b", 1)
+        func = DEVICE_FUNCS[kernel][0].replace("<64>", f"<{2 * int(base)}>")
+        row["mma"] = mma_route(lib_path, func, REPO / row["source"])
+        assert row["mma"] == "wgmma", f"{row['name']}: issues {row['mma']}"
+        print(json.dumps(row), flush=True)
+    rows += width_rows
     line = {"kernels": rows}
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -3044,6 +3678,8 @@ def main() -> int:
          "native_host": native, "training": training, "train_cli": cli,
          "export": exported, "bf16_engines": bf16,
          "bf16_fc_fused_modules": wide_rows,
+         "deploy_modes": modes, "widths": widths, "fleet": fleet,
+         "curation": curation, "phases_19_22_s": phase_s,
          "before_redesign_graph_ms_quoted": {
              "quoted": BEFORE_ORIGIN, "ms": BEFORE_GRAPH_MS}, **line},
         indent=2, default=str))

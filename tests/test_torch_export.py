@@ -203,11 +203,26 @@ def float_ckpt(tmp_path_factory, source):
     return path
 
 
+# the cases that export since the port builds the folded QAT model and
+# the unfused int8 engine: the reference's transforms and quantisation
+DEPLOY_MODE_CASES = {
+    "quantized_without_int8": (
+        ("fold_batchnorm", "fold_stem_space_to_depth",
+         "fold_downsample_space_to_depth", "merge_stem_columns"),
+        "quantize"),
+    "int8_unfused": (("fold_batchnorm", "quantize_weights_int8"), "int8"),
+}
+
+
 @pytest.mark.parametrize("case", [
     "int8_uncalibrated", "calib_min_images", "fused_stem_unmerged",
     "quantized_without_int8", "int8_unfused", "unfolded_float",
     "platforms"])
-def test_export_refusals(tmp_path, float_ckpt, case):
+def test_export_refusals(tmp_path, float_ckpt, source, case):
+    """Each refused flag set exits with a message and writes nothing; the
+    two deploy modes once refused here now export: the written tree is
+    the reference's transforms of the checkpoint leaf for leaf, and
+    ``config.json`` names the mode."""
     base = ["--device", "cpu", "--output", str(tmp_path / "out")]
     argv = {
         "int8_uncalibrated": ["--weights", str(float_ckpt), "--int8"],
@@ -226,6 +241,16 @@ def test_export_refusals(tmp_path, float_ckpt, case):
     if case == "unfolded_float":
         # exported as it stands since the port serves the train form
         _unfolded_parity(tmp_path, float_ckpt, quantized=False)
+        return
+    if case in DEPLOY_MODE_CASES:
+        chain, mode = DEPLOY_MODE_CASES[case]
+        texport.main(argv + ["--imgsz", "64"] + base)
+        want = _apply(jdeploy, chain, source, QuantSpec(mode))
+        _assert_trees_equal(
+            load_msgpack_raw(tmp_path / "out" / "variables.msgpack"),
+            _sorted(want))
+        conf = json.loads((tmp_path / "out" / "config.json").read_text())
+        assert conf["quant_mode"] == mode and conf["quantized"]
         return
     with pytest.raises(SystemExit) as e:
         texport.main(argv + base)

@@ -1485,3 +1485,160 @@ def test_ensure_normalized_kernel_bit_equal(rng, cuda, shape):
     assert got.dtype == torch.float32 and got.is_cuda
     want = ensure_normalized(torch.from_numpy(img))
     assert torch.equal(got.cpu(), want)
+
+
+# ---- the stem and stage1 kernels at every base width ----
+
+def _width_inputs(rng, c, shape, cuda, grid=True):
+    """Frame, merged stem output and kernels at width ``c``: on binary
+    grids (activations k/2, sparse weights k/4, biases k/8: every f32 sum
+    exact in any order), or seeded normal (activations ReLU'd)."""
+    bf = torch.bfloat16
+
+    def act(sh, relu):
+        if grid:
+            a = rng.integers(0 if relu else -4, 5, sh) * 0.5
+        else:
+            a = rng.normal(0, 1, sh)
+            a = np.maximum(a, 0) if relu else a
+        return torch.from_numpy(a.astype(np.float32)).to(cuda, bf)
+
+    def kb(sh):
+        fan = int(np.prod(sh[:-1]))
+        if grid:
+            k = np.where(rng.random(sh) < min(1.0, 8 / fan),
+                         rng.choice([-.5, -.25, .25, .5], sh), 0.0)
+            b = rng.integers(-2, 3, sh[-1]) / 8
+        else:
+            k = rng.normal(0, np.sqrt(2 / fan), sh)
+            b = rng.normal(0, .1, sh[-1])
+        return (torch.from_numpy(k.astype(np.float32)).to(cuda, bf),
+                torch.from_numpy(b.astype(np.float32)).to(cuda))
+
+    return (act((*shape, 24), False), act((*shape, c), True),
+            *kb((2, 2, 24, c)), *kb((2, 2, 2 * c, c)))
+
+
+@pytest.mark.parametrize("c", mma_pack.STEM_STAGE1_WIDTHS)
+@pytest.mark.parametrize("shape", [(1, 320, 160), (2, 10, 37), (3, 2, 1)])
+def test_stem_stage1_every_width_bit_exact_on_grid_inputs(rng, cuda, c,
+                                                          shape):
+    """Base 16, 32 and 64 (C = 32, 64, 128): the served shape, a ragged
+    batch of 2, a single output pixel; each launch counted on its width's
+    entry point."""
+    frame, xm, ks, bs, k1, b1 = _width_inputs(rng, c, shape, cuda)
+    ksp, k1p = mma_pack.pack_stem_mma(ks), mma_pack.pack_stage1_mma(k1)
+    got = _launched(stem_kernel.KERNELS[c], lambda: (
+        stem_kernel.fused_stem_stage1(frame, ksp, bs, k1p, b1)))
+    want = stem_kernel.fused_stem_stage1_plain(frame, ks, bs, k1, b1)
+    # a single output pixel a row may be small, never all 0
+    assert float(want.float().abs().max()) > (1.0 if shape[1] > 2 else 0.0)
+    assert got.shape == (shape[0], shape[1] // 2, shape[2], c)
+    assert torch.equal(got, want)
+    got = _launched(stage1_kernel.KERNELS[c], lambda: (
+        stage1_kernel.fused_downsample_merged(xm, k1p, b1)))
+    assert torch.equal(got, stage1_kernel.fused_downsample_merged_plain(
+        xm, k1, b1))
+
+
+# SHA-256 of the 64-wide kernels' outputs on seeded normal inputs
+# (``_width_inputs(grid=False)``, seeds 11 and 12) as they computed them
+# before the kernels took other widths (on an NVIDIA H100 80GB HBM3,
+# 700 W); chip_smoke.py holds the same digests
+WIDTH64_DIGESTS = {
+    "stem_1x320x160":
+        "c402c8cc7209ea7de25a2ac2eb5e5bfb6a4ff335f53961af4ed93da09545d94f",
+    "stage1_1x320x160":
+        "0e5637cd6dc70b3249b8a7a49ca2ff3877fd45410b0f29cd5806048dca2a1367",
+    "stem_2x10x37":
+        "f0420fd53b7b81f04e6bbc330d3369b3093bd75a9e3d2796538494b5fe4b012c",
+    "stage1_2x10x37":
+        "cbe071e224f13573d70a2d6e027aa5d975cf40e29fad3415aec19e807f0a273c",
+}
+
+
+def test_stem_stage1_64_wide_bits_unchanged(cuda):
+    import hashlib
+
+    def digest(t):
+        return hashlib.sha256(
+            t.contiguous().view(torch.int16).cpu().numpy().tobytes()
+        ).hexdigest()
+
+    got = {}
+    for shape, seed in (((1, 320, 160), 11), ((2, 10, 37), 12)):
+        frame, xm, ks, bs, k1, b1 = _width_inputs(
+            np.random.default_rng(seed), 64, shape, cuda, grid=False)
+        ksp, k1p = mma_pack.pack_stem_mma(ks), mma_pack.pack_stage1_mma(k1)
+        tag = "x".join(map(str, shape))
+        got[f"stem_{tag}"] = digest(stem_kernel.fused_stem_stage1(
+            frame, ksp, bs, k1p, b1))
+        got[f"stage1_{tag}"] = digest(stage1_kernel.fused_downsample_merged(
+            xm, k1p, b1))
+    assert got == WIDTH64_DIGESTS
+
+
+def test_other_widths_refused_on_the_card(rng, cuda):
+    frame, xm, ks, bs, k1, b1 = _width_inputs(rng, 64, (1, 8, 5), cuda)
+    with pytest.raises(ValueError, match="compiled|C in"):
+        stage1_kernel.fused_downsample_merged(
+            xm[..., :48].contiguous(), torch.zeros(
+                6, 48, 64, dtype=torch.bfloat16, device=cuda), b1[:48])
+
+
+# ---- the unfused int8 engine and the folded QAT model ----
+
+@pytest.mark.parametrize("flags,mode", [
+    (["--int8", "--int8-unfused", "--s2d-merged", "--fused-stem"], "int8"),
+    (["--s2d-merged", "--fused-stem", "--merged-head"], "quantize")])
+def test_deploy_modes_on_the_card(cuda, tmp_path, flags, mode):
+    """Exported on the card from the committed checkpoint: a clean strict
+    report; the captured graph equals the eager frame bit for bit on three
+    scenes, the card agrees with the port's CPU path (same count, 0.5 px,
+    1e-2), one stem launch an eager frame."""
+    import json
+
+    from unina_yolo_dla_torch import export
+
+    out = tmp_path / mode
+    export.main(["--weights", str(SOURCE), *flags, "--cp-calibration",
+                 str(CP), "--output", str(out)])
+    conf = json.loads((out / "config.json").read_text())
+    assert conf["quant_mode"] == mode
+    graph, eager = ServingArtifact(out), ServingArtifact(out, graph=False)
+    assert graph.graph.report.clean
+    for frame in _scenes([1, 2, 7]):
+        got = graph(frame)
+        want = _launched(stem_kernel.KERNEL, lambda: eager(frame))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    frame = _scenes([7])[0]
+    _match(graph(frame), ServingArtifact(out, device="cpu")(frame))
+
+
+# ---- fleet serving ----
+
+@pytest.mark.parametrize("devices", [["cuda:0"], ["cuda:0", "cuda:0"]])
+def test_fleet_matches_batch8_graph(cuda, devices):
+    """The batch-8 artifact's model as a fleet (one program, or two on
+    the card with their own streams and graphs): bit for bit the batch-8
+    graph's Detections; replays launch nothing."""
+    from unina_yolo_dla_torch.parallel import (
+        make_sharded_batch_serving_fn, shard_streams)
+
+    scenes = _scenes(range(1, 9))
+    art = ServingArtifact(ARTIFACT_B8)
+    want = art(scenes)
+    c = art.config
+    fleet = make_sharded_batch_serving_fn(
+        art.model, art.model_config, devices,
+        conf_threshold=c["conf_threshold"], iou_threshold=c["iou_threshold"],
+        q_factor=c["q_factor"], max_detections=c["max_detections"])
+    staged = merged_frame_np(scenes)
+    fleet(shard_streams(staged, devices))   # captures each program
+    torch.cuda.synchronize()
+    assert all(p.graph.report.clean for p in fleet.programs)
+    before = {k.symbol: k.launches for k in _lib.KERNELS}
+    got = fleet(shard_streams(staged, devices))
+    torch.cuda.synchronize()
+    assert {k.symbol: k.launches for k in _lib.KERNELS} == before
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

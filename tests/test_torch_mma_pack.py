@@ -18,6 +18,17 @@ from unina_yolo_dla_torch.ops.cuda import (
     stem_kernel,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads while this module runs: the suite runs it
+    beside other worker processes on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 TILES = [(8, 16), (4, 32), (16, 16), (5, 7)]
 
 

@@ -385,12 +385,19 @@ def test_qat_step(small64):
 
 
 def test_unported_quant_modes_refused():
-    """quant mode 'int8' (the unfused engine) and a deploy model in a QAT
-    mode name ROADMAP item 8d; the train form refuses int8_fused."""
-    with pytest.raises(ValueError, match="8d"):
-        tfq.QuantSpec("int8")
-    with pytest.raises(NotImplementedError, match="8d"):
-        tdet.from_jax_variables({"params": {}}, dataclasses.replace(
-            TCfg(), deploy=True).with_quant("quantize"), "cpu")
-    with pytest.raises(ValueError, match="deploy mode"):
-        tdet.create_model(TCfg().with_quant("int8_fused"), device="cpu")
+    """Every quant mode is built where the reference builds it: 'int8'
+    (the unfused engine) is a QuantSpec mode, and a deploy model takes it
+    and 'quantize' (the folded QAT model); the train form refuses both
+    int8 modes and a deploy model the calibration modes."""
+    assert tfq.QuantSpec("int8").mode == "int8"
+    for mode in ("int8", "int8_fused"):
+        with pytest.raises(ValueError, match="deploy mode"):
+            tdet.create_model(TCfg().with_quant(mode), device="cpu")
+    for mode in ("calib_max", "calib_hist"):
+        with pytest.raises(ValueError, match="train form"):
+            tdet.from_jax_variables({"params": {}}, dataclasses.replace(
+                TCfg(), deploy=True).with_quant(mode), "cpu")
+    for mode in ("int8", "quantize"):
+        with pytest.raises(KeyError):   # built: it finds no weights
+            tdet.from_jax_variables({"params": {}}, dataclasses.replace(
+                TCfg(), deploy=True).with_quant(mode), "cpu")

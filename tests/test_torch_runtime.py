@@ -16,7 +16,8 @@
 - Loading by what the weight tree holds: the reference's exports of an
   unfolded (BatchNorm) model and of the QAT fake-quant model are served as
   the train form against the reference's artifacts (the same tolerances);
-  one of the unfused int8 chain is refused; a ``config.json`` and a caller
+  the unfused int8 engine and the folded QAT model are read from the mode
+  ``config.json`` or the caller names, or from the tree; a ``config.json`` and a caller
   that disagree raise; the three committed artifacts load as before; a
   ``--fused-c3k2 --fused-head`` export of the reference served with those
   flags equals the reference's artifact.
@@ -425,8 +426,10 @@ def test_unfolded_qat_jax_export_is_served(tmp_path):
     for bad in ({"merged_head": True}, {"quant_mode": "int8_fused"}):
         with pytest.raises(ValueError):
             config_from_artifact(dict(conf, **bad), unfolded=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 8d"):
-        config_from_artifact(dict(conf, quant_mode="quantize"))
+    # the same config.json with the mode of a folded QAT model
+    folded = config_from_artifact(dict(conf, quant_mode="quantize"))
+    assert folded.deploy and folded.quant.mode == "quantize"
+    assert folded.quant.exclude == T_DEFAULT
 
 
 @pytest.mark.parametrize("name", ["serving_artifact", "serving_artifact_b8",
@@ -443,9 +446,9 @@ def test_committed_artifacts_still_load(name):
 
 def test_build_keys_from_config_or_caller():
     """Each build key comes from config.json where it has it, else from
-    the caller; the two disagreeing raises; the unfused int8 chain is
-    refused, by either; a quant mode that contradicts ``quantized``
-    raises."""
+    the caller; the two disagreeing raises; the unfused int8 engine is
+    built where either names it, the folded QAT model where the tree has
+    no int8 kernel; a quant mode that contradicts ``quantized`` raises."""
     from unina_yolo_dla_torch.runtime.artifact import config_from_artifact
 
     conf = json.loads((COMMITTED / "serving_artifact" /
@@ -467,8 +470,12 @@ def test_build_keys_from_config_or_caller():
         config_from_artifact(conf, quant_mode="off")
     for src, kw in ((conf, {"quant_mode": "int8"}),
                     (dict(own, quant_mode="int8"), {})):
-        with pytest.raises(NotImplementedError, match="Queue A item 8d"):
-            config_from_artifact(src, **kw)
+        cfg = config_from_artifact(src, **kw)   # the unfused int8 engine
+        assert (cfg.quant.mode, cfg.quant.exclude) == ("int8", T_DEFAULT)
+    # without a mode, a folded quantised tree without int8 kernels is the
+    # folded QAT model
+    cfg = config_from_artifact(conf, int8_kernels=False)
+    assert (cfg.quant.mode, cfg.quant.exclude) == ("quantize", T_DEFAULT)
     with pytest.raises(TypeError):
         config_from_artifact(conf, fused_stem=True)
 

@@ -16,14 +16,15 @@ capturing the frame as one CUDA graph and checking its fallback report
 Without a deploy flag the checkpoint is exported as it stands, as the
 reference does: the unfolded (BatchNorm) model, and for a quantised
 checkpoint without ``--int8`` the QAT fake-quant model with the train
-CLI's exclusions (what the train CLI's ``--export`` writes).
+CLI's exclusions (what the train CLI's ``--export`` writes). With a
+deploy flag a quantised checkpoint without ``--int8`` is the folded QAT
+model (quant mode ``quantize``); ``--int8 --int8-unfused`` is the unfused
+int8 engine (quant mode ``int8``: int8 convs, float between layers, the
+reference's default exclusions).
 
-Refused, each with the ROADMAP.md item it waits for: a quantised
-checkpoint with a deploy flag but without ``--int8`` (a deploy model in
-the QAT mode: item 8d), ``--int8-unfused`` (quant mode ``int8``: item 8d)
-and ``--platforms`` (the reference's lowering targets: the port's native
-host replays the artifact's captured graph, ``runtime/native``, and needs
-no compiled program).
+Refused: ``--platforms`` (the reference's lowering targets: the port's
+native host replays the artifact's captured graph, ``runtime/native``,
+and needs no compiled program).
 """
 from __future__ import annotations
 
@@ -117,8 +118,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="with --int8: refuse checkpoints calibrated on "
                         "fewer images; 0 disables")
     p.add_argument("--int8-unfused", action="store_true",
-                   help="the reference's dequantise-between-layers "
-                        "engine; refused here")
+                   help="with --int8: the dequantise-between-layers "
+                        "engine (quant mode int8), whose calibration "
+                        "needs no out_q/add_q amaxes")
     p.add_argument("--camera", default=None, metavar="HxW",
                    help="the camera artifact: raw frames at this "
                         "resolution, preprocessed on the card")
@@ -176,16 +178,27 @@ def _deploy(args, variables: dict, cfg: ModelConfig
         print(">>> decoupled heads merged: cls/reg branches as channel-"
               "concat/block-diagonal convs (float-path levels)")
     if args.int8:
-        if not _has_out_q(variables.get("quant", {})):
+        if not args.int8_unfused and \
+                not _has_out_q(variables.get("quant", {})):
             raise SystemExit(
                 "--int8 (fused engine) needs out_q/add_q activation "
                 "amaxes, which this checkpoint's calibration predates — "
-                "re-run phase-2 calibration (train CLI)")
-        spec = QuantSpec(mode="int8_fused", exclude=PERF_EXCLUDE)
+                "re-run phase-2 calibration (train CLI) or pass "
+                "--int8-unfused for the unfused engine")
+        # the unfused engine keeps the reference's default exclusions; the
+        # fused chain the measured mixed-precision list
+        spec = (QuantSpec(mode="int8") if args.int8_unfused else
+                QuantSpec(mode="int8_fused", exclude=PERF_EXCLUDE))
         variables = quantize_weights_int8(variables, spec)
         cfg = dataclasses.replace(cfg, quant=spec)
         print(f">>> int8 engine ({spec.mode}): weights quantised, "
               "integer conv path on")
+    elif "quant" in variables:
+        # the folded QAT model: the quantisers on, the train CLI's
+        # exclusions (quant/qat.py make_qat_model)
+        cfg = cfg.with_quant("quantize")
+        print(">>> quantized checkpoint detected: exporting the folded "
+              "int8-QAT (fake-quant) model")
     return variables, cfg
 
 
@@ -197,11 +210,6 @@ def main(argv=None) -> None:
             "port's artifact is its weights and configuration, served by "
             "the port on the card or the CPU; its native host replays the "
             "graph captured at load and needs no compiled program)")
-    if args.int8_unfused:
-        raise SystemExit(
-            "--int8-unfused (quant mode 'int8', dequantised between "
-            "layers) is not ported; the port serves the fused int8 chain "
-            "(--int8). It waits for ROADMAP.md Queue A item 8d")
     device = resolve_device(args.device)
 
     variables = load_msgpack_raw(args.weights)
@@ -233,12 +241,6 @@ def main(argv=None) -> None:
     fold = (args.fold_bn or args.int8 or args.stem_s2d
             or args.stem_s2d_host or args.stage1_s2d or args.fused_c3k2
             or args.fused_head or args.merged_head)
-    if quantized and not args.int8 and fold:
-        raise SystemExit(
-            "a quantised checkpoint with a deploy flag but without --int8 "
-            "exports a deploy model in the QAT mode, which the port does "
-            "not build yet (ROADMAP.md Queue A item 8d); export the "
-            "unfolded QAT model (no deploy flag) or pass --int8")
     if fold:
         variables, cfg = _deploy(args, variables, cfg)
     elif quantized:

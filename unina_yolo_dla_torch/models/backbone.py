@@ -26,7 +26,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.cuda.mma_pack import pack_stage1_mma, pack_stem_mma
+from ..ops.cuda.mma_pack import pack_stage1_mma, pack_stem_mma, \
+    stem_stage1_takes
 from ..ops.cuda.stem_kernel import fused_stem_stage1
 from ..ops.preprocess import space_to_depth
 from .blocks import C3k2, ConvBlock, MergedDownsample, ShiftDot2x2, SPPF, \
@@ -94,8 +95,7 @@ class Backbone(nn.Module):
             buf("stage1_kernel", s1["kernel"], dt)
             buf("stage1_bias", s1["bias"], torch.float32)
             # the same kernels as the CUDA kernel's B tiles, packed once
-            packs = (tuple(self.stem_kernel.shape) == (2, 2, 24, 64)
-                     and tuple(self.stage1_kernel.shape) == (2, 2, 128, 64))
+            packs = stem_stage1_takes(self.stem_kernel.shape[-1])
             self.register_buffer("stem_kernel_mma", pack_stem_mma(
                 self.stem_kernel) if packs else None)
             self.register_buffer("stage1_kernel_mma", pack_stage1_mma(

@@ -36,16 +36,20 @@ from ..ops.cuda.c3k2_kernel import (
     kernel_takes,
     pack_c3k2_weights,
 )
-from ..ops.cuda.mma_pack import pack_c3k2_mma, pack_stage1_mma
+from ..ops.cuda.mma_pack import pack_c3k2_mma, pack_stage1_mma, \
+    stem_stage1_takes
 from ..ops.cuda.stage1_kernel import fused_downsample_merged
 from ..parallel.distributed import all_reduce_sum
 from ..quant.fake_quant import (
     CALIB_MODES,
+    INT8_MODES,
     ActQuant,
+    FakeQuant,
     QuantConv,
     QuantSpec,
     TrainActQuant,
     TrainQuantConv,
+    quant_weight,
 )
 from ..quant.qtensor import (
     QTensor,
@@ -59,18 +63,23 @@ from ..quant.qtensor import upsample_nearest_2x as _upsample_tensor
 
 class WeightTree:
     """Read access to a reference variable tree (``{"params", "quant"}``
-    nested dicts of numpy arrays) by scope path."""
+    nested dicts of numpy arrays) by scope path, and the deploy form's
+    quantisers of its ``QuantSpec``: the fused int8 chain (``int8_fused``),
+    the unfused int8 engine (``int8``) or the folded QAT model
+    (``quantize``); calibration modes are the train form's."""
+
+    DEPLOY_MODES = ("off", "quantize") + INT8_MODES
 
     def __init__(self, variables: dict[str, Any], spec: QuantSpec | None,
                  dtype: torch.dtype) -> None:
         self.params = variables["params"]
         self.quant = variables.get("quant", {})
         self.spec = spec or QuantSpec()
-        if self.spec.mode not in ("off", "int8_fused"):
-            raise NotImplementedError(
-                f"a deploy model in quant mode {self.spec.mode!r} (the QAT "
-                "fake-quant engine) is not ported (ROADMAP.md Queue A item "
-                "8d); the train form takes it (deploy=False)")
+        if self.spec.mode not in self.DEPLOY_MODES:
+            raise ValueError(
+                f"quant mode {self.spec.mode!r} is the train form's "
+                "(deploy=False); a deploy model takes "
+                f"{self.DEPLOY_MODES}")
         self.dtype = dtype
 
     @staticmethod
@@ -92,29 +101,47 @@ class WeightTree:
         leaf = self._get(self.quant, path + "/amax")
         return None if leaf is None else np.float32(leaf)
 
-    def act_quant(self, path: str) -> ActQuant | None:
-        """The ``int8_fused`` quantiser at ``path`` (None where the spec
-        leaves the path in float)."""
-        if not self.spec.active(path):
-            return None
+    def _calibrated(self, path: str) -> np.float32:
         amax = self.amax(path)
         if amax is None:
             raise KeyError(f"calibrated amax missing at quant/{path}")
-        return ActQuant(amax)
+        return amax
+
+    def act_quant(self, path: str) -> ActQuant | None:
+        """The ``int8_fused`` quantiser at ``path`` (None in the other
+        modes, or where the spec leaves the path in float)."""
+        if self.spec.mode != "int8_fused" or not self.spec.active(path):
+            return None
+        return ActQuant(self._calibrated(path))
+
+    def fake_quant(self, path: str) -> FakeQuant | None:
+        """The folded QAT model's fake-quantiser at ``path`` (None in the
+        other modes, or where the spec excludes the path)."""
+        if self.spec.mode != "quantize" or not self.spec.active(path):
+            return None
+        return FakeQuant(self._calibrated(path), self.spec.num_bits)
 
     def conv(self, path: str, stride: int = 1, padding=0) -> QuantConv:
         """The QuantConv whose ``kernel``/``bias``/``w_scale`` live at
         ``path`` (``<block>/conv`` or a head's ``cls_pred``)."""
         p = self.node(path)
         kernel = np.asarray(p["kernel"])
-        int8 = self.spec.active(path)
+        active = self.spec.active(path)
+        int8 = active and self.spec.mode in INT8_MODES
         if int8 != (kernel.dtype == np.int8):
             raise ValueError(f"{path}: kernel dtype {kernel.dtype} does not "
                              f"match the quant spec (int8={int8})")
         in_amax = self.amax(path + "/in_q") if int8 else None
+        fake_in = self.fake_quant(path + "/in_q")
+        if fake_in is not None:
+            # the reference fake-quantises the float32 kernel every call;
+            # it is a constant here, so once
+            kernel = quant_weight(torch.from_numpy(kernel.astype(
+                np.float32)), self.spec, path).numpy()
+        out = (self.dtype if self.spec.mode == "int8" else torch.float32)
         return QuantConv(kernel, p.get("bias"), stride, padding,
                          w_scale=p.get("w_scale"), in_amax=in_amax,
-                         dtype=self.dtype)
+                         dtype=self.dtype, int8_out=out, fake_in=fake_in)
 
     def count(self, path: str, prefix: str) -> int:
         return sum(1 for k in self.node(path) if k.startswith(prefix))
@@ -175,7 +202,7 @@ class MergedDownsample(_KernelBias):
 
     def __init__(self, tree: WeightTree, path: str) -> None:
         super().__init__(tree, path)
-        packs = tuple(self.kernel.shape) == (2, 2, 128, 64)
+        packs = stem_stage1_takes(self.kernel.shape[-1])
         self.register_buffer(
             "kernel_mma", pack_stage1_mma(self.kernel) if packs else None)
 
@@ -210,6 +237,7 @@ class Bottleneck(nn.Module):
         self.cv2 = ConvBlock(tree, path + "/cv2", 3)
         self.shortcut = shortcut
         self.add_q = tree.act_quant(path + "/add_q")
+        self.residual_q = tree.fake_quant(path + "/residual_q")
 
     def forward(self, x):
         out = self.cv2(self.cv1(x))
@@ -225,6 +253,8 @@ class Bottleneck(nn.Module):
             return self.add_q(s)
         if isinstance(out, QTensor) or isinstance(x, QTensor):
             raise ValueError("mixed int8/float residual")
+        if self.residual_q is not None:
+            x = self.residual_q(x)
         return x + out
 
 

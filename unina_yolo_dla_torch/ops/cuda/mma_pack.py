@@ -65,16 +65,59 @@ def unpack_frag(p: torch.Tensor, k: int, n: int) -> torch.Tensor:
     return t.permute(1, 4, 3, 5, 0, 2).contiguous().reshape(k, n)
 
 
+# The stem and stage1 kernels' widths: C = 2 x the base width is the
+# merged stem output's channels and stage1's output channels (base 16, 32,
+# 64). One wgmma covers min(C, 64) output columns; at C = 128 each block
+# takes one 64-column half of stage1 (csrc/stage1_tile.cuh Width).
+STEM_STAGE1_WIDTHS = (32, 64, 128)
+
+
+def stage1_columns(c: int) -> int:
+    """Output columns of one stage1 product (and of a block) at width
+    ``c``."""
+    return min(c, TILE)
+
+
+def stage1_mma_shape(c: int) -> tuple[int, int, int]:
+    """Shape of ``pack_stage1_mma``'s image at width ``c``."""
+    n = stage1_columns(c)
+    return (c // n * c // 8, n, TILE)
+
+
+def stem_stage1_takes(c: int) -> bool:
+    """Whether the stem and stage1 kernels are compiled for width ``c``
+    (the stem's outputs, stage1's inputs per merged column and outputs)."""
+    return c in STEM_STAGE1_WIDTHS
+
+
+def _check_width(c: int, what: str, shape) -> None:
+    if not stem_stage1_takes(c):
+        raise ValueError(f"{what} {tuple(shape)}: the kernel is compiled "
+                         f"for widths {STEM_STAGE1_WIDTHS}")
+
+
 def pack_stage1_mma(wb: torch.Tensor) -> torch.Tensor:
-    """Blocked stage1 kernel (2, 2, 128, 64) -> (8, 64, 64): one tile per
-    K chunk ``q = (kh*2 + kw)*2 + di``, the order the kernel walks them."""
-    if tuple(wb.shape) != (2, 2, 2 * TILE, TILE):
-        raise ValueError(f"expected (2, 2, 128, 64), got {tuple(wb.shape)}")
-    return pack_b_tiles(wb.reshape(8, TILE, TILE))
+    """Blocked stage1 kernel (2, 2, 2C, C) -> (C/N * 8C/64, N, 64), N =
+    ``stage1_columns(C)``: per N-column block, one tile per 64-deep chunk
+    of K = ``((kh*2 + kw)*2 + di) * C + c``, the order the kernel walks
+    them. At C = 64: (8, 64, 64), one tile per tap."""
+    if wb.dim() != 4 or tuple(wb.shape[:2]) != (2, 2) or \
+            wb.shape[2] != 2 * wb.shape[3]:
+        raise ValueError(f"expected a (2, 2, 2C, C) kernel, got "
+                         f"{tuple(wb.shape)}")
+    c = wb.shape[3]
+    _check_width(c, "stage1 kernel", wb.shape)
+    n = stage1_columns(c)
+    kc = 8 * c // TILE
+    t = wb.reshape(kc, TILE, c // n, n).permute(2, 0, 1, 3)
+    return pack_b_tiles(t).reshape(c // n * kc, n, TILE)
 
 
 def unpack_stage1_mma(p: torch.Tensor) -> torch.Tensor:
-    return unpack_b_tiles(p).reshape(2, 2, 2 * TILE, TILE)
+    tiles, n, _ = p.shape
+    c = round((8 * n * tiles) ** 0.5)   # tiles = C/N * 8C/64
+    w = unpack_b_tiles(p.reshape(c // n, 8 * c // TILE, n, TILE))
+    return w.permute(1, 2, 0, 3).reshape(2, 2, 2 * c, c).contiguous()
 
 
 def _pad_k(w: torch.Tensor) -> torch.Tensor:
@@ -83,16 +126,18 @@ def _pad_k(w: torch.Tensor) -> torch.Tensor:
 
 
 def pack_stem_mma(ws: torch.Tensor) -> torch.Tensor:
-    """Stem kernel (2, 2, 24, 64) -> (2, 64, 64): one tile per kernel row
+    """Stem kernel (2, 2, 24, C) -> (2, C, 64): one tile per kernel row
     ``kh`` with K = ``kw*24 + c`` (the 96 contiguous bytes of a frame
     pixel and its right neighbour), zero-padded from 48 to 64."""
-    if tuple(ws.shape) != (2, 2, 24, TILE):
-        raise ValueError(f"expected (2, 2, 24, 64), got {tuple(ws.shape)}")
-    return pack_b_tiles(_pad_k(ws.reshape(2, 48, TILE)))
+    if ws.dim() != 4 or tuple(ws.shape[:3]) != (2, 2, 24):
+        raise ValueError(f"expected (2, 2, 24, C), got {tuple(ws.shape)}")
+    _check_width(ws.shape[3], "stem kernel", ws.shape)
+    return pack_b_tiles(_pad_k(ws.reshape(2, 48, ws.shape[3])))
 
 
 def unpack_stem_mma(p: torch.Tensor) -> torch.Tensor:
-    return unpack_b_tiles(p)[:, :48].reshape(2, 2, 24, TILE).contiguous()
+    c = p.shape[1]
+    return unpack_b_tiles(p)[:, :48].reshape(2, 2, 24, c).contiguous()
 
 
 # The wide kernels split every product's output columns over a cluster

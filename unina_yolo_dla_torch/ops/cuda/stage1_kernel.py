@@ -22,11 +22,16 @@ import torch
 import torch.nn.functional as F
 
 from ._lib import I, Kernel, P, check_cuda, stream_ptr
+from .mma_pack import STEM_STAGE1_WIDTHS, stage1_mma_shape, \
+    stem_stage1_takes
 
-KERNEL = Kernel("unina_stage1_merged", [P, P, P, P, I, I, I, P])
-
-# the shapes the CUDA kernel is compiled for (csrc/stage1.cu)
-KERNEL_CM, KERNEL_O = 64, 64
+_ARGS = [P, P, P, P, I, I, I, P]
+# one entry point, and one launch count, a compiled width C (merged input
+# CM = output O = C = 2 x base; csrc/stage1.cu)
+KERNELS = {c: Kernel("unina_stage1_merged" + ("" if c == 64 else
+                                              f"_c{c}"), _ARGS)
+           for c in STEM_STAGE1_WIDTHS}
+KERNEL = KERNELS[64]          # the base-32 engines' width
 
 
 def pack_stage1_weights(wb: torch.Tensor) -> torch.Tensor:
@@ -69,23 +74,24 @@ def fused_downsample_merged(xm: torch.Tensor, wb: torch.Tensor,
 
     ``wb`` is the weights as the side that computes reads them: for a CPU
     tensor the blocked kernel (2, 2, 4C, O), for a CUDA tensor its B-tile
-    image ``pack_stage1_mma(blocked)`` (8, 64, 64), which the caller packs
-    once at load. The CUDA kernel takes bf16 ``xm`` (B, H, W2, 64) and an
-    f32 bias (64,); batch rides on its tile index."""
+    image ``pack_stage1_mma(blocked)`` (C = 64: (8, 64, 64)), which the
+    caller packs once at load. The CUDA kernel takes bf16 ``xm`` (B, even
+    H, W2, C) and an f32 bias (C,), C one of ``STEM_STAGE1_WIDTHS``; batch
+    rides on its tile index."""
     if not xm.is_cuda:
         return fused_downsample_merged_plain(xm, wb, bias)
     lead = xm.shape[:-3]
     h, w2, cm = xm.shape[-3:]
     bsz = xm.numel() // (h * w2 * cm)
     check_cuda(xm, "xm", torch.bfloat16)
-    if cm != KERNEL_CM or h % 2:
-        raise ValueError(f"kernel takes (B, even H, W2, {KERNEL_CM}), got "
-                         f"{tuple(xm.shape)}")
+    if not stem_stage1_takes(cm) or h % 2:
+        raise ValueError(f"kernel takes (B, even H, W2, C), C in "
+                         f"{STEM_STAGE1_WIDTHS}, got {tuple(xm.shape)}")
     check_cuda(wb, "wb (pack_stage1_mma image)", torch.bfloat16,
-               (8, KERNEL_O, KERNEL_CM))
-    check_cuda(bias, "bias", torch.float32, (KERNEL_O,))
-    out = torch.empty((*lead, h // 2, w2, KERNEL_O), dtype=torch.bfloat16,
+               stage1_mma_shape(cm))
+    check_cuda(bias, "bias", torch.float32, (cm,))
+    out = torch.empty((*lead, h // 2, w2, cm), dtype=torch.bfloat16,
                       device=xm.device)
-    KERNEL.launch(xm.data_ptr(), wb.data_ptr(), bias.data_ptr(),
-                  out.data_ptr(), bsz, h, w2, stream_ptr(xm.device))
+    KERNELS[cm].launch(xm.data_ptr(), wb.data_ptr(), bias.data_ptr(),
+                       out.data_ptr(), bsz, h, w2, stream_ptr(xm.device))
     return out

@@ -21,11 +21,17 @@ import torch
 import torch.nn.functional as F
 
 from ._lib import I, Kernel, P, check_cuda, stream_ptr
+from .mma_pack import STEM_STAGE1_WIDTHS, stage1_mma_shape, \
+    stem_stage1_takes
 
-KERNEL = Kernel("unina_fused_stem_stage1", [P, P, P, P, P, P, I, I, I, P])
-
-# the shapes the CUDA kernel is compiled for (csrc/stem.cu)
-KERNEL_CM, KERNEL_O2, KERNEL_C2 = 24, 64, 64
+_ARGS = [P, P, P, P, P, P, I, I, I, P]
+# one entry point, and one launch count, a compiled width C (stem output
+# O2 = stage1 output C2 = C = 2 x base; csrc/stem.cu)
+KERNELS = {c: Kernel("unina_fused_stem_stage1" + ("" if c == 64 else
+                                                  f"_c{c}"), _ARGS)
+           for c in STEM_STAGE1_WIDTHS}
+KERNEL = KERNELS[64]          # the base-32 engines' width
+KERNEL_CM = 24                # merged frame channels
 
 
 def fused_stem_stage1_plain(xm: torch.Tensor, stem_kernel: torch.Tensor,
@@ -63,10 +69,10 @@ def fused_stem_stage1(xm: torch.Tensor, stem_kernel: torch.Tensor,
 
     The kernels are as the side that computes reads them: for a CPU
     tensor the blocked ones, (2, 2, CM, O2) and (2, 2, 2*O2, C2); for a
-    CUDA tensor their B-tile images ``pack_stem_mma(stem)`` (2, 64, 64)
-    and ``pack_stage1_mma(stage1)`` (8, 64, 64). The CUDA kernel takes
-    bf16 ``xm`` (B, even H, W2, 24) and f32 biases (64,); batch rides on
-    its tile index."""
+    CUDA tensor their B-tile images ``pack_stem_mma(stem)`` (2, C, 64)
+    and ``pack_stage1_mma(stage1)`` (C = 64: (8, 64, 64)), C one of
+    ``STEM_STAGE1_WIDTHS``. The CUDA kernel takes bf16 ``xm`` (B, even H,
+    W2, 24) and f32 biases (C,); batch rides on its tile index."""
     if not xm.is_cuda:
         return fused_stem_stage1_plain(xm, stem_kernel, stem_bias,
                                        stage1_kernel, stage1_bias)
@@ -77,16 +83,21 @@ def fused_stem_stage1(xm: torch.Tensor, stem_kernel: torch.Tensor,
     if cm != KERNEL_CM or h % 2:
         raise ValueError(f"kernel takes (B, even H, W2, {KERNEL_CM}), got "
                          f"{tuple(xm.shape)}")
+    c = stem_kernel.shape[1] if stem_kernel.dim() == 3 else 0
+    if not stem_stage1_takes(c):
+        raise ValueError(f"stem_kernel (pack_stem_mma image): the kernel is "
+                         f"compiled for widths {STEM_STAGE1_WIDTHS}, got "
+                         f"{tuple(stem_kernel.shape)}")
     check_cuda(stem_kernel, "stem_kernel (pack_stem_mma image)",
-               torch.bfloat16, (2, KERNEL_O2, 64))
-    check_cuda(stem_bias, "stem_bias", torch.float32, (KERNEL_O2,))
+               torch.bfloat16, (2, c, 64))
+    check_cuda(stem_bias, "stem_bias", torch.float32, (c,))
     check_cuda(stage1_kernel, "stage1_kernel (pack_stage1_mma image)",
-               torch.bfloat16, (8, KERNEL_C2, KERNEL_O2))
-    check_cuda(stage1_bias, "stage1_bias", torch.float32, (KERNEL_C2,))
-    out = torch.empty((*lead, h // 2, w2, KERNEL_C2), dtype=torch.bfloat16,
+               torch.bfloat16, stage1_mma_shape(c))
+    check_cuda(stage1_bias, "stage1_bias", torch.float32, (c,))
+    out = torch.empty((*lead, h // 2, w2, c), dtype=torch.bfloat16,
                       device=xm.device)
-    KERNEL.launch(xm.data_ptr(), stem_kernel.data_ptr(),
-                  stem_bias.data_ptr(), stage1_kernel.data_ptr(),
-                  stage1_bias.data_ptr(), out.data_ptr(), bsz, h, w2,
-                  stream_ptr(xm.device))
+    KERNELS[c].launch(xm.data_ptr(), stem_kernel.data_ptr(),
+                      stem_bias.data_ptr(), stage1_kernel.data_ptr(),
+                      stage1_bias.data_ptr(), out.data_ptr(), bsz, h, w2,
+                      stream_ptr(xm.device))
     return out

@@ -3,13 +3,19 @@ quantiser, and the fake-quantisation of the train form (calibration and
 QAT).
 
 ``QuantSpec`` and the exclusion lists follow the reference. The deployed
-``int8_fused`` engine (inference only):
+engines (inference only, BatchNorm folded):
 
-- ``ActQuant``: float -> QTensor boundary at a calibrated amax
-  (``in_q``, ``out_q``, ``add_q``).
-- ``QuantConv``: the int8 branch (int8 x int8 -> int32, then
-  ``acc * (x_scale * w_scale) + bias`` in f32) and the float branch
-  (excluded layers, in the compute dtype).
+- ``int8_fused``: ``ActQuant``, the float -> QTensor boundary at a
+  calibrated amax (``in_q``, ``out_q``, ``add_q``); ``QuantConv``'s int8
+  branch (int8 x int8 -> int32, then ``acc * (x_scale * w_scale) + bias``
+  in f32) and its float branch (excluded layers, in the compute dtype).
+- ``int8`` (the unfused int8 engine): the same int8 branch, its result in
+  the compute dtype; every quantised conv quantises its float input
+  through its own ``in_q``, and activations are float between layers.
+- ``quantize`` (the folded QAT model): the float branch with the input
+  fake-quantised at its calibrated ``in_q`` amax (``FakeQuant``) and the
+  weights fake-quantised per output channel once at load, as the
+  reference recomputes them every call.
 
 The train form (``models/blocks.py`` ``Train*`` blocks), in the modes
 ``calib_max`` / ``calib_hist`` (pass-through, collecting a running max|x|
@@ -61,13 +67,16 @@ HIST_BINS = 2048
 # quant modes of the train form, and those that collect calibration stats
 TRAIN_MODES = ("off", "calib_max", "calib_hist", "quantize")
 CALIB_MODES = ("calib_max", "calib_hist")
+# the deployed integer engines: dequantised between layers, or int8 chained
+INT8_MODES = ("int8", "int8_fused")
 
 
 @dataclasses.dataclass(frozen=True)
 class QuantSpec:
     """Quantisation behaviour: ``mode`` is "off", "calib_max",
-    "calib_hist", "quantize" (the train form) or "int8_fused" (the
-    deployed engine)."""
+    "calib_hist", "quantize" (the train form, and the folded QAT model),
+    "int8" (the unfused int8 engine) or "int8_fused" (the fused int8
+    engine)."""
 
     mode: str = "off"
     exclude: tuple[str, ...] = DEFAULT_EXCLUDE
@@ -77,11 +86,7 @@ class QuantSpec:
     num_bits: int = 8
 
     def __post_init__(self):
-        if self.mode == "int8":
-            raise ValueError(
-                "quant mode 'int8' (the unfused int8 engine) is not ported "
-                "(ROADMAP.md Queue A item 8d)")
-        if self.mode not in TRAIN_MODES + ("int8_fused",):
+        if self.mode not in TRAIN_MODES + INT8_MODES:
             raise ValueError(f"unknown quant mode {self.mode!r}")
 
     @property
@@ -159,16 +164,25 @@ class QuantConv(nn.Module):
         stride, padding: conv geometry (``padding`` int or
             ((top, bottom), (left, right))).
         w_scale: (O,) per-output-channel weight scales (int8 branch).
-        in_amax: calibrated input amax; the branch quantises a float
+        in_amax: calibrated input amax; the int8 branch quantises a float
             input with it (a QTensor input carries its own scale).
         dtype: compute dtype of the float branch.
+        int8_out: dtype of the int8 branch's result: float32 where the
+            fused chain requantises it (``int8_fused``), the compute dtype
+            in the unfused engine (``int8``).
+        fake_in: float branch only: the ``FakeQuant`` the input goes
+            through first (the folded QAT model's ``in_q``).
     """
 
     def __init__(self, kernel: np.ndarray, bias: np.ndarray | None,
                  stride: int = 1, padding=0, *,
                  w_scale: np.ndarray | None = None, in_amax=None,
-                 dtype: torch.dtype = torch.bfloat16) -> None:
+                 dtype: torch.dtype = torch.bfloat16,
+                 int8_out: torch.dtype = torch.float32,
+                 fake_in: nn.Module | None = None) -> None:
         super().__init__()
+        self.int8_out = int8_out
+        self.fake_in = fake_in
         kh, kw, cin, cout = kernel.shape
         self.kh, self.kw, self.stride, self.padding = kh, kw, stride, padding
         self.cout = cout
@@ -211,9 +225,12 @@ class QuantConv(nn.Module):
                               self.kw, self.stride, self.padding)
             comb = self.w_scale * float(xs)
             y = fma_f32(acc.float(), comb, self.bias)
-            return y[..., :self.cout] if y.shape[-1] != self.cout else y
+            y = y[..., :self.cout] if y.shape[-1] != self.cout else y
+            return y.to(self.int8_out)
         if isinstance(x, QTensor):
             x = x.dequant(self.dtype)
+        if self.fake_in is not None:
+            x = self.fake_in(x)
         y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), self.weight,
                      stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 1) + self.bias
@@ -249,6 +266,20 @@ def fake_quant_tensor(x: torch.Tensor, amax: torch.Tensor, qmax: float
     scale = amax / _const(amax, qmax)
     q = ste_round(_clip(x.to(dt) / scale, -qmax, qmax)) * scale
     return torch.where(amax > 1e-8, q, x.to(dt)).to(x.dtype)
+
+
+class FakeQuant(nn.Module):
+    """The folded QAT model's activation quantiser: fake-quant at a
+    calibrated amax (``quant/<path>/amax``), as the train form's
+    ``TrainActQuant`` in ``quantize`` mode computes it."""
+
+    def __init__(self, amax, num_bits: int = 8) -> None:
+        super().__init__()
+        self.qmax = float(2 ** (num_bits - 1) - 1)
+        self.register_buffer("amax", torch.tensor(np.float32(amax)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fake_quant_tensor(x, self.amax, self.qmax)
 
 
 def quant_weight(w: torch.Tensor, spec: QuantSpec, path: str

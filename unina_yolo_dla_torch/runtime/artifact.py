@@ -70,22 +70,24 @@ def _build_value(conf: dict, key: str, override):
     return conf.get(key, override)
 
 
-def _quant(conf: dict, mode, unfolded: bool = False) -> QuantSpec | None:
+def _quant(conf: dict, mode, unfolded: bool = False,
+           int8_kernels: bool = True) -> QuantSpec | None:
     """The quantisation an artifact was built with. A known ``mode``
     (``config.json``'s ``quant_mode`` or the caller's) is checked against
-    ``quantized``; ``int8`` (the unfused int8 chain) is refused. Without a
-    mode, a quantised artifact is read from its weight tree: a folded one
-    is the fused int8 chain with the measured exclusion list, as the
-    export's ``--int8`` writes it (the reference's ``config.json`` says
-    only ``"quantized"``, so an ``--int8-unfused`` export of the reference
-    is read so too unless the caller says ``quant_mode="int8"``); an
-    ``unfolded`` one is the QAT fake-quant model with the train CLI's
-    exclusions (``quantize``). A deploy mode with an unfolded tree, or
-    ``quantize`` with a folded one, raises."""
+    ``quantized``. Without a mode, a quantised artifact is read from its
+    weight tree: an ``unfolded`` one is the QAT fake-quant model with the
+    train CLI's exclusions (``quantize``); a folded one with int8 kernels
+    the fused int8 chain with the measured exclusion list, as the export's
+    ``--int8`` writes it (the reference's ``config.json`` says only
+    ``"quantized"``, so an ``--int8-unfused`` export of the reference is
+    read so too unless the caller says ``quant_mode="int8"``); a folded
+    one without (``int8_kernels`` false) the folded QAT model
+    (``quantize``). ``int8`` and ``quantize`` keep the reference's default
+    exclusions. A deploy mode with an unfolded tree raises."""
     quantized = conf.get("quantized")
     if mode is None:
-        mode = (("quantize" if unfolded else "int8_fused") if quantized
-                else "off")
+        mode = ("off" if not quantized else "quantize"
+                if unfolded or not int8_kernels else "int8_fused")
     if mode not in ("off", "int8_fused", "int8", "quantize"):
         raise ValueError(f"unknown quant mode {mode!r}")
     if quantized is not None and bool(quantized) != (mode != "off"):
@@ -94,18 +96,10 @@ def _quant(conf: dict, mode, unfolded: bool = False) -> QuantSpec | None:
     if unfolded and mode not in ("off", "quantize"):
         raise ValueError(f"quant mode {mode!r} is a deploy mode; this "
                          "artifact holds an unfolded (train-form) model")
-    if mode == "quantize" and not unfolded:
-        raise NotImplementedError(
-            "a deploy (folded) model in the QAT mode 'quantize' is served "
-            "once the port builds it (ROADMAP Queue A item 8d)")
-    if mode == "int8":
-        raise NotImplementedError(
-            "an unfused int8 artifact (quant mode 'int8') is served once "
-            "the port has the unfused int8 chain (ROADMAP Queue A item 8d)")
-    if mode == "quantize":
-        return QuantSpec("quantize", exclude=DEFAULT_EXCLUDE)
-    return (QuantSpec("int8_fused", exclude=PERF_EXCLUDE)
-            if mode == "int8_fused" else None)
+    if mode == "off":
+        return None
+    return QuantSpec(mode, exclude=PERF_EXCLUDE if mode == "int8_fused"
+                     else DEFAULT_EXCLUDE)
 
 
 # the deploy transforms an engine's config.json may record; the train form
@@ -114,7 +108,8 @@ DEPLOY_FLAGS = ("stem_s2d", "s2d_host", "stage1_s2d", "s2d_merged",
                 "fused_stem", "merged_head")
 
 
-def config_from_artifact(conf: dict, unfolded: bool = False, **build
+def config_from_artifact(conf: dict, unfolded: bool = False,
+                         int8_kernels: bool = True, **build
                          ) -> ModelConfig:
     """The engine configuration an exported ``config.json`` describes
     (a batch artifact's engine is the batch-1 one; ``batch`` only sets
@@ -123,7 +118,9 @@ def config_from_artifact(conf: dict, unfolded: bool = False, **build
     ``unfolded``: the weight tree holds the train form (BatchNorm
     statistics; ``is_unfolded``): the model is then the train form, in
     float or, quantised, as the QAT fake-quant model, and no deploy flag
-    may be set. Otherwise the deploy flags are read as written. ``build``
+    may be set. Otherwise the deploy flags are read as written;
+    ``int8_kernels`` (``has_int8_kernels``) tells a folded quantised tree's
+    int8 engines from its QAT model where no mode is given. ``build``
     gives what the reference's ``config.json`` does not record
     (``BUILD_KEYS``: ``compute_dtype`` a dtype or its name,
     ``quant_mode``, ``fused_c3k2``, ``fused_head``); each is used where
@@ -158,7 +155,7 @@ def config_from_artifact(conf: dict, unfolded: bool = False, **build
         base_channels=conf["base_channels"],
         lite_p2=conf.get("lite_p2", False),
         input_size=conf["input_size"], compute_dtype=_DTYPES[dtype],
-        quant=_quant(conf, got["quant_mode"], unfolded),
+        quant=_quant(conf, got["quant_mode"], unfolded, int8_kernels),
         deploy=not unfolded, **fused, **flags)
 
 
@@ -179,6 +176,21 @@ def is_unfolded(variables: dict) -> bool:
         variables.get("params", {}))
 
 
+def has_int8_kernels(variables: dict) -> bool:
+    """Whether any conv kernel of the weight tree is int8 (an int8 engine's
+    tree; the folded QAT model's kernels are float)."""
+    def walk(node) -> bool:
+        if not isinstance(node, dict):
+            return False
+        k = node.get("kernel")
+        if k is not None and not isinstance(k, dict) and \
+                np.asarray(k).dtype == np.int8:
+            return True
+        return any(walk(v) for v in node.values())
+
+    return walk(variables.get("params", {}))
+
+
 class ServingArtifact:
     """Frame(s) -> Detections with weights resident on ``device``.
 
@@ -194,9 +206,7 @@ class ServingArtifact:
 
     ``build`` says how the engine was built where ``config.json`` does not
     (``compute_dtype``, ``quant_mode``, ``fused_c3k2``, ``fused_head``:
-    ``config_from_artifact``); an artifact of the unfused int8 chain, or
-    of a folded model in the QAT mode, raises ``NotImplementedError``
-    before any model is built."""
+    ``config_from_artifact``)."""
 
     def __init__(self, directory: str | Path, device=None,
                  graph: bool = True, **build) -> None:
@@ -211,7 +221,8 @@ class ServingArtifact:
         self.config = json.loads((self.dir / "config.json").read_text())
         variables = load_msgpack_raw(self.dir / "variables.msgpack")
         self.model_config = config_from_artifact(
-            self.config, unfolded=is_unfolded(variables), **build)
+            self.config, unfolded=is_unfolded(variables),
+            int8_kernels=has_int8_kernels(variables), **build)
         self.batch = self.config.get("batch")
         self.model = from_jax_variables(variables, self.model_config,
                                         self.device)

@@ -1,0 +1,3 @@
+from .profiling import Timer, annotate, trace
+
+__all__ = ["Timer", "annotate", "trace"]
