@@ -168,19 +168,28 @@ clean strict report, eager FRAMES frames (one normalize, stem, decode and
 NMS launch a frame) against the port's CPU path on the seed-7 scene (same
 count, 0.5 px, 1e-2), one captured graph equal to the eager frame on the
 8 scenes. Phase 20: the stem and stage1 kernels at base 16 and 64 (C =
-32 and 128): on binary-grid inputs bit for bit their plain versions, the
-64-wide kernels' SHA-256 digests unchanged; random-initialised engines
-(the port's seeded ``init_model`` at each base, BatchNorm scales at
-WIDTH_BN_GAIN so the activations keep their scale through the depth)
-exported with ``--s2d-merged --fused-stem`` (row 2) and ``--stage1-s2d
---merged-head`` (row 5) at a confidence threshold set in the widest gap
-of the seed-7 frame's top cell logits at which the card and the CPU path
-pass the same cells, each served eager (the width's
-kernel launched once a frame) against the port's CPU path (same count,
-0.5 px, 1e-2) and as one captured graph equal to the eager frame on the 8
-scenes; each width's kernel on that frame's own activations against its
-plain version and timed (one more entry of the kernels line each). Phase
-21: the batch-8 artifact's model served as a fleet
+32 and 128) and the C3k2 and head kernels at base 64's new widths (hidden
+256, fpn_c3k2_1, head 512; ``WIDE_NEW``): on binary-grid inputs bit for
+bit their plain versions; the 64-wide stem and stage1 kernels' and the
+wide C3k2 and head kernels' earlier widths' SHA-256 digests unchanged;
+random-initialised engines (the port's seeded ``init_model`` at each
+base, BatchNorm scales at WIDTH_BN_GAIN so the activations keep their
+scale through the depth) exported with ``--s2d-merged --fused-stem`` (row
+2), ``--stage1-s2d --fused-c3k2 --fused-head`` (row 5 in its fc form) and,
+at base 64, ``--s2d-merged --fused-c3k2 --fused-head``, at a confidence
+threshold set in the widest gap of the seed-7 frame's top cell logits at
+which the card and the CPU path pass the same cells, each served eager
+(its kernels launched as often as a frame holds them: the fc engines'
+C3k2 3, C3k2-cat 4 and head 3 a frame) against the port's CPU path (same
+count, 0.5 px, 1e-2) and as one captured graph equal to the eager frame
+on the 8 scenes; each width's stem or stage1 kernel on that frame's own
+activations against its plain version and timed (one more entry of the
+kernels line each), and the base-64 fc engine's ten fused blocks the same
+way beside the fused-stem engine's cuDNN blocks (rows in the ``widths`` of
+the C3k2, C3k2-cat and head entries). Phase 5b: the shipped engine served
+with ``use_greedy_nms=False`` (``ops/nms.py nms_fast``) against the port's
+CPU path with the same switch. Phase 21: the batch-8 artifact's model
+served as a fleet
 (``parallel.make_sharded_batch_serving_fn``) over ``[cuda:0]`` and over
 the card listed twice (two programs, two streams, two graphs), both bit
 for bit the batch-8 graph's Detections, one fleet call under
@@ -355,16 +364,34 @@ MODE_FLAGS = {
 MODE_PER_FRAME = {"normalize": 1, "fused_stem_stage1": 1, "decode_topk": 1,
                   "nms": 1, "stage1_merged": 0, "fused_c3k2": 0,
                   "fused_c3k2_cat": 0, "fused_head": 0, "camera": 0}
-# phase 20: the stem and stage1 kernels at the other base widths, in
-# random-initialised engines (seed = base) whose BatchNorm scales keep the
-# activations' scale through the depth; the threshold is set in a gap of
-# the seed-7 frame's top cell logits between these ranks
-# (``gap_threshold``)
-WIDTH_BASES = (16, 64)
+# phase 20: the kernels at the other base widths, in random-initialised
+# engines (seed = base) whose BatchNorm scales keep the activations' scale
+# through the depth; the threshold is set in a gap of the seed-7 frame's
+# top cell logits between these ranks (``gap_threshold``)
 WIDTH_BN_GAIN = 1.3
-WIDTH_FLAGS = {"fused_stem_stage1": ["--s2d-merged", "--fused-stem"],
-               "stage1_merged": ["--stage1-s2d", "--merged-head"]}
 WIDTH_GAP_RANKS = (1, 60)
+# the engines: name -> (export flags, the kernels a frame launches beside
+# normalize, decode and NMS, once each). Row 5 in its fc form, every C3k2
+# and head fused (the C3k2 and head kernels at base 16's and base 64's
+# widths: hidden 16-256, heads 32-512), and base 64's ``--s2d-merged`` fc
+# engine, whose ten fused blocks ``check_wide_kernels`` checks and times
+# against the same blocks of the fused-stem engine (cuDNN convolutions)
+FC_PER_FRAME = {"stage1_merged": 1, "fused_c3k2": 3, "fused_c3k2_cat": 4,
+                "fused_head": 3}
+WIDTH_ENGINES = {
+    "fused_stem_stage1": (["--s2d-merged", "--fused-stem"],
+                          {"fused_stem_stage1": 1}),
+    "stage1_fc": (["--stage1-s2d", "--fused-c3k2", "--fused-head"],
+                  FC_PER_FRAME),
+    "s2dm_fc": (["--s2d-merged", "--fused-c3k2", "--fused-head"],
+                FC_PER_FRAME),
+}
+# the engines served at each base, in order
+WIDTH_RUNS = {16: ("fused_stem_stage1", "stage1_fc"),
+              64: ("fused_stem_stage1", "stage1_fc", "s2dm_fc")}
+# the row of phase 20's kernels table each engine gives (``width_row``)
+WIDTH_ROW = {"fused_stem_stage1": "fused_stem_stage1",
+             "stage1_fc": "stage1_merged"}
 # SHA-256 of the 64-wide stem and stage1 kernels' outputs on seeded normal
 # inputs (``width_inputs``), as the kernels computed them before they took
 # other widths (on an NVIDIA H100 80GB HBM3, 700 W). To record them again
@@ -380,6 +407,75 @@ WIDTH64_DIGESTS = {
         "f0420fd53b7b81f04e6bbc330d3369b3093bd75a9e3d2796538494b5fe4b012c",
     "stage1_2x10x37":
         "cbe071e224f13573d70a2d6e027aa5d975cf40e29fad3415aec19e807f0a273c",
+}
+# the wide C3k2 and head kernels at every (hidden, n) and head width they
+# took before hidden 256 and head 512 were added: the served shapes of the
+# base-32 and base-16 engines and ragged batches of 2. C3k2: (batch, H, W,
+# Ca (0: the single form), Cb, hidden, n, up_a, shortcut); head: (batch,
+# H, W, C).
+WIDE_SEED = 2026
+WIDE_SHAPES = {
+    "c3k2_h16_n1_160": (1, 160, 160, 0, 32, 16, 1, False, True),
+    "c3k2_h64_n2_80": (1, 80, 80, 0, 128, 64, 2, False, True),
+    "c3k2_h128_n2_40": (1, 40, 40, 0, 256, 128, 2, False, True),
+    "c3k2_h64_n1_2x37x45": (2, 37, 45, 0, 128, 64, 1, False, True),
+    "c3k2_h128_n1_2x5x3": (2, 5, 3, 0, 256, 128, 1, False, True),
+    "c3k2_h16_n2_2x9x14": (2, 9, 14, 0, 40, 16, 2, False, True),
+    "cat_h64_n1_up_80": (1, 80, 80, 128, 128, 64, 1, True, False),
+    "cat_h64_n1_80": (1, 80, 80, 64, 128, 64, 1, False, False),
+    "cat_h128_n1_40": (1, 40, 40, 128, 256, 128, 1, False, False),
+    "cat_h16_n1_up_160": (1, 160, 160, 32, 32, 16, 1, True, False),
+    "cat_h128_n2_up_2x14x22": (2, 14, 22, 128, 64, 128, 2, True, True),
+    "cat_h64_n2_2x37x45": (2, 37, 45, 64, 128, 64, 2, False, True),
+    "head_c32_160": (1, 160, 160, 32),
+    "head_c128_80": (1, 80, 80, 128),
+    "head_c256_40": (1, 40, 40, 256),
+    "head_c256_2x13x6": (2, 13, 6, 256),
+    "head_c128_2x37x45": (2, 37, 45, 128),
+    "head_c32_1x9x17": (1, 9, 17, 32),
+}
+# SHA-256 of ``wide_outputs`` as the wide kernels computed them before
+# they took hidden 256 and head 512 (the parent commit's kernels, on an
+# NVIDIA H100 80GB HBM3). To record them again from another commit,
+# unpack it into a directory and call ``wide_digests(torch)`` on the card
+# with that directory first on ``sys.path``.
+WIDE_DIGESTS = {
+    "c3k2_h16_n1_160":
+        "e59361a4ed416bac6a29278ef7861502a8c17bdd8149d1fc9fefb5449a79efe0",
+    "c3k2_h64_n2_80":
+        "40056322871410b3118789183df0c9f9b7ef85f4d66cbb21a2f9361760957287",
+    "c3k2_h128_n2_40":
+        "7696212f93d8cae2726f818af1669656be2ddf21815638dbdde20fb7f03ccfeb",
+    "c3k2_h64_n1_2x37x45":
+        "0c65d91d2f7291e2344ab63d6709d4454e7d6807782ee09e887f67828ffdae49",
+    "c3k2_h128_n1_2x5x3":
+        "dc594fe2b0a83b2bad3661844cbe40952044d91adf97b0cb646bc85f47284ac8",
+    "c3k2_h16_n2_2x9x14":
+        "7214c8b71a364846e8208c7a1cc52d21745123c5f36c4dba59c467d7dd918d75",
+    "cat_h64_n1_up_80":
+        "c4001157ec5cc7da798c99ce5c04a06776bdd0385a551afe52467a8154caa5f6",
+    "cat_h64_n1_80":
+        "f97b900c895748b80cf1ef12c333e7d27902a5fbd3243a776c02097fe259e2a4",
+    "cat_h128_n1_40":
+        "498577c4c5bcbb83499f6d4aa9de5dd3cebee4d1e9c2187bdc913f85f6bb6107",
+    "cat_h16_n1_up_160":
+        "724010f7f3b4a958c9c9ed168e88880a6ab47919dd62e3c135d50c11ba22ff90",
+    "cat_h128_n2_up_2x14x22":
+        "c5214f258282aee3ce16aadec5ce2ca3b86c6ca390b3bac585663f3412e3dff9",
+    "cat_h64_n2_2x37x45":
+        "7825f59d3508be3391832dea34f02721cc516c91c7fd338fab04e7358f504e20",
+    "head_c32_160":
+        "efaece67794cbc3a8e9b4845597ee5881558ebb2a25d49cad4f4011669427723",
+    "head_c128_80":
+        "51ebd30d4f68e51e9ed8ef31f2d1e866b77e6fb2463f9999838015a7e073b6b4",
+    "head_c256_40":
+        "6a4d6801eda2b12b46c1783ff792fde0d7db355d91e4c0b9e8bb8aa757e3a4d4",
+    "head_c256_2x13x6":
+        "ee12a8ccdc24a53f7afd90aa36dba54422f8c5437f208c4c2656b1063030ccdf",
+    "head_c128_2x37x45":
+        "089dc6b9f853ab5ec846de4afc05e7fa14e5598cb9c43d4973a1544f7d5cc97a",
+    "head_c32_1x9x17":
+        "dbb6856de1ad338eb731c62b43945817b1a116bff94b1c40d3c0369a3b06bdeb",
 }
 # phase 22: curation
 CORESET = 32
@@ -1614,14 +1710,15 @@ def drive_export(tmp: Path, scenes, art_g, torch) -> dict:
 
 
 def check_wide_kernels(model, serve, frame, unfused, torch) -> list[dict]:
-    """Each fused module of the bf16 fc engine (seven C3k2s, three heads,
-    at 64, 128 and 256 channels) on the activations and weights of one
-    served frame: its kernel against its plain version on the card, |err|
-    <= 1e-2 (1 + |ref|); its time by CUDA events and inside a replayed
-    graph, the plain version's, its bound, its launch's grid as the
-    library recorded it, and inside a replayed graph the same block of
-    ``unfused`` (the bf16_s2dm_mh model: cuDNN convolutions) on the same
-    activations."""
+    """Each fused module of a bf16 fc engine (seven C3k2s, three heads:
+    at 64, 128 and 256 channels at base 32, 128 to 512 at base 64) on the
+    activations and weights of one served frame: its kernel against its
+    plain version on the card, |err| <= 1e-2 (1 + |ref|); its time by CUDA
+    events and inside a replayed graph, the plain version's, its bound,
+    its launch's grid as the library recorded it, and inside a replayed
+    graph the same block of ``unfused`` (an engine of the same weights
+    whose blocks are cuDNN convolutions: bf16_s2dm_mh at base 32, the
+    fused-stem engine at base 64) on the same activations."""
     from unina_yolo_dla_torch.ops.cuda import c3k2_kernel, head_kernel
     from unina_yolo_dla_torch.quant.qtensor import QTensor
 
@@ -2802,8 +2899,11 @@ def width_outputs(c, shape, grid, seed, torch):
 def check_widths_grid(torch) -> dict:
     """Every compiled width of the stem and stage1 kernels on binary-grid
     inputs at the served shape, a ragged batch of 2 and a single output
-    pixel: bit for bit their plain versions; and the 64-wide kernels'
-    outputs on seeded normal inputs: the digests they had before."""
+    pixel, and the C3k2 and head kernels at base 64's new widths
+    (``wide_grid_checks``): bit for bit their plain versions; the 64-wide
+    stem and stage1 kernels' outputs and the wide C3k2 and head kernels'
+    at their earlier widths on seeded normal inputs: the digests they had
+    before (WIDTH64_DIGESTS, WIDE_DIGESTS)."""
     from unina_yolo_dla_torch.ops.cuda import mma_pack
 
     exact = {}
@@ -2819,7 +2919,86 @@ def check_widths_grid(torch) -> dict:
                 assert exact[key], f"{key}: kernel differs from plain"
     digests = width64_digests(torch)
     assert digests == WIDTH64_DIGESTS, f"64-wide digests moved: {digests}"
-    return {"grid_bit_equal": exact, "digests_64_unchanged": True}
+    exact.update(wide_grid_checks(torch))
+    digests = wide_digests(torch)
+    moved = {k for k, v in digests.items() if WIDE_DIGESTS[k] != v}
+    assert not moved, f"wide kernels' digests moved: {sorted(moved)}"
+    return {"grid_bit_equal": exact, "digests_64_unchanged": True,
+            "wide_digests_unchanged": len(digests)}
+
+
+# base 64's new wide shapes at 640² and as ragged batches of 2: C3k2 (B, H,
+# W, Ca, Cb, hidden, n, up_a), head (B, H, W, C)
+WIDE_NEW = {
+    "stage3_c3k2_1x40x40": (1, 40, 40, 0, 512, 256, 2, False),
+    "stage3_c3k2_2x11x13": (2, 11, 13, 0, 512, 256, 2, False),
+    "pan_c3k2_2_1x40x40": (1, 40, 40, 256, 512, 256, 1, False),
+    "pan_c3k2_2_2x11x13": (2, 11, 13, 256, 512, 256, 1, False),
+    "fpn_c3k2_1_1x80x80": (1, 80, 80, 256, 256, 128, 1, True),
+    "fpn_c3k2_1_2x14x22": (2, 14, 22, 256, 256, 128, 1, True),
+    "head_p4_1x40x40": (1, 40, 40, 512),
+    "head_p4_2x13x7": (2, 13, 7, 512),
+}
+
+
+def wide_grid_checks(torch) -> dict:
+    """The C3k2 and head kernels at WIDE_NEW on binary-grid inputs
+    (activations k/2, sparse weights k/4, biases k/8: every f32 sum exact
+    in any order): bit for bit their plain versions."""
+    from unina_yolo_dla_torch.ops.cuda import c3k2_kernel, head_kernel, \
+        mma_pack
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    rng = np.random.default_rng(16)
+
+    def act(shape):
+        a = rng.integers(0, 5, shape) * 0.5
+        return torch.from_numpy(a.astype(np.float32)).to(dev, bf)
+
+    def kb(shape):
+        fan = int(np.prod(shape[:-1]))
+        k = np.where(rng.random(shape) < min(1.0, 8 / fan),
+                     rng.choice([-.5, -.25, .25, .5], shape), 0.0)
+        return (k.astype(np.float32),
+                (rng.integers(-2, 3, shape[-1]) / 8).astype(np.float32))
+
+    exact = {}
+    for name, case in WIDE_NEW.items():
+        if name.startswith("head"):
+            b, h, w, c = case
+            x = act((b, h, w, c))
+            ws = [t.to(dev) for t in head_kernel.pack_head_weights(
+                [kb((3, 3, c, c)), kb((3, 3, c, c))], kb((1, 1, c, 4)),
+                [kb((3, 3, c, c)), kb((3, 3, c, c))], kb((1, 1, c, 4)), bf)]
+            got = head_kernel.fused_head(x, *ws, w33=mma_pack.pack_head_mma(
+                ws[0], ws[6], ws[2], ws[8], ws[4], ws[10]))
+            want = head_kernel.fused_head_plain(x, *ws)
+        else:
+            b, h, w, ca, cb, hd, n, up = case
+            xb = act((b, h, w, cb))
+            xa = act((b, h // 2, w // 2, ca) if up else (b, h, w, ca))
+            ws = [t.to(dev) for t in c3k2_kernel.pack_c3k2_weights(
+                kb((1, 1, ca + cb, hd)), kb((1, 1, ca + cb, hd)),
+                kb((1, 1, 2 * hd, 2 * hd)),
+                [(kb((1, 1, hd, hd)), kb((3, 3, hd, hd))) for _ in range(n)],
+                bf)]
+            wpk = mma_pack.pack_c3k2_mma(ws[0], ws[6], ws[2], ws[4], ws[8],
+                                         ca)
+            if ca:
+                got = (c3k2_kernel.fused_c3k2_cat(xa, xb, *ws, up_a=up,
+                                                  wpk=wpk),)
+                want = (c3k2_kernel.fused_c3k2_cat_plain(xa, xb, *ws,
+                                                         up_a=up),)
+            else:
+                got = (c3k2_kernel.fused_c3k2(xb, *ws, wpk=wpk),)
+                want = (c3k2_kernel.fused_c3k2_plain(xb, *ws),)
+        torch.cuda.synchronize()
+        assert float(want[0].float().abs().max()) > 1.0, \
+            f"{name}: degenerate grid inputs"
+        exact[name] = all(bool(torch.equal(g, w_))
+                          for g, w_ in zip(got, want))
+        assert exact[name], f"{name}: kernel differs from plain"
+    return exact
 
 
 def width64_digests(torch) -> dict:
@@ -2835,6 +3014,68 @@ def width64_digests(torch) -> dict:
             digests[key] = hashlib.sha256(
                 got.contiguous().view(torch.int16).cpu().numpy().tobytes()
             ).hexdigest()
+    return digests
+
+
+def wide_outputs(torch) -> dict:
+    """The wide C3k2 and head kernels at every shape of WIDE_SHAPES on
+    seeded normal inputs (activations ReLU'd; weights N(0, 2/fan), biases
+    N(0, 0.1)): name -> the kernel's output tensors."""
+    from unina_yolo_dla_torch.ops.cuda import c3k2_kernel, head_kernel, \
+        mma_pack
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    out = {}
+    for name, case in WIDE_SHAPES.items():
+        rng = np.random.default_rng(WIDE_SEED)
+
+        def act(shape):
+            a = np.maximum(rng.normal(0, 1, shape), 0).astype(np.float32)
+            return torch.from_numpy(a).to(dev, bf)
+
+        def kb(shape):
+            fan = int(np.prod(shape[:-1]))
+            return (rng.normal(0, np.sqrt(2 / fan), shape).astype(np.float32),
+                    rng.normal(0, .1, shape[-1]).astype(np.float32))
+
+        if name.startswith("head"):
+            b, h, w, c = case
+            x = act((b, h, w, c))
+            ws = [t.to(dev) for t in head_kernel.pack_head_weights(
+                [kb((3, 3, c, c)), kb((3, 3, c, c))], kb((1, 1, c, 4)),
+                [kb((3, 3, c, c)), kb((3, 3, c, c))], kb((1, 1, c, 4)), bf)]
+            out[name] = head_kernel.fused_head(
+                x, *ws, w33=mma_pack.pack_head_mma(
+                    ws[0], ws[6], ws[2], ws[8], ws[4], ws[10]))
+            continue
+        b, h, w, ca, cb, hd, n, up, shortcut = case
+        xb = act((b, h, w, cb))
+        xa = act((b, h // 2, w // 2, ca) if up else (b, h, w, ca)) \
+            if ca else None
+        ws = [t.to(dev) for t in c3k2_kernel.pack_c3k2_weights(
+            kb((1, 1, ca + cb, hd)), kb((1, 1, ca + cb, hd)),
+            kb((1, 1, 2 * hd, 2 * hd)),
+            [(kb((1, 1, hd, hd)), kb((3, 3, hd, hd))) for _ in range(n)],
+            bf)]
+        wpk = mma_pack.pack_c3k2_mma(ws[0], ws[6], ws[2], ws[4], ws[8], ca)
+        out[name] = (c3k2_kernel.fused_c3k2(
+            xb, *ws, shortcut=shortcut, wpk=wpk) if xa is None else
+            c3k2_kernel.fused_c3k2_cat(xa, xb, *ws, shortcut=shortcut,
+                                       up_a=up, wpk=wpk),)
+    torch.cuda.synchronize()
+    return out
+
+
+def wide_digests(torch) -> dict:
+    """SHA-256 of ``wide_outputs``' tensors, name by name (WIDE_DIGESTS)."""
+    import hashlib
+
+    digests = {}
+    for name, tensors in wide_outputs(torch).items():
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        digests[name] = h.hexdigest()
     return digests
 
 
@@ -2985,45 +3226,61 @@ def width_row(kernel: str, base: int, eager, rgb, torch) -> dict:
         library_ms=library_ms)
 
 
-def drive_width(kernel: str, base: int, ckpt: Path, tmp: Path, rgb,
-                scenes, torch) -> tuple[dict, dict]:
-    """Phase 20, one engine at ``base``: exported on the card, its
-    threshold set in a gap (``gap_threshold``), re-exported with it; eager
-    FRAMES frames with every launch count at 0 before and read after (the
-    width's kernel, normalize, decode and NMS once a frame) against the
-    port's CPU path on the seed-7 scene (same count > 0, 0.5 px, 1e-2);
-    one captured graph (clean strict report, the width's kernel captured
-    once, no launch in replays) equal to the eager frame on the 8 scenes.
-    -> (the engine's record, the kernel's row)."""
+def drive_width(engine: str, base: int, ckpt: Path, tmp: Path, rgb,
+                scenes, torch) -> tuple[dict, dict | None, object]:
+    """Phase 20, one engine of WIDTH_ENGINES at ``base``: exported on the
+    card, its threshold set in a gap (``gap_threshold``), re-exported with
+    it; eager FRAMES frames with every launch count at 0 before and read
+    after (normalize, decode and NMS once a frame, the engine's kernels as
+    often as WIDTH_ENGINES says) against the port's CPU path on the seed-7
+    scene (same count > 0, 0.5 px, 1e-2); one captured graph (clean strict
+    report, each of the engine's kernels captured as often as a frame
+    launches it, no launch in replays) equal to the eager frame on the 8
+    scenes. -> (the engine's record, its kernel's row (``width_row``;
+    None for ``s2dm_fc``), the eager ServingArtifact)."""
     from unina_yolo_dla_torch.ops.cuda import (
-        _lib, decode_kernel, nms_kernel, preprocess_kernel, stage1_kernel,
-        stem_kernel)
+        _lib, c3k2_kernel, decode_kernel, head_kernel, nms_kernel,
+        preprocess_kernel, stage1_kernel, stem_kernel)
     from unina_yolo_dla_torch.runtime import aot
     from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
 
     c = 2 * base
-    wrap = stem_kernel if kernel == "fused_stem_stage1" else stage1_kernel
-    kern = wrap.KERNELS[c]
-    counted = {"normalize": preprocess_kernel.KERNEL,
-               "decode_topk": decode_kernel.KERNEL, "nms": nms_kernel.KERNEL,
-               f"{kernel}_b{base}": kern}
-    flags = ["--weights", ckpt, "--base-channels", base,
-             *WIDTH_FLAGS[kernel], "--cp-calibration", CP_CALIBRATION]
-    first = tmp / f"{kernel}_b{base}_first"
+    flags_, per = WIDTH_ENGINES[engine]
+    kern = {"fused_stem_stage1": stem_kernel.KERNELS[c],
+            "stage1_merged": stage1_kernel.KERNELS[c],
+            "fused_c3k2": c3k2_kernel.KERNEL,
+            "fused_c3k2_cat": c3k2_kernel.KERNEL_CAT,
+            "fused_head": head_kernel.KERNEL}
+    counted = {"normalize": (preprocess_kernel.KERNEL, 1),
+               "decode_topk": (decode_kernel.KERNEL, 1),
+               "nms": (nms_kernel.KERNEL, 1),
+               **{name: (kern[name], n) for name, n in per.items()}}
+    flags = ["--weights", ckpt, "--base-channels", base, *flags_,
+             "--cp-calibration", CP_CALIBRATION]
+    first = tmp / f"{engine}_b{base}_first"
     run_export([*flags, "--output", first])
     probe = ServingArtifact(first, graph=False)
     conf, gap = gap_threshold(probe, ServingArtifact(first, device="cpu"),
                               rgb, torch)
-    log(f"base {base} {kernel}: threshold {json.dumps(gap)}")
+    log(f"base {base} {engine}: threshold {json.dumps(gap)}")
     del probe
-    d = tmp / f"{kernel}_b{base}"
+    d = tmp / f"{engine}_b{base}"
     secs = run_export([*flags, "--conf", conf, "--output", d])
     rep = json.loads((d / "fallback_report.json").read_text())
     assert rep["captured"] and not rep["host_nodes"], rep
     eager = ServingArtifact(d, graph=False)
-    bb = eager.model.backbone
-    assert (bb.fused_stem if kernel == "fused_stem_stage1" else
-            type(bb.stage1_conv).__name__ == "MergedDownsample"), kernel
+    model = eager.model
+    if engine == "fused_stem_stage1":
+        assert model.backbone.fused_stem, engine
+    else:
+        assert type(model.backbone.stage1_conv).__name__ == \
+            "MergedDownsample", engine
+        for paths in FC_MODULES.values():
+            for path in paths:
+                mod = model.get_submodule(path)
+                assert mod.fused and getattr(
+                    mod, "w33" if path.startswith("head") else "wpk"
+                ) is not None, f"base {base} {engine}: {path} not packed"
     cpu = ServingArtifact(d, device="cpu")(rgb)
     for _ in range(3):
         eager(rgb)
@@ -3037,10 +3294,10 @@ def drive_width(kernel: str, base: int, ckpt: Path, tmp: Path, rgb,
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
     launches = {k.symbol: k.launches for k in _lib.KERNELS if k.launches}
-    for name, k in counted.items():
-        assert k.launches == FRAMES, (
-            f"base {base} {kernel}: {name} launched {k.launches} times in "
-            f"{FRAMES} frames")
+    for name, (k, n) in counted.items():
+        assert k.launches == n * FRAMES, (
+            f"base {base} {engine}: {name} launched {k.launches} times in "
+            f"{FRAMES} frames, expected {n * FRAMES}")
     assert bool(torch.isfinite(dets.boxes).all())
     match = match_detections(dets, cpu, box_tol=0.5, score_tol=1e-2)
     assert match["count"] > 0, "no detection to compare"
@@ -3049,8 +3306,11 @@ def drive_width(kernel: str, base: int, ckpt: Path, tmp: Path, rgb,
     capture_s = time.perf_counter() - t
     g = owner.graph
     aot.print_fallback_report(g.report, strict=True, log_fn=log)
-    assert g.capture_launches.get(kern.symbol) == 1, g.capture_launches
-    assert g.report.port_kernels[kernel] == 1, g.report.port_kernels
+    for name, (k, n) in counted.items():
+        assert g.capture_launches.get(k.symbol) == n, (
+            name, g.capture_launches)
+        assert g.report.port_kernels[name] == n, (name,
+                                                   g.report.port_kernels)
     wants = [eager(frame) for frame in scenes]
     for k in _lib.KERNELS:
         k.launches = 0
@@ -3063,10 +3323,13 @@ def drive_width(kernel: str, base: int, ckpt: Path, tmp: Path, rgb,
         bit_equal.append(_same(got, want))
     replays = {k.symbol: k.launches for k in _lib.KERNELS if k.launches}
     assert not replays, f"eager launches during replays: {replays}"
-    assert all(bit_equal), f"base {base} {kernel}: replay differs"
-    row = width_row(kernel, base, eager, rgb, torch)
-    row["launches"] = launches[kern.symbol]
-    rec = {"base": base, "kernel": kernel, "flags": WIDTH_FLAGS[kernel],
+    assert all(bit_equal), f"base {base} {engine}: replay differs"
+    row = None
+    if engine in WIDTH_ROW:
+        kernel = WIDTH_ROW[engine]
+        row = width_row(kernel, base, eager, rgb, torch)
+        row["launches"] = launches[kern[kernel].symbol]
+    rec = {"base": base, "engine": engine, "flags": flags_,
            "export_s": secs, "threshold": gap, "frames": FRAMES,
            "frame_ms_median": float(np.median(times)),
            "valid": dets.count, "vs_cpu_port": match, "launches": launches,
@@ -3075,8 +3338,37 @@ def drive_width(kernel: str, base: int, ckpt: Path, tmp: Path, rgb,
            "graph_kernel_nodes": g.report.kernel_nodes,
            "graph_port_kernels": g.report.port_kernels,
            "bit_equal_vs_eager": bit_equal}
-    del owner, eager
-    return rec, row
+    del owner
+    return rec, row, eager
+
+
+def check_nms_fast(art, rgb, serve_kw, torch) -> dict:
+    """The one-pass NMS switch on the card: the shipped engine's model
+    served with ``use_greedy_nms=False`` on the seed-7 frame (decode once,
+    the NMS kernel not at all: ``nms_fast`` is plain PyTorch) against the
+    port's CPU path with the same switch (same count > 0, 0.5 px, 1e-2);
+    and the count the greedy path gives beside it."""
+    from unina_yolo_dla_torch.ops.cuda import decode_kernel, nms_kernel
+    from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
+    from unina_yolo_dla_torch.runtime.pipeline import build_serving_fn
+
+    cfg = art.model_config
+    fast = build_serving_fn(art.model, cfg, use_greedy_nms=False, **serve_kw)
+    cpu_art = ServingArtifact(ARTIFACT, device="cpu")
+    cpu = build_serving_fn(cpu_art.model, cfg, use_greedy_nms=False,
+                           **serve_kw)(cpu_art.stage(rgb).cpu())
+    staged = art.stage(rgb)
+    fast(staged)
+    torch.cuda.synchronize()
+    before = (decode_kernel.KERNEL.launches, nms_kernel.KERNEL.launches)
+    dets = fast(staged)
+    torch.cuda.synchronize()
+    after = (decode_kernel.KERNEL.launches, nms_kernel.KERNEL.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 0), after
+    match = match_detections(dets, cpu, box_tol=0.5, score_tol=1e-2)
+    assert match["count"] > 0, "no detection to compare"
+    return {"valid": dets.count, "greedy_valid": art(rgb).count,
+            "vs_cpu_port": match, "decode_launches": 1, "nms_launches": 0}
 
 
 def drive_fleet(art8_model, cfg, conf: dict, scenes, b8_dets, tmp: Path,
@@ -3352,6 +3644,10 @@ def main() -> int:
                    cpu_dets, torch)
     print(json.dumps({"end_to_end_fc": e2e_fc}), flush=True)
 
+    # phase 5b: the shipped engine served with the one-pass NMS
+    fast_nms = check_nms_fast(art, rgb, serve_kw, torch)
+    print(json.dumps({"nms_fast": fast_nms}), flush=True)
+
     # phase 6: the fc engine's frame under the profiler
     prof_fc = profile_calls(serve_fc, rgb, torch)
     log(json.dumps({"profile_fc": prof_fc}, indent=1))
@@ -3530,17 +3826,27 @@ def main() -> int:
                                   torch) for name in MODE_FLAGS}
         phase_s["deploy_modes"] = time.perf_counter() - t
         print(json.dumps({"deploy_modes": modes, "card": smi}), flush=True)
-        # phase 20: the stem and stage1 kernels at base 16 and 64
+        # phase 20: the kernels at base 16 and 64: the stem and stage1,
+        # the C3k2 and head kernels of the fc engines
         t = time.perf_counter()
         widths = {"grid": check_widths_grid(torch), "engines": []}
-        width_rows = []
-        for base in WIDTH_BASES:
+        width_rows, eagers = [], {}
+        for base, engines in WIDTH_RUNS.items():
             wckpt = width_checkpoint(base, tmp, torch)
-            for kernel in WIDTH_FLAGS:
-                rec, wrow = drive_width(kernel, base, wckpt, tmp, rgb,
-                                        scenes, torch)
+            for engine in engines:
+                rec, wrow, eagers[base, engine] = drive_width(
+                    engine, base, wckpt, tmp, rgb, scenes, torch)
                 widths["engines"].append(rec)
-                width_rows.append(wrow)
+                if wrow is not None:
+                    width_rows.append(wrow)
+        fc64 = eagers[64, "s2dm_fc"]
+        wide64_rows = check_wide_kernels(
+            fc64.model, fc64._serve, fc64.stage(rgb),
+            eagers[64, "fused_stem_stage1"].model, torch)
+        fc64_launches = next(
+            r["launches"] for r in widths["engines"]
+            if (r["base"], r["engine"]) == (64, "s2dm_fc"))
+        del eagers, fc64
         phase_s["widths"] = time.perf_counter() - t
         print(json.dumps({"widths": widths, "card": smi}), flush=True)
         # phase 21: the batch-8 model as a fleet, one program and two
@@ -3627,7 +3933,10 @@ def main() -> int:
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 max_abs_err=row["max_abs_err"], library_ms=None)] + [
                 dict(w, block="bf16_s2dm_fc " + w["block"])
-                for w in wide_rows if w["kernel"] == row["name"]]
+                for w in wide_rows if w["kernel"] == row["name"]] + [
+                dict(w, block="b64_s2dm_fc " + w["block"],
+                     launches=fc64_launches[kernels[row["name"]].symbol])
+                for w in wide64_rows if w["kernel"] == row["name"]]
             row["bf16_fc_launches"] = fc_rec["e2e"]["launches"][row["name"]]
             row["bf16_fc_graph_nodes_per_frame"] = fc_rec["graph"][
                 "report"]["port_kernels"][row["name"]]
@@ -3678,6 +3987,7 @@ def main() -> int:
          "native_host": native, "training": training, "train_cli": cli,
          "export": exported, "bf16_engines": bf16,
          "bf16_fc_fused_modules": wide_rows,
+         "b64_s2dm_fc_fused_modules": wide64_rows, "nms_fast": fast_nms,
          "deploy_modes": modes, "widths": widths, "fleet": fleet,
          "curation": curation, "phases_19_22_s": phase_s,
          "before_redesign_graph_ms_quoted": {

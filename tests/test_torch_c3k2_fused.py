@@ -156,7 +156,9 @@ def test_plain_batched_equals_per_frame(rng):
 # ---- the wide kernels' tiling (emulated in tests/test_torch_mma_pack.py)
 # against the reference, bf16 on binary-grid inputs ----
 
-@pytest.mark.parametrize("hw,cin,hd,n", [(40, 256, 128, 2), (40, 128, 64, 1)])
+@pytest.mark.parametrize("hw,cin,hd,n", [(40, 256, 128, 2), (40, 128, 64, 1),
+                                         (13, 512, 256, 2),
+                                         (14, 256, 256, 1)])
 def test_wide_tiling_matches_reference_bf16(hw, cin, hd, n):
     """The wide kernel's tiling, cluster split and rounding points (the
     plain-torch emulation of ``csrc/c3k2.cu``'s wide form) against the
@@ -177,22 +179,33 @@ def test_wide_tiling_matches_reference_bf16(hw, cin, hd, n):
     _close_bf16(got, want)
 
 
+# (Ca, Cb, hidden, H = W): base 32's fpn_c3k2_1 widths at 40 x 40 with
+# and without the upsample; base 64's fpn_c3k2_1 (hidden 128, upsampled)
+# and hidden 256 upsampled, or its pan_c3k2_2 (hidden 256, 4 x 8 tiles),
+# at small ragged sizes
+WIDE_CAT_WIDTHS = {True: [(128, 128, 64, 40), (256, 256, 128, 14),
+                          (256, 256, 256, 14)],
+                   False: [(128, 128, 64, 40), (256, 512, 256, 13)]}
+
+
 @pytest.mark.parametrize("up_a", [True, False])
 def test_wide_cat_tiling_matches_reference_bf16(up_a):
     from test_torch_mma_pack import _c3k2_wide_tiled, _grid_img, _grid_kb
 
     rng = np.random.default_rng(31)
-    ca, cb, hd = 128, 128, 64
-    xa = _grid_img(rng, (1, 20, 20, ca) if up_a else (1, 40, 40, ca))
-    xb = _grid_img(rng, (1, 40, 40, cb))
-    kbs = [_grid_kb(rng, (1, 1, ca + cb, hd)),
-           _grid_kb(rng, (1, 1, ca + cb, hd)),
-           _grid_kb(rng, (1, 1, 2 * hd, 2 * hd)),
-           [(_grid_kb(rng, (1, 1, hd, hd)), _grid_kb(rng, (3, 3, hd, hd)))]]
-    ws = tk.pack_c3k2_weights(*kbs, torch.bfloat16)
-    got = _c3k2_wide_tiled(xa, xb, ws, up_a=up_a)[0].to(torch.bfloat16)
-    bf = jnp.bfloat16
-    want = fused_c3k2_cat(jnp.asarray(xa.float().numpy()[0]).astype(bf),
-                          jnp.asarray(xb.float().numpy()[0]).astype(bf),
-                          *_jax(kbs), upsample_a=up_a, use_pallas=False)
-    _close_bf16(got, want)
+    for ca, cb, hd, hw in WIDE_CAT_WIDTHS[up_a]:
+        xa = _grid_img(rng, (1, hw // 2, hw // 2, ca) if up_a
+                       else (1, hw, hw, ca))
+        xb = _grid_img(rng, (1, hw, hw, cb))
+        kbs = [_grid_kb(rng, (1, 1, ca + cb, hd)),
+               _grid_kb(rng, (1, 1, ca + cb, hd)),
+               _grid_kb(rng, (1, 1, 2 * hd, 2 * hd)),
+               [(_grid_kb(rng, (1, 1, hd, hd)),
+                 _grid_kb(rng, (3, 3, hd, hd)))]]
+        ws = tk.pack_c3k2_weights(*kbs, torch.bfloat16)
+        got = _c3k2_wide_tiled(xa, xb, ws, up_a=up_a)[0].to(torch.bfloat16)
+        bf = jnp.bfloat16
+        want = fused_c3k2_cat(jnp.asarray(xa.float().numpy()[0]).astype(bf),
+                              jnp.asarray(xb.float().numpy()[0]).astype(bf),
+                              *_jax(kbs), upsample_a=up_a, use_pallas=False)
+        _close_bf16(got, want)

@@ -809,12 +809,15 @@ def _wide_c3k2_weights(rng, cin, hd, f, n, cuda, ca=0, kb=_kb):
 
 # (batch, H, W, Cin, hidden, F, n): stage2_c3k2 and stage3_c3k2 of the bf16
 # engines at 640, stage1_block and stage3_c3k2 of a base-16 engine, then
-# ragged images that cut the 8 x 8 tile's edges
+# ragged images that cut the 8 x 8 tile's edges; base 64's stage3_c3k2
+# (hidden 256, 4 x 4 tiles) at 640 and ragged, hidden 256 with one
+# bottleneck (4 x 8 tiles)
 WIDE_C3K2 = [(1, 80, 80, 128, 64, 128, 2), (1, 40, 40, 256, 128, 256, 2),
              (1, 160, 160, 32, 16, 32, 1), (1, 40, 40, 128, 64, 128, 2),
              (2, 37, 45, 128, 64, 128, 2), (2, 5, 3, 256, 128, 256, 1),
              (1, 13, 22, 64, 64, 128, 1), (2, 11, 9, 64, 128, 256, 2),
-             (2, 9, 14, 40, 16, 32, 2)]
+             (2, 9, 14, 40, 16, 32, 2), (1, 40, 40, 512, 256, 512, 2),
+             (2, 11, 13, 512, 256, 512, 2), (2, 9, 14, 256, 256, 512, 1)]
 
 
 @pytest.mark.parametrize("b,h,w,cin,hd,f,n", WIDE_C3K2)
@@ -839,7 +842,9 @@ def test_c3k2_wide_kernel(rng, cuda, b, h, w, cin, hd, f, n):
 
 # (batch, H, W, Ca, Cb, hidden, F, up_a): fpn_c3k2_1, pan_c3k2_1 and
 # pan_c3k2_2 of the bf16 engines at 640, fpn_c3k2_2 and pan_c3k2_2 of a
-# base-16 engine, then ragged ones
+# base-16 engine, then ragged ones; base 64's pan_c3k2_2 (hidden 256, 4 x 8
+# tiles) and fpn_c3k2_1 (hidden 128, xa at its coarse window) at 640 and
+# ragged, and hidden 256 upsampled
 WIDE_CAT = [(1, 80, 80, 128, 128, 64, 128, True),
             (1, 80, 80, 64, 128, 64, 128, False),
             (1, 40, 40, 128, 256, 128, 256, False),
@@ -848,7 +853,12 @@ WIDE_CAT = [(1, 80, 80, 128, 128, 64, 128, True),
             (2, 38, 46, 128, 128, 64, 128, True),
             (2, 37, 45, 64, 128, 64, 128, False),
             (2, 14, 22, 128, 64, 128, 256, True),
-            (1, 6, 10, 8, 8, 16, 32, True)]
+            (1, 6, 10, 8, 8, 16, 32, True),
+            (1, 40, 40, 256, 512, 256, 512, False),
+            (1, 80, 80, 256, 256, 128, 256, True),
+            (2, 11, 13, 256, 512, 256, 512, False),
+            (2, 14, 22, 256, 256, 128, 256, True),
+            (2, 12, 18, 256, 256, 256, 512, True)]
 
 
 @pytest.mark.parametrize("b,h,w,ca,cb,hd,f,up", WIDE_CAT)
@@ -898,10 +908,12 @@ def _head_ws(rng, c, cuda, kb=_kb):
 @pytest.mark.parametrize("shape", [(1, 80, 80, 128), (1, 40, 40, 256),
                                    (1, 160, 160, 32), (1, 40, 40, 128),
                                    (2, 37, 45, 128), (2, 5, 3, 256),
-                                   (1, 9, 17, 32), (2, 13, 6, 256)])
+                                   (1, 9, 17, 32), (2, 13, 6, 256),
+                                   (1, 40, 40, 512), (2, 13, 7, 512)])
 def test_head_wide_kernel(rng, cuda, shape):
     """head_p3 and head_p4 of the bf16 engines, head_p2 and head_p4 of a
-    base-16 engine, ragged images at batch 2 and a narrow width: bit for
+    base-16 engine, ragged images at batch 2 and a narrow width, base 64's
+    head_p4 (512, 4 x 8 tiles, clusters of 8) at 640 and ragged: bit for
     bit on binary-grid inputs, within 1e-2 (1 + |ref|) on normal ones."""
     c = shape[-1]
     for act, kb, exact in ((_grid_act, _grid_kb, True), (_act, _kb, False)):
@@ -923,27 +935,36 @@ SMEM_OPTIN = 232448
 
 
 def test_wide_planes_match_the_library(cuda):
-    """``kernel_takes`` admits a wide C3k2 exactly where the library's own
-    shared-memory plan fits (an upsampled ``xa`` counted at full
-    resolution: admitted only where it fits), and every wide head width
-    fits."""
-    for (hd, n), pl in c3k2_kernel.WIDE_PLANES.items():
-        for cin in range(8, 64 * (pl + 2), 8):
-            for ca in (0, 8, 64, 128):
-                if ca >= cin:
-                    continue
-                takes = c3k2_kernel.kernel_takes(cin, hd, 2 * hd, n, ca)
-                smem = c3k2_kernel.wide_smem(ca, cin - ca, False, hd, n)
-                assert smem > 0 and takes == (smem <= SMEM_OPTIN), (
-                    cin, ca, hd, n, smem)
-                if takes and ca:
-                    assert 0 < c3k2_kernel.wide_smem(
-                        ca, cin - ca, True, hd, n) <= SMEM_OPTIN
-    assert c3k2_kernel.wide_smem(0, 64, False, 32, 1) == -1
-    for c in (16, 32, 48, 96, 128, 256, 512):
+    """The Python copies of the wide forms' shared-memory plans
+    (``c3k2_kernel.wide_smem_bytes``, ``head_kernel.wide_smem_bytes``)
+    equal the library's at every compiled (hidden, n) and head width, over
+    inputs of 8 to 1,024 channels with and without an ``xa`` (upsampled
+    or not); ``kernel_takes`` admits a block exactly where that plan fits
+    in a block's 227 KB; widths the library is not compiled for give -1."""
+    for hd in mma_pack.C3K2_SPLIT:
+        for n in (1, 2):
+            for cin in range(8, 1032, 8):
+                for ca in (0, 8, 64, 128, 256, 512):
+                    if ca >= cin:
+                        continue
+                    for up in (False, True) if ca else (False,):
+                        smem = c3k2_kernel.wide_smem(ca, cin - ca, up, hd, n)
+                        assert smem == c3k2_kernel.wide_smem_bytes(
+                            ca, cin - ca, up, hd, n), (cin, ca, up, hd, n)
+                        takes = c3k2_kernel.kernel_takes(cin, hd, 2 * hd, n,
+                                                         ca, up)
+                        assert takes == (smem <= SMEM_OPTIN), (
+                            cin, ca, up, hd, n, smem)
+    for hd in (32, 48, 96, 512):
+        assert c3k2_kernel.wide_smem(0, 64, False, hd, 1) == -1
+    for c in (16, 32, 48, 96, 128, 256, 512, 1024):
         smem = head_kernel.wide_smem(c)
-        assert head_kernel.kernel_takes(c) == (0 < smem <= SMEM_OPTIN), (
-            c, smem)
+        if c in mma_pack.HEAD_SPLIT:
+            assert smem == head_kernel.wide_smem_bytes(c), (c, smem)
+        else:
+            assert smem == -1
+        assert head_kernel.kernel_takes(c) == (
+            c == 64 or 0 < smem <= SMEM_OPTIN), (c, smem)
 
 
 def test_last_launch_records_the_grid(rng, cuda):
@@ -970,6 +991,20 @@ def test_last_launch_records_the_grid(rng, cuda):
     assert head_kernel.last_launch() == dict(
         grid=[25 * 2, 2, 1], cluster=[2, 1, 1], threads=256,
         smem_bytes=head_kernel.wide_smem(256))
+    # base 64's stage3_c3k2 and head_p4: clusters of 8, one per 4 x 4 and
+    # 4 x 8 tile (and branch)
+    x = _act(rng, (1, 40, 40, 512), cuda)
+    ws, wpk = _wide_c3k2_weights(rng, 512, 256, 512, 2, cuda)
+    c3k2_kernel.fused_c3k2(x, *ws, wpk=wpk)
+    assert c3k2_kernel.last_launch() == dict(
+        grid=[100 * 8, 1, 1], cluster=[8, 1, 1], threads=256,
+        smem_bytes=c3k2_kernel.wide_smem(0, 512, False, 256, 2))
+    ws, w33 = _head_ws(rng, 512, cuda)
+    head_kernel.fused_head(x, *ws, w33=w33)
+    torch.cuda.synchronize()
+    assert head_kernel.last_launch() == dict(
+        grid=[50 * 8, 2, 1], cluster=[8, 1, 1], threads=256,
+        smem_bytes=head_kernel.wide_smem(512))
 
 
 def test_fc_engine_frame_matches_cpu_port(cuda):
@@ -1579,11 +1614,141 @@ def test_stem_stage1_64_wide_bits_unchanged(cuda):
 
 
 def test_other_widths_refused_on_the_card(rng, cuda):
+    """Widths outside the compiled sets raise on the card: stage1 at 48,
+    the C3k2 at hidden 512, the head at 1,024; no plain fallback."""
     frame, xm, ks, bs, k1, b1 = _width_inputs(rng, 64, (1, 8, 5), cuda)
     with pytest.raises(ValueError, match="compiled|C in"):
         stage1_kernel.fused_downsample_merged(
             xm[..., :48].contiguous(), torch.zeros(
                 6, 48, 64, dtype=torch.bfloat16, device=cuda), b1[:48])
+    x = _act(rng, (1, 8, 8, 64), cuda)
+    ws = _to(c3k2_kernel.pack_c3k2_weights(
+        _kb(rng, (1, 1, 64, 512)), _kb(rng, (1, 1, 64, 512)),
+        _kb(rng, (1, 1, 1024, 1024)),
+        [(_kb(rng, (1, 1, 512, 512)), _kb(rng, (3, 3, 512, 512)))],
+        torch.bfloat16), cuda)
+    assert not c3k2_kernel.kernel_takes(64, 512, 1024, 1)
+    with pytest.raises(ValueError, match="hidden in"):
+        c3k2_kernel.fused_c3k2(x, *ws, wpk=torch.zeros(
+            1, dtype=torch.bfloat16, device=cuda))
+    x = _act(rng, (1, 4, 4, 1024), cuda)
+    ws = [torch.zeros(1, device=cuda)] * 12
+    assert not head_kernel.kernel_takes(1024)
+    with pytest.raises(ValueError, match="kernel takes"):
+        head_kernel.fused_head(x, *ws, w33=torch.zeros(
+            1, dtype=torch.bfloat16, device=cuda))
+
+
+# The wide C3k2 and head kernels at every (hidden, n) and head width they
+# took before hidden 256 and head 512: the served shapes of the base-32
+# and base-16 engines and ragged batches of 2. C3k2: (batch, H, W, Ca (0:
+# the single form), Cb, hidden, n, up_a, shortcut); head: (batch, H, W,
+# C). SHA-256 of their outputs on seeded normal inputs as the parent
+# commit's kernels computed them (on an NVIDIA H100 80GB HBM3);
+# chip_smoke.py holds the same shapes and digests.
+WIDE_SEED = 2026
+WIDE_SHAPES = {
+    "c3k2_h16_n1_160": (1, 160, 160, 0, 32, 16, 1, False, True),
+    "c3k2_h64_n2_80": (1, 80, 80, 0, 128, 64, 2, False, True),
+    "c3k2_h128_n2_40": (1, 40, 40, 0, 256, 128, 2, False, True),
+    "c3k2_h64_n1_2x37x45": (2, 37, 45, 0, 128, 64, 1, False, True),
+    "c3k2_h128_n1_2x5x3": (2, 5, 3, 0, 256, 128, 1, False, True),
+    "c3k2_h16_n2_2x9x14": (2, 9, 14, 0, 40, 16, 2, False, True),
+    "cat_h64_n1_up_80": (1, 80, 80, 128, 128, 64, 1, True, False),
+    "cat_h64_n1_80": (1, 80, 80, 64, 128, 64, 1, False, False),
+    "cat_h128_n1_40": (1, 40, 40, 128, 256, 128, 1, False, False),
+    "cat_h16_n1_up_160": (1, 160, 160, 32, 32, 16, 1, True, False),
+    "cat_h128_n2_up_2x14x22": (2, 14, 22, 128, 64, 128, 2, True, True),
+    "cat_h64_n2_2x37x45": (2, 37, 45, 64, 128, 64, 2, False, True),
+    "head_c32_160": (1, 160, 160, 32),
+    "head_c128_80": (1, 80, 80, 128),
+    "head_c256_40": (1, 40, 40, 256),
+    "head_c256_2x13x6": (2, 13, 6, 256),
+    "head_c128_2x37x45": (2, 37, 45, 128),
+    "head_c32_1x9x17": (1, 9, 17, 32),
+}
+WIDE_DIGESTS = {
+    "c3k2_h16_n1_160":
+        "e59361a4ed416bac6a29278ef7861502a8c17bdd8149d1fc9fefb5449a79efe0",
+    "c3k2_h64_n2_80":
+        "40056322871410b3118789183df0c9f9b7ef85f4d66cbb21a2f9361760957287",
+    "c3k2_h128_n2_40":
+        "7696212f93d8cae2726f818af1669656be2ddf21815638dbdde20fb7f03ccfeb",
+    "c3k2_h64_n1_2x37x45":
+        "0c65d91d2f7291e2344ab63d6709d4454e7d6807782ee09e887f67828ffdae49",
+    "c3k2_h128_n1_2x5x3":
+        "dc594fe2b0a83b2bad3661844cbe40952044d91adf97b0cb646bc85f47284ac8",
+    "c3k2_h16_n2_2x9x14":
+        "7214c8b71a364846e8208c7a1cc52d21745123c5f36c4dba59c467d7dd918d75",
+    "cat_h64_n1_up_80":
+        "c4001157ec5cc7da798c99ce5c04a06776bdd0385a551afe52467a8154caa5f6",
+    "cat_h64_n1_80":
+        "f97b900c895748b80cf1ef12c333e7d27902a5fbd3243a776c02097fe259e2a4",
+    "cat_h128_n1_40":
+        "498577c4c5bcbb83499f6d4aa9de5dd3cebee4d1e9c2187bdc913f85f6bb6107",
+    "cat_h16_n1_up_160":
+        "724010f7f3b4a958c9c9ed168e88880a6ab47919dd62e3c135d50c11ba22ff90",
+    "cat_h128_n2_up_2x14x22":
+        "c5214f258282aee3ce16aadec5ce2ca3b86c6ca390b3bac585663f3412e3dff9",
+    "cat_h64_n2_2x37x45":
+        "7825f59d3508be3391832dea34f02721cc516c91c7fd338fab04e7358f504e20",
+    "head_c32_160":
+        "efaece67794cbc3a8e9b4845597ee5881558ebb2a25d49cad4f4011669427723",
+    "head_c128_80":
+        "51ebd30d4f68e51e9ed8ef31f2d1e866b77e6fb2463f9999838015a7e073b6b4",
+    "head_c256_40":
+        "6a4d6801eda2b12b46c1783ff792fde0d7db355d91e4c0b9e8bb8aa757e3a4d4",
+    "head_c256_2x13x6":
+        "ee12a8ccdc24a53f7afd90aa36dba54422f8c5437f208c4c2656b1063030ccdf",
+    "head_c128_2x37x45":
+        "089dc6b9f853ab5ec846de4afc05e7fa14e5598cb9c43d4973a1544f7d5cc97a",
+    "head_c32_1x9x17":
+        "dbb6856de1ad338eb731c62b43945817b1a116bff94b1c40d3c0369a3b06bdeb",
+}
+
+
+def test_wide_kernels_bits_unchanged_by_the_new_widths(cuda):
+    """The wide kernels' outputs at WIDE_SHAPES on seeded normal inputs
+    (activations ReLU'd, weights N(0, 2/fan), biases N(0, 0.1)), where the
+    tensor cores' summation order shows in the bits, equal those the
+    parent commit's kernels gave (WIDE_DIGESTS)."""
+    import hashlib
+
+    got = {}
+    for name, case in WIDE_SHAPES.items():
+        rng = np.random.default_rng(WIDE_SEED)
+        if name.startswith("head"):
+            b, h, w, c = case
+            x = _act(rng, (b, h, w, c), cuda)
+            ws = _to(head_kernel.pack_head_weights(
+                [_kb(rng, (3, 3, c, c)), _kb(rng, (3, 3, c, c))],
+                _kb(rng, (1, 1, c, 4)),
+                [_kb(rng, (3, 3, c, c)), _kb(rng, (3, 3, c, c))],
+                _kb(rng, (1, 1, c, 4)), torch.bfloat16), cuda)
+            outs = head_kernel.fused_head(x, *ws, w33=mma_pack.pack_head_mma(
+                ws[0], ws[6], ws[2], ws[8], ws[4], ws[10]))
+        else:
+            b, h, w, ca, cb, hd, n, up, shortcut = case
+            xb = _act(rng, (b, h, w, cb), cuda)
+            xa = _act(rng, (b, h // 2, w // 2, ca) if up else (b, h, w, ca),
+                      cuda) if ca else None
+            ws = _to(c3k2_kernel.pack_c3k2_weights(
+                _kb(rng, (1, 1, ca + cb, hd)), _kb(rng, (1, 1, ca + cb, hd)),
+                _kb(rng, (1, 1, 2 * hd, 2 * hd)),
+                [(_kb(rng, (1, 1, hd, hd)), _kb(rng, (3, 3, hd, hd)))
+                 for _ in range(n)], torch.bfloat16), cuda)
+            wpk = mma_pack.pack_c3k2_mma(ws[0], ws[6], ws[2], ws[4], ws[8],
+                                         ca)
+            outs = (c3k2_kernel.fused_c3k2(
+                xb, *ws, shortcut=shortcut, wpk=wpk) if xa is None else
+                c3k2_kernel.fused_c3k2_cat(xa, xb, *ws, shortcut=shortcut,
+                                           up_a=up, wpk=wpk),)
+        torch.cuda.synchronize()
+        d = hashlib.sha256()
+        for t in outs:
+            d.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        got[name] = d.hexdigest()
+    assert got == WIDE_DIGESTS
 
 
 # ---- the unfused int8 engine and the folded QAT model ----

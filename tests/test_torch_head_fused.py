@@ -97,7 +97,7 @@ def test_plain_batched_equals_per_frame(rng):
                                    rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("hw,c", [(40, 256), (24, 128), (16, 32)])
+@pytest.mark.parametrize("hw,c", [(40, 256), (24, 128), (16, 32), (13, 512)])
 def test_wide_tiling_matches_reference_bf16(hw, c):
     """The wide head's tiling, cluster split and f32 preds (the plain-torch
     emulation of ``csrc/head.cu``'s wide form, tests/test_torch_mma_pack.py)

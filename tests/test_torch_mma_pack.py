@@ -151,6 +151,23 @@ def test_head_pack_other_width_has_no_tiles():
         assert torch.equal(g, want)
     for g, want in zip(got[4:], (ws[4], ws[10])):
         assert torch.equal(g[:, :4], want) and not g[:, 4:].any()
+    # base 64's head_p4: eight blocks a cluster, 64 output channels each;
+    # block r's stream holds its columns of conv1's then conv2's taps
+    c, s = 512, mma_pack.HEAD_SPLIT[512]
+    w = ws_at(c)
+    w33 = mma_pack.pack_head_mma(w[0], w[6], w[2], w[8], w[4], w[10])
+    assert s == 8 and w33.shape == mma_pack.head_mma_shape(c) == (
+        2 * 18 * 8 * 64 * c + 2 * c * 8,)
+    got = mma_pack.unpack_head_mma(w33)
+    for g, want in zip(got, (w[0], w[6], w[2], w[8])):
+        assert torch.equal(g, want)
+    for g, want in zip(got[4:], (w[4], w[10])):
+        assert torch.equal(g[:, :4], want) and not g[:, 4:].any()
+    k = 9 * 8 * 64
+    reg = _stream_b(w33[2 * k * c:4 * k * c], [(k, c), (k, c)], s)
+    r = 5   # reg branch, block 5: conv2's tap (1, 2), plane 3
+    assert torch.equal(reg[r][1][5 * 8 + 3],
+                       w[8][1, 2][192:256, r * 64:(r + 1) * 64])
     with pytest.raises(ValueError, match="preds"):
         mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8],
                                torch.zeros(32, 9), ws[10])
@@ -587,10 +604,12 @@ def _stream_b(img, shapes, s):
 
 
 # (Cin, Ca, hidden, F, n): widths of the bf16 engines' C3k2s (base 32 and
-# base 16)
+# base 16; base 64's pan_c3k2_2 and stage3_c3k2, clusters of 8)
 @pytest.mark.parametrize("cin,ca,hd,f,n", [(128, 0, 64, 128, 2),
                                            (384, 128, 128, 256, 1),
-                                           (32, 16, 16, 32, 2)])
+                                           (32, 16, 16, 32, 2),
+                                           (768, 256, 256, 512, 1),
+                                           (512, 0, 256, 512, 2)])
 def test_c3k2_wide_pack_inverts_and_holds_the_fragments(cin, ca, hd, f, n):
     """At the wide widths the image is the weight stream of the cluster's
     blocks: per block ``r`` its columns ``r N/s ..`` of [w1 | w2] over
@@ -633,24 +652,28 @@ def test_c3k2_wide_pack_inverts_and_holds_the_fragments(cin, ca, hd, f, n):
 
 # ---- (f) the wide forms: clusters of blocks splitting the columns ----
 
-WT = 8   # the wide kernels' output tile
+WT = 8   # the wide kernels' output tile at most widths
 
 
-def _windows(x, halo, step=WT, size=None, lead=None, grid=None):
-    """(B, H, W, C) -> (tiles, size^2, C): per 8 x 8 output tile (of a
-    ``grid`` of tiles, by default the image's) the window of ``size``
-    pixels (8 + 2 halo) from (step ty - lead, step tx - lead), zero
-    outside the image."""
-    size = size or WT + 2 * halo
+def _windows(x, halo, tile=(WT, WT), step=None, size=None, lead=None,
+             grid=None):
+    """(B, H, W, C) -> (tiles, rows * cols, C): per tr x tw output tile
+    (``tile``; of a ``grid`` of tiles, by default the image's) the window
+    of ``size`` = (rows, cols) pixels (the tile + 2 halo) from (sr ty -
+    lead, sc tx - lead), ``step`` = (sr, sc) (the tile), zero outside the
+    image."""
+    tr, tw = tile
+    rows, cols = size or (tr + 2 * halo, tw + 2 * halo)
+    sr, sc = step or tile
     lead = halo if lead is None else lead
     bsz, h, w, c = x.shape
-    ty, tx = grid or (-(-h // WT), -(-w // WT))
-    hp, wp = (ty - 1) * step + size, (tx - 1) * step + size
+    ty, tx = grid or (-(-h // tr), -(-w // tw))
+    hp, wp = (ty - 1) * sr + rows, (tx - 1) * sc + cols
     xp = torch.zeros(bsz, max(hp, h + lead), max(wp, w + lead), c,
                      dtype=x.dtype)
     xp[:, lead:lead + h, lead:lead + w] = x
-    win = xp.unfold(1, size, step).unfold(2, size, step)[:, :ty, :tx]
-    return win.permute(0, 1, 2, 4, 5, 3).reshape(-1, size * size, c)
+    win = xp.unfold(1, rows, sr).unfold(2, cols, sc)[:, :ty, :tx]
+    return win.permute(0, 1, 2, 4, 5, 3).reshape(-1, rows * cols, c)
 
 
 def _planes_of(win, c):
@@ -678,17 +701,19 @@ def _bf(t):
 
 
 def _c3k2_wide_tiled(xa, xb, ws, *, up_a=False, shortcut=True):
-    """csrc/c3k2.cu's wide form: per 8 x 8 tile (+ halo n) and per block
-    r of its cluster, r's columns of each stage from the weight stream,
-    over windows of 64-channel planes, M padded to m64 products, 0 outside
-    the image after every stage, bf16 at every stage; the blocks' columns
-    assembled (the distributed shared memory) before the next stage reads
-    them. ``xa`` None is the single form."""
+    """csrc/c3k2.cu's wide form: per output tile (``c3k2_kernel.wide_tile``)
+    plus a halo of n and per block r of its cluster, r's columns of each
+    stage from the weight stream, over windows of 64-channel planes, M
+    padded to m64 products, 0 outside the image after every stage, bf16 at
+    every stage; the blocks' columns assembled (the distributed shared
+    memory) before the next stage reads them. ``xa`` None is the single
+    form."""
     _, b1, wb1, bb1, _, bb2, _, b2, _, b3 = ws
     n, hd, fo = wb1.shape[0], b1.shape[0], b3.shape[0]
     ca = 0 if xa is None else xa.shape[-1]
     cb = xb.shape[-1]
     s = mma_pack.C3K2_SPLIT[hd]
+    tr, tw = c3k2_kernel.wide_tile(hd, n)
     ka, kb_ = -(-ca // 64), -(-cb // 64)
     pl, pp = -(-hd // 64), -(-2 * hd // 64)
     shapes = ([((ka + kb_) * 64, 2 * hd)] + [(pl * 64, hd),
@@ -696,20 +721,22 @@ def _c3k2_wide_tiled(xa, xb, ws, *, up_a=False, shortcut=True):
               + [(pp * 64, fo)])
     blocks = _stream_b(_wpk(ws, ca), shapes, s)
     bsz, h, w, _ = xb.shape
-    wc = WT + 2 * n
-    wpx = wc * wc
+    ty, tx = -(-h // tr), -(-w // tw)
+    wr, wc = tr + 2 * n, tw + 2 * n
+    wpx = wr * wc
     xf = xb.float()
-    inside = _windows(torch.ones(bsz, h, w, 1), n)[..., 0] > 0   # (T, wp)
-    chunks = _planes_of(_windows(xf, n), cb)
+    inside = _windows(torch.ones(bsz, h, w, 1), n, (tr, tw))[..., 0] > 0
+    chunks = _planes_of(_windows(xf, n, (tr, tw)), cb)
     if xa is not None and up_a:
-        coarse = _windows(xa.float(), 1, step=WT // 2, size=WT // 2 + 2,
-                          lead=1, grid=(-(-h // WT), -(-w // WT)))
-        r = torch.arange(wc)
-        cr = ((r - n) >> 1) + 1
-        idx = (cr[:, None] * (WT // 2 + 2) + cr[None, :]).reshape(-1)
+        ar, ac = tr // 2 + 2, tw // 2 + 2
+        coarse = _windows(xa.float(), 1, (tr, tw), step=(tr // 2, tw // 2),
+                          size=(ar, ac), lead=1, grid=(ty, tx))
+        cr = ((torch.arange(wr) - n) >> 1) + 1
+        cc = ((torch.arange(wc) - n) >> 1) + 1
+        idx = (cr[:, None] * ac + cc[None, :]).reshape(-1)
         chunks = _planes_of(coarse[:, idx], ca) + chunks
     elif xa is not None:
-        chunks = _planes_of(_windows(xa.float(), n), ca) + chunks
+        chunks = _planes_of(_windows(xa.float(), n, (tr, tw)), ca) + chunks
     stages = iter(range(len(shapes)))
 
     def run(src, rows, bias, ncols, st):
@@ -722,10 +749,9 @@ def _c3k2_wide_tiled(xa, xb, ws, *, up_a=False, shortcut=True):
         return _bf(torch.relu(acc + bias))
 
     def region(hh):
-        rc = WT + 2 * hh
         off = n - hh
-        rr, cc = torch.meshgrid(torch.arange(rc), torch.arange(rc),
-                                indexing="ij")
+        rr, cc = torch.meshgrid(torch.arange(tr + 2 * hh),
+                                torch.arange(tw + 2 * hh), indexing="ij")
         return ((rr + off) * wc + cc + off).reshape(-1)
 
     full = region(n)
@@ -748,22 +774,8 @@ def _c3k2_wide_tiled(xa, xb, ws, *, up_a=False, shortcut=True):
         p = p.clone()
         p[:, rows, :hd] = new * inside[:, rows, None]
     res = run(_planes_of(p, 2 * hd), region(0), b3, fo, next(stages))
-    ty, tx = -(-h // WT), -(-w // WT)
-    out = res.reshape(bsz, ty, tx, WT, WT, fo).permute(0, 1, 3, 2, 4, 5)
-    return out.reshape(bsz, ty * WT, tx * WT, fo)[:, :h, :w]
-
-
-def _rect_windows(x, halo, tr, tw):
-    """(B, H, W, C) -> (tiles, (tr + 2 halo)(tw + 2 halo), C): the window of
-    each tr x tw output tile, zero outside the image."""
-    bsz, h, w, c = x.shape
-    ty, tx = -(-h // tr), -(-w // tw)
-    rows, cols = tr + 2 * halo, tw + 2 * halo
-    xp = torch.zeros(bsz, ty * tr + 2 * halo, tx * tw + 2 * halo, c,
-                     dtype=x.dtype)
-    xp[:, halo:halo + h, halo:halo + w] = x
-    win = xp.unfold(1, rows, tr).unfold(2, cols, tw)
-    return win.permute(0, 1, 2, 4, 5, 3).reshape(-1, rows * cols, c)
+    out = res.reshape(bsz, ty, tx, tr, tw, fo).permute(0, 1, 3, 2, 4, 5)
+    return out.reshape(bsz, ty * tr, tx * tw, fo)[:, :h, :w]
 
 
 def _head_wide_tiled(x, ws):
@@ -779,8 +791,8 @@ def _head_wide_tiled(x, ws):
     k = 9 * pl * 64
     per = 2 * k * c
     bsz, h, w, _ = x.shape
-    xw = _planes_of(_rect_windows(x.float(), 2, tr, tw), c)
-    inside = _rect_windows(torch.ones(bsz, h, w, 1), 1, tr, tw)[..., 0] > 0
+    xw = _planes_of(_windows(x.float(), 2, (tr, tw)), c)
+    inside = _windows(torch.ones(bsz, h, w, 1), 1, (tr, tw))[..., 0] > 0
     ty, tx = -(-h // tr), -(-w // tw)
     outs = []
     for br, i in ((0, 0), (1, 6)):
@@ -848,12 +860,16 @@ def _grid_c3k2_ws(rng, cin, hd, n):
 
 
 # (batch, H, W, Cin, hidden, n): stage3_c3k2 and stage2_c3k2 (base 32),
-# stage1_block at base 16 cut to 40 x 40, ragged images at batch 2
+# stage1_block at base 16 cut to 40 x 40, ragged images at batch 2; base
+# 64's stage3_c3k2 (hidden 256, n 2: 4 x 4 tiles) and hidden 256 with one
+# bottleneck (4 x 8 tiles), ragged at batch 2
 @pytest.mark.parametrize("b,h,w,cin,hd,n", [(1, 40, 40, 256, 128, 2),
                                             (1, 80, 80, 128, 64, 2),
                                             (1, 40, 40, 32, 16, 1),
                                             (2, 13, 22, 128, 64, 1),
-                                            (2, 11, 9, 64, 128, 2)])
+                                            (2, 11, 9, 64, 128, 2),
+                                            (2, 11, 13, 512, 256, 2),
+                                            (2, 9, 14, 256, 256, 1)])
 def test_c3k2_wide_tiling_matches_plain(b, h, w, cin, hd, n):
     rng = np.random.default_rng(20)
     x = _grid_img(rng, (b, h, w, cin))
@@ -865,16 +881,23 @@ def test_c3k2_wide_tiling_matches_plain(b, h, w, cin, hd, n):
 
 
 # (batch, H, W, Ca, Cb, hidden, up_a): fpn_c3k2_1, pan_c3k2_1, pan_c3k2_2
-# (base 32), a ragged image at batch 2, base 16's fpn_c3k2_2 cut to 40
+# (base 32), a ragged image at batch 2, base 16's fpn_c3k2_2 cut to 40;
+# base 64's pan_c3k2_2 (hidden 256: 4 x 8 tiles) and fpn_c3k2_1 (hidden
+# 128, xa upsampled), hidden 256 upsampled, ragged at batch 2. One
+# bottleneck, as the neck's blocks, but two at hidden 128 upsampled where
+# the card takes them (the ragged base-32 case)
 @pytest.mark.parametrize("b,h,w,ca,cb,hd,up", [
     (1, 80, 80, 128, 128, 64, True), (1, 80, 80, 64, 128, 64, False),
     (1, 40, 40, 128, 256, 128, False), (2, 14, 22, 128, 64, 128, True),
-    (1, 40, 40, 32, 32, 16, True)])
+    (1, 40, 40, 32, 32, 16, True), (2, 11, 13, 256, 512, 256, False),
+    (2, 12, 14, 256, 256, 128, True), (2, 12, 18, 256, 256, 256, True)])
 def test_c3k2_cat_wide_tiling_matches_plain(b, h, w, ca, cb, hd, up):
     rng = np.random.default_rng(21)
     xa = _grid_img(rng, (b, h // 2, w // 2, ca) if up else (b, h, w, ca))
     xb = _grid_img(rng, (b, h, w, cb))
-    ws = _grid_c3k2_ws(rng, ca + cb, hd, 1 if hd != 128 or not up else 2)
+    two = (hd, up) == (128, True) and c3k2_kernel.kernel_takes(
+        ca + cb, hd, 2 * hd, 2, ca, up)
+    ws = _grid_c3k2_ws(rng, ca + cb, hd, 2 if two else 1)
     got = _c3k2_wide_tiled(xa, xb, ws, up_a=up)
     want = c3k2_kernel.fused_c3k2_cat_plain(xa, xb, *ws, up_a=up)
     assert float(want.float().abs().max()) > 1.0
@@ -882,7 +905,8 @@ def test_c3k2_cat_wide_tiling_matches_plain(b, h, w, ca, cb, hd, up):
 
 
 @pytest.mark.parametrize("b,h,w,c", [(1, 40, 40, 256), (1, 80, 80, 128),
-                                     (2, 9, 17, 32), (2, 13, 6, 256)])
+                                     (2, 9, 17, 32), (2, 13, 6, 256),
+                                     (2, 9, 13, 512)])
 def test_head_wide_tiling_matches_plain(b, h, w, c):
     rng = np.random.default_rng(22)
     x = _grid_img(rng, (b, h, w, c))
@@ -945,31 +969,45 @@ def test_c3k2_halo_mask_is_needed():
 
 def test_wide_forms_take_the_served_widths_only():
     """The wide kernels are compiled for the bf16 engines' widths at base
-    32 and base 16 (C3k2 hidden 16, 64, 128 with F = 2 hidden; heads 32,
-    128, 256), the tiled kernels for hidden 32 / F 64 and head 64; any
+    16, 32 and 64 (C3k2 hidden 16, 64, 128, 256 with F = 2 hidden; heads 32,
+    128, 256, 512), the tiled kernels for hidden 32 / F 64 and head 64; any
     other width packs nothing and the card path raises. The wide C3k2
-    takes its input up to the 64-channel planes it holds in shared memory
-    (``WIDE_PLANES``, held against the library on the card), not past."""
-    served_c3k2 = [(128, 64, 128, 2, 0), (256, 128, 256, 2, 0),
-                   (256, 64, 128, 1, 128), (192, 64, 128, 1, 64),
-                   (384, 128, 256, 1, 128), (32, 16, 32, 1, 0),
-                   (128, 64, 128, 2, 0), (64, 16, 32, 1, 32),
-                   (192, 64, 128, 1, 64), (64, 32, 64, 1, 0)]
-    for cin, hd, f, n, ca in served_c3k2:
-        assert c3k2_kernel.kernel_takes(cin, hd, f, n, ca), (cin, hd, f, n)
+    takes its input as far as its plan fits a block's shared memory
+    (``c3k2_kernel.wide_smem_bytes``, held against the library on the
+    card), not past: an upsampled ``xa`` counted at its coarse window."""
+    # (Cin, hidden, F, n, Ca, up_a); base 64's last: stage1_block,
+    # stage2_c3k2, stage3_c3k2, fpn_c3k2_1, fpn_c3k2_2, pan_c3k2_1,
+    # pan_c3k2_2
+    served_c3k2 = [(128, 64, 128, 2, 0, False), (256, 128, 256, 2, 0, False),
+                   (256, 64, 128, 1, 128, True), (192, 64, 128, 1, 64, False),
+                   (384, 128, 256, 1, 128, False), (32, 16, 32, 1, 0, False),
+                   (64, 16, 32, 1, 32, True), (64, 32, 64, 1, 0, False),
+                   (128, 64, 128, 1, 0, False), (512, 256, 512, 2, 0, False),
+                   (512, 128, 256, 1, 256, True),
+                   (256, 64, 128, 1, 128, True),
+                   (768, 256, 512, 1, 256, False)]
+    for cin, hd, f, n, ca, up in served_c3k2:
+        assert c3k2_kernel.kernel_takes(cin, hd, f, n, ca, up), (cin, hd, n)
     for cin, hd, f, n in ((64, 32, 32, 1), (64, 48, 96, 1), (64, 64, 64, 1),
                           (64, 8, 16, 1), (1024, 128, 256, 2),
-                          (128, 64, 128, 3)):
+                          (128, 64, 128, 3), (64, 512, 1024, 1),
+                          (1024, 256, 512, 2)):
         assert not c3k2_kernel.kernel_takes(cin, hd, f, n), (cin, hd, f, n)
-    for c in (32, 64, 128, 256):
+    # fpn_c3k2_1 at base 64 fits only with xa at its coarse window
+    assert not c3k2_kernel.kernel_takes(512, 128, 256, 1, 256)
+    for c in (32, 64, 128, 256, 512):
         assert head_kernel.kernel_takes(c)
-    for c in (16, 48, 96, 512):
+    for c in (16, 48, 96, 384, 1024):
         assert not head_kernel.kernel_takes(c)
-    # the input planes the wide form holds: Cin up to them, not past
-    for (hd, n), pl in c3k2_kernel.WIDE_PLANES.items():
-        assert c3k2_kernel.kernel_takes(64 * pl, hd, 2 * hd, n)
-        assert not c3k2_kernel.kernel_takes(64 * pl + 8, hd, 2 * hd, n)
-        assert not c3k2_kernel.kernel_takes(64 * pl, hd, 2 * hd, n, ca=8)
+    # the input the wide form holds: Cin up to its plan's limit, not past
+    for hd in mma_pack.C3K2_SPLIT:
+        for n in (1, 2):
+            top = max(cin for cin in range(64, 2048, 64)
+                      if c3k2_kernel.kernel_takes(cin, hd, 2 * hd, n))
+            assert c3k2_kernel.wide_smem_bytes(
+                0, top, False, hd, n) <= mma_pack.WIDE_SMEM_MAX
+            assert not c3k2_kernel.kernel_takes(top + 8, hd, 2 * hd, n)
+            assert not c3k2_kernel.kernel_takes(top, hd, 2 * hd, n, ca=8)
     with pytest.raises(ValueError, match="compiled"):
         mma_pack.pack_c3k2_mma(*(torch.zeros(s) for s in (
             (64, 48), (64, 48), (1, 48, 48), (1, 3, 3, 48, 48),

@@ -6,6 +6,9 @@ kernels' walk (csrc/stage1_tile.cuh ``Width``: K = tap * C + channel in
 64-column halves of C = 128 in two blocks), written out here in plain
 PyTorch, reproduces the plain versions on ragged shapes. The kernels run
 only on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
+import dataclasses
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -213,18 +216,13 @@ def test_kernels_take_every_base_width(c):
             mma_pack.pack_stem_mma(torch.zeros(2, 2, 24, other))
 
 
-@pytest.mark.parametrize("base", [16, 64])
-def test_engines_pack_at_every_base(base):
-    """A seeded train-form model at base 16 and 64 through the export's
-    deploy transforms: the fused-stem engine packs both kernels' B-tile
-    images, the unfused ``s2d_merged`` engine its stage1's, as at base
-    32, and each image inverts to the blocked kernel it serves on the
-    CPU."""
-    import dataclasses
-
+@functools.lru_cache(maxsize=None)
+def _deploy_variables(base):
+    """A seeded train-form model at ``base`` (seed = base, 64²) through the
+    export's deploy transforms: (its config, the folded variable tree)."""
     from unina_yolo_dla_torch.models.config import ModelConfig
     from unina_yolo_dla_torch.models.detector import (
-        from_jax_variables, init_model, to_jax_variables)
+        init_model, to_jax_variables)
     from unina_yolo_dla_torch.quant.deploy import (
         fold_batchnorm, fold_downsample_space_to_depth,
         fold_stem_space_to_depth, merge_stem_columns)
@@ -232,8 +230,71 @@ def test_engines_pack_at_every_base(base):
     cfg = ModelConfig(base_channels=base, input_size=64)
     model, _ = init_model(cfg, generator=torch.Generator().manual_seed(base),
                           device="cpu")
-    v = merge_stem_columns(fold_downsample_space_to_depth(
+    return cfg, merge_stem_columns(fold_downsample_space_to_depth(
         fold_stem_space_to_depth(fold_batchnorm(to_jax_variables(model)))))
+
+
+def _fc_model(base, **flags):
+    """The deploy form at ``base`` with every C3k2 and head fused."""
+    from unina_yolo_dla_torch.models.detector import from_jax_variables
+
+    cfg, v = _deploy_variables(base)
+    return from_jax_variables(v, dataclasses.replace(
+        cfg, deploy=True, stem_s2d=True, s2d_host=True, stage1_s2d=True,
+        fused_c3k2=True, fused_head=True, **flags), "cpu")
+
+
+# Each fused block of the fc engines at base 16, 32 and 64: (hidden, n, Ca,
+# upsampled, the wide form's shared memory in bytes, or "tiled" for the
+# tiled kernel at hidden 32 / F 64), as csrc/c3k2.cu's plan counts it
+# (held against the library on the card); every one fits the 232,448 B a
+# block has, and so is packed and served by a CUDA kernel. Heads: width
+# -> bytes ("tiled" at 64).
+ADMITTED = {
+    16: {"backbone.stage1_block": (16, 1, 0, False, 93184),
+         "backbone.stage2_c3k2": (32, 2, 0, False, "tiled"),
+         "backbone.stage3_c3k2": (64, 2, 0, False, 174080),
+         "neck.fpn_c3k2_1": (32, 1, 64, True, "tiled"),
+         "neck.fpn_c3k2_2": (16, 1, 32, True, 97792),
+         "neck.pan_c3k2_1": (32, 1, 32, False, "tiled"),
+         "neck.pan_c3k2_2": (64, 1, 64, False, 164352),
+         "head_p2": (32, 98816), "head_p3": (64, "tiled"),
+         "head_p4": (128, 207872)},
+    32: {"backbone.stage1_block": (32, 1, 0, False, "tiled"),
+         "backbone.stage2_c3k2": (64, 2, 0, False, 174080),
+         "backbone.stage3_c3k2": (128, 2, 0, False, 215040),
+         "neck.fpn_c3k2_1": (64, 1, 128, True, 160768),
+         "neck.fpn_c3k2_2": (32, 1, 64, True, "tiled"),
+         "neck.pan_c3k2_1": (64, 1, 64, False, 164352),
+         "neck.pan_c3k2_2": (128, 1, 128, False, 228352),
+         "head_p2": (64, "tiled"), "head_p3": (128, 207872),
+         "head_p4": (256, 225280)},
+    64: {"backbone.stage1_block": (64, 1, 0, False, 151552),
+         "backbone.stage2_c3k2": (128, 2, 0, False, 215040),
+         "backbone.stage3_c3k2": (256, 2, 0, False, 198656),
+         "neck.fpn_c3k2_1": (128, 1, 256, True, 221184),
+         "neck.fpn_c3k2_2": (64, 1, 128, True, 160768),
+         "neck.pan_c3k2_1": (128, 1, 128, False, 228352),
+         "neck.pan_c3k2_2": (256, 1, 256, False, 221184),
+         "head_p2": (128, 207872), "head_p3": (256, 225280),
+         "head_p4": (512, 227328)},
+}
+
+
+@pytest.mark.parametrize("base", [16, 64])
+def test_engines_pack_at_every_base(base):
+    """A seeded train-form model at base 16 and 64 through the export's
+    deploy transforms: the fused-stem engine packs both kernels' B-tile
+    images, the unfused ``s2d_merged`` engine its stage1's, as at base
+    32, and each image inverts to the blocked kernel it serves on the
+    CPU. The fc forms (``--s2d-merged`` and ``--stage1-s2d`` with
+    ``--fused-c3k2 --fused-head``) pack every fused block's CUDA image,
+    hidden 256 and head 512 at base 64 included, and each inverts."""
+    from unina_yolo_dla_torch.models.blocks import C3k2
+    from unina_yolo_dla_torch.models.detector import from_jax_variables
+    from unina_yolo_dla_torch.models.head import DetectionHead
+
+    cfg, v = _deploy_variables(base)
     dep = dataclasses.replace(cfg, deploy=True, stem_s2d=True, s2d_host=True,
                               stage1_s2d=True, s2d_merged=True)
     c = 2 * base
@@ -246,3 +307,55 @@ def test_engines_pack_at_every_base(base):
                        bb.stage1_kernel)
     st = from_jax_variables(v, dep, "cpu").backbone.stage1_conv
     assert torch.equal(mma_pack.unpack_stage1_mma(st.kernel_mma), st.kernel)
+    for merged in (True, False):
+        model = _fc_model(base, s2d_merged=merged)
+        blocks = {p: m for p, m in model.named_modules()
+                  if isinstance(m, (C3k2, DetectionHead))}
+        assert sorted(blocks) == sorted(ADMITTED[base])
+        for path, m in blocks.items():
+            assert m.fused
+            if isinstance(m, DetectionHead):
+                back = mma_pack.unpack_head_mma(m.w33)
+                for g, w in zip(back, (m.wc1, m.wr1, m.wc2, m.wr2)):
+                    assert torch.equal(g, w)
+                continue
+            (cin, hd), n, f = m.w1.shape, m.wb1.shape[0], m.w3.shape[1]
+            ca = ADMITTED[base][path][2]
+            back = mma_pack.unpack_c3k2_mma(m.wpk, cin, n, ca, hd, f)
+            for g, w in zip(back, (m.w1, m.w2, m.wb1, m.wb2, m.w3)):
+                assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("base", [16, 32, 64])
+def test_fused_blocks_admitted_at_every_base(base):
+    """Which fused blocks the CUDA kernels take at each base, with their
+    shared memory (``ADMITTED``): the model's blocks have these widths,
+    ``kernel_takes`` admits every one, and the wide form's plan gives the
+    stated bytes, within a block's 232,448. Base 64's fpn_c3k2_1 fits only
+    because its upsampled input is held at its coarse window."""
+    from unina_yolo_dla_torch.ops.cuda import c3k2_kernel, head_kernel
+
+    model = _fc_model(base, s2d_merged=True)
+    for path, want in ADMITTED[base].items():
+        m = model.get_submodule(path)
+        assert m.fused
+        if path.startswith("head"):
+            c, smem = want
+            assert m.wc1.shape[-1] == c and head_kernel.kernel_takes(c)
+            assert m.w33 is not None
+            got = "tiled" if c == head_kernel.KERNEL_C else \
+                head_kernel.wide_smem_bytes(c)
+            assert got == smem, (path, got)
+            continue
+        hd, n, ca, up, smem = want
+        cin, f = m.w1.shape[0], m.w3.shape[1]
+        assert (m.w1.shape[1], m.wb1.shape[0]) == (hd, n) and f == 2 * hd
+        assert c3k2_kernel.kernel_takes(cin, hd, f, n, ca, up)
+        assert m.wpk is not None
+        got = "tiled" if hd == c3k2_kernel.KERNEL_HID else \
+            c3k2_kernel.wide_smem_bytes(ca, cin - ca, up, hd, n)
+        assert got == smem, (path, got)
+        assert got == "tiled" or got <= mma_pack.WIDE_SMEM_MAX
+    fpn = model.get_submodule("neck.fpn_c3k2_1")
+    assert base != 64 or not c3k2_kernel.kernel_takes(
+        fpn.w1.shape[0], 128, 256, 1, 256, up_a=False)

@@ -52,8 +52,8 @@
 //   3x3 sees the image's zero padding in rows and columns. Edge tiles are
 //   masked: any H, W and batch; n = 1 or 2; Ca, Cb multiples of 8.
 // That tiled kernel is compiled for hidden 32 and F 64 (the int8 engine's
-// float blocks); hidden 16, 64 and 128 go to the wide form at the end of
-// this file (weights streamed, clusters, csrc/wide_mma.cuh). The entry
+// float blocks); hidden 16, 64, 128 and 256 go to the wide form at the end
+// of this file (weights streamed, clusters, csrc/wide_mma.cuh). The entry
 // points pick the form by (hidden, F).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -480,20 +480,24 @@ int launch(Params P, int B, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// ---- the wide form: hidden 16, 64 and 128 (F = 2 hidden), wgmma ----
+// ---- the wide form: hidden 16, 64, 128 and 256 (F = 2 hidden), wgmma ----
 //
-// The shapes of the bf16 engines' other C3k2s (hidden 64 or 128, F 128 or
-// 256, inputs of 128 to 384 channels; hidden 16 at base 16) do not fit the
+// The shapes of the bf16 engines' other C3k2s (hidden 64 to 256, F 128 to
+// 512, inputs of 128 to 768 channels; hidden 16 at base 16) do not fit the
 // tiled kernel's resident weights in shared memory. This form streams them
-// (csrc/wide_mma.cuh): one 8 x 8 output tile per block at hidden 16 and 64,
-// per cluster of 4 blocks at hidden 128 (the 40 x 40 stages, 25 tiles:
-// each block computes a quarter of every stage's output columns and
-// stores them into the windows of all four). The same stages and
-// rounding points as above, on the tile plus a halo of n:
-//   A  [p1 | p2] = ReLU(xwin @ [w1 | w2] + [b1 | b2]) on the (8+2n)^2
-//      window (xa's planes ahead of xb's, xa read at the coarse pixel
-//      (r >> 1, c >> 1) of a 6 x 6 window when upsampled), 0 outside the
-//      image;
+// (csrc/wide_mma.cuh): one output tile per block at hidden 16 and 64, per
+// cluster of 4 blocks at hidden 128 and of 8 at hidden 256 (the 40 x 40
+// stages: each block computes a quarter or an eighth of every stage's
+// output columns and stores them into the windows of all the cluster's
+// blocks). The tile is 8 x 8 at hidden 16 to 128; at hidden 256 the
+// [p1 | p2] window alone holds 8 planes, and beside the input windows an
+// 8 x 8 tile's would take 295-356 KB, so the tile is 4 x 8 (n = 1) or
+// 4 x 4 (n = 2) (`tile_rows`, `tile_cols`). The same stages and rounding
+// points as above, on the tile plus a halo of n:
+//   A  [p1 | p2] = ReLU(xwin @ [w1 | w2] + [b1 | b2]) on the
+//      (TR+2n) x (TW+2n) window (xa's planes ahead of xb's, xa read at the
+//      coarse pixel (r >> 1, c >> 1) of a (TR/2+2) x (TW/2+2) window when
+//      upsampled), 0 outside the image;
 //   B  t = ReLU(p1 @ wb1 + bb1) on the window less i pixels, into the
 //      input's space (dead after A);
 //   C  the 3x3 over t, K = 9 taps x hidden, on one pixel less, then
@@ -501,17 +505,26 @@ int launch(Params P, int B, void* stream) {
 //   D  out = ReLU([p1 | p2] @ w3 + b3) on the tile, from registers to
 //      global memory.
 // M is every region padded to whole m64 products (3, 3, 2, 2, 1, 1 at
-// n = 2), the items of a stage spread over the two warpgroups.
+// n = 2 and an 8 x 8 tile), the items of a stage spread over the two
+// warpgroups.
 // Bound on the H100 at stage3_c3k2 (40 x 40 x 256, hidden 128, n = 2):
 // 1.47 GFLOP over 1.7 MB, about 1.5 us at the bf16 peak. 25 tiles x 4 = 100
 // blocks there (pan_c3k2_2 as well), 100 at 80 x 80 and hidden 64: one
-// block an SM, 164-228 KB of shared memory.
+// block an SM, 164-228 KB of shared memory. At base 64's stage3_c3k2 (40 x
+// 40 x 512, hidden 256, n = 2): 5.9 GFLOP over 6.9 MB, about 5.9 us; its
+// 100 4 x 4 tiles x 8 = 800 blocks run in about six waves, and stage A
+// computes a 64-pixel window for 16 output pixels.
 namespace wide_c3k2 {
 
 using namespace wide;
 
-constexpr int TR = 8, TW = 8;                   // output tile
-constexpr int AR = TR / 2 + 2, AC = TW / 2 + 2; // coarse xa window
+// the output tile of each compiled (hidden, n)
+__host__ __device__ constexpr int tile_rows(int hid, int n) {
+  return hid == 256 ? 4 : 8;
+}
+__host__ __device__ constexpr int tile_cols(int hid, int n) {
+  return hid == 256 && n == 2 ? 4 : 8;
+}
 
 struct Params {
   const bf16* xa;   // (B, Ha, Wa, ca), pair form only
@@ -523,25 +536,33 @@ struct Params {
 };
 
 // the widths this form is compiled for, and their cluster size
-__host__ __device__ inline int split(int hid, int fo) {
-  if (fo != 2 * hid) return 0;
-  return hid == 128 ? 4 : hid == 64 || hid == 16 ? 1 : 0;
+__host__ __device__ constexpr int split(int hid, int fo) {
+  return fo != 2 * hid ? 0
+         : hid == 256  ? 8
+         : hid == 128  ? 4
+         : hid == 64 || hid == 16 ? 1
+                                  : 0;
 }
 
-// pixels of the region of stage A (i < 0), B_i, C_i (c) or D (i = n)
-__host__ __device__ constexpr int region(int n, int i, bool c) {
-  return i < 0 ? (TR + 2 * n) * (TW + 2 * n)
-         : i >= n ? TR * TW
-         : c ? (TR + 2 * (n - 1 - i)) * (TW + 2 * (n - 1 - i))
-             : (TR + 2 * (n - i)) * (TW + 2 * (n - i));
+// pixels of the region of stage A (i < 0), B_i, C_i (c) or D (i = n) of a
+// tr x tw tile
+__host__ __device__ constexpr int region(int tr, int tw, int n, int i,
+                                         bool c) {
+  return i < 0 ? (tr + 2 * n) * (tw + 2 * n)
+         : i >= n ? tr * tw
+         : c ? (tr + 2 * (n - 1 - i)) * (tw + 2 * (n - 1 - i))
+             : (tr + 2 * (n - i)) * (tw + 2 * (n - i));
 }
 // the widest warpgroup part of any stage: sets the ring's slots
-__host__ __device__ constexpr int ring_cols(int hid, int s, int n) {
-  int cols = cmax(stage_cols(2 * hid / s, region(n, -1, false)),
-                  stage_cols(2 * hid / s, region(n, n, false)));
+__host__ __device__ constexpr int ring_cols(int hid, int n) {
+  const int s = split(hid, 2 * hid);
+  const int tr = tile_rows(hid, n), tw = tile_cols(hid, n);
+  int cols = cmax(stage_cols(2 * hid / s, region(tr, tw, n, -1, false)),
+                  stage_cols(2 * hid / s, region(tr, tw, n, n, false)));
   for (int i = 0; i < n; ++i)
-    cols = cmax(cols, cmax(stage_cols(hid / s, region(n, i, false)),
-                           stage_cols(hid / s, region(n, i, true))));
+    cols = cmax(cols,
+                cmax(stage_cols(hid / s, region(tr, tw, n, i, false)),
+                     stage_cols(hid / s, region(tr, tw, n, i, true))));
   return cols;
 }
 
@@ -549,23 +570,28 @@ __host__ __device__ constexpr int ring_cols(int hid, int s, int n) {
 // [p1 | p2] window, the input windows (later the t window)
 __host__ __device__ inline int smem_bytes(int ca, int cb, int up_a, int hid,
                                           int n) {
-  const int wp = region(n, -1, false);
-  const int x = planes(ca) * (up_a ? AR * AC : wp) + planes(cb) * wp;
+  const int tr = tile_rows(hid, n), tw = tile_cols(hid, n);
+  const int wp = region(tr, tw, n, -1, false);
+  const int apx = up_a ? (tr / 2 + 2) * (tw / 2 + 2) : wp;
+  const int x = planes(ca) * apx + planes(cb) * wp;
   const int t = planes(hid) * wp;
-  return wide::SMEM_HEAD + ring_bytes(ring_cols(hid, split(hid, 2 * hid), n)) +
+  return wide::SMEM_HEAD + ring_bytes(ring_cols(hid, n)) +
          (planes(2 * hid) * wp + (x > t ? x : t)) * PIX_BYTES;
 }
 
 // N: the bottlenecks, a template parameter so that every stage's region,
 // and so its count of items, is known at compile time
-template <bool CAT, int HID, int N>
+// and TR x TW the output tile, compile-time parameters as well
+template <bool CAT, int HID, int N, int TR, int TW>
 __device__ __forceinline__ void body(const Params& P,
                                      unsigned char* smem_raw, Stream& st) {
-  constexpr int S = HID == 128 ? 4 : 1;
+  constexpr int S = split(HID, 2 * HID);
   constexpr int PP = (2 * HID + 63) / 64, PT = (HID + 63) / 64;
   constexpr int NSA = 2 * HID / S, NSB = HID / S;  // F = 2 hidden: D as A
   constexpr int WC = TW + 2 * N, WP = (TR + 2 * N) * WC;  // window
-  using G = Ring<ring_slot(ring_cols(HID, S, N))>;
+  constexpr int AR = TR / 2 + 2, AC = TW / 2 + 2;  // coarse xa window
+  using G = Ring<ring_slot(ring_cols(HID, N))>;
+  static_assert(TR % 2 == 0 && TW % 2 == 0, "even tile origins (up_a)");
   static_assert(HID % 64 == 0 || S == 1, "padded planes are zeroed locally");
   const Lane L;
   const int rank = cluster_rank<S>();
@@ -593,12 +619,13 @@ __device__ __forceinline__ void body(const Params& P,
   if (L.tid == 0) {
     st.nst = 0;
     st.first[0] = 0;
-    st.add(KA + KB, NSA * 128, stage_nh(NSA, region(N, -1, false)));
+    st.add(KA + KB, NSA * 128,
+           stage_nh(NSA, region(TR, TW, N, -1, false)));
     for (int i = 0; i < N; ++i) {
-      st.add(PT, NSB * 128, stage_nh(NSB, region(N, i, false)));
-      st.add(9 * PT, NSB * 128, stage_nh(NSB, region(N, i, true)));
+      st.add(PT, NSB * 128, stage_nh(NSB, region(TR, TW, N, i, false)));
+      st.add(9 * PT, NSB * 128, stage_nh(NSB, region(TR, TW, N, i, true)));
     }
-    st.add(PP, NSA * 128, stage_nh(NSA, region(N, N, false)));
+    st.add(PP, NSA * 128, stage_nh(NSA, region(TR, TW, N, N, false)));
     st.src = reinterpret_cast<const unsigned char*>(P.wimg) +
              rank * st.total_bytes();
   }
@@ -810,20 +837,29 @@ __device__ __forceinline__ void body(const Params& P,
 // CAT: the pair form, a template parameter (as above) so that the two
 // forms are two device functions, told apart by name; the width and the
 // bottlenecks pick the compiled body
+template <bool CAT, int HID, int N>
+__device__ __forceinline__ void run(const Params& P, unsigned char* smem_raw,
+                                    Stream& st) {
+  body<CAT, HID, N, tile_rows(HID, N), tile_cols(HID, N)>(P, smem_raw, st);
+}
+
 template <bool CAT>
 __global__ void __launch_bounds__(wide::THREADS, 1)
 c3k2_wide_kernel(const Params P) {
   extern __shared__ __align__(16) unsigned char wide_smem[];
   Stream& st = *reinterpret_cast<Stream*>(wide_smem);
-  if (P.hid == 128) {
-    if (P.n == 2) body<CAT, 128, 2>(P, wide_smem, st);
-    else body<CAT, 128, 1>(P, wide_smem, st);
+  if (P.hid == 256) {
+    if (P.n == 2) run<CAT, 256, 2>(P, wide_smem, st);
+    else run<CAT, 256, 1>(P, wide_smem, st);
+  } else if (P.hid == 128) {
+    if (P.n == 2) run<CAT, 128, 2>(P, wide_smem, st);
+    else run<CAT, 128, 1>(P, wide_smem, st);
   } else if (P.hid == 64) {
-    if (P.n == 2) body<CAT, 64, 2>(P, wide_smem, st);
-    else body<CAT, 64, 1>(P, wide_smem, st);
+    if (P.n == 2) run<CAT, 64, 2>(P, wide_smem, st);
+    else run<CAT, 64, 1>(P, wide_smem, st);
   } else {
-    if (P.n == 2) body<CAT, 16, 2>(P, wide_smem, st);
-    else body<CAT, 16, 1>(P, wide_smem, st);
+    if (P.n == 2) run<CAT, 16, 2>(P, wide_smem, st);
+    else run<CAT, 16, 1>(P, wide_smem, st);
   }
 }
 
@@ -844,8 +880,9 @@ int launch(Params P, int B, void* stream) {
     if (err != cudaSuccess) return (int)err;
     ready = true;
   }
-  P.tiles_x = (P.W + TW - 1) / TW;
-  P.tiles_y = (P.H + TR - 1) / TR;
+  const int tr = tile_rows(P.hid, P.n), tw = tile_cols(P.hid, P.n);
+  P.tiles_x = (P.W + tw - 1) / tw;
+  P.tiles_y = (P.H + tr - 1) / tr;
   const int ntiles = P.tiles_x * P.tiles_y * B;
   return launch_cluster(last_launch, c3k2_wide_kernel<CAT>, S, ntiles * S,
                         1, smem, stream, P);

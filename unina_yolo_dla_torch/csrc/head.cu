@@ -260,19 +260,19 @@ head_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w33,
   }
 }
 
-// ---- the wide form: C = 32, 128 and 256, wgmma ----
+// ---- the wide form: C = 32, 128, 256 and 512, wgmma ----
 //
-// The P3/P4 heads of the bf16 engines (C = 128 and 256; 32 at base 16) do
-// not fit the tiled kernel above: its conv1 accumulators alone would be
-// 2-4x the registers. This form streams the weights (csrc/wide_mma.cuh):
-// one branch of one output tile (blockIdx.y: 0 cls, 1 reg; 8 x 16 at
-// C = 128, 8 x 8 otherwise, `tile_w`) per block at C = 32 and 128, per
-// cluster of 2 blocks at C = 256 (head_p4, 25 tiles: each block computes
-// half of every conv's output channels and stores them into both
-// windows):
+// The P3/P4 heads of the bf16 engines (C = 128 and 256; 32 at base 16, 512
+// at base 64) do not fit the tiled kernel above: its conv1 accumulators
+// alone would be 2-4x the registers. This form streams the weights
+// (csrc/wide_mma.cuh): one branch of one output tile (blockIdx.y: 0 cls,
+// 1 reg; `tile_rows` x `tile_w`) per block at C = 32 and 128, per cluster
+// of 2 blocks at C = 256 (head_p4, 25 tiles: each block computes half of
+// every conv's output channels and stores them into both windows) and of
+// 8 at C = 512 (an eighth each, into all eight windows):
 //   conv1 on the tile plus a 1-pixel halo (100 or 180 pixels, two or three
-//     m64 products), K = 9 x C, over the x window (halo 2); c1 =
-//     bf16(ReLU(acc + b1)), 0 outside the image;
+//     m64 products; 60 at C = 512, one), K = 9 x C, over the x window
+//     (halo 2); c1 = bf16(ReLU(acc + b1)), 0 outside the image;
 //   conv2 on the tile (one or two m64 products) over c1; c2 =
 //     bf16(ReLU(acc + b2)) into the x window's space;
 //   pred = c2 @ wp + bp, f32: warp-level m16n8k16 over the tile's m16 row
@@ -283,35 +283,42 @@ head_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w33,
 // and 4.7 MB of weights, about 7.6 us at the bf16 peak. 25 tiles x 2
 // branches x 2 = 100 blocks there, 50 x 2 = 100 at head_p3: one wave of
 // blocks, one block an SM (a cluster of four, 200 blocks, took two waves
-// and longer).
+// and longer). At base 64's head_p4 (40 x 40 x 512): 30.2 GFLOP over 20.5
+// MB, about 30.5 us; 50 4 x 8 tiles x 2 branches x 8 = 800 blocks, about
+// six waves.
 namespace wide_head {
 
 using namespace wide;
 
-constexpr int TR = 8;  // output tile rows
-// The output tile's width: 16 at C = 128 (head_p3: 50 tiles x 2 branches,
-// one wave of blocks on the H100's 132 SMs where 8 x 8 tiles make two), 8
-// otherwise (at 256 the wider windows would not fit in shared memory).
+// The output tile: 8 x 16 at C = 128 (head_p3: 50 tiles x 2 branches, one
+// wave of blocks on the H100's 132 SMs where 8 x 8 tiles make two); 4 x 8
+// at C = 512, whose 8-plane windows of an 8 x 8 tile would take 250 KB (a
+// 4 x 8 tile's fit beside the 64 KB ring of a cluster of 8, whose 64
+// columns a block make two 32-column warpgroup parts); 8 x 8 otherwise (at
+// 256 wider windows would not fit in shared memory).
+__host__ __device__ constexpr int tile_rows(int c) { return c == 512 ? 4 : 8; }
 __host__ __device__ constexpr int tile_w(int c) { return c == 128 ? 16 : 8; }
 // pixels of the x window (halo 2) and of conv1's region (halo 1)
-__host__ __device__ constexpr int x_px(int tw) { return (TR + 4) * (tw + 4); }
-__host__ __device__ constexpr int c1_px(int tw) {
-  return (TR + 2) * (tw + 2);
+__host__ __device__ constexpr int x_px(int tr, int tw) {
+  return (tr + 4) * (tw + 4);
+}
+__host__ __device__ constexpr int c1_px(int tr, int tw) {
+  return (tr + 2) * (tw + 2);
 }
 
-__host__ __device__ inline int split(int c) {
-  return c == 256 ? 2 : c == 128 || c == 32 ? 1 : 0;
+__host__ __device__ constexpr int split(int c) {
+  return c == 512 ? 8 : c == 256 ? 2 : c == 128 || c == 32 ? 1 : 0;
 }
 // the widest warpgroup part of the two convs: sets the ring's slots
-__host__ __device__ constexpr int ring_cols(int ns, int tw) {
-  return cmax(stage_cols(ns, c1_px(tw)), stage_cols(ns, TR * tw));
+__host__ __device__ constexpr int ring_cols(int ns, int tr, int tw) {
+  return cmax(stage_cols(ns, c1_px(tr, tw)), stage_cols(ns, tr * tw));
 }
 // shared memory: the block's stream table and alignment, the ring, the x
 // window, c1
 __host__ __device__ inline int smem_bytes(int c) {
-  const int tw = tile_w(c);
-  return wide::SMEM_HEAD + ring_bytes(ring_cols(c / split(c), tw)) +
-         (x_px(tw) + c1_px(tw)) * planes(c) * PIX_BYTES;
+  const int tr = tile_rows(c), tw = tile_w(c);
+  return wide::SMEM_HEAD + ring_bytes(ring_cols(c / split(c), tr, tw)) +
+         (x_px(tr, tw) + c1_px(tr, tw)) * planes(c) * PIX_BYTES;
 }
 
 struct Branch {
@@ -328,13 +335,13 @@ __device__ __forceinline__ void body(const bf16* __restrict__ x,
                                      const Branch& br, int H, int W,
                                      int tiles_x, int tiles_y,
                                      unsigned char* smem_raw, Stream& st) {
-  constexpr int S = C == 256 ? 2 : 1;
+  constexpr int S = split(C);
   constexpr int PC = (C + 63) / 64;                 // planes
   constexpr int NS = C / S;
-  constexpr int TW = tile_w(C);
-  constexpr int XC = TW + 4, XP = x_px(TW);         // x window
-  constexpr int CC = TW + 2, CP = c1_px(TW);        // conv1 region
-  using G = Ring<ring_slot(ring_cols(NS, TW))>;
+  constexpr int TR = tile_rows(C), TW = tile_w(C);  // output tile
+  constexpr int XC = TW + 4, XP = x_px(TR, TW);     // x window
+  constexpr int CC = TW + 2, CP = c1_px(TR, TW);    // conv1 region
+  using G = Ring<ring_slot(ring_cols(NS, TR, TW))>;
   static_assert(C % 64 == 0 || S == 1, "padded planes are zeroed locally");
   const Lane L;
   const int rank = cluster_rank<S>();
@@ -483,7 +490,9 @@ head_wide_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w33,
   extern __shared__ __align__(16) unsigned char wide_smem[];
   Stream& st = *reinterpret_cast<Stream*>(wide_smem);
   const Branch& br = blockIdx.y == 0 ? cls : reg;
-  if (C == 256)
+  if (C == 512)
+    body<512>(x, w33, br, H, W, tiles_x, tiles_y, wide_smem, st);
+  else if (C == 256)
     body<256>(x, w33, br, H, W, tiles_x, tiles_y, wide_smem, st);
   else if (C == 128)
     body<128>(x, w33, br, H, W, tiles_x, tiles_y, wide_smem, st);
@@ -505,8 +514,8 @@ int launch(const bf16* x, const bf16* w33, Branch cls, Branch reg, int C,
     if (err != cudaSuccess) return (int)err;
     ready = true;
   }
-  const int tw = tile_w(C);
-  const int tiles_x = (W + tw - 1) / tw, tiles_y = (H + TR - 1) / TR;
+  const int tr = tile_rows(C), tw = tile_w(C);
+  const int tiles_x = (W + tw - 1) / tw, tiles_y = (H + tr - 1) / tr;
   return launch_cluster(last_launch, head_wide_kernel, S,
                         tiles_x * tiles_y * B * S, 2, smem, stream, x, w33,
                         cls, reg, C, H, W, tiles_x, tiles_y);

@@ -5,12 +5,13 @@
 // thread-block cluster. Included by c3k2.cu and head.cu; not compiled on
 // its own.
 //
-// What bounds them on the H100: weights of 0.3-4.7 MB a launch against
-// 0.5-1.6 MB of activations and 1-7.6 GFLOP, so the tensor cores (1-8 us)
+// What bounds them on the H100: weights of 0.3-18.9 MB a launch against
+// 0.5-4.9 MB of activations and 1-30 GFLOP, so the tensor cores (1-31 us)
 // once every weight is read from L2 once per block and every A fragment
 // once per warpgroup; in practice the latency of each block's chain of
 // stages (window copies, chunk steps, epilogues, barriers) on one block an
-// SM. Measured times: PERF.md.
+// SM, and at base 64's widest widths the 4-7 waves of clusters that its
+// smaller tiles take. Measured times: PERF.md.
 //
 //   Windows  every activation window is a stack of 64-channel planes, each
 //     plane `pixels x 128 bytes` with the 16-byte chunks of pixel p at
@@ -34,10 +35,16 @@
 //     sits behind a branch; A has one set of registers, loaded after the
 //     warpgroup's previous products are done (wgmma runs unserialized only
 //     while nothing else defines its operands); two chunks a step.
-//   Cluster  the blocks of a cluster share one output tile; each computes
-//     its columns of every stage and stores them, bf16, into the window of
-//     every block of the cluster (distributed shared memory), then the
-//     cluster meets at a barrier before the next stage reads the window.
+//   Cluster  the blocks of a cluster (2, 4 or 8, the portable maximum)
+//     share one output tile; each computes its columns of every stage and
+//     stores them, bf16, into the window of every block of the cluster
+//     (distributed shared memory), then the cluster meets at a barrier
+//     before the next stage reads the window. Each block's ring and its
+//     mbarriers are its own, whatever the cluster's size.
+//   Tile  the output tile is a compile-time parameter of each body (c3k2.cu
+//     `tile_rows` / `tile_cols`, head.cu `tile_rows` / `tile_w`): 8 x 8 or
+//     8 x 16, and 4 x 4 or 4 x 8 at hidden 256 and head 512, whose
+//     8-plane windows of an 8 x 8 tile would not fit a block.
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>

@@ -268,12 +268,14 @@ class C3k2(nn.Module):
     the concat into its first dots), its weights packed once here, also
     as the CUDA kernel's B tiles. ``split`` is the channel count of ``x``
     where the block is called with ``x2`` (the tiles keep the two inputs'
-    channels apart), else 0."""
+    channels apart), else 0; ``up`` says that it is called with ``up_x``
+    (the kernel then holds ``x`` at its coarse resolution)."""
 
     _FUSED = ("w1", "b1", "wb1", "bb1", "wb2", "bb2", "w2", "b2", "w3", "b3")
 
     def __init__(self, tree: WeightTree, path: str, shortcut: bool = True,
-                 fused: bool = False, split: int = 0) -> None:
+                 fused: bool = False, split: int = 0, up: bool = False
+                 ) -> None:
         super().__init__()
         n = tree.count(path, "bottleneck_")
         self.shortcut = shortcut
@@ -293,7 +295,7 @@ class C3k2(nn.Module):
                 self.register_buffer(name, t)
             w1, _, wb1, _, wb2, _, w2, _, w3, _ = ws
             packs = kernel_takes(w1.shape[0], w1.shape[1], w3.shape[1],
-                                 wb1.shape[0], split)
+                                 wb1.shape[0], split, up)
             self.register_buffer("wpk", pack_c3k2_mma(
                 w1, w2, wb1, wb2, w3, split) if packs else None)
             return

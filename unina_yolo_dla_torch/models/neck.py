@@ -50,17 +50,17 @@ class Neck(nn.Module):
     def __init__(self, tree: WeightTree, cfg: ModelConfig) -> None:
         super().__init__()
 
-        def c3k2(name, first):
+        def c3k2(name, first, up=False):
             # `first` makes the block's first input; its width is where a
-            # fused block's packed weights split
+            # fused block's packed weights split; `up`: it is upsampled
             split = np.shape(tree.node(f"neck/{first}/conv")["kernel"])[-1]
-            return C3k2(tree, f"neck/{name}", split=split,
+            return C3k2(tree, f"neck/{name}", split=split, up=up,
                         fused=cfg.fuses(cfg.fused_c3k2, name))
 
         self.lateral_p3 = ConvBlock(tree, "neck/lateral_p3", 1)
-        self.fpn_c3k2_1 = c3k2("fpn_c3k2_1", "lateral_p3")
+        self.fpn_c3k2_1 = c3k2("fpn_c3k2_1", "lateral_p3", up=True)
         self.lateral_p2 = ConvBlock(tree, "neck/lateral_p2", 1)
-        self.fpn_c3k2_2 = c3k2("fpn_c3k2_2", "lateral_p2")
+        self.fpn_c3k2_2 = c3k2("fpn_c3k2_2", "lateral_p2", up=True)
         self.down1 = ConvBlock(tree, "neck/down1", 3, 2)
         self.pan_c3k2_1 = c3k2("pan_c3k2_1", "down1")
         self.down2 = ConvBlock(tree, "neck/down2", 3, 2)

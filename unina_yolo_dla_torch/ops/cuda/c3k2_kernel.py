@@ -6,9 +6,9 @@ CUDA source: ``csrc/c3k2.cu`` (tensor cores; entry points
 Each entry point launches one of two kernels by width: the tiled
 ``wgmma`` kernel at hidden 32 and F 64 (the int8 engine's float blocks),
 the wide ``wgmma`` form (weights streamed through shared memory; at hidden
-128 each output tile one cluster of four blocks splitting the columns) at
-hidden 16, 64 and 128 with F = 2 hidden: every other C3k2 of the bf16
-engines at base 32 and base 16.
+128 and 256 each output tile one cluster of four or eight blocks splitting
+the columns) at hidden 16, 64, 128 and 256 with F = 2 hidden: every other
+C3k2 of the bf16 engines at base 16, 32 and 64.
 ``fused_c3k2`` and ``fused_c3k2_cat`` launch them for CUDA tensors; for
 CPU tensors they run ``fused_c3k2_plain`` / ``fused_c3k2_cat_plain``,
 which follow the reference's XLA form step by step:
@@ -40,7 +40,9 @@ import torch.nn.functional as F
 
 from . import _lib
 from ._lib import I, Kernel, P, check_cuda, stream_ptr
-from .mma_pack import C3K2_SPLIT, c3k2_mma_numel
+from .mma_pack import (C3K2_SPLIT, WIDE_PIX_BYTES, WIDE_SMEM_HEAD,
+                       WIDE_SMEM_MAX, c3k2_mma_numel, wide_ring_bytes,
+                       wide_stage_cols)
 
 KERNEL = Kernel("unina_fused_c3k2",
                 [P, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P])
@@ -51,17 +53,50 @@ KERNEL_CAT = Kernel("unina_fused_c3k2_cat",
 # the widths the tiled kernel is compiled for (csrc/c3k2.cu): hidden h,
 # output F; both forms take bottlenecks n <= KERNEL_NMAX
 KERNEL_HID, KERNEL_F, KERNEL_NMAX = 32, 64, 2
-# the wide form holds its input windows beside its other windows and
-# rings in 227 KB of shared memory: the 64-channel planes of input it
-# takes by (hidden, n), from csrc/c3k2.cu ``wide_c3k2::smem_bytes`` (held
-# against it on the card: tests/test_torch_gpu.py); an upsampled ``xa`` is
-# counted at full resolution, so it is refused a little early
-WIDE_PLANES = {(16, 1): 11, (16, 2): 7, (64, 1): 8, (64, 2): 5,
-               (128, 1): 6, (128, 2): 4}
 
 
 def _planes(c: int) -> int:
     return -(-c // 64)
+
+
+def wide_tile(hid: int, n: int) -> tuple[int, int]:
+    """The wide form's output tile at hidden ``hid`` and ``n``
+    bottlenecks: 8 x 8, at hidden 256 4 x 8 (n = 1) or 4 x 4 (n = 2)
+    (csrc/c3k2.cu ``tile_rows``, ``tile_cols``)."""
+    if hid == 256:
+        return 4, 8 if n == 1 else 4
+    return 8, 8
+
+
+def _region(tr: int, tw: int, n: int, i: int, c: bool) -> int:
+    """Pixels of stage A's region (i < 0), B_i's, C_i's (``c``) or D's (i =
+    n) at a tr x tw tile (csrc/c3k2.cu ``region``)."""
+    if i < 0:
+        return (tr + 2 * n) * (tw + 2 * n)
+    if i >= n:
+        return tr * tw
+    h = n - 1 - i if c else n - i
+    return (tr + 2 * h) * (tw + 2 * h)
+
+
+def wide_smem_bytes(ca: int, cb: int, up_a: bool, hid: int, n: int) -> int:
+    """The wide form's dynamic shared memory at these widths, as
+    csrc/c3k2.cu ``wide_c3k2::smem_bytes`` computes it (held against the
+    library on the card): the head, the ring, the [p1 | p2] window, and the
+    larger of the input windows (an upsampled ``xa`` at its coarse window)
+    and the t window. ``hid`` one of ``C3K2_SPLIT``."""
+    s = C3K2_SPLIT[hid]
+    tr, tw = wide_tile(hid, n)
+    cols = max([wide_stage_cols(2 * hid // s, _region(tr, tw, n, i, False))
+                for i in (-1, n)]
+               + [wide_stage_cols(hid // s, _region(tr, tw, n, i, c))
+                  for i in range(n) for c in (False, True)])
+    wp = _region(tr, tw, n, -1, False)
+    apx = (tr // 2 + 2) * (tw // 2 + 2) if up_a else wp
+    x = _planes(ca) * apx + _planes(cb) * wp
+    t = _planes(hid) * wp
+    return (WIDE_SMEM_HEAD + wide_ring_bytes(cols)
+            + (_planes(2 * hid) * wp + max(x, t)) * WIDE_PIX_BYTES)
 
 
 def last_launch() -> dict:
@@ -167,7 +202,8 @@ def fused_c3k2_cat_plain(xa, xb, w1, b1, wb1, bb1, wb2, bb2, w2, b2, w3, b3,
     return out.reshape(*xb.shape[:-1], out.shape[-1])
 
 
-def kernel_takes(cin: int, hid: int, fo: int, n: int, ca: int = 0) -> bool:
+def kernel_takes(cin: int, hid: int, fo: int, n: int, ca: int = 0,
+                 up_a: bool = False) -> bool:
     """Whether a CUDA kernel takes these widths (what ``_check_weights``
     asks of them): the caller packs ``wpk`` only then."""
     if not 1 <= n <= KERNEL_NMAX:
@@ -175,15 +211,16 @@ def kernel_takes(cin: int, hid: int, fo: int, n: int, ca: int = 0) -> bool:
     if (hid, fo) == (KERNEL_HID, KERNEL_F):
         return cin % 8 == 0 and ca % 8 == 0
     return (hid in C3K2_SPLIT and fo == 2 * hid and cin % 8 == 0
-            and ca % 8 == 0
-            and _planes(ca) + _planes(cin - ca) <= WIDE_PLANES[hid, n])
+            and ca % 8 == 0 and wide_smem_bytes(
+                ca, cin - ca, up_a, hid, n) <= WIDE_SMEM_MAX)
 
 
-def _check_weights(ws, wpk, cin: int, ca: int = 0) -> tuple[int, int, int]:
+def _check_weights(ws, wpk, cin: int, ca: int = 0, up_a: bool = False
+                   ) -> tuple[int, int, int]:
     """-> (n, hidden, F), after the checks of the form these widths take:
     the tiled kernel at hidden 32 and F 64 (Cin a multiple of 8); the wide
-    form at hidden 16, 64 and 128 with F = 2 hidden (Cin and Ca multiples
-    of 8, its windows within shared memory); nothing else."""
+    form at hidden 16, 64, 128 and 256 with F = 2 hidden (Cin and Ca
+    multiples of 8, its windows within shared memory); nothing else."""
     w1, b1, wb1, bb1, wb2, bb2, w2, b2, w3, b3 = ws
     n, hd, fo = wb1.shape[0], w1.shape[-1], w3.shape[-1]
     if not 1 <= n <= KERNEL_NMAX:
@@ -197,11 +234,12 @@ def _check_weights(ws, wpk, cin: int, ca: int = 0) -> tuple[int, int, int]:
                 f"wide form takes hidden in {sorted(C3K2_SPLIT)} with F = 2 "
                 f"hidden, Cin and Ca multiples of 8, got hidden {hd}, F "
                 f"{fo}, Cin {cin}, Ca {ca}")
-        if _planes(ca) + _planes(cin - ca) > WIDE_PLANES[hd, n]:
+        smem = wide_smem_bytes(ca, cin - ca, up_a, hd, n)
+        if smem > WIDE_SMEM_MAX:
             raise ValueError(
-                f"wide form: Cin {cin} (Ca {ca}) past the "
-                f"{WIDE_PLANES[hd, n]} input planes of shared memory at "
-                f"hidden {hd}, n {n}")
+                f"wide form: Cin {cin} (Ca {ca}{', upsampled' if up_a else ''}"
+                f") needs {smem} bytes of shared memory at hidden {hd}, n "
+                f"{n}, past the {WIDE_SMEM_MAX} a block has")
     if wpk is None:
         raise ValueError("the CUDA kernel needs wpk = pack_c3k2_mma(w1, w2, "
                          "wb1, wb2, w3, ca)")
@@ -266,7 +304,7 @@ def fused_c3k2_cat(xa: torch.Tensor, xb: torch.Tensor, *ws,
         raise ValueError(f"kernel takes Ca, Cb multiples of 8 (and even H, "
                          f"W to upsample), got xa {tuple(xa.shape)}, xb "
                          f"{tuple(xb.shape)}")
-    n, hd, fo = _check_weights(ws, wpk, ca + cb, ca)
+    n, hd, fo = _check_weights(ws, wpk, ca + cb, ca, up_a)
     bsz = xb.numel() // (h * w * cb)
     out = torch.empty((*lead, h, w, fo), dtype=torch.bfloat16,
                       device=xb.device)

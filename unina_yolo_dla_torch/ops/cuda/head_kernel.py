@@ -2,9 +2,9 @@
 
 CUDA source: ``csrc/head.cu`` (tensor cores): the tiled ``wgmma`` kernel
 at width 64 (P2), the wide ``wgmma`` form (weights streamed through shared
-memory; at 256 each output tile one cluster of two blocks splitting the
-channels) at widths 32, 128 and 256 (P3/P4 of the bf16 engines, base 32
-and base 16). ``fused_head``
+memory; at 256 and 512 each output tile one cluster of two or eight blocks
+splitting the channels) at widths 32, 128, 256 and 512 (P3/P4 of the bf16
+engines, base 16, 32 and 64). ``fused_head``
 launches one of them for a CUDA tensor; for a CPU tensor it runs
 ``fused_head_plain``, which follows the reference's XLA form step by step.
 Per branch over the same input:
@@ -33,29 +33,44 @@ import torch
 from . import _lib
 from ._lib import I, Kernel, P, check_cuda, stream_ptr
 from .c3k2_kernel import _conv3x3, _dot
-from .mma_pack import HEAD_SPLIT, head_mma_shape
+from .mma_pack import (HEAD_SPLIT, WIDE_PIX_BYTES, WIDE_SMEM_HEAD,
+                       WIDE_SMEM_MAX, head_mma_shape, wide_ring_bytes,
+                       wide_stage_cols)
 
 KERNEL = Kernel("unina_fused_head",
                 [P, P, P, P, P, P, I, P, P, P, P, I, P, P, I, I, I, I, P])
 
 # the width the tiled kernel is compiled for (csrc/head.cu) and the pred
-# outputs both forms take; the wide form's 8-row tile
+# outputs both forms take
 KERNEL_C, KERNEL_NOMAX = 64, 8
-WIDE_TILE = 8
 
 
 def wide_tile(c: int) -> tuple[int, int]:
     """The wide form's output tile at width ``c``: 8 x 16 at 128 (one wave
-    of blocks at 80 x 80), 8 x 8 otherwise (csrc/head.cu ``tile_w``)."""
-    return WIDE_TILE, 2 * WIDE_TILE if c == 128 else WIDE_TILE
+    of blocks at 80 x 80), 4 x 8 at 512 (its windows within shared
+    memory), 8 x 8 otherwise (csrc/head.cu ``tile_rows``, ``tile_w``)."""
+    return (4 if c == 512 else 8), (16 if c == 128 else 8)
+
+
+def wide_smem_bytes(c: int) -> int:
+    """The wide form's dynamic shared memory at width ``c`` (one of
+    ``HEAD_SPLIT``), as csrc/head.cu ``wide_head::smem_bytes`` computes
+    it (held against the library on the card): the head, the ring, the x
+    window (halo 2) and conv1's region (halo 1)."""
+    tr, tw = wide_tile(c)
+    ns, c1 = c // HEAD_SPLIT[c], (tr + 2) * (tw + 2)
+    cols = max(wide_stage_cols(ns, c1), wide_stage_cols(ns, tr * tw))
+    return (WIDE_SMEM_HEAD + wide_ring_bytes(cols)
+            + ((tr + 4) * (tw + 4) + c1) * -(-c // 64) * WIDE_PIX_BYTES)
 
 
 def kernel_takes(c: int) -> bool:
-    """Whether a CUDA kernel takes head width ``c`` (the wide form's
-    windows and ring fit in shared memory at each of its widths: held
-    against the library on the card): the caller packs ``w33`` only
+    """Whether a CUDA kernel takes head width ``c``: the tiled kernel's,
+    or one the wide form is compiled for whose windows and ring fit in
+    shared memory (``wide_smem_bytes``); the caller packs ``w33`` only
     then."""
-    return c == KERNEL_C or c in HEAD_SPLIT
+    return c == KERNEL_C or (c in HEAD_SPLIT
+                             and wide_smem_bytes(c) <= WIDE_SMEM_MAX)
 
 
 def last_launch() -> dict:
@@ -104,7 +119,7 @@ def fused_head(x: torch.Tensor, *ws, w33: torch.Tensor | None = None):
     """Both head branches over ``x`` (..., H, W, h) -> ``(cls, reg)``,
     (..., H, W, Ccls) logits and (..., H, W, 4) distances in float32,
     each contiguous. The CUDA kernel takes bf16 ``x`` with h = 64 (the
-    tiled kernel) or 32, 128, 256 (the wide form), and up to 8 outputs per
+    tiled kernel) or 32, 128, 256, 512 (the wide form), and up to 8 outputs per
     pred; batch rides on its tile index. Of ``ws`` it reads the biases, the
     3x3s from ``w33``, and the preds from ``ws`` (tiled) or ``w33``
     (wide)."""

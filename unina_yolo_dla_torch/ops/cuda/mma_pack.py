@@ -142,12 +142,36 @@ def unpack_stem_mma(p: torch.Tensor) -> torch.Tensor:
 
 # The wide kernels split every product's output columns over a cluster
 # of blocks (csrc/wide_mma.cuh) at the widest widths, whose 40 x 40 images
-# have too few tiles for the SMs: blocks of a cluster by the C3k2's hidden
-# width and by the head's width. These are the widths they are compiled
-# for.
-C3K2_SPLIT = {16: 1, 64: 1, 128: 4}
-HEAD_SPLIT = {32: 1, 128: 1, 256: 2}
+# have too few tiles for the SMs, and at base 64's hidden 256 and head 512,
+# where a cluster of 8 (the portable maximum) keeps each block's columns
+# those of hidden 128 and head 256 and so its ring small: blocks of a
+# cluster by the C3k2's hidden width and by the head's width. These are the
+# widths they are compiled for.
+C3K2_SPLIT = {16: 1, 64: 1, 128: 4, 256: 8}
+HEAD_SPLIT = {32: 1, 128: 1, 256: 2, 512: 8}
 PRED_N = 8         # pred outputs the wide head's fragment image holds
+
+# The wide kernels' shared-memory plan, as csrc/wide_mma.cuh computes it:
+# a block may have WIDE_SMEM_MAX bytes; ahead of the windows lie the
+# stream table and alignment (WIDE_SMEM_HEAD) and both warpgroups' rings;
+# a window holds WIDE_PIX_BYTES a pixel and 64-channel plane.
+WIDE_SMEM_MAX = 232448
+WIDE_SMEM_HEAD = 2048
+WIDE_PIX_BYTES = 128
+
+
+def wide_stage_cols(ns: int, pixels: int) -> int:
+    """The columns a warpgroup multiplies in a stage of ``ns`` block
+    columns over ``pixels`` rows (``stage_cols``): half of them where the
+    m64 tiles are odd in number or a slot cannot hold them all."""
+    two = ns >= 32 and (-(-pixels // 64) % 2 == 1 or ns * 128 > 8192)
+    return ns // 2 if two else ns
+
+
+def wide_ring_bytes(cols: int) -> int:
+    """Both warpgroups' rings where the widest part is ``cols`` columns:
+    six 8 KB slots each, or eight of 4 KB (``ring_bytes``)."""
+    return 2 * 6 * 8192 if cols * 128 > 4096 else 2 * 8 * 4096
 
 
 def _planes(c: int) -> int:

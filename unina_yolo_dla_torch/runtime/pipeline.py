@@ -8,7 +8,8 @@ raw camera frame.
        compute dtype
     -> detector (stem and stage1 kernels, bf16 and int8 layers)
     -> decode kernel: every level of every image into K slots each
-    -> NMS kernel -> Detections
+    -> NMS kernel (or, with ``use_greedy_nms=False``, the one-pass matrix
+       form ``nms_fast`` in plain PyTorch) -> Detections
 
 One launch of each of the four kernels per call, whatever B is. The camera
 path replaces the first step: the raw camera frame (BGRA, RGB or NV12 at
@@ -37,7 +38,7 @@ from ..ops.cuda.preprocess_kernel import (
     normalize,
 )
 from ..ops.decode import Detections, decode_batch
-from ..ops.nms import nms
+from ..ops.nms import nms, nms_fast
 
 
 def _out_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -61,14 +62,16 @@ def staged_shape(cfg: ModelConfig) -> tuple[int, int, int]:
 
 def _build_detect(model: UninaYoloDla, cfg: ModelConfig,
                   conf_threshold: float, iou_threshold: float,
-                  q_factor: float, max_detections: int
+                  q_factor: float, max_detections: int,
+                  use_greedy_nms: bool = True
                   ) -> Callable[[torch.Tensor], Detections]:
     """Normalised model input (B, ...) -> Detections with a leading B."""
+    suppress = nms if use_greedy_nms else nms_fast
 
     def detect(x: torch.Tensor) -> Detections:
         dets = decode_batch(model(x), cfg.strides, conf_threshold, q_factor,
                             max_detections)
-        return nms(dets, iou_threshold)
+        return suppress(dets, iou_threshold)
 
     return detect
 
@@ -80,14 +83,16 @@ def build_batch_serving_fn(
     iou_threshold: float = DEFAULT_IOU_THRESHOLD,
     q_factor: float = DEFAULT_CP_Q,
     max_detections: int = MAX_DETECTIONS,
+    use_greedy_nms: bool = True,
 ) -> Callable[[torch.Tensor], Detections]:
     """Returns ``serve(frames) -> Detections`` for uint8 frames (B,
     *``staged_shape(cfg)``) on the model's device; every field of the
-    result has a leading B axis."""
+    result has a leading B axis. ``use_greedy_nms=False`` suppresses with
+    ``nms_fast`` (one pass, no chains) in place of the greedy kernel."""
     mean, std = channel_constants(staged_shape(cfg)[-1])
     out_dtype = _out_dtype(cfg)
     detect = _build_detect(model, cfg, conf_threshold, iou_threshold,
-                           q_factor, max_detections)
+                           q_factor, max_detections, use_greedy_nms)
 
     @torch.inference_mode()
     def serve(frames: torch.Tensor) -> Detections:
@@ -103,13 +108,14 @@ def build_serving_fn(
     iou_threshold: float = DEFAULT_IOU_THRESHOLD,
     q_factor: float = DEFAULT_CP_Q,
     max_detections: int = MAX_DETECTIONS,
+    use_greedy_nms: bool = True,
 ) -> Callable[[torch.Tensor], Detections]:
     """Returns ``serve(frame) -> Detections`` for one uint8 frame of
     ``staged_shape(cfg)`` on the model's device: the batch path at B = 1,
     the leading axis dropped from the result (views)."""
     serve_batch = build_batch_serving_fn(model, cfg, conf_threshold,
                                          iou_threshold, q_factor,
-                                         max_detections)
+                                         max_detections, use_greedy_nms)
 
     @torch.inference_mode()
     def serve(frame: torch.Tensor) -> Detections:
