@@ -168,10 +168,11 @@ clean strict report, eager FRAMES frames (one normalize, stem, decode and
 NMS launch a frame) against the port's CPU path on the seed-7 scene (same
 count, 0.5 px, 1e-2), one captured graph equal to the eager frame on the
 8 scenes. Phase 20: the stem and stage1 kernels at base 16 and 64 (C =
-32 and 128) and the C3k2 and head kernels at base 64's new widths (hidden
-256, fpn_c3k2_1, head 512; ``WIDE_NEW``): on binary-grid inputs bit for
-bit their plain versions; the 64-wide stem and stage1 kernels' and the
-wide C3k2 and head kernels' earlier widths' SHA-256 digests unchanged;
+32 and 128) and the C3k2 and head kernels at base 64's ten blocks' shapes
+(``WIDE64_SHAPES``): on binary-grid inputs bit for bit their plain
+versions; the 64-wide stem and stage1 kernels' and the wide C3k2 and head
+kernels' SHA-256 digests unchanged (base 16's and 32's shapes, and base
+64's but where the redesign sums in another order: WIDE64_REORDERED);
 random-initialised engines (the port's seeded ``init_model`` at each
 base, BatchNorm scales at WIDTH_BN_GAIN so the activations keep their
 scale through the depth) exported with ``--s2d-merged --fused-stem`` (row
@@ -230,9 +231,9 @@ DEVICE_FUNCS = {"normalize": ("normalize_merged_kernel",),
                 "nms": ("nms_kernel",),
                 "stage1_merged": ("stage1_mma_kernel<64>",),
                 "fused_c3k2": ("c3k2_kernel<false>",
-                               "c3k2_wide_kernel<false>"),
+                               "c3k2_wide_kernel<false"),
                 "fused_c3k2_cat": ("c3k2_kernel<true>",
-                                   "c3k2_wide_kernel<true>"),
+                                   "c3k2_wide_kernel<true"),
                 "fused_head": ("head_mma_kernel", "head_wide_kernel"),
                 "camera": ("camera_preprocess_kernel",
                            "camera_pixel_kernel")}
@@ -246,8 +247,8 @@ SASS_NAMES = {**{f"{k}<{c}>": f"{k}ILi{c}EE"
                 for c in (32, 64, 128)},
               "c3k2_kernel<false>": "c3k2_kernelILb0EE",
               "c3k2_kernel<true>": "c3k2_kernelILb1EE",
-              "c3k2_wide_kernel<false>": "c3k2_wide_kernelILb0EE",
-              "c3k2_wide_kernel<true>": "c3k2_wide_kernelILb1EE"}
+              "c3k2_wide_kernel<false": "c3k2_wide_kernelILb0E",
+              "c3k2_wide_kernel<true": "c3k2_wide_kernelILb1E"}
 # launches per call of each path (a call is a frame, or a batch of 8)
 PER_FRAME = {
     "shipped": {"normalize": 1, "fused_stem_stage1": 1, "decode_topk": 1,
@@ -315,6 +316,19 @@ BEFORE_GRAPH_MS = {
     "neck.fpn_c3k2_2": 0.01131, "neck.pan_c3k2_1": 0.04142,
     "neck.pan_c3k2_2": 0.11467, "head_p2": 0.03049, "head_p3": 0.11639,
     "head_p4": 0.36462}
+# replayed-graph ms of each block of base 64's s2dm_fc engine before the
+# wide C3k2 and head kernels were redesigned for its shapes, quoted beside
+# this run's (logged and in chip_smoke.json, never in the kernels line)
+BEFORE64_ORIGIN = (
+    "quoted from PERF.md, not measured in this run: the replicated plan at "
+    "base 64's widest shapes (4 x 4 / 4 x 8 tiles, clusters of 8), the "
+    "engine's seed-7 activations, NVIDIA H100 80GB HBM3, 700.00 W")
+BEFORE64_GRAPH_MS = {
+    "backbone.stage1_block": 0.04478, "backbone.stage2_c3k2": 0.13836,
+    "backbone.stage3_c3k2": 0.32018, "neck.fpn_c3k2_1": 0.08782,
+    "neck.fpn_c3k2_2": 0.05156, "neck.pan_c3k2_1": 0.08682,
+    "neck.pan_c3k2_2": 0.12577, "head_p2": 0.11203, "head_p3": 0.16490,
+    "head_p4": 0.38868}
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s, f32 CUDA-core FLOP/s
 HBM_BPS = 3.35e12
@@ -477,6 +491,83 @@ WIDE_DIGESTS = {
     "head_c32_1x9x17":
         "dbb6856de1ad338eb731c62b43945817b1a116bff94b1c40d3c0369a3b06bdeb",
 }
+# base 64's ten fused blocks at their served shapes (640²) and as ragged
+# batches of 2, in WIDE_SHAPES' form: the base-64 fc engine's C3k2s
+# (stage1_block, stage2_c3k2, stage3_c3k2; neck fpn_c3k2_1, fpn_c3k2_2,
+# pan_c3k2_1, pan_c3k2_2) and heads (P2, P3, P4)
+WIDE64_SHAPES = {
+    "stage1_block_1x160x160": (1, 160, 160, 0, 128, 64, 1, False, True),
+    "stage2_c3k2_1x80x80": (1, 80, 80, 0, 256, 128, 2, False, True),
+    "stage3_c3k2_1x40x40": (1, 40, 40, 0, 512, 256, 2, False, True),
+    "fpn_c3k2_1_1x80x80": (1, 80, 80, 256, 256, 128, 1, True, False),
+    "fpn_c3k2_2_1x160x160": (1, 160, 160, 128, 128, 64, 1, True, False),
+    "pan_c3k2_1_1x80x80": (1, 80, 80, 128, 256, 128, 1, False, False),
+    "pan_c3k2_2_1x40x40": (1, 40, 40, 256, 512, 256, 1, False, False),
+    "head_p2_1x160x160": (1, 160, 160, 128),
+    "head_p3_1x80x80": (1, 80, 80, 256),
+    "head_p4_1x40x40": (1, 40, 40, 512),
+    "stage1_block_2x19x23": (2, 19, 23, 0, 128, 64, 1, False, True),
+    "stage2_c3k2_2x13x21": (2, 13, 21, 0, 256, 128, 2, False, True),
+    "stage3_c3k2_2x11x13": (2, 11, 13, 0, 512, 256, 2, False, True),
+    "fpn_c3k2_1_2x14x22": (2, 14, 22, 256, 256, 128, 1, True, False),
+    "fpn_c3k2_2_2x18x26": (2, 18, 26, 128, 128, 64, 1, True, False),
+    "pan_c3k2_1_2x13x21": (2, 13, 21, 128, 256, 128, 1, False, False),
+    "pan_c3k2_2_2x11x13": (2, 11, 13, 256, 512, 256, 1, False, False),
+    "head_p2_2x19x23": (2, 19, 23, 128),
+    "head_p3_2x13x21": (2, 13, 21, 256),
+    "head_p4_2x13x7": (2, 13, 7, 512),
+}
+# SHA-256 of ``wide_outputs`` at WIDE64_SHAPES as the wide kernels computed
+# them before they were redesigned for base 64's shapes (the parent
+# commit's kernels, on an NVIDIA H100 80GB HBM3, 700.00 W); recorded as
+# WIDE_DIGESTS, with ``wide_digests(torch, WIDE64_SHAPES)``
+WIDE64_DIGESTS = {
+    "stage1_block_1x160x160":
+        "c8fe27dbbc927132e527b629abba2cd3f40d6f3fbeb345b17ddf96ce10bee9ee",
+    "stage2_c3k2_1x80x80":
+        "88b89cd74c2b4e3cfd2f3f5075d71bb646e518018863924c7dd752165ee64017",
+    "stage3_c3k2_1x40x40":
+        "26a09e2f536a564e30c4983df28a469c288aa4317315f114cb312bad10401504",
+    "fpn_c3k2_1_1x80x80":
+        "f576f6b64930cde415b5bbf005b8015352c3f2db9068caca9dc2ca4dc034d5d9",
+    "fpn_c3k2_2_1x160x160":
+        "b13bc8ab1d869eae03bb94840a81329eee6c6febc390093c698c9e2c791fbd31",
+    "pan_c3k2_1_1x80x80":
+        "cf6f1e66dd009a42292f1c0b80652b0edafdd3ed9f66c1ab25f1cce416c2a816",
+    "pan_c3k2_2_1x40x40":
+        "000832678d3dc4d8c5550ee25555f5c1bf4a7ce2130481f54e3f839edae1694b",
+    "head_p2_1x160x160":
+        "b397ea56581f27d034dcdea972f1948164ed71709c002d5268a279b99cadf168",
+    "head_p3_1x80x80":
+        "bfb32fe428084a26e385b7382b21a04d06fb973781635b9d247da4b412919d0f",
+    "head_p4_1x40x40":
+        "ffa027d310f1df3aea07c448f4186256916d071d3385a9a3a82460ec980e0a05",
+    "stage1_block_2x19x23":
+        "1103a27e6c2948d1aa60366cf01382e73d105db42a8b0a04322a3b3b1ea9825c",
+    "stage2_c3k2_2x13x21":
+        "26cf0f67b6848c73c9cb0e5607bf7901510f0d6c9645c118d969a5e24100d2b3",
+    "stage3_c3k2_2x11x13":
+        "abed6976c46afaf17f2e1c740e2c647d9f0815c07f226de1c56d0aa00cd6400d",
+    "fpn_c3k2_1_2x14x22":
+        "daa82bb3f3aa9655b66325a996b8b3204871f45218c0b5c781bda538560be365",
+    "fpn_c3k2_2_2x18x26":
+        "18722582ef21b6e922196525e9f6bbcd2fcc01a3dde3f55c218b5e7dac1c4f96",
+    "pan_c3k2_1_2x13x21":
+        "0a92e846025a4ff882df4ab2e4c409eb4b508c7cf758f85f4fb9d298c4b11044",
+    "pan_c3k2_2_2x11x13":
+        "3b2a7742c8eb85361b8c91c5166c9ba1ceb53611991f535cabbb98564d448618",
+    "head_p2_2x19x23":
+        "897e226c2088591d3dba85ac70eb35b229e7866607478918a147347b480d9058",
+    "head_p3_2x13x21":
+        "0f6272a3dace21637e89fcd5d9a5210640038c4de449ab285fb3f44d1e83222d",
+    "head_p4_2x13x7":
+        "c5ef2f12e7006a20721c274e9abbe201c98c592c533095a5c5a2059565501e30",
+}
+# the base-64 shapes whose redesigned kernel sums in another order than
+# the parent's (the head's owned plan, at 512 and at 256 on 80 x 80: both
+# convs plane by plane, the preds split over the cluster), so whose
+# digests moved
+WIDE64_REORDERED = ("head_p4_1x40x40", "head_p4_2x13x7", "head_p3_1x80x80")
 # phase 22: curation
 CORESET = 32
 LABEL_SCENES = 4
@@ -590,13 +681,16 @@ def mma_route(lib_path: Path, func: str, source: Path) -> str:
         sass = subprocess.run([str(tool), "-sass", str(lib_path)],
                               capture_output=True, text=True,
                               check=True).stdout
+        # one SASS function, or one a compiled body (the wide kernels)
         body = [part for part in sass.split("Function : ")[1:]
                 if SASS_NAMES.get(func, func) in part.splitlines()[0]]
-        assert len(body) == 1, f"{func}: {len(body)} SASS functions"
-        found = ("wgmma" if "HGMMA" in body[0] else
-                 "mma.sync" if "HMMA" in body[0] else None)
-        log(f"{func}: SASS has {body[0].count('HGMMA')} HGMMA, "
-            f"{body[0].count('HMMA')} HMMA")
+        assert body, f"{func}: no SASS function"
+        kinds = {"wgmma" if "HGMMA" in b else
+                 "mma.sync" if "HMMA" in b else None for b in body}
+        found = kinds.pop() if len(kinds) == 1 else None
+        log(f"{func}: {len(body)} SASS functions, "
+            f"{sum(b.count('HGMMA') for b in body)} HGMMA, "
+            f"{sum(b.count('HMMA') for b in body)} HMMA")
     else:
         text = source.read_text()
         found = ("wgmma" if "wgmma" in text else
@@ -1279,7 +1373,7 @@ def profile_calls(serve, arg, torch, calls: int = 10,
 
     def ours(wrapper):  # device functions, with or without template args
         return [v for n, v in by_name.items() if any(
-            re.search(rf"(^|\W){f}(<[^(]*>)?\(", n)
+            re.search(rf"(^|\W){f}([,<][^(]*>)?\(", n)
             for f in DEVICE_FUNCS[wrapper])]
 
     # each memset on the card, by the chain of ops that issued it
@@ -1709,7 +1803,8 @@ def drive_export(tmp: Path, scenes, art_g, torch) -> dict:
     return out
 
 
-def check_wide_kernels(model, serve, frame, unfused, torch) -> list[dict]:
+def check_wide_kernels(model, serve, frame, unfused, torch,
+                       before=None) -> list[dict]:
     """Each fused module of a bf16 fc engine (seven C3k2s, three heads:
     at 64, 128 and 256 channels at base 32, 128 to 512 at base 64) on the
     activations and weights of one served frame: its kernel against its
@@ -1718,7 +1813,8 @@ def check_wide_kernels(model, serve, frame, unfused, torch) -> list[dict]:
     its launch's grid as the library recorded it, and inside a replayed
     graph the same block of ``unfused`` (an engine of the same weights
     whose blocks are cuDNN convolutions: bf16_s2dm_mh at base 32, the
-    fused-stem engine at base 64) on the same activations."""
+    fused-stem engine at base 64) on the same activations. ``before``:
+    block -> an earlier graph ms, quoted in the log beside each row."""
     from unina_yolo_dla_torch.ops.cuda import c3k2_kernel, head_kernel
     from unina_yolo_dla_torch.quant.qtensor import QTensor
 
@@ -1841,6 +1937,11 @@ def check_wide_kernels(model, serve, frame, unfused, torch) -> list[dict]:
                 plain_ms=cuda_ms(plain, 5, 2), bound_ms=b_ms, bound_by=b_by,
                 library_ms=None))
             log(json.dumps(rows[-1]))
+            if before:
+                r = rows[-1]
+                log(f"{path}: graph {r['graph_ms']:.5f} ms, before "
+                    f"{before[path]:.5f} ms (quoted), cuDNN form "
+                    f"{r['unfused_ms']:.5f} ms, bound {r['bound_ms']:.5f}")
     return rows
 
 
@@ -2923,26 +3024,19 @@ def check_widths_grid(torch) -> dict:
     digests = wide_digests(torch)
     moved = {k for k, v in digests.items() if WIDE_DIGESTS[k] != v}
     assert not moved, f"wide kernels' digests moved: {sorted(moved)}"
+    digests64 = wide_digests(torch, WIDE64_SHAPES)
+    moved64 = {k for k, v in digests64.items() if WIDE64_DIGESTS[k] != v}
+    assert moved64 <= set(WIDE64_REORDERED), (
+        f"base-64 digests moved: {sorted(moved64 - set(WIDE64_REORDERED))}")
     return {"grid_bit_equal": exact, "digests_64_unchanged": True,
-            "wide_digests_unchanged": len(digests)}
-
-
-# base 64's new wide shapes at 640² and as ragged batches of 2: C3k2 (B, H,
-# W, Ca, Cb, hidden, n, up_a), head (B, H, W, C)
-WIDE_NEW = {
-    "stage3_c3k2_1x40x40": (1, 40, 40, 0, 512, 256, 2, False),
-    "stage3_c3k2_2x11x13": (2, 11, 13, 0, 512, 256, 2, False),
-    "pan_c3k2_2_1x40x40": (1, 40, 40, 256, 512, 256, 1, False),
-    "pan_c3k2_2_2x11x13": (2, 11, 13, 256, 512, 256, 1, False),
-    "fpn_c3k2_1_1x80x80": (1, 80, 80, 256, 256, 128, 1, True),
-    "fpn_c3k2_1_2x14x22": (2, 14, 22, 256, 256, 128, 1, True),
-    "head_p4_1x40x40": (1, 40, 40, 512),
-    "head_p4_2x13x7": (2, 13, 7, 512),
-}
+            "wide_digests_unchanged": len(digests),
+            "wide64_digests_unchanged": len(digests64) - len(moved64),
+            "wide64_reordered": {k: digests64[k] for k in sorted(moved64)}}
 
 
 def wide_grid_checks(torch) -> dict:
-    """The C3k2 and head kernels at WIDE_NEW on binary-grid inputs
+    """The C3k2 and head kernels at base 64's ten blocks' shapes
+    (WIDE64_SHAPES: 640² and ragged batches of 2) on binary-grid inputs
     (activations k/2, sparse weights k/4, biases k/8: every f32 sum exact
     in any order): bit for bit their plain versions."""
     from unina_yolo_dla_torch.ops.cuda import c3k2_kernel, head_kernel, \
@@ -2963,7 +3057,7 @@ def wide_grid_checks(torch) -> dict:
                 (rng.integers(-2, 3, shape[-1]) / 8).astype(np.float32))
 
     exact = {}
-    for name, case in WIDE_NEW.items():
+    for name, case in WIDE64_SHAPES.items():
         if name.startswith("head"):
             b, h, w, c = case
             x = act((b, h, w, c))
@@ -2974,7 +3068,7 @@ def wide_grid_checks(torch) -> dict:
                 ws[0], ws[6], ws[2], ws[8], ws[4], ws[10]))
             want = head_kernel.fused_head_plain(x, *ws)
         else:
-            b, h, w, ca, cb, hd, n, up = case
+            b, h, w, ca, cb, hd, n, up, shortcut = case
             xb = act((b, h, w, cb))
             xa = act((b, h // 2, w // 2, ca) if up else (b, h, w, ca))
             ws = [t.to(dev) for t in c3k2_kernel.pack_c3k2_weights(
@@ -2985,13 +3079,15 @@ def wide_grid_checks(torch) -> dict:
             wpk = mma_pack.pack_c3k2_mma(ws[0], ws[6], ws[2], ws[4], ws[8],
                                          ca)
             if ca:
-                got = (c3k2_kernel.fused_c3k2_cat(xa, xb, *ws, up_a=up,
-                                                  wpk=wpk),)
-                want = (c3k2_kernel.fused_c3k2_cat_plain(xa, xb, *ws,
-                                                         up_a=up),)
+                got = (c3k2_kernel.fused_c3k2_cat(
+                    xa, xb, *ws, shortcut=shortcut, up_a=up, wpk=wpk),)
+                want = (c3k2_kernel.fused_c3k2_cat_plain(
+                    xa, xb, *ws, shortcut=shortcut, up_a=up),)
             else:
-                got = (c3k2_kernel.fused_c3k2(xb, *ws, wpk=wpk),)
-                want = (c3k2_kernel.fused_c3k2_plain(xb, *ws),)
+                got = (c3k2_kernel.fused_c3k2(xb, *ws, shortcut=shortcut,
+                                              wpk=wpk),)
+                want = (c3k2_kernel.fused_c3k2_plain(xb, *ws,
+                                                     shortcut=shortcut),)
         torch.cuda.synchronize()
         assert float(want[0].float().abs().max()) > 1.0, \
             f"{name}: degenerate grid inputs"
@@ -3017,16 +3113,17 @@ def width64_digests(torch) -> dict:
     return digests
 
 
-def wide_outputs(torch) -> dict:
-    """The wide C3k2 and head kernels at every shape of WIDE_SHAPES on
-    seeded normal inputs (activations ReLU'd; weights N(0, 2/fan), biases
-    N(0, 0.1)): name -> the kernel's output tensors."""
+def wide_calls(torch, shapes=None) -> dict:
+    """The wide C3k2 and head kernels at every shape of ``shapes``
+    (WIDE_SHAPES by default) on seeded normal inputs (activations ReLU'd;
+    weights N(0, 2/fan), biases N(0, 0.1)): name -> a call of the kernel
+    on them, returning its output tensors."""
     from unina_yolo_dla_torch.ops.cuda import c3k2_kernel, head_kernel, \
         mma_pack
 
     dev, bf = torch.device("cuda"), torch.bfloat16
-    out = {}
-    for name, case in WIDE_SHAPES.items():
+    calls = {}
+    for name, case in (WIDE_SHAPES if shapes is None else shapes).items():
         rng = np.random.default_rng(WIDE_SEED)
 
         def act(shape):
@@ -3044,34 +3141,47 @@ def wide_outputs(torch) -> dict:
             ws = [t.to(dev) for t in head_kernel.pack_head_weights(
                 [kb((3, 3, c, c)), kb((3, 3, c, c))], kb((1, 1, c, 4)),
                 [kb((3, 3, c, c)), kb((3, 3, c, c))], kb((1, 1, c, 4)), bf)]
-            out[name] = head_kernel.fused_head(
-                x, *ws, w33=mma_pack.pack_head_mma(
-                    ws[0], ws[6], ws[2], ws[8], ws[4], ws[10]))
-            continue
-        b, h, w, ca, cb, hd, n, up, shortcut = case
-        xb = act((b, h, w, cb))
-        xa = act((b, h // 2, w // 2, ca) if up else (b, h, w, ca)) \
-            if ca else None
-        ws = [t.to(dev) for t in c3k2_kernel.pack_c3k2_weights(
-            kb((1, 1, ca + cb, hd)), kb((1, 1, ca + cb, hd)),
-            kb((1, 1, 2 * hd, 2 * hd)),
-            [(kb((1, 1, hd, hd)), kb((3, 3, hd, hd))) for _ in range(n)],
-            bf)]
-        wpk = mma_pack.pack_c3k2_mma(ws[0], ws[6], ws[2], ws[4], ws[8], ca)
-        out[name] = (c3k2_kernel.fused_c3k2(
-            xb, *ws, shortcut=shortcut, wpk=wpk) if xa is None else
-            c3k2_kernel.fused_c3k2_cat(xa, xb, *ws, shortcut=shortcut,
-                                       up_a=up, wpk=wpk),)
+            w33 = mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8], ws[4],
+                                         ws[10])
+
+            def call(x=x, ws=ws, w33=w33):
+                return head_kernel.fused_head(x, *ws, w33=w33)
+        else:
+            b, h, w, ca, cb, hd, n, up, shortcut = case
+            xb = act((b, h, w, cb))
+            xa = act((b, h // 2, w // 2, ca) if up else (b, h, w, ca)) \
+                if ca else None
+            ws = [t.to(dev) for t in c3k2_kernel.pack_c3k2_weights(
+                kb((1, 1, ca + cb, hd)), kb((1, 1, ca + cb, hd)),
+                kb((1, 1, 2 * hd, 2 * hd)),
+                [(kb((1, 1, hd, hd)), kb((3, 3, hd, hd))) for _ in range(n)],
+                bf)]
+            wpk = mma_pack.pack_c3k2_mma(ws[0], ws[6], ws[2], ws[4], ws[8],
+                                         ca)
+
+            def call(xa=xa, xb=xb, ws=ws, wpk=wpk, sc=shortcut, up=up):
+                return (c3k2_kernel.fused_c3k2(
+                    xb, *ws, shortcut=sc, wpk=wpk) if xa is None else
+                    c3k2_kernel.fused_c3k2_cat(xa, xb, *ws, shortcut=sc,
+                                               up_a=up, wpk=wpk),)
+        calls[name] = call
+    return calls
+
+
+def wide_outputs(torch, shapes=None) -> dict:
+    """``wide_calls``' kernels called once: name -> the output tensors."""
+    out = {name: call() for name, call in wide_calls(torch, shapes).items()}
     torch.cuda.synchronize()
     return out
 
 
-def wide_digests(torch) -> dict:
-    """SHA-256 of ``wide_outputs``' tensors, name by name (WIDE_DIGESTS)."""
+def wide_digests(torch, shapes=None) -> dict:
+    """SHA-256 of ``wide_outputs``' tensors, name by name (WIDE_DIGESTS;
+    WIDE64_DIGESTS at WIDE64_SHAPES)."""
     import hashlib
 
     digests = {}
-    for name, tensors in wide_outputs(torch).items():
+    for name, tensors in wide_outputs(torch, shapes).items():
         h = hashlib.sha256()
         for t in tensors:
             h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
@@ -3842,7 +3952,7 @@ def main() -> int:
         fc64 = eagers[64, "s2dm_fc"]
         wide64_rows = check_wide_kernels(
             fc64.model, fc64._serve, fc64.stage(rgb),
-            eagers[64, "fused_stem_stage1"].model, torch)
+            eagers[64, "fused_stem_stage1"].model, torch, BEFORE64_GRAPH_MS)
         fc64_launches = next(
             r["launches"] for r in widths["engines"]
             if (r["base"], r["engine"]) == (64, "s2dm_fc"))
@@ -3991,7 +4101,9 @@ def main() -> int:
          "deploy_modes": modes, "widths": widths, "fleet": fleet,
          "curation": curation, "phases_19_22_s": phase_s,
          "before_redesign_graph_ms_quoted": {
-             "quoted": BEFORE_ORIGIN, "ms": BEFORE_GRAPH_MS}, **line},
+             "quoted": BEFORE_ORIGIN, "ms": BEFORE_GRAPH_MS},
+         "b64_before_redesign_graph_ms_quoted": {
+             "quoted": BEFORE64_ORIGIN, "ms": BEFORE64_GRAPH_MS}, **line},
         indent=2, default=str))
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

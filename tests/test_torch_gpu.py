@@ -810,14 +810,18 @@ def _wide_c3k2_weights(rng, cin, hd, f, n, cuda, ca=0, kb=_kb):
 # (batch, H, W, Cin, hidden, F, n): stage2_c3k2 and stage3_c3k2 of the bf16
 # engines at 640, stage1_block and stage3_c3k2 of a base-16 engine, then
 # ragged images that cut the 8 x 8 tile's edges; base 64's stage3_c3k2
-# (hidden 256, 4 x 4 tiles) at 640 and ragged, hidden 256 with one
-# bottleneck (4 x 8 tiles)
+# (hidden 256: the owned plan, clusters of 4) at 640 and ragged, hidden 256
+# with one bottleneck and with the widest input the plan takes (12
+# planes); base 64's stage2_c3k2 (hidden 128 at 80 x 80: the owned plan,
+# clusters of 2) and ragged batches large enough for that plan
 WIDE_C3K2 = [(1, 80, 80, 128, 64, 128, 2), (1, 40, 40, 256, 128, 256, 2),
              (1, 160, 160, 32, 16, 32, 1), (1, 40, 40, 128, 64, 128, 2),
              (2, 37, 45, 128, 64, 128, 2), (2, 5, 3, 256, 128, 256, 1),
              (1, 13, 22, 64, 64, 128, 1), (2, 11, 9, 64, 128, 256, 2),
              (2, 9, 14, 40, 16, 32, 2), (1, 40, 40, 512, 256, 512, 2),
-             (2, 11, 13, 512, 256, 512, 2), (2, 9, 14, 256, 256, 512, 1)]
+             (2, 11, 13, 512, 256, 512, 2), (2, 9, 14, 256, 256, 512, 1),
+             (1, 17, 9, 768, 256, 512, 1), (1, 80, 80, 256, 128, 256, 2),
+             (4, 37, 45, 128, 128, 256, 1), (2, 57, 61, 256, 128, 256, 2)]
 
 
 @pytest.mark.parametrize("b,h,w,cin,hd,f,n", WIDE_C3K2)
@@ -842,9 +846,10 @@ def test_c3k2_wide_kernel(rng, cuda, b, h, w, cin, hd, f, n):
 
 # (batch, H, W, Ca, Cb, hidden, F, up_a): fpn_c3k2_1, pan_c3k2_1 and
 # pan_c3k2_2 of the bf16 engines at 640, fpn_c3k2_2 and pan_c3k2_2 of a
-# base-16 engine, then ragged ones; base 64's pan_c3k2_2 (hidden 256, 4 x 8
-# tiles) and fpn_c3k2_1 (hidden 128, xa at its coarse window) at 640 and
-# ragged, and hidden 256 upsampled
+# base-16 engine, then ragged ones; base 64's pan_c3k2_2 (hidden 256, the
+# owned plan) and fpn_c3k2_1 (hidden 128 at 80 x 80, the owned plan; xa at
+# its coarse window) at 640 and ragged, hidden 256 upsampled, and base
+# 64's pan_c3k2_1 (hidden 128 at 80 x 80)
 WIDE_CAT = [(1, 80, 80, 128, 128, 64, 128, True),
             (1, 80, 80, 64, 128, 64, 128, False),
             (1, 40, 40, 128, 256, 128, 256, False),
@@ -858,7 +863,8 @@ WIDE_CAT = [(1, 80, 80, 128, 128, 64, 128, True),
             (1, 80, 80, 256, 256, 128, 256, True),
             (2, 11, 13, 256, 512, 256, 512, False),
             (2, 14, 22, 256, 256, 128, 256, True),
-            (2, 12, 18, 256, 256, 256, 512, True)]
+            (2, 12, 18, 256, 256, 256, 512, True),
+            (1, 80, 80, 128, 256, 128, 256, False)]
 
 
 @pytest.mark.parametrize("b,h,w,ca,cb,hd,f,up", WIDE_CAT)
@@ -909,12 +915,16 @@ def _head_ws(rng, c, cuda, kb=_kb):
                                    (1, 160, 160, 32), (1, 40, 40, 128),
                                    (2, 37, 45, 128), (2, 5, 3, 256),
                                    (1, 9, 17, 32), (2, 13, 6, 256),
-                                   (1, 40, 40, 512), (2, 13, 7, 512)])
+                                   (1, 40, 40, 512), (2, 13, 7, 512),
+                                   (1, 17, 18, 512), (1, 80, 80, 256),
+                                   (4, 33, 25, 256)])
 def test_head_wide_kernel(rng, cuda, shape):
     """head_p3 and head_p4 of the bf16 engines, head_p2 and head_p4 of a
     base-16 engine, ragged images at batch 2 and a narrow width, base 64's
-    head_p4 (512, 4 x 8 tiles, clusters of 8) at 640 and ragged: bit for
-    bit on binary-grid inputs, within 1e-2 (1 + |ref|) on normal ones."""
+    head_p4 (512: the owned plan, 8 x 16 tiles, clusters of 4) at 640 and
+    ragged across three tile rows, base 64's head_p3 (the owned plan at
+    256) and a ragged batch large enough for that plan: bit for bit on
+    binary-grid inputs, within 1e-2 (1 + |ref|) on normal ones."""
     c = shape[-1]
     for act, kb, exact in ((_grid_act, _grid_kb, True), (_act, _kb, False)):
         x = act(rng, shape, cuda)
@@ -970,9 +980,9 @@ def test_wide_planes_match_the_library(cuda):
 def test_last_launch_records_the_grid(rng, cuda):
     """The library records the grid, cluster, threads and shared memory of
     each launch as it made it: the tiled C3k2 one block a tile where the
-    tiles are fewer than the SMs, the wide C3k2 at stage3_c3k2 one cluster of four per
-    8 x 8 tile, the wide head at head_p4 one cluster of two per tile and
-    branch."""
+    tiles are fewer than the SMs, the wide C3k2 at stage3_c3k2 one cluster
+    of four per 8 x 8 tile, the wide head at head_p4 one cluster of two per
+    tile and branch; base 64's owned plans as ``wide_launch`` gives them."""
     x = _act(rng, (2, 37, 45, 64), cuda)
     ws, wpk = _wide_c3k2_weights(rng, 64, 32, 64, 1, cuda)
     c3k2_kernel.fused_c3k2(x, *ws, wpk=wpk)
@@ -991,20 +1001,32 @@ def test_last_launch_records_the_grid(rng, cuda):
     assert head_kernel.last_launch() == dict(
         grid=[25 * 2, 2, 1], cluster=[2, 1, 1], threads=256,
         smem_bytes=head_kernel.wide_smem(256))
-    # base 64's stage3_c3k2 and head_p4: clusters of 8, one per 4 x 4 and
-    # 4 x 8 tile (and branch)
+    # base 64's stage3_c3k2 and head_p4, the owned plan: clusters of 4,
+    # one per 8 x 8 and 8 x 16 tile (and branch)
     x = _act(rng, (1, 40, 40, 512), cuda)
     ws, wpk = _wide_c3k2_weights(rng, 512, 256, 512, 2, cuda)
     c3k2_kernel.fused_c3k2(x, *ws, wpk=wpk)
     assert c3k2_kernel.last_launch() == dict(
-        grid=[100 * 8, 1, 1], cluster=[8, 1, 1], threads=256,
+        grid=[25 * 4, 1, 1], cluster=[4, 1, 1], threads=256,
         smem_bytes=c3k2_kernel.wide_smem(0, 512, False, 256, 2))
+    assert c3k2_kernel.last_launch() == c3k2_kernel.wide_launch(
+        0, 512, False, 256, 2, 1, 40, 40)
     ws, w33 = _head_ws(rng, 512, cuda)
     head_kernel.fused_head(x, *ws, w33=w33)
     torch.cuda.synchronize()
     assert head_kernel.last_launch() == dict(
-        grid=[50 * 8, 2, 1], cluster=[8, 1, 1], threads=256,
+        grid=[15 * 4, 2, 1], cluster=[4, 1, 1], threads=256,
         smem_bytes=head_kernel.wide_smem(512))
+    # hidden 128: the owned plan at base 64's 80 x 80 (clusters of 2), the
+    # replicated one at base 32's 40 x 40 (above)
+    x = _act(rng, (1, 80, 80, 256), cuda)
+    ws, wpk = _wide_c3k2_weights(rng, 256, 128, 256, 2, cuda)
+    c3k2_kernel.fused_c3k2(x, *ws, wpk=wpk)
+    assert c3k2_kernel.last_launch() == dict(
+        grid=[100 * 2, 1, 1], cluster=[2, 1, 1], threads=256,
+        smem_bytes=c3k2_kernel.wide_smem_owned(128, 2))
+    assert c3k2_kernel.last_launch() == c3k2_kernel.wide_launch(
+        0, 256, False, 128, 2, 1, 80, 80)
 
 
 def test_fc_engine_frame_matches_cpu_port(cuda):
@@ -1707,15 +1729,14 @@ WIDE_DIGESTS = {
 }
 
 
-def test_wide_kernels_bits_unchanged_by_the_new_widths(cuda):
-    """The wide kernels' outputs at WIDE_SHAPES on seeded normal inputs
-    (activations ReLU'd, weights N(0, 2/fan), biases N(0, 0.1)), where the
-    tensor cores' summation order shows in the bits, equal those the
-    parent commit's kernels gave (WIDE_DIGESTS)."""
+def _wide_digests(shapes, cuda) -> dict:
+    """SHA-256 of the wide kernels' outputs at ``shapes`` (WIDE_SHAPES'
+    form) on seeded normal inputs (activations ReLU'd, weights N(0,
+    2/fan), biases N(0, 0.1)), name by name."""
     import hashlib
 
     got = {}
-    for name, case in WIDE_SHAPES.items():
+    for name, case in shapes.items():
         rng = np.random.default_rng(WIDE_SEED)
         if name.startswith("head"):
             b, h, w, c = case
@@ -1748,7 +1769,145 @@ def test_wide_kernels_bits_unchanged_by_the_new_widths(cuda):
         for t in outs:
             d.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
         got[name] = d.hexdigest()
-    assert got == WIDE_DIGESTS
+    return got
+
+
+def test_wide_kernels_bits_unchanged_by_the_new_widths(cuda):
+    """The wide kernels' outputs at WIDE_SHAPES on seeded normal inputs,
+    where the tensor cores' summation order shows in the bits, equal
+    those the parent commit's kernels gave (WIDE_DIGESTS)."""
+    assert _wide_digests(WIDE_SHAPES, cuda) == WIDE_DIGESTS
+
+
+# Base 64's ten fused blocks at their served shapes (640²) and as ragged
+# batches of 2, in WIDE_SHAPES' form, and the SHA-256 of their outputs
+# on the same seeded inputs as the parent commit's kernels computed
+# them (on an NVIDIA H100 80GB HBM3, 700.00 W); chip_smoke.py holds the
+# same shapes and digests.
+WIDE64_SHAPES = {
+    "stage1_block_1x160x160": (1, 160, 160, 0, 128, 64, 1, False, True),
+    "stage2_c3k2_1x80x80": (1, 80, 80, 0, 256, 128, 2, False, True),
+    "stage3_c3k2_1x40x40": (1, 40, 40, 0, 512, 256, 2, False, True),
+    "fpn_c3k2_1_1x80x80": (1, 80, 80, 256, 256, 128, 1, True, False),
+    "fpn_c3k2_2_1x160x160": (1, 160, 160, 128, 128, 64, 1, True, False),
+    "pan_c3k2_1_1x80x80": (1, 80, 80, 128, 256, 128, 1, False, False),
+    "pan_c3k2_2_1x40x40": (1, 40, 40, 256, 512, 256, 1, False, False),
+    "head_p2_1x160x160": (1, 160, 160, 128),
+    "head_p3_1x80x80": (1, 80, 80, 256),
+    "head_p4_1x40x40": (1, 40, 40, 512),
+    "stage1_block_2x19x23": (2, 19, 23, 0, 128, 64, 1, False, True),
+    "stage2_c3k2_2x13x21": (2, 13, 21, 0, 256, 128, 2, False, True),
+    "stage3_c3k2_2x11x13": (2, 11, 13, 0, 512, 256, 2, False, True),
+    "fpn_c3k2_1_2x14x22": (2, 14, 22, 256, 256, 128, 1, True, False),
+    "fpn_c3k2_2_2x18x26": (2, 18, 26, 128, 128, 64, 1, True, False),
+    "pan_c3k2_1_2x13x21": (2, 13, 21, 128, 256, 128, 1, False, False),
+    "pan_c3k2_2_2x11x13": (2, 11, 13, 256, 512, 256, 1, False, False),
+    "head_p2_2x19x23": (2, 19, 23, 128),
+    "head_p3_2x13x21": (2, 13, 21, 256),
+    "head_p4_2x13x7": (2, 13, 7, 512),
+}
+WIDE64_DIGESTS = {
+    "stage1_block_1x160x160":
+        "c8fe27dbbc927132e527b629abba2cd3f40d6f3fbeb345b17ddf96ce10bee9ee",
+    "stage2_c3k2_1x80x80":
+        "88b89cd74c2b4e3cfd2f3f5075d71bb646e518018863924c7dd752165ee64017",
+    "stage3_c3k2_1x40x40":
+        "26a09e2f536a564e30c4983df28a469c288aa4317315f114cb312bad10401504",
+    "fpn_c3k2_1_1x80x80":
+        "f576f6b64930cde415b5bbf005b8015352c3f2db9068caca9dc2ca4dc034d5d9",
+    "fpn_c3k2_2_1x160x160":
+        "b13bc8ab1d869eae03bb94840a81329eee6c6febc390093c698c9e2c791fbd31",
+    "pan_c3k2_1_1x80x80":
+        "cf6f1e66dd009a42292f1c0b80652b0edafdd3ed9f66c1ab25f1cce416c2a816",
+    "pan_c3k2_2_1x40x40":
+        "000832678d3dc4d8c5550ee25555f5c1bf4a7ce2130481f54e3f839edae1694b",
+    "head_p2_1x160x160":
+        "b397ea56581f27d034dcdea972f1948164ed71709c002d5268a279b99cadf168",
+    "head_p3_1x80x80":
+        "bfb32fe428084a26e385b7382b21a04d06fb973781635b9d247da4b412919d0f",
+    "head_p4_1x40x40":
+        "ffa027d310f1df3aea07c448f4186256916d071d3385a9a3a82460ec980e0a05",
+    "stage1_block_2x19x23":
+        "1103a27e6c2948d1aa60366cf01382e73d105db42a8b0a04322a3b3b1ea9825c",
+    "stage2_c3k2_2x13x21":
+        "26cf0f67b6848c73c9cb0e5607bf7901510f0d6c9645c118d969a5e24100d2b3",
+    "stage3_c3k2_2x11x13":
+        "abed6976c46afaf17f2e1c740e2c647d9f0815c07f226de1c56d0aa00cd6400d",
+    "fpn_c3k2_1_2x14x22":
+        "daa82bb3f3aa9655b66325a996b8b3204871f45218c0b5c781bda538560be365",
+    "fpn_c3k2_2_2x18x26":
+        "18722582ef21b6e922196525e9f6bbcd2fcc01a3dde3f55c218b5e7dac1c4f96",
+    "pan_c3k2_1_2x13x21":
+        "0a92e846025a4ff882df4ab2e4c409eb4b508c7cf758f85f4fb9d298c4b11044",
+    "pan_c3k2_2_2x11x13":
+        "3b2a7742c8eb85361b8c91c5166c9ba1ceb53611991f535cabbb98564d448618",
+    "head_p2_2x19x23":
+        "897e226c2088591d3dba85ac70eb35b229e7866607478918a147347b480d9058",
+    "head_p3_2x13x21":
+        "0f6272a3dace21637e89fcd5d9a5210640038c4de449ab285fb3f44d1e83222d",
+    "head_p4_2x13x7":
+        "c5ef2f12e7006a20721c274e9abbe201c98c592c533095a5c5a2059565501e30",
+}
+# the shapes whose redesigned kernel sums in another order than the
+# parent's (the head's owned plan: at 512, and at 256 on 80 x 80)
+WIDE64_REORDERED = ('head_p4_1x40x40', 'head_p4_2x13x7', 'head_p3_1x80x80')
+
+
+def test_wide64_kernels_bits(cuda):
+    """Base 64's ten fused blocks at 640 and ragged at batch 2
+    (WIDE64_SHAPES), on seeded normal inputs: the outputs' SHA-256 equal
+    those the parent commit's kernels gave (WIDE64_DIGESTS), but where
+    the redesigned head sums in another order (WIDE64_REORDERED: its
+    owned plan, at 512 and at 256 on 80 x 80)."""
+    got = _wide_digests(WIDE64_SHAPES, cuda)
+    moved = {k for k, v in got.items() if WIDE64_DIGESTS[k] != v}
+    assert moved == set(WIDE64_REORDERED), sorted(moved)
+
+
+@pytest.mark.parametrize("case", [
+    (40, 40, 256), (80, 80, 256), (40, 40, 0, 256, 128, 2, False, True),
+    (40, 40, 128, 256, 128, 1, False, False)])
+def test_wide_frame_bits_do_not_depend_on_the_batch(rng, cuda, case):
+    """A frame gets the same bits alone and inside a batch of 4: the head,
+    whose two plans sum in different orders, picks its plan from one
+    image's size (base 32's head_p4 at 40 x 40, base 64's head_p3 at 80 x
+    80); the C3k2 (base 32's stage3_c3k2 and pan_c3k2_2 at 40 x 40) changes
+    plan with the batch, and its plans sum in the same order."""
+    frames = 4
+    if len(case) == 3:
+        h, w, c = case
+        x = _act(rng, (frames, h, w, c), cuda)
+        ws = _to(head_kernel.pack_head_weights(
+            [_kb(rng, (3, 3, c, c)), _kb(rng, (3, 3, c, c))],
+            _kb(rng, (1, 1, c, 4)),
+            [_kb(rng, (3, 3, c, c)), _kb(rng, (3, 3, c, c))],
+            _kb(rng, (1, 1, c, 4)), torch.bfloat16), cuda)
+        w33 = mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8], ws[4],
+                                     ws[10])
+
+        def run(xs):
+            return head_kernel.fused_head(xs, *ws, w33=w33)
+    else:
+        h, w, ca, cb, hd, n, up, shortcut = case
+        x = _act(rng, (frames, h, w, cb), cuda)
+        xa = _act(rng, (frames, h, w, ca), cuda) if ca else None
+        ws = _to(c3k2_kernel.pack_c3k2_weights(
+            _kb(rng, (1, 1, ca + cb, hd)), _kb(rng, (1, 1, ca + cb, hd)),
+            _kb(rng, (1, 1, 2 * hd, 2 * hd)),
+            [(_kb(rng, (1, 1, hd, hd)), _kb(rng, (3, 3, hd, hd)))
+             for _ in range(n)], torch.bfloat16), cuda)
+        wpk = mma_pack.pack_c3k2_mma(ws[0], ws[6], ws[2], ws[4], ws[8], ca)
+
+        def run(xs, k=slice(None)):
+            return (c3k2_kernel.fused_c3k2(xs, *ws, shortcut=shortcut,
+                                           wpk=wpk) if xa is None else
+                    c3k2_kernel.fused_c3k2_cat(xa[k], xs, *ws,
+                                               shortcut=shortcut, up_a=up,
+                                               wpk=wpk),)
+    batch = run(x)
+    alone = run(x[2:3]) if len(case) == 3 else run(x[2:3], slice(2, 3))
+    for got, want in zip(batch, alone):
+        assert torch.equal(got[2:3], want)
 
 
 # ---- the unfused int8 engine and the folded QAT model ----

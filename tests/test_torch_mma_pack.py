@@ -151,12 +151,14 @@ def test_head_pack_other_width_has_no_tiles():
         assert torch.equal(g, want)
     for g, want in zip(got[4:], (ws[4], ws[10])):
         assert torch.equal(g[:, :4], want) and not g[:, 4:].any()
-    # base 64's head_p4: eight blocks a cluster, 64 output channels each;
-    # block r's stream holds its columns of conv1's then conv2's taps
+    # base 64's head_p4: four blocks a cluster, 128 output channels each;
+    # block r's stream holds its columns of conv1's then conv2's chunks,
+    # plane by plane (chunk 9 q + tap: the owned plan)
     c, s = 512, mma_pack.HEAD_SPLIT[512]
     w = ws_at(c)
     w33 = mma_pack.pack_head_mma(w[0], w[6], w[2], w[8], w[4], w[10])
-    assert s == 8 and w33.shape == mma_pack.head_mma_shape(c) == (
+    assert s == 4 and c in mma_pack.HEAD_OWNED
+    assert w33.shape == mma_pack.head_mma_shape(c) == (
         2 * 18 * 8 * 64 * c + 2 * c * 8,)
     got = mma_pack.unpack_head_mma(w33)
     for g, want in zip(got, (w[0], w[6], w[2], w[8])):
@@ -165,9 +167,9 @@ def test_head_pack_other_width_has_no_tiles():
         assert torch.equal(g[:, :4], want) and not g[:, 4:].any()
     k = 9 * 8 * 64
     reg = _stream_b(w33[2 * k * c:4 * k * c], [(k, c), (k, c)], s)
-    r = 5   # reg branch, block 5: conv2's tap (1, 2), plane 3
-    assert torch.equal(reg[r][1][5 * 8 + 3],
-                       w[8][1, 2][192:256, r * 64:(r + 1) * 64])
+    r = 3   # reg branch, block 3: conv2's plane 3, tap (1, 2)
+    assert torch.equal(reg[r][1][9 * 3 + 5],
+                       w[8][1, 2][192:256, r * 128:(r + 1) * 128])
     with pytest.raises(ValueError, match="preds"):
         mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8],
                                torch.zeros(32, 9), ws[10])
@@ -604,7 +606,8 @@ def _stream_b(img, shapes, s):
 
 
 # (Cin, Ca, hidden, F, n): widths of the bf16 engines' C3k2s (base 32 and
-# base 16; base 64's pan_c3k2_2 and stage3_c3k2, clusters of 8)
+# base 16; base 64's pan_c3k2_2 and stage3_c3k2, clusters of 4 whose
+# blocks own their planes)
 @pytest.mark.parametrize("cin,ca,hd,f,n", [(128, 0, 64, 128, 2),
                                            (384, 128, 128, 256, 1),
                                            (32, 16, 16, 32, 2),
@@ -613,9 +616,10 @@ def _stream_b(img, shapes, s):
 def test_c3k2_wide_pack_inverts_and_holds_the_fragments(cin, ca, hd, f, n):
     """At the wide widths the image is the weight stream of the cluster's
     blocks: per block ``r`` its columns ``r N/s ..`` of [w1 | w2] over
-    xa's then xb's 64-deep chunks, of each bottleneck's wb1 and 3x3 (K
-    chunk tap * planes + plane), and of w3, each chunk one swizzled tile;
-    ``unpack_c3k2_mma`` inverts it."""
+    xa's then xb's 64-deep chunks (at ``C3K2_OWNED`` p1's plane r then
+    p2's), of each bottleneck's wb1 and 3x3 (K chunk tap * planes +
+    plane), and of w3, each chunk one swizzled tile; ``unpack_c3k2_mma``
+    inverts it."""
     rng = np.random.default_rng(12)
     ws = c3k2_kernel.pack_c3k2_weights(
         _kb(rng, (1, 1, cin, hd)), _kb(rng, (1, 1, cin, hd)),
@@ -639,6 +643,9 @@ def test_c3k2_wide_pack_inverts_and_holds_the_fragments(cin, ca, hd, f, n):
     # xb's first chunk, block r's columns of [w1 | w2]
     rows = min(64, cin - ca)
     wa = torch.cat([w1, w2], dim=-1)[:, r * ns:(r + 1) * ns]
+    if hd in mma_pack.C3K2_OWNED:
+        wa = torch.cat([w1[:, 64 * r:64 * r + 64], w2[:, 64 * r:64 * r + 64]],
+                       dim=-1)
     b = blocks[r][0][ka]
     assert torch.equal(b[:rows], wa[ca:ca + rows]) and not b[rows:].any()
     # the last bottleneck's 3x3, tap (2, 1), plane 0
@@ -707,13 +714,21 @@ def _c3k2_wide_tiled(xa, xb, ws, *, up_a=False, shortcut=True):
     padded to m64 products, 0 outside the image after every stage, bf16 at
     every stage; the blocks' columns assembled (the distributed shared
     memory) before the next stage reads them. ``xa`` None is the single
-    form."""
+    form. Where the kernel picks the owned plan (``c3k2_kernel.owned_plan``)
+    that plan (``_c3k2_owned_tiled``); at hidden 128 on smaller grids this
+    replicated plan over the stream packed for the owned one (first-stage
+    columns in ``mma_pack._owned_columns`` order)."""
     _, b1, wb1, bb1, _, bb2, _, b2, _, b3 = ws
     n, hd, fo = wb1.shape[0], b1.shape[0], b3.shape[0]
+    tr, tw = c3k2_kernel.wide_tile(hd, n)
+    ntiles = xb.shape[0] * -(-xb.shape[1] // tr) * -(-xb.shape[2] // tw)
+    if c3k2_kernel.owned_plan(hd, ntiles):
+        return _c3k2_owned_tiled(xa, xb, ws, up_a=up_a, shortcut=shortcut)
+    order = (torch.argsort(mma_pack._owned_columns(hd))
+             if hd in mma_pack.C3K2_OWNED else torch.arange(2 * hd))
     ca = 0 if xa is None else xa.shape[-1]
     cb = xb.shape[-1]
     s = mma_pack.C3K2_SPLIT[hd]
-    tr, tw = c3k2_kernel.wide_tile(hd, n)
     ka, kb_ = -(-ca // 64), -(-cb // 64)
     pl, pp = -(-hd // 64), -(-2 * hd // 64)
     shapes = ([((ka + kb_) * 64, 2 * hd)] + [(pl * 64, hd),
@@ -724,28 +739,20 @@ def _c3k2_wide_tiled(xa, xb, ws, *, up_a=False, shortcut=True):
     ty, tx = -(-h // tr), -(-w // tw)
     wr, wc = tr + 2 * n, tw + 2 * n
     wpx = wr * wc
-    xf = xb.float()
     inside = _windows(torch.ones(bsz, h, w, 1), n, (tr, tw))[..., 0] > 0
-    chunks = _planes_of(_windows(xf, n, (tr, tw)), cb)
-    if xa is not None and up_a:
-        ar, ac = tr // 2 + 2, tw // 2 + 2
-        coarse = _windows(xa.float(), 1, (tr, tw), step=(tr // 2, tw // 2),
-                          size=(ar, ac), lead=1, grid=(ty, tx))
-        cr = ((torch.arange(wr) - n) >> 1) + 1
-        cc = ((torch.arange(wc) - n) >> 1) + 1
-        idx = (cr[:, None] * ac + cc[None, :]).reshape(-1)
-        chunks = _planes_of(coarse[:, idx], ca) + chunks
-    elif xa is not None:
-        chunks = _planes_of(_windows(xa.float(), n, (tr, tw)), ca) + chunks
+    chunks = _x_chunks(xa, xb, n, tr, tw, up_a)
     stages = iter(range(len(shapes)))
 
-    def run(src, rows, bias, ncols, st):
+    def run(src, rows, bias, ncols, st, cols=None):
         """Every block's columns of stage ``st`` over A rows ``rows`` of
-        the source chunks, assembled, ReLU(acc + bias), bf16."""
+        the source chunks, assembled (in ``cols`` order), ReLU(acc +
+        bias), bf16."""
         m = _m64(None, len(rows))
         parts = [_gemm([c[:, rows[m]] for c in src], blocks[r][st])
                  for r in range(s)]
         acc = torch.cat(parts, dim=-1)[:, :len(rows), :ncols]
+        if cols is not None:
+            acc = acc[..., cols]
         return _bf(torch.relu(acc + bias))
 
     def region(hh):
@@ -755,7 +762,7 @@ def _c3k2_wide_tiled(xa, xb, ws, *, up_a=False, shortcut=True):
         return ((rr + off) * wc + cc + off).reshape(-1)
 
     full = region(n)
-    p = run(chunks, full, torch.cat([b1, b2]), 2 * hd, next(stages))
+    p = run(chunks, full, torch.cat([b1, b2]), 2 * hd, next(stages), order)
     p = p * inside[..., None]                           # (T, wp, 2h)
     for i in range(n):
         rows = region(n - i)
@@ -778,6 +785,200 @@ def _c3k2_wide_tiled(xa, xb, ws, *, up_a=False, shortcut=True):
     return out.reshape(bsz, ty * tr, tx * tw, fo)[:, :h, :w]
 
 
+def _x_chunks(xa, xb, n, tr, tw, up_a):
+    """The first stage's A chunks of a C3k2 window: xa's planes (at its
+    coarse window, read at (r >> 1, c >> 1), when upsampled) then xb's."""
+    bsz, h, w, cb = xb.shape
+    ty, tx = -(-h // tr), -(-w // tw)
+    wr, wc = tr + 2 * n, tw + 2 * n
+    chunks = _planes_of(_windows(xb.float(), n, (tr, tw)), cb)
+    if xa is None:
+        return chunks
+    ca = xa.shape[-1]
+    if up_a:
+        ar, ac = tr // 2 + 2, tw // 2 + 2
+        coarse = _windows(xa.float(), 1, (tr, tw), step=(tr // 2, tw // 2),
+                          size=(ar, ac), lead=1, grid=(ty, tx))
+        cr = ((torch.arange(wr) - n) >> 1) + 1
+        cc = ((torch.arange(wc) - n) >> 1) + 1
+        idx = (cr[:, None] * ac + cc[None, :]).reshape(-1)
+        return _planes_of(coarse[:, idx], ca) + chunks
+    return _planes_of(_windows(xa.float(), n, (tr, tw)), ca) + chunks
+
+
+def _copied(plane, wc, lo, hi):
+    """A peer's window plane as a block copies it: window rows lo .. hi-1
+    only (``gather``), the rest of the slot never written (zero here, so a
+    stage that read past its rows would show)."""
+    out = torch.zeros_like(plane)
+    out[:, lo * wc:hi * wc] = plane[:, lo * wc:hi * wc]
+    return out
+
+
+def _c3k2_owned_tiled(xa, xb, ws, *, up_a=False, shortcut=True):
+    """csrc/c3k2.cu ``body_owned``: clusters of s = hidden / 64 blocks on
+    8 x 8 tiles; block r computes and keeps plane r of p1, of p2 and of t
+    (its first-stage columns [p1 plane r | p2 plane r] from the stream,
+    ``mma_pack._owned_columns``). Every stage reads its own plane in place
+    and each peer's as copied, only the window rows that stage reads: B_i
+    and C_i rows i .. wr - i - 1, D the tile's rows; K chunks in the
+    replicated plan's order (C tap by tap)."""
+    _, b1, wb1, bb1, _, bb2, _, b2, _, b3 = ws
+    n, hd, fo = wb1.shape[0], b1.shape[0], b3.shape[0]
+    ca = 0 if xa is None else xa.shape[-1]
+    cb = xb.shape[-1]
+    s = mma_pack.C3K2_SPLIT[hd]
+    assert s * 64 == hd
+    tr, tw = c3k2_kernel.wide_tile(hd, n)
+    ka, kb_ = -(-ca // 64), -(-cb // 64)
+    shapes = ([((ka + kb_) * 64, 2 * hd)] + [(s * 64, hd),
+                                             (9 * s * 64, hd)] * n
+              + [(2 * s * 64, fo)])
+    blocks = _stream_b(_wpk(ws, ca), shapes, s)
+    bsz, h, w, _ = xb.shape
+    ty, tx = -(-h // tr), -(-w // tw)
+    wr, wc = tr + 2 * n, tw + 2 * n
+    wpx = wr * wc
+    inside = (_windows(torch.ones(bsz, h, w, 1), n, (tr, tw))[..., 0]
+              > 0)[..., None]
+    chunks = _x_chunks(xa, xb, n, tr, tw, up_a)
+
+    def region(hh):
+        off = n - hh
+        rr, cc = torch.meshgrid(torch.arange(tr + 2 * hh),
+                                torch.arange(tw + 2 * hh), indexing="ij")
+        return ((rr + off) * wc + cc + off).reshape(-1)
+
+    def prod(src, rows, bs):
+        """f32 products of A rows ``rows`` (m64-padded) of the chunks."""
+        m = _m64(None, len(rows))
+        return _gemm([c[:, rows[m]] for c in src], bs)[:, :len(rows)]
+
+    full = region(n)
+    p1, p2 = [], []
+    for r in range(s):
+        acc = prod(chunks, full, blocks[r][0])
+        bias = torch.cat([b1[64 * r:64 * r + 64], b2[64 * r:64 * r + 64]])
+        v = _bf(torch.relu(acc + bias)) * inside
+        p1.append(v[..., :64])
+        p2.append(v[..., 64:])
+    st = 1
+    for i in range(n):
+        rows, lo, hi = region(n - i), i, wr - i
+        t = []
+        for r in range(s):
+            src = [p1[q] if q == r else _copied(p1[q], wc, lo, hi)
+                   for q in range(s)]
+            tr_ = torch.zeros(p1[r].shape)
+            tr_[:, rows] = _bf(torch.relu(
+                prod(src, rows, blocks[r][st]) + bb1[i, 64 * r:64 * r + 64]
+            )) * inside[:, rows]
+            t.append(tr_)
+        crow = region(n - 1 - i)
+        new = []
+        for r in range(s):
+            src = [t[q] if q == r else _copied(t[q], wc, lo, hi)
+                   for q in range(s)]
+            m = _m64(None, len(crow))
+            taps = [q[:, crow[m] + (kh - 1) * wc + kw - 1] for kh in range(3)
+                    for kw in range(3) for q in src]
+            acc = _gemm(taps, blocks[r][st + 1])[:, :len(crow)]
+            u = _bf(torch.relu(acc + bb2[i, 64 * r:64 * r + 64]))
+            v = p1[r].clone()
+            v[:, crow] = (_bf(v[:, crow] + u) if shortcut else u) * inside[
+                :, crow]
+            new.append(v)
+        p1, st = new, st + 2
+    tile = region(0)
+    outs = []
+    for r in range(s):
+        src = ([p1[q] if q == r else _copied(p1[q], wc, n, n + tr)
+                for q in range(s)]
+               + [p2[q] if q == r else _copied(p2[q], wc, n, n + tr)
+                  for q in range(s)])
+        outs.append(_bf(torch.relu(prod(src, tile, blocks[r][st])
+                                   + b3[128 * r:128 * r + 128])))
+    res = torch.cat(outs, dim=-1)
+    out = res.reshape(bsz, ty, tx, tr, tw, fo).permute(0, 1, 3, 2, 4, 5)
+    assert wpx == full.numel()
+    return out.reshape(bsz, ty * tr, tx * tw, fo)[:, :h, :w]
+
+
+def _pred_matrix(frag, c):
+    """The (C, 8) matrix a ``pack_frag`` image of the preds holds, read
+    back through the lanes' fragments (rows 2tq, 2tq+1, 8+2tq, 9+2tq of
+    k16 step ks, column g)."""
+    wq = torch.zeros(c, 8)
+    for ks in range(c // 16):
+        for g in range(8):
+            for tq in range(4):
+                vals = _frag(frag, c, 0, ks, 4 * g + tq)
+                for e, r_ in enumerate((2 * tq, 2 * tq + 1, 8 + 2 * tq,
+                                        9 + 2 * tq)):
+                    wq[16 * ks + r_, g] = vals[e]
+    return wq
+
+
+def _head_owned_tiled(x, ws):
+    """csrc/head.cu ``body_owned`` (``head_kernel.owned_plan``): per 8 x 16
+    tile (``head_kernel.OWNED_TILE``) and branch a cluster of
+    s = C / 128 blocks; block r computes and keeps c1's and c2's channels
+    128 r ..; conv1 over the x window plane by plane (chunk 9 q + tap; at
+    256 a stream packed tap by tap, walked so), conv2 over the c1 planes
+    of block 0, 1, .. (its own in place, each peer's two copied whole),
+    plane by plane; the preds split over K:
+    block r's f32 partial over its channels, the partials added in rank
+    order, then the bias."""
+    c = x.shape[-1]
+    s, pl = mma_pack.HEAD_SPLIT[c], c // 64
+    tr, tw = head_kernel.OWNED_TILE
+    w33 = mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8], ws[4], ws[10])
+    k = 9 * pl * 64
+    per = 2 * k * c
+    bsz, h, w, _ = x.shape
+    xw = _planes_of(_windows(x.float(), 2, (tr, tw)), c)
+    inside = (_windows(torch.ones(bsz, h, w, 1), 1, (tr, tw))[..., 0]
+              > 0)[..., None]
+    ty, tx = -(-h // tr), -(-w // tw)
+    rr, cc = torch.meshgrid(torch.arange(tr + 2), torch.arange(tw + 2),
+                            indexing="ij")
+    rows1 = (rr * (tw + 4) + cc).reshape(-1)
+    m = _m64(None, rows1.numel())
+    taps1 = [xw[q][:, rows1[m] + kh * (tw + 4) + kw] for q in range(pl)
+             for kh in range(3) for kw in range(3)]
+    rr, cc = torch.meshgrid(torch.arange(tr), torch.arange(tw),
+                            indexing="ij")
+    rows2 = (rr * (tw + 2) + cc).reshape(-1)
+    outs = []
+    for br, i in ((0, 0), (1, 6)):
+        _, b1, _, b2, wp, bp = ws[i:i + 6]
+        blocks = _stream_b(w33[br * per:(br + 1) * per], [(k, c), (k, c)],
+                           s)
+        if c not in mma_pack.HEAD_OWNED:
+            # a stream packed tap by tap, walked plane by plane
+            blocks = [[[conv[(j % 9) * pl + j // 9] for j in range(9 * pl)]
+                       for conv in blk] for blk in blocks]
+        c1 = [_bf(torch.relu(_gemm(taps1, blocks[r][0])[:, :rows1.numel()]
+                             + b1[128 * r:128 * r + 128])) * inside
+              for r in range(s)]                # block r's two planes
+        wq = _pred_matrix(w33[2 * per + br * c * 8:
+                              2 * per + (br + 1) * c * 8], c)
+        pred = 0
+        for r in range(s):
+            taps = [q[:, rows2 + kh * (tw + 2) + kw] for o in range(s)
+                    for q in _planes_of(c1[o].clone(), 128)
+                    for kh in range(3) for kw in range(3)]
+            c2 = _bf(torch.relu(_gemm(taps, blocks[r][1])
+                                + b2[128 * r:128 * r + 128]))
+            part = c2 @ wq[128 * r:128 * r + 128]
+            pred = part if r == 0 else pred + part
+        no = wp.shape[1]
+        pred = pred[..., :no] + bp
+        out = pred.reshape(bsz, ty, tx, tr, tw, no).permute(0, 1, 3, 2, 4, 5)
+        outs.append(out.reshape(bsz, ty * tr, tx * tw, no)[:, :h, :w])
+    return outs
+
+
 def _head_wide_tiled(x, ws):
     """csrc/head.cu's wide form: per tile (``head_kernel.wide_tile``) and
     branch, each block r of the cluster r's channels of conv1 (tile + 1, M
@@ -785,6 +986,8 @@ def _head_wide_tiled(x, ws):
     assembled between the two; c1 0 outside the image; the pred per m16
     row tile from the fragment image, f32."""
     c = x.shape[-1]
+    if head_kernel.owned_plan(c, *x.shape[1:3]):
+        return _head_owned_tiled(x, ws)
     s, pl = mma_pack.HEAD_SPLIT[c], -(-c // 64)
     tr, tw = head_kernel.wide_tile(c)
     w33 = mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8], ws[4], ws[10])
@@ -818,17 +1021,8 @@ def _head_wide_tiled(x, ws):
         acc = torch.cat([_gemm(taps, blocks[r][1]) for r in range(s)],
                         dim=-1)
         c2 = _bf(torch.relu(acc + b2))
-        frag = w33[2 * per + br * c * 8:2 * per + (br + 1) * c * 8]
-        # the lanes' fragments (rows 2tq, 2tq+1, 8+2tq, 9+2tq of k16 step
-        # ks, column g) read back into the (C, 8) matrix they hold
-        wq = torch.zeros(c, 8)
-        for ks in range(c // 16):
-            for g in range(8):
-                for tq in range(4):
-                    vals = _frag(frag, c, 0, ks, 4 * g + tq)
-                    for e, r_ in enumerate((2 * tq, 2 * tq + 1, 8 + 2 * tq,
-                                            9 + 2 * tq)):
-                        wq[16 * ks + r_, g] = vals[e]
+        wq = _pred_matrix(w33[2 * per + br * c * 8:
+                              2 * per + (br + 1) * c * 8], c)
         no = wp.shape[1]
         pred = (c2 @ wq)[..., :no] + bp
         out = pred.reshape(bsz, ty, tx, tr, tw, no).permute(0, 1, 3, 2, 4, 5)
@@ -861,15 +1055,21 @@ def _grid_c3k2_ws(rng, cin, hd, n):
 
 # (batch, H, W, Cin, hidden, n): stage3_c3k2 and stage2_c3k2 (base 32),
 # stage1_block at base 16 cut to 40 x 40, ragged images at batch 2; base
-# 64's stage3_c3k2 (hidden 256, n 2: 4 x 4 tiles) and hidden 256 with one
-# bottleneck (4 x 8 tiles), ragged at batch 2
+# 64's stage3_c3k2 (hidden 256, n 2: 8 x 8 tiles, clusters of 4 owning
+# their planes) and hidden 256 with one bottleneck, ragged at batch 2 and
+# across three tile rows, the widest input the owned plan takes (12
+# planes)
 @pytest.mark.parametrize("b,h,w,cin,hd,n", [(1, 40, 40, 256, 128, 2),
                                             (1, 80, 80, 128, 64, 2),
                                             (1, 40, 40, 32, 16, 1),
                                             (2, 13, 22, 128, 64, 1),
                                             (2, 11, 9, 64, 128, 2),
                                             (2, 11, 13, 512, 256, 2),
-                                            (2, 9, 14, 256, 256, 1)])
+                                            (2, 9, 14, 256, 256, 1),
+                                            (1, 17, 9, 768, 256, 1),
+                                            (1, 10, 19, 200, 256, 2),
+                                            (1, 80, 80, 256, 128, 2),
+                                            (2, 41, 63, 128, 128, 1)])
 def test_c3k2_wide_tiling_matches_plain(b, h, w, cin, hd, n):
     rng = np.random.default_rng(20)
     x = _grid_img(rng, (b, h, w, cin))
@@ -882,15 +1082,18 @@ def test_c3k2_wide_tiling_matches_plain(b, h, w, cin, hd, n):
 
 # (batch, H, W, Ca, Cb, hidden, up_a): fpn_c3k2_1, pan_c3k2_1, pan_c3k2_2
 # (base 32), a ragged image at batch 2, base 16's fpn_c3k2_2 cut to 40;
-# base 64's pan_c3k2_2 (hidden 256: 4 x 8 tiles) and fpn_c3k2_1 (hidden
-# 128, xa upsampled), hidden 256 upsampled, ragged at batch 2. One
-# bottleneck, as the neck's blocks, but two at hidden 128 upsampled where
-# the card takes them (the ragged base-32 case)
+# base 64's pan_c3k2_2 (hidden 256: the owned plan) and fpn_c3k2_1
+# (hidden 128, xa upsampled), hidden 256 upsampled, ragged at batch 2 and
+# with a narrow xa (one zero-padded plane). One bottleneck, as the neck's
+# blocks, but two at hidden 128 upsampled where the card takes them (the
+# ragged base-32 case)
 @pytest.mark.parametrize("b,h,w,ca,cb,hd,up", [
     (1, 80, 80, 128, 128, 64, True), (1, 80, 80, 64, 128, 64, False),
     (1, 40, 40, 128, 256, 128, False), (2, 14, 22, 128, 64, 128, True),
     (1, 40, 40, 32, 32, 16, True), (2, 11, 13, 256, 512, 256, False),
-    (2, 12, 14, 256, 256, 128, True), (2, 12, 18, 256, 256, 256, True)])
+    (2, 12, 14, 256, 256, 128, True), (2, 12, 18, 256, 256, 256, True),
+    (1, 18, 10, 40, 64, 256, False), (1, 80, 80, 256, 256, 128, True),
+    (1, 80, 80, 128, 256, 128, False)])
 def test_c3k2_cat_wide_tiling_matches_plain(b, h, w, ca, cb, hd, up):
     rng = np.random.default_rng(21)
     xa = _grid_img(rng, (b, h // 2, w // 2, ca) if up else (b, h, w, ca))
@@ -906,7 +1109,8 @@ def test_c3k2_cat_wide_tiling_matches_plain(b, h, w, ca, cb, hd, up):
 
 @pytest.mark.parametrize("b,h,w,c", [(1, 40, 40, 256), (1, 80, 80, 128),
                                      (2, 9, 17, 32), (2, 13, 6, 256),
-                                     (2, 9, 13, 512)])
+                                     (2, 9, 13, 512), (1, 17, 18, 512),
+                                     (1, 80, 80, 256), (2, 57, 75, 256)])
 def test_head_wide_tiling_matches_plain(b, h, w, c):
     rng = np.random.default_rng(22)
     x = _grid_img(rng, (b, h, w, c))

@@ -249,7 +249,9 @@ def _fc_model(base, **flags):
 # tiled kernel at hidden 32 / F 64), as csrc/c3k2.cu's plan counts it
 # (held against the library on the card); every one fits the 232,448 B a
 # block has, and so is packed and served by a CUDA kernel. Heads: width
-# -> bytes ("tiled" at 64).
+# -> bytes ("tiled" at 64). Hidden 256 and head 512 are counted in the
+# owned plan (its input streamed, so the same bytes for any input it
+# takes), the other widths in the replicated plan, which admits them.
 ADMITTED = {
     16: {"backbone.stage1_block": (16, 1, 0, False, 93184),
          "backbone.stage2_c3k2": (32, 2, 0, False, "tiled"),
@@ -271,13 +273,13 @@ ADMITTED = {
          "head_p4": (256, 225280)},
     64: {"backbone.stage1_block": (64, 1, 0, False, 151552),
          "backbone.stage2_c3k2": (128, 2, 0, False, 215040),
-         "backbone.stage3_c3k2": (256, 2, 0, False, 198656),
+         "backbone.stage3_c3k2": (256, 2, 0, False, 229376),
          "neck.fpn_c3k2_1": (128, 1, 256, True, 221184),
          "neck.fpn_c3k2_2": (64, 1, 128, True, 160768),
          "neck.pan_c3k2_1": (128, 1, 128, False, 228352),
-         "neck.pan_c3k2_2": (256, 1, 256, False, 221184),
+         "neck.pan_c3k2_2": (256, 1, 256, False, 189952),
          "head_p2": (128, 207872), "head_p3": (256, 225280),
-         "head_p4": (512, 227328)},
+         "head_p4": (512, 207872)},
 }
 
 

@@ -27,7 +27,9 @@ And the int8 fc engine's three fused kernels at 64 channels (stage1_block,
 fpn_c3k2_2, head_p2) on the seed-7 frame's own activations, and the bf16
 fc engine's ten fused blocks (``blocks``: the wide C3k2 and head kernels
 at 128 and 256 channels among them) on its seed-7 frame's activations:
-the SHA-256 of each output and its time inside a replayed graph. Run
+the SHA-256 of each output and its time inside a replayed graph; the same
+for base 64's ten fused blocks at their served shapes on
+``chip_smoke.py``'s seeded inputs (``blocks64``, ``WIDE64_SHAPES``). Run
 parent, change, change, parent in one call and compare digests (equal:
 the same bits) and times (within the spread of the two runs of one
 tree). Prints one JSON object and writes it to
@@ -218,6 +220,16 @@ def main() -> int:
                          "graph_ms": cs.graph_ms(fn)}
     out["kernels_64"] = kernels
     out["blocks"] = fc_blocks(bf16["bf16_s2dm_fc"], scenes[6], cs, torch)
+    # base 64's ten fused blocks at their served shapes, on chip_smoke's
+    # seeded inputs (WIDE64_SHAPES): digest and replayed-graph time
+    calls = cs.wide_calls(torch, {k: v for k, v in cs.WIDE64_SHAPES.items()
+                                  if "_1x" in k})
+    out["blocks64"] = {}
+    for name, call in calls.items():
+        res = call()
+        torch.cuda.synchronize()
+        out["blocks64"][name] = {"digest": digest(res),
+                                 "graph_ms": cs.graph_ms(call, 10, 5)}
     text = json.dumps(out)
     shutil.rmtree(tmp)
     dst = REPO / "chiprun_out"

@@ -485,46 +485,50 @@ int launch(Params P, int B, void* stream) {
 // The shapes of the bf16 engines' other C3k2s (hidden 64 to 256, F 128 to
 // 512, inputs of 128 to 768 channels; hidden 16 at base 16) do not fit the
 // tiled kernel's resident weights in shared memory. This form streams them
-// (csrc/wide_mma.cuh): one output tile per block at hidden 16 and 64, per
-// cluster of 4 blocks at hidden 128 and of 8 at hidden 256 (the 40 x 40
-// stages: each block computes a quarter or an eighth of every stage's
-// output columns and stores them into the windows of all the cluster's
-// blocks). The tile is 8 x 8 at hidden 16 to 128; at hidden 256 the
-// [p1 | p2] window alone holds 8 planes, and beside the input windows an
-// 8 x 8 tile's would take 295-356 KB, so the tile is 4 x 8 (n = 1) or
-// 4 x 4 (n = 2) (`tile_rows`, `tile_cols`). The same stages and rounding
-// points as above, on the tile plus a halo of n:
+// (csrc/wide_mma.cuh) on 8 x 8 output tiles, in one of two plans. The same
+// stages and rounding points as above, on the tile plus a halo of n:
 //   A  [p1 | p2] = ReLU(xwin @ [w1 | w2] + [b1 | b2]) on the
 //      (TR+2n) x (TW+2n) window (xa's planes ahead of xb's, xa read at the
 //      coarse pixel (r >> 1, c >> 1) of a (TR/2+2) x (TW/2+2) window when
 //      upsampled), 0 outside the image;
-//   B  t = ReLU(p1 @ wb1 + bb1) on the window less i pixels, into the
-//      input's space (dead after A);
+//   B  t = ReLU(p1 @ wb1 + bb1) on the window less i pixels;
 //   C  the 3x3 over t, K = 9 taps x hidden, on one pixel less, then
 //      p1 = bf16(p1 + u) (or u) in place;
 //   D  out = ReLU([p1 | p2] @ w3 + b3) on the tile, from registers to
 //      global memory.
 // M is every region padded to whole m64 products (3, 3, 2, 2, 1, 1 at
-// n = 2 and an 8 x 8 tile), the items of a stage spread over the two
-// warpgroups.
-// Bound on the H100 at stage3_c3k2 (40 x 40 x 256, hidden 128, n = 2):
-// 1.47 GFLOP over 1.7 MB, about 1.5 us at the bf16 peak. 25 tiles x 4 = 100
-// blocks there (pan_c3k2_2 as well), 100 at 80 x 80 and hidden 64: one
-// block an SM, 164-228 KB of shared memory. At base 64's stage3_c3k2 (40 x
-// 40 x 512, hidden 256, n = 2): 5.9 GFLOP over 6.9 MB, about 5.9 us; its
-// 100 4 x 4 tiles x 8 = 800 blocks run in about six waves, and stage A
-// computes a 64-pixel window for 16 output pixels.
+// n = 2), the items of a stage spread over the two warpgroups.
+//
+// Replicated plan (`body`: hidden 16 and 64, one block a tile; hidden 128
+// on small images, a cluster of 4): every block holds every plane of
+// every window; each computes a quarter of every stage's output columns
+// and stores them into the windows of all the cluster's blocks (4-byte
+// distributed shared-memory stores), t in the input's space.
+// Owned plan (`body_owned`: hidden 256, and hidden 128 where its grid,
+// batch included, fills the card): a cluster of hidden / 64 blocks; block r owns plane r
+// of p1, p2 and t (the only planes it keeps) and computes exactly those;
+// A is gathered: the input window from L2 plane by plane into four window
+// planes (two copied while two multiply), each peer's p1, t or [p1 | p2]
+// plane copied from its shared memory (16-byte loads, the rows a stage
+// reads) before B, C and D. Same K order as the replicated plan, so the
+// same bits.
+// Bound on the H100 at base 64's stage3_c3k2 (40 x 40 x 512, hidden 256,
+// n = 2): 5.9 GFLOP over 6.9 MB, about 5.9 us at the bf16 peak; the owned
+// plan's 25 tiles x 4 = 100 blocks (one wave, 229,376 B each) read 92 MB
+// of weights from L2 and copy 276 KB a block from their peers, and run
+// 12x that bound (PERF.md): the latency of each block's chain of six
+// stages (input and peer copies, chunk steps, epilogues, cluster
+// barriers), not the tensor cores, bounds it. At base 32's (40 x 40 x
+// 256, hidden 128): 1.47 GFLOP, about 1.5 us; 25 tiles x 4 = 100 blocks in
+// the replicated plan, 164-228 KB each.
 namespace wide_c3k2 {
 
 using namespace wide;
 
-// the output tile of each compiled (hidden, n)
-__host__ __device__ constexpr int tile_rows(int hid, int n) {
-  return hid == 256 ? 4 : 8;
-}
-__host__ __device__ constexpr int tile_cols(int hid, int n) {
-  return hid == 256 && n == 2 ? 4 : 8;
-}
+// the output tile of each compiled (hidden, n): 8 x 8 (at hidden 256 the
+// blocks own their planes, and an 8 x 8 tile's windows fit)
+__host__ __device__ constexpr int tile_rows(int hid, int n) { return 8; }
+__host__ __device__ constexpr int tile_cols(int hid, int n) { return 8; }
 
 struct Params {
   const bf16* xa;   // (B, Ha, Wa, ca), pair form only
@@ -538,11 +542,36 @@ struct Params {
 // the widths this form is compiled for, and their cluster size
 __host__ __device__ constexpr int split(int hid, int fo) {
   return fo != 2 * hid ? 0
-         : hid == 256  ? 8
-         : hid == 128  ? 4
+         : hid == 256 || hid == 128 ? 4
          : hid == 64 || hid == 16 ? 1
                                   : 0;
 }
+// The hidden widths compiled in the owned plan (`body_owned`): a cluster
+// of hidden / 64 blocks, each owning one 64-channel plane of p1, p2 and t.
+// Their weight stream is packed for that cluster; at hidden 128 the
+// replicated plan (`body`, clusters of 4) reads the same stream, each
+// block half of an owned block's chunks. Hidden 256 runs the owned plan
+// always, hidden 128 where the launch's grid (batch included) has
+// OWNED_MIN_BLOCKS blocks or more (base 64's 80 x 80 from batch 1, base
+// 32's 40 x 40 from batch 3), the replicated one below that (base 32's 40
+// x 40 at batch 1: 100 blocks in clusters of 4, 6-13% faster than 50 in
+// clusters of 2 on the H100; PERF.md). The two plans sum in the same
+// order, so a frame's bits do not depend on the plan or the batch.
+__host__ __device__ constexpr bool owned(int hid) {
+  return hid == 256 || hid == 128;
+}
+constexpr int OWNED_MIN_BLOCKS = 128;
+__host__ __device__ inline bool owned_plan(int hid, int ntiles) {
+  return hid == 256 || (hid == 128 && ntiles * 2 >= OWNED_MIN_BLOCKS);
+}
+// the owned plan's input: at most XMAX 64-channel planes (xa's and xb's
+// counted apart; 768 channels, the widest input the engines give it),
+// streamed through XSLOTS window planes, two a step
+constexpr int XMAX = 12;
+constexpr int XSLOTS = 4;
+// the owned plan's block columns: [p1 | p2] plane r in stages A and D (two
+// 64-column warpgroup parts), t's plane r in B and C
+constexpr int OWNED_COLS = 64;
 
 // pixels of the region of stage A (i < 0), B_i, C_i (c) or D (i = n) of a
 // tr x tw tile
@@ -566,12 +595,26 @@ __host__ __device__ constexpr int ring_cols(int hid, int n) {
   return cols;
 }
 
-// shared memory: the block's stream table and alignment, the ring, the
-// [p1 | p2] window, the input windows (later the t window)
+// the owned plan's shared memory: the stream table and alignment, the ring,
+// the block's three planes and XSLOTS planes for the input's and the peers'
+// planes
+__host__ __device__ inline int smem_owned(int hid, int n) {
+  return wide::SMEM_HEAD + ring_bytes(OWNED_COLS) +
+         (3 + XSLOTS) * region(tile_rows(hid, n), tile_cols(hid, n), n, -1,
+                               false) * PIX_BYTES;
+}
+// the shared memory a width is admitted by: at hidden 256 the owned plan's
+// (its input at most XMAX planes); otherwise the replicated plan's: the
+// stream table and alignment, the ring, the [p1 | p2] window, the input
+// windows (later the t window). At hidden 128 the owned plan needs no more
+// than that for every input the replicated plan admits.
 __host__ __device__ inline int smem_bytes(int ca, int cb, int up_a, int hid,
                                           int n) {
   const int tr = tile_rows(hid, n), tw = tile_cols(hid, n);
   const int wp = region(tr, tw, n, -1, false);
+  if (hid == 256)
+    return planes(ca) + planes(cb) > XMAX ? wide::SMEM_MAX + 1
+                                          : smem_owned(hid, n);
   const int apx = up_a ? (tr / 2 + 2) * (tw / 2 + 2) : wp;
   const int x = planes(ca) * apx + planes(cb) * wp;
   const int t = planes(hid) * wp;
@@ -595,6 +638,20 @@ __device__ __forceinline__ void body(const Params& P,
   static_assert(HID % 64 == 0 || S == 1, "padded planes are zeroed locally");
   const Lane L;
   const int rank = cluster_rank<S>();
+  // where the stream is packed for the owned plan's SO blocks, block rank
+  // multiplies part h (of SUB) of owned block ro's columns of each stage
+  constexpr int SO = owned(HID) ? HID / 64 : S, SUB = S / SO;
+  static_assert(SO * SUB == S, "owned blocks split evenly");
+  const int ro = rank / SUB, h = rank % SUB;
+  // the [p1 | p2] channel of stage A's block column c
+  auto a_chan = [&](int c) {
+    if constexpr (owned(HID)) {
+      const int oc = h * NSA + c;  // owned column: [p1 plane ro | p2's]
+      return (oc < 64 ? 0 : HID) + 64 * ro + (oc & 63);
+    } else {
+      return rank * NSA + c;
+    }
+  };
   const int H = P.H, W = P.W;
   const int tile = blockIdx.x / S;
   const int b = tile / (P.tiles_x * P.tiles_y);
@@ -619,15 +676,18 @@ __device__ __forceinline__ void body(const Params& P,
   if (L.tid == 0) {
     st.nst = 0;
     st.first[0] = 0;
-    st.add(KA + KB, NSA * 128,
-           stage_nh(NSA, region(TR, TW, N, -1, false)));
+    st.add(KA + KB, NSA * 128, stage_nh(NSA, region(TR, TW, N, -1, false)),
+           SUB * NSA * 128, h * NSA * 128);
     for (int i = 0; i < N; ++i) {
-      st.add(PT, NSB * 128, stage_nh(NSB, region(TR, TW, N, i, false)));
-      st.add(9 * PT, NSB * 128, stage_nh(NSB, region(TR, TW, N, i, true)));
+      st.add(PT, NSB * 128, stage_nh(NSB, region(TR, TW, N, i, false)),
+             SUB * NSB * 128, h * NSB * 128);
+      st.add(9 * PT, NSB * 128, stage_nh(NSB, region(TR, TW, N, i, true)),
+             SUB * NSB * 128, h * NSB * 128);
     }
-    st.add(PP, NSA * 128, stage_nh(NSA, region(TR, TW, N, N, false)));
+    st.add(PP, NSA * 128, stage_nh(NSA, region(TR, TW, N, N, false)),
+           SUB * NSA * 128, h * NSA * 128);
     st.src = reinterpret_cast<const unsigned char*>(P.wimg) +
-             rank * st.total_bytes();
+             ro * st.total_bytes();
   }
   // the weights' first chunks are on their way before the windows
   init_rings<G>(raw, L);
@@ -701,7 +761,7 @@ __device__ __forceinline__ void body(const Params& P,
     each_pair(
         acc, items, L,
         [&](int c) {
-          const int col = rank * NSA + c;
+          const int col = a_chan(c);
           return col < HID ? P.b1 + col : P.b2 + col - HID;
         },
         [&](int m) {
@@ -710,8 +770,7 @@ __device__ __forceinline__ void body(const Params& P,
                      gy >= 0 && gy < H && gx >= 0 && gx < W};
         },
         [&](const Row& r, int c, uint32_t v) {
-          peers.put(r.off + col_off(rank * NSA + c, WP, r.x),
-                    r.inside ? v : 0u);
+          peers.put(r.off + col_off(a_chan(c), WP, r.x), r.inside ? v : 0u);
         });
     cluster_sync<S>();
   }
@@ -834,33 +893,355 @@ __device__ __forceinline__ void body(const Params& P,
   }
 }
 
-// CAT: the pair form, a template parameter (as above) so that the two
-// forms are two device functions, told apart by name; the width and the
-// bottlenecks pick the compiled body
-template <bool CAT, int HID, int N>
-__device__ __forceinline__ void run(const Params& P, unsigned char* smem_raw,
-                                    Stream& st) {
-  body<CAT, HID, N, tile_rows(HID, N), tile_cols(HID, N)>(P, smem_raw, st);
+// ---- the owned plan: a cluster of hidden / 64 blocks on an 8 x 8 tile ----
+//
+// Block r of the cluster owns plane r (channels 64 r ..) of p1, of p2 and
+// of t over the whole window, and computes exactly those: its stage-A
+// columns are [p1 plane r | p2 plane r] (mma_pack.py orders them so), its
+// B and C columns t's and p1's plane r, so every epilogue stores into the
+// block's own shared memory, the residual included, and zeroes its planes
+// outside the image. A is gathered: the input window is read from global
+// memory (L2) plane by plane into XSLOTS window planes, two planes copied
+// while two multiply; before B, C and D the block copies its peers'
+// planes of p1, t or [p1 | p2] (only the window rows that stage reads)
+// from their shared memory into the same slots (`gather`, 16-byte
+// ld.shared::cluster), reading its own plane in place. Each stage reads
+// its K chunks in the order the replicated plan does, so the sums and the
+// bits are the same. A cluster barrier after every epilogue publishes the
+// planes; the next stage's copies only read planes that no block writes
+// until the barrier after that stage; the barrier after D's last copies
+// keeps every block alive while its peers read it.
+template <bool CAT, int HID, int N, int TR, int TW>
+__device__ __forceinline__ void body_owned(const Params& P,
+                                           unsigned char* smem_raw,
+                                           Stream& st) {
+  constexpr int S = HID / 64;  // a block owns one plane of p1, p2 and t
+  constexpr int NSA = 128, NSB = 64;  // a block's columns: A and D; B and C
+  constexpr int WC = TW + 2 * N, WR = TR + 2 * N, WP = WR * WC;  // window
+  constexpr int AR = TR / 2 + 2, AC = TW / 2 + 2;  // coarse xa window
+  constexpr uint32_t PLANE = WP * PIX_BYTES;
+  using G = Ring<ring_slot(OWNED_COLS)>;
+  static_assert(stage_cols(NSA, 64) == OWNED_COLS, "the ring's slots");
+  static_assert(TR % 2 == 0 && TW % 2 == 0, "even tile origins (up_a)");
+  static_assert(XSLOTS >= S - 1 && XSLOTS % 2 == 0, "the slots");
+  const Lane L;
+  const int rank = cluster_rank<S>();
+  const int H = P.H, W = P.W;
+  const int tile = blockIdx.x / S;
+  const int b = tile / (P.tiles_x * P.tiles_y);
+  const int rem = tile - b * P.tiles_x * P.tiles_y;
+  const int R0 = (rem / P.tiles_x) * TR, W0 = (rem % P.tiles_x) * TW;
+  const bool up = CAT && P.up_a;
+  const int KA = CAT ? planes(P.ca) : 0, KB = planes(P.cb), KX = KA + KB;
+  const int Ha = up ? H / 2 : H, Wa = up ? W / 2 : W;
+  const int ay0 = up ? (R0 >> 1) - 1 : R0 - N;
+  const int ax0 = up ? (W0 >> 1) - 1 : W0 - N;
+
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = ring_base(raw);
+  const uint32_t p1_s = ring + G::BYTES;  // p1's plane r, then p2's
+  const uint32_t t_s = p1_s + 2 * PLANE;  // t's plane r
+  const uint32_t ga = t_s + PLANE;        // XSLOTS planes
+  // a peer's copy of one of this block's addresses
+  auto peer = [&](uint32_t local, int q) { return peer_addr(local, q); };
+  // the slot of peer q's plane (q != rank)
+  auto slot = [&](int q) { return ga + (q - (q > rank)) * PLANE; };
+  // copy rows [lo, hi) of every peer's plane at `local` into its slot
+  auto gather_rows = [&](uint32_t local, int lo, int hi) {
+    for (int q = 0; q < S; ++q)
+      if (q != rank)
+        gather(slot(q) + lo * WC * PIX_BYTES,
+               peer(local, q) + lo * WC * PIX_BYTES,
+               (hi - lo) * WC * PIX_BYTES, L.tid);
+  };
+
+  if (L.tid == 0) {
+    st.nst = 0;
+    st.first[0] = 0;
+    st.add(KX, NSA * 128, stage_nh(NSA, WP));
+    for (int i = 0; i < N; ++i) {
+      st.add(S, NSB * 128, stage_nh(NSB, region(TR, TW, N, i, false)));
+      st.add(9 * S, NSB * 128, stage_nh(NSB, region(TR, TW, N, i, true)));
+    }
+    st.add(2 * S, NSA * 128, stage_nh(NSA, TR * TW));
+    st.src = reinterpret_cast<const unsigned char*>(P.wimg) +
+             rank * st.total_bytes();
+  }
+  init_rings<G>(raw, L);
+  __syncthreads();  // the stream's table, the rings' barriers
+  Feeder<G> fd(st, ring, raw + BARS, L);
+  for (int g = 0; g < G::DIST; ++g) fd.issue();
+  // input plane k (xa's first) into slot k % XSLOTS: window pixel (wr, wc)
+  // <- image (R0-N+wr, W0-N+wc), xa's at its coarse window when upsampled;
+  // zeros outside the image and past the last channel
+  const bf16* xb_b = P.xb + (size_t)b * H * W * P.cb;
+  auto load_x = [&](int k) {
+    const uint32_t dst = ga + (k % XSLOTS) * PLANE;
+    if (CAT && k < KA) {
+      const bf16* xa_b = P.xa + (size_t)b * Ha * Wa * P.ca;
+      const int AWC = up ? AC : WC, npx = up ? AR * AC : WP;
+      for (int i = L.tid; i < npx * 8; i += wide::THREADS) {
+        const int ch = i & 7, p = i >> 3;
+        const int ar = p / AWC, ac = p - ar * AWC;
+        const int ay = ay0 + ar, ax = ax0 + ac, c0 = k * 64 + ch * 8;
+        const bool ok = ay >= 0 && ay < Ha && ax >= 0 && ax < Wa && c0 < P.ca;
+        const bf16* src =
+            ok ? xa_b + ((size_t)ay * Wa + ax) * P.ca + c0 : xa_b;
+        cp_async16(dst + pix_chunk(p, ch), src, ok ? 16 : 0);
+      }
+    } else {
+      const int q = k - KA;
+      for (int i = L.tid; i < WP * 8; i += wide::THREADS) {
+        const int ch = i & 7, p = i >> 3;
+        const int wr = p / WC, wc = p - wr * WC;
+        const int gy = R0 - N + wr, gx = W0 - N + wc, c0 = q * 64 + ch * 8;
+        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c0 < P.cb;
+        const bf16* src = ok ? xb_b + ((size_t)gy * W + gx) * P.cb + c0 : xb_b;
+        cp_async16(dst + pix_chunk(p, ch), src, ok ? 16 : 0);
+      }
+    }
+  };
+  int g0 = 0;
+
+  // ---- A: [p1 | p2] plane r on the window, the input two planes a step ----
+  {
+    constexpr int NHA = stage_nh(NSA, WP), NIA = NSA / NHA;
+    constexpr int NA = stage_items<NHA>(WP), MA = share(NA);
+    constexpr int KSA = MA * NIA >= 192 ? 1 : KSTEP;
+    const Items<NIA, NHA, MA> items{NA};
+    int pix[MA], pa[MA];
+#pragma unroll
+    for (int i = 0; i < MA; ++i) {
+      const int m = min(items.arow(i, L), WP - 1);
+      pix[i] = m;
+      pa[i] = m;
+      if (up) {
+        const int wr = m / WC, wc = m - wr * WC;
+        pa[i] = (((R0 - N + wr) >> 1) - ay0) * AC + (((W0 - N + wc) >> 1) - ax0);
+      }
+    }
+    float acc[MA][NIA / 2];
+    zero_acc<NIA>(acc);
+    load_x(0);
+    if (KX > 1) load_x(1);
+    cp_async_commit();
+#pragma unroll 1
+    for (int k0 = 0; k0 < KX; k0 += 2) {
+      if (k0 + 2 < KX) {
+        load_x(k0 + 2);
+        if (k0 + 3 < KX) load_x(k0 + 3);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // planes k0, k0 + 1 are in
+      gemm_more<KSA>(acc, items, g0, k0, min(2, KX - k0), fd, L,
+                     [&](int i, int kc, uint32_t& win, int& px) {
+                       win = ga + (kc % XSLOTS) * PLANE;
+                       px = CAT && kc < KA ? pa[i] : pix[i];
+                     });
+      __syncthreads();  // their slots may be filled again
+    }
+    g0 += KX;
+    each_pair(
+        acc, items, L,
+        [&](int c) {
+          const int col = rank * 64 + (c & 63);
+          return c < 64 ? P.b1 + col : P.b2 + col;
+        },
+        [&](int m) {
+          const int gy = R0 - N + m / WC, gx = W0 - N + m % WC;
+          return Row{p1_s + m * PIX_BYTES, m & 7, m < WP,
+                     gy >= 0 && gy < H && gx >= 0 && gx < W};
+        },
+        [&](const Row& r, int c, uint32_t v) {
+          st_shared(r.off + col_off(c, WP, r.x), r.inside ? v : 0u);
+        });
+    cluster_sync<S>();
+  }
+
+  // bottleneck I: B on the window less I pixels, then C one pixel less;
+  // both read window rows I .. WR - I - 1
+  auto bottleneck = [&](auto ic) {
+    constexpr int I = decltype(ic)::value;
+    {
+      // ---- B: t plane r = ReLU(p1 @ wb1 + bb1) ----
+      constexpr int RC = TW + 2 * (N - I), RP = (TR + 2 * (N - I)) * RC;
+      constexpr int NHB = stage_nh(NSB, RP), NIB = NSB / NHB;
+      constexpr int NB = stage_items<NHB>(RP);
+      const Items<NIB, NHB, share(NB)> items{NB};
+      int pw[share(NB)];
+#pragma unroll
+      for (int j = 0; j < share(NB); ++j) {
+        const int m = min(items.arow(j, L), RP - 1);
+        pw[j] = (m / RC + I) * WC + m % RC + I;
+      }
+      gather_rows(p1_s, I, WR - I);
+      __syncthreads();
+      float acc[share(NB)][NIB / 2];
+      gemm(acc, items, g0, S, fd, L,
+           [&](int j, int kc, uint32_t& win, int& px) {
+             win = kc == rank ? p1_s : slot(kc);
+             px = pw[j];
+           });
+      g0 += S;
+      each_pair(
+          acc, items, L,
+          [&](int c) { return P.bb1 + I * HID + rank * NSB + c; },
+          [&](int m) {
+            const int wr = m / RC + I, wc = m % RC + I, p = wr * WC + wc;
+            const int gy = R0 - N + wr, gx = W0 - N + wc;
+            return Row{t_s + p * PIX_BYTES, p & 7, m < RP,
+                       gy >= 0 && gy < H && gx >= 0 && gx < W};
+          },
+          [&](const Row& r, int c, uint32_t v) {
+            st_shared(r.off + col_off(c, WP, r.x), r.inside ? v : 0u);
+          });
+      cluster_sync<S>();
+    }
+    {
+      // ---- C: u = ReLU(conv3x3(t) + bb2), p1 plane r = p1 + u (or u) ----
+      constexpr int HH = N - 1 - I, OFF = I + 1;
+      constexpr int RC = TW + 2 * HH, RP = (TR + 2 * HH) * RC;
+      constexpr int NHB = stage_nh(NSB, RP), NIB = NSB / NHB;
+      constexpr int NC = stage_items<NHB>(RP);
+      const Items<NIB, NHB, share(NC)> items{NC};
+      int tp[share(NC)];
+#pragma unroll
+      for (int j = 0; j < share(NC); ++j) {
+        const int m = min(items.arow(j, L), RP - 1);
+        tp[j] = (m / RC + OFF - 1) * WC + m % RC + OFF - 1;
+      }
+      gather_rows(t_s, I, WR - I);
+      __syncthreads();
+      float acc[share(NC)][NIB / 2];
+      gemm(acc, items, g0, 9 * S, fd, L,
+           [&](int j, int kc, uint32_t& win, int& px) {
+             const int tap = kc / S, q = kc - tap * S;
+             win = q == rank ? t_s : slot(q);
+             px = tp[j] + (tap / 3) * WC + tap % 3;
+           });
+      g0 += 9 * S;
+      each_pair(
+          acc, items, L,
+          [&](int c) { return P.bb2 + I * HID + rank * NSB + c; },
+          [&](int m) {
+            const int wr = m / RC + OFF, wc = m % RC + OFF;
+            const int p = wr * WC + wc;
+            const int gy = R0 - N + wr, gx = W0 - N + wc;
+            return Row{p1_s + p * PIX_BYTES, p & 7, m < RP,
+                       gy >= 0 && gy < H && gx >= 0 && gx < W};
+          },
+          [&](const Row& r, int c, uint32_t u) {
+            const uint32_t o = r.off + col_off(c, WP, r.x);
+            if (P.shortcut) {
+              const uint32_t old = ld_shared(o);
+              u = pack_bf16(__fadd_rn(bf16_lo(old), bf16_lo(u)),
+                            __fadd_rn(bf16_hi(old), bf16_hi(u)));
+            }
+            st_shared(o, r.inside ? u : 0u);
+          });
+      cluster_sync<S>();
+    }
+  };
+  bottleneck(std::integral_constant<int, 0>{});
+  if constexpr (N == 2) bottleneck(std::integral_constant<int, 1>{});
+
+  // ---- D: out = ReLU([p1 | p2] @ w3 + b3) on the tile: p1's planes, then
+  // p2's, each the peers' copied first (the tile's rows) ----
+  {
+    constexpr int NHA = stage_nh(NSA, TR * TW), NIA = NSA / NHA;
+    constexpr int ND = stage_items<NHA>(TR * TW), MD = share(ND);
+    constexpr int KSD = MD * NIA >= 192 ? 1 : KSTEP;
+    const Items<NIA, NHA, MD> items{ND};
+    int pw[MD];
+#pragma unroll
+    for (int j = 0; j < MD; ++j) {
+      const int m = min(items.arow(j, L), TR * TW - 1);
+      pw[j] = (m / TW + N) * WC + m % TW + N;
+    }
+    float acc[MD][NIA / 2];
+    zero_acc<NIA>(acc);
+    gather_rows(p1_s, N, N + TR);
+    __syncthreads();
+    gemm_more<KSD>(acc, items, g0, 0, S, fd, L,
+                   [&](int j, int kc, uint32_t& win, int& px) {
+                     win = kc == rank ? p1_s : slot(kc);
+                     px = pw[j];
+                   });
+    __syncthreads();  // the slots may be filled again
+    gather_rows(p1_s + PLANE, N, N + TR);
+    cluster_sync<S>();  // no block reads a peer past here
+    gemm_more<KSD>(acc, items, g0, S, S, fd, L,
+                   [&](int j, int kc, uint32_t& win, int& px) {
+                     win = kc - S == rank ? p1_s + PLANE : slot(kc - S);
+                     px = pw[j];
+                   });
+    bf16* out_b = P.out + (size_t)b * H * W * (2 * HID);
+    each_pair(
+        acc, items, L, [&](int c) { return P.b3 + rank * NSA + c; },
+        [&](int m) {
+          const int gy = R0 + m / TW, gx = W0 + m % TW;
+          return Row{(uint32_t)(gy * W + gx), 0, m < TR * TW && gy < H &&
+                                                      gx < W, true};
+        },
+        [&](const Row& r, int c, uint32_t v) {
+          *reinterpret_cast<uint32_t*>(out_b + (size_t)r.off * (2 * HID) +
+                                       rank * NSA + c) = v;
+        });
+  }
 }
 
-template <bool CAT>
+// One kernel function a compiled body: CAT the pair form, HID the hidden
+// width, N the bottlenecks, OWN the owned plan; the launcher picks the
+// instance
+template <bool CAT, int HID, int N, bool OWN>
 __global__ void __launch_bounds__(wide::THREADS, 1)
 c3k2_wide_kernel(const Params P) {
   extern __shared__ __align__(16) unsigned char wide_smem[];
   Stream& st = *reinterpret_cast<Stream*>(wide_smem);
-  if (P.hid == 256) {
-    if (P.n == 2) run<CAT, 256, 2>(P, wide_smem, st);
-    else run<CAT, 256, 1>(P, wide_smem, st);
-  } else if (P.hid == 128) {
-    if (P.n == 2) run<CAT, 128, 2>(P, wide_smem, st);
-    else run<CAT, 128, 1>(P, wide_smem, st);
-  } else if (P.hid == 64) {
-    if (P.n == 2) run<CAT, 64, 2>(P, wide_smem, st);
-    else run<CAT, 64, 1>(P, wide_smem, st);
-  } else {
-    if (P.n == 2) run<CAT, 16, 2>(P, wide_smem, st);
-    else run<CAT, 16, 1>(P, wide_smem, st);
+  if constexpr (OWN)
+    body_owned<CAT, HID, N, tile_rows(HID, N), tile_cols(HID, N)>(
+        P, wide_smem, st);
+  else
+    body<CAT, HID, N, tile_rows(HID, N), tile_cols(HID, N)>(P, wide_smem,
+                                                            st);
+}
+
+template <bool CAT, int HID, int N, bool OWN>
+int launch_body(Params P, int B, int smem, void* stream) {
+  static bool ready = false;  // one per compiled body
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(
+        c3k2_wide_kernel<CAT, HID, N, OWN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, wide::SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
   }
+  constexpr int S = OWN ? HID / 64 : split(HID, 2 * HID);
+  constexpr int tr = tile_rows(HID, N), tw = tile_cols(HID, N);
+  P.tiles_x = (P.W + tw - 1) / tw;
+  P.tiles_y = (P.H + tr - 1) / tr;
+  const int ntiles = P.tiles_x * P.tiles_y * B;
+  return launch_cluster(last_launch, c3k2_wide_kernel<CAT, HID, N, OWN>, S,
+                        ntiles * S, 1, smem, stream, P);
+}
+
+// the body at hidden HID: the owned plan or the replicated one (hidden 128)
+template <bool CAT, int HID, int N>
+int launch_width(Params P, int B, int smem, void* stream) {
+  const int ntiles = ((P.W + tile_cols(HID, N) - 1) / tile_cols(HID, N)) *
+                     ((P.H + tile_rows(HID, N) - 1) / tile_rows(HID, N)) * B;
+  if constexpr (HID == 256)
+    return launch_body<CAT, HID, N, true>(P, B, smem_owned(HID, N), stream);
+  else if constexpr (HID == 128)
+    return owned_plan(HID, ntiles)
+               ? launch_body<CAT, HID, N, true>(P, B, smem_owned(HID, N),
+                                                stream)
+               : launch_body<CAT, HID, N, false>(P, B, smem, stream);
+  else
+    return launch_body<CAT, HID, N, false>(P, B, smem, stream);
 }
 
 template <bool CAT>
@@ -872,20 +1253,21 @@ int launch(Params P, int B, void* stream) {
     return (int)cudaErrorInvalidValue;
   const int smem = smem_bytes(P.ca, P.cb, P.up_a, P.hid, P.n);
   if (smem > wide::SMEM_MAX) return (int)cudaErrorInvalidValue;
-  static bool ready = false;  // one per form
-  if (!ready) {
-    cudaError_t err = cudaFuncSetAttribute(
-        c3k2_wide_kernel<CAT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        wide::SMEM_MAX);
-    if (err != cudaSuccess) return (int)err;
-    ready = true;
+  const bool two = P.n == 2;
+  switch (P.hid) {
+    case 256:
+      return two ? launch_width<CAT, 256, 2>(P, B, smem, stream)
+                 : launch_width<CAT, 256, 1>(P, B, smem, stream);
+    case 128:
+      return two ? launch_width<CAT, 128, 2>(P, B, smem, stream)
+                 : launch_width<CAT, 128, 1>(P, B, smem, stream);
+    case 64:
+      return two ? launch_width<CAT, 64, 2>(P, B, smem, stream)
+                 : launch_width<CAT, 64, 1>(P, B, smem, stream);
+    default:
+      return two ? launch_width<CAT, 16, 2>(P, B, smem, stream)
+                 : launch_width<CAT, 16, 1>(P, B, smem, stream);
   }
-  const int tr = tile_rows(P.hid, P.n), tw = tile_cols(P.hid, P.n);
-  P.tiles_x = (P.W + tw - 1) / tw;
-  P.tiles_y = (P.H + tr - 1) / tr;
-  const int ntiles = P.tiles_x * P.tiles_y * B;
-  return launch_cluster(last_launch, c3k2_wide_kernel<CAT>, S, ntiles * S,
-                        1, smem, stream, P);
 }
 
 }  // namespace wide_c3k2

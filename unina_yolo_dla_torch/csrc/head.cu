@@ -262,30 +262,39 @@ head_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w33,
 
 // ---- the wide form: C = 32, 128, 256 and 512, wgmma ----
 //
-// The P3/P4 heads of the bf16 engines (C = 128 and 256; 32 at base 16, 512
-// at base 64) do not fit the tiled kernel above: its conv1 accumulators
-// alone would be 2-4x the registers. This form streams the weights
-// (csrc/wide_mma.cuh): one branch of one output tile (blockIdx.y: 0 cls,
-// 1 reg; `tile_rows` x `tile_w`) per block at C = 32 and 128, per cluster
-// of 2 blocks at C = 256 (head_p4, 25 tiles: each block computes half of
-// every conv's output channels and stores them into both windows) and of
-// 8 at C = 512 (an eighth each, into all eight windows):
-//   conv1 on the tile plus a 1-pixel halo (100 or 180 pixels, two or three
-//     m64 products; 60 at C = 512, one), K = 9 x C, over the x window
+// The P3/P4 heads of the bf16 engines (C = 128 and 256; 32 at base 16, 256
+// and 512 at base 64) do not fit the tiled kernel above: its conv1
+// accumulators alone would be 2-4x the registers. This form streams the
+// weights (csrc/wide_mma.cuh), one branch of one output tile (blockIdx.y:
+// 0 cls, 1 reg) per block or cluster:
+//   conv1 on the tile plus a 1-pixel halo, K = 9 x C, over the x window
 //     (halo 2); c1 = bf16(ReLU(acc + b1)), 0 outside the image;
-//   conv2 on the tile (one or two m64 products) over c1; c2 =
-//     bf16(ReLU(acc + b2)) into the x window's space;
+//   conv2 on the tile over c1; c2 = bf16(ReLU(acc + b2));
 //   pred = c2 @ wp + bp, f32: warp-level m16n8k16 over the tile's m16 row
-//     tiles, spread over the cluster's blocks and their warps, the pred
-//     weights read as fragments packed at load (8-byte loads).
-// Bound on the H100 at head_p4 (40 x 40 x 256): 2 branches x 2 convs x 9 x
-// 256 x 256 MACs a pixel, 3.8 G MACs = 7.6 GFLOP over 1 MB of activations
-// and 4.7 MB of weights, about 7.6 us at the bf16 peak. 25 tiles x 2
-// branches x 2 = 100 blocks there, 50 x 2 = 100 at head_p3: one wave of
-// blocks, one block an SM (a cluster of four, 200 blocks, took two waves
-// and longer). At base 64's head_p4 (40 x 40 x 512): 30.2 GFLOP over 20.5
-// MB, about 30.5 us; 50 4 x 8 tiles x 2 branches x 8 = 800 blocks, about
-// six waves.
+//     tiles, the pred weights read as fragments packed at load (8-byte
+//     loads).
+// Replicated plan (`body`: C = 32 and 128, one block; C = 256 on small
+// images, a cluster of 2; 8 x 8 tiles, 8 x 16 at 128): every block holds
+// the whole x and c1 windows, computes half of every conv's output
+// channels and stores them into both blocks' windows; the pred's m16 row
+// tiles spread over the cluster.
+// Owned plan (`body_owned`: C = 512, and 256 where one image's grid fills
+// the card; 8 x 16 tiles, a cluster of C / 128): block r owns c1's and c2's
+// channels 128 r .. (two planes each) and keeps only those; A is gathered:
+// conv1's x window from L2 one plane at a time into two window planes,
+// conv2's c1 from each peer's shared memory two planes at a time; the
+// preds are split over K, block r adding the cluster's f32 partials of a
+// quarter (half) of the pixels. Both convs take K plane by plane (at 256
+// walking a stream packed tap by tap), so the owned plan's sums are in
+// another order than the replicated plan's.
+// Bound on the H100 at base 64's head_p4 (40 x 40 x 512): 30.2 GFLOP over
+// 20.5 MB, about 30.5 us at the bf16 peak; the owned plan's 15 tiles x 2
+// branches x 4 = 120 blocks (one wave) read 283 MB of weights from L2
+// (944 MB on the replicated plan's 4 x 8 tiles) and run at 3.7x that
+// bound (PERF.md): each block's 189 M MACs at 45% of an SM's tensor-core
+// peak, behind its chain of chunk steps. At base 32's head_p4 (40 x 40 x
+// 256): 7.6 GFLOP, 7.6 us; 25 tiles x 2 branches x 2 = 100 blocks in the
+// replicated plan.
 namespace wide_head {
 
 using namespace wide;
@@ -296,8 +305,12 @@ using namespace wide;
 // 4 x 8 tile's fit beside the 64 KB ring of a cluster of 8, whose 64
 // columns a block make two 32-column warpgroup parts); 8 x 8 otherwise (at
 // 256 wider windows would not fit in shared memory).
-__host__ __device__ constexpr int tile_rows(int c) { return c == 512 ? 4 : 8; }
-__host__ __device__ constexpr int tile_w(int c) { return c == 128 ? 16 : 8; }
+__host__ __device__ constexpr int tile_rows(int c) { return 8; }
+__host__ __device__ constexpr int tile_w(int c) {
+  return c == 128 || c == 512 ? 16 : 8;
+}
+// the owned plan's tile (`body_owned`): 8 x 16
+constexpr int OWNED_TR = 8, OWNED_TW = 16;
 // pixels of the x window (halo 2) and of conv1's region (halo 1)
 __host__ __device__ constexpr int x_px(int tr, int tw) {
   return (tr + 4) * (tw + 4);
@@ -307,7 +320,25 @@ __host__ __device__ constexpr int c1_px(int tr, int tw) {
 }
 
 __host__ __device__ constexpr int split(int c) {
-  return c == 512 ? 8 : c == 256 ? 2 : c == 128 || c == 32 ? 1 : 0;
+  return c == 512 ? 4 : c == 256 ? 2 : c == 128 || c == 32 ? 1 : 0;
+}
+// The widths compiled in the owned plan (`body_owned`): a cluster of C /
+// 128 blocks, each owning 128 channels (two planes) of c1 and c2. 512 runs
+// the owned plan always, and its stream is packed plane by plane, as the
+// owned plan multiplies it; 256 runs it where one image's grid has
+// OWNED_MIN_BLOCKS blocks or more (base 64's head_p3 at 80 x 80: 200), the
+// replicated plan below that (base 32's head_p4 at 40 x 40: 60 owned
+// blocks would leave most SMs idle where the replicated plan has 100), and
+// its stream stays tap by tap, as the replicated plan multiplies it: the
+// owned plan walks it (`Feeder`'s WALK). The two plans sum in different
+// orders, so the plan is picked from the image's size, never the batch's:
+// a frame gets the same bits alone and inside any batch.
+__host__ __device__ constexpr bool plane_major(int c) { return c == 512; }
+constexpr int OWNED_MIN_BLOCKS = 128;
+__host__ __device__ inline bool owned_plan(int c, int h, int w) {
+  const int tiles =
+      ((h + OWNED_TR - 1) / OWNED_TR) * ((w + OWNED_TW - 1) / OWNED_TW);
+  return c == 512 || (c == 256 && tiles * 2 * (c / 128) >= OWNED_MIN_BLOCKS);
 }
 // the widest warpgroup part of the two convs: sets the ring's slots
 __host__ __device__ constexpr int ring_cols(int ns, int tr, int tw) {
@@ -315,10 +346,25 @@ __host__ __device__ constexpr int ring_cols(int ns, int tr, int tw) {
 }
 // shared memory: the block's stream table and alignment, the ring, the x
 // window, c1
-__host__ __device__ inline int smem_bytes(int c) {
+// window, c1's
+__host__ __device__ inline int smem_replicated(int c) {
   const int tr = tile_rows(c), tw = tile_w(c);
   return wide::SMEM_HEAD + ring_bytes(ring_cols(c / split(c), tr, tw)) +
          (x_px(tr, tw) + c1_px(tr, tw)) * planes(c) * PIX_BYTES;
+}
+// the owned plan's: the head, the ring, the block's two c1 planes and two
+// x planes (which later hold the peers' c1 planes, then c2's and the
+// pred's partial sums)
+__host__ __device__ inline int smem_owned(int c) {
+  constexpr int tr = OWNED_TR, tw = OWNED_TW;
+  return wide::SMEM_HEAD + ring_bytes(ring_cols(128, tr, tw)) +
+         2 * (c1_px(tr, tw) + cmax(x_px(tr, tw), c1_px(tr, tw))) *
+             PIX_BYTES;
+}
+// the shared memory a width is admitted by: at 512 the owned plan's, else
+// the replicated plan's (at 256 the owned plan needs less)
+__host__ __device__ inline int smem_bytes(int c) {
+  return c == 512 ? smem_owned(c) : smem_replicated(c);
 }
 
 struct Branch {
@@ -483,42 +529,266 @@ __device__ __forceinline__ void body(const bf16* __restrict__ x,
   }
 }
 
+// ---- the owned plan: a cluster of C / 128 blocks on an 8 x 16 tile ----
+//
+// Block r of a branch's cluster computes, and keeps, c1's channels 128 r ..
+// (two planes) over conv1's region and c2's over the tile. A is gathered:
+// conv1 reads the x window from global memory (L2) one 64-channel plane at
+// a time into two window planes, one copied while the other multiplies;
+// conv2 copies each peer's two c1 planes from its shared memory
+// (`gather`, 16-byte ld.shared::cluster) into the same space in turn and
+// reads its own in place. Both convs take their K chunks plane by plane,
+// the nine taps of a plane together (at 512 the weight stream is packed in
+// that order, mma_pack.py; at 256 it is walked so), where the replicated
+// plan takes them tap by tap: the same products, summed in another order.
+// The preds are split over K: each block sums its 128 channels' products
+// (m16n8k16, one m16 row tile a warp) into f32 partials in its shared
+// memory; after a cluster barrier block r adds the S partials of its
+// 1/S of the tile's pixels in rank order, then the bias. The barrier also
+// ends every read of a peer's c1; a last one keeps each block alive while
+// its peers read its partials.
+template <int C>
+__device__ __forceinline__ void body_owned(const bf16* __restrict__ x,
+                                           const bf16* __restrict__ w33,
+                                           const Branch& br, int H, int W,
+                                           int tiles_x, int tiles_y,
+                                           unsigned char* smem_raw,
+                                           Stream& st) {
+  constexpr int S = C / 128;
+  constexpr int PC = C / 64, NS = C / S;  // planes; a block's columns
+  static_assert(NS == 128, "a block owns two planes of c1 and c2");
+  constexpr int TR = OWNED_TR, TW = OWNED_TW;       // output tile
+  constexpr int XC = TW + 4, XP = x_px(TR, TW);     // x window
+  constexpr int CC = TW + 2, CP = c1_px(TR, TW);    // conv1 region
+  constexpr int OP = TR * TW;                       // the tile
+  constexpr uint32_t XPL = XP * PIX_BYTES, CPL = CP * PIX_BYTES;
+  using G = Ring<ring_slot(ring_cols(NS, TR, TW))>;
+  // a stream packed tap by tap (C = 256) is walked plane by plane: the nine
+  // taps of a plane lie PC chunks apart
+  constexpr bool WALK = !plane_major(C);
+  static_assert(OP % (16 * S) == 0 && 2 * OP * PIX_BYTES + OP * 32 <=
+                    2 * cmax(XPL, CPL), "the pred's partials");
+  const Lane L;
+  const int rank = cluster_rank<S>();
+  const int tile = blockIdx.x / S;
+  const int b = tile / (tiles_x * tiles_y);
+  const int rem = tile - b * tiles_x * tiles_y;
+  const int R0 = (rem / tiles_x) * TR, W0 = (rem % tiles_x) * TW;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = ring_base(raw);
+  const uint32_t c1_s = ring + G::BYTES;  // c1's two planes of this block
+  const uint32_t ga = c1_s + 2 * CPL;     // x planes; peers' c1; c2
+  const uint32_t c2_s = ga;               // after conv2
+  const uint32_t pb_s = ga + 2 * OP * PIX_BYTES;  // OP x 8 f32 partials
+  const long long per_block = 18LL * PC * NS * 128;
+  const unsigned char* img = reinterpret_cast<const unsigned char*>(w33);
+  const uint2* wpf = reinterpret_cast<const uint2*>(
+                         img + 2 * S * per_block) + blockIdx.y * C * 2;
+
+  if (L.tid == 0) {
+    st.nst = 0;
+    st.first[0] = 0;
+    st.add(9 * PC, NS * 128, stage_nh(NS, CP), 0, 0, WALK ? 9 : 0, PC);
+    st.add(9 * PC, NS * 128, stage_nh(NS, OP), 0, 0, WALK ? 9 : 0, PC);
+    st.src = img + (blockIdx.y * S + rank) * per_block;
+  }
+  init_rings<G>(raw, L);
+  __syncthreads();  // the stream's table, the rings' barriers
+  Feeder<G, WALK> fd(st, ring, raw + BARS, L);
+  for (int g = 0; g < G::DIST; ++g) fd.issue();
+  // x plane q into space q & 1: row R0-2+xr, column W0-2+xc; zeros outside
+  // the image
+  const bf16* xb = x + (size_t)b * H * W * C;
+  auto load_x = [&](int q) {
+    const uint32_t dst = ga + (q & 1) * XPL;
+    for (int i = L.tid; i < XP * 8; i += wide::THREADS) {
+      const int ch = i & 7, p = i >> 3;
+      const int xr = p / XC, xc = p - xr * XC;
+      const int gy = R0 - 2 + xr, gx = W0 - 2 + xc;
+      const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const bf16* src =
+          ok ? xb + ((size_t)gy * W + gx) * C + q * 64 + ch * 8 : xb;
+      cp_async16(dst + pix_chunk(p, ch), src, ok ? 16 : 0);
+    }
+  };
+
+  // ---- conv1 on the tile plus a 1-pixel halo, x plane by plane ----
+  {
+    constexpr int NH = stage_nh(NS, CP), NI = NS / NH;
+    constexpr int N1 = stage_items<NH>(CP), M1 = share(N1);
+    constexpr int KS1 = M1 * NI >= 192 ? 1 : KSTEP;
+    const Items<NI, NH, M1> items{N1};
+    int xp[M1];  // the top-left tap of this lane's row
+#pragma unroll
+    for (int i = 0; i < M1; ++i) {
+      const int m = min(items.arow(i, L), CP - 1);
+      xp[i] = (m / CC) * XC + m % CC;
+    }
+    float acc[M1][NI / 2];
+    zero_acc<NI>(acc);
+    load_x(0);
+    cp_async_commit();
+#pragma unroll 1
+    for (int q = 0; q < PC; ++q) {
+      if (q + 1 < PC) {
+        load_x(q + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // plane q is in
+      gemm_more<KS1>(acc, items, 0, 9 * q, 9, fd, L,
+                     [&](int i, int kc, uint32_t& win, int& px) {
+                       const int tap = kc - 9 * q;
+                       win = ga + (q & 1) * XPL;
+                       px = xp[i] + (tap / 3) * XC + tap % 3;
+                     });
+      __syncthreads();  // its space may be filled again
+    }
+    each_pair(
+        acc, items, L, [&](int c) { return br.b1 + rank * NS + c; },
+        [&](int m) {
+          const int gy = R0 - 1 + m / CC, gx = W0 - 1 + m % CC;
+          return Row{c1_s + m * PIX_BYTES, m & 7, m < CP,
+                     gy >= 0 && gy < H && gx >= 0 && gx < W};
+        },
+        [&](const Row& r, int c, uint32_t v) {
+          st_shared(r.off + col_off(c, CP, r.x), r.inside ? v : 0u);
+        });
+    cluster_sync<S>();
+  }
+  // ---- conv2 on the tile: the c1 planes of block o, o = 0 .. S-1 ----
+  {
+    constexpr int NH = stage_nh(NS, OP), NI = NS / NH;
+    constexpr int N2 = stage_items<NH>(OP), M2 = share(N2);
+    constexpr int KS2 = M2 * NI >= 192 ? 1 : KSTEP;
+    const Items<NI, NH, M2> items{N2};
+    int cp[M2];  // the top-left tap of this lane's row in c1
+#pragma unroll
+    for (int i = 0; i < M2; ++i) {
+      const int m = min(items.arow(i, L), OP - 1);
+      cp[i] = (m / TW) * CC + m % TW;
+    }
+    float acc[M2][NI / 2];
+    zero_acc<NI>(acc);
+#pragma unroll 1
+    for (int o = 0; o < S; ++o) {
+      uint32_t src = c1_s;
+      if (o != rank) {
+        gather(ga, peer_addr(c1_s, o), 2 * CPL, L.tid);
+        __syncthreads();
+        src = ga;
+      }
+      gemm_more<KS2>(acc, items, 9 * PC, 18 * o, 18, fd, L,
+                     [&](int i, int kc, uint32_t& win, int& px) {
+                       const int q = kc / 9, tap = kc - 9 * q;
+                       win = src + (q & 1) * CPL;
+                       px = cp[i] + (tap / 3) * CC + tap % 3;
+                     });
+      __syncthreads();  // the copies may be replaced
+    }
+    each_pair(
+        acc, items, L, [&](int c) { return br.b2 + rank * NS + c; },
+        [&](int m) {
+          return Row{c2_s + m * PIX_BYTES, m & 7, m < OP, true};
+        },
+        [&](const Row& r, int c, uint32_t v) {
+          st_shared(r.off + col_off(c, OP, r.x), v);
+        });
+    __syncthreads();
+  }
+  // ---- pred = c2 @ wp + bp (f32), split over the cluster's channels ----
+  float* pb = reinterpret_cast<float*>(smem_raw + (pb_s - raw));
+  for (int mt = L.tid >> 5; mt < OP / 16; mt += wide::THREADS / 32) {
+    float pd[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < NS / 16; ++ks) {
+      uint32_t a[4];
+      ldmatrix_x4(a, c2_s + (ks >> 2) * OP * PIX_BYTES +
+                         pix_chunk(mt * 16 + (L.lane & 15),
+                                   2 * (ks & 3) + (L.lane >> 4)));
+      const uint2 f = __ldg(wpf + (rank * (NS / 16) + ks) * 32 + L.lane);
+      const uint32_t bfr[2] = {f.x, f.y};
+      mma_m16n8k16(pd, a, bfr);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = mt * 16 + L.g + 8 * half;
+      pb[m * 8 + 2 * L.tq] = pd[2 * half];
+      pb[m * 8 + 2 * L.tq + 1] = pd[2 * half + 1];
+    }
+  }
+  cluster_sync<S>();  // the partials are in; no block reads a peer's c1
+  for (int i = L.tid; i < OP / S * 8; i += wide::THREADS) {
+    const int m = rank * (OP / S) + i / 8, col = i % 8;
+    const uint32_t off = pb_s + (m * 8 + col) * 4;
+    float v = ld_cluster_f32(peer_addr(off, 0));
+#pragma unroll
+    for (int q = 1; q < S; ++q)
+      v = __fadd_rn(v, ld_cluster_f32(peer_addr(off, q)));
+    const int gy = R0 + m / TW, gx = W0 + m % TW;
+    if (gy < H && gx < W && col < br.no)
+      br.out[(((size_t)b * H + gy) * W + gx) * br.no + col] =
+          __fadd_rn(v, __ldg(br.bp + col));
+  }
+  cluster_sync<S>();  // no block exits while a peer reads its partials
+}
+
+// One kernel function a compiled body: C the width, OWN the owned plan;
+// the launcher picks the instance
+template <int C, bool OWN>
 __global__ void __launch_bounds__(wide::THREADS, 1)
 head_wide_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w33,
-                 Branch cls, Branch reg, int C, int H, int W, int tiles_x,
+                 Branch cls, Branch reg, int H, int W, int tiles_x,
                  int tiles_y) {
   extern __shared__ __align__(16) unsigned char wide_smem[];
   Stream& st = *reinterpret_cast<Stream*>(wide_smem);
   const Branch& br = blockIdx.y == 0 ? cls : reg;
-  if (C == 512)
-    body<512>(x, w33, br, H, W, tiles_x, tiles_y, wide_smem, st);
-  else if (C == 256)
-    body<256>(x, w33, br, H, W, tiles_x, tiles_y, wide_smem, st);
-  else if (C == 128)
-    body<128>(x, w33, br, H, W, tiles_x, tiles_y, wide_smem, st);
+  if constexpr (OWN)
+    body_owned<C>(x, w33, br, H, W, tiles_x, tiles_y, wide_smem, st);
   else
-    body<32>(x, w33, br, H, W, tiles_x, tiles_y, wide_smem, st);
+    body<C>(x, w33, br, H, W, tiles_x, tiles_y, wide_smem, st);
+}
+
+template <int C, bool OWN>
+int launch_body(const bf16* x, const bf16* w33, Branch cls, Branch reg,
+                int B, int H, int W, void* stream) {
+  constexpr int S = OWN ? C / 128 : split(C);
+  const int smem = OWN ? smem_owned(C) : smem_replicated(C);
+  if (smem > wide::SMEM_MAX) return (int)cudaErrorInvalidValue;
+  static bool ready = false;  // one per compiled body
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(
+        head_wide_kernel<C, OWN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, wide::SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  constexpr int tr = OWN ? OWNED_TR : tile_rows(C);
+  constexpr int tw = OWN ? OWNED_TW : tile_w(C);
+  const int tiles_x = (W + tw - 1) / tw, tiles_y = (H + tr - 1) / tr;
+  return launch_cluster(last_launch, head_wide_kernel<C, OWN>, S,
+                        tiles_x * tiles_y * B * S, 2, smem, stream, x, w33,
+                        cls, reg, H, W, tiles_x, tiles_y);
 }
 
 int launch(const bf16* x, const bf16* w33, Branch cls, Branch reg, int C,
            int B, int H, int W, void* stream) {
-  const int S = split(C);
-  if (S == 0) return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes(C);
-  if (smem > wide::SMEM_MAX) return (int)cudaErrorInvalidValue;
-  static bool ready = false;
-  if (!ready) {
-    cudaError_t err = cudaFuncSetAttribute(
-        head_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        wide::SMEM_MAX);
-    if (err != cudaSuccess) return (int)err;
-    ready = true;
+  switch (C) {
+    case 512:
+      return launch_body<512, true>(x, w33, cls, reg, B, H, W, stream);
+    case 256:
+      return owned_plan(C, H, W)
+                 ? launch_body<256, true>(x, w33, cls, reg, B, H, W, stream)
+                 : launch_body<256, false>(x, w33, cls, reg, B, H, W,
+                                           stream);
+    case 128:
+      return launch_body<128, false>(x, w33, cls, reg, B, H, W, stream);
+    case 32:
+      return launch_body<32, false>(x, w33, cls, reg, B, H, W, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
-  const int tr = tile_rows(C), tw = tile_w(C);
-  const int tiles_x = (W + tw - 1) / tw, tiles_y = (H + tr - 1) / tr;
-  return launch_cluster(last_launch, head_wide_kernel, S,
-                        tiles_x * tiles_y * B * S, 2, smem, stream, x, w33,
-                        cls, reg, C, H, W, tiles_x, tiles_y);
 }
 
 }  // namespace wide_head

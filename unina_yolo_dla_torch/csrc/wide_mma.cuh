@@ -7,11 +7,10 @@
 //
 // What bounds them on the H100: weights of 0.3-18.9 MB a launch against
 // 0.5-4.9 MB of activations and 1-30 GFLOP, so the tensor cores (1-31 us)
-// once every weight is read from L2 once per block and every A fragment
+// once every weight is read from L2 once per cluster and every A fragment
 // once per warpgroup; in practice the latency of each block's chain of
 // stages (window copies, chunk steps, epilogues, barriers) on one block an
-// SM, and at base 64's widest widths the 4-7 waves of clusters that its
-// smaller tiles take. Measured times: PERF.md.
+// SM. Measured times: PERF.md.
 //
 //   Windows  every activation window is a stack of 64-channel planes, each
 //     plane `pixels x 128 bytes` with the 16-byte chunks of pixel p at
@@ -19,14 +18,19 @@
 //     no multiple of 64 leaves the rest of its last plane zero.
 //   A (activations)  `ldmatrix` rows of window pixels (mma_sm90.cuh
 //     `load_a64`): every lane names its own pixel, so a 3x3 tap is a shift
-//     of that pixel and the halo needs no copy.
+//     of that pixel and the halo needs no copy. `ldmatrix` reads only this
+//     block's shared memory, so a plane kept by a peer is first copied in
+//     (`gather`).
 //   B (weights)  per 64-deep K chunk one swizzled [NS n][64 k] tile of this
 //     block's NS output columns (ops/cuda/mma_pack.py `_wide_stream`); a
-//     block's chunks lie contiguous in the order it consumes them, stage
-//     after stage. Each warpgroup keeps its own ring of the columns it
-//     multiplies: `Feeder` copies its part of chunk g + DIST by one bulk
-//     copy into slot g % RING while chunk g multiplies, completing on the
-//     slot's mbarrier, so the two warpgroups meet only between stages.
+//     block's chunks lie in the order it consumes them, stage after stage
+//     (or, where a stream is packed for fewer, wider blocks or in the
+//     other order of a 3x3's taps and planes, at a stride and offset or
+//     walked: `Stream`). Each
+//     warpgroup keeps its own ring of the columns it multiplies: `Feeder`
+//     copies its part of chunk g + DIST by one bulk copy into slot g % RING
+//     while chunk g multiplies, completing on the slot's mbarrier, so the
+//     two warpgroups meet only between stages.
 //   Products  a stage is a set of items, an item one m64 row tile times NI
 //     of the block's columns (wgmma m64nNIk16, NI 16 to 64), item i of a
 //     stage belongs to warpgroup i % 2: all columns of alternate m64 tiles
@@ -34,17 +38,23 @@
 //     of every tile. Every count is known at compile time, so no product
 //     sits behind a branch; A has one set of registers, loaded after the
 //     warpgroup's previous products are done (wgmma runs unserialized only
-//     while nothing else defines its operands); two chunks a step.
-//   Cluster  the blocks of a cluster (2, 4 or 8, the portable maximum)
-//     share one output tile; each computes its columns of every stage and
-//     stores them, bf16, into the window of every block of the cluster
-//     (distributed shared memory), then the cluster meets at a barrier
-//     before the next stage reads the window. Each block's ring and its
-//     mbarriers are its own, whatever the cluster's size.
+//     while nothing else defines its operands); two chunks a step, one
+//     where the accumulators are wide.
+//   Cluster  the blocks of a cluster (2 or 4, within the portable 8) share
+//     one output tile, each computing its columns of every stage, in one
+//     of two plans. Replicated: every block keeps every plane of every
+//     window and stores its columns, bf16, into the windows of every block
+//     of the cluster (4-byte distributed shared-memory stores, `Peers`).
+//     Owned (base 64's widest stages): a block keeps only the 64-channel
+//     planes it computes, its epilogues store into its own shared memory,
+//     and before a stage it copies its peers' planes into window planes of
+//     its own (`gather`: 16-byte ld.shared::cluster). Either way the
+//     cluster meets at a barrier after every stage's epilogue, and no
+//     block leaves while a peer may still read it. Each block's ring and
+//     its mbarriers are its own.
 //   Tile  the output tile is a compile-time parameter of each body (c3k2.cu
-//     `tile_rows` / `tile_cols`, head.cu `tile_rows` / `tile_w`): 8 x 8 or
-//     8 x 16, and 4 x 4 or 4 x 8 at hidden 256 and head 512, whose
-//     8-plane windows of an 8 x 8 tile would not fit a block.
+//     `tile_rows` / `tile_cols`: 8 x 8; head.cu `tile_rows` / `tile_w`:
+//     8 x 8 or 8 x 16, the owned plan 8 x 16), one kernel function a body.
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -113,28 +123,44 @@ struct Lane {
 };
 
 // this block's weight chunks, stage after stage; each warpgroup copies the
-// columns it multiplies into a ring of its own
+// columns it multiplies into a ring of its own. A block's chunk of stage s
+// is `bytes` at `skew` inside every `stride` bytes of the stream: the
+// whole stride, or (where the stream is packed for fewer, wider blocks)
+// the part of a wider block's chunk that this block multiplies.
 struct Stream {
-  const unsigned char* src;       // the block's first chunk
+  const unsigned char* src;       // the stream's range this block reads
   int nst;                        // stages
   int first[MAX_STAGES + 1];      // first chunk of stage s; [nst] = total
   int bytes[MAX_STAGES];          // bytes of one chunk of stage s
   int halves[MAX_STAGES];         // 2: each warpgroup takes its half
-  long long off[MAX_STAGES];      // byte offset of stage s's first chunk
+  int stride[MAX_STAGES];         // bytes from one chunk to the next
+  int skew[MAX_STAGES];           // the chunk's offset inside its stride
+  // 0: chunks stored in the order they are multiplied; else a 3x3 stage
+  // stored in the other order of its (tap, plane) pairs: the `inner`
+  // chunks multiplied in a row lie `jump` chunks apart, and each such run
+  // starts one chunk after the last one's start (a `Feeder` with WALK)
+  int inner[MAX_STAGES];
+  int jump[MAX_STAGES];
+  long long off[MAX_STAGES];      // byte offset of stage s's first stride
 
-  __device__ void add(int nchunks, int chunk_bytes, int nh) {
+  __device__ void add(int nchunks, int chunk_bytes, int nh, int step = 0,
+                      int at = 0, int run = 0, int apart = 0) {
     off[nst] = nst ? off[nst - 1] +
                          (long long)(first[nst] - first[nst - 1]) *
-                             bytes[nst - 1]
+                             stride[nst - 1]
                    : 0;
     bytes[nst] = chunk_bytes;
     halves[nst] = nh;
+    stride[nst] = step ? step : chunk_bytes;
+    skew[nst] = at;
+    inner[nst] = run;
+    jump[nst] = apart;
     first[nst + 1] = first[nst] + nchunks;
     ++nst;
   }
   __device__ long long total_bytes() const {
     return off[nst - 1] +
-           (long long)(first[nst] - first[nst - 1]) * bytes[nst - 1];
+           (long long)(first[nst] - first[nst - 1]) * stride[nst - 1];
   }
 };
 
@@ -178,13 +204,17 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
 // A warpgroup's copying side of its ring: a cursor over the block's
 // stream, one chunk (the warpgroup's part of it) a call, copied by one
 // bulk copy into slot g % RING, which completes on that slot's mbarrier.
-// The slots' barriers lie at `bars` (RING for each warpgroup).
-template <class G>
+// The slots' barriers lie at `bars` (RING for each warpgroup). WALK: the
+// stream may hold a stage in another order than it is multiplied
+// (`Stream::inner`); only the bodies that read one pay for the walk.
+template <class G, bool WALK = false>
 struct Feeder {
   static constexpr int RING = G::RING, SLOT = G::SLOT;
   const Stream* st;
   const unsigned char* src;  // this warpgroup's part of the next chunk
-  int part, chunk;           // its bytes; a whole chunk's
+  const unsigned char* run;  // WALK: of the first chunk of this run
+  int part, step, inner, q;  // its bytes; the stride; a run, its position
+  long long hop;             // WALK: bytes between a run's chunks
   int left, s, g;            // chunks left in stage s; the next chunk
   uint32_t ring, bars;       // this warpgroup's first slot and barrier
   bool lead;                 // the warpgroup's thread that copies
@@ -196,13 +226,22 @@ struct Feeder {
         bars(bars0 + L.wg * RING * 8), lead((L.tid & 127) == 0), wg(L.wg) {
     enter(0);
   }
+  // the stream's table is read here, once a stage; `issue` then only
+  // steps pointers (the walk needs no division)
   __device__ void enter(int stage) {
     s = stage;
     if (s < st->nst) {
-      chunk = st->bytes[s];
-      part = chunk / st->halves[s];
+      part = st->bytes[s] / st->halves[s];
+      step = st->stride[s];
       left = st->first[s + 1] - st->first[s];
-      src = st->src + st->off[s] + (st->halves[s] == 2 ? wg * part : 0);
+      src = st->src + st->off[s] + st->skew[s] +
+            (st->halves[s] == 2 ? wg * part : 0);
+      if constexpr (WALK) {
+        inner = st->inner[s];
+        hop = (long long)st->jump[s] * step;
+        q = 0;
+        run = src;
+      }
     }
   }
   __device__ void issue() {
@@ -212,7 +251,19 @@ struct Feeder {
         mbar_expect(bar, part);
         bulk_copy(ring + (g % RING) * SLOT, src, part, bar);
       }
-      src += chunk;
+      if constexpr (WALK) {
+        if (inner == 0) {
+          src += step;
+        } else if (++q < inner) {  // the run's next chunk
+          src += hop;
+        } else {                   // the next run
+          q = 0;
+          run += step;
+          src = run;
+        }
+      } else {
+        src += step;
+      }
       if (--left == 0) enter(s + 1);
     }
     ++g;
@@ -302,10 +353,10 @@ struct Items {
 // registers: wgmma runs unserialized only while nothing else defines its
 // operands); the other warpgroup runs on its own ring meanwhile and fills
 // the tensor cores.
-template <int KS, int NI, int MINE, class G, class AFn>
+template <int KS, int NI, int MINE, class G, bool W, class AFn>
 __device__ __forceinline__ void chunk_step(
     float (&acc)[MINE][NI / 2], uint32_t (&a)[KS][MINE][4][4], int g,
-    int kc, Feeder<G>& fd, const Lane& L, AFn afn) {
+    int kc, Feeder<G, W>& fd, const Lane& L, AFn afn) {
 #pragma unroll
   for (int k = 0; k < KS; ++k) fd.wait(g + k);  // the step's chunks landed
   wgmma_wait<0>();             // the previous step is done with A, slots
@@ -337,30 +388,49 @@ __device__ __forceinline__ void chunk_step(
   wgmma_commit();
 }
 
-// A stage's products over `nk` chunks, the first the stream's chunk g0.
-// `afn(i, kc, win, pix)` names this lane's A row of item i in chunk kc:
-// the plane's shared address and the pixel.
-template <int NI, int NH, int MINE, class G, class AFn>
-__device__ __forceinline__ void gemm(float (&acc)[MINE][NI / 2],
-                                     const Items<NI, NH, MINE>& items,
-                                     int g0, int nk, Feeder<G>& fd,
-                                     const Lane& L, AFn afn) {
+// Chunks k0 .. k0 + nk - 1 of a stage's products, added to `acc`; chunk
+// kc is the stream's chunk g0 + kc. `afn(i, kc, win, pix)` names this
+// lane's A row of item i in chunk kc: the plane's shared address and the
+// pixel. KS chunks a step (1 where a warpgroup's accumulators and A
+// registers would not fit beside each other at two).
+template <int KS, int NI, int NH, int MINE, class G, bool W, class AFn>
+__device__ __forceinline__ void gemm_more(float (&acc)[MINE][NI / 2],
+                                          const Items<NI, NH, MINE>& items,
+                                          int g0, int k0, int nk,
+                                          Feeder<G, W>& fd, const Lane& L,
+                                          AFn afn) {
   static_assert(NI * 128 <= G::SLOT, "a warpgroup's columns fit its slot");
+  uint32_t a[KS][MINE][4][4];
+  int kc = k0;
+#pragma unroll 1
+  for (; kc + KS <= k0 + nk; kc += KS)
+    chunk_step<KS, NI>(acc, a, g0 + kc, kc, fd, L, afn);
+  if constexpr (KS > 1) {
+    if (kc < k0 + nk) {
+      uint32_t a1[1][MINE][4][4];
+      chunk_step<1, NI>(acc, a1, g0 + kc, kc, fd, L, afn);
+    }
+  }
+  wgmma_wait<0>();
+  (void)items;
+}
+
+template <int NI, int MINE>
+__device__ __forceinline__ void zero_acc(float (&acc)[MINE][NI / 2]) {
 #pragma unroll
   for (int i = 0; i < MINE; ++i)
 #pragma unroll
     for (int j = 0; j < NI / 2; ++j) acc[i][j] = 0.f;
-  uint32_t a[KSTEP][MINE][4][4];
-  int kc = 0;
-#pragma unroll 1
-  for (; kc + KSTEP <= nk; kc += KSTEP)
-    chunk_step<KSTEP, NI>(acc, a, g0 + kc, kc, fd, L, afn);
-  if (kc < nk) {
-    uint32_t a1[1][MINE][4][4];
-    chunk_step<1, NI>(acc, a1, g0 + kc, kc, fd, L, afn);
-  }
-  wgmma_wait<0>();
-  (void)items;
+}
+
+// A stage's products over `nk` chunks, the first the stream's chunk g0.
+template <int NI, int NH, int MINE, class G, bool W, class AFn>
+__device__ __forceinline__ void gemm(float (&acc)[MINE][NI / 2],
+                                     const Items<NI, NH, MINE>& items,
+                                     int g0, int nk, Feeder<G, W>& fd,
+                                     const Lane& L, AFn afn) {
+  zero_acc<NI>(acc);
+  gemm_more<KSTEP>(acc, items, g0, 0, nk, fd, L, afn);
 }
 
 // One output row of an epilogue: whether it is stored, whether its pixel
@@ -455,6 +525,67 @@ struct Peers {
     }
   }
 };
+
+// ---- planes owned: a block reads its peers' planes ----
+// the shared::cluster address of `local` (this block's shared memory) in
+// block `rank` of the cluster
+__device__ __forceinline__ uint32_t peer_addr(uint32_t local, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(local), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ uint32_t ld_shared(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+// One block-wide copy of a run of peer shared memory into this block's:
+// `bytes` (a multiple of 16) from `src` (a shared::cluster address) to
+// `dst`, 16 bytes a thread and UNROLL loads in flight before their stores.
+// The caller meets its block at a barrier before the copy is read.
+__device__ __forceinline__ void gather(uint32_t dst, uint32_t src, int bytes,
+                                       int tid) {
+  constexpr int UNROLL = 4, STEP = THREADS * 16;
+  int i = tid * 16;
+  for (; i + (UNROLL - 1) * STEP < bytes; i += UNROLL * STEP) {
+    uint4 v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(v[u].x), "=r"(v[u].y), "=r"(v[u].z), "=r"(v[u].w)
+                   : "r"(src + i + u * STEP)
+                   : "memory");
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       dst + i + u * STEP),
+                   "r"(v[u].x), "r"(v[u].y), "r"(v[u].z), "r"(v[u].w)
+                   : "memory");
+  }
+  for (; i < bytes; i += STEP) {
+    uint4 v;
+    asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                 : "r"(src + i)
+                 : "memory");
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst + i),
+                 "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+                 : "memory");
+  }
+}
 
 // every block's stores are visible to every block of the cluster
 template <int S>

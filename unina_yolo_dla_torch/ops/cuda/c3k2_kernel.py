@@ -6,9 +6,10 @@ CUDA source: ``csrc/c3k2.cu`` (tensor cores; entry points
 Each entry point launches one of two kernels by width: the tiled
 ``wgmma`` kernel at hidden 32 and F 64 (the int8 engine's float blocks),
 the wide ``wgmma`` form (weights streamed through shared memory; at hidden
-128 and 256 each output tile one cluster of four or eight blocks splitting
-the columns) at hidden 16, 64, 128 and 256 with F = 2 hidden: every other
-C3k2 of the bf16 engines at base 16, 32 and 64.
+128 and 256 each output tile one cluster splitting the columns; at 256,
+and at 128 on large images, each block keeping only the planes it
+computes and copying its peers') at hidden 16, 64, 128 and 256 with F = 2
+hidden: every other C3k2 of the bf16 engines at base 16, 32 and 64.
 ``fused_c3k2`` and ``fused_c3k2_cat`` launch them for CUDA tensors; for
 CPU tensors they run ``fused_c3k2_plain`` / ``fused_c3k2_cat_plain``,
 which follow the reference's XLA form step by step:
@@ -59,12 +60,29 @@ def _planes(c: int) -> int:
     return -(-c // 64)
 
 
+# the owned plan's input (csrc/c3k2.cu ``XMAX``, ``XSLOTS``): at most this
+# many 64-channel planes (``xa``'s and ``xb``'s counted apart), streamed
+# through XSLOTS window planes
+WIDE_XMAX, WIDE_XSLOTS = 12, 4
+# the replicated plan's clusters (csrc/c3k2.cu ``split``): hidden 128 on
+# grids below OWNED_MIN_BLOCKS owned-plan blocks
+REPLICATED_SPLIT = {16: 1, 64: 1, 128: 4}
+OWNED_MIN_BLOCKS = 128
+
+
+def owned_plan(hid: int, ntiles: int) -> bool:
+    """Whether the wide form runs the owned plan (csrc/c3k2.cu
+    ``owned_plan``) at hidden ``hid`` over ``ntiles`` output tiles (batch
+    included): always at 256, at 128 where its clusters of 2 make
+    OWNED_MIN_BLOCKS blocks or more. Both plans sum in the same order: a
+    frame's bits are the same in either."""
+    return hid == 256 or (hid == 128 and 2 * ntiles >= OWNED_MIN_BLOCKS)
+
+
 def wide_tile(hid: int, n: int) -> tuple[int, int]:
     """The wide form's output tile at hidden ``hid`` and ``n``
-    bottlenecks: 8 x 8, at hidden 256 4 x 8 (n = 1) or 4 x 4 (n = 2)
-    (csrc/c3k2.cu ``tile_rows``, ``tile_cols``)."""
-    if hid == 256:
-        return 4, 8 if n == 1 else 4
+    bottlenecks: 8 x 8 at every width (csrc/c3k2.cu ``tile_rows``,
+    ``tile_cols``)."""
     return 8, 8
 
 
@@ -80,12 +98,19 @@ def _region(tr: int, tw: int, n: int, i: int, c: bool) -> int:
 
 
 def wide_smem_bytes(ca: int, cb: int, up_a: bool, hid: int, n: int) -> int:
-    """The wide form's dynamic shared memory at these widths, as
+    """The shared memory the wide form admits these widths by, as
     csrc/c3k2.cu ``wide_c3k2::smem_bytes`` computes it (held against the
-    library on the card): the head, the ring, the [p1 | p2] window, and the
-    larger of the input windows (an upsampled ``xa`` at its coarse window)
-    and the t window. ``hid`` one of ``C3K2_SPLIT``."""
-    s = C3K2_SPLIT[hid]
+    library on the card): at hidden 256 the owned plan's
+    (``wide_smem_owned``), past WIDE_SMEM_MAX beyond WIDE_XMAX input
+    planes; otherwise the replicated plan's: the head, the ring, the [p1 |
+    p2] window, and the larger of the input windows (an upsampled ``xa`` at
+    its coarse window) and the t window (at hidden 128 the owned plan needs
+    no more for any input admitted so). ``hid`` one of ``C3K2_SPLIT``."""
+    if hid == 256:
+        if _planes(ca) + _planes(cb) > WIDE_XMAX:
+            return WIDE_SMEM_MAX + 1
+        return wide_smem_owned(hid, n)
+    s = REPLICATED_SPLIT[hid]
     tr, tw = wide_tile(hid, n)
     cols = max([wide_stage_cols(2 * hid // s, _region(tr, tw, n, i, False))
                 for i in (-1, n)]
@@ -97,6 +122,32 @@ def wide_smem_bytes(ca: int, cb: int, up_a: bool, hid: int, n: int) -> int:
     t = _planes(hid) * wp
     return (WIDE_SMEM_HEAD + wide_ring_bytes(cols)
             + (_planes(2 * hid) * wp + max(x, t)) * WIDE_PIX_BYTES)
+
+
+def wide_smem_owned(hid: int, n: int) -> int:
+    """The owned plan's shared memory (csrc/c3k2.cu ``smem_owned``): the
+    head, a ring of 64-column slots, the block's three window planes and
+    WIDE_XSLOTS more."""
+    tr, tw = wide_tile(hid, n)
+    return (WIDE_SMEM_HEAD + wide_ring_bytes(64)
+            + (3 + WIDE_XSLOTS) * _region(tr, tw, n, -1, False)
+            * WIDE_PIX_BYTES)
+
+
+def wide_launch(ca: int, cb: int, up_a: bool, hid: int, n: int, b: int,
+                h: int, w: int) -> dict:
+    """The wide form's launch over a (b, h, w) output, as csrc/c3k2.cu
+    makes it (``last_launch``' keys): the grid of tiles x cluster blocks,
+    the cluster and the dynamic shared memory of the plan it picks."""
+    tr, tw = wide_tile(hid, n)
+    ntiles = b * -(-h // tr) * -(-w // tw)
+    if owned_plan(hid, ntiles):
+        s, smem = hid // 64, wide_smem_owned(hid, n)
+    else:
+        s, smem = REPLICATED_SPLIT[hid], wide_smem_bytes(ca, cb, up_a, hid,
+                                                          n)
+    return {"grid": [ntiles * s, 1, 1], "cluster": [s, 1, 1],
+            "threads": 256, "smem_bytes": smem}
 
 
 def last_launch() -> dict:

@@ -2,10 +2,11 @@
 
 CUDA source: ``csrc/head.cu`` (tensor cores): the tiled ``wgmma`` kernel
 at width 64 (P2), the wide ``wgmma`` form (weights streamed through shared
-memory; at 256 and 512 each output tile one cluster of two or eight blocks
-splitting the channels) at widths 32, 128, 256 and 512 (P3/P4 of the bf16
-engines, base 16, 32 and 64). ``fused_head``
-launches one of them for a CUDA tensor; for a CPU tensor it runs
+memory; at 256 and 512 each output tile one cluster of two or four blocks
+splitting the channels, at 512 and at 256 on large images each block
+keeping only the planes it computes and copying its peers') at widths 32,
+128, 256 and 512 (P3/P4 of the bf16 engines, base 16, 32 and 64).
+``fused_head`` launches one of them for a CUDA tensor; for a CPU tensor it runs
 ``fused_head_plain``, which follows the reference's XLA form step by step.
 Per branch over the same input:
 
@@ -45,23 +46,73 @@ KERNEL = Kernel("unina_fused_head",
 KERNEL_C, KERNEL_NOMAX = 64, 8
 
 
+# the owned plan's tile (csrc/head.cu ``OWNED_TR``, ``OWNED_TW``), and one
+# image's grid at which it runs at 256 (``OWNED_MIN_BLOCKS``)
+OWNED_TILE = (8, 16)
+OWNED_MIN_BLOCKS = 128
+
+
 def wide_tile(c: int) -> tuple[int, int]:
-    """The wide form's output tile at width ``c``: 8 x 16 at 128 (one wave
-    of blocks at 80 x 80), 4 x 8 at 512 (its windows within shared
-    memory), 8 x 8 otherwise (csrc/head.cu ``tile_rows``, ``tile_w``)."""
-    return (4 if c == 512 else 8), (16 if c == 128 else 8)
+    """The wide form's output tile at width ``c`` in its replicated plan:
+    8 x 16 at 128 (one wave of blocks at 80 x 80), 8 x 8 otherwise
+    (csrc/head.cu ``tile_rows``, ``tile_w``); at 512, which runs the owned
+    plan only, that plan's 8 x 16 (OWNED_TILE)."""
+    return 8, (16 if c in (128, 512) else 8)
+
+
+def owned_plan(c: int, h: int, w: int) -> bool:
+    """Whether the wide head runs the owned plan over (h, w) images
+    (csrc/head.cu ``owned_plan``): always at 512, at 256 where its clusters
+    of 2 on OWNED_TILE tiles, both branches, make OWNED_MIN_BLOCKS blocks
+    or more on one image. The batch plays no part: the plans sum in
+    different orders, and a frame keeps its bits inside any batch."""
+    tr, tw = OWNED_TILE
+    tiles = -(-h // tr) * -(-w // tw)
+    return c == 512 or (c == 256 and tiles * 2 * (c // 128)
+                        >= OWNED_MIN_BLOCKS)
+
+
+def _ring(ns: int, tr: int, tw: int) -> int:
+    return wide_ring_bytes(max(wide_stage_cols(ns, (tr + 2) * (tw + 2)),
+                               wide_stage_cols(ns, tr * tw)))
+
+
+def wide_smem_owned(c: int) -> int:
+    """The owned plan's shared memory (csrc/head.cu ``smem_owned``): the
+    head, the ring, the block's two planes of conv1's region and two of
+    the larger of the x window and that region."""
+    tr, tw = OWNED_TILE
+    c1, xp = (tr + 2) * (tw + 2), (tr + 4) * (tw + 4)
+    return (WIDE_SMEM_HEAD + _ring(128, tr, tw)
+            + 2 * (c1 + max(xp, c1)) * WIDE_PIX_BYTES)
 
 
 def wide_smem_bytes(c: int) -> int:
-    """The wide form's dynamic shared memory at width ``c`` (one of
-    ``HEAD_SPLIT``), as csrc/head.cu ``wide_head::smem_bytes`` computes
-    it (held against the library on the card): the head, the ring, the x
-    window (halo 2) and conv1's region (halo 1)."""
+    """The shared memory the wide form admits width ``c`` (one of
+    ``HEAD_SPLIT``) by, as csrc/head.cu ``wide_head::smem_bytes`` computes
+    it (held against the library on the card): at 512 the owned plan's
+    (``wide_smem_owned``), else the replicated plan's: the head, the ring,
+    the x window (halo 2) and conv1's region (halo 1), every plane (at 256
+    the owned plan needs less)."""
+    if c == 512:
+        return wide_smem_owned(c)
     tr, tw = wide_tile(c)
-    ns, c1 = c // HEAD_SPLIT[c], (tr + 2) * (tw + 2)
-    cols = max(wide_stage_cols(ns, c1), wide_stage_cols(ns, tr * tw))
-    return (WIDE_SMEM_HEAD + wide_ring_bytes(cols)
-            + ((tr + 4) * (tw + 4) + c1) * -(-c // 64) * WIDE_PIX_BYTES)
+    c1, xp = (tr + 2) * (tw + 2), (tr + 4) * (tw + 4)
+    return (WIDE_SMEM_HEAD + _ring(c // HEAD_SPLIT[c], tr, tw)
+            + (xp + c1) * -(-c // 64) * WIDE_PIX_BYTES)
+
+
+def wide_launch(c: int, b: int, h: int, w: int) -> dict:
+    """The wide head's launch over a (b, h, w) input as csrc/head.cu makes
+    it (``last_launch``' keys): tiles x cluster blocks by two branches,
+    the cluster and the shared memory of the plan it picks."""
+    if owned_plan(c, h, w):
+        (tr, tw), s, smem = OWNED_TILE, c // 128, wide_smem_owned(c)
+    else:
+        (tr, tw), s, smem = wide_tile(c), HEAD_SPLIT[c], wide_smem_bytes(c)
+    tiles = b * -(-h // tr) * -(-w // tw)
+    return {"grid": [tiles * s, 2, 1], "cluster": [s, 1, 1],
+            "threads": 256, "smem_bytes": smem}
 
 
 def kernel_takes(c: int) -> bool:

@@ -142,13 +142,24 @@ def unpack_stem_mma(p: torch.Tensor) -> torch.Tensor:
 
 # The wide kernels split every product's output columns over a cluster
 # of blocks (csrc/wide_mma.cuh) at the widest widths, whose 40 x 40 images
-# have too few tiles for the SMs, and at base 64's hidden 256 and head 512,
-# where a cluster of 8 (the portable maximum) keeps each block's columns
-# those of hidden 128 and head 256 and so its ring small: blocks of a
-# cluster by the C3k2's hidden width and by the head's width. These are the
-# widths they are compiled for.
-C3K2_SPLIT = {16: 1, 64: 1, 128: 4, 256: 8}
-HEAD_SPLIT = {32: 1, 128: 1, 256: 2, 512: 8}
+# have too few tiles for the SMs: blocks of a cluster by the C3k2's hidden
+# width and by the head's width. These are the widths they are compiled
+# for. At C3K2_OWNED and HEAD_OWNED (hidden 128 and 256, head 512) the
+# stream is packed for the owned plan, where each block keeps only the
+# 64-channel planes it computes (csrc/c3k2.cu and csrc/head.cu
+# ``body_owned``): a C3k2 block plane r of p1, p2 and t, whose first
+# stage's columns are then [p1 plane r | p2 plane r] (``_owned_columns``);
+# a head block 128 channels of c1 and c2, whose streams take the x and c1
+# windows plane by plane, the nine taps of a plane together
+# (``_plane_taps``). The C3k2's replicated plan at hidden 128 (on small
+# images, clusters of 4) reads the same stream, each block half of an
+# owned block's chunks (``c3k2_kernel.REPLICATED_SPLIT``). The head at 256
+# runs both plans too; its stream stays tap by tap, and its owned plan
+# walks it plane by plane.
+C3K2_SPLIT = {16: 1, 64: 1, 128: 2, 256: 4}
+HEAD_SPLIT = {32: 1, 128: 1, 256: 2, 512: 4}
+C3K2_OWNED = frozenset({128, 256})
+HEAD_OWNED = frozenset({512})
 PRED_N = 8         # pred outputs the wide head's fragment image holds
 
 # The wide kernels' shared-memory plan, as csrc/wide_mma.cuh computes it:
@@ -223,6 +234,28 @@ def _untaps(m: torch.Tensor, c: int) -> torch.Tensor:
                        ).reshape(3, 3, c, m.shape[-1])
 
 
+def _plane_taps(w: torch.Tensor) -> torch.Tensor:
+    """(3, 3, C, N) -> (9 * 64 planes, N) with K chunk ``9 q + tap``
+    holding input channels ``64 q ..`` of tap ``tap`` (``_taps``' chunks,
+    plane-major)."""
+    m = _taps(w)
+    n = m.shape[-1]
+    return m.reshape(9, -1, TILE, n).transpose(0, 1).reshape(-1, n)
+
+
+def _unplane_taps(m: torch.Tensor, c: int) -> torch.Tensor:
+    n = m.shape[-1]
+    return _untaps(m.reshape(-1, 9, TILE, n).transpose(0, 1).reshape(-1, n),
+                   c)
+
+
+def _owned_columns(hid: int) -> torch.Tensor:
+    """The C3k2's first-stage columns (``[p1 | p2]``) in the order of the
+    owned plan's blocks: block r takes p1's plane r then p2's."""
+    return torch.cat([torch.arange(lo, lo + TILE) + half
+                      for lo in range(0, hid, TILE) for half in (0, hid)])
+
+
 def head_mma_shape(c: int) -> tuple[int, ...]:
     """Shape of ``pack_head_mma``'s image at head width ``c``."""
     if c == TILE:
@@ -242,8 +275,9 @@ def pack_head_mma(wc1: torch.Tensor, wr1: torch.Tensor, wc2: torch.Tensor,
     flat operands, not from here. At the wide kernel's widths
     (``HEAD_SPLIT``) a flat image: per branch (cls, reg) the weight stream
     of its cluster's blocks, conv1's nine taps then conv2's, each a (9 * 64
-    planes, C) matrix split by output columns (``_wide_stream``); then the
-    preds as m16n8k16 B fragments of (C, 8), zero-padded (``pack_frag``)."""
+    planes, C) matrix split by output columns (``_wide_stream``; at
+    ``HEAD_OWNED`` plane by plane, ``_plane_taps``); then the preds as
+    m16n8k16 B fragments of (C, 8), zero-padded (``pack_frag``)."""
     c = wc1.shape[-1]
     for w in (wc1, wr1, wc2, wr2):
         if tuple(w.shape) != (3, 3, c, c) or c % 16:
@@ -262,7 +296,8 @@ def pack_head_mma(wc1: torch.Tensor, wr1: torch.Tensor, wc2: torch.Tensor,
         raise ValueError(f"the wide head is compiled for C in "
                          f"{sorted(HEAD_SPLIT)}, got {c}")
     s = HEAD_SPLIT[c]
-    return torch.cat([_wide_stream([_taps(w1), _taps(w2)], s)
+    taps = _plane_taps if c in HEAD_OWNED else _taps
+    return torch.cat([_wide_stream([taps(w1), taps(w2)], s)
                       for w1, w2 in ((wc1, wc2), (wr1, wr2))]
                      + [pack_frag(F.pad(wp, (0, PRED_N - wp.shape[1])))
                         for wp in (wcp, wrp)])
@@ -279,8 +314,9 @@ def unpack_head_mma(p: torch.Tensor):
                               for q in p[:2 * per].split(per))
         preds = [unpack_frag(q, c, PRED_N) for q in p[2 * per:].split(
             c * PRED_N)]
-        return (_untaps(c1, c), _untaps(r1, c), _untaps(c2, c),
-                _untaps(r2, c), *preds)
+        untaps = _unplane_taps if c in HEAD_OWNED else _untaps
+        return (untaps(c1, c), untaps(r1, c), untaps(c2, c),
+                untaps(r2, c), *preds)
     w = unpack_b_tiles(p).reshape(2, 3, 3, TILE, 2 * TILE)
     return (w[0, ..., :TILE].contiguous(), w[0, ..., TILE:].contiguous(),
             w[1, ..., :TILE].contiguous(), w[1, ..., TILE:].contiguous())
@@ -301,11 +337,13 @@ def _c3k2_chunks(ca: int, cin: int) -> list[tuple[int, int]]:
 
 def _c3k2_wide(w1, w2, wb1, wb2, w3, ca: int) -> list[torch.Tensor]:
     """The wide kernel's stage matrices in stream order, K in 64-deep
-    chunks: [w1 | w2] over ``xa``'s chunks then ``xb``'s; per bottleneck
-    ``wb1`` and the 3x3 (``_taps``); then ``w3`` over the [p1 | p2]
-    window's planes."""
-    cin = w1.shape[0]
+    chunks: [w1 | w2] over ``xa``'s chunks then ``xb``'s (its columns in
+    the owned plan's order at ``C3K2_OWNED``); per bottleneck ``wb1`` and
+    the 3x3 (``_taps``); then ``w3`` over the [p1 | p2] window's planes."""
+    cin, hid = w1.shape
     wa = torch.cat([w1, w2], dim=-1)
+    if hid in C3K2_OWNED:
+        wa = wa[:, _owned_columns(hid)]
     mats = [torch.cat([_pad_k(wa[lo:hi]) for lo, hi in
                        _c3k2_chunks(ca, cin)])]
     for i in range(wb1.shape[0]):
@@ -385,6 +423,8 @@ def unpack_c3k2_mma(p: torch.Tensor, cin: int, n: int, ca: int = 0,
                          C3K2_SPLIT[hid])
         wa = torch.cat([mats[0][q * TILE:q * TILE + hi - lo] for q, (lo, hi)
                         in enumerate(_c3k2_chunks(ca, cin))])
+        if hid in C3K2_OWNED:
+            wa = wa[:, torch.argsort(_owned_columns(hid))]
         wb1 = torch.stack([m[:hid] for m in mats[1:-1:2]])
         wb2 = torch.stack([_untaps(m, hid) for m in mats[2:-1:2]])
         return (wa[:, :hid].contiguous(), wa[:, hid:].contiguous(), wb1,
