@@ -170,9 +170,10 @@ count, 0.5 px, 1e-2), one captured graph equal to the eager frame on the
 8 scenes. Phase 20: the stem and stage1 kernels at base 16 and 64 (C =
 32 and 128) and the C3k2 and head kernels at base 64's ten blocks' shapes
 (``WIDE64_SHAPES``): on binary-grid inputs bit for bit their plain
-versions; the 64-wide stem and stage1 kernels' and the wide C3k2 and head
-kernels' SHA-256 digests unchanged (base 16's and 32's shapes, and base
-64's but where the redesign sums in another order: WIDE64_REORDERED);
+versions; the stem and stage1 kernels' SHA-256 digests at every width and
+the wide C3k2 and head kernels' unchanged (base 16's and 32's shapes, and
+base 64's but where the redesign sums in another order: WIDE64_REORDERED);
+the C = 128 cluster kernels relaunched 100 times, each output the first's;
 random-initialised engines (the port's seeded ``init_model`` at each
 base, BatchNorm scales at WIDTH_BN_GAIN so the activations keep their
 scale through the depth) exported with ``--s2d-merged --fused-stem`` (row
@@ -241,10 +242,13 @@ DEVICE_FUNCS = {"normalize": ("normalize_merged_kernel",),
 # and their SASS read for the instruction they issue
 MMA_KERNELS = ("fused_stem_stage1", "stage1_merged", "fused_c3k2",
                "fused_c3k2_cat", "fused_head")
-# template instantiations as cuobjdump lists them (mangled)
+# template instantiations as cuobjdump lists them (mangled); C = 128 is
+# each source's cluster kernel, a function of its own
 SASS_NAMES = {**{f"{k}<{c}>": f"{k}ILi{c}EE"
                 for k in ("fused_stem_stage1_kernel", "stage1_mma_kernel")
-                for c in (32, 64, 128)},
+                for c in (32, 64)},
+              **{f"{k}<128>": f"{k}_pair"
+                 for k in ("fused_stem_stage1_kernel", "stage1_mma_kernel")},
               "c3k2_kernel<false>": "c3k2_kernelILb0EE",
               "c3k2_kernel<true>": "c3k2_kernelILb1EE",
               "c3k2_wide_kernel<false": "c3k2_wide_kernelILb0E",
@@ -410,7 +414,7 @@ WIDTH_ROW = {"fused_stem_stage1": "fused_stem_stage1",
 # inputs (``width_inputs``), as the kernels computed them before they took
 # other widths (on an NVIDIA H100 80GB HBM3, 700 W). To record them again
 # from the kernels of another commit, unpack that commit into a directory
-# and call ``width64_digests(torch)`` on the card with that directory first
+# and call ``width_digests(torch, c)`` on the card with that directory first
 # on ``sys.path`` (this file's helpers, that commit's package).
 WIDTH64_DIGESTS = {
     "stem_1x320x160":
@@ -421,6 +425,38 @@ WIDTH64_DIGESTS = {
         "f0420fd53b7b81f04e6bbc330d3369b3093bd75a9e3d2796538494b5fe4b012c",
     "stage1_2x10x37":
         "cbe071e224f13573d70a2d6e027aa5d975cf40e29fad3415aec19e807f0a273c",
+}
+# The same at C = 128 and 32 (base 64 and 16; ``WIDTH_DIGEST_CASES``), as
+# the kernels computed them before the C = 128 forms were redesigned for
+# clusters of two blocks (on an NVIDIA H100 80GB HBM3, 700 W): the
+# redesign sums the same products in the same order, so neither moves.
+WIDTH128_DIGESTS = {
+    "stem_1x320x160":
+        "38c2782fc490706b624869b9d00af96630264ca9108fe1bd2a162ceb022df339",
+    "stage1_1x320x160":
+        "57711f950311555a71554b596ed0c58ec079fbca4aa30d472e007960f6f17c9e",
+    "stem_2x10x37":
+        "5bf14566919ff9d018bbeacfc474d32540d9a7ee95454c84a0580511d71af4b9",
+    "stage1_2x10x37":
+        "3307c4ac5de3924ad499f9cf419947281cdaff81b7f2130caa70a7f42132778f",
+    "stem_3x34x61":
+        "d58eb18a6089b3d8e313b3e6696827973399bd670320a46b2299dbc808e48c7f",
+    "stage1_3x34x61":
+        "214fd395a547501ea34dd031fa19d383f334e24065b00cb056d708c0af5440f2",
+}
+WIDTH32_DIGESTS = {
+    "stem_1x320x160":
+        "eb092d93590b2e2abe6660480271c8dbb5bc91ebb6c5acf735425844230230b0",
+    "stage1_1x320x160":
+        "73220cdddefbfb80f021ee84bdaea358951726f7e7e9a298ae424c0e1982d36c",
+    "stem_2x10x37":
+        "6a0ca758d6a2769de488433288e620668923cd48f5e18fa3a5b66ba31ee53493",
+    "stage1_2x10x37":
+        "daccae8922591f68f93b2349708fe6eaec82bc34eaec7f8f673ae30f0dd15160",
+    "stem_3x34x61":
+        "03c8ee3e2ce484439c2819479f43c8978e282184c8afa613c53f66b8cbae56e6",
+    "stage1_3x34x61":
+        "95eb7aa298cbb75dafecba8f5efba5c19f9a7a208866feda76bb2fd59ae767e7",
 }
 # the wide C3k2 and head kernels at every (hidden, n) and head width they
 # took before hidden 256 and head 512 were added: the served shapes of the
@@ -650,8 +686,11 @@ def launch_floor(torch) -> dict:
         fn()
         torch.cuda.synchronize()
     calls = 100
+    lead = torch.zeros(1, device=dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # a window can still drop its first kernel: let that be another
+        lead.add_(1)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -2999,17 +3038,18 @@ def width_outputs(c, shape, grid, seed, torch):
 
 def check_widths_grid(torch) -> dict:
     """Every compiled width of the stem and stage1 kernels on binary-grid
-    inputs at the served shape, a ragged batch of 2 and a single output
-    pixel, and the C3k2 and head kernels at base 64's new widths
-    (``wide_grid_checks``): bit for bit their plain versions; the 64-wide
-    stem and stage1 kernels' outputs and the wide C3k2 and head kernels'
-    at their earlier widths on seeded normal inputs: the digests they had
-    before (WIDTH64_DIGESTS, WIDE_DIGESTS)."""
+    inputs at the served shape, ragged batches of 2 and 3 and a single
+    output pixel, and the C3k2 and head kernels at base 64's new widths
+    (``wide_grid_checks``): bit for bit their plain versions; the stem and
+    stage1 kernels' outputs at every width and the wide C3k2 and head
+    kernels' at their earlier widths on seeded normal inputs: the digests
+    they had before (WIDTH32/64/128_DIGESTS, WIDE_DIGESTS); the C = 128
+    cluster kernels relaunched 100 times (``relaunch_check``)."""
     from unina_yolo_dla_torch.ops.cuda import mma_pack
 
     exact = {}
     for c in mma_pack.STEM_STAGE1_WIDTHS:
-        for shape in ((1, 320, 160), (2, 10, 37), (3, 2, 1)):
+        for shape in ((1, 320, 160), (2, 10, 37), (3, 34, 61), (3, 2, 1)):
             for name, (got, want) in width_outputs(c, shape, True, 100 + c,
                                                    torch).items():
                 # a single output pixel a row may be small, never all 0
@@ -3018,8 +3058,12 @@ def check_widths_grid(torch) -> dict:
                 key = f"{name}_c{c}_{'x'.join(map(str, shape))}"
                 exact[key] = bool(torch.equal(got, want))
                 assert exact[key], f"{key}: kernel differs from plain"
-    digests = width64_digests(torch)
-    assert digests == WIDTH64_DIGESTS, f"64-wide digests moved: {digests}"
+    for c, want in ((64, WIDTH64_DIGESTS), (128, WIDTH128_DIGESTS),
+                    (32, WIDTH32_DIGESTS)):
+        digests = width_digests(torch, c)
+        moved = sorted(k for k in want if digests[k] != want[k])
+        assert not moved, f"{c}-wide digests moved: {moved}"
+    relaunch = relaunch_check(torch)
     exact.update(wide_grid_checks(torch))
     digests = wide_digests(torch)
     moved = {k for k, v in digests.items() if WIDE_DIGESTS[k] != v}
@@ -3029,9 +3073,44 @@ def check_widths_grid(torch) -> dict:
     assert moved64 <= set(WIDE64_REORDERED), (
         f"base-64 digests moved: {sorted(moved64 - set(WIDE64_REORDERED))}")
     return {"grid_bit_equal": exact, "digests_64_unchanged": True,
+            "digests_128_32_unchanged": True, "relaunch_bit_equal": relaunch,
             "wide_digests_unchanged": len(digests),
             "wide64_digests_unchanged": len(digests64) - len(moved64),
             "wide64_reordered": {k: digests64[k] for k in sorted(moved64)}}
+
+
+RELAUNCHES = 100
+
+
+def relaunch_check(torch) -> dict:
+    """The C = 128 stem and stage1 kernels, whose blocks hand each other
+    windows through distributed shared memory and multicast copies,
+    launched RELAUNCHES times back to back at the served shape and at a
+    ragged batch of 3 on seeded normal inputs: every output bit for bit
+    the first (a race in the hand-off would show as a flipped bit in some
+    launch). Returns the launches compared per case."""
+    from unina_yolo_dla_torch.ops.cuda import mma_pack, stage1_kernel, \
+        stem_kernel
+
+    dev = torch.device("cuda")
+    done = {}
+    for shape, seed in (((1, 320, 160), 11), ((3, 34, 61), 13)):
+        frame, xm, ks, bs, k1, b1 = width_inputs(
+            np.random.default_rng(seed), 128, shape, False, dev, torch)
+        ksp, k1p = mma_pack.pack_stem_mma(ks), mma_pack.pack_stage1_mma(k1)
+        calls = {"stem": lambda: stem_kernel.fused_stem_stage1(
+                     frame, ksp, bs, k1p, b1),
+                 "stage1": lambda: stage1_kernel.fused_downsample_merged(
+                     xm, k1p, b1)}
+        for name, call in calls.items():
+            outs = [call() for _ in range(RELAUNCHES)]
+            torch.cuda.synchronize()
+            key = f"{name}_c128_{'x'.join(map(str, shape))}"
+            same = sum(bool(torch.equal(o, outs[0])) for o in outs)
+            assert same == RELAUNCHES, f"{key}: {RELAUNCHES - same} of " \
+                f"{RELAUNCHES} launches differ from the first"
+            done[key] = same
+    return done
 
 
 def wide_grid_checks(torch) -> dict:
@@ -3097,14 +3176,24 @@ def wide_grid_checks(torch) -> dict:
     return exact
 
 
-def width64_digests(torch) -> dict:
-    """SHA-256 of the 64-wide kernels' outputs on seeded normal inputs at
-    the served shape and at a ragged batch of 2 (WIDTH64_DIGESTS)."""
+# the seeded normal inputs each width's digests are taken on: (shape,
+# seed); C = 64's two are those WIDTH64_DIGESTS were recorded on
+WIDTH_DIGEST_CASES = {
+    64: (((1, 320, 160), 11), ((2, 10, 37), 12)),
+    32: (((1, 320, 160), 11), ((2, 10, 37), 12), ((3, 34, 61), 13)),
+    128: (((1, 320, 160), 11), ((2, 10, 37), 12), ((3, 34, 61), 13)),
+}
+
+
+def width_digests(torch, c: int = 64) -> dict:
+    """SHA-256 of the stem and stage1 kernels' outputs at width ``c`` on
+    seeded normal inputs (``WIDTH_DIGEST_CASES``: the served shape and
+    ragged batches; WIDTH32/64/128_DIGESTS)."""
     import hashlib
 
     digests = {}
-    for shape, seed in (((1, 320, 160), 11), ((2, 10, 37), 12)):
-        for name, (got, _) in width_outputs(64, shape, False, seed,
+    for shape, seed in WIDTH_DIGEST_CASES[c]:
+        for name, (got, _) in width_outputs(c, shape, False, seed,
                                             torch).items():
             key = f"{name}_{'x'.join(map(str, shape))}"
             digests[key] = hashlib.sha256(

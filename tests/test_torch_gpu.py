@@ -1577,12 +1577,13 @@ def _width_inputs(rng, c, shape, cuda, grid=True):
 
 
 @pytest.mark.parametrize("c", mma_pack.STEM_STAGE1_WIDTHS)
-@pytest.mark.parametrize("shape", [(1, 320, 160), (2, 10, 37), (3, 2, 1)])
+@pytest.mark.parametrize("shape", [(1, 320, 160), (2, 10, 37), (3, 2, 1),
+                                   (3, 34, 61)])
 def test_stem_stage1_every_width_bit_exact_on_grid_inputs(rng, cuda, c,
                                                           shape):
-    """Base 16, 32 and 64 (C = 32, 64, 128): the served shape, a ragged
-    batch of 2, a single output pixel; each launch counted on its width's
-    entry point."""
+    """Base 16, 32 and 64 (C = 32, 64, 128): the served shape, ragged
+    batches of 2 and 3, a single output pixel; each launch counted on its
+    width's entry point."""
     frame, xm, ks, bs, k1, b1 = _width_inputs(rng, c, shape, cuda)
     ksp, k1p = mma_pack.pack_stem_mma(ks), mma_pack.pack_stage1_mma(k1)
     got = _launched(stem_kernel.KERNELS[c], lambda: (
@@ -1614,7 +1615,46 @@ WIDTH64_DIGESTS = {
 }
 
 
-def test_stem_stage1_64_wide_bits_unchanged(cuda):
+# The same at C = 128 and 32 (seeds 11, 12 and 13; the third shape a
+# ragged batch of 3), as the kernels computed them before the C = 128
+# forms became clusters of two blocks: the cluster form sums the same
+# products in the same order. chip_smoke.py holds the same digests.
+WIDTH128_DIGESTS = {
+    "stem_1x320x160":
+        "38c2782fc490706b624869b9d00af96630264ca9108fe1bd2a162ceb022df339",
+    "stage1_1x320x160":
+        "57711f950311555a71554b596ed0c58ec079fbca4aa30d472e007960f6f17c9e",
+    "stem_2x10x37":
+        "5bf14566919ff9d018bbeacfc474d32540d9a7ee95454c84a0580511d71af4b9",
+    "stage1_2x10x37":
+        "3307c4ac5de3924ad499f9cf419947281cdaff81b7f2130caa70a7f42132778f",
+    "stem_3x34x61":
+        "d58eb18a6089b3d8e313b3e6696827973399bd670320a46b2299dbc808e48c7f",
+    "stage1_3x34x61":
+        "214fd395a547501ea34dd031fa19d383f334e24065b00cb056d708c0af5440f2",
+}
+WIDTH32_DIGESTS = {
+    "stem_1x320x160":
+        "eb092d93590b2e2abe6660480271c8dbb5bc91ebb6c5acf735425844230230b0",
+    "stage1_1x320x160":
+        "73220cdddefbfb80f021ee84bdaea358951726f7e7e9a298ae424c0e1982d36c",
+    "stem_2x10x37":
+        "6a0ca758d6a2769de488433288e620668923cd48f5e18fa3a5b66ba31ee53493",
+    "stage1_2x10x37":
+        "daccae8922591f68f93b2349708fe6eaec82bc34eaec7f8f673ae30f0dd15160",
+    "stem_3x34x61":
+        "03c8ee3e2ce484439c2819479f43c8978e282184c8afa613c53f66b8cbae56e6",
+    "stage1_3x34x61":
+        "95eb7aa298cbb75dafecba8f5efba5c19f9a7a208866feda76bb2fd59ae767e7",
+}
+WIDTH_DIGEST_CASES = {
+    64: (((1, 320, 160), 11), ((2, 10, 37), 12)),
+    32: (((1, 320, 160), 11), ((2, 10, 37), 12), ((3, 34, 61), 13)),
+    128: (((1, 320, 160), 11), ((2, 10, 37), 12), ((3, 34, 61), 13)),
+}
+
+
+def _width_digests(c, cuda):
     import hashlib
 
     def digest(t):
@@ -1623,16 +1663,46 @@ def test_stem_stage1_64_wide_bits_unchanged(cuda):
         ).hexdigest()
 
     got = {}
-    for shape, seed in (((1, 320, 160), 11), ((2, 10, 37), 12)):
+    for shape, seed in WIDTH_DIGEST_CASES[c]:
         frame, xm, ks, bs, k1, b1 = _width_inputs(
-            np.random.default_rng(seed), 64, shape, cuda, grid=False)
+            np.random.default_rng(seed), c, shape, cuda, grid=False)
         ksp, k1p = mma_pack.pack_stem_mma(ks), mma_pack.pack_stage1_mma(k1)
         tag = "x".join(map(str, shape))
         got[f"stem_{tag}"] = digest(stem_kernel.fused_stem_stage1(
             frame, ksp, bs, k1p, b1))
         got[f"stage1_{tag}"] = digest(stage1_kernel.fused_downsample_merged(
             xm, k1p, b1))
-    assert got == WIDTH64_DIGESTS
+    return got
+
+
+def test_stem_stage1_64_wide_bits_unchanged(cuda):
+    assert _width_digests(64, cuda) == WIDTH64_DIGESTS
+
+
+@pytest.mark.parametrize("c", [128, 32])
+def test_stem_stage1_bits_unchanged_by_the_cluster_form(cuda, c):
+    """Base 64's kernels (clusters of two blocks) and base 16's: the bits
+    they had before the cluster form, on seeded normal inputs."""
+    want = {128: WIDTH128_DIGESTS, 32: WIDTH32_DIGESTS}[c]
+    assert _width_digests(c, cuda) == want
+
+
+@pytest.mark.parametrize("shape,seed", [((1, 320, 160), 11),
+                                        ((3, 34, 61), 13)])
+def test_cluster_kernels_relaunch_bit_equal(cuda, shape, seed):
+    """The C = 128 kernels hand each other windows through distributed
+    shared memory and multicast copies; 100 launches back to back, each
+    output bit for bit the first (a race in the hand-off would flip bits
+    in some launch)."""
+    frame, xm, ks, bs, k1, b1 = _width_inputs(
+        np.random.default_rng(seed), 128, shape, cuda, grid=False)
+    ksp, k1p = mma_pack.pack_stem_mma(ks), mma_pack.pack_stage1_mma(k1)
+    for call in (lambda: stem_kernel.fused_stem_stage1(frame, ksp, bs, k1p,
+                                                       b1),
+                 lambda: stage1_kernel.fused_downsample_merged(xm, k1p, b1)):
+        outs = [call() for _ in range(100)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, outs[0]) for o in outs)
 
 
 def test_other_widths_refused_on_the_card(rng, cuda):

@@ -4,8 +4,12 @@ the weight images ``ops/cuda/mma_pack.py`` makes for C = 2 x base = 32,
 kernels' walk (csrc/stage1_tile.cuh ``Width``: K = tap * C + channel in
 64-deep chunks of k16 steps, N = min(C, 64) columns a product, the two
 64-column halves of C = 128 in two blocks), written out here in plain
-PyTorch, reproduces the plain versions on ragged shapes. The kernels run
-only on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
+PyTorch, reproduces the plain versions on ragged shapes; at C = 128 the
+walk of a cluster of two blocks (each block copies every other in-bounds
+window pixel, or frame row, into both blocks' windows; block ``rank``
+computes stem and stage1 columns 64 rank.., its stem columns written into
+both windows). The kernels run only on the card
+(``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
 import dataclasses
 import functools
 
@@ -58,18 +62,19 @@ def _window(x, r0, c0, rows, cols):
     return win
 
 
-def _stage1_tile(win, p, bias, c, tr=4, tw=16):
+def _stage1_tile(win, p, bias, c, tr=4, tw=16, halves=None):
     """csrc/stage1_tile.cuh ``products`` and ``store`` at width ``c``:
-    per block ``nh`` (N columns), per 64-deep K chunk ``kc`` its four k16
-    steps, each of tap ``q = k0 // c``, channels ``k0 % c ..``, shifted
-    window pixels against the block's packed tile."""
+    per block ``nh`` (N columns; ``halves``: the blocks to compute, all
+    by default), per 64-deep K chunk ``kc`` its four k16 steps, each of
+    tap ``q = k0 // c``, channels ``k0 % c ..``, shifted window pixels
+    against the block's packed tile."""
     n = mma_pack.stage1_columns(c)
     kc_n = 8 * c // 64
     rr, cc = torch.meshgrid(torch.arange(tr), torch.arange(tw),
                             indexing="ij")
     rr, cc = rr.reshape(-1), cc.reshape(-1)
     outs = []
-    for nh in range(c // n):
+    for nh in (range(c // n) if halves is None else halves):
         acc = torch.zeros(tr * tw, n)
         for kc in range(kc_n):
             b = _b_tile(p[nh * kc_n + kc])
@@ -80,20 +85,68 @@ def _stage1_tile(win, p, bias, c, tr=4, tw=16):
                 a = win[2 * rr + 2 * kh + di, cc + kw, c0:c0 + 16]
                 acc = acc + a @ b[16 * ks:16 * ks + 16]
         outs.append(torch.relu(acc + bias[nh * n:(nh + 1) * n]))
-    return torch.cat(outs, dim=-1).reshape(tr, tw, c)
+    return torch.cat(outs, dim=-1).reshape(tr, tw, -1)
+
+
+def _cluster_tiles(bsz, h2, w2, tr=4, tw=16, clusters=3):
+    """The C = 128 walk: cluster k of ``clusters`` takes tiles k, k +
+    clusters, ... (batch, tile row, tile column), both of its blocks the
+    same tiles. Yields each tile's (image, first output row, first
+    column) once, cluster by cluster."""
+    tx, ty = -(-w2 // tw), -(-h2 // tr)
+    n = bsz * tx * ty
+    for k in range(min(clusters, n)):
+        for t in range(k, n, clusters):
+            b, rem = divmod(t, tx * ty)
+            yield b, (rem // tx) * tr, (rem % tx) * tw
+
+
+def _pair_window(x, r0, c0, rows, cols, split):
+    """One tile's window as both blocks of a cluster receive it: the
+    in-bounds pixels (``split="pixels"``, stage1.cu) or rows (``"rows"``,
+    the stem's frame) in order, block ``rank`` copying every other one
+    into both blocks' windows, the rest zero (written by each block).
+    Returns the two windows."""
+    h, w, ch = x.shape
+    ra, rb = max(r0, 0), min(r0 + rows, h)
+    ca, cb = max(c0, 0), min(c0 + cols, w)
+    wins = [torch.zeros(rows, cols, ch) for _ in range(2)]
+    units = [(r, c) for r in range(ra, rb) for c in range(ca, cb)] \
+        if split == "pixels" else [(r, None) for r in range(ra, rb)]
+    for rank in range(2):
+        for r, c in units[rank::2]:
+            for win in wins:          # multicast: both blocks' windows
+                if c is None:
+                    win[r - r0, ca - c0:cb - c0] = x[r, ca:cb]
+                else:
+                    win[r - r0, c - c0] = x[r, c]
+    assert torch.equal(wins[0], wins[1])
+    return wins
 
 
 def _stage1_tiled(xm, p, bias, c, tr=4, tw=16):
     bsz, h, w2, _ = xm.shape
     h2 = h // 2
     out = torch.zeros(bsz, h2, w2, c)
-    for b in range(bsz):
-        for r0 in range(0, h2, tr):
-            for w0 in range(0, w2, tw):
-                win = _window(xm[b], 2 * r0 - 2, w0 - 1, 2 * tr + 2, tw + 1)
-                res = _stage1_tile(win, p, bias, c, tr, tw)
-                nr, nc = min(tr, h2 - r0), min(tw, w2 - w0)
-                out[b, r0:r0 + nr, w0:w0 + nc] = res[:nr, :nc]
+    if c == 128:
+        tiles = _cluster_tiles(bsz, h2, w2, tr, tw)
+    else:
+        tiles = ((b, r0, w0) for b in range(bsz) for r0 in range(0, h2, tr)
+                 for w0 in range(0, w2, tw))
+    for b, r0, w0 in tiles:
+        nr, nc = min(tr, h2 - r0), min(tw, w2 - w0)
+        if c == 128:
+            # block `rank` of the cluster: its 64 columns from its own
+            # copy of the shared window
+            wins = _pair_window(xm[b], 2 * r0 - 2, w0 - 1, 2 * tr + 2,
+                                tw + 1, "pixels")
+            res = torch.cat([_stage1_tile(wins[rank], p, bias, c, tr, tw,
+                                          halves=(rank,))
+                             for rank in range(2)], dim=-1)
+        else:
+            win = _window(xm[b], 2 * r0 - 2, w0 - 1, 2 * tr + 2, tw + 1)
+            res = _stage1_tile(win, p, bias, c, tr, tw)
+        out[b, r0:r0 + nr, w0:w0 + nc] = res[:nr, :nc]
     return out
 
 
@@ -101,7 +154,11 @@ def _stem_tiled(xm, ks, bs, k1, b1, c, tr=4, tw=16):
     """csrc/stem.cu at width ``c``: per tile the frame window, the stem on
     the pixels stage1 needs in passes of N columns (one K = 48 product per
     kernel row against rows np*N.. of the kh tile), 0 outside the image,
-    rounded, then stage1's tile."""
+    rounded, then stage1's tile. At C = 128 a cluster of two blocks: each
+    block's frame window from both blocks' row copies, block ``rank``'s
+    pass the stem columns 64 rank.., written into its own stage1 window
+    and its peer's; then each block's 64 stage1 columns from its own
+    window."""
     ksp, k1p = mma_pack.pack_stem_mma(ks), mma_pack.pack_stage1_mma(k1)
     n = mma_pack.stage1_columns(c)
     bsz, h, w2, _ = xm.shape
@@ -110,28 +167,44 @@ def _stem_tiled(xm, ks, bs, k1, b1, c, tr=4, tw=16):
     out = torch.zeros(bsz, h2, w2, c)
     m = torch.arange(sr_n * sc_n)
     sr, sc = m // sc_n, m % sc_n
-    for b in range(bsz):
-        for r0 in range(0, h2, tr):
-            for w0 in range(0, w2, tw):
-                flat = _window(xm[b], 2 * r0 - 3, w0 - 2, sr_n + 1,
-                               sc_n + 1).reshape(-1)
-                parts = []
-                for np_ in range(c // n):
-                    acc = torch.zeros(len(m), n)
-                    for kh in range(2):
-                        pix = (sr + kh) * (sc_n + 1) + sc
-                        a = flat[pix[:, None] * 24
-                                 + torch.arange(48)[None, :]]
-                        bt = _b_tile(ksp[kh, np_ * n:(np_ + 1) * n])
-                        acc = acc + F.pad(a, (0, 16)) @ bt
-                    parts.append(acc + bs[np_ * n:(np_ + 1) * n])
-                stem = torch.relu(torch.cat(parts, dim=-1))
-                s, cc = 2 * r0 - 2 + sr, w0 - 1 + sc
-                inside = (s >= 0) & (s < h) & (cc >= 0) & (cc < w2)
-                stem = (stem * inside[:, None]).reshape(sr_n, sc_n, c)
-                res = _stage1_tile(stem, k1p, b1, c, tr, tw)
-                nr, nc = min(tr, h2 - r0), min(tw, w2 - w0)
-                out[b, r0:r0 + nr, w0:w0 + nc] = res[:nr, :nc]
+
+    def stem_pass(flat, np_):
+        acc = torch.zeros(len(m), n)
+        for kh in range(2):
+            pix = (sr + kh) * (sc_n + 1) + sc
+            a = flat[pix[:, None] * 24 + torch.arange(48)[None, :]]
+            bt = _b_tile(ksp[kh, np_ * n:(np_ + 1) * n])
+            acc = acc + F.pad(a, (0, 16)) @ bt
+        return torch.relu(acc + bs[np_ * n:(np_ + 1) * n])
+
+    if c == 128:
+        tiles = _cluster_tiles(bsz, h2, w2, tr, tw)
+    else:
+        tiles = ((b, r0, w0) for b in range(bsz) for r0 in range(0, h2, tr)
+                 for w0 in range(0, w2, tw))
+    for b, r0, w0 in tiles:
+        s, cc = 2 * r0 - 2 + sr, w0 - 1 + sc
+        inside = ((s >= 0) & (s < h) & (cc >= 0) & (cc < w2))[:, None]
+        nr, nc = min(tr, h2 - r0), min(tw, w2 - w0)
+        if c == 128:
+            frames = _pair_window(xm[b], 2 * r0 - 3, w0 - 2, sr_n + 1,
+                                  sc_n + 1, "rows")
+            wins = [torch.zeros(len(m), c) for _ in range(2)]
+            for rank in range(2):
+                part = stem_pass(frames[rank].reshape(-1), rank) * inside
+                for win in wins:      # its own window and its peer's
+                    win[:, rank * n:(rank + 1) * n] = part
+            res = torch.cat([_stage1_tile(
+                wins[rank].reshape(sr_n, sc_n, c), k1p, b1, c, tr, tw,
+                halves=(rank,)) for rank in range(2)], dim=-1)
+        else:
+            flat = _window(xm[b], 2 * r0 - 3, w0 - 2, sr_n + 1,
+                           sc_n + 1).reshape(-1)
+            stem = torch.cat([stem_pass(flat, np_) for np_ in range(c // n)],
+                             dim=-1)
+            stem = (stem * inside).reshape(sr_n, sc_n, c)
+            res = _stage1_tile(stem, k1p, b1, c, tr, tw)
+        out[b, r0:r0 + nr, w0:w0 + nc] = res[:nr, :nc]
     return out
 
 

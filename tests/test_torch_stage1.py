@@ -40,7 +40,7 @@ def test_pack_matches_reference(rng):
 
 
 @pytest.mark.parametrize("shape", [(16, 8, 16, 8), (32, 16, 64, 64),
-                                   (12, 6, 8, 16)])
+                                   (12, 6, 8, 16), (8, 4, 128, 128)])
 def test_plain_matches_reference_xla_form_f32(rng, shape):
     arrs = _inputs(rng, *shape)
     want = np.asarray(fused_downsample_merged(*map(jnp.asarray, arrs),

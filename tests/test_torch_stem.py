@@ -27,7 +27,7 @@ def _inputs(rng, h, w2, cm, o2, c2, lead=()):
 
 
 @pytest.mark.parametrize("shape", [(32, 16, 24, 64, 64), (16, 8, 8, 16, 32),
-                                   (12, 6, 24, 64, 64)])
+                                   (12, 6, 24, 64, 64), (8, 4, 24, 128, 128)])
 def test_plain_matches_reference_xla_form_f32(rng, shape):
     arrs = _inputs(rng, *shape)
     want = np.asarray(fused_stem_stage1(*map(jnp.asarray, arrs),

@@ -29,7 +29,11 @@ fc engine's ten fused blocks (``blocks``: the wide C3k2 and head kernels
 at 128 and 256 channels among them) on its seed-7 frame's activations:
 the SHA-256 of each output and its time inside a replayed graph; the same
 for base 64's ten fused blocks at their served shapes on
-``chip_smoke.py``'s seeded inputs (``blocks64``, ``WIDE64_SHAPES``). Run
+``chip_smoke.py``'s seeded inputs (``blocks64``, ``WIDE64_SHAPES``); and
+the stem and stage1 kernels at C = 32, 64 and 128 (base 16, 32, 64) at
+the served shape (1, 320, 160) on ``chip_smoke.width_inputs``' seeded
+normal inputs (``widths``: each output's SHA-256 and three replayed-graph
+times). Run
 parent, change, change, parent in one call and compare digests (equal:
 the same bits) and times (within the spread of the two runs of one
 tree). Prints one JSON object and writes it to
@@ -230,6 +234,7 @@ def main() -> int:
         torch.cuda.synchronize()
         out["blocks64"][name] = {"digest": digest(res),
                                  "graph_ms": cs.graph_ms(call, 10, 5)}
+    out["widths"] = width_kernels(cs, torch)
     text = json.dumps(out)
     shutil.rmtree(tmp)
     dst = REPO / "chiprun_out"
@@ -237,6 +242,32 @@ def main() -> int:
     (dst / f"torch_parent_ab_{args.tag}.json").write_text(text)
     print(text)
     return 0
+
+
+def width_kernels(cs, torch) -> dict:
+    """The stem and stage1 kernels at every compiled width, served shape,
+    seeded normal inputs (seed 11): each output's SHA-256 and its time
+    inside a replayed graph, three times."""
+    from unina_yolo_dla_torch.ops.cuda import mma_pack, stage1_kernel, \
+        stem_kernel
+
+    dev = torch.device("cuda")
+    out = {}
+    for c in (32, 64, 128):
+        frame, xm, ks, bs, k1, b1 = cs.width_inputs(
+            np.random.default_rng(11), c, (1, 320, 160), False, dev, torch)
+        ksp, k1p = mma_pack.pack_stem_mma(ks), mma_pack.pack_stage1_mma(k1)
+        calls = {"stem": lambda: stem_kernel.fused_stem_stage1(
+                     frame, ksp, bs, k1p, b1),
+                 "stage1": lambda: stage1_kernel.fused_downsample_merged(
+                     xm, k1p, b1)}
+        for name, call in calls.items():
+            res = call()
+            torch.cuda.synchronize()
+            out[f"{name}_c{c}"] = {
+                "digest": digest((res,)),
+                "graph_ms": [cs.graph_ms(call) for _ in range(3)]}
+    return out
 
 
 def fc_blocks(art, scene, cs, torch) -> dict:

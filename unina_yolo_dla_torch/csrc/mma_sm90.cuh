@@ -22,8 +22,17 @@
 //   D  f32 accumulators in registers, 32 a thread for m64n64 (16 for
 //     m64n32): thread (warp w, lane l) holds rows 16w + l/4 (+8), columns
 //     8j + 2(l%4) (+1).
+//
+// Also the pieces of thread-block clusters the kernels share: distributed
+// shared memory, the cluster barrier, named barriers, mbarriers (local and
+// remote arrivals), bulk copies (TMA without a tensor map: from device
+// memory, or from this block's shared memory into a peer's), tensor copies
+// multicast to the cluster (TMA with a tensor map the host encodes), and a
+// launch with a cluster dimension.
 #pragma once
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace mma90 {
@@ -62,6 +71,15 @@ __device__ __forceinline__ void fence_proxy_async() {
 // barrier of one warpgroup (128 threads); id 0 is __syncthreads' own
 __device__ __forceinline__ void warpgroup_barrier(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// a named barrier of `count` threads: arrive without waiting, or wait
+// (producer / consumer hand-offs between warpgroups)
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---- A operand ----
@@ -172,6 +190,224 @@ __device__ __forceinline__ float bf16_lo(uint32_t v) {
 }
 __device__ __forceinline__ float bf16_hi(uint32_t v) {
   return __uint_as_float(v & 0xFFFF0000u);
+}
+
+// ---- clusters: distributed shared memory ----
+// the shared::cluster address of `local` (this block's shared memory) in
+// block `rank` of the cluster
+__device__ __forceinline__ uint32_t peer_addr(uint32_t local, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(local), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ uint32_t ld_shared(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+// this block's rank in its cluster
+__device__ __forceinline__ int cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+// The cluster barrier in two halves: every thread of every block of the
+// cluster arrives (releasing its earlier memory operations) and later
+// waits (acquiring everyone's); work between the two overlaps the wait.
+// A thread alternates arrive and wait, and all threads of a warp take
+// both together.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// ---- mbarriers and bulk copies (TMA without a tensor map) ----
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+// the same for a phase that a peer's arrivals complete, polling
+// (test_wait) rather than suspending the thread
+__device__ __forceinline__ void mbar_poll(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.test_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+// arrive on the mbarrier at shared::cluster address `bar` (a peer's, or
+// this block's own), ordering none of this thread's memory operations: a
+// signal that reads are done (they have completed) or that this block is
+// past a point
+__device__ __forceinline__ void mbar_arrive_cluster_relaxed(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`; completes
+// on the mbarrier `bar`
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// `bytes` (a multiple of 16) of this block's shared memory at `src` into
+// a peer's at shared::cluster address `dst`, completing on the peer's
+// mbarrier at shared::cluster address `bar`
+__device__ __forceinline__ void bulk_copy_peer(uint32_t dst, uint32_t src,
+                                               int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// ---- tensor copies (TMA through a tensor map) ----
+// Box (c0.., c1.., c2.., c3) of the 4-d tensor `map` describes into shared
+// memory at `dst` of every block of the cluster named in `mask`, at the
+// same offset, each completing on its own mbarrier at `bar`'s offset.
+// Elements outside the tensor arrive as zeros and count as bytes.
+__device__ __forceinline__ void tensor_copy_mc(uint32_t dst,
+                                               const CUtensorMap* map, int c0,
+                                               int c1, int c2, int c3,
+                                               uint32_t bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3, %4, %5}], [%6], %7;\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar), "h"(mask)
+      : "memory");
+}
+// The tensor map of a bf16 NHWC tensor (B, H, W, C) at `ptr` whose boxes
+// are (box_c channels, box_w columns, box_h rows, one image), 128-byte
+// swizzled into shared memory (box_c = 64: a pixel's 128 bytes stored as
+// pix_chunk lays them out, given a 1024-aligned destination) or stored
+// densely. The encoder, cuTensorMapEncodeTiled, is looked up through the
+// runtime, so the library links nothing beyond it. Returns a cudaError_t.
+typedef CUresult (*TensorMapEncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+inline int nhwc_tensor_map(CUtensorMap* map, const void* ptr, int B, int H,
+                           int W, int C, int box_c, int box_w, int box_h,
+                           bool swizzle) {
+  static TensorMapEncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return (int)cudaErrorSymbolNotFound;
+    encode = (TensorMapEncodeTiled)fn;
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box_c, (cuuint32_t)box_w,
+                             (cuuint32_t)box_h, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// ---- launch ----
+// `kernel` over `grid` blocks of `threads`, in clusters of `cluster` along
+// x (1: no cluster); returns the launch's error. The caller has raised the
+// kernel's dynamic shared memory limit.
+template <class... Args>
+int launch_ex(void (*kernel)(Args...), dim3 grid, int cluster, int threads,
+              int smem, void* stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// How many clusters of `cluster` blocks of `kernel` the card holds at once
+// (0 on an error, which the caller's launch then reports). The caller has
+// raised the kernel's dynamic shared memory limit.
+template <class... Args>
+int max_clusters(void (*kernel)(Args...), int cluster, int threads,
+                 int smem) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, (const void*)kernel, &cfg) !=
+      cudaSuccess)
+    return 0;
+  return n;
 }
 
 }  // namespace mma90

@@ -14,8 +14,9 @@
 // Widths (Width<C>): C = 2 x the base width is both the merged stem
 // output's channels and stage1's output channels: 32, 64 or 128. One
 // wgmma covers N = min(C, 64) output columns; at C = 128 the two 64-column
-// halves of a tile go to two blocks (NSPLIT), since the whole 256 KB of
-// stage1 weights would not fit in one block's shared memory.
+// halves of a tile go to the two blocks of a cluster, since the whole 256
+// KB of stage1 weights would not fit in one block's shared memory; their
+// window is two 64-channel planes (Planes).
 #pragma once
 #include "mma_sm90.cuh"
 
@@ -35,7 +36,6 @@ struct Width {
   static_assert(C_ == 32 || C_ == 64 || C_ == 128, "compiled widths");
   static constexpr int C = C_;                  // channels in and out
   static constexpr int N = C < 64 ? C : 64;     // columns of one wgmma
-  static constexpr int NSPLIT = C / N;          // blocks sharing a tile
   static constexpr int ACC = N / 2;             // accumulators a thread
   static constexpr int KC = TAPS * C / 64;      // 64-deep K chunks
   static constexpr int BT = N * 128;            // one [N n][64 k] B tile
@@ -73,6 +73,7 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[N / 2],
 struct Tile {
   const bf16* x;  // this image
   bf16* out;
+  int b;          // the image
   int r0, w0;     // first output row / merged column
 };
 
@@ -87,6 +88,7 @@ __device__ __forceinline__ Tile tile_at(int t, int tiles_x, int tiles_y,
   Tile tl;
   tl.x = xm + (size_t)b * H * W2 * CIN;
   tl.out = out + (size_t)b * (H / 2) * W2 * COUT;
+  tl.b = b;
   tl.r0 = (rem / tiles_x) * TR;
   tl.w0 = (rem % tiles_x) * TW;
   return tl;
@@ -103,14 +105,33 @@ __device__ __forceinline__ void load_bias(float (&bv)[N / 4],
   }
 }
 
-// acc = the tile's 64 x N products over the window at shared address
-// `win`; `wdesc` describes the first of this block's KC weight tiles. K
-// index k = tap * C + channel; A comes through ldmatrix, double-buffered
-// by chunk, so chunk q+1 loads while chunk q multiplies.
-template <class W>
-__device__ __forceinline__ void products(float (&acc)[W::ACC], uint32_t win,
-                                         uint64_t wdesc, int warp,
-                                         int lane) {
+// Where a window keeps 16-byte chunk `chunk` of pixel `pix`: one buffer
+// of whole pixels, each swizzled in place (px_chunk), or one buffer a
+// 64-channel plane (C = 128: the planes the two blocks of a cluster fill),
+// 128 bytes a pixel swizzled as mma_sm90.cuh's pix_chunk.
+template <int CH>
+struct Swizzled {
+  uint32_t base;
+  __device__ __forceinline__ uint32_t at(int pix, int chunk) const {
+    return base + px_chunk<CH>(pix, chunk);
+  }
+};
+struct Planes {
+  uint32_t base[2];
+  __device__ __forceinline__ uint32_t at(int pix, int chunk) const {
+    return (chunk & 8 ? base[1] : base[0]) + pix_chunk(pix, chunk & 7);
+  }
+};
+
+// acc = the tile's 64 x N products over the window `win` (a layout
+// above; `products`: a Swizzled window at shared address `win`); `wdesc`
+// describes the first of this block's KC weight tiles. K index k = tap *
+// C + channel; A comes through ldmatrix, double-buffered by chunk, so
+// chunk q+1 loads while chunk q multiplies.
+template <class W, class L>
+__device__ __forceinline__ void products_on(float (&acc)[W::ACC],
+                                            const L& win, uint64_t wdesc,
+                                            int warp, int lane) {
   // this lane's A row: output pixel (row `warp`, column lane % 16)
   const int p0 = 2 * warp * SC + (lane & 15);
 #pragma unroll
@@ -123,9 +144,8 @@ __device__ __forceinline__ void products(float (&acc)[W::ACC], uint32_t win,
       const int k0 = 64 * kc + 16 * ks;
       const int q = k0 / W::C, c0 = k0 % W::C;
       const int kh = q >> 2, kw = (q >> 1) & 1, di = q & 1;
-      ldmatrix_x4(a[kc & 1][ks],
-                  win + px_chunk<W::C>(p0 + (2 * kh + di) * SC + kw,
-                                       (c0 >> 3) + (lane >> 4)));
+      ldmatrix_x4(a[kc & 1][ks], win.at(p0 + (2 * kh + di) * SC + kw,
+                                        (c0 >> 3) + (lane >> 4)));
     }
     wgmma_fence();
 #pragma unroll
@@ -138,19 +158,26 @@ __device__ __forceinline__ void products(float (&acc)[W::ACC], uint32_t win,
   wgmma_wait<0>();
 }
 
-// Bias, ReLU and the bf16 rounding in registers, then the tile's N columns
-// leave through the warpgroup's staging buffer `out_p` as 16-byte stores
-// of whole pixels, at columns n0.. of C; rows >= H2 and columns >= W2 are
-// dropped. `out` is this image's output, `t` the thread's index in its
-// warpgroup, `bar` the warpgroup's barrier. Also waits for this thread's
-// outstanding cp.async copies (the next tile's window) before the second
-// barrier, so the window is whole for every thread after it.
 template <class W>
-__device__ __forceinline__ void store(const float (&acc)[W::ACC],
-                                      const float (&bv)[W::N / 4],
-                                      unsigned char* out_p, bf16* out, int r0,
-                                      int w0, int H2, int W2, int n0, int t,
-                                      int bar) {
+__device__ __forceinline__ void products(float (&acc)[W::ACC], uint32_t win,
+                                         uint64_t wdesc, int warp,
+                                         int lane) {
+  products_on<W>(acc, Swizzled<W::C>{win}, wdesc, warp, lane);
+}
+
+// The tile's epilogue and store, in two halves. `stage_tile`: bias, ReLU
+// and the bf16 rounding in registers, the tile's N columns staged in the
+// warpgroup's buffer `out_p` (whole pixels, px_chunk), and this thread's
+// 16-byte pieces of them read back into `v`; after it the buffer is free
+// once the warpgroup has met. It also waits for this thread's outstanding
+// cp.async copies (the next tile's window) before its second barrier, so
+// the window is whole for every thread after it. `t` is the thread's
+// index in its warpgroup, `bar` the warpgroup's barrier.
+template <class W>
+__device__ __forceinline__ void stage_tile(
+    const float (&acc)[W::ACC], const float (&bv)[W::N / 4],
+    unsigned char* out_p, int t, int bar,
+    uint4 (&v)[TR * TW * (W::N / 8) / 128]) {
   constexpr int N = W::N, CH = N / 8;
   const int warp = t >> 5, lane = t & 31;
   // every warp is done with the previous tile's staged output
@@ -169,38 +196,57 @@ __device__ __forceinline__ void store(const float (&acc)[W::ACC],
   }
   cp_async_wait<0>();
   warpgroup_barrier(bar);
-  for (int i = t; i < TR * TW * CH; i += 128) {
-    int ch = i % CH, m = i / CH;
-    int r = r0 + (m >> 4), w = w0 + (m & 15);
-    if (r < H2 && w < W2)
-      *reinterpret_cast<uint4*>(out + ((size_t)r * W2 + w) * W::C + n0 +
-                                ch * 8) =
-          *reinterpret_cast<const uint4*>(out_p + px_chunk<N>(m, ch));
+#pragma unroll
+  for (int k = 0; k < TR * TW * CH / 128; ++k) {
+    const int i = t + 128 * k;
+    v[k] = *reinterpret_cast<const uint4*>(out_p + px_chunk<N>(i / CH,
+                                                               i % CH));
   }
 }
-
-// Persistent blocks of WGS warpgroups. With NSPLIT > 1, block b takes
-// output columns (b % NSPLIT) * N.. of every tile it walks; its warpgroup
-// g takes tiles g*nb + b/NSPLIT, + WGS*nb, ... with nb = gridDim/NSPLIT.
-struct Walk {
-  int nh, first, stride;
-};
-template <int NSPLIT, int WGS>
-__device__ __forceinline__ Walk walk(int wg) {
-  const int nb = gridDim.x / NSPLIT;
-  Walk w;
-  w.nh = blockIdx.x % NSPLIT;
-  w.first = wg * nb + blockIdx.x / NSPLIT;
-  w.stride = WGS * nb;
-  return w;
+// `write_tile`: the pieces as 16-byte stores of whole pixels at columns
+// n0.. of C; rows >= H2 and columns >= W2 are dropped. `out` is this
+// image's output.
+template <class W>
+__device__ __forceinline__ void write_tile(
+    const uint4 (&v)[TR * TW * (W::N / 8) / 128], bf16* out, int r0, int w0,
+    int H2, int W2, int n0, int t) {
+  constexpr int CH = W::N / 8;
+#pragma unroll
+  for (int k = 0; k < TR * TW * CH / 128; ++k) {
+    const int i = t + 128 * k, ch = i % CH, m = i / CH;
+    const int r = r0 + (m >> 4), w = w0 + (m & 15);
+    if (r < H2 && w < W2)
+      *reinterpret_cast<uint4*>(out + ((size_t)r * W2 + w) * W::C + n0 +
+                                ch * 8) = v[k];
+  }
+}
+// both halves
+template <class W>
+__device__ __forceinline__ void store(const float (&acc)[W::ACC],
+                                      const float (&bv)[W::N / 4],
+                                      unsigned char* out_p, bf16* out, int r0,
+                                      int w0, int H2, int W2, int n0, int t,
+                                      int bar) {
+  uint4 v[TR * TW * (W::N / 8) / 128];
+  stage_tile<W>(acc, bv, out_p, t, bar, v);
+  write_tile<W>(v, out, r0, w0, H2, W2, n0, t);
 }
 
-// blocks to launch: one warpgroup a tile at most, one block per SM, a
-// multiple of NSPLIT
-__host__ inline int grid_blocks(int ntiles, int wgs, int nsplit, int sms) {
+// C = 32 and 64: persistent blocks of WGS warpgroups, one block an SM;
+// warpgroup g of block b takes tiles g*nb + b, + WGS*nb, ... with nb =
+// gridDim. (C = 128 walks in clusters of two: stem.cu, stage1.cu Pair.)
+struct Walk {
+  int first, stride;
+};
+template <int WGS>
+__device__ __forceinline__ Walk walk(int wg) {
+  return Walk{wg * (int)gridDim.x + (int)blockIdx.x, WGS * (int)gridDim.x};
+}
+
+// blocks to launch: one warpgroup a tile at most, one block per SM
+__host__ inline int grid_blocks(int ntiles, int wgs, int sms) {
   const int want = (ntiles + wgs - 1) / wgs;
-  const int most = sms / nsplit;
-  return (want < most ? want : most) * nsplit;
+  return want < sms ? want : sms;
 }
 
 }  // namespace stage1_tile

@@ -164,43 +164,6 @@ struct Stream {
   }
 };
 
-// ---- mbarriers and bulk copies (TMA without a tensor map) ----
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-// `bytes` (a multiple of 16) from global `src` to shared `dst`; completes
-// on the mbarrier `bar`
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 // A warpgroup's copying side of its ring: a cursor over the block's
 // stream, one chunk (the warpgroup's part of it) a call, copied by one
 // bulk copy into slot g % RING, which completes on that slot's mbarrier.
@@ -527,23 +490,6 @@ struct Peers {
 };
 
 // ---- planes owned: a block reads its peers' planes ----
-// the shared::cluster address of `local` (this block's shared memory) in
-// block `rank` of the cluster
-__device__ __forceinline__ uint32_t peer_addr(uint32_t local, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"(local), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-__device__ __forceinline__ uint32_t ld_shared(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
-  return v;
-}
 __device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
@@ -626,21 +572,8 @@ int launch_cluster(LaunchShape& shape, void (*kernel)(Args...), int S,
                    int blocks, int grid_y, int smem, void* stream,
                    Args... args) {
   shape = LaunchShape{blocks, grid_y, S, THREADS, smem};
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks, grid_y, 1);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = S;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = S > 1 ? 1 : 0;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_ex(kernel, dim3(blocks, grid_y, 1), S, THREADS, smem, stream,
+                   args...);
 }
 
 }  // namespace wide
