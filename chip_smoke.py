@@ -169,11 +169,13 @@ NMS launch a frame) against the port's CPU path on the seed-7 scene (same
 count, 0.5 px, 1e-2), one captured graph equal to the eager frame on the
 8 scenes. Phase 20: the stem and stage1 kernels at base 16 and 64 (C =
 32 and 128) and the C3k2 and head kernels at base 64's ten blocks' shapes
-(``WIDE64_SHAPES``): on binary-grid inputs bit for bit their plain
+(``WIDE64_SHAPES``) and the C3k2's at ragged batches on its persistent
+plan (``PERSIST_SHAPES``): on binary-grid inputs bit for bit their plain
 versions; the stem and stage1 kernels' SHA-256 digests at every width and
 the wide C3k2 and head kernels' unchanged (base 16's and 32's shapes, and
-base 64's but where the redesign sums in another order: WIDE64_REORDERED);
-the C = 128 cluster kernels relaunched 100 times, each output the first's;
+base 64's but where the redesign sums in another order: WIDE64_REORDERED;
+PERSIST_DIGESTS); the C = 128 cluster kernels and the C3k2's persistent
+plan relaunched 100 times, each output the first's;
 random-initialised engines (the port's seeded ``init_model`` at each
 base, BatchNorm scales at WIDTH_BN_GAIN so the activations keep their
 scale through the depth) exported with ``--s2d-merged --fused-stem`` (row
@@ -186,9 +188,10 @@ C3k2 3, C3k2-cat 4 and head 3 a frame) against the port's CPU path (same
 count, 0.5 px, 1e-2) and as one captured graph equal to the eager frame
 on the 8 scenes; each width's stem or stage1 kernel on that frame's own
 activations against its plain version and timed (one more entry of the
-kernels line each), and the base-64 fc engine's ten fused blocks the same
-way beside the fused-stem engine's cuDNN blocks (rows in the ``widths`` of
-the C3k2, C3k2-cat and head entries). Phase 5b: the shipped engine served
+kernels line each), and the base-64 fc and base-16 stage1_fc engines'
+ten fused blocks the same way beside the fused-stem engine's cuDNN blocks
+of their base (rows in the ``widths`` of the C3k2, C3k2-cat and head
+entries). Phase 5b: the shipped engine served
 with ``use_greedy_nms=False`` (``ops/nms.py nms_fast``) against the port's
 CPU path with the same switch. Phase 21: the batch-8 artifact's model
 served as a fleet
@@ -324,15 +327,16 @@ BEFORE_GRAPH_MS = {
 # wide C3k2 and head kernels were redesigned for its shapes, quoted beside
 # this run's (logged and in chip_smoke.json, never in the kernels line)
 BEFORE64_ORIGIN = (
-    "quoted from PERF.md, not measured in this run: the replicated plan at "
-    "base 64's widest shapes (4 x 4 / 4 x 8 tiles, clusters of 8), the "
-    "engine's seed-7 activations, NVIDIA H100 80GB HBM3, 700.00 W")
+    "quoted from PERF.md, not measured in this run: the blocks before the "
+    "persistent plan (stage1_block and fpn_c3k2_2 on the replicated plan, "
+    "one block a tile), the engine's seed-7 activations, NVIDIA H100 80GB "
+    "HBM3, 700.00 W")
 BEFORE64_GRAPH_MS = {
-    "backbone.stage1_block": 0.04478, "backbone.stage2_c3k2": 0.13836,
-    "backbone.stage3_c3k2": 0.32018, "neck.fpn_c3k2_1": 0.08782,
-    "neck.fpn_c3k2_2": 0.05156, "neck.pan_c3k2_1": 0.08682,
-    "neck.pan_c3k2_2": 0.12577, "head_p2": 0.11203, "head_p3": 0.16490,
-    "head_p4": 0.38868}
+    "backbone.stage1_block": 0.04465, "backbone.stage2_c3k2": 0.07515,
+    "backbone.stage3_c3k2": 0.07194, "neck.fpn_c3k2_1": 0.05530,
+    "neck.fpn_c3k2_2": 0.05139, "neck.pan_c3k2_1": 0.05158,
+    "neck.pan_c3k2_2": 0.04751, "head_p2": 0.11247, "head_p3": 0.11928,
+    "head_p4": 0.11252}
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s, f32 CUDA-core FLOP/s
 HBM_BPS = 3.35e12
@@ -598,6 +602,23 @@ WIDE64_DIGESTS = {
         "0f6272a3dace21637e89fcd5d9a5210640038c4de449ab285fb3f44d1e83222d",
     "head_p4_2x13x7":
         "c5ef2f12e7006a20721c274e9abbe201c98c592c533095a5c5a2059565501e30",
+}
+# base 64's two C3k2 blocks at 160 x 160 that the persistent plan takes
+# (hidden 64, one bottleneck, on grids of two rounds of the card or more),
+# as ragged batches of 2 large enough for it: 150 rows and 134 columns, a
+# part tile at the end of each
+PERSIST_SHAPES = {
+    "stage1_block_2x150x134": (2, 150, 134, 0, 128, 64, 1, False, True),
+    "fpn_c3k2_2_2x150x134": (2, 150, 134, 128, 128, 64, 1, True, False),
+}
+# SHA-256 of ``wide_outputs`` at PERSIST_SHAPES as the parent commit's
+# kernels (the replicated plan) computed them (NVIDIA H100 80GB HBM3), with
+# ``wide_digests(torch, PERSIST_SHAPES)``
+PERSIST_DIGESTS = {
+    "stage1_block_2x150x134":
+        "4bf80a77f79335516da03a4dccddd15e2bc865fefb2d58d27c66d080087befc3",
+    "fpn_c3k2_2_2x150x134":
+        "fc09e79c3fda63a338ddb03f434fa7c476c0c1cc39da16c1e5e9cc9b96afd564",
 }
 # the base-64 shapes whose redesigned kernel sums in another order than
 # the parent's (the head's owned plan, at 512 and at 256 on 80 x 80: both
@@ -1843,7 +1864,7 @@ def drive_export(tmp: Path, scenes, art_g, torch) -> dict:
 
 
 def check_wide_kernels(model, serve, frame, unfused, torch,
-                       before=None) -> list[dict]:
+                       before=None, gate=True) -> list[dict]:
     """Each fused module of a bf16 fc engine (seven C3k2s, three heads:
     at 64, 128 and 256 channels at base 32, 128 to 512 at base 64) on the
     activations and weights of one served frame: its kernel against its
@@ -1853,7 +1874,11 @@ def check_wide_kernels(model, serve, frame, unfused, torch,
     graph the same block of ``unfused`` (an engine of the same weights
     whose blocks are cuDNN convolutions: bf16_s2dm_mh at base 32, the
     fused-stem engine at base 64) on the same activations. ``before``:
-    block -> an earlier graph ms, quoted in the log beside each row."""
+    block -> an earlier graph ms, quoted in the log beside each row.
+    ``gate`` False (base 16's blocks, timed here only): the error is
+    recorded, not held to 1e-2, since a hidden-16 chain of two bf16
+    bottlenecks on real activations can grow one flip past it; their bits
+    are held on grid inputs and by WIDE_DIGESTS."""
     from unina_yolo_dla_torch.ops.cuda import c3k2_kernel, head_kernel
     from unina_yolo_dla_torch.quant.qtensor import QTensor
 
@@ -1957,7 +1982,7 @@ def check_wide_kernels(model, serve, frame, unfused, torch,
                 g, w = g.float(), w.float()
                 err = max(err, float((g - w).abs().max()))
                 rel = max(rel, float(((g - w).abs() / (1 + w.abs())).max()))
-            assert rel <= 1e-2, (
+            assert rel <= 1e-2 or not gate, (
                 f"{path} ({kernel}): max |err|/(1+|ref|) {rel} > 1e-2")
             b_ms, b_by = bound(nbytes, 2 * macs, BF16_FLOPS)
             mh = unfused.get_submodule(path)
@@ -3064,7 +3089,9 @@ def check_widths_grid(torch) -> dict:
         moved = sorted(k for k in want if digests[k] != want[k])
         assert not moved, f"{c}-wide digests moved: {moved}"
     relaunch = relaunch_check(torch)
+    relaunch.update(persist_relaunch_check(torch))
     exact.update(wide_grid_checks(torch))
+    exact.update(wide_grid_checks(torch, PERSIST_SHAPES))
     digests = wide_digests(torch)
     moved = {k for k, v in digests.items() if WIDE_DIGESTS[k] != v}
     assert not moved, f"wide kernels' digests moved: {sorted(moved)}"
@@ -3072,11 +3099,15 @@ def check_widths_grid(torch) -> dict:
     moved64 = {k for k, v in digests64.items() if WIDE64_DIGESTS[k] != v}
     assert moved64 <= set(WIDE64_REORDERED), (
         f"base-64 digests moved: {sorted(moved64 - set(WIDE64_REORDERED))}")
+    persist = wide_digests(torch, PERSIST_SHAPES)
+    moved_p = sorted(k for k, v in persist.items() if PERSIST_DIGESTS[k] != v)
+    assert not moved_p, f"persistent-plan digests moved: {moved_p}"
     return {"grid_bit_equal": exact, "digests_64_unchanged": True,
             "digests_128_32_unchanged": True, "relaunch_bit_equal": relaunch,
             "wide_digests_unchanged": len(digests),
             "wide64_digests_unchanged": len(digests64) - len(moved64),
-            "wide64_reordered": {k: digests64[k] for k in sorted(moved64)}}
+            "wide64_reordered": {k: digests64[k] for k in sorted(moved64)},
+            "persist_digests_unchanged": len(persist)}
 
 
 RELAUNCHES = 100
@@ -3113,11 +3144,34 @@ def relaunch_check(torch) -> dict:
     return done
 
 
-def wide_grid_checks(torch) -> dict:
+def persist_relaunch_check(torch) -> dict:
+    """The wide C3k2 kernel on the persistent plan, whose blocks reuse
+    their ring's slots and windows from tile to tile (the next tile's
+    chunks and input copied while this tile multiplies), launched
+    RELAUNCHES times back to back at base 64's two served shapes it takes
+    and at ragged batches of 2 (PERSIST_SHAPES) on seeded normal inputs:
+    every output bit for bit the first. The ragged batches of
+    WIDE64_SHAPES run the replicated plan and are held to their digests
+    elsewhere. Returns the launches compared per case."""
+    shapes = {k: v for k, v in WIDE64_SHAPES.items()
+              if k in ("stage1_block_1x160x160", "fpn_c3k2_2_1x160x160")}
+    done = {}
+    for name, call in wide_calls(torch, {**shapes, **PERSIST_SHAPES}).items():
+        outs = [call() for _ in range(RELAUNCHES)]
+        torch.cuda.synchronize()
+        same = sum(all(bool(torch.equal(a, b)) for a, b in zip(o, outs[0]))
+                   for o in outs)
+        assert same == RELAUNCHES, f"{name}: {RELAUNCHES - same} of " \
+            f"{RELAUNCHES} launches differ from the first"
+        done[name] = same
+    return done
+
+
+def wide_grid_checks(torch, shapes=None) -> dict:
     """The C3k2 and head kernels at base 64's ten blocks' shapes
-    (WIDE64_SHAPES: 640² and ragged batches of 2) on binary-grid inputs
-    (activations k/2, sparse weights k/4, biases k/8: every f32 sum exact
-    in any order): bit for bit their plain versions."""
+    (WIDE64_SHAPES by default: 640² and ragged batches of 2) on
+    binary-grid inputs (activations k/2, sparse weights k/4, biases k/8:
+    every f32 sum exact in any order): bit for bit their plain versions."""
     from unina_yolo_dla_torch.ops.cuda import c3k2_kernel, head_kernel, \
         mma_pack
 
@@ -3136,7 +3190,7 @@ def wide_grid_checks(torch) -> dict:
                 (rng.integers(-2, 3, shape[-1]) / 8).astype(np.float32))
 
     exact = {}
-    for name, case in WIDE64_SHAPES.items():
+    for name, case in (WIDE64_SHAPES if shapes is None else shapes).items():
         if name.startswith("head"):
             b, h, w, c = case
             x = act((b, h, w, c))
@@ -4045,6 +4099,16 @@ def main() -> int:
         fc64_launches = next(
             r["launches"] for r in widths["engines"]
             if (r["base"], r["engine"]) == (64, "s2dm_fc"))
+        # base 16's: the stage1_fc engine's ten fused blocks against the
+        # fused-stem engine's cuDNN blocks, on its seed-7 activations
+        fc16 = eagers[16, "stage1_fc"]
+        wide16_rows = check_wide_kernels(
+            fc16.model, fc16._serve, fc16.stage(rgb),
+            eagers[16, "fused_stem_stage1"].model, torch, gate=False)
+        fc16_launches = next(
+            r["launches"] for r in widths["engines"]
+            if (r["base"], r["engine"]) == (16, "stage1_fc"))
+        del fc16
         del eagers, fc64
         phase_s["widths"] = time.perf_counter() - t
         print(json.dumps({"widths": widths, "card": smi}), flush=True)
@@ -4135,7 +4199,10 @@ def main() -> int:
                 for w in wide_rows if w["kernel"] == row["name"]] + [
                 dict(w, block="b64_s2dm_fc " + w["block"],
                      launches=fc64_launches[kernels[row["name"]].symbol])
-                for w in wide64_rows if w["kernel"] == row["name"]]
+                for w in wide64_rows if w["kernel"] == row["name"]] + [
+                dict(w, block="b16_stage1_fc " + w["block"],
+                     launches=fc16_launches[kernels[row["name"]].symbol])
+                for w in wide16_rows if w["kernel"] == row["name"]]
             row["bf16_fc_launches"] = fc_rec["e2e"]["launches"][row["name"]]
             row["bf16_fc_graph_nodes_per_frame"] = fc_rec["graph"][
                 "report"]["port_kernels"][row["name"]]
@@ -4186,7 +4253,8 @@ def main() -> int:
          "native_host": native, "training": training, "train_cli": cli,
          "export": exported, "bf16_engines": bf16,
          "bf16_fc_fused_modules": wide_rows,
-         "b64_s2dm_fc_fused_modules": wide64_rows, "nms_fast": fast_nms,
+         "b64_s2dm_fc_fused_modules": wide64_rows,
+         "b16_stage1_fc_fused_modules": wide16_rows, "nms_fast": fast_nms,
          "deploy_modes": modes, "widths": widths, "fleet": fleet,
          "curation": curation, "phases_19_22_s": phase_s,
          "before_redesign_graph_ms_quoted": {

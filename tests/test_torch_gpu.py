@@ -1027,6 +1027,24 @@ def test_last_launch_records_the_grid(rng, cuda):
         smem_bytes=c3k2_kernel.wide_smem_owned(128, 2))
     assert c3k2_kernel.last_launch() == c3k2_kernel.wide_launch(
         0, 256, False, 128, 2, 1, 80, 80)
+    # hidden 64 at base 64's 160 x 160: the persistent plan, one block an
+    # SM; at base 32's 80 x 80 the replicated plan, one block a tile; the
+    # head at 128 one block a tile and branch at both
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for h in (160, 80):
+        x = _act(rng, (1, h, h, 128), cuda)
+        ws, wpk = _wide_c3k2_weights(rng, 128, 64, 128, 1, cuda)
+        c3k2_kernel.fused_c3k2(x, *ws, wpk=wpk)
+        rec = c3k2_kernel.last_launch()
+        assert rec == c3k2_kernel.wide_launch(0, 128, False, 64, 1, 1, h, h,
+                                              sms=sms)
+        assert rec["grid"] == ([sms, 1, 1] if h == 160 else [100, 1, 1])
+        ws, w33 = _head_ws(rng, 128, cuda)
+        head_kernel.fused_head(x, *ws, w33=w33)
+        torch.cuda.synchronize()
+        rec = head_kernel.last_launch()
+        assert rec == head_kernel.wide_launch(128, 1, h, h)
+        assert rec["grid"] == [(h // 8) * (h // 16), 2, 1]
 
 
 def test_fc_engine_frame_matches_cpu_port(cuda):
@@ -1936,13 +1954,16 @@ def test_wide64_kernels_bits(cuda):
 
 @pytest.mark.parametrize("case", [
     (40, 40, 256), (80, 80, 256), (40, 40, 0, 256, 128, 2, False, True),
-    (40, 40, 128, 256, 128, 1, False, False)])
+    (40, 40, 128, 256, 128, 1, False, False),
+    (80, 80, 0, 128, 64, 1, False, True)])
 def test_wide_frame_bits_do_not_depend_on_the_batch(rng, cuda, case):
     """A frame gets the same bits alone and inside a batch of 4: the head,
     whose two plans sum in different orders, picks its plan from one
     image's size (base 32's head_p4 at 40 x 40, base 64's head_p3 at 80 x
     80); the C3k2 (base 32's stage3_c3k2 and pan_c3k2_2 at 40 x 40) changes
-    plan with the batch, and its plans sum in the same order."""
+    plan with the batch, and its plans sum in the same order; so does the
+    C3k2 at hidden 64 with one bottleneck at 80 x 80 (the replicated plan
+    alone, the persistent one in the batch of 4)."""
     frames = 4
     if len(case) == 3:
         h, w, c = case
@@ -1978,6 +1999,89 @@ def test_wide_frame_bits_do_not_depend_on_the_batch(rng, cuda, case):
     alone = run(x[2:3]) if len(case) == 3 else run(x[2:3], slice(2, 3))
     for got, want in zip(batch, alone):
         assert torch.equal(got[2:3], want)
+
+
+# Base 64's two C3k2 blocks at 160 x 160 that the persistent plan takes,
+# as ragged batches of 2 large enough for it, and the SHA-256 of their
+# outputs on WIDE_SEED's inputs as the parent commit's kernels (the
+# replicated plan) computed them (NVIDIA H100 80GB HBM3); chip_smoke.py
+# holds the same shapes and digests.
+PERSIST_SHAPES = {
+    "stage1_block_2x150x134": (2, 150, 134, 0, 128, 64, 1, False, True),
+    "fpn_c3k2_2_2x150x134": (2, 150, 134, 128, 128, 64, 1, True, False),
+}
+PERSIST_DIGESTS = {
+    "stage1_block_2x150x134":
+        "4bf80a77f79335516da03a4dccddd15e2bc865fefb2d58d27c66d080087befc3",
+    "fpn_c3k2_2_2x150x134":
+        "fc09e79c3fda63a338ddb03f434fa7c476c0c1cc39da16c1e5e9cc9b96afd564",
+}
+PERSIST_SERVED = ("stage1_block_1x160x160", "fpn_c3k2_2_1x160x160")
+
+
+def test_persist_plan_bits_unchanged(cuda):
+    """The persistent plan at ragged batches of 2 (PERSIST_SHAPES) gives
+    the parent's bits (PERSIST_DIGESTS); at the served shapes the
+    WIDE64_DIGESTS test holds it."""
+    assert _wide_digests(PERSIST_SHAPES, cuda) == PERSIST_DIGESTS
+
+
+def _persist_case(rng, case, cuda, kb=_kb, act=_act):
+    """A call of the wide C3k2 at one of WIDE_SHAPES' C3k2 cases on
+    ``rng``'s inputs (activations from ``act``, weights from ``kb``), and
+    of its plain version."""
+    b, h, w, ca, cb, hd, n, up, sc = case
+    xb = act(rng, (b, h, w, cb), cuda)
+    xa = act(rng, (b, h // 2, w // 2, ca) if up else (b, h, w, ca), cuda) \
+        if ca else None
+    ws = _to(c3k2_kernel.pack_c3k2_weights(
+        kb(rng, (1, 1, ca + cb, hd)), kb(rng, (1, 1, ca + cb, hd)),
+        kb(rng, (1, 1, 2 * hd, 2 * hd)),
+        [(kb(rng, (1, 1, hd, hd)), kb(rng, (3, 3, hd, hd)))
+         for _ in range(n)], torch.bfloat16), cuda)
+    wpk = mma_pack.pack_c3k2_mma(ws[0], ws[6], ws[2], ws[4], ws[8], ca)
+    if xa is None:
+        return (lambda: c3k2_kernel.fused_c3k2(xb, *ws, shortcut=sc,
+                                               wpk=wpk),
+                lambda: c3k2_kernel.fused_c3k2_plain(xb, *ws, shortcut=sc))
+    return (lambda: c3k2_kernel.fused_c3k2_cat(xa, xb, *ws, shortcut=sc,
+                                               up_a=up, wpk=wpk),
+            lambda: c3k2_kernel.fused_c3k2_cat_plain(xa, xb, *ws,
+                                                     shortcut=sc, up_a=up))
+
+
+@pytest.mark.parametrize("name", [*PERSIST_SERVED, *PERSIST_SHAPES])
+def test_persist_plan_bit_exact_on_grid_inputs(rng, cuda, name):
+    """The persistent plan on binary-grid inputs (every f32 sum exact in
+    any order) at the served shapes and ragged batches of 2: bit for bit
+    the plain version, and the launch ``wide_launch`` gives for the card's
+    SMs."""
+    case = {**WIDE64_SHAPES, **PERSIST_SHAPES}[name]
+    call, plain = _persist_case(rng, case, cuda, kb=_grid_kb, act=_grid_act)
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    assert float(want.float().abs().max()) > 1.0
+    assert torch.equal(got, want)
+    b, h, w, ca, cb, hd, n, up, _ = case
+    assert c3k2_kernel.wide_plan(ca, cb, up, hd, n, b, h, w) == "persistent"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert c3k2_kernel.last_launch() == c3k2_kernel.wide_launch(
+        ca, cb, up, hd, n, b, h, w, sms=sms)
+
+
+@pytest.mark.parametrize("name", [*PERSIST_SERVED, *PERSIST_SHAPES])
+def test_persist_plan_relaunch_bit_equal(cuda, name):
+    """The persistent plan's blocks reuse their ring's slots and windows
+    from tile to tile (the next tile's chunks and input copied while this
+    tile multiplies): 100 launches back to back on seeded normal inputs,
+    each output bit for bit the first (a race would flip a bit in some
+    launch)."""
+    case = {**WIDE64_SHAPES, **PERSIST_SHAPES}[name]
+    call, _ = _persist_case(np.random.default_rng(WIDE_SEED), case, cuda)
+    outs = [call() for _ in range(100)]
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
 
 
 # ---- the unfused int8 engine and the folded QAT model ----

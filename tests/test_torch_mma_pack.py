@@ -703,6 +703,13 @@ def _gemm(chunks, bs):
     return acc
 
 
+def _part_gemm(parts, chunks, bs):
+    """``_gemm`` of a block's columns in ``parts`` warpgroup column parts,
+    assembled."""
+    return torch.cat([_gemm(chunks, [b[:, j] for b in bs]) for j in
+                      torch.arange(bs[0].shape[1]).chunk(parts)], dim=-1)
+
+
 def _bf(t):
     return t.to(torch.bfloat16).float()
 
@@ -715,15 +722,38 @@ def _c3k2_wide_tiled(xa, xb, ws, *, up_a=False, shortcut=True):
     every stage; the blocks' columns assembled (the distributed shared
     memory) before the next stage reads them. ``xa`` None is the single
     form. Where the kernel picks the owned plan (``c3k2_kernel.owned_plan``)
-    that plan (``_c3k2_owned_tiled``); at hidden 128 on smaller grids this
+    that plan (``_c3k2_owned_tiled``), where it picks the persistent one
+    (``c3k2_kernel.wide_plan``) that walk (``_c3k2_persist_tiled``); at
+    hidden 128 on smaller grids this
     replicated plan over the stream packed for the owned one (first-stage
     columns in ``mma_pack._owned_columns`` order)."""
     _, b1, wb1, bb1, _, bb2, _, b2, _, b3 = ws
     n, hd, fo = wb1.shape[0], b1.shape[0], b3.shape[0]
     tr, tw = c3k2_kernel.wide_tile(hd, n)
     ntiles = xb.shape[0] * -(-xb.shape[1] // tr) * -(-xb.shape[2] // tw)
-    if c3k2_kernel.owned_plan(hd, ntiles):
+    ca = 0 if xa is None else xa.shape[-1]
+    plan = c3k2_kernel.wide_plan(ca, xb.shape[-1], up_a, hd, n,
+                                 *xb.shape[:3])
+    if plan == "persistent":
+        return _c3k2_persist_tiled(xa, xb, ws, up_a=up_a, shortcut=shortcut)
+    if plan == "owned":
         return _c3k2_owned_tiled(xa, xb, ws, up_a=up_a, shortcut=shortcut)
+    res, (ty, tx) = _c3k2_tiles(xa, xb, ws, (tr, tw), 1, up_a=up_a,
+                                shortcut=shortcut)
+    bsz, h, w, _ = xb.shape
+    out = res.reshape(bsz, ty, tx, tr, tw, fo).permute(0, 1, 3, 2, 4, 5)
+    return out.reshape(bsz, ty * tr, tx * tw, fo)[:, :h, :w]
+
+
+def _c3k2_tiles(xa, xb, ws, tile, parts, *, up_a=False, shortcut=True):
+    """The replicated plan's stages on every ``tile`` (tr, tw) of the
+    images: (tiles, tr * tw, F) outputs, tiles in (image, row, column)
+    order, and the (rows, columns) of tiles an image; each stage's block
+    columns multiplied in ``parts`` warpgroup column parts (2: the
+    persistent plan's split) and assembled."""
+    _, b1, wb1, bb1, _, bb2, _, b2, _, b3 = ws
+    n, hd, fo = wb1.shape[0], b1.shape[0], b3.shape[0]
+    tr, tw = tile
     order = (torch.argsort(mma_pack._owned_columns(hd))
              if hd in mma_pack.C3K2_OWNED else torch.arange(2 * hd))
     ca = 0 if xa is None else xa.shape[-1]
@@ -748,9 +778,9 @@ def _c3k2_wide_tiled(xa, xb, ws, *, up_a=False, shortcut=True):
         the source chunks, assembled (in ``cols`` order), ReLU(acc +
         bias), bf16."""
         m = _m64(None, len(rows))
-        parts = [_gemm([c[:, rows[m]] for c in src], blocks[r][st])
-                 for r in range(s)]
-        acc = torch.cat(parts, dim=-1)[:, :len(rows), :ncols]
+        blk = [_part_gemm(parts, [c[:, rows[m]] for c in src],
+                          blocks[r][st]) for r in range(s)]
+        acc = torch.cat(blk, dim=-1)[:, :len(rows), :ncols]
         if cols is not None:
             acc = acc[..., cols]
         return _bf(torch.relu(acc + bias))
@@ -774,15 +804,63 @@ def _c3k2_wide_tiled(xa, xb, ws, *, up_a=False, shortcut=True):
         taps = [c[:, rows + (kh - 1) * wc + kw - 1] for kh in range(3)
                 for kw in range(3) for c in tpl]
         m = _m64(None, len(rows))
-        acc = torch.cat([_gemm([a[:, m] for a in taps], blocks[r][st])
-                         for r in range(s)], dim=-1)[:, :len(rows)]
+        acc = torch.cat([_part_gemm(parts, [a[:, m] for a in taps],
+                                    blocks[r][st]) for r in range(s)],
+                        dim=-1)[:, :len(rows)]
         u = _bf(torch.relu(acc + bb2[i]))
         new = _bf(p[:, rows, :hd] + u) if shortcut else u
         p = p.clone()
         p[:, rows, :hd] = new * inside[:, rows, None]
     res = run(_planes_of(p, 2 * hd), region(0), b3, fo, next(stages))
-    out = res.reshape(bsz, ty, tx, tr, tw, fo).permute(0, 1, 3, 2, 4, 5)
-    return out.reshape(bsz, ty * tr, tx * tw, fo)[:, :h, :w]
+    return res, (ty, tx)
+
+
+def _persist_walk(bsz, ty, tx, blocks):
+    """csrc/wide_mma.cuh ``Walk``: the images' tiles (image, tile row,
+    tile column order) dealt to ``blocks`` blocks in turn; -> per block
+    its list of tiles."""
+    tiles = bsz * ty * tx
+    walks = []
+    for c in range(min(tiles, blocks)):
+        walk = []
+        for t in range(c, tiles, min(tiles, blocks)):
+            b, rem = divmod(t, ty * tx)
+            walk.append((b, *divmod(rem, tx)))
+        walks.append(walk)
+    return walks
+
+
+def _assemble(res, walks, bsz, ty, tx, tile):
+    """The persistent plan's stores: every block's tiles in walk order;
+    every tile of the images stored exactly once."""
+    tr, tw = tile
+    out = torch.full((bsz, ty * tr, tx * tw, res.shape[-1]), float("nan"))
+    stored = set()
+    for walk in walks:
+        for b, row, col in walk:
+            assert (b, row, col) not in stored
+            stored.add((b, row, col))
+            t = (b * ty + row) * tx + col
+            out[b, row * tr:(row + 1) * tr, col * tw:(col + 1) * tw] = \
+                res[t].reshape(tr, tw, -1)
+    assert len(stored) == bsz * ty * tx
+    return out
+
+
+def _c3k2_persist_tiled(xa, xb, ws, *, up_a=False, shortcut=True,
+                        blocks=mma_pack.WIDE_PERSIST_BLOCKS):
+    """csrc/c3k2.cu's persistent plan (``body`` with PERSIST): the
+    replicated plan's stages on ``c3k2_kernel.PERSIST_TILE`` tiles, every
+    stage's columns in two warpgroup parts, the tiles computed by
+    ``blocks`` blocks walking them (``_persist_walk``) and stored in walk
+    order."""
+    tile = c3k2_kernel.PERSIST_TILE
+    res, (ty, tx) = _c3k2_tiles(xa, xb, ws, tile, 2, up_a=up_a,
+                                shortcut=shortcut)
+    bsz, h, w, _ = xb.shape
+    out = _assemble(res, _persist_walk(bsz, ty, tx, blocks), bsz, ty, tx,
+                    tile)
+    return out[:, :h, :w]
 
 
 def _x_chunks(xa, xb, n, tr, tw, up_a):
@@ -1058,7 +1136,8 @@ def _grid_c3k2_ws(rng, cin, hd, n):
 # 64's stage3_c3k2 (hidden 256, n 2: 8 x 8 tiles, clusters of 4 owning
 # their planes) and hidden 256 with one bottleneck, ragged at batch 2 and
 # across three tile rows, the widest input the owned plan takes (12
-# planes)
+# planes); hidden 64 at a ragged batch of 2 whose grid takes the
+# persistent plan (8 x 16 tiles, ragged in both directions)
 @pytest.mark.parametrize("b,h,w,cin,hd,n", [(1, 40, 40, 256, 128, 2),
                                             (1, 80, 80, 128, 64, 2),
                                             (1, 40, 40, 32, 16, 1),
@@ -1069,7 +1148,8 @@ def _grid_c3k2_ws(rng, cin, hd, n):
                                             (1, 17, 9, 768, 256, 1),
                                             (1, 10, 19, 200, 256, 2),
                                             (1, 80, 80, 256, 128, 2),
-                                            (2, 41, 63, 128, 128, 1)])
+                                            (2, 41, 63, 128, 128, 1),
+                                            (2, 110, 74, 128, 64, 1)])
 def test_c3k2_wide_tiling_matches_plain(b, h, w, cin, hd, n):
     rng = np.random.default_rng(20)
     x = _grid_img(rng, (b, h, w, cin))
@@ -1086,14 +1166,14 @@ def test_c3k2_wide_tiling_matches_plain(b, h, w, cin, hd, n):
 # (hidden 128, xa upsampled), hidden 256 upsampled, ragged at batch 2 and
 # with a narrow xa (one zero-padded plane). One bottleneck, as the neck's
 # blocks, but two at hidden 128 upsampled where the card takes them (the
-# ragged base-32 case)
+# ragged base-32 case); hidden 64 upsampled on the persistent plan's grid
 @pytest.mark.parametrize("b,h,w,ca,cb,hd,up", [
     (1, 80, 80, 128, 128, 64, True), (1, 80, 80, 64, 128, 64, False),
     (1, 40, 40, 128, 256, 128, False), (2, 14, 22, 128, 64, 128, True),
     (1, 40, 40, 32, 32, 16, True), (2, 11, 13, 256, 512, 256, False),
     (2, 12, 14, 256, 256, 128, True), (2, 12, 18, 256, 256, 256, True),
     (1, 18, 10, 40, 64, 256, False), (1, 80, 80, 256, 256, 128, True),
-    (1, 80, 80, 128, 256, 128, False)])
+    (1, 80, 80, 128, 256, 128, False), (2, 110, 74, 128, 128, 64, True)])
 def test_c3k2_cat_wide_tiling_matches_plain(b, h, w, ca, cb, hd, up):
     rng = np.random.default_rng(21)
     xa = _grid_img(rng, (b, h // 2, w // 2, ca) if up else (b, h, w, ca))
@@ -1107,10 +1187,13 @@ def test_c3k2_cat_wide_tiling_matches_plain(b, h, w, ca, cb, hd, up):
     assert torch.equal(got.to(torch.bfloat16), want)
 
 
+# the last: head 128 on a ragged batch of 2 as large as base 64's head_p2
+# grid (the replicated plan, 8 x 16 tiles)
 @pytest.mark.parametrize("b,h,w,c", [(1, 40, 40, 256), (1, 80, 80, 128),
                                      (2, 9, 17, 32), (2, 13, 6, 256),
                                      (2, 9, 13, 512), (1, 17, 18, 512),
-                                     (1, 80, 80, 256), (2, 57, 75, 256)])
+                                     (1, 80, 80, 256), (2, 57, 75, 256),
+                                     (2, 110, 70, 128)])
 def test_head_wide_tiling_matches_plain(b, h, w, c):
     rng = np.random.default_rng(22)
     x = _grid_img(rng, (b, h, w, c))
@@ -1124,6 +1207,65 @@ def test_head_wide_tiling_matches_plain(b, h, w, c):
     for g, w_ in zip(got, want):
         assert g.shape == w_.shape == (b, h, w, 4)
         assert torch.equal(g, w_)
+
+
+# (batch, tile rows, tile columns, blocks): the persistent plan's walk
+# stores every tile once, whatever each block's share of the grid
+@pytest.mark.parametrize("bsz,ty,tx,blocks", [(1, 20, 10, 132),
+                                              (2, 19, 9, 66),
+                                              (2, 3, 5, 4), (1, 1, 1, 132)])
+def test_persist_walk_stores_every_tile(bsz, ty, tx, blocks):
+    walks = _persist_walk(bsz, ty, tx, blocks)
+    assert len(walks) == min(bsz * ty * tx, blocks)
+    assert max(map(len, walks)) - min(map(len, walks)) <= 1
+    res = torch.arange(bsz * ty * tx, dtype=torch.float32)[:, None, None]
+    out = _assemble(res.expand(-1, 2, 1), walks, bsz, ty, tx, (1, 2))
+    assert torch.equal(out[..., ::2, 0].reshape(-1), res.reshape(-1))
+
+
+# (b, h, w, hidden, n, up, plan): base 64's 160 x 160 blocks take the
+# persistent plan, base 32's 80 x 80 and 40 x 40 and base 16's the plans
+# they ran, so do hidden 64 with two bottlenecks and a ragged batch of 2
+@pytest.mark.parametrize("b,h,w,ca,cb,hd,n,up,plan", [
+    (1, 160, 160, 0, 128, 64, 1, False, "persistent"),
+    (1, 160, 160, 128, 128, 64, 1, True, "persistent"),
+    (1, 80, 80, 0, 128, 64, 2, False, "replicated"),
+    (1, 80, 80, 128, 128, 64, 1, True, "replicated"),
+    (1, 80, 80, 64, 128, 64, 1, False, "replicated"),
+    (1, 40, 40, 0, 256, 128, 2, False, "replicated"),
+    (1, 160, 160, 0, 32, 16, 1, False, "replicated"),
+    (1, 160, 160, 32, 32, 16, 1, True, "replicated"),
+    (2, 19, 23, 0, 128, 64, 1, False, "replicated"),
+    (1, 80, 80, 0, 256, 128, 2, False, "owned"),
+    (1, 160, 160, 0, 128, 64, 2, False, "replicated")])
+def test_c3k2_wide_plan_by_grid(b, h, w, ca, cb, hd, n, up, plan):
+    assert c3k2_kernel.wide_plan(ca, cb, up, hd, n, b, h, w) == plan
+    got = c3k2_kernel.wide_launch(ca, cb, up, hd, n, b, h, w)
+    if plan == "persistent":
+        assert got["cluster"] == [1, 1, 1]
+        assert got["grid"] == [mma_pack.WIDE_PERSIST_BLOCKS, 1, 1]
+        assert got["smem_bytes"] == c3k2_kernel.wide_smem_persist(
+            ca, cb, up, hd, n) <= mma_pack.WIDE_SMEM_MAX
+    else:
+        assert got["grid"][0] >= b * -(-h // 8) * -(-w // 8)
+
+
+# (b, h, w, c, owned): the head keeps the plans it ran at every base's
+# shapes, base 64's 160 x 160 included: the owned plan at 512 and at 256
+# on 80 x 80, the replicated one elsewhere, one block (or cluster) a tile
+@pytest.mark.parametrize("b,h,w,c,owned", [
+    (1, 160, 160, 128, False), (2, 110, 70, 128, False),
+    (1, 80, 80, 128, False), (2, 37, 45, 128, False),
+    (1, 160, 160, 32, False), (1, 80, 80, 32, False),
+    (1, 40, 40, 256, False), (1, 80, 80, 256, True),
+    (1, 40, 40, 512, True)])
+def test_head_wide_plan_by_grid(b, h, w, c, owned):
+    assert head_kernel.owned_plan(c, h, w) == owned
+    got = head_kernel.wide_launch(c, b, h, w)
+    tr, tw = head_kernel.OWNED_TILE if owned else head_kernel.wide_tile(c)
+    s = c // 128 if owned else mma_pack.HEAD_SPLIT[c]
+    assert got["cluster"] == [s, 1, 1]
+    assert got["grid"] == [b * -(-h // tr) * -(-w // tw) * s, 2, 1]
 
 
 @pytest.mark.parametrize("tr,tw", TILES)

@@ -29,12 +29,13 @@ fc engine's ten fused blocks (``blocks``: the wide C3k2 and head kernels
 at 128 and 256 channels among them) on its seed-7 frame's activations:
 the SHA-256 of each output and its time inside a replayed graph; the same
 for base 64's ten fused blocks at their served shapes on
-``chip_smoke.py``'s seeded inputs (``blocks64``, ``WIDE64_SHAPES``); and
-the stem and stage1 kernels at C = 32, 64 and 128 (base 16, 32, 64) at
-the served shape (1, 320, 160) on ``chip_smoke.width_inputs``' seeded
-normal inputs (``widths``: each output's SHA-256 and three replayed-graph
-times). Run
-parent, change, change, parent in one call and compare digests (equal:
+``chip_smoke.py``'s seeded inputs (``blocks64``, ``WIDE64_SHAPES``), and
+the digests of the two 160 x 160 C3k2 blocks at ``PERSIST_SHAPES``'
+ragged batches (``persist``); and the stem and stage1 kernels at C = 32, 64 and
+128 (base 16, 32, 64) at the served shape (1, 320, 160) on
+``chip_smoke.width_inputs``' seeded normal inputs (``widths``: each
+output's SHA-256 and three replayed-graph times). Run parent, change,
+change, parent in one call and compare digests (equal:
 the same bits) and times (within the spread of the two runs of one
 tree). Prints one JSON object and writes it to
 ``chiprun_out/torch_parent_ab_<tag>.json``.
@@ -234,6 +235,10 @@ def main() -> int:
         torch.cuda.synchronize()
         out["blocks64"][name] = {"digest": digest(res),
                                  "graph_ms": cs.graph_ms(call, 10, 5)}
+    # base 64's 160 x 160 C3k2 blocks at ragged batches of 2 on the
+    # persistent plan's grids (PERSIST_SHAPES): digests only
+    out["persist"] = {name: digest(call()) for name, call in
+                      cs.wide_calls(torch, cs.PERSIST_SHAPES).items()}
     out["widths"] = width_kernels(cs, torch)
     text = json.dumps(out)
     shutil.rmtree(tmp)

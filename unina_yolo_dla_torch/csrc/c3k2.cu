@@ -485,8 +485,9 @@ int launch(Params P, int B, void* stream) {
 // The shapes of the bf16 engines' other C3k2s (hidden 64 to 256, F 128 to
 // 512, inputs of 128 to 768 channels; hidden 16 at base 16) do not fit the
 // tiled kernel's resident weights in shared memory. This form streams them
-// (csrc/wide_mma.cuh) on 8 x 8 output tiles, in one of two plans. The same
-// stages and rounding points as above, on the tile plus a halo of n:
+// (csrc/wide_mma.cuh) on 8 x 8 output tiles, in one of two plans (a third
+// at hidden 64 on large grids, below). The same stages and rounding points
+// as above, on the tile plus a halo of n:
 //   A  [p1 | p2] = ReLU(xwin @ [w1 | w2] + [b1 | b2]) on the
 //      (TR+2n) x (TW+2n) window (xa's planes ahead of xb's, xa read at the
 //      coarse pixel (r >> 1, c >> 1) of a (TR/2+2) x (TW/2+2) window when
@@ -512,6 +513,26 @@ int launch(Params P, int B, void* stream) {
 // plane copied from its shared memory (16-byte loads, the rows a stage
 // reads) before B, C and D. Same K order as the replicated plan, so the
 // same bits.
+// Persistent plan (`body` with PERSIST: hidden 64, n = 1, where the
+// replicated plan's grid, batch included, has PERSIST_MIN_BLOCKS blocks
+// or more: base 64's stage1_block and fpn_c3k2_2 at 160 x 160): one block
+// an SM walks 8 x 16 tiles (200 at 160 x 160: two rounds of the 132 SMs,
+// the second 68 of them, where the replicated plan's 400 8 x 8 tiles take
+// four, the last 4 of 132), its weight ring running on from tile to tile
+// (the next tile's first chunks land during this tile's D), the next
+// tile's input copied into the input window during B, C and D (t gets a
+// window of its own). Every stage splits its columns between the two
+// warpgroups, so each chunk is copied from L2 once a block a tile (the
+// replicated plan's C, one part, copies it into both rings). Shared
+// memory at 160 x 160: 2,048 head + 98,304 ring + 46,080 [p1 | p2] +
+// 46,080 xb + 23,040 t = 215,552 (stage1_block); + 15,360 of xa's coarse
+// window = 230,912 (fpn_c3k2_2). Resident weights would fit stage1_block
+// only beside 8 x 8 windows (147,456 + 2 x 25,600 input + 25,600 + 2,048
+// = 226,304), fpn_c3k2_2's 180,224 beside none; one copy a cluster (two
+// blocks on neighbouring tiles, each chunk multicast, its slot released
+// to the copier by cluster-scope arrivals) was built and measured slower
+// than a copy a block on the H100 (PERF.md): each chunk's latency, not
+// L2's bandwidth, paces the ring. Same K order, so the same bits.
 // Bound on the H100 at base 64's stage3_c3k2 (40 x 40 x 512, hidden 256,
 // n = 2): 5.9 GFLOP over 6.9 MB, about 5.9 us at the bf16 peak; the owned
 // plan's 25 tiles x 4 = 100 blocks (one wave, 229,376 B each) read 92 MB
@@ -537,6 +558,7 @@ struct Params {
   const float *b1, *bb1, *bb2, *b2, *b3;
   bf16* out;        // (B, H, W, fo)
   int ca, cb, up_a, H, W, n, shortcut, hid, fo, tiles_x, tiles_y;
+  int units;        // the persistent plan's tiles (batch included)
 };
 
 // the widths this form is compiled for, and their cluster size
@@ -573,6 +595,22 @@ constexpr int XSLOTS = 4;
 // 64-column warpgroup parts), t's plane r in B and C
 constexpr int OWNED_COLS = 64;
 
+// The persistent plan (`body` with PERSIST): hidden 64 with one
+// bottleneck where the replicated plan's grid, batch included, has
+// PERSIST_MIN_BLOCKS blocks or more (two rounds of the H100's 132 SMs:
+// base 64's 160 x 160, 400; base 32's 80 x 80 has 100) and its windows fit
+// in shared memory: one block an SM walking 8 x 16 tiles, every stage in
+// two warpgroup column parts (so each chunk goes into one ring). It sums
+// as the replicated plan does, so the bits do not depend on the plan or
+// the batch.
+constexpr int PERSIST_MIN_BLOCKS = 264;
+constexpr int PERSIST_TR = 8, PERSIST_TW = 16;
+__host__ __device__ inline bool persist_plan(int hid, int n, int ntiles) {
+  return hid == 64 && n == 1 && ntiles >= PERSIST_MIN_BLOCKS;
+}
+// the persistent plan's widest warpgroup part: half of stage A's columns
+__host__ __device__ constexpr int persist_cols(int hid) { return hid; }
+
 // pixels of the region of stage A (i < 0), B_i, C_i (c) or D (i = n) of a
 // tr x tw tile
 __host__ __device__ constexpr int region(int tr, int tw, int n, int i,
@@ -603,6 +641,18 @@ __host__ __device__ inline int smem_owned(int hid, int n) {
          (3 + XSLOTS) * region(tile_rows(hid, n), tile_cols(hid, n), n, -1,
                                false) * PIX_BYTES;
 }
+// the persistent plan's: the head, the ring, the [p1 | p2] window, the
+// input windows and the t window (the next input lands during B, C, D)
+__host__ __device__ inline int smem_persist(int ca, int cb, int up_a,
+                                            int hid, int n) {
+  constexpr int tr = PERSIST_TR, tw = PERSIST_TW;
+  const int wp = region(tr, tw, n, -1, false);
+  const int apx = up_a ? (tr / 2 + 2) * (tw / 2 + 2) : wp;
+  return wide::SMEM_HEAD + ring_bytes(persist_cols(hid)) +
+         (planes(2 * hid) * wp + planes(ca) * apx + planes(cb) * wp +
+          planes(hid) * wp) *
+             PIX_BYTES;
+}
 // the shared memory a width is admitted by: at hidden 256 the owned plan's
 // (its input at most XMAX planes); otherwise the replicated plan's: the
 // stream table and alignment, the ring, the [p1 | p2] window, the input
@@ -623,17 +673,22 @@ __host__ __device__ inline int smem_bytes(int ca, int cb, int up_a, int hid,
 }
 
 // N: the bottlenecks, a template parameter so that every stage's region,
-// and so its count of items, is known at compile time
-// and TR x TW the output tile, compile-time parameters as well
-template <bool CAT, int HID, int N, int TR, int TW>
+// and so its count of items, is known at compile time, and TR x TW the
+// output tile, compile-time parameters as well. The replicated plan: one
+// tile a block (or a cluster of S). PERSIST: the persistent plan (S = 1),
+// each block walking its tiles with its ring running on from tile to tile
+// and the next tile's input landing during this tile's B, C and D (t has
+// a window of its own).
+template <bool CAT, int HID, int N, int TR, int TW, bool PERSIST = false>
 __device__ __forceinline__ void body(const Params& P,
                                      unsigned char* smem_raw, Stream& st) {
   constexpr int S = split(HID, 2 * HID);
+  static_assert(!PERSIST || S == 1, "a persistent block owns its tiles");
   constexpr int PP = (2 * HID + 63) / 64, PT = (HID + 63) / 64;
   constexpr int NSA = 2 * HID / S, NSB = HID / S;  // F = 2 hidden: D as A
   constexpr int WC = TW + 2 * N, WP = (TR + 2 * N) * WC;  // window
   constexpr int AR = TR / 2 + 2, AC = TW / 2 + 2;  // coarse xa window
-  using G = Ring<ring_slot(ring_cols(HID, N))>;
+  using G = Ring<ring_slot(PERSIST ? persist_cols(HID) : ring_cols(HID, N))>;
   static_assert(TR % 2 == 0 && TW % 2 == 0, "even tile origins (up_a)");
   static_assert(HID % 64 == 0 || S == 1, "padded planes are zeroed locally");
   const Lane L;
@@ -653,38 +708,54 @@ __device__ __forceinline__ void body(const Params& P,
     }
   };
   const int H = P.H, W = P.W;
-  const int tile = blockIdx.x / S;
-  const int b = tile / (P.tiles_x * P.tiles_y);
-  const int rem = tile - b * P.tiles_x * P.tiles_y;
-  const int R0 = (rem / P.tiles_x) * TR, W0 = (rem % P.tiles_x) * TW;
   const bool up = CAT && P.up_a;
   const int APX = up ? AR * AC : WP;
   const int KA = CAT ? planes(P.ca) : 0, KB = planes(P.cb);
   const int Ha = up ? H / 2 : H, Wa = up ? W / 2 : W;
-  // coarse window origin (up): fine rows R0-N.. start at (R0 >> 1) - 1
-  const int ay0 = up ? (R0 >> 1) - 1 : R0 - N;
-  const int ax0 = up ? (W0 >> 1) - 1 : W0 - N;
+  // this block's tiles: one (replicated), or its walk (persistent)
+  const Walk walk(P.units, P.tiles_x, P.tiles_y);
+  const int count = PERSIST ? walk.count : 1;
+  auto origin = [&](int k, int& b, int& R0, int& W0) {
+    int ty, tx;
+    if constexpr (PERSIST) {
+      walk.tile(k, b, ty, tx);
+    } else {
+      const int tile = blockIdx.x / S;
+      b = tile / (P.tiles_x * P.tiles_y);
+      const int rem = tile - b * P.tiles_x * P.tiles_y;
+      ty = rem / P.tiles_x;
+      tx = rem % P.tiles_x;
+    }
+    R0 = ty * TR;
+    W0 = tx * TW;
+  };
 
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ring = ring_base(raw);
   const uint32_t p_s = ring + G::BYTES;                // [p1 | p2]
   const uint32_t xa_s = p_s + PP * WP * PIX_BYTES;     // KA planes
   const uint32_t xb_s = xa_s + KA * APX * PIX_BYTES;   // KB planes
-  const uint32_t t_s = xa_s;                           // after A
+  // t: in the input's space after A; the persistent plan's its own (the
+  // next tile's input lands there during this tile's B, C and D)
+  const uint32_t t_s = PERSIST ? xb_s + KB * WP * PIX_BYTES : xa_s;
   const uint32_t p_off = p_s - raw, t_off = t_s - raw;
 
   if (L.tid == 0) {
     st.nst = 0;
     st.first[0] = 0;
-    st.add(KA + KB, NSA * 128, stage_nh(NSA, region(TR, TW, N, -1, false)),
+    st.add(KA + KB, NSA * 128,
+           stage_nh(NSA, region(TR, TW, N, -1, false), PERSIST),
            SUB * NSA * 128, h * NSA * 128);
     for (int i = 0; i < N; ++i) {
-      st.add(PT, NSB * 128, stage_nh(NSB, region(TR, TW, N, i, false)),
+      st.add(PT, NSB * 128,
+             stage_nh(NSB, region(TR, TW, N, i, false), PERSIST),
              SUB * NSB * 128, h * NSB * 128);
-      st.add(9 * PT, NSB * 128, stage_nh(NSB, region(TR, TW, N, i, true)),
+      st.add(9 * PT, NSB * 128,
+             stage_nh(NSB, region(TR, TW, N, i, true), PERSIST),
              SUB * NSB * 128, h * NSB * 128);
     }
-    st.add(PP, NSA * 128, stage_nh(NSA, region(TR, TW, N, N, false)),
+    st.add(PP, NSA * 128,
+           stage_nh(NSA, region(TR, TW, N, N, false), PERSIST),
            SUB * NSA * 128, h * NSA * 128);
     st.src = reinterpret_cast<const unsigned char*>(P.wimg) +
              ro * st.total_bytes();
@@ -692,204 +763,244 @@ __device__ __forceinline__ void body(const Params& P,
   // the weights' first chunks are on their way before the windows
   init_rings<G>(raw, L);
   __syncthreads();  // the stream's table, the rings' barriers
-  Feeder<G> fd(st, ring, raw + BARS, L);
+  Feeder<G, false, PERSIST> fd(st, ring, raw + BARS, L, count);
   for (int g = 0; g < G::DIST; ++g) fd.issue();
-  // input windows: pixel (wr, wc) <- image (R0-N+wr, W0-N+wc), 64 channels
-  // a plane; zeros outside the image and past the last channel
-  const bf16* xb_b = P.xb + (size_t)b * H * W * P.cb;
-  for (int i = L.tid; i < KB * WP * 8; i += wide::THREADS) {
-    const int ch = i & 7, pq = i >> 3;
-    const int q = pq / WP, p = pq - q * WP;
-    const int wr = p / WC, wc = p - wr * WC;
-    const int gy = R0 - N + wr, gx = W0 - N + wc, c0 = q * 64 + ch * 8;
-    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c0 < P.cb;
-    const bf16* src = ok ? xb_b + ((size_t)gy * W + gx) * P.cb + c0 : xb_b;
-    cp_async16(xb_s + q * WP * PIX_BYTES + pix_chunk(p, ch), src,
-               ok ? 16 : 0);
-  }
-  if constexpr (CAT) {
-    const bf16* xa_b = P.xa + (size_t)b * Ha * Wa * P.ca;
-    const int AWC = up ? AC : WC;
-    for (int i = L.tid; i < KA * APX * 8; i += wide::THREADS) {
+  // input windows of the tile at (R0, W0) of image b: pixel (wr, wc) <-
+  // image (R0-N+wr, W0-N+wc), 64 channels a plane; zeros outside the image
+  // and past the last channel
+  auto load_x = [&](int b, int R0, int W0) {
+    const bf16* xb_b = P.xb + (size_t)b * H * W * P.cb;
+    for (int i = L.tid; i < KB * WP * 8; i += wide::THREADS) {
       const int ch = i & 7, pq = i >> 3;
-      const int q = pq / APX, p = pq - q * APX;
-      const int ar = p / AWC, ac = p - ar * AWC;
-      const int ay = ay0 + ar, ax = ax0 + ac, c0 = q * 64 + ch * 8;
-      const bool ok = ay >= 0 && ay < Ha && ax >= 0 && ax < Wa && c0 < P.ca;
-      const bf16* src = ok ? xa_b + ((size_t)ay * Wa + ax) * P.ca + c0 : xa_b;
-      cp_async16(xa_s + q * APX * PIX_BYTES + pix_chunk(p, ch), src,
+      const int q = pq / WP, p = pq - q * WP;
+      const int wr = p / WC, wc = p - wr * WC;
+      const int gy = R0 - N + wr, gx = W0 - N + wc, c0 = q * 64 + ch * 8;
+      const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c0 < P.cb;
+      const bf16* src = ok ? xb_b + ((size_t)gy * W + gx) * P.cb + c0 : xb_b;
+      cp_async16(xb_s + q * WP * PIX_BYTES + pix_chunk(p, ch), src,
                  ok ? 16 : 0);
     }
-  }
-  cp_async_commit();
+    if constexpr (CAT) {
+      const bf16* xa_b = P.xa + (size_t)b * Ha * Wa * P.ca;
+      const int AWC = up ? AC : WC;
+      const int ay0 = up ? (R0 >> 1) - 1 : R0 - N;
+      const int ax0 = up ? (W0 >> 1) - 1 : W0 - N;
+      for (int i = L.tid; i < KA * APX * 8; i += wide::THREADS) {
+        const int ch = i & 7, pq = i >> 3;
+        const int q = pq / APX, p = pq - q * APX;
+        const int ar = p / AWC, ac = p - ar * AWC;
+        const int ay = ay0 + ar, ax = ax0 + ac, c0 = q * 64 + ch * 8;
+        const bool ok = ay >= 0 && ay < Ha && ax >= 0 && ax < Wa && c0 < P.ca;
+        const bf16* src =
+            ok ? xa_b + ((size_t)ay * Wa + ax) * P.ca + c0 : xa_b;
+        cp_async16(xa_s + q * APX * PIX_BYTES + pix_chunk(p, ch), src,
+                   ok ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  int b, R0, W0;
+  origin(0, b, R0, W0);
+  load_x(b, R0, W0);
   if constexpr (PP * 64 != 2 * HID)  // p2 ends inside a plane
     zero_smem(smem_raw + p_off, PP * WP * PIX_BYTES, L.tid);
-  cp_async_wait<0>();
-  __syncthreads();
-  cluster_sync<S>();  // every block runs before any stores into it
+  if constexpr (PERSIST && PT * 64 != HID)  // t ends inside a plane
+    zero_smem(smem_raw + t_off, PT * WP * PIX_BYTES, L.tid);
   const Peers<S> peers(smem_raw);
   int g0 = 0;
 
-  // ---- A: [p1 | p2] on the window ----
-  {
-    constexpr int NHA = stage_nh(NSA, WP), NIA = NSA / NHA;
-    constexpr int NA = stage_items<NHA>(WP);
-    const Items<NIA, NHA, share(NA)> items{NA};
-    int pix[share(NA)], pa[share(NA)];
-#pragma unroll
-    for (int i = 0; i < share(NA); ++i) {
-      const int m = min(items.arow(i, L), WP - 1);
-      pix[i] = m;
-      pa[i] = m;
-      if (up) {
-        const int wr = m / WC, wc = m - wr * WC;
-        pa[i] = (((R0 - N + wr) >> 1) - ay0) * AC + (((W0 - N + wc) >> 1) - ax0);
-      }
-    }
-    float acc[share(NA)][NIA / 2];
-    gemm(acc, items, g0, KA + KB, fd, L,
-         [&](int i, int kc, uint32_t& win, int& px) {
-           if (kc < KA) {
-             win = xa_s + kc * APX * PIX_BYTES;
-             px = pa[i];
-           } else {
-             win = xb_s + (kc - KA) * WP * PIX_BYTES;
-             px = pix[i];
-           }
-         });
-    g0 += KA + KB;
-    each_pair(
-        acc, items, L,
-        [&](int c) {
-          const int col = a_chan(c);
-          return col < HID ? P.b1 + col : P.b2 + col - HID;
-        },
-        [&](int m) {
-          const int gy = R0 - N + m / WC, gx = W0 - N + m % WC;
-          return Row{p_off + m * PIX_BYTES, m & 7, m < WP,
-                     gy >= 0 && gy < H && gx >= 0 && gx < W};
-        },
-        [&](const Row& r, int c, uint32_t v) {
-          peers.put(r.off + col_off(a_chan(c), WP, r.x), r.inside ? v : 0u);
-        });
-    cluster_sync<S>();
-  }
-  if constexpr (PT * 64 != HID)  // t ends inside a plane: the rest 0
-    zero_smem(smem_raw + t_off, PT * WP * PIX_BYTES, L.tid);
+  // one tile: the block's only one (replicated), or its k-th
+  auto run_tile = [&](int k) {
+    cp_async_wait<0>();
+    __syncthreads();  // this tile's windows are in; the last tile is done
+    if (!PERSIST && k == 0) cluster_sync<S>();  // every block runs first
+    // coarse window origin (up): fine rows R0-N.. start at (R0 >> 1) - 1
+    const int ay0 = up ? (R0 >> 1) - 1 : R0 - N;
+    const int ax0 = up ? (W0 >> 1) - 1 : W0 - N;
 
-  // bottleneck I: B on the window less I pixels, then C one pixel less
-  auto bottleneck = [&](auto ic) {
-    constexpr int I = decltype(ic)::value;
+    // ---- A: [p1 | p2] on the window ----
     {
-      // ---- B: t = ReLU(p1 @ wb1 + bb1) on the window less I pixels ----
-      constexpr int RC = TW + 2 * (N - I), RP = (TR + 2 * (N - I)) * RC;
-      constexpr int NHB = stage_nh(NSB, RP), NIB = NSB / NHB;
-      constexpr int NB = stage_items<NHB>(RP);
-      const Items<NIB, NHB, share(NB)> items{NB};
-      int pw[share(NB)];
+      constexpr int NHA = stage_nh(NSA, WP, PERSIST), NIA = NSA / NHA;
+      constexpr int NA = stage_items<NHA>(WP), MA = share(NA);
+      constexpr int KSA = PERSIST ? step_chunks(MA, NIA) : KSTEP;
+      const Items<NIA, NHA, MA> items{NA};
+      int pix[MA], pa[MA];
 #pragma unroll
-      for (int j = 0; j < share(NB); ++j) {
-        const int m = min(items.arow(j, L), RP - 1);
-        pw[j] = (m / RC + I) * WC + m % RC + I;
+      for (int i = 0; i < MA; ++i) {
+        const int m = min(items.arow(i, L), WP - 1);
+        pix[i] = m;
+        pa[i] = m;
+        if (up) {
+          const int wr = m / WC, wc = m - wr * WC;
+          pa[i] = (((R0 - N + wr) >> 1) - ay0) * AC +
+                  (((W0 - N + wc) >> 1) - ax0);
+        }
       }
-      float acc[share(NB)][NIB / 2];
-      gemm(acc, items, g0, PT, fd, L,
-           [&](int j, int kc, uint32_t& win, int& px) {
-             win = p_s + kc * WP * PIX_BYTES;
-             px = pw[j];
-           });
-      g0 += PT;
+      float acc[MA][NIA / 2];
+      gemm<KSA>(acc, items, g0, KA + KB, fd, L,
+                [&](int i, int kc, uint32_t& win, int& px) {
+                  if (kc < KA) {
+                    win = xa_s + kc * APX * PIX_BYTES;
+                    px = pa[i];
+                  } else {
+                    win = xb_s + (kc - KA) * WP * PIX_BYTES;
+                    px = pix[i];
+                  }
+                });
+      g0 += KA + KB;
       each_pair(
           acc, items, L,
-          [&](int c) { return P.bb1 + I * HID + rank * NSB + c; },
+          [&](int c) {
+            const int col = a_chan(c);
+            return col < HID ? P.b1 + col : P.b2 + col - HID;
+          },
           [&](int m) {
-            const int wr = m / RC + I, wc = m % RC + I, p = wr * WC + wc;
-            const int gy = R0 - N + wr, gx = W0 - N + wc;
-            return Row{t_off + p * PIX_BYTES, p & 7, m < RP,
+            const int gy = R0 - N + m / WC, gx = W0 - N + m % WC;
+            return Row{p_off + m * PIX_BYTES, m & 7, m < WP,
                        gy >= 0 && gy < H && gx >= 0 && gx < W};
           },
           [&](const Row& r, int c, uint32_t v) {
-            peers.put(r.off + col_off(rank * NSB + c, WP, r.x),
-                      r.inside ? v : 0u);
+            peers.put(r.off + col_off(a_chan(c), WP, r.x), r.inside ? v : 0u);
           });
       cluster_sync<S>();
     }
-    {
-      // ---- C: u = ReLU(conv3x3(t) + bb2), p1 = p1 + u (or u) ----
-      constexpr int HH = N - 1 - I, OFF = I + 1;
-      constexpr int RC = TW + 2 * HH, RP = (TR + 2 * HH) * RC;
-      constexpr int NHB = stage_nh(NSB, RP), NIB = NSB / NHB;
-      constexpr int NC = stage_items<NHB>(RP);
-      const Items<NIB, NHB, share(NC)> items{NC};
-      int tp[share(NC)];  // the top-left tap of this lane's row
-#pragma unroll
-      for (int j = 0; j < share(NC); ++j) {
-        const int m = min(items.arow(j, L), RP - 1);
-        tp[j] = (m / RC + OFF - 1) * WC + m % RC + OFF - 1;
+    int nb = b, nR0 = R0, nW0 = W0;
+    if constexpr (PERSIST) {  // the next tile's input, under B, C and D
+      if (k + 1 < count) {
+        origin(k + 1, nb, nR0, nW0);
+        load_x(nb, nR0, nW0);
       }
-      float acc[share(NC)][NIB / 2];
-      gemm(acc, items, g0, 9 * PT, fd, L,
-           [&](int j, int kc, uint32_t& win, int& px) {
-             const int tap = kc / PT, q = kc - tap * PT;
-             win = t_s + q * WP * PIX_BYTES;
-             px = tp[j] + (tap / 3) * WC + tap % 3;
-           });
-      g0 += 9 * PT;
-      each_pair(
-          acc, items, L,
-          [&](int c) { return P.bb2 + I * HID + rank * NSB + c; },
-          [&](int m) {
-            const int wr = m / RC + OFF, wc = m % RC + OFF;
-            const int p = wr * WC + wc;
-            const int gy = R0 - N + wr, gx = W0 - N + wc;
-            return Row{p_off + p * PIX_BYTES, p & 7, m < RP,
-                       gy >= 0 && gy < H && gx >= 0 && gx < W};
-          },
-          [&](const Row& r, int c, uint32_t u) {
-            const uint32_t o = r.off + col_off(rank * NSB + c, WP, r.x);
-            if (P.shortcut) {
-              const uint32_t old =
-                  *reinterpret_cast<const uint32_t*>(smem_raw + o);
-              u = pack_bf16(__fadd_rn(bf16_lo(old), bf16_lo(u)),
-                            __fadd_rn(bf16_hi(old), bf16_hi(u)));
-            }
-            peers.put(o, r.inside ? u : 0u);
-          });
-      cluster_sync<S>();
+    } else if constexpr (PT * 64 != HID) {  // t ends inside a plane
+      zero_smem(smem_raw + t_off, PT * WP * PIX_BYTES, L.tid);
     }
-  };
-  bottleneck(std::integral_constant<int, 0>{});
-  if constexpr (N == 2) bottleneck(std::integral_constant<int, 1>{});
 
-  // ---- D: out = ReLU([p1 | p2] @ w3 + b3) on the tile ----
-  {
-    constexpr int NHA = stage_nh(NSA, TR * TW), NIA = NSA / NHA;
-    constexpr int ND = stage_items<NHA>(TR * TW);
-    const Items<NIA, NHA, share(ND)> items{ND};
-    int pw[share(ND)];
+    // bottleneck I: B on the window less I pixels, then C one pixel less
+    auto bottleneck = [&](auto ic) {
+      constexpr int I = decltype(ic)::value;
+      {
+        // ---- B: t = ReLU(p1 @ wb1 + bb1) on the window less I pixels ----
+        constexpr int RC = TW + 2 * (N - I), RP = (TR + 2 * (N - I)) * RC;
+        constexpr int NHB = stage_nh(NSB, RP, PERSIST), NIB = NSB / NHB;
+        constexpr int NB = stage_items<NHB>(RP), MB = share(NB);
+        constexpr int KSB = PERSIST ? step_chunks(MB, NIB) : KSTEP;
+        const Items<NIB, NHB, MB> items{NB};
+        int pw[MB];
 #pragma unroll
-    for (int j = 0; j < share(ND); ++j) {
-      const int m = min(items.arow(j, L), TR * TW - 1);
-      pw[j] = (m / TW + N) * WC + m % TW + N;
+        for (int j = 0; j < MB; ++j) {
+          const int m = min(items.arow(j, L), RP - 1);
+          pw[j] = (m / RC + I) * WC + m % RC + I;
+        }
+        float acc[MB][NIB / 2];
+        gemm<KSB>(acc, items, g0, PT, fd, L,
+                  [&](int j, int kc, uint32_t& win, int& px) {
+                    win = p_s + kc * WP * PIX_BYTES;
+                    px = pw[j];
+                  });
+        g0 += PT;
+        each_pair(
+            acc, items, L,
+            [&](int c) { return P.bb1 + I * HID + rank * NSB + c; },
+            [&](int m) {
+              const int wr = m / RC + I, wc = m % RC + I, p = wr * WC + wc;
+              const int gy = R0 - N + wr, gx = W0 - N + wc;
+              return Row{t_off + p * PIX_BYTES, p & 7, m < RP,
+                         gy >= 0 && gy < H && gx >= 0 && gx < W};
+            },
+            [&](const Row& r, int c, uint32_t v) {
+              peers.put(r.off + col_off(rank * NSB + c, WP, r.x),
+                        r.inside ? v : 0u);
+            });
+        cluster_sync<S>();
+      }
+      {
+        // ---- C: u = ReLU(conv3x3(t) + bb2), p1 = p1 + u (or u) ----
+        constexpr int HH = N - 1 - I, OFF = I + 1;
+        constexpr int RC = TW + 2 * HH, RP = (TR + 2 * HH) * RC;
+        constexpr int NHB = stage_nh(NSB, RP, PERSIST), NIB = NSB / NHB;
+        constexpr int NC = stage_items<NHB>(RP), MCI = share(NC);
+        constexpr int KSC = PERSIST ? step_chunks(MCI, NIB) : KSTEP;
+        const Items<NIB, NHB, MCI> items{NC};
+        int tp[MCI];  // the top-left tap of this lane's row
+#pragma unroll
+        for (int j = 0; j < MCI; ++j) {
+          const int m = min(items.arow(j, L), RP - 1);
+          tp[j] = (m / RC + OFF - 1) * WC + m % RC + OFF - 1;
+        }
+        float acc[MCI][NIB / 2];
+        gemm<KSC>(acc, items, g0, 9 * PT, fd, L,
+                  [&](int j, int kc, uint32_t& win, int& px) {
+                    const int tap = kc / PT, q = kc - tap * PT;
+                    win = t_s + q * WP * PIX_BYTES;
+                    px = tp[j] + (tap / 3) * WC + tap % 3;
+                  });
+        g0 += 9 * PT;
+        each_pair(
+            acc, items, L,
+            [&](int c) { return P.bb2 + I * HID + rank * NSB + c; },
+            [&](int m) {
+              const int wr = m / RC + OFF, wc = m % RC + OFF;
+              const int p = wr * WC + wc;
+              const int gy = R0 - N + wr, gx = W0 - N + wc;
+              return Row{p_off + p * PIX_BYTES, p & 7, m < RP,
+                         gy >= 0 && gy < H && gx >= 0 && gx < W};
+            },
+            [&](const Row& r, int c, uint32_t u) {
+              const uint32_t o = r.off + col_off(rank * NSB + c, WP, r.x);
+              if (P.shortcut) {
+                const uint32_t old =
+                    *reinterpret_cast<const uint32_t*>(smem_raw + o);
+                u = pack_bf16(__fadd_rn(bf16_lo(old), bf16_lo(u)),
+                              __fadd_rn(bf16_hi(old), bf16_hi(u)));
+              }
+              peers.put(o, r.inside ? u : 0u);
+            });
+        cluster_sync<S>();
+      }
+    };
+    bottleneck(std::integral_constant<int, 0>{});
+    if constexpr (N == 2) bottleneck(std::integral_constant<int, 1>{});
+
+    // ---- D: out = ReLU([p1 | p2] @ w3 + b3) on the tile ----
+    {
+      constexpr int NHA = stage_nh(NSA, TR * TW, PERSIST), NIA = NSA / NHA;
+      constexpr int ND = stage_items<NHA>(TR * TW), MD = share(ND);
+      constexpr int KSD = PERSIST ? step_chunks(MD, NIA) : KSTEP;
+      const Items<NIA, NHA, MD> items{ND};
+      int pw[MD];
+#pragma unroll
+      for (int j = 0; j < MD; ++j) {
+        const int m = min(items.arow(j, L), TR * TW - 1);
+        pw[j] = (m / TW + N) * WC + m % TW + N;
+      }
+      float acc[MD][NIA / 2];
+      gemm<KSD>(acc, items, g0, PP, fd, L,
+                [&](int j, int kc, uint32_t& win, int& px) {
+                  win = p_s + kc * WP * PIX_BYTES;
+                  px = pw[j];
+                });
+      g0 += PP;
+      bf16* out_b = P.out + (size_t)b * H * W * (2 * HID);
+      each_pair(
+          acc, items, L, [&](int c) { return P.b3 + rank * NSA + c; },
+          [&](int m) {
+            const int gy = R0 + m / TW, gx = W0 + m % TW;
+            return Row{(uint32_t)(gy * W + gx), 0, m < TR * TW && gy < H &&
+                                                        gx < W, true};
+          },
+          [&](const Row& r, int c, uint32_t v) {
+            *reinterpret_cast<uint32_t*>(out_b + (size_t)r.off * (2 * HID) +
+                                         rank * NSA + c) = v;
+          });
     }
-    float acc[share(ND)][NIA / 2];
-    gemm(acc, items, g0, PP, fd, L,
-         [&](int j, int kc, uint32_t& win, int& px) {
-           win = p_s + kc * WP * PIX_BYTES;
-           px = pw[j];
-         });
-    bf16* out_b = P.out + (size_t)b * H * W * (2 * HID);
-    each_pair(
-        acc, items, L, [&](int c) { return P.b3 + rank * NSA + c; },
-        [&](int m) {
-          const int gy = R0 + m / TW, gx = W0 + m % TW;
-          return Row{(uint32_t)(gy * W + gx), 0, m < TR * TW && gy < H &&
-                                                      gx < W, true};
-        },
-        [&](const Row& r, int c, uint32_t v) {
-          *reinterpret_cast<uint32_t*>(out_b + (size_t)r.off * (2 * HID) +
-                                       rank * NSA + c) = v;
-        });
+    b = nb;
+    R0 = nR0;
+    W0 = nW0;
+  };
+  if constexpr (PERSIST) {
+#pragma unroll 1
+    for (int k = 0; k < count; ++k) run_tile(k);
+  } else {
+    run_tile(0);
   }
 }
 
@@ -1007,7 +1118,7 @@ __device__ __forceinline__ void body_owned(const Params& P,
   {
     constexpr int NHA = stage_nh(NSA, WP), NIA = NSA / NHA;
     constexpr int NA = stage_items<NHA>(WP), MA = share(NA);
-    constexpr int KSA = MA * NIA >= 192 ? 1 : KSTEP;
+    constexpr int KSA = step_chunks(MA, NIA);
     const Items<NIA, NHA, MA> items{NA};
     int pix[MA], pa[MA];
 #pragma unroll
@@ -1153,7 +1264,7 @@ __device__ __forceinline__ void body_owned(const Params& P,
   {
     constexpr int NHA = stage_nh(NSA, TR * TW), NIA = NSA / NHA;
     constexpr int ND = stage_items<NHA>(TR * TW), MD = share(ND);
-    constexpr int KSD = MD * NIA >= 192 ? 1 : KSTEP;
+    constexpr int KSD = step_chunks(MD, NIA);
     const Items<NIA, NHA, MD> items{ND};
     int pw[MD];
 #pragma unroll
@@ -1193,55 +1304,78 @@ __device__ __forceinline__ void body_owned(const Params& P,
   }
 }
 
+// the plans a compiled body runs
+enum Plan { REPLICATED, OWNED, PERSISTENT };
+
 // One kernel function a compiled body: CAT the pair form, HID the hidden
-// width, N the bottlenecks, OWN the owned plan; the launcher picks the
-// instance
-template <bool CAT, int HID, int N, bool OWN>
+// width, N the bottlenecks, PLAN the plan; the launcher picks the instance
+template <bool CAT, int HID, int N, int PLAN>
 __global__ void __launch_bounds__(wide::THREADS, 1)
 c3k2_wide_kernel(const Params P) {
   extern __shared__ __align__(16) unsigned char wide_smem[];
   Stream& st = *reinterpret_cast<Stream*>(wide_smem);
-  if constexpr (OWN)
+  if constexpr (PLAN == OWNED)
     body_owned<CAT, HID, N, tile_rows(HID, N), tile_cols(HID, N)>(
         P, wide_smem, st);
+  else if constexpr (PLAN == PERSISTENT)
+    body<CAT, HID, N, PERSIST_TR, PERSIST_TW, true>(P, wide_smem, st);
   else
     body<CAT, HID, N, tile_rows(HID, N), tile_cols(HID, N)>(P, wide_smem,
                                                             st);
 }
 
-template <bool CAT, int HID, int N, bool OWN>
+template <bool CAT, int HID, int N, int PLAN>
 int launch_body(Params P, int B, int smem, void* stream) {
-  static bool ready = false;  // one per compiled body
-  if (!ready) {
+  const auto kernel = c3k2_wide_kernel<CAT, HID, N, PLAN>;
+  static int sms = 0;  // one per compiled body; the card's SMs
+  if (sms == 0) {
+    int dev = 0;
     cudaError_t err = cudaFuncSetAttribute(
-        c3k2_wide_kernel<CAT, HID, N, OWN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, wide::SMEM_MAX);
-    if (err != cudaSuccess) return (int)err;
-    ready = true;
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wide::SMEM_MAX);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) {
+      sms = 0;
+      return (int)err;
+    }
   }
-  constexpr int S = OWN ? HID / 64 : split(HID, 2 * HID);
+  if constexpr (PLAN == PERSISTENT) {  // one block an SM walks the tiles
+    P.tiles_x = (P.W + PERSIST_TW - 1) / PERSIST_TW;
+    P.tiles_y = (P.H + PERSIST_TR - 1) / PERSIST_TR;
+    P.units = P.tiles_x * P.tiles_y * B;
+    return launch_cluster(last_launch, kernel, 1,
+                          P.units < sms ? P.units : sms, 1, smem, stream, P);
+  }
+  constexpr int S = PLAN == OWNED ? HID / 64 : split(HID, 2 * HID);
   constexpr int tr = tile_rows(HID, N), tw = tile_cols(HID, N);
   P.tiles_x = (P.W + tw - 1) / tw;
   P.tiles_y = (P.H + tr - 1) / tr;
   const int ntiles = P.tiles_x * P.tiles_y * B;
-  return launch_cluster(last_launch, c3k2_wide_kernel<CAT, HID, N, OWN>, S,
-                        ntiles * S, 1, smem, stream, P);
+  return launch_cluster(last_launch, kernel, S, ntiles * S, 1, smem, stream,
+                        P);
 }
 
-// the body at hidden HID: the owned plan or the replicated one (hidden 128)
+// the body at hidden HID: the owned plan or the replicated one (hidden
+// 128), the persistent plan or the replicated one (hidden 64, n = 1)
 template <bool CAT, int HID, int N>
 int launch_width(Params P, int B, int smem, void* stream) {
   const int ntiles = ((P.W + tile_cols(HID, N) - 1) / tile_cols(HID, N)) *
                      ((P.H + tile_rows(HID, N) - 1) / tile_rows(HID, N)) * B;
   if constexpr (HID == 256)
-    return launch_body<CAT, HID, N, true>(P, B, smem_owned(HID, N), stream);
+    return launch_body<CAT, HID, N, OWNED>(P, B, smem_owned(HID, N), stream);
   else if constexpr (HID == 128)
     return owned_plan(HID, ntiles)
-               ? launch_body<CAT, HID, N, true>(P, B, smem_owned(HID, N),
-                                                stream)
-               : launch_body<CAT, HID, N, false>(P, B, smem, stream);
-  else
-    return launch_body<CAT, HID, N, false>(P, B, smem, stream);
+               ? launch_body<CAT, HID, N, OWNED>(P, B, smem_owned(HID, N),
+                                                 stream)
+               : launch_body<CAT, HID, N, REPLICATED>(P, B, smem, stream);
+  else if constexpr (HID == 64 && N == 1) {
+    const int sp = smem_persist(P.ca, P.cb, P.up_a, HID, N);
+    return persist_plan(HID, N, ntiles) && sp <= wide::SMEM_MAX
+               ? launch_body<CAT, HID, N, PERSISTENT>(P, B, sp, stream)
+               : launch_body<CAT, HID, N, REPLICATED>(P, B, smem, stream);
+  } else
+    return launch_body<CAT, HID, N, REPLICATED>(P, B, smem, stream);
 }
 
 template <bool CAT>
@@ -1287,7 +1421,7 @@ int dispatch(bool cat, const bf16* xa, const bf16* xb, int ca, int cb,
   wide_c3k2::Params P{xa, xb, (const bf16*)wpk, (const float*)b1,
                       (const float*)bb1, (const float*)bb2,
                       (const float*)b2, (const float*)b3, (bf16*)out,
-                      ca, cb, up_a, H, W, n, shortcut, hid, fo, 0, 0};
+                      ca, cb, up_a, H, W, n, shortcut, hid, fo, 0, 0, 0};
   if (cat && ca <= 0) return (int)cudaErrorInvalidValue;
   return cat ? wide_c3k2::launch<true>(P, B, stream)
              : wide_c3k2::launch<false>(P, B, stream);

@@ -54,7 +54,18 @@
 //     its mbarriers are its own.
 //   Tile  the output tile is a compile-time parameter of each body (c3k2.cu
 //     `tile_rows` / `tile_cols`: 8 x 8; head.cu `tile_rows` / `tile_w`:
-//     8 x 8 or 8 x 16, the owned plan 8 x 16), one kernel function a body.
+//     8 x 8 or 8 x 16, the owned plan 8 x 16; the C3k2's persistent plan
+//     8 x 16), one kernel function a body.
+//   Persistent plan (the C3k2 at hidden 64 on large grids: base 64's 160
+//     x 160 level)  a grid of one block an SM, each block walking its
+//     tiles in a fixed order (tile b, b + blocks, .., `Walk`); the ring runs
+//     on from tile to tile (`Feeder::passes`), so the next tile's first
+//     chunks land during this tile's last stage and epilogue, and the next
+//     tile's input window is copied while this tile's later stages
+//     multiply. Every stage is split by columns between the warpgroups
+//     (`stage_nh`'s `all`), so each chunk is copied from L2 once a block a
+//     tile. The products, and so the bits, are the replicated plan's; a
+//     tile's result does not depend on the block that computes it.
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -95,14 +106,22 @@ struct Ring {
 // fragment is loaded once) where the m64 tiles split evenly between the
 // two warpgroups and a slot holds the columns (8 KB: 64); else two (each
 // warpgroup all m64 tiles, half of the columns). A stage narrower than 32
-// columns is one part.
-__host__ __device__ constexpr int stage_nh(int ns, int pixels) {
-  return ns >= 32 && ((((pixels + 63) / 64) & 1) || ns * 128 > 8192) ? 2
-                                                                       : 1;
+// columns is one part. `all` (the persistent plan): two wherever the
+// columns are 32 or more, so that no chunk is copied into both rings.
+__host__ __device__ constexpr int stage_nh(int ns, int pixels,
+                                           bool all = false) {
+  return ns >= 32 && (all || (((pixels + 63) / 64) & 1) || ns * 128 > 8192)
+             ? 2
+             : 1;
 }
 // the columns a warpgroup multiplies in such a stage
 __host__ __device__ constexpr int stage_cols(int ns, int pixels) {
   return ns / stage_nh(ns, pixels);
+}
+// K chunks a step: one where a warpgroup's accumulators (MINE items of NI
+// columns) leave no room for two chunks' A registers
+__host__ __device__ constexpr int step_chunks(int mine, int ni) {
+  return mine * ni >= 192 ? 1 : KSTEP;
 }
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 // the ring of a kernel whose widest warpgroup part is `cols` columns
@@ -170,7 +189,9 @@ struct Stream {
 // The slots' barriers lie at `bars` (RING for each warpgroup). WALK: the
 // stream may hold a stage in another order than it is multiplied
 // (`Stream::inner`); only the bodies that read one pay for the walk.
-template <class G, bool WALK = false>
+// LOOP (the persistent plan): `passes` walks of the stream (the block's
+// tiles), the cursor starting again at stage 0 after the last stage.
+template <class G, bool WALK = false, bool LOOP = false>
 struct Feeder {
   static constexpr int RING = G::RING, SLOT = G::SLOT;
   const Stream* st;
@@ -179,13 +200,14 @@ struct Feeder {
   int part, step, inner, q;  // its bytes; the stride; a run, its position
   long long hop;             // WALK: bytes between a run's chunks
   int left, s, g;            // chunks left in stage s; the next chunk
+  int passes;                // LOOP: walks left, this one included
   uint32_t ring, bars;       // this warpgroup's first slot and barrier
   bool lead;                 // the warpgroup's thread that copies
   int wg;
 
   __device__ Feeder(const Stream& stream, uint32_t ring0, uint32_t bars0,
-                    const Lane& L)
-      : st(&stream), g(0), ring(ring0 + L.wg * RING * SLOT),
+                    const Lane& L, int walks = 1)
+      : st(&stream), g(0), passes(walks), ring(ring0 + L.wg * RING * SLOT),
         bars(bars0 + L.wg * RING * 8), lead((L.tid & 127) == 0), wg(L.wg) {
     enter(0);
   }
@@ -193,6 +215,9 @@ struct Feeder {
   // steps pointers (the walk needs no division)
   __device__ void enter(int stage) {
     s = stage;
+    if constexpr (LOOP) {
+      if (s == st->nst && --passes > 0) s = 0;  // the next tile's walk
+    }
     if (s < st->nst) {
       part = st->bytes[s] / st->halves[s];
       step = st->stride[s];
@@ -316,10 +341,10 @@ struct Items {
 // registers: wgmma runs unserialized only while nothing else defines its
 // operands); the other warpgroup runs on its own ring meanwhile and fills
 // the tensor cores.
-template <int KS, int NI, int MINE, class G, bool W, class AFn>
+template <int KS, int NI, int MINE, class G, bool W, bool LP, class AFn>
 __device__ __forceinline__ void chunk_step(
     float (&acc)[MINE][NI / 2], uint32_t (&a)[KS][MINE][4][4], int g,
-    int kc, Feeder<G, W>& fd, const Lane& L, AFn afn) {
+    int kc, Feeder<G, W, LP>& fd, const Lane& L, AFn afn) {
 #pragma unroll
   for (int k = 0; k < KS; ++k) fd.wait(g + k);  // the step's chunks landed
   wgmma_wait<0>();             // the previous step is done with A, slots
@@ -356,12 +381,13 @@ __device__ __forceinline__ void chunk_step(
 // lane's A row of item i in chunk kc: the plane's shared address and the
 // pixel. KS chunks a step (1 where a warpgroup's accumulators and A
 // registers would not fit beside each other at two).
-template <int KS, int NI, int NH, int MINE, class G, bool W, class AFn>
+template <int KS, int NI, int NH, int MINE, class G, bool W, bool LP,
+          class AFn>
 __device__ __forceinline__ void gemm_more(float (&acc)[MINE][NI / 2],
                                           const Items<NI, NH, MINE>& items,
                                           int g0, int k0, int nk,
-                                          Feeder<G, W>& fd, const Lane& L,
-                                          AFn afn) {
+                                          Feeder<G, W, LP>& fd,
+                                          const Lane& L, AFn afn) {
   static_assert(NI * 128 <= G::SLOT, "a warpgroup's columns fit its slot");
   uint32_t a[KS][MINE][4][4];
   int kc = k0;
@@ -386,14 +412,16 @@ __device__ __forceinline__ void zero_acc(float (&acc)[MINE][NI / 2]) {
     for (int j = 0; j < NI / 2; ++j) acc[i][j] = 0.f;
 }
 
-// A stage's products over `nk` chunks, the first the stream's chunk g0.
-template <int NI, int NH, int MINE, class G, bool W, class AFn>
+// A stage's products over `nk` chunks, the first the stream's chunk g0,
+// KS chunks a step.
+template <int KS = KSTEP, int NI, int NH, int MINE, class G, bool W,
+          bool LP, class AFn>
 __device__ __forceinline__ void gemm(float (&acc)[MINE][NI / 2],
                                      const Items<NI, NH, MINE>& items,
-                                     int g0, int nk, Feeder<G, W>& fd,
+                                     int g0, int nk, Feeder<G, W, LP>& fd,
                                      const Lane& L, AFn afn) {
   zero_acc<NI>(acc);
-  gemm_more<KSTEP>(acc, items, g0, 0, nk, fd, L, afn);
+  gemm_more<KS>(acc, items, g0, 0, nk, fd, L, afn);
 }
 
 // One output row of an epilogue: whether it is stored, whether its pixel
@@ -556,6 +584,26 @@ __device__ __forceinline__ void zero_smem(unsigned char* p, int bytes,
   for (int i = tid * 16; i < bytes; i += THREADS * 16)
     *reinterpret_cast<uint4*>(p + i) = make_uint4(0u, 0u, 0u, 0u);
 }
+
+// The persistent plan's walk over `tiles` tiles (`rows` tile rows and
+// `cols` tile columns an image): block c of the grid takes tiles c,
+// c + blocks, c + 2 blocks, .., `count` of them.
+struct Walk {
+  int first, blocks, count, cols, rows;
+  __device__ Walk(int tiles, int tile_cols, int tile_rows)
+      : first(blockIdx.x), blocks(gridDim.x),
+        count((tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+              (int)gridDim.x),
+        cols(tile_cols), rows(tile_rows) {}
+  // the image, tile row and tile column of this block's k-th tile
+  __device__ void tile(int k, int& b, int& ty, int& tx) const {
+    const int t = first + k * blocks;
+    b = t / (cols * rows);
+    const int rem = t - b * cols * rows;
+    ty = rem / cols;
+    tx = rem - ty * cols;
+  }
+};
 
 // The shape of a launch as it was made: grid, cluster along x, threads a
 // block, dynamic shared memory. Each source file keeps its last one for

@@ -41,9 +41,9 @@ import torch.nn.functional as F
 
 from . import _lib
 from ._lib import I, Kernel, P, check_cuda, stream_ptr
-from .mma_pack import (C3K2_SPLIT, WIDE_PIX_BYTES, WIDE_SMEM_HEAD,
-                       WIDE_SMEM_MAX, c3k2_mma_numel, wide_ring_bytes,
-                       wide_stage_cols)
+from .mma_pack import (C3K2_SPLIT, WIDE_PERSIST_BLOCKS, WIDE_PIX_BYTES,
+                       WIDE_SMEM_HEAD, WIDE_SMEM_MAX, c3k2_mma_numel,
+                       wide_ring_bytes, wide_stage_cols)
 
 KERNEL = Kernel("unina_fused_c3k2",
                 [P, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P])
@@ -77,6 +77,38 @@ def owned_plan(hid: int, ntiles: int) -> bool:
     OWNED_MIN_BLOCKS blocks or more. Both plans sum in the same order: a
     frame's bits are the same in either."""
     return hid == 256 or (hid == 128 and 2 * ntiles >= OWNED_MIN_BLOCKS)
+
+
+# the persistent plan (csrc/c3k2.cu ``persist_plan``): hidden 64, one
+# bottleneck, where the replicated plan's grid (batch included) has
+# PERSIST_MIN_BLOCKS blocks or more and the plan's windows fit; its tile
+PERSIST_MIN_BLOCKS = 264
+PERSIST_TILE = (8, 16)
+
+
+def persist_plan(hid: int, n: int, ntiles: int) -> bool:
+    """Whether the wide form may run the persistent plan at hidden
+    ``hid`` with ``n`` bottlenecks over ``ntiles`` replicated-plan tiles
+    (``wide_tile``, batch included): one block an SM walking PERSIST_TILE
+    tiles, its weight ring running on from tile to tile, each weight chunk
+    copied once a block a tile. It sums as the replicated plan does: a
+    frame's bits are the same in either. ``wide_plan`` also asks that its
+    windows fit (``wide_smem_persist``)."""
+    return hid == 64 and n == 1 and ntiles >= PERSIST_MIN_BLOCKS
+
+
+def wide_smem_persist(ca: int, cb: int, up_a: bool, hid: int, n: int
+                      ) -> int:
+    """The persistent plan's shared memory (csrc/c3k2.cu
+    ``smem_persist``): the head, the ring (its widest part half of stage
+    A's columns), the [p1 | p2] window, the input windows and the t
+    window."""
+    tr, tw = PERSIST_TILE
+    wp = _region(tr, tw, n, -1, False)
+    apx = (tr // 2 + 2) * (tw // 2 + 2) if up_a else wp
+    return (WIDE_SMEM_HEAD + wide_ring_bytes(hid)
+            + (_planes(2 * hid) * wp + _planes(ca) * apx + _planes(cb) * wp
+               + _planes(hid) * wp) * WIDE_PIX_BYTES)
 
 
 def wide_tile(hid: int, n: int) -> tuple[int, int]:
@@ -134,14 +166,38 @@ def wide_smem_owned(hid: int, n: int) -> int:
             * WIDE_PIX_BYTES)
 
 
-def wide_launch(ca: int, cb: int, up_a: bool, hid: int, n: int, b: int,
-                h: int, w: int) -> dict:
-    """The wide form's launch over a (b, h, w) output, as csrc/c3k2.cu
-    makes it (``last_launch``' keys): the grid of tiles x cluster blocks,
-    the cluster and the dynamic shared memory of the plan it picks."""
+def wide_plan(ca: int, cb: int, up_a: bool, hid: int, n: int, b: int,
+              h: int, w: int) -> str:
+    """The plan csrc/c3k2.cu ``launch_width`` picks over a (b, h, w)
+    output: "owned", "persistent" (where ``persist_plan`` holds and its
+    windows fit) or "replicated"."""
     tr, tw = wide_tile(hid, n)
     ntiles = b * -(-h // tr) * -(-w // tw)
     if owned_plan(hid, ntiles):
+        return "owned"
+    if persist_plan(hid, n, ntiles) and wide_smem_persist(
+            ca, cb, up_a, hid, n) <= WIDE_SMEM_MAX:
+        return "persistent"
+    return "replicated"
+
+
+def wide_launch(ca: int, cb: int, up_a: bool, hid: int, n: int, b: int,
+                h: int, w: int, sms: int = WIDE_PERSIST_BLOCKS) -> dict:
+    """The wide form's launch over a (b, h, w) output, as csrc/c3k2.cu
+    makes it (``last_launch``' keys): the grid of tiles x cluster blocks
+    (the persistent plan's: its tiles or the card's ``sms``, the fewer),
+    the cluster and the dynamic shared memory of the plan it picks
+    (``wide_plan``)."""
+    tr, tw = wide_tile(hid, n)
+    ntiles = b * -(-h // tr) * -(-w // tw)
+    plan = wide_plan(ca, cb, up_a, hid, n, b, h, w)
+    if plan == "persistent":
+        tr, tw = PERSIST_TILE
+        tiles = b * -(-h // tr) * -(-w // tw)
+        return {"grid": [min(tiles, sms), 1, 1], "cluster": [1, 1, 1],
+                "threads": 256,
+                "smem_bytes": wide_smem_persist(ca, cb, up_a, hid, n)}
+    if plan == "owned":
         s, smem = hid // 64, wide_smem_owned(hid, n)
     else:
         s, smem = REPLICATED_SPLIT[hid], wide_smem_bytes(ca, cb, up_a, hid,

@@ -169,6 +169,8 @@ PRED_N = 8         # pred outputs the wide head's fragment image holds
 WIDE_SMEM_MAX = 232448
 WIDE_SMEM_HEAD = 2048
 WIDE_PIX_BYTES = 128
+# the persistent plan's grid: one block an SM of the H100 (132), at most
+WIDE_PERSIST_BLOCKS = 132
 
 
 def wide_stage_cols(ns: int, pixels: int) -> int:
