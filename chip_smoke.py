@@ -169,13 +169,15 @@ NMS launch a frame) against the port's CPU path on the seed-7 scene (same
 count, 0.5 px, 1e-2), one captured graph equal to the eager frame on the
 8 scenes. Phase 20: the stem and stage1 kernels at base 16 and 64 (C =
 32 and 128) and the C3k2 and head kernels at base 64's ten blocks' shapes
-(``WIDE64_SHAPES``) and the C3k2's at ragged batches on its persistent
-plan (``PERSIST_SHAPES``): on binary-grid inputs bit for bit their plain
+(``WIDE64_SHAPES``) and the C3k2's and head's at ragged batches on their
+persistent plans (``PERSIST_SHAPES``; the head's large plan): on
+binary-grid inputs bit for bit their plain
 versions; the stem and stage1 kernels' SHA-256 digests at every width and
 the wide C3k2 and head kernels' unchanged (base 16's and 32's shapes, and
 base 64's but where the redesign sums in another order: WIDE64_REORDERED;
-PERSIST_DIGESTS); the C = 128 cluster kernels and the C3k2's persistent
-plan relaunched 100 times, each output the first's;
+PERSIST_DIGESTS); the C = 128 cluster kernels, the C3k2's persistent
+plan and the head's large plan relaunched 100 times, each output the
+first's;
 random-initialised engines (the port's seeded ``init_model`` at each
 base, BatchNorm scales at WIDTH_BN_GAIN so the activations keep their
 scale through the depth) exported with ``--s2d-merged --fused-stem`` (row
@@ -238,7 +240,8 @@ DEVICE_FUNCS = {"normalize": ("normalize_merged_kernel",),
                                "c3k2_wide_kernel<false"),
                 "fused_c3k2_cat": ("c3k2_kernel<true>",
                                    "c3k2_wide_kernel<true"),
-                "fused_head": ("head_mma_kernel", "head_wide_kernel"),
+                "fused_head": ("head_mma_kernel", "head_wide_kernel",
+                               "head_large_kernel"),
                 "camera": ("camera_preprocess_kernel",
                            "camera_pixel_kernel")}
 # the kernels that run on the tensor cores: checked at ragged shapes too,
@@ -603,22 +606,26 @@ WIDE64_DIGESTS = {
     "head_p4_2x13x7":
         "c5ef2f12e7006a20721c274e9abbe201c98c592c533095a5c5a2059565501e30",
 }
-# base 64's two C3k2 blocks at 160 x 160 that the persistent plan takes
-# (hidden 64, one bottleneck, on grids of two rounds of the card or more),
-# as ragged batches of 2 large enough for it: 150 rows and 134 columns, a
-# part tile at the end of each
+# base 64's three blocks at 160 x 160 whose kernels walk their tiles on
+# one block an SM (on grids of two rounds of the card or more): the two
+# C3k2s of the persistent plan (hidden 64, one bottleneck) and head_p2 on
+# the large plan (C = 128), as ragged batches of 2 large enough for them:
+# 150 rows and 134 columns, a part tile at the end of each
 PERSIST_SHAPES = {
     "stage1_block_2x150x134": (2, 150, 134, 0, 128, 64, 1, False, True),
     "fpn_c3k2_2_2x150x134": (2, 150, 134, 128, 128, 64, 1, True, False),
+    "head_p2_2x150x134": (2, 150, 134, 128),
 }
-# SHA-256 of ``wide_outputs`` at PERSIST_SHAPES as the parent commit's
-# kernels (the replicated plan) computed them (NVIDIA H100 80GB HBM3), with
-# ``wide_digests(torch, PERSIST_SHAPES)``
+# SHA-256 of ``wide_outputs`` at PERSIST_SHAPES as the parent commits'
+# kernels (the replicated plans) computed them (NVIDIA H100 80GB HBM3),
+# with ``wide_digests(torch, PERSIST_SHAPES)``
 PERSIST_DIGESTS = {
     "stage1_block_2x150x134":
         "4bf80a77f79335516da03a4dccddd15e2bc865fefb2d58d27c66d080087befc3",
     "fpn_c3k2_2_2x150x134":
         "fc09e79c3fda63a338ddb03f434fa7c476c0c1cc39da16c1e5e9cc9b96afd564",
+    "head_p2_2x150x134":
+        "1f2541a306ca268a5a524b456aff1bc68a261103cf177ffe551dd06bdfe2bbfe",
 }
 # the base-64 shapes whose redesigned kernel sums in another order than
 # the parent's (the head's owned plan, at 512 and at 256 on 80 x 80: both
@@ -3145,16 +3152,18 @@ def relaunch_check(torch) -> dict:
 
 
 def persist_relaunch_check(torch) -> dict:
-    """The wide C3k2 kernel on the persistent plan, whose blocks reuse
-    their ring's slots and windows from tile to tile (the next tile's
-    chunks and input copied while this tile multiplies), launched
-    RELAUNCHES times back to back at base 64's two served shapes it takes
-    and at ragged batches of 2 (PERSIST_SHAPES) on seeded normal inputs:
+    """The wide C3k2 kernel on the persistent plan and the wide head on
+    the large plan, whose blocks reuse their ring's slots and windows from
+    tile to tile (the next tile's chunks and input copied while this tile
+    multiplies), launched RELAUNCHES times back to back at base 64's three
+    served shapes they take and at ragged batches of 2 (PERSIST_SHAPES) on
+    seeded normal inputs:
     every output bit for bit the first. The ragged batches of
     WIDE64_SHAPES run the replicated plan and are held to their digests
     elsewhere. Returns the launches compared per case."""
     shapes = {k: v for k, v in WIDE64_SHAPES.items()
-              if k in ("stage1_block_1x160x160", "fpn_c3k2_2_1x160x160")}
+              if k in ("stage1_block_1x160x160", "fpn_c3k2_2_1x160x160",
+                       "head_p2_1x160x160")}
     done = {}
     for name, call in wide_calls(torch, {**shapes, **PERSIST_SHAPES}).items():
         outs = [call() for _ in range(RELAUNCHES)]
@@ -4215,6 +4224,12 @@ def main() -> int:
                                         REPO / row["source"])
             assert row["mma_wide"] == "wgmma", (
                 f"{row['name']}: the wide form issues {row['mma_wide']}")
+            if row["name"] == "fused_head":  # the large plan's kernel
+                row["mma_large"] = mma_route(
+                    lib_path, DEVICE_FUNCS["fused_head"][2],
+                    REPO / row["source"])
+                assert row["mma_large"] == "wgmma", (
+                    f"the large plan issues {row['mma_large']}")
         if row["name"] == "normalize":
             # the training batch's float32 form (phase 17)
             row["train_path"] = training["normalize"]

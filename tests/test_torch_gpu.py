@@ -1029,7 +1029,8 @@ def test_last_launch_records_the_grid(rng, cuda):
         0, 256, False, 128, 2, 1, 80, 80)
     # hidden 64 at base 64's 160 x 160: the persistent plan, one block an
     # SM; at base 32's 80 x 80 the replicated plan, one block a tile; the
-    # head at 128 one block a tile and branch at both
+    # head at 128: the large plan at 160 x 160, one block an SM, and one
+    # block a tile and branch at 80 x 80
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for h in (160, 80):
         x = _act(rng, (1, h, h, 128), cuda)
@@ -1043,8 +1044,9 @@ def test_last_launch_records_the_grid(rng, cuda):
         head_kernel.fused_head(x, *ws, w33=w33)
         torch.cuda.synchronize()
         rec = head_kernel.last_launch()
-        assert rec == head_kernel.wide_launch(128, 1, h, h)
-        assert rec["grid"] == [(h // 8) * (h // 16), 2, 1]
+        assert rec == head_kernel.wide_launch(128, 1, h, h, sms=sms)
+        assert rec["grid"] == ([sms, 1, 1] if h == 160 else
+                               [(h // 8) * (h // 16), 2, 1])
 
 
 def test_fc_engine_frame_matches_cpu_port(cuda):
@@ -2082,6 +2084,65 @@ def test_persist_plan_relaunch_bit_equal(cuda, name):
     torch.cuda.synchronize()
     for o in outs[1:]:
         assert torch.equal(o, outs[0])
+
+
+# The head at 128 on the large plan (base 64's head_p2 at 160 x 160, and
+# a ragged batch of 2 large enough for it: a part tile at the end of each
+# row and column), and the SHA-256 of its outputs on WIDE_SEED's inputs as
+# the parent commit's kernel (the replicated plan) computed them (NVIDIA
+# H100 80GB HBM3); chip_smoke.py holds the same shape and digest in
+# PERSIST_SHAPES.
+LARGE_SHAPES = {"head_p2_2x150x134": (2, 150, 134, 128)}
+LARGE_DIGESTS = {
+    "head_p2_2x150x134":
+        "1f2541a306ca268a5a524b456aff1bc68a261103cf177ffe551dd06bdfe2bbfe",
+}
+LARGE_SERVED = ("head_p2_1x160x160",)
+
+
+def test_large_plan_bits_unchanged(cuda):
+    """The large plan at a ragged batch of 2 (LARGE_SHAPES) gives the
+    parent's bits (LARGE_DIGESTS); at the served shape the WIDE64_DIGESTS
+    test holds it."""
+    assert _wide_digests(LARGE_SHAPES, cuda) == LARGE_DIGESTS
+
+
+@pytest.mark.parametrize("name", [*LARGE_SERVED, *LARGE_SHAPES])
+def test_large_plan_bit_exact_on_grid_inputs(rng, cuda, name):
+    """The large plan on binary-grid inputs (every f32 sum exact in any
+    order) at the served shape and a ragged batch of 2: bit for bit the
+    plain version, and the launch ``wide_launch`` gives for the card's
+    SMs."""
+    b, h, w, c = {**WIDE64_SHAPES, **LARGE_SHAPES}[name]
+    assert head_kernel.large_plan(c, h, w)
+    x = _grid_act(rng, (b, h, w, c), cuda)
+    ws, w33 = _head_ws(rng, c, cuda, kb=_grid_kb)
+    got = head_kernel.fused_head(x, *ws, w33=w33)
+    want = head_kernel.fused_head_plain(x, *ws)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        assert float(w_.abs().max()) > 1.0
+        assert torch.equal(g, w_)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert head_kernel.last_launch() == head_kernel.wide_launch(
+        c, b, h, w, sms=sms)
+
+
+@pytest.mark.parametrize("name", [*LARGE_SERVED, *LARGE_SHAPES])
+def test_large_plan_relaunch_bit_equal(cuda, name):
+    """The large plan's blocks reuse their ring's slots and windows from
+    unit to unit (the next unit's chunks and x window copied while this
+    unit multiplies; three warpgroups releasing each slot): 100 launches
+    back to back on seeded normal inputs, each output bit for bit the
+    first."""
+    b, h, w, c = {**WIDE64_SHAPES, **LARGE_SHAPES}[name]
+    rng = np.random.default_rng(WIDE_SEED)
+    x = _act(rng, (b, h, w, c), cuda)
+    ws, w33 = _head_ws(rng, c, cuda)
+    outs = [head_kernel.fused_head(x, *ws, w33=w33) for _ in range(100)]
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        assert all(torch.equal(a, a0) for a, a0 in zip(o, outs[0]))
 
 
 # ---- the unfused int8 engine and the folded QAT model ----

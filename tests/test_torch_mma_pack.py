@@ -1108,6 +1108,85 @@ def _head_wide_tiled(x, ws):
     return outs
 
 
+def _large_walk(bsz, h, w, blocks=mma_pack.WIDE_PERSIST_BLOCKS):
+    """csrc/head.cu ``large``'s walk: unit u is (tile u // 2, branch u % 2)
+    of the images' ``head_kernel.LARGE_TILE`` tiles (image, tile row, tile
+    column order); block k of the grid (the units or ``blocks``, the
+    fewer) takes units k, k + grid, ..; -> per block its list of
+    (branch, image, tile row, tile column)."""
+    tr, tw = head_kernel.LARGE_TILE
+    ty, tx = -(-h // tr), -(-w // tw)
+    units = head_kernel.large_units(bsz, h, w)
+    grid = min(units, blocks)
+    walks = []
+    for k in range(grid):
+        walk = []
+        for u in range(k, units, grid):
+            b, rem = divmod(u // 2, ty * tx)
+            walk.append((u % 2, b, *divmod(rem, tx)))
+        walks.append(walk)
+    return walks
+
+
+def _head_large_tiled(x, ws, blocks=mma_pack.WIDE_PERSIST_BLOCKS):
+    """csrc/head.cu's large plan (``head_kernel.large_plan``, C = 128):
+    per 10 x 14 tile and branch a unit, the units walked by ``blocks``
+    blocks (``_large_walk``); conv1 over the 12 x 16 region (192 rows,
+    three m64 tiles) from the 14 x 18 x window, its chunks tap by tap, the
+    two planes of a tap in turn; c1 0 outside the image; conv2 over the
+    tile's 140 pixels (padded to three m64 tiles) from c1's region; the
+    pred from c2 (bf16) with the fragment image, f32, + bp; each unit's
+    pixels stored once."""
+    c = x.shape[-1]
+    tr, tw = head_kernel.LARGE_TILE
+    w33 = mma_pack.pack_head_mma(ws[0], ws[6], ws[2], ws[8], ws[4], ws[10])
+    k = 9 * 2 * 64
+    per = 2 * k * c
+    bsz, h, w, _ = x.shape
+    ty, tx = -(-h // tr), -(-w // tw)
+    xw = _planes_of(_windows(x.float(), 2, (tr, tw)), c)
+    inside = _windows(torch.ones(bsz, h, w, 1), 1, (tr, tw))[..., 0] > 0
+    rr, cc = torch.meshgrid(torch.arange(tr + 2), torch.arange(tw + 2),
+                            indexing="ij")
+    rows1 = (rr * (tw + 4) + cc).reshape(-1)
+    n1 = rows1.numel()
+    m1 = _m64(None, n1)
+    assert m1.numel() == n1 == 3 * 64
+    taps1 = [q[:, rows1[m1] + kh * (tw + 4) + kw] for kh in range(3)
+             for kw in range(3) for q in xw]
+    rr, cc = torch.meshgrid(torch.arange(tr), torch.arange(tw),
+                            indexing="ij")
+    rows2 = (rr * (tw + 2) + cc).reshape(-1)
+    m2 = _m64(None, rows2.numel())
+    assert m2.numel() == 3 * 64
+    res = []
+    for br, i in ((0, 0), (1, 6)):
+        _, b1, _, b2, wp, bp = ws[i:i + 6]
+        (bs1, bs2), = _stream_b(w33[br * per:(br + 1) * per],
+                                [(k, c), (k, c)], 1)
+        c1 = _bf(torch.relu(_gemm(taps1, bs1)[:, :n1] + b1)) * inside[
+            ..., None]
+        c1p = _planes_of(c1, c)
+        taps2 = [q[:, rows2[m2] + kh * (tw + 2) + kw] for kh in range(3)
+                 for kw in range(3) for q in c1p]
+        c2 = _bf(torch.relu(_gemm(taps2, bs2) + b2))[:, :rows2.numel()]
+        wq = _pred_matrix(w33[2 * per + br * c * 8:
+                              2 * per + (br + 1) * c * 8], c)
+        res.append((c2 @ wq)[..., :wp.shape[1]] + bp)
+    outs = [torch.full((bsz, ty * tr, tx * tw, r.shape[-1]), float("nan"))
+            for r in res]
+    stored = set()
+    for walk in _large_walk(bsz, h, w, blocks):
+        for br, b, row, col in walk:
+            assert (br, b, row, col) not in stored
+            stored.add((br, b, row, col))
+            t = (b * ty + row) * tx + col
+            outs[br][b, row * tr:(row + 1) * tr, col * tw:(col + 1) * tw] = \
+                res[br][t].reshape(tr, tw, -1)
+    assert len(stored) == 2 * bsz * ty * tx
+    return [o[:, :h, :w] for o in outs]
+
+
 def _grid_img(rng, shape):
     """bf16 activations on a binary grid (k/2): with grid weights every
     f32 sum is exact in any order, so the tiling must agree bit for bit."""
@@ -1209,6 +1288,47 @@ def test_head_wide_tiling_matches_plain(b, h, w, c):
         assert torch.equal(g, w_)
 
 
+# (b, h, w, blocks): the large plan's tiling on ragged shapes (a part
+# tile at the end of each row and column), walked by few and many blocks
+@pytest.mark.parametrize("b,h,w,blocks", [(2, 23, 45, 132), (1, 12, 41, 3)])
+def test_head_large_tiling_matches_plain(b, h, w, blocks):
+    rng = np.random.default_rng(23)
+    c = 128
+    x = _grid_img(rng, (b, h, w, c))
+    ws = head_kernel.pack_head_weights(
+        [_grid_kb(rng, (3, 3, c, c)), _grid_kb(rng, (3, 3, c, c))],
+        _grid_kb(rng, (1, 1, c, 4)),
+        [_grid_kb(rng, (3, 3, c, c)), _grid_kb(rng, (3, 3, c, c))],
+        _grid_kb(rng, (1, 1, c, 4)), torch.bfloat16)
+    got = _head_large_tiled(x, ws, blocks)
+    want = head_kernel.fused_head_plain(x, *ws)
+    for g, w_ in zip(got, want):
+        assert g.shape == w_.shape == (b, h, w, 4)
+        assert float(w_.abs().max()) > 1.0, "degenerate grid inputs"
+        assert torch.equal(g, w_)
+
+
+# (batch, H, W, blocks): the large plan's walk stores every output pixel
+# of each branch exactly once, one block an SM or fewer
+@pytest.mark.parametrize("bsz,h,w,blocks", [(1, 160, 160, 132),
+                                            (2, 150, 134, 132),
+                                            (2, 23, 45, 7), (1, 7, 9, 132)])
+def test_large_walk_stores_every_pixel(bsz, h, w, blocks):
+    tr, tw = head_kernel.LARGE_TILE
+    walks = _large_walk(bsz, h, w, blocks)
+    units = head_kernel.large_units(bsz, h, w)
+    assert len(walks) == min(units, blocks)
+    assert max(map(len, walks)) - min(map(len, walks)) <= 1
+    if (bsz, h, w) == (1, 160, 160):
+        # 384 units: three on the busiest SM, 2.91 on the mean
+        assert units == 384 and max(map(len, walks)) == 3
+    hits = torch.zeros(2, bsz, h, w, dtype=torch.int64)
+    for walk in walks:
+        for br, b, row, col in walk:
+            hits[br, b, row * tr:(row + 1) * tr, col * tw:(col + 1) * tw] += 1
+    assert torch.equal(hits, torch.ones_like(hits))
+
+
 # (batch, tile rows, tile columns, blocks): the persistent plan's walk
 # stores every tile once, whatever each block's share of the grid
 @pytest.mark.parametrize("bsz,ty,tx,blocks", [(1, 20, 10, 132),
@@ -1250,18 +1370,38 @@ def test_c3k2_wide_plan_by_grid(b, h, w, ca, cb, hd, n, up, plan):
         assert got["grid"][0] >= b * -(-h // 8) * -(-w // 8)
 
 
-# (b, h, w, c, owned): the head keeps the plans it ran at every base's
-# shapes, base 64's 160 x 160 included: the owned plan at 512 and at 256
-# on 80 x 80, the replicated one elsewhere, one block (or cluster) a tile
+# the (h, w, c) the large plan takes below: base 64's head_p2 at 160 x
+# 160, and a ragged 150 x 134 (a part tile at the end of each row and
+# column), whose replicated grid also fills two rounds of the card
+LARGE_SHAPES = {(160, 160, 128), (150, 134, 128)}
+
+
+# (b, h, w, c, owned): the owned plan at 512 and at 256 on 80 x 80; at 128
+# the large plan where one image's replicated grid fills two rounds of
+# the card (LARGE_SHAPES: base 64's head_p2), never by the batch (base
+# 32's head_p3 at 80 x 80, base 16's head_p4 at 20 x 20 and small images
+# in batches of 2 and 8 keep the replicated plan); elsewhere the
+# replicated plan, one block (or cluster) a tile
 @pytest.mark.parametrize("b,h,w,c,owned", [
     (1, 160, 160, 128, False), (2, 110, 70, 128, False),
     (1, 80, 80, 128, False), (2, 37, 45, 128, False),
     (1, 160, 160, 32, False), (1, 80, 80, 32, False),
     (1, 40, 40, 256, False), (1, 80, 80, 256, True),
-    (1, 40, 40, 512, True)])
+    (1, 40, 40, 512, True), (2, 150, 134, 128, False),
+    (1, 20, 20, 128, False), (2, 19, 23, 128, False),
+    (8, 20, 20, 128, False), (2, 80, 80, 128, False)])
 def test_head_wide_plan_by_grid(b, h, w, c, owned):
     assert head_kernel.owned_plan(c, h, w) == owned
+    large = head_kernel.large_plan(c, h, w)
+    assert large == ((h, w, c) in LARGE_SHAPES)
     got = head_kernel.wide_launch(c, b, h, w)
+    if large:
+        assert got == {"grid": [min(head_kernel.large_units(b, h, w),
+                                    mma_pack.WIDE_PERSIST_BLOCKS), 1, 1],
+                       "cluster": [1, 1, 1], "threads": 384,
+                       "smem_bytes": head_kernel.large_smem()}
+        assert head_kernel.large_smem() <= mma_pack.WIDE_SMEM_MAX
+        return
     tr, tw = head_kernel.OWNED_TILE if owned else head_kernel.wide_tile(c)
     s = c // 128 if owned else mma_pack.HEAD_SPLIT[c]
     assert got["cluster"] == [s, 1, 1]

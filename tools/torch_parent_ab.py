@@ -31,7 +31,10 @@ the SHA-256 of each output and its time inside a replayed graph; the same
 for base 64's ten fused blocks at their served shapes on
 ``chip_smoke.py``'s seeded inputs (``blocks64``, ``WIDE64_SHAPES``), and
 the digests of the two 160 x 160 C3k2 blocks at ``PERSIST_SHAPES``'
-ragged batches (``persist``); and the stem and stage1 kernels at C = 32, 64 and
+ragged batches and of head_p2 at its ragged batch (``persist``); the head
+at 128 at each base's served shape (``heads128``: base 64's head_p2, base
+32's head_p3, base 16's head_p4), digest and three replayed-graph times;
+and the stem and stage1 kernels at C = 32, 64 and
 128 (base 16, 32, 64) at the served shape (1, 320, 160) on
 ``chip_smoke.width_inputs``' seeded normal inputs (``widths``: each
 output's SHA-256 and three replayed-graph times). Run parent, change,
@@ -57,6 +60,11 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
 FRAMES = 30
+# the head at 128 where each base serves it: base 64's head_p2 (the large
+# plan), base 32's head_p3 and base 16's head_p4 (the replicated plan)
+HEADS128 = {"head_p2_1x160x160": (1, 160, 160, 128),
+            "head_p3_1x80x80": (1, 80, 80, 128),
+            "head_p4_1x20x20": (1, 20, 20, 128)}
 
 
 def digest(tensors) -> str:
@@ -239,6 +247,16 @@ def main() -> int:
     # persistent plan's grids (PERSIST_SHAPES): digests only
     out["persist"] = {name: digest(call()) for name, call in
                       cs.wide_calls(torch, cs.PERSIST_SHAPES).items()}
+    # the head at 128 at the three bases' shapes it serves (base 64's
+    # head_p2, base 32's head_p3, base 16's head_p4) on chip_smoke's
+    # seeded inputs: digest and replayed-graph time, three times
+    out["heads128"] = {}
+    for name, call in cs.wide_calls(torch, HEADS128).items():
+        res = call()
+        torch.cuda.synchronize()
+        out["heads128"][name] = {
+            "digest": digest(res),
+            "graph_ms": [cs.graph_ms(call, 10, 5) for _ in range(3)]}
     out["widths"] = width_kernels(cs, torch)
     text = json.dumps(out)
     shutil.rmtree(tmp)

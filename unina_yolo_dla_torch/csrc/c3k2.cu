@@ -514,7 +514,7 @@ int launch(Params P, int B, void* stream) {
 // reads) before B, C and D. Same K order as the replicated plan, so the
 // same bits.
 // Persistent plan (`body` with PERSIST: hidden 64, n = 1, where the
-// replicated plan's grid, batch included, has PERSIST_MIN_BLOCKS blocks
+// replicated plan's grid, batch included, has wide::WALK_MIN_BLOCKS blocks
 // or more: base 64's stage1_block and fpn_c3k2_2 at 160 x 160): one block
 // an SM walks 8 x 16 tiles (200 at 160 x 160: two rounds of the 132 SMs,
 // the second 68 of them, where the replicated plan's 400 8 x 8 tiles take
@@ -597,16 +597,15 @@ constexpr int OWNED_COLS = 64;
 
 // The persistent plan (`body` with PERSIST): hidden 64 with one
 // bottleneck where the replicated plan's grid, batch included, has
-// PERSIST_MIN_BLOCKS blocks or more (two rounds of the H100's 132 SMs:
+// wide::WALK_MIN_BLOCKS blocks or more (two rounds of the H100's 132 SMs:
 // base 64's 160 x 160, 400; base 32's 80 x 80 has 100) and its windows fit
 // in shared memory: one block an SM walking 8 x 16 tiles, every stage in
 // two warpgroup column parts (so each chunk goes into one ring). It sums
 // as the replicated plan does, so the bits do not depend on the plan or
 // the batch.
-constexpr int PERSIST_MIN_BLOCKS = 264;
 constexpr int PERSIST_TR = 8, PERSIST_TW = 16;
 __host__ __device__ inline bool persist_plan(int hid, int n, int ntiles) {
-  return hid == 64 && n == 1 && ntiles >= PERSIST_MIN_BLOCKS;
+  return hid == 64 && n == 1 && ntiles >= wide::WALK_MIN_BLOCKS;
 }
 // the persistent plan's widest warpgroup part: half of stage A's columns
 __host__ __device__ constexpr int persist_cols(int hid) { return hid; }

@@ -735,6 +735,347 @@ __device__ __forceinline__ void body_owned(const bf16* __restrict__ x,
   cluster_sync<S>();  // no block exits while a peer reads its partials
 }
 
+// ---- the large plan: C = 128 on grids of two rounds of the card ----
+//
+// Base 64's head_p2 (160 x 160 x 128): the replicated plan's 400 branch-
+// tiles of 8 x 16 take four rounds of the H100's 132 SMs for 3.03 rounds
+// of work, and each block's two warpgroups split every product's columns
+// (m64n64), so each A fragment is loaded twice, and load it only after
+// waiting out their previous products. This plan changes the unit and the
+// pipeline:
+//   unit  one branch of a 10 x 14 tile: conv1 on the 12 x 16 region (192
+//     pixels: three m64 tiles, no padding), conv2 on the tile's 140
+//     pixels (three m64 tiles). 192 tiles (16 rows of 12) x 2 branches =
+//     384 units at 160 x 160: three on the busiest SM, 2.91 on the mean.
+//     Persistent: one block an SM takes units b, b + grid, .. (unit u:
+//     tile u / 2, branch u % 2), the ring running on from unit to unit;
+//     the next unit's x window is one tensor copy a plane (TMA: zeros
+//     outside the image, the window's swizzle) issued once this unit's
+//     conv1 is done, so no warpgroup waits for the others between units.
+//   products  three warpgroups, warpgroup w multiplying all 128 columns of
+//     m64 tile w of each conv (m64n128k16: every A fragment loaded once,
+//     64 accumulators a thread). A is loaded by ldmatrix one k16 step
+//     ahead into a second register set while the step before multiplies
+//     (wgmma_wait<1>), so a warpgroup's products never wait for its own A
+//     loads.
+//   weights  one ring of three 32 KB slots (two chunks, [128 n][64 k]
+//     each) that all three warpgroups read; each warpgroup releases a
+//     slot on its `empty` mbarrier once its products of the slot are
+//     done. When warpgroup g % 3 releases load g, its first thread
+//     refills the slot of load g - 1, which the others released a load
+//     earlier, with load g - 1 + RING (one bulk copy, completing on the
+//     slot's `full` mbarrier). Waiting for the others' release of the
+//     load just finished would hold the copying warpgroup behind theirs
+//     at every load, and one warpgroup issuing every copy trails the
+//     other two.
+//   pred  from conv2's accumulators: bf16(ReLU(acc + b2)) are the A
+//     fragments of the 1x1 pred's m16n8k16 products (as the tiled kernel
+//     at 64 does), so c2 never goes to shared memory.
+// Every output is summed in the replicated plan's order (conv1's and
+// conv2's chunks tap by tap, the planes of a tap in turn, k16 steps in
+// order; the pred's k16 steps in order): the same bits. Bound on the H100
+// at head_p2: 15.1 G MACs, about 30.5 us at the bf16 peak; this plan
+// issues 21.7 G (conv2's m64 padding and the halo), 170 M on the busiest
+// SM, and runs at about 2x the bound (PERF.md).
+namespace large {
+
+constexpr int C = 128, PC = 2;                      // width, planes
+constexpr int TR = 10, TW = 14;                     // output tile
+constexpr int XR = TR + 4, XC = TW + 4;             // x window: 14 x 18
+constexpr int CC = TW + 2, CP = (TR + 2) * CC;      // conv1 region: 192
+constexpr int OP = TR * TW;                         // the tile: 140
+constexpr int WGS = 3, THREADS = 128 * WGS;
+static_assert(CP == 64 * WGS && OP <= 64 * WGS,
+              "a warpgroup an m64 tile of each conv");
+constexpr int CHUNK = C * 128;                      // [128 n][64 k] bf16
+constexpr int SLOT = 2 * CHUNK, RING = 3;           // a load: two chunks
+constexpr int KL = 9 * PC / 2;                      // loads of a conv
+constexpr int LOADS = 2 * KL;                       // loads of a unit
+constexpr long long PER = (long long)LOADS * SLOT;  // a branch's stream
+constexpr int XPLANE = 32768;  // an x plane (1024-aligned for the swizzle)
+constexpr int X_BYTES = XR * XC * PIX_BYTES;        // the copy of a plane
+constexpr int SMEM = wide::SMEM_HEAD + RING * SLOT + PC * XPLANE +
+                     PC * CP * PIX_BYTES;
+static_assert(X_BYTES <= XPLANE && SMEM <= wide::SMEM_MAX,
+              "the large plan fits a block");
+// where one image's replicated grid (8 x 16 tiles, both branches) has
+// wide::WALK_MIN_BLOCKS blocks or more (base 64's head_p2: 400). Picked
+// by one image's size, never the batch's.
+__host__ __device__ inline bool plan(int c, int h, int w) {
+  return c == C &&
+         ((h + 7) / 8) * ((w + 15) / 16) * 2 >= wide::WALK_MIN_BLOCKS;
+}
+
+// The kernel's arguments, one __grid_constant__ parameter (beside x's
+// tensor map): read where they are used, not held in registers across
+// the products
+struct Params {
+  const unsigned char* img;      // w33: the cls stream, the reg stream,
+  wide_head::Branch br[2];       //   the preds; cls, reg
+  int H, W, tiles_x, tiles_y, units;
+};
+
+// unit k of this block: branch, image, top row and left column of its
+// tile
+struct Unit {
+  int branch, b, R0, W0;
+  __device__ Unit(const Params& p, int k) {
+    const int u = (int)blockIdx.x + k * (int)gridDim.x;
+    const int tile = u >> 1;
+    branch = u & 1;
+    b = tile / (p.tiles_x * p.tiles_y);
+    const int rem = tile - b * p.tiles_x * p.tiles_y;
+    R0 = (rem / p.tiles_x) * TR;
+    W0 = (rem % p.tiles_x) * TW;
+  }
+};
+// this block's units
+__device__ __forceinline__ int unit_count(const Params& p) {
+  return (p.units - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+}
+
+// The block's shared memory from `raw`: RING `full` mbarriers, RING
+// `empty` ones, x's mbarrier, the ring's slots (1024-aligned), the x
+// window's two planes, c1. Load g of the block's walk (unit g / LOADS of
+// the block, load g % LOADS of that unit's branch stream: two chunks in
+// stream order) lies in slot g % RING.
+__device__ __forceinline__ uint32_t x_bar(uint32_t raw) {
+  return raw + 2 * RING * 8;
+}
+__device__ __forceinline__ uint32_t slots_of(uint32_t raw) {
+  return (raw + (2 * RING + 1) * 8 + 1023u) & ~1023u;
+}
+__device__ __forceinline__ uint32_t x_of(uint32_t raw) {
+  return slots_of(raw) + RING * SLOT;
+}
+__device__ __forceinline__ uint32_t c1_of(uint32_t raw) {
+  return x_of(raw) + PC * XPLANE;
+}
+__device__ __forceinline__ uint32_t slot(uint32_t raw, int g) {
+  return slots_of(raw) + (g % RING) * SLOT;
+}
+__device__ __forceinline__ void wait_full(uint32_t raw, int g) {
+  mbar_wait(raw + (g % RING) * 8, (g / RING) & 1);
+}
+__device__ __forceinline__ void issue(const Params& p, uint32_t raw, int g) {
+  const int unit = (int)blockIdx.x + (g / LOADS) * (int)gridDim.x;
+  const uint32_t bar = raw + (g % RING) * 8;
+  mbar_expect(bar, SLOT);
+  bulk_copy(slot(raw, g),
+            p.img + (unit & 1) * PER + (long long)(g % LOADS) * SLOT, SLOT,
+            bar);
+}
+// this warpgroup's products of load g are done; if g % 3 is this
+// warpgroup, its first thread then copies load g - 1 + RING (of the
+// block's `total`) into the slot of load g - 1 once every warpgroup has
+// released that
+__device__ __forceinline__ void release(const Params& p, uint32_t raw,
+                                        int g, int total) {
+  if ((threadIdx.x & 127) != 0) return;
+  mbar_arrive(raw + (RING + g % RING) * 8);
+  const int h = g - 1 + RING;
+  if (g % WGS == (int)threadIdx.x >> 7 && g > 0 && h < total) {
+    mbar_wait(raw + (RING + (g - 1) % RING) * 8, ((g - 1) / RING) & 1);
+    issue(p, raw, h);
+  }
+}
+// the x window of the block's unit k, a tensor copy a plane: rows R0 - 2
+// .., columns W0 - 2 .., zeros outside the image
+__device__ __forceinline__ void issue_x(const Params& p,
+                                        const CUtensorMap* xmap,
+                                        uint32_t raw, int k) {
+  const Unit u(p, k);
+  mbar_expect(x_bar(raw), PC * X_BYTES);
+  for (int q = 0; q < PC; ++q)
+    tensor_copy(x_of(raw) + q * XPLANE, xmap, q * 64, u.W0 - 2, u.R0 - 2,
+                u.b, x_bar(raw));
+}
+
+// One conv's products for this warpgroup's m64 tile, all 128 columns: KL
+// loads from the ring's load g0, two chunks of four k16 steps each, A one
+// step ahead. `row` is this lane's A row, the top-left tap's pixel, in
+// the window at `win` (planes `plane` bytes apart, rows `pitch` pixels).
+__device__ __forceinline__ void gemm(float (&acc)[64], const Params& p,
+                                     uint32_t raw, int total, int g0,
+                                     uint32_t win, int plane, int row,
+                                     int pitch) {
+#pragma unroll
+  for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+  const int hi = (threadIdx.x >> 4) & 1;  // lanes 16-31: the upper 8
+  auto addr = [&](int kc, int ks) {        // chunk kc: tap kc / 2, plane
+    const int tap = kc >> 1;
+    return win + (kc & 1) * plane +
+           pix_chunk(row + (tap / 3) * pitch + tap % 3, 2 * ks + hi);
+  };
+  uint32_t a[2][4];
+  ldmatrix_x4(a[0], addr(0, 0));
+  wait_full(raw, g0);
+#pragma unroll 1
+  for (int kl = 0; kl < KL; ++kl) {
+    const uint64_t desc = b_desc(slot(raw, g0 + kl));
+#pragma unroll
+    for (int st = 0; st < 8; ++st) {  // chunk 2 kl + st / 4, k16 st % 4
+      wgmma_fence();
+      wgmma_m64n128k16(acc, a[st & 1],
+                       desc + (uint64_t)((st >> 2) * (CHUNK >> 4) +
+                                         (st & 3) * 2));
+      wgmma_commit();
+      wgmma_wait<1>();  // the step before is done with its A and slot
+      if (st == 0 && kl > 0) release(p, raw, g0 + kl - 1, total);
+      const int nc = st < 7 ? 2 * kl + ((st + 1) >> 2)
+                            : min(2 * kl + 2, 2 * KL - 1);
+      ldmatrix_x4(a[(st + 1) & 1], addr(nc, (st + 1) & 3));
+      if (st == 7 && kl + 1 < KL) wait_full(raw, g0 + kl + 1);
+    }
+  }
+  wgmma_wait<0>();
+  release(p, raw, g0 + KL - 1, total);
+}
+
+// conv1 of the block's unit k, m64 tile w of the region: c1 =
+// bf16(ReLU(acc + b1)), 0 outside the image, into the c1 window
+__device__ __forceinline__ void conv1(const Params& p, uint32_t raw,
+                                      int total, int k, int w) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int m0 = w * 64 + warp * 16 + (lane & 15);
+  float acc[64];
+  gemm(acc, p, raw, total, k * LOADS, x_of(raw), XPLANE,
+       (m0 / CC) * XC + m0 % CC, XC);
+  const Unit u(p, k);
+  const float* __restrict__ b1 = p.br[u.branch].b1;
+  const uint32_t c1_s = c1_of(raw);
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int m = w * 64 + warp * 16 + g + 8 * half;
+    const int gy = u.R0 - 1 + m / CC, gx = u.W0 - 1 + m % CC;
+    const bool inside = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * tq;
+      const uint32_t v = pack_bf16(
+          fmaxf(__fadd_rn(acc[4 * j + 2 * half], __ldg(b1 + col)), 0.f),
+          fmaxf(__fadd_rn(acc[4 * j + 2 * half + 1], __ldg(b1 + col + 1)),
+                0.f));
+      st_shared(c1_s + (j >> 3) * CP * PIX_BYTES + pix_chunk(m, j & 7) +
+                    tq * 4,
+                inside ? v : 0u);
+    }
+  }
+}
+
+// conv2 of the block's unit k, m64 tile w of the tile (its rows past the
+// tile's 140 repeat the last pixel and are dropped), and the pred: c2 =
+// bf16(ReLU(acc + b2)) as m16n8k16 A fragments, f32 sums with the
+// branch's fragment image, + bp, stored
+__device__ __forceinline__ void conv2(const Params& p, uint32_t raw,
+                                      int total, int k, int w) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int m0 = min(w * 64 + warp * 16 + (lane & 15), OP - 1);
+  float acc[64];
+  gemm(acc, p, raw, total, k * LOADS + KL, c1_of(raw), CP * PIX_BYTES,
+       (m0 / TW) * CC + m0 % TW, CC);
+  const Unit u(p, k);
+  const wide_head::Branch& br = p.br[u.branch];
+  const uint2* __restrict__ wpf =
+      reinterpret_cast<const uint2*>(p.img + 2 * PER) + u.branch * C * 2;
+  const int g = lane >> 2, tq = lane & 3;
+  float pd[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int ks = 0; ks < C / 16; ++ks) {
+    uint32_t af[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      // q: 0 row g, 1 row g+8 (columns 16ks+2tq), 2/3 the same +8
+      const int col = 16 * ks + 8 * (q >> 1) + 2 * tq;
+      af[q] = pack_bf16(
+          fmaxf(__fadd_rn(acc[8 * ks + 2 * q], __ldg(br.b2 + col)), 0.f),
+          fmaxf(__fadd_rn(acc[8 * ks + 2 * q + 1], __ldg(br.b2 + col + 1)),
+                0.f));
+    }
+    const uint2 f = __ldg(wpf + ks * 32 + lane);
+    const uint32_t bfr[2] = {f.x, f.y};
+    mma_m16n8k16(pd, af, bfr);
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int m = w * 64 + warp * 16 + g + 8 * half;
+    const int gy = u.R0 + m / TW, gx = u.W0 + m % TW;
+    if (m < OP && gy < p.H && gx < p.W) {
+      float* o = br.out + (((size_t)u.b * p.H + gy) * p.W + gx) * br.no;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 2 * tq + e;
+        if (col < br.no)
+          o[col] = __fadd_rn(pd[2 * half + e], __ldg(br.bp + col));
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+head_large_kernel(const __grid_constant__ Params p,
+                  const __grid_constant__ CUtensorMap xmap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const int w = (int)threadIdx.x >> 7;  // warpgroup: its m64 tiles
+  const int count = unit_count(p);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(raw + s * 8, 1);               // full: the copy
+      mbar_init(raw + (RING + s) * 8, WGS);    // empty: each warpgroup
+    }
+    mbar_init(x_bar(raw), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int g = 0; g < RING && g < count * LOADS; ++g) issue(p, raw, g);
+    issue_x(p, &xmap, raw, 0);
+  }
+#pragma unroll 1
+  for (int k = 0; k < count; ++k) {
+    mbar_wait(x_bar(raw), k & 1);  // unit k's x window is in
+    conv1(p, raw, count * LOADS, k, w);
+    __syncthreads();  // c1 is complete; every warpgroup is done with x
+    if (threadIdx.x == 0 && k + 1 < count) issue_x(p, &xmap, raw, k + 1);
+    // c1 is rewritten by unit k + 1's conv1 only after every warpgroup
+    // has released this unit's conv2 loads: the ring's order keeps it
+    conv2(p, raw, count * LOADS, k, w);
+  }
+}
+
+int launch(const bf16* x, const bf16* w33, wide_head::Branch cls,
+           wide_head::Branch reg, int B, int H, int W, void* stream) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(head_large_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SMEM);
+    if (err != cudaSuccess) {
+      sms = 0;
+      return (int)err;
+    }
+  }
+  CUtensorMap xmap;
+  const int err = nhwc_tensor_map(&xmap, x, B, H, W, C, 64, XC, XR, true);
+  if (err != 0) return err;
+  Params p{reinterpret_cast<const unsigned char*>(w33), {cls, reg}, H, W,
+           (W + TW - 1) / TW, (H + TR - 1) / TR, 0};
+  p.units = 2 * B * p.tiles_x * p.tiles_y;
+  const int blocks = p.units < sms ? p.units : sms;
+  last_launch = wide::LaunchShape{blocks, 1, 1, THREADS, SMEM};
+  return launch_ex(head_large_kernel, dim3(blocks, 1, 1), 1, THREADS, SMEM,
+                   stream, p, xmap);
+}
+
+}  // namespace large
+
 // One kernel function a compiled body: C the width, OWN the owned plan;
 // the launcher picks the instance
 template <int C, bool OWN>
@@ -784,7 +1125,10 @@ int launch(const bf16* x, const bf16* w33, Branch cls, Branch reg, int C,
                  : launch_body<256, false>(x, w33, cls, reg, B, H, W,
                                            stream);
     case 128:
-      return launch_body<128, false>(x, w33, cls, reg, B, H, W, stream);
+      return large::plan(C, H, W)
+                 ? large::launch(x, w33, cls, reg, B, H, W, stream)
+                 : launch_body<128, false>(x, w33, cls, reg, B, H, W,
+                                           stream);
     case 32:
       return launch_body<32, false>(x, w33, cls, reg, B, H, W, stream);
     default: return (int)cudaErrorInvalidValue;

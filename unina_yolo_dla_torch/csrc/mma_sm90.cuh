@@ -7,12 +7,17 @@
 // 64 bf16 channels (128 bytes a pixel):
 //
 //   A (activations)  rows are pixels of a window in shared memory. The rows
-//     of one filter tap are the same pixels shifted by whole pixels, which
-//     a shared-memory matrix descriptor cannot express inside a swizzle
-//     atom, so A goes through registers: every lane hands `ldmatrix` the
-//     address of its own pixel row (`load_a64`). A pixel's eight 16-byte
-//     chunks are stored at chunk ^ (pixel & 7), which spreads the eight
-//     rows of one ldmatrix phase over all banks.
+//     of one filter tap are the same pixels shifted by whole pixels. A
+//     shared-memory matrix descriptor can start at any pixel (base-offset
+//     field 0: the swizzle follows the address bits;
+//     tools/torch_wgmma_probe.py), but it reads 8-row groups of
+//     consecutive pixels at one stride, and a tap's rows over a tile's
+//     region wrap from one window row to the next at the region's width,
+//     not the window's; copies of the window at the region's pitch would
+//     not fit beside the weights. So A goes through registers: every lane
+//     hands `ldmatrix` the address of its own pixel row (`load_a64`). A
+//     pixel's eight 16-byte chunks are stored at chunk ^ (pixel & 7),
+//     which spreads the eight rows of one ldmatrix phase over all banks.
 //   B (weights)  never shifts, so `wgmma` reads it from shared memory
 //     through a descriptor: one tile is [64 n][64 k] bf16, K contiguous
 //     (128 bytes a row), 128-byte swizzle, 8 KB, 1024-byte aligned (or
@@ -20,8 +25,8 @@
 //     weights into exactly this image (ops/cuda/mma_pack.py) so the device
 //     copy is a flat 16-byte-chunk copy.
 //   D  f32 accumulators in registers, 32 a thread for m64n64 (16 for
-//     m64n32): thread (warp w, lane l) holds rows 16w + l/4 (+8), columns
-//     8j + 2(l%4) (+1).
+//     m64n32, 64 for m64n128): thread (warp w, lane l) holds rows 16w +
+//     l/4 (+8), columns 8j + 2(l%4) (+1).
 //
 // Also the pieces of thread-block clusters the kernels share: distributed
 // shared memory, the cluster barrier, named barriers, mbarriers (local and
@@ -158,6 +163,35 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
       : "memory");
 }
+// the same with N = 128: B is 16 x 128, 64 accumulators a thread
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+      : "memory");
+}
 // One 64-deep K chunk: four k16 steps over one weight tile. The caller
 // fences before (after its ldmatrix loads) and commits after.
 __device__ __forceinline__ void mma_a64(float (&d)[32],
@@ -259,6 +293,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
 }
+// one arrival on this block's mbarrier `bar` (a consumer releasing a slot
+// it has finished reading)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
 // the same for a phase that a peer's arrivals complete, polling
 // (test_wait) rather than suspending the thread
 __device__ __forceinline__ void mbar_poll(uint32_t bar, uint32_t parity) {
@@ -320,6 +360,18 @@ __device__ __forceinline__ void tensor_copy_mc(uint32_t dst,
           "r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar), "h"(mask)
+      : "memory");
+}
+// The same into this block's shared memory alone
+__device__ __forceinline__ void tensor_copy(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
       : "memory");
 }
 // The tensor map of a bf16 NHWC tensor (B, H, W, C) at `ptr` whose boxes

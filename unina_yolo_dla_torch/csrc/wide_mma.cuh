@@ -66,6 +66,9 @@
 //     (`stage_nh`'s `all`), so each chunk is copied from L2 once a block a
 //     tile. The products, and so the bits, are the replicated plan's; a
 //     tile's result does not depend on the block that computes it.
+//   The head at 128 on base 64's 160 x 160 runs a plan of its own (head.cu
+//   `large`: three warpgroups, one ring they share, A one step ahead),
+//   which shares only this file's constants and launch record.
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -83,6 +86,10 @@ constexpr int KSTEP = 2;                 // chunks multiplied a step
 constexpr int MAX_RING = 8;              // slots of a warpgroup's ring
 constexpr int MAX_STAGES = 6;            // C3k2: A, 2 x (B, C), D
 constexpr int SMEM_MAX = 232448;         // 227 KB a block
+// where a plan that walks its work with one block an SM takes over from
+// the replicated one: that plan's grid fills two rounds of the H100's 132
+// SMs (c3k2.cu's persistent plan, head.cu's large plan)
+constexpr int WALK_MIN_BLOCKS = 264;
 // shared memory ahead of a wide kernel's ring: the block's `Stream`, the
 // ring's mbarriers at BARS, and the slack that aligns the ring to 1024
 constexpr int SMEM_HEAD = 2048;

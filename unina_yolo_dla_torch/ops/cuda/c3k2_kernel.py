@@ -42,8 +42,8 @@ import torch.nn.functional as F
 from . import _lib
 from ._lib import I, Kernel, P, check_cuda, stream_ptr
 from .mma_pack import (C3K2_SPLIT, WIDE_PERSIST_BLOCKS, WIDE_PIX_BYTES,
-                       WIDE_SMEM_HEAD, WIDE_SMEM_MAX, c3k2_mma_numel,
-                       wide_ring_bytes, wide_stage_cols)
+                       WIDE_SMEM_HEAD, WIDE_SMEM_MAX, WIDE_WALK_MIN_BLOCKS,
+                       c3k2_mma_numel, wide_ring_bytes, wide_stage_cols)
 
 KERNEL = Kernel("unina_fused_c3k2",
                 [P, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P])
@@ -81,8 +81,7 @@ def owned_plan(hid: int, ntiles: int) -> bool:
 
 # the persistent plan (csrc/c3k2.cu ``persist_plan``): hidden 64, one
 # bottleneck, where the replicated plan's grid (batch included) has
-# PERSIST_MIN_BLOCKS blocks or more and the plan's windows fit; its tile
-PERSIST_MIN_BLOCKS = 264
+# WIDE_WALK_MIN_BLOCKS blocks or more and the plan's windows fit; its tile
 PERSIST_TILE = (8, 16)
 
 
@@ -94,7 +93,7 @@ def persist_plan(hid: int, n: int, ntiles: int) -> bool:
     copied once a block a tile. It sums as the replicated plan does: a
     frame's bits are the same in either. ``wide_plan`` also asks that its
     windows fit (``wide_smem_persist``)."""
-    return hid == 64 and n == 1 and ntiles >= PERSIST_MIN_BLOCKS
+    return hid == 64 and n == 1 and ntiles >= WIDE_WALK_MIN_BLOCKS
 
 
 def wide_smem_persist(ca: int, cb: int, up_a: bool, hid: int, n: int

@@ -4,8 +4,9 @@ CUDA source: ``csrc/head.cu`` (tensor cores): the tiled ``wgmma`` kernel
 at width 64 (P2), the wide ``wgmma`` form (weights streamed through shared
 memory; at 256 and 512 each output tile one cluster of two or four blocks
 splitting the channels, at 512 and at 256 on large images each block
-keeping only the planes it computes and copying its peers') at widths 32,
-128, 256 and 512 (P3/P4 of the bf16 engines, base 16, 32 and 64).
+keeping only the planes it computes and copying its peers'; at 128 on
+large images the large plan, ``large_plan``) at widths 32, 128, 256 and
+512 (P3/P4 of the bf16 engines, base 16, 32 and 64; base 64's P2).
 ``fused_head`` launches one of them for a CUDA tensor; for a CPU tensor it runs
 ``fused_head_plain``, which follows the reference's XLA form step by step.
 Per branch over the same input:
@@ -34,9 +35,9 @@ import torch
 from . import _lib
 from ._lib import I, Kernel, P, check_cuda, stream_ptr
 from .c3k2_kernel import _conv3x3, _dot
-from .mma_pack import (HEAD_SPLIT, WIDE_PIX_BYTES, WIDE_SMEM_HEAD,
-                       WIDE_SMEM_MAX, head_mma_shape, wide_ring_bytes,
-                       wide_stage_cols)
+from .mma_pack import (HEAD_SPLIT, WIDE_PERSIST_BLOCKS, WIDE_PIX_BYTES,
+                       WIDE_SMEM_HEAD, WIDE_SMEM_MAX, WIDE_WALK_MIN_BLOCKS,
+                       head_mma_shape, wide_ring_bytes, wide_stage_cols)
 
 KERNEL = Kernel("unina_fused_head",
                 [P, P, P, P, P, P, I, P, P, P, P, I, P, P, I, I, I, I, P])
@@ -72,6 +73,40 @@ def owned_plan(c: int, h: int, w: int) -> bool:
                         >= OWNED_MIN_BLOCKS)
 
 
+# the large plan (csrc/head.cu ``large``): C = 128 where one image's
+# replicated grid (8 x 16 tiles, both branches) has WIDE_WALK_MIN_BLOCKS
+# blocks or more; 10 x 14 tiles, one branch a unit, three warpgroups, one
+# block an SM (at most ``sms``) walking units, a ring of LARGE_RING slots
+# of two 16 KB chunks, the x window's planes LARGE_XPLANE bytes apart
+LARGE_TILE = (10, 14)
+LARGE_THREADS = 384
+LARGE_RING = 3
+LARGE_XPLANE = 32768
+
+
+def large_plan(c: int, h: int, w: int) -> bool:
+    """Whether the wide head runs the large plan over (h, w) images
+    (csrc/head.cu ``large::plan``): at 128 where one image's replicated
+    grid, both branches, has WIDE_WALK_MIN_BLOCKS blocks or more (base 64's
+    head_p2 at 160 x 160: 400). The batch plays no part."""
+    return c == 128 and -(-h // 8) * -(-w // 16) * 2 >= WIDE_WALK_MIN_BLOCKS
+
+
+def large_smem() -> int:
+    """The large plan's shared memory (csrc/head.cu ``large::SMEM``): the
+    head, the ring, the x window's two planes (each 1024-aligned for the
+    tensor copy's swizzle) and conv1's region, two planes."""
+    tr, tw = LARGE_TILE
+    return (WIDE_SMEM_HEAD + LARGE_RING * 2 * 128 * 128 + 2 * LARGE_XPLANE
+            + 2 * (tr + 2) * (tw + 2) * WIDE_PIX_BYTES)
+
+
+def large_units(b: int, h: int, w: int) -> int:
+    """The large plan's units over a (b, h, w) input: tiles x branches."""
+    tr, tw = LARGE_TILE
+    return 2 * b * -(-h // tr) * -(-w // tw)
+
+
 def _ring(ns: int, tr: int, tw: int) -> int:
     return wide_ring_bytes(max(wide_stage_cols(ns, (tr + 2) * (tw + 2)),
                                wide_stage_cols(ns, tr * tw)))
@@ -102,10 +137,16 @@ def wide_smem_bytes(c: int) -> int:
             + (xp + c1) * -(-c // 64) * WIDE_PIX_BYTES)
 
 
-def wide_launch(c: int, b: int, h: int, w: int) -> dict:
+def wide_launch(c: int, b: int, h: int, w: int,
+                sms: int = WIDE_PERSIST_BLOCKS) -> dict:
     """The wide head's launch over a (b, h, w) input as csrc/head.cu makes
     it (``last_launch``' keys): tiles x cluster blocks by two branches,
-    the cluster and the shared memory of the plan it picks."""
+    the cluster and the shared memory of the plan it picks; the large
+    plan's units or the card's ``sms``, the fewer, of 384 threads."""
+    if large_plan(c, h, w):
+        return {"grid": [min(large_units(b, h, w), sms), 1, 1],
+                "cluster": [1, 1, 1], "threads": LARGE_THREADS,
+                "smem_bytes": large_smem()}
     if owned_plan(c, h, w):
         (tr, tw), s, smem = OWNED_TILE, c // 128, wide_smem_owned(c)
     else:

@@ -171,6 +171,10 @@ WIDE_SMEM_HEAD = 2048
 WIDE_PIX_BYTES = 128
 # the persistent plan's grid: one block an SM of the H100 (132), at most
 WIDE_PERSIST_BLOCKS = 132
+# where a plan that walks its work (the C3k2's persistent plan, the head's
+# large plan) takes over from the replicated one: that plan's grid fills
+# two rounds of the H100's SMs (csrc/wide_mma.cuh ``WALK_MIN_BLOCKS``)
+WIDE_WALK_MIN_BLOCKS = 264
 
 
 def wide_stage_cols(ns: int, pixels: int) -> int:

@@ -63,7 +63,7 @@ PORT_KERNELS = {
     "stage1_merged": r"stage1_mma_kernel",
     "fused_c3k2": r"c3k2_(wide_)?kernel(ILb0E|<false[,>])",
     "fused_c3k2_cat": r"c3k2_(wide_)?kernel(ILb1E|<true[,>])",
-    "fused_head": r"head_(mma|wide)_kernel",
+    "fused_head": r"head_(mma|wide|large)_kernel",
     "camera": r"camera_preprocess_kernel",
 }
 
