@@ -83,6 +83,16 @@ list. The first wide form's times are quoted from PERF.md beside them in
 ``chip_smoke.json`` (``before_redesign_graph_ms_quoted``), never in the
 kernels line.
 
+The int8 conv kernel (``csrc/int8_conv.cu``, one launch for each int8
+layer of the int8 engines, 46 a frame on the shipped, fc, b8 and camera
+paths, 59 on the unfused int8 engine) is held bit for bit against its
+plain version on each of the shipped frame's layers, on the activations
+that layer receives from the seed-7 frame, and timed beside the plain
+version and ``torch._int_mm`` on prebuilt patches (the product alone);
+one eager frame runs with ``torch._int_mm`` and the im2col refused; a
+``shipped_graph_profile`` line gives the shipped graph's device time by
+kernel name, in which no library integer product may appear.
+
 The five tensor-core kernels (stem+stage1, stage1, both C3k2 forms, head)
 are also run at ragged shapes that cut every tile edge, and the built
 library's SASS is read for the tensor-core instruction each of them issues
@@ -243,7 +253,8 @@ DEVICE_FUNCS = {"normalize": ("normalize_merged_kernel",),
                 "fused_head": ("head_mma_kernel", "head_wide_kernel",
                                "head_large_kernel"),
                 "camera": ("camera_preprocess_kernel",
-                           "camera_pixel_kernel")}
+                           "camera_pixel_kernel"),
+                "int8_conv": ("int8_conv_kernel",)}
 # the kernels that run on the tensor cores: checked at ragged shapes too,
 # and their SASS read for the instruction they issue
 MMA_KERNELS = ("fused_stem_stage1", "stage1_merged", "fused_c3k2",
@@ -259,30 +270,39 @@ SASS_NAMES = {**{f"{k}<{c}>": f"{k}ILi{c}EE"
               "c3k2_kernel<true>": "c3k2_kernelILb1EE",
               "c3k2_wide_kernel<false": "c3k2_wide_kernelILb0E",
               "c3k2_wide_kernel<true": "c3k2_wide_kernelILb1E"}
+# the int8 layers of the int8 engines' chain: 46 in the shipped engine
+# (35 ConvBlocks with ReLU + out_q, 7 bottleneck cv2s with the residual
+# add_q too, 4 f32 preds), the same in int8_s2dm_fc, b8 and camera; 59 in
+# the unfused int8 engine (the reference's default exclusions)
+INT8_LAYERS = 46
+INT8_LAYERS_UNFUSED = 59
 # launches per call of each path (a call is a frame, or a batch of 8)
 PER_FRAME = {
     "shipped": {"normalize": 1, "fused_stem_stage1": 1, "decode_topk": 1,
                 "nms": 1, "stage1_merged": 0, "fused_c3k2": 0,
-                "fused_c3k2_cat": 0, "fused_head": 0, "camera": 0},
+                "fused_c3k2_cat": 0, "fused_head": 0, "camera": 0,
+                "int8_conv": INT8_LAYERS},
     "int8_s2dm_fc": {"normalize": 1, "fused_stem_stage1": 0,
                      "decode_topk": 1, "nms": 1, "stage1_merged": 1,
                      "fused_c3k2": 1, "fused_c3k2_cat": 1, "fused_head": 1,
-                     "camera": 0},
+                     "camera": 0, "int8_conv": INT8_LAYERS},
     "b8": {"normalize": 1, "fused_stem_stage1": 1, "decode_topk": 1,
            "nms": 1, "stage1_merged": 0, "fused_c3k2": 0,
-           "fused_c3k2_cat": 0, "fused_head": 0, "camera": 0},
+           "fused_c3k2_cat": 0, "fused_head": 0, "camera": 0,
+           "int8_conv": INT8_LAYERS},
     "camera": {"normalize": 0, "fused_stem_stage1": 0, "decode_topk": 1,
                "nms": 1, "stage1_merged": 1, "fused_c3k2": 0,
-               "fused_c3k2_cat": 0, "fused_head": 0, "camera": 1},
+               "fused_c3k2_cat": 0, "fused_head": 0, "camera": 1,
+               "int8_conv": INT8_LAYERS},
     "bf16_s2dm_mh": {"normalize": 1, "fused_stem_stage1": 0,
                      "decode_topk": 1, "nms": 1, "stage1_merged": 1,
                      "fused_c3k2": 0, "fused_c3k2_cat": 0, "fused_head": 0,
-                     "camera": 0},
+                     "camera": 0, "int8_conv": 0},
     # every C3k2 and head of the bf16 engine fuses, at 64, 128 and 256
     "bf16_s2dm_fc": {"normalize": 1, "fused_stem_stage1": 0,
                      "decode_topk": 1, "nms": 1, "stage1_merged": 1,
                      "fused_c3k2": 3, "fused_c3k2_cat": 4, "fused_head": 3,
-                     "camera": 0},
+                     "camera": 0, "int8_conv": 0},
 }
 # the port's export, from the committed calibrated checkpoint, with each
 # committed artifact's flags
@@ -345,6 +365,7 @@ BEFORE64_GRAPH_MS = {
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+INT8_OPS = 1979e12          # int8 tensor-core operations/s
 
 FRAMES = 30
 BATCHES = 20
@@ -386,9 +407,12 @@ MODE_FLAGS = {
                      "--fused-stem"],
     "qat_deploy": ["--s2d-merged", "--fused-stem", "--merged-head"],
 }
-MODE_PER_FRAME = {"normalize": 1, "fused_stem_stage1": 1, "decode_topk": 1,
-                  "nms": 1, "stage1_merged": 0, "fused_c3k2": 0,
-                  "fused_c3k2_cat": 0, "fused_head": 0, "camera": 0}
+_MODE_KERNELS = {"normalize": 1, "fused_stem_stage1": 1, "decode_topk": 1,
+                 "nms": 1, "stage1_merged": 0, "fused_c3k2": 0,
+                 "fused_c3k2_cat": 0, "fused_head": 0, "camera": 0}
+MODE_PER_FRAME = {
+    "int8_unfused": dict(_MODE_KERNELS, int8_conv=INT8_LAYERS_UNFUSED),
+    "qat_deploy": dict(_MODE_KERNELS, int8_conv=0)}
 # phase 20: the kernels at the other base widths, in random-initialised
 # engines (seed = base) whose BatchNorm scales keep the activations' scale
 # through the depth; the threshold is set in a gap of the seed-7 frame's
@@ -739,7 +763,8 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 
 def mma_route(lib_path: Path, func: str, source: Path) -> str:
     """Which tensor-core instruction a device function issues: ``wgmma``
-    (HGMMA in the built library's SASS) or ``mma.sync`` (HMMA only), read
+    (HGMMA in the built library's SASS) or ``mma.sync`` (HMMA, or IMMA on
+    int8, only), read
     by ``cuobjdump``; where that tool is absent, what the source states."""
     from unina_yolo_dla_torch.ops.cuda import _lib
 
@@ -753,11 +778,13 @@ def mma_route(lib_path: Path, func: str, source: Path) -> str:
                 if SASS_NAMES.get(func, func) in part.splitlines()[0]]
         assert body, f"{func}: no SASS function"
         kinds = {"wgmma" if "HGMMA" in b else
-                 "mma.sync" if "HMMA" in b else None for b in body}
+                 "mma.sync" if "HMMA" in b or "IMMA" in b else None
+                 for b in body}
         found = kinds.pop() if len(kinds) == 1 else None
         log(f"{func}: {len(body)} SASS functions, "
             f"{sum(b.count('HGMMA') for b in body)} HGMMA, "
-            f"{sum(b.count('HMMA') for b in body)} HMMA")
+            f"{sum(b.count('HMMA') for b in body)} HMMA, "
+            f"{sum(b.count('IMMA') for b in body)} IMMA")
     else:
         text = source.read_text()
         found = ("wgmma" if "wgmma" in text else
@@ -1072,6 +1099,154 @@ def check_kernels(art, rgb, scenes, torch) -> list[dict]:
         **{f"{w}_{k}": v for w in ("served", "b8_served")
            for k, v in nsets[w].items()}))
     return rows_out
+
+
+def int8_layer_work(bsz: int, h: int, w: int, c: int, n: int, cout: int,
+                    k: int, stride: int, mode: int) -> tuple[int, int]:
+    """(bytes, operations) an int8 layer must move and do: each input read
+    once (x, the (n, k*k*c) weights, comb and bias, the residual), the
+    output written once (f32, or int8); 2 operations a multiply-add of the
+    ``cout`` channels out."""
+    from unina_yolo_dla_torch.ops.cuda.int8_conv_kernel import F32, QRES, \
+        out_size
+
+    ho, wo = out_size(h, w, k, stride)
+    px = bsz * ho * wo
+    nbytes = (bsz * h * w * c + n * k * k * c + 8 * n
+              + px * cout * (4 if mode == F32 else 1)
+              + (px * cout if mode == QRES else 0))
+    return nbytes, 2 * px * cout * k * k * c
+
+
+def check_int8_layers(art, rgb, torch) -> tuple[dict, list[dict]]:
+    """The int8 conv kernel on each of the shipped frame's int8 layers, on
+    the activations the eager frame hands each layer (forward pre-hooks,
+    as ``capture_inputs``): bit for bit its plain version (im2col,
+    ``torch._int_mm``, the float64-emulated FMA, the requants), timed
+    (events, a replayed graph), beside the plain version and the library's
+    integer product alone on prebuilt patches (``torch._int_mm``: the
+    yardstick, which the port never calls on the card), with each layer's
+    bound. Also one eager frame with ``torch._int_mm`` and the im2col
+    refused: the card's path runs neither. -> (the kernels line's row:
+    sums over the frame's layers and by geometry; the layers)."""
+    from unina_yolo_dla_torch.ops.cuda import int8_conv_kernel as k8
+    from unina_yolo_dla_torch.quant import fake_quant
+    from unina_yolo_dla_torch.quant.fake_quant import QuantConv, im2col_nhwc
+    from unina_yolo_dla_torch.quant.qtensor import QTensor
+
+    mods = {n: m for n, m in art.model.named_modules()
+            if isinstance(m, QuantConv) and m.int8}
+    caps = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda _m, a, kw, n=n: caps.__setitem__(n, a), with_kwargs=True)
+        for n, m in mods.items()]
+    try:
+        with torch.inference_mode():
+            art(rgb)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    assert len(caps) == INT8_LAYERS, f"{len(caps)} int8 layers in a frame"
+
+    # the card's frame never reaches the plain int8 product
+    refused = []
+
+    def refuse(name):
+        def fn(*a, **k):
+            refused.append(name)
+            raise AssertionError(f"{name} ran on the card")
+        return fn
+
+    saved = torch._int_mm, fake_quant.im2col_nhwc
+    torch._int_mm = refuse("torch._int_mm")
+    fake_quant.im2col_nhwc = refuse("im2col_nhwc")
+    try:
+        with torch.inference_mode():
+            art(rgb)
+        torch.cuda.synchronize()
+    finally:
+        torch._int_mm, fake_quant.im2col_nhwc = saved
+    assert not refused, refused
+
+    layers = []
+    for name, args in caps.items():
+        conv = mods[name]
+        x, res, add_amax = (tuple(args) + (None, None))[:3]
+        qt = x if isinstance(x, QTensor) else conv.in_q(x)
+        xq = qt.q.contiguous()
+        call = (xq, conv.weight, conv._comb(qt.scale), conv.bias, conv.kh,
+                conv.kw, conv.stride, conv.padding, conv.cout)
+        kw = {}
+        if conv.out_amax is not None:
+            kw["out_amax"] = conv.out_amax
+        if res is not None:
+            kw.update(res=res.q.contiguous(), res_amax=res.amax,
+                      add_amax=add_amax)
+        mode = k8.QRES if res is not None else (
+            k8.Q if conv.out_amax is not None else k8.F32)
+
+        def fn(call=call, kw=kw):
+            return k8.int8_conv(*call, **kw)
+
+        def plain(call=call, kw=kw):
+            return k8.int8_conv_plain(*call, **kw)
+
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        assert got.dtype == want.dtype and torch.equal(got, want), (
+            f"int8_conv {name}: {int((got != want).sum())} elements "
+            f"differ, max |err| {err}")
+        patches = im2col_nhwc(xq, conv.kh, conv.kw, conv.stride,
+                              conv.padding)
+        wt = conv.weight.t()
+
+        def lib(patches=patches, wt=wt):
+            return torch._int_mm(patches, wt)
+
+        b, h, w, c = xq.shape
+        nbytes, ops = int8_layer_work(b, h, w, c, conv.weight.shape[0],
+                                      conv.cout, conv.kh, conv.stride, mode)
+        b_ms, b_by = bound(nbytes, ops, INT8_OPS)
+        layers.append(dict(
+            layer=name, shape=[b, h, w, c], n=conv.weight.shape[0],
+            cout=conv.cout, k=conv.kh, stride=conv.stride,
+            epilogue=("f32", "q", "qres")[mode], bytes=nbytes, ops=ops,
+            max_abs_err=err, ms=cuda_ms(fn, 200), graph_ms=graph_ms(fn),
+            plain_ms=cuda_ms(plain, 10, 2), library_ms=cuda_ms(lib, 100),
+            bound_ms=b_ms, bound_by=b_by))
+
+    def total(rows):
+        out = {k: sum(r[k] for r in rows) for k in (
+            "ms", "graph_ms", "plain_ms", "library_ms", "bytes", "ops")}
+        t_bytes = out["bytes"] / HBM_BPS * 1e3
+        t_ops = out["ops"] / INT8_OPS * 1e3
+        out["bound_ms"] = max(t_bytes, t_ops)
+        out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        out["layers"] = len(rows)
+        return out
+
+    geoms = {}
+    for r in layers:
+        geoms.setdefault(f"{r['k']}x{r['k']}_s{r['stride']}", []).append(r)
+    sums = total(layers)
+    row = dict(
+        name="int8_conv", route="cuda",
+        source="unina_yolo_dla_torch/csrc/int8_conv.cu",
+        replaces="unina_yolo_dla_tpu/quant/fake_quant.py:235",
+        tolerance="exact: every layer's output bit for bit its plain "
+                  "version's",
+        per=f"the shipped frame's {len(layers)} int8 layers on their "
+            "seed-7 activations, summed (one launch a layer)",
+        max_abs_err=max(r["max_abs_err"] for r in layers),
+        **{k: sums[k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "bytes", "ops")},
+        library="torch._int_mm on prebuilt patches: the integer product "
+                "alone, no gather, no epilogue",
+        geometries={g: total(rows) for g, rows in geoms.items()})
+    log(json.dumps({"int8_conv_layers": layers}))
+    return row, layers
 
 
 def capture_inputs(model, serve, frame, torch) -> dict:
@@ -1465,6 +1640,9 @@ def profile_calls(serve, arg, torch, calls: int = 10,
             "kernels_per_call": sum(v[1] for v in by_name.values()) / calls,
             "memsets_per_call": memsets,
             "sort_kernels": [n[:90] for n in by_name if "sort" in n.lower()],
+            "by_kernel": {n[:120]: {"ms_per_call": v[0],
+                                    "calls_per_call": v[1] / calls}
+                          for n, v in top},
             "top": [{"name": n[:90], "ms_per_call": v[0],
                      "calls_per_call": v[1] / calls}
                     for n, v in top[:25]]}
@@ -2993,14 +3171,16 @@ def drive_mode(name: str, tmp: Path, rgb, labels, scenes, kernels,
     eager = ServingArtifact(d, graph=False)
     assert eager.model_config.quant.mode == mode
     cpu = ServingArtifact(d, device="cpu")(rgb)
-    e2e = drive(eager, rgb, labels, kernels, MODE_PER_FRAME, cpu, torch)
+    e2e = drive(eager, rgb, labels, kernels, MODE_PER_FRAME[name], cpu,
+                torch)
 
     def capture():
         owner = ServingArtifact(d)
         return owner, owner.graph
 
     _owner, _graph, g = drive_graph(capture, lambda a, f: a(f), eager,
-                                    scenes, kernels, MODE_PER_FRAME, 25600,
+                                    scenes, kernels, MODE_PER_FRAME[name],
+                                    25600,
                                     torch, copies=True)
     return {"export_s": secs, "quant_mode": mode,
             "report": {k: rep[k] for k in ("host_nodes", "kernel_nodes",
@@ -3790,7 +3970,8 @@ def main() -> int:
     from unina_yolo_dla_torch.models.detector import from_jax_variables
     from unina_yolo_dla_torch.ops.cuda import (
         _lib, c3k2_kernel, camera_kernel, decode_kernel, head_kernel,
-        nms_kernel, preprocess_kernel, stage1_kernel, stem_kernel)
+        int8_conv_kernel, nms_kernel, preprocess_kernel, stage1_kernel,
+        stem_kernel)
     from unina_yolo_dla_torch.quant.fake_quant import PERF_EXCLUDE, QuantSpec
     from unina_yolo_dla_torch.runtime import aot
     from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
@@ -3823,7 +4004,8 @@ def main() -> int:
                "fused_c3k2": c3k2_kernel.KERNEL,
                "fused_c3k2_cat": c3k2_kernel.KERNEL_CAT,
                "fused_head": head_kernel.KERNEL,
-               "camera": camera_kernel.KERNEL}
+               "camera": camera_kernel.KERNEL,
+               "int8_conv": int8_conv_kernel.KERNEL}
     # the shipped engine, and the fc engine from the same weights through
     # the entry points (both on cuda), eager: each launch counted
     art = ServingArtifact(ARTIFACT, graph=False)
@@ -3869,6 +4051,11 @@ def main() -> int:
     print(json.dumps({"launch_floor": floor}), flush=True)
     rows = [dict(r, path="shipped")
             for r in check_kernels(art, rgb, scenes, torch)]
+    int8_row, int8_layers = check_int8_layers(art, rgb, torch)
+    int8_row["mma"] = mma_route(_lib.build(), DEVICE_FUNCS["int8_conv"][0],
+                                REPO / int8_row["source"])
+    assert int8_row["mma"] == "mma.sync", int8_row["mma"]
+    rows.append(dict(int8_row, path="shipped"))
     rows += [dict(r, path="int8_s2dm_fc") for r in check_fc_kernels(
         fc_model, fc_serve, art.stage(rgb), torch)]
     rows.append(dict(check_camera_kernel(art_cam, cam7, torch),
@@ -3959,6 +4146,20 @@ def main() -> int:
         copies=True)
     prof_g = profile_calls(art_g, rgb, torch)
     log(json.dumps({"graph_shipped": g_ship, "profile": prof_g}, indent=1))
+    # the shipped graph's device time by kernel name: no library integer
+    # product is left in the frame (the int8 conv kernel computes each
+    # int8 layer)
+    for label, pr in (("eager", prof), ("graph", prof_g)):
+        gemms = [n for n in pr["by_kernel"]
+                 if re.search(r"gemm_?s8|s8_?gemm|i8i8|int8.*gemm|"
+                              r"gemm.*int8|int_mm|imma", n, re.I)]
+        assert not gemms, f"shipped {label}: integer GEMM kernels {gemms}"
+    print(json.dumps({"shipped_graph_profile": {
+        "card": smi, "kernel_nodes": g_ship["report"]["kernel_nodes"],
+        "device_busy_ms_per_frame": prof_g["device_busy_ms_per_call"],
+        "device_idle_share": prof_g["device_idle_share"],
+        "kernels_per_frame": prof_g["kernels_per_call"],
+        "by_kernel": prof_g["by_kernel"]}}), flush=True)
 
     def fc_capture():
         cap = aot.capture_serving_fn(fc_serve, art.staged_shape, art.device)
@@ -4255,7 +4456,7 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "build_s": build_s, "launch_floor": floor,
-         "end_to_end": e2e,
+         "int8_conv_layers": int8_layers, "end_to_end": e2e,
          "profile": prof, "end_to_end_fc": e2e_fc, "profile_fc": prof_fc,
          "end_to_end_b8": e2e_b8, "profile_b8": prof_b8,
          "graph_shipped": g_ship, "profile_graph_shipped": prof_g,

@@ -21,6 +21,7 @@ from unina_yolo_dla_torch.ops.cuda import (
     camera_kernel,
     decode_kernel,
     head_kernel,
+    int8_conv_kernel,
     mma_pack,
     nms_kernel,
     preprocess_kernel,
@@ -44,6 +45,9 @@ ARTIFACT = Path(__file__).resolve().parents[1] / "artifacts" / \
     "serving_artifact"
 ARTIFACT_B8 = ARTIFACT.with_name("serving_artifact_b8")
 ARTIFACT_CAM = ARTIFACT.with_name("serving_artifact_cam")
+# the int8 layers of the int8 engines' chain (shipped, b8, camera, fc), one
+# int8 conv launch each
+INT8_LAYERS = 46
 
 
 @pytest.fixture
@@ -227,9 +231,12 @@ def test_decode_kernel_matches_plain(cuda, b, case, grids, k):
 
 
 def test_decode_kernel_on_served_head_outputs(cuda):
-    """The shipped engine's head outputs for 8 scenes (P2 contiguous, P3
-    and P4 channel-slice views with a cell stride of 8), at B = 1 and 8:
-    bit for bit the plain version, read without copies."""
+    """The shipped engine's head outputs for 8 scenes, at B = 1 and 8: as
+    served (every level contiguous: the int8 conv writes P3's and P4's
+    4-wide preds as they are), and with P3 and P4 as channel-slice views
+    with a cell stride of 8 (the 8-wide integer product sliced, as the
+    int8 layers gave them before their kernel): bit for bit the plain
+    version, read without copies."""
     art = ServingArtifact(ARTIFACT)
     frames = np.stack([np.ascontiguousarray(generate_image(
         np.random.default_rng(s), SynthConfig(image_size=640, seed=s))[0][
@@ -240,15 +247,26 @@ def test_decode_kernel_on_served_head_outputs(cuda):
             torch.from_numpy(merged_frame_np(frames)).to(cuda), mean, std,
             out_dtype=torch.bfloat16)
         for xb in (x[:1], x):
-            outs = art.model(xb)
-            assert not outs[1][0].is_contiguous()   # read as it lies
-            got = _launched(decode_kernel.KERNEL,
-                            lambda: decode_kernel.decode_topk(
-                                outs, STRIDES, 0.5, 0.2116, 1024))
-            want = decode_kernel.decode_topk_plain(outs, STRIDES, 0.5,
-                                                   0.2116, 1024)
-            assert all(torch.equal(g, w) for g, w in zip(got, want))
-            assert bool((got[3].sum(dim=1) > 0).all())
+            served = art.model(xb)
+            assert all(t.is_contiguous() for lvl in served for t in lvl)
+
+            def sliced(t):   # a cell stride of 8, read as it lies
+                wide = torch.zeros((*t.shape[:-1], 8), dtype=t.dtype,
+                                   device=t.device)
+                wide[..., :t.shape[-1]] = t
+                return wide[..., :t.shape[-1]]
+
+            views = [served[0]] + [tuple(sliced(t) for t in lvl)
+                                   for lvl in served[1:]]
+            assert not views[1][0].is_contiguous()
+            for outs in (served, views):
+                got = _launched(decode_kernel.KERNEL,
+                                lambda: decode_kernel.decode_topk(
+                                    outs, STRIDES, 0.5, 0.2116, 1024))
+                want = decode_kernel.decode_topk_plain(outs, STRIDES, 0.5,
+                                                       0.2116, 1024)
+                assert all(torch.equal(g, w) for g, w in zip(got, want))
+                assert bool((got[3].sum(dim=1) > 0).all())
 
 
 def test_decode_kernel_relaunch_and_graph_replay(cuda):
@@ -400,10 +418,12 @@ def _camera_scenes(seeds):
 
 def test_serving_path_launches_one_of_each(cuda):
     """One eagerly served frame is one launch each of normalize (bf16 out:
-    the backbone's cast is a no-op), the fused stem, decode and NMS; a
-    served batch of 8 too."""
+    the backbone's cast is a no-op), the fused stem, decode and NMS, and
+    one int8 conv launch a layer of the int8 chain; a served batch of 8
+    too."""
     kernels = (preprocess_kernel.KERNEL, stem_kernel.KERNEL,
-               decode_kernel.KERNEL, nms_kernel.KERNEL)
+               decode_kernel.KERNEL, nms_kernel.KERNEL,
+               int8_conv_kernel.KERNEL)
     for art, frames in ((ServingArtifact(ARTIFACT, graph=False),
                          _scenes([7])[0]),
                         (ServingArtifact(ARTIFACT_B8, graph=False),
@@ -413,7 +433,7 @@ def test_serving_path_launches_one_of_each(cuda):
         art(frames)
         torch.cuda.synchronize()
         assert [kern.launches - b for kern, b in zip(kernels, before)] == [
-            1, 1, 1, 1]
+            1, 1, 1, 1, INT8_LAYERS]
 
 
 def _match(got, want, box_px=0.5, score_tol=1e-2):
@@ -1091,13 +1111,14 @@ FC_CFG = dict(quant=QuantSpec("int8_fused", exclude=PERF_EXCLUDE),
 # launches per call, and so kernel nodes per graph, of each path
 PATH_KERNELS = {
     "shipped": {"normalize": 1, "fused_stem_stage1": 1, "decode_topk": 1,
-                "nms": 1},
+                "nms": 1, "int8_conv": INT8_LAYERS},
     "fc": {"normalize": 1, "decode_topk": 1, "nms": 1, "stage1_merged": 1,
-           "fused_c3k2": 1, "fused_c3k2_cat": 1, "fused_head": 1},
+           "fused_c3k2": 1, "fused_c3k2_cat": 1, "fused_head": 1,
+           "int8_conv": INT8_LAYERS},
 }
 PATH_KERNELS["b8"] = PATH_KERNELS["shipped"]
 PATH_KERNELS["camera"] = {"camera": 1, "stage1_merged": 1, "decode_topk": 1,
-                          "nms": 1}
+                          "nms": 1, "int8_conv": INT8_LAYERS}
 
 
 def _fc_pair(device):
@@ -1188,7 +1209,8 @@ def test_graph_replays_launch_nothing(paths, path):
              "fused_c3k2": c3k2_kernel.KERNEL,
              "fused_c3k2_cat": c3k2_kernel.KERNEL_CAT,
              "fused_head": head_kernel.KERNEL,
-             "camera": camera_kernel.KERNEL}
+             "camera": camera_kernel.KERNEL,
+             "int8_conv": int8_conv_kernel.KERNEL}
     assert {n: cap.capture_launches.get(k.symbol, 0)
             for n, k in names.items() if cap.capture_launches.get(
                 k.symbol)} == PATH_KERNELS[path]
@@ -2200,4 +2222,202 @@ def test_fleet_matches_batch8_graph(cuda, devices):
     got = fleet(shard_streams(staged, devices))
     torch.cuda.synchronize()
     assert {k.symbol: k.launches for k in _lib.KERNELS} == before
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ---- the int8 conv ----
+
+# the shipped engine's 46 int8 layers by shape: (kernel, stride, H, W, C,
+# N, cout, epilogue) -> layers of that shape in one frame
+SHIPPED_INT8 = {
+    (1, 1, 40, 40, 128, 128, 128, "q"): 3,
+    (1, 1, 40, 40, 256, 8, 4, "f32"): 2,
+    (1, 1, 40, 40, 256, 128, 128, "q"): 4,
+    (1, 1, 40, 40, 256, 256, 256, "q"): 2,
+    (1, 1, 40, 40, 384, 128, 128, "q"): 2,
+    (1, 1, 40, 40, 512, 256, 256, "q"): 1,
+    (1, 1, 80, 80, 64, 64, 64, "q"): 4,
+    (1, 1, 80, 80, 128, 8, 4, "f32"): 2,
+    (1, 1, 80, 80, 128, 64, 64, "q"): 2,
+    (1, 1, 80, 80, 128, 128, 128, "q"): 3,
+    (1, 1, 80, 80, 192, 64, 64, "q"): 2,
+    (1, 1, 80, 80, 256, 64, 64, "q"): 2,
+    (3, 1, 40, 40, 128, 128, 128, "qres"): 3,
+    (3, 1, 40, 40, 256, 256, 256, "q"): 4,
+    (3, 1, 80, 80, 64, 64, 64, "qres"): 4,
+    (3, 1, 80, 80, 128, 128, 128, "q"): 4,
+    (3, 2, 80, 80, 128, 128, 128, "q"): 1,
+    (3, 2, 80, 80, 128, 256, 256, "q"): 1,
+}
+# odd sizes, ragged tiles and narrow channel counts: base 16's narrowest
+# (C = 32), the unfused engine's 160 x 160 layers (C = N = 32), C = 16 and
+# 48 (a 32-deep K step half past C), N not a multiple of 64
+ODD_INT8 = [
+    (3, 1, 13, 7, 32, 32, 32, "qres", 3),
+    (3, 2, 17, 11, 16, 24, 24, "q", 2),
+    (1, 1, 9, 5, 48, 40, 40, "q", 1),
+    (3, 1, 21, 19, 32, 8, 3, "f32", 1),
+    (3, 2, 160, 160, 64, 128, 128, "f32", 1),
+    (1, 1, 160, 160, 32, 32, 32, "f32", 1),
+    (3, 1, 11, 13, 96, 72, 72, "qres", 2),
+]
+
+
+def _int8_layer(rng, shape, batch, grid, dev):
+    """One layer's inputs: random int8 over the full range, scales and
+    biases of the engine's size; or on grids, where comb and the scales
+    are powers of two and the biases multiples of 1/8, so many requants
+    fall on exact .5 ties (round half to even) and past the clip."""
+    k, s, h, w, c, n, cout, mode = shape
+    if grid:
+        i = np.arange(batch * h * w * c).reshape(batch, h, w, c)
+        x = ((i * 37) % 255 - 127).astype(np.int8)
+        wq = ((np.arange(n * k * k * c).reshape(n, -1) * 11) % 7 - 3).astype(
+            np.int8)
+        comb = np.full(n, 2.0 ** -9, np.float32)
+        bias = ((np.arange(n) % 17) - 8).astype(np.float32) / 8
+        amax = dict(out_amax=np.float32(31.75), res_amax=np.float32(63.5),
+                    add_amax=np.float32(15.875))
+    else:
+        x = rng.integers(-128, 128, (batch, h, w, c), dtype=np.int8)
+        wq = rng.integers(-127, 128, (n, k * k * c), dtype=np.int8)
+        comb = (rng.uniform(0.5, 1.5, n) * 2.5 / 127
+                * np.sqrt(2 / (k * k * c)) / 73).astype(np.float32)
+        bias = rng.normal(0, 0.1, n).astype(np.float32)
+        amax = dict(out_amax=np.float32(2.5), res_amax=np.float32(3.1),
+                    add_amax=np.float32(4.2))
+    ho, wo = int8_conv_kernel.out_size(h, w, k, s)
+    res = rng.integers(-127, 128, (batch, ho, wo, cout), dtype=np.int8)
+    t = [torch.from_numpy(a).to(dev) for a in (x, wq, comb, bias, res)]
+    kw = {}
+    if mode != "f32":
+        kw["out_amax"] = amax["out_amax"]
+    if mode == "qres":
+        kw.update(res=t[4], res_amax=amax["res_amax"],
+                  add_amax=amax["add_amax"])
+    return (*t[:4], k, k, s, k // 2, cout), kw
+
+
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("shape", [*SHIPPED_INT8, *ODD_INT8],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_int8_conv_kernel_bit_exact(rng, cuda, shape, batch, grid):
+    """Every layer shape of the shipped engine and odd ones, batch 1 and 8,
+    random and grid inputs: the kernel bit for bit ``int8_conv_plain``
+    (im2col, ``torch._int_mm``, the float64-emulated FMA, the requants) on
+    the card; one wrapper call is one launch."""
+    if len(shape) == 9:
+        *shape, batch_odd = shape
+        batch = batch_odd if batch == 1 else batch
+    args, kw = _int8_layer(rng, shape, batch, grid, cuda)
+    got = _launched(int8_conv_kernel.KERNEL,
+                    lambda: int8_conv_kernel.int8_conv(*args, **kw))
+    want = int8_conv_kernel.int8_conv_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.is_contiguous()
+    diff = (got.float() - want.float()).abs()
+    assert torch.equal(got, want), (
+        f"{int((diff > 0).sum())} elements differ, max {float(diff.max())}")
+
+
+def _quant_amaxes(tree):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == "amax":
+                yield float(np.float32(v))
+            else:
+                yield from _quant_amaxes(v)
+
+
+def test_int8_requant_is_the_true_division(rng, cuda):
+    """The kernel's requants (ReLU and clamp(round(v / s_out)); then the
+    residual sum's clamp(round(t / s_add))) bit for bit the plain version's
+    true division, at every scale of the shipped engine's quantisers: x = 0
+    makes acc = 0 and each layer output y = fma(0, comb, bias) = bias, so
+    the biases are the values divided: random ones, and every value within
+    64 ulps of each half-step tie."""
+    amaxes = sorted(set(_quant_amaxes(load_msgpack_raw(
+        ARTIFACT / "variables.msgpack")["quant"])))
+    assert len(amaxes) > 40
+    for i, amax in enumerate(amaxes):
+        s = float(np.float32(max(np.float32(amax), np.float32(1e-9)))
+                  / np.float32(127))
+        ties = (np.arange(-300, 301) * 0.5 * s).astype(np.float32)
+        near = (ties.view(np.int32)[:, None]
+                + np.arange(-64, 65, dtype=np.int32)).reshape(-1)
+        near = near.view(np.float32)
+        near = near[np.isfinite(near)]
+        vals = np.concatenate([near, rng.uniform(-300 * s, 300 * s, 1 << 14)
+                               .astype(np.float32)])
+        vals = np.concatenate([vals, np.zeros(-len(vals) % 8, np.float32)])
+        n = len(vals)
+        x = torch.zeros((1, 17, 1, 16), dtype=torch.int8, device=cuda)
+        w = torch.zeros((n, 16), dtype=torch.int8, device=cuda)
+        comb = torch.ones(n, device=cuda)
+        bias = torch.from_numpy(vals).to(cuda)
+        res = torch.from_numpy(rng.integers(-127, 128, (1, 17, 1, n),
+                                            dtype=np.int8)).to(cuda)
+        add = np.float32(amaxes[(i + 7) % len(amaxes)])
+        for kw in ({"out_amax": np.float32(amax)},
+                   {"out_amax": np.float32(amax), "res": res,
+                    "res_amax": np.float32(amaxes[i - 1]), "add_amax": add}):
+            args = (x, w, comb, bias, 1, 1, 1, 0, n)
+            got = int8_conv_kernel.int8_conv(*args, **kw)
+            want = int8_conv_kernel.int8_conv_plain(*args, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (
+                f"amax {amax}: {int((got != want).sum())} of {got.numel()}")
+
+
+def test_int8_conv_refuses_what_it_does_not_take(rng, cuda):
+    """A CUDA tensor the kernel does not take raises; the plain version is
+    never run in its place."""
+    args, kw = _int8_layer(rng, (3, 1, 9, 9, 32, 32, 32, "q"), 1, False,
+                           cuda)
+    x, w, comb, bias, *geom = args
+    calls = [
+        lambda: int8_conv_kernel.int8_conv(x[..., :24].contiguous(),
+                                           w[:, :216].contiguous(), comb,
+                                           bias, *geom, **kw),
+        lambda: int8_conv_kernel.int8_conv(x, w, comb, bias, 3, 3, 1,
+                                           ((1, 0), (1, 0)), 32, **kw),
+        lambda: int8_conv_kernel.int8_conv(x, w, comb, bias, 1, 1, 2, 0, 32),
+        lambda: int8_conv_kernel.int8_conv(x.float(), w, comb, bias, *geom),
+        lambda: int8_conv_kernel.int8_conv(x, w.cpu(), comb, bias, *geom),
+        lambda: int8_conv_kernel.int8_conv(
+            x, w, comb, bias, *geom, out_amax=np.float32(1.0),
+            res=torch.zeros((1, 9, 9, 16), dtype=torch.int8, device=cuda),
+            res_amax=1.0, add_amax=1.0),
+    ]
+    before = int8_conv_kernel.KERNEL.launches
+    for call in calls:
+        with pytest.raises(ValueError):
+            call()
+    assert int8_conv_kernel.KERNEL.launches == before
+
+
+def test_int8_quant_conv_on_the_card_launches_the_kernel(cuda, monkeypatch):
+    """The shipped engine on the card: every int8 layer is one launch of
+    the int8 conv kernel (46 a frame), ``torch._int_mm`` and the im2col
+    are never called, and the Detections equal the graph's."""
+    from unina_yolo_dla_torch.quant import fake_quant
+
+    art = ServingArtifact(ARTIFACT, graph=False)
+    frame = _scenes([7])[0]
+    art(frame)
+    torch.cuda.synchronize()
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain int8 product ran on the card")
+
+    monkeypatch.setattr(torch, "_int_mm", refuse)
+    monkeypatch.setattr(fake_quant, "im2col_nhwc", refuse)
+    before = int8_conv_kernel.KERNEL.launches
+    got = art(frame)
+    torch.cuda.synchronize()
+    assert int8_conv_kernel.KERNEL.launches == before + INT8_LAYERS
+    monkeypatch.undo()
+    want = ServingArtifact(ARTIFACT)(frame)
     assert all(torch.equal(g, w) for g, w in zip(got, want))

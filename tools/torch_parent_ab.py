@@ -18,6 +18,15 @@ and the camera artifact), captured as one CUDA graph:
 - ``digest``: SHA-256 of every Detections field of every scene (seeds 1-8;
   one batch of them for b8; the camera's 1080x1920 BGRA scenes).
 
+For the shipped artifact also ``int8_layers``: the SHA-256 of each int8
+layer's output on the seed-7 scene, through the eager frame (forward
+hooks, keyed by layer): the requantised int8 of each ConvBlock, the sum
+requantised at ``add_q`` for each bottleneck ``cv2`` with a residual (the
+Bottleneck's output), the f32 of each pred; and ``shipped_profile``: the
+shipped graph's kernel nodes and, under the profiler over 10 replayed
+frames, its device busy ms a frame, idle share and device ms by kernel
+name.
+
 The same for the two bf16 engines (``bf16_s2dm_mh``, ``bf16_s2dm_fc``),
 each exported by the tree's own export from the float checkpoint
 (``artifacts/engine_source.msgpack`` without ``quant``) with
@@ -232,6 +241,13 @@ def main() -> int:
         kernels[name] = {"digest": digest(res),
                          "graph_ms": cs.graph_ms(fn)}
     out["kernels_64"] = kernels
+    out["int8_layers"] = int8_layer_digests(scenes[6], torch)
+    prof = cs.profile_calls(ship, scenes[6], torch)
+    out["shipped_profile"] = {
+        "kernel_nodes": ship.graph.report.kernel_nodes,
+        **{k: prof[k] for k in ("wall_ms_per_call", "device_busy_ms_per_call",
+                                "device_idle_share", "kernels_per_call",
+                                "by_kernel")}}
     out["blocks"] = fc_blocks(bf16["bf16_s2dm_fc"], scenes[6], cs, torch)
     # base 64's ten fused blocks at their served shapes, on chip_smoke's
     # seeded inputs (WIDE64_SHAPES): digest and replayed-graph time
@@ -265,6 +281,47 @@ def main() -> int:
     (dst / f"torch_parent_ab_{args.tag}.json").write_text(text)
     print(text)
     return 0
+
+
+def int8_layer_digests(scene, torch) -> dict:
+    """SHA-256 of each int8 layer's output of the shipped artifact's eager
+    frame on ``scene``, keyed by layer, the same in any tree: a ConvBlock
+    whose conv is int8 (its int8 output), a pred whose conv is int8 (f32),
+    and for a bottleneck that adds its residual on the int8 chain, its
+    requantised sum under its ``cv2``'s name."""
+    import chip_smoke as cs
+    from unina_yolo_dla_torch.models.blocks import Bottleneck, ConvBlock
+    from unina_yolo_dla_torch.quant.fake_quant import QuantConv
+    from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
+
+    art = ServingArtifact(cs.ARTIFACT, graph=False)
+    out, hooks = {}, []
+
+    def keep(name):
+        def hook(_m, _a, y):
+            out[name] = digest([getattr(y, "q", y)])
+        return hook
+
+    mods = dict(art.model.named_modules())
+    residual = {f"{n}.cv2" for n, m in mods.items()
+                if isinstance(m, Bottleneck) and m.add_q is not None}
+    for n, m in mods.items():
+        if isinstance(m, ConvBlock) and m.conv.int8 and n not in residual:
+            hooks.append(m.register_forward_hook(keep(n)))
+        elif isinstance(m, Bottleneck) and f"{n}.cv2" in residual:
+            hooks.append(m.register_forward_hook(keep(f"{n}.cv2")))
+        elif (isinstance(m, QuantConv) and m.int8
+              and not isinstance(mods[n.rsplit(".", 1)[0]], ConvBlock)):
+            hooks.append(m.register_forward_hook(keep(n)))
+    try:
+        with torch.inference_mode():
+            art(scene)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    assert len(out) == cs.INT8_LAYERS, f"{len(out)} int8 layers"
+    return dict(sorted(out.items()))
 
 
 def width_kernels(cs, torch) -> dict:

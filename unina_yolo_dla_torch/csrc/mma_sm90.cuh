@@ -1,6 +1,7 @@
 // Shared device code of the tensor-core kernels (sm_90a): asynchronous
 // copies, ldmatrix, the warpgroup matrix multiply and the 16-byte-chunk
-// XOR swizzle. Included by stage1.cu, stem.cu, c3k2.cu and head.cu; not
+// XOR swizzle. Included by stage1.cu, stem.cu, c3k2.cu, head.cu and
+// int8_conv.cu (its cp.async and the warp-level int8 product); not
 // compiled on its own.
 //
 // The products these kernels run are implicit GEMMs over NHWC pixels of
@@ -210,6 +211,21 @@ __device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ---- warp-level m16n8k32 on int8 (the int8 conv, int8_conv.cu) ----
+// A row-major 16 x 32 s8 (four registers of four k-consecutive bytes:
+// rows g, g+8, g, g+8; k 4t.., 4t.., 16+4t.., 16+4t..), B "col" 32 x 8
+// (two registers: column g, k 4t.. and 16+4t..), D 16 x 8 s32 (rows g,
+// g, g+8, g+8; columns 2t, 2t+1); g = lane / 4, t = lane % 4. Exact.
+__device__ __forceinline__ void mma_m16n8k32_s8(int (&d)[4],
+                                                const uint32_t (&a)[4],
+                                                const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 

@@ -53,7 +53,6 @@ from ..quant.fake_quant import (
 )
 from ..quant.qtensor import (
     QTensor,
-    fma_f32,
     qconcat,
     qmaxpool,
     upsample_nearest_2x_q,
@@ -213,15 +212,25 @@ class MergedDownsample(_KernelBias):
 
 
 class ConvBlock(nn.Module):
-    """Conv (+ folded bias) + ReLU, then ``out_q`` requant where int8."""
+    """Conv (+ folded bias) + ReLU, then ``out_q`` requant where int8.
+
+    With an int8 conv and ``out_q`` (the fused int8 chain) the ReLU and the
+    requant run inside the conv (``requant_in_conv``), and a call with
+    ``res`` and ``add_amax`` also adds the residual there
+    (``Bottleneck``)."""
 
     def __init__(self, tree: WeightTree, path: str, kernel_size: int,
                  stride: int = 1) -> None:
         super().__init__()
         self.conv = tree.conv(path + "/conv", stride, kernel_size // 2)
         self.out_q = tree.act_quant(path + "/out_q")
+        self.requant_in_conv = self.conv.int8 and self.out_q is not None
+        if self.requant_in_conv:
+            self.conv.fuse_requant(self.out_q.amax)
 
-    def forward(self, x):
+    def forward(self, x, res: QTensor | None = None, add_amax=None):
+        if self.requant_in_conv:
+            return self.conv(x, res, add_amax)
         y = torch.relu(self.conv(x))
         return self.out_q(y) if self.out_q is not None else y
 
@@ -240,18 +249,19 @@ class Bottleneck(nn.Module):
         self.residual_q = tree.fake_quant(path + "/residual_q")
 
     def forward(self, x):
-        out = self.cv2(self.cv1(x))
-        if not (self.shortcut and x.shape[-1] == out.shape[-1]):
-            return out
-        if isinstance(out, QTensor) and isinstance(x, QTensor):
-            # dequant both (f32) and add; XLA contracts the first product
-            # into the add, so the sum is one fused multiply-add
-            s = fma_f32(out.q.float(), float(out.scale),
-                        x.q.float() * float(x.scale))
-            if self.add_q is None:
-                raise ValueError("int8 residual without add_q")
-            return self.add_q(s)
-        if isinstance(out, QTensor) or isinstance(x, QTensor):
+        h = self.cv1(x)
+        if not (self.shortcut and x.shape[-1] == self.cv2.conv.cout):
+            return self.cv2(h)
+        if isinstance(x, QTensor):
+            # the int8 chain: cv2's requant, the dequantised sum (one fused
+            # multiply-add, as XLA contracts it) and its add_q requant all
+            # run in the conv
+            if not self.cv2.requant_in_conv or self.add_q is None:
+                raise ValueError("int8 residual needs an int8 cv2 with out_q "
+                                 "and add_q")
+            return self.cv2(h, x, self.add_q.amax)
+        out = self.cv2(h)
+        if isinstance(out, QTensor):
             raise ValueError("mixed int8/float residual")
         if self.residual_q is not None:
             x = self.residual_q(x)

@@ -32,9 +32,12 @@ Numerics as the reference computes them: the clip's gradient is split at
 a tie (``torch.clamp`` would pass all of it), and a bf16 activation is
 quantised in float32 against its float32 amax, then cast back.
 
-The int8 conv is im2col plus one integer matrix product (``torch._int_mm``
-on the card and on the CPU alike); a hand-written Hopper int8 conv is
-later work.
+Each int8 conv is one launch of the hand-written Hopper kernel on the
+card (``ops/cuda/int8_conv_kernel.py``, ``csrc/int8_conv.cu``), its
+dequant, ReLU and ``out_q`` requant fused, and in a bottleneck's ``cv2``
+the residual sum and its ``add_q`` requant too; on the CPU the same layer
+runs as the kernel's plain version: im2col, one integer matrix product
+(``torch._int_mm``), the float64-emulated FMA, ReLU and the requants.
 """
 from __future__ import annotations
 
@@ -47,7 +50,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .qtensor import QTensor, fma_f32, quantize, scale_tensor
+from ..ops.cuda.int8_conv_kernel import int8_conv
+from .qtensor import QTensor, quantize, scale_tensor
 
 # Full-precision layers of the QAT model: stem + P2 head.
 DEFAULT_EXCLUDE = ("backbone/stem", "backbone/stage1_conv", "head_p2")
@@ -142,10 +146,12 @@ def im2col_nhwc(x: torch.Tensor, kh: int, kw: int, stride: int,
 
 def int8_conv2d(xq: torch.Tensor, w_nk: torch.Tensor, kh: int, kw: int,
                 stride: int, padding) -> torch.Tensor:
-    """int8 NHWC conv -> int32 NHWC accumulators.
+    """int8 NHWC conv -> int32 NHWC accumulators: the product of the int8
+    conv kernel's plain version (``int8_conv_kernel.int8_conv_plain``),
+    which the port runs on the CPU; on the card the kernel computes it.
 
-    ``w_nk``: (N, kh*kw*C) int8, N a multiple of 8 (the CUDA integer
-    product needs K and N multiples of 8 and more than 16 rows)."""
+    ``w_nk``: (N, kh*kw*C) int8, N a multiple of 8 (``torch._int_mm`` on
+    CUDA needs K and N multiples of 8 and more than 16 rows)."""
     bsz, h, w, _ = xq.shape
     t, b, l, r = _pads(padding)
     ho = (h + t + b - kh) // stride + 1
@@ -172,6 +178,15 @@ class QuantConv(nn.Module):
             in the unfused engine (``int8``).
         fake_in: float branch only: the ``FakeQuant`` the input goes
             through first (the folded QAT model's ``in_q``).
+
+    The int8 branch is one ``int8_conv`` (the kernel on the card, its plain
+    version on the CPU). ``out_amax`` (set by ``ConvBlock`` through
+    ``fuse_requant``) fuses the block's ReLU and ``out_q`` requant: the
+    result is then a QTensor; a call with ``res`` (a QTensor of the output's
+    shape) and ``add_amax`` also adds the residual and requantises the sum
+    (``Bottleneck``'s ``cv2``). ``comb = w_scale * x_scale`` is computed
+    once for each input amax and kept (``_comb``): the layer's input amax is
+    a calibrated constant.
     """
 
     def __init__(self, kernel: np.ndarray, bias: np.ndarray | None,
@@ -188,6 +203,8 @@ class QuantConv(nn.Module):
         self.cout = cout
         self.dtype = dtype
         self.int8 = kernel.dtype == np.int8
+        self.out_amax: np.float32 | None = None
+        self._combs: dict[float, torch.Tensor] = {}
         bias = (np.zeros(cout, np.float32) if bias is None
                 else np.array(bias, np.float32))
         if self.int8:
@@ -212,7 +229,25 @@ class QuantConv(nn.Module):
             self.register_buffer("weight", w.to(dtype))
             self.register_buffer("bias", torch.from_numpy(bias).to(dtype))
 
-    def forward(self, x) -> torch.Tensor:
+    def fuse_requant(self, out_amax) -> None:
+        """Fuse ReLU and the requant at ``out_amax`` into the int8 branch."""
+        if not self.int8:
+            raise ValueError("only the int8 branch fuses a requant")
+        self.out_amax = np.float32(out_amax)
+
+    def _comb(self, xs) -> torch.Tensor:
+        """``w_scale * x_scale`` (f32), kept for each input scale."""
+        key = float(xs)
+        comb = self._combs.get(key)
+        if comb is None:
+            comb = self._combs[key] = self.w_scale * key
+        return comb
+
+    def _apply(self, fn, *args, **kwargs):
+        self._combs = {}   # the kept products follow the buffers
+        return super()._apply(fn, *args, **kwargs)
+
+    def forward(self, x, res: QTensor | None = None, add_amax=None):
         if self.int8:
             if isinstance(x, QTensor):
                 xq, xs = x.q, x.scale
@@ -221,12 +256,15 @@ class QuantConv(nn.Module):
                 xq, xs = qt.q, qt.scale
             else:
                 raise ValueError("float input to an int8 conv without in_q")
-            acc = int8_conv2d(xq.contiguous(), self.weight, self.kh,
-                              self.kw, self.stride, self.padding)
-            comb = self.w_scale * float(xs)
-            y = fma_f32(acc.float(), comb, self.bias)
-            y = y[..., :self.cout] if y.shape[-1] != self.cout else y
-            return y.to(self.int8_out)
+            args = (xq.contiguous(), self.weight, self._comb(xs), self.bias,
+                    self.kh, self.kw, self.stride, self.padding, self.cout)
+            if self.out_amax is None:
+                return int8_conv(*args).to(self.int8_out)
+            if res is None:
+                return QTensor(int8_conv(*args, self.out_amax),
+                               self.out_amax)
+            return QTensor(int8_conv(*args, self.out_amax, res.q.contiguous(),
+                                     res.amax, add_amax), np.float32(add_amax))
         if isinstance(x, QTensor):
             x = x.dequant(self.dtype)
         if self.fake_in is not None:

@@ -65,6 +65,7 @@ PORT_KERNELS = {
     "fused_c3k2_cat": r"c3k2_(wide_)?kernel(ILb1E|<true[,>])",
     "fused_head": r"head_(mma|wide|large)_kernel",
     "camera": r"camera_preprocess_kernel",
+    "int8_conv": r"int8_conv_kernel",
 }
 
 # CUgraphNodeType
