@@ -88,16 +88,19 @@ layer of the int8 engines, 46 a frame on the shipped, fc, b8 and camera
 paths, 59 on the unfused int8 engine) is held bit for bit against its
 plain version on each of the shipped frame's layers, on the activations
 that layer receives from the seed-7 frame, and timed beside the plain
-version and ``torch._int_mm`` on prebuilt patches (the product alone);
-one eager frame runs with ``torch._int_mm`` and the im2col refused; a
-``shipped_graph_profile`` line gives the shipped graph's device time by
-kernel name, in which no library integer product may appear.
+version and ``torch._int_mm`` on prebuilt patches (the product alone,
+by events and inside a replayed graph), each layer with the plan it
+launched on; one eager frame runs with ``torch._int_mm`` and the im2col
+refused; a ``shipped_graph_profile`` line gives the shipped graph's
+device time by kernel name, in which no library integer product may
+appear.
 
-The five tensor-core kernels (stem+stage1, stage1, both C3k2 forms, head)
-are also run at ragged shapes that cut every tile edge, and the built
-library's SASS is read for the tensor-core instruction each of them issues
-(``mma`` in their rows; ``mma_wide`` for the C3k2 and head kernels' wide
-form): every one must issue ``wgmma`` (HGMMA).
+The six tensor-core kernels (stem+stage1, stage1, both C3k2 forms, head,
+the int8 conv) are also run at ragged shapes that cut every tile edge, and
+the built library's SASS is read for the tensor-core instruction each of
+them issues (``mma`` in their rows; ``mma_wide`` for the C3k2 and head
+kernels' wide form): every one must issue ``wgmma`` (HGMMA, IGMMA on
+int8).
 
 The three small kernels around the model (normalize, decode, NMS) are also
 timed inside a replayed CUDA graph (``graph_ms``: the card's time per launch
@@ -258,7 +261,7 @@ DEVICE_FUNCS = {"normalize": ("normalize_merged_kernel",),
 # the kernels that run on the tensor cores: checked at ragged shapes too,
 # and their SASS read for the instruction they issue
 MMA_KERNELS = ("fused_stem_stage1", "stage1_merged", "fused_c3k2",
-               "fused_c3k2_cat", "fused_head")
+               "fused_c3k2_cat", "fused_head", "int8_conv")
 # template instantiations as cuobjdump lists them (mangled); C = 128 is
 # each source's cluster kernel, a function of its own
 SASS_NAMES = {**{f"{k}<{c}>": f"{k}ILi{c}EE"
@@ -763,8 +766,8 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 
 def mma_route(lib_path: Path, func: str, source: Path) -> str:
     """Which tensor-core instruction a device function issues: ``wgmma``
-    (HGMMA in the built library's SASS) or ``mma.sync`` (HMMA, or IMMA on
-    int8, only), read
+    (HGMMA in the built library's SASS, IGMMA on int8) or ``mma.sync``
+    (HMMA, or IMMA on int8, only), read
     by ``cuobjdump``; where that tool is absent, what the source states."""
     from unina_yolo_dla_torch.ops.cuda import _lib
 
@@ -777,12 +780,13 @@ def mma_route(lib_path: Path, func: str, source: Path) -> str:
         body = [part for part in sass.split("Function : ")[1:]
                 if SASS_NAMES.get(func, func) in part.splitlines()[0]]
         assert body, f"{func}: no SASS function"
-        kinds = {"wgmma" if "HGMMA" in b else
+        kinds = {"wgmma" if "HGMMA" in b or "IGMMA" in b else
                  "mma.sync" if "HMMA" in b or "IMMA" in b else None
                  for b in body}
         found = kinds.pop() if len(kinds) == 1 else None
         log(f"{func}: {len(body)} SASS functions, "
             f"{sum(b.count('HGMMA') for b in body)} HGMMA, "
+            f"{sum(b.count('IGMMA') for b in body)} IGMMA, "
             f"{sum(b.count('HMMA') for b in body)} HMMA, "
             f"{sum(b.count('IMMA') for b in body)} IMMA")
     else:
@@ -797,9 +801,11 @@ def check_ragged(torch) -> dict:
     """The tensor-core kernels at shapes that cut every tile edge, random
     weights, against plain: the stem and stage1 at batch 2, H = 10 x
     W2 = 37; the head at 37 x 45; both C3k2 forms with two bottlenecks at
-    37 x 45 (and 38 x 46 with the upsample on)."""
+    37 x 45 (and 38 x 46 with the upsample on); the int8 conv at batch 2,
+    37 x 45 (3x3 with the residual, and stride 2), exact."""
     from unina_yolo_dla_torch.ops.cuda import (
-        c3k2_kernel, head_kernel, mma_pack, stage1_kernel, stem_kernel)
+        c3k2_kernel, head_kernel, int8_conv_kernel, mma_pack, stage1_kernel,
+        stem_kernel)
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     rng = np.random.default_rng(1)
@@ -892,6 +898,29 @@ def check_ragged(torch) -> dict:
         assert float(want.float().abs().max()) > 1.0, "degenerate grid inputs"
         worst["fused_c3k2_cat"] = max(worst["fused_c3k2_cat"],
                                       rel(got, want))
+
+    # the int8 conv: random int8 on tiles cut by both image edges, bits
+    worst["int8_conv"] = 0.0
+    for k, st, mode in ((3, 1, "qres"), (3, 2, "q")):
+        xq = torch.from_numpy(rng.integers(-128, 128, (2, 37, 45, 64),
+                                           dtype=np.int8)).to(dev)
+        wq = torch.from_numpy(rng.integers(-127, 128, (72, k * k * 64),
+                                           dtype=np.int8)).to(dev)
+        comb = torch.full((72,), 2.0 ** -16, device=dev)
+        bias = torch.from_numpy(rng.normal(0, .1, 72).astype(
+            np.float32)).to(dev)
+        ho, wo = int8_conv_kernel.out_size(37, 45, k, st)
+        kw = {"out_amax": np.float32(2.5)}
+        if mode == "qres":
+            kw.update(res=torch.from_numpy(rng.integers(
+                -127, 128, (2, ho, wo, 72), dtype=np.int8)).to(dev),
+                res_amax=np.float32(3.1), add_amax=np.float32(4.2))
+        args = (xq, wq, comb, bias, k, k, st, k // 2, 72)
+        got = int8_conv_kernel.int8_conv(*args, **kw)
+        torch.cuda.synchronize()
+        want = int8_conv_kernel.int8_conv_plain(*args, **kw)
+        assert torch.equal(got, want), f"int8_conv ragged {k}x{k} s{st}"
+        worst["int8_conv"] = max(worst["int8_conv"], rel(got, want))
     for name, r in worst.items():
         assert r <= 1e-2, f"{name} ragged: max |err|/(1+|ref|) {r} > 1e-2"
     return worst
@@ -1125,9 +1154,13 @@ def check_int8_layers(art, rgb, torch) -> tuple[dict, list[dict]]:
     ``torch._int_mm``, the float64-emulated FMA, the requants), timed
     (events, a replayed graph), beside the plain version and the library's
     integer product alone on prebuilt patches (``torch._int_mm``: the
-    yardstick, which the port never calls on the card), with each layer's
-    bound. Also one eager frame with ``torch._int_mm`` and the im2col
-    refused: the card's path runs neither. -> (the kernels line's row:
+    yardstick, which the port never calls on the card; events and a
+    replayed graph), with each layer's bound and the plan it launched on.
+    The kernel's graph ms is a chain of programmatic dependent launches,
+    each starting under the one before (``tools/torch_int8_plans.py
+    --no-pdl`` times the chain without). Also one eager frame with
+    ``torch._int_mm`` and the im2col refused: the card's path runs
+    neither. -> (the kernels line's row:
     sums over the frame's layers and by geometry; the layers)."""
     from unina_yolo_dla_torch.ops.cuda import int8_conv_kernel as k8
     from unina_yolo_dla_torch.quant import fake_quant
@@ -1194,6 +1227,7 @@ def check_int8_layers(art, rgb, torch) -> tuple[dict, list[dict]]:
 
         got, want = fn(), plain()
         torch.cuda.synchronize()
+        launch_plan = k8.last_plan()
         err = float((got.float() - want.float()).abs().max())
         assert got.dtype == want.dtype and torch.equal(got, want), (
             f"int8_conv {name}: {int((got != want).sum())} elements "
@@ -1215,11 +1249,16 @@ def check_int8_layers(art, rgb, torch) -> tuple[dict, list[dict]]:
             epilogue=("f32", "q", "qres")[mode], bytes=nbytes, ops=ops,
             max_abs_err=err, ms=cuda_ms(fn, 200), graph_ms=graph_ms(fn),
             plain_ms=cuda_ms(plain, 10, 2), library_ms=cuda_ms(lib, 100),
-            bound_ms=b_ms, bound_by=b_by))
+            library_graph_ms=graph_ms(lib), bound_ms=b_ms, bound_by=b_by,
+            plan={k: launch_plan[k] for k in ("bn", "kc", "stages", "grid",
+                                               "smem_bytes")}))
+        log(f"int8_conv {name}: plan {json.dumps(layers[-1]['plan'])}, "
+            f"graph ms {layers[-1]['graph_ms']:.5f}")
 
     def total(rows):
         out = {k: sum(r[k] for r in rows) for k in (
-            "ms", "graph_ms", "plain_ms", "library_ms", "bytes", "ops")}
+            "ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms",
+            "bytes", "ops")}
         t_bytes = out["bytes"] / HBM_BPS * 1e3
         t_ops = out["ops"] / INT8_OPS * 1e3
         out["bound_ms"] = max(t_bytes, t_ops)
@@ -1241,9 +1280,14 @@ def check_int8_layers(art, rgb, torch) -> tuple[dict, list[dict]]:
             "seed-7 activations, summed (one launch a layer)",
         max_abs_err=max(r["max_abs_err"] for r in layers),
         **{k: sums[k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms", "bytes", "ops")},
+                                "bound_by", "library_ms", "library_graph_ms",
+                                "bytes", "ops")},
+        graph="graph_ms: 20 launches of a layer in a replayed graph, "
+              "each a programmatic dependent launch that starts under the "
+              "one before",
         library="torch._int_mm on prebuilt patches: the integer product "
-                "alone, no gather, no epilogue",
+                "alone, no gather, no epilogue (library_ms by events, "
+                "library_graph_ms in a replayed graph)",
         geometries={g: total(rows) for g, rows in geoms.items()})
     log(json.dumps({"int8_conv_layers": layers}))
     return row, layers
@@ -4052,9 +4096,6 @@ def main() -> int:
     rows = [dict(r, path="shipped")
             for r in check_kernels(art, rgb, scenes, torch)]
     int8_row, int8_layers = check_int8_layers(art, rgb, torch)
-    int8_row["mma"] = mma_route(_lib.build(), DEVICE_FUNCS["int8_conv"][0],
-                                REPO / int8_row["source"])
-    assert int8_row["mma"] == "mma.sync", int8_row["mma"]
     rows.append(dict(int8_row, path="shipped"))
     rows += [dict(r, path="int8_s2dm_fc") for r in check_fc_kernels(
         fc_model, fc_serve, art.stage(rgb), torch)]

@@ -2229,26 +2229,7 @@ def test_fleet_matches_batch8_graph(cuda, devices):
 
 # the shipped engine's 46 int8 layers by shape: (kernel, stride, H, W, C,
 # N, cout, epilogue) -> layers of that shape in one frame
-SHIPPED_INT8 = {
-    (1, 1, 40, 40, 128, 128, 128, "q"): 3,
-    (1, 1, 40, 40, 256, 8, 4, "f32"): 2,
-    (1, 1, 40, 40, 256, 128, 128, "q"): 4,
-    (1, 1, 40, 40, 256, 256, 256, "q"): 2,
-    (1, 1, 40, 40, 384, 128, 128, "q"): 2,
-    (1, 1, 40, 40, 512, 256, 256, "q"): 1,
-    (1, 1, 80, 80, 64, 64, 64, "q"): 4,
-    (1, 1, 80, 80, 128, 8, 4, "f32"): 2,
-    (1, 1, 80, 80, 128, 64, 64, "q"): 2,
-    (1, 1, 80, 80, 128, 128, 128, "q"): 3,
-    (1, 1, 80, 80, 192, 64, 64, "q"): 2,
-    (1, 1, 80, 80, 256, 64, 64, "q"): 2,
-    (3, 1, 40, 40, 128, 128, 128, "qres"): 3,
-    (3, 1, 40, 40, 256, 256, 256, "q"): 4,
-    (3, 1, 80, 80, 64, 64, 64, "qres"): 4,
-    (3, 1, 80, 80, 128, 128, 128, "q"): 4,
-    (3, 2, 80, 80, 128, 128, 128, "q"): 1,
-    (3, 2, 80, 80, 128, 256, 256, "q"): 1,
-}
+SHIPPED_INT8 = int8_conv_kernel.SHIPPED_LAYERS
 # odd sizes, ragged tiles and narrow channel counts: base 16's narrowest
 # (C = 32), the unfused engine's 160 x 160 layers (C = N = 32), C = 16 and
 # 48 (a 32-deep K step half past C), N not a multiple of 64
@@ -2421,3 +2402,136 @@ def test_int8_quant_conv_on_the_card_launches_the_kernel(cuda, monkeypatch):
     monkeypatch.undo()
     want = ServingArtifact(ARTIFACT)(frame)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _plans_of(shape, batch):
+    """The plans the kernel takes for a layer: the chosen one and every
+    other tile width and ring depth."""
+    import itertools
+
+    k, s, h, w, c, n = shape[:6]
+    chosen = int8_conv_kernel.plan(batch, h, w, c, n, k, s)
+    out = [chosen]
+    for bn, stages in itertools.product(int8_conv_kernel.TILE_WIDTHS,
+                                        (4, 5, 6, 8)):
+        p = dict(chosen, bn=bn, stages=stages)
+        try:
+            int8_conv_kernel.check_plan(p, c, n, k)
+        except ValueError:
+            continue
+        out.append(p)
+    return out
+
+
+@pytest.mark.parametrize("shape", [
+    (3, 1, 13, 7, 32, 32, 32, "qres", 3),     # patches cut by the edge
+    (3, 2, 17, 11, 16, 24, 24, "q", 2),       # stride 2, odd, C = 16
+    (1, 1, 9, 5, 48, 40, 40, "q", 1),         # C = 48 past a 32-byte chunk
+    (3, 1, 21, 19, 32, 8, 3, "f32", 1),
+    (3, 1, 11, 13, 96, 72, 72, "qres", 2),
+    (3, 2, 19, 23, 128, 256, 256, "q", 8),    # stride 2, odd, batch 8
+    (3, 1, 40, 40, 256, 256, 256, "q", 8),    # head_p4's: 18 K steps
+], ids=lambda s: "x".join(map(str, s)))
+def test_int8_conv_every_plan_same_bits(rng, cuda, shape):
+    """Every plan the kernel takes (tile width, ring depth) gives the plain
+    version's bits: TMA's zero fill at the padding, past the image, past C
+    and past N; tiles cut by the image edge; stride 2 at odd sizes; the
+    longest K split across the two warpgroups at batch 8."""
+    *shape, batch = shape
+    args, kw = _int8_layer(rng, shape, batch, False, cuda)
+    want = int8_conv_kernel.int8_conv_plain(*args, **kw)
+    plans = _plans_of(shape, batch)
+    assert len({(p["bn"], p["stages"]) for p in plans}) >= 8
+    for p in plans:
+        got = int8_conv_kernel.int8_conv(*args, **kw, launch_plan=p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (p, int((got != want).sum()))
+
+
+def test_int8_conv_relaunches_graph_and_streams(rng, cuda):
+    """One layer of each geometry on its chosen plan: 100 relaunches equal
+    the first; a replayed graph of the launch equals the eager launch; two
+    streams launching at once each get their own bits."""
+    shapes = [(3, 1, 40, 40, 256, 256, 256, "q"),
+              (3, 1, 80, 80, 64, 64, 64, "qres"),
+              (3, 2, 80, 80, 128, 256, 256, "q"),
+              (1, 1, 80, 80, 128, 8, 4, "f32")]
+    layers = [_int8_layer(rng, s, 1, False, cuda) for s in shapes]
+    for args, kw in layers:
+        first = int8_conv_kernel.int8_conv(*args, **kw)
+        for _ in range(100):
+            again = int8_conv_kernel.int8_conv(*args, **kw)
+            assert torch.equal(again, first)
+        graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            int8_conv_kernel.int8_conv(*args, **kw)
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            replayed = int8_conv_kernel.int8_conv(*args, **kw)
+        for _ in range(10):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(replayed, first)
+    want = [int8_conv_kernel.int8_conv_plain(*a, **k) for a, k in layers]
+    streams = [torch.cuda.Stream() for _ in layers]
+    torch.cuda.synchronize()
+    outs = [None] * len(layers)
+    for _ in range(20):
+        for i, ((args, kw), st) in enumerate(zip(layers, streams)):
+            with torch.cuda.stream(st):
+                outs[i] = int8_conv_kernel.int8_conv(*args, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, w) for o, w in zip(outs, want))
+
+
+@pytest.mark.parametrize("shape", list(SHIPPED_INT8),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_int8_conv_launch_records_its_plan(rng, cuda, shape):
+    """Each shipped layer shape launches on ``plan``'s choice: the wrapper
+    records it, and the library's record of the launch (grid, threads,
+    shared memory) is that plan's."""
+    args, kw = _int8_layer(rng, shape, 1, False, cuda)
+    k, s, h, w, c, n = shape[:6]
+    want = int8_conv_kernel.plan(1, h, w, c, n, k, s)
+    _launched(int8_conv_kernel.KERNEL,
+              lambda: int8_conv_kernel.int8_conv(*args, **kw))
+    assert int8_conv_kernel.last_plan() == want
+    rec = int8_conv_kernel.last_launch()
+    assert rec == dict(grid=want["grid"], threads=want["threads"],
+                       smem_bytes=want["smem_bytes"])
+
+
+def test_int8_conv_dependent_pair_in_a_graph(rng, cuda):
+    """Two dependent layers (a bottleneck's cv1 -> cv2 with its residual),
+    each a programmatic dependent launch: the eager pair equals the plain
+    composition, and each of 1,000 replays of the pair captured in a graph
+    equals the eager pair."""
+    (x, w1, c1, b1, *g1), kw1 = _int8_layer(
+        rng, (1, 1, 40, 40, 128, 128, 128, "q"), 1, False, cuda)
+    (_, w2, c2, b2, *g2), kw2 = _int8_layer(
+        rng, (3, 1, 40, 40, 128, 128, 128, "qres"), 1, False, cuda)
+
+    def pair():
+        y = int8_conv_kernel.int8_conv(x, w1, c1, b1, *g1, **kw1)
+        return int8_conv_kernel.int8_conv(y, w2, c2, b2, *g2,
+                                          **dict(kw2, res=y))
+
+    want = pair()
+    torch.cuda.synchronize()
+    assert torch.equal(want, int8_conv_kernel.int8_conv_plain(
+        int8_conv_kernel.int8_conv_plain(x, w1, c1, b1, *g1, **kw1), w2, c2,
+        b2, *g2, **dict(kw2, res=int8_conv_kernel.int8_conv_plain(
+            x, w1, c1, b1, *g1, **kw1))))
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        pair()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph, stream=stream):
+        got = pair()
+    for i in range(1000):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), i

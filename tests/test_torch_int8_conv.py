@@ -238,3 +238,71 @@ def test_kernel_takes(kh, kw, stride, padding, c, n, takes):
     """The geometries and widths the CUDA kernel is compiled for: 1x1 s1,
     3x3 s1 and s2 at padding k // 2, C % 16 == 0, N % 8 == 0."""
     assert k8.kernel_takes(kh, kw, stride, padding, c, n) is takes
+
+
+# ---- the CUDA kernel's plans (pure Python: what each block computes) ----
+
+# (kernel, stride, H, W, C, N): the shipped frame's 18 int8 layer shapes,
+# the card tests' odd ones, and the unfused int8 engine's 160 x 160 layers
+PLAN_SHAPES = [
+    *(shape[:6] for shape in k8.SHIPPED_LAYERS),
+    (3, 1, 13, 7, 32, 32), (3, 2, 17, 11, 16, 24), (1, 1, 9, 5, 48, 40),
+    (3, 1, 21, 19, 32, 8), (3, 2, 160, 160, 64, 128),
+    (1, 1, 160, 160, 32, 32), (3, 1, 11, 13, 96, 72),
+    (1, 1, 160, 160, 64, 32), (1, 1, 160, 160, 64, 64),
+    (1, 1, 160, 160, 128, 32), (3, 1, 160, 160, 32, 32),
+    (3, 2, 160, 160, 64, 64),
+]
+
+
+def _blocks(p, bsz, h, w, c, k, stride):
+    """What each block of plan ``p``'s grid computes, as the kernel
+    (``csrc/int8_conv.cu``) decodes its block index: (image, first output
+    row, first output column, first channel, the K steps of each consumer
+    warpgroup). K step s is tap s // chunks at channels (s % chunks) * kc
+    .. + kc."""
+    ho, wo = k8.out_size(h, w, k, stride)
+    tiles_w = -(-wo // k8.TILE[1])
+    tiles_img = tiles_w * -(-ho // k8.TILE[0])
+    steps = k * k * -(-c // p["kc"])
+    for by in range(p["grid"][1]):
+        for bx in range(p["grid"][0]):
+            img, pt = divmod(bx, tiles_img)
+            yield (img, pt // tiles_w * k8.TILE[0], pt % tiles_w * k8.TILE[1],
+                   by * p["bn"], [list(range(g, steps, 2)) for g in (0, 1)])
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("shape", PLAN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_plan_covers_every_output_and_k_step_once(shape, batch):
+    """The plan of each layer shape: its blocks' 8 x 8 patches cover every
+    output pixel once and its N tiles every channel once; each tile's K
+    steps, split across the two warpgroups, are every (tap, channel chunk)
+    once, and the chunks cover every channel; the shared memory fits the
+    H100's 227 KB (and two blocks an SM where the grid is larger than the
+    card)."""
+    k, s, h, w, c, n = shape
+    p = k8.plan(batch, h, w, c, n, k, s)
+    k8.check_plan(p, c, n, k)
+    assert p["smem_bytes"] == k8.smem_bytes(p["bn"], p["kc"],
+                                            p["stages"]) <= 232448
+    if p["grid"][0] * p["grid"][1] > 132:
+        assert 2 * (p["smem_bytes"] + 1024) <= 228 * 1024
+    ho, wo = k8.out_size(h, w, k, s)
+    cover = np.zeros((batch, ho, wo, p["grid"][1] * p["bn"]), np.int32)
+    kdone = {}
+    for img, r0, c0, n0, wg_steps in _blocks(p, batch, h, w, c, k, s):
+        cover[img, r0:r0 + 8, c0:c0 + 8, n0:n0 + p["bn"]] += 1
+        kdone.setdefault((img, r0, c0, n0), []).extend(
+            wg_steps[0] + wg_steps[1])
+    # each output pixel and channel in one block's tile
+    assert cover[..., :n].min() == cover.max() == 1
+    assert p["grid"][1] * p["bn"] - n < p["bn"]
+    steps = k * k * -(-c // p["kc"])
+    chunks = steps // (k * k)
+    assert (chunks - 1) * p["kc"] < c <= chunks * p["kc"]
+    for done in kdone.values():
+        assert sorted(done) == list(range(steps))
+        assert {(st // chunks, st % chunks) for st in done} == {
+            (t, ch) for t in range(k * k) for ch in range(chunks)}

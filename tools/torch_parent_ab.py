@@ -32,6 +32,11 @@ each exported by the tree's own export from the float checkpoint
 (``artifacts/engine_source.msgpack`` without ``quant``) with
 ``chip_smoke.py``'s flags and served from its directory.
 
+And ``int8_shapes``: the int8 conv kernel at each of the shipped frame's
+18 int8 layer shapes (``int8_conv_kernel.SHIPPED_LAYERS`` of this tree,
+batch 1) on seeded random inputs, the SHA-256 of its output and three
+replayed-graph times.
+
 And the int8 fc engine's three fused kernels at 64 channels (stage1_block,
 fpn_c3k2_2, head_p2) on the seed-7 frame's own activations, and the bf16
 fc engine's ten fused blocks (``blocks``: the wide C3k2 and head kernels
@@ -274,6 +279,7 @@ def main() -> int:
             "digest": digest(res),
             "graph_ms": [cs.graph_ms(call, 10, 5) for _ in range(3)]}
     out["widths"] = width_kernels(cs, torch)
+    out["int8_shapes"] = int8_shapes(torch)
     text = json.dumps(out)
     shutil.rmtree(tmp)
     dst = REPO / "chiprun_out"
@@ -281,6 +287,30 @@ def main() -> int:
     (dst / f"torch_parent_ab_{args.tag}.json").write_text(text)
     print(text)
     return 0
+
+
+def int8_shapes(torch) -> dict:
+    """The int8 conv kernel at each of the shipped frame's 18 int8 layer
+    shapes (this tree's ``SHIPPED_LAYERS``, batch 1, the tree's own plan)
+    on ``torch_int8_plans.layer_inputs``' seeded inputs: the SHA-256 of its
+    output and three replayed-graph times, keyed by shape."""
+    import chip_smoke as cs
+    from torch_int8_plans import layer_inputs, shipped_shapes
+    from unina_yolo_dla_torch.ops.cuda import int8_conv_kernel as k8
+
+    out = {}
+    for i, shape in enumerate(shipped_shapes()):
+        call, kw = layer_inputs(shape, 1, i, torch)
+
+        def fn(call=call, kw=kw):
+            return k8.int8_conv(*call, **kw)
+
+        res = fn()
+        torch.cuda.synchronize()
+        out["x".join(map(str, shape))] = {
+            "digest": digest((res,)),
+            "graph_ms": [cs.graph_ms(fn) for _ in range(3)]}
+    return out
 
 
 def int8_layer_digests(scene, torch) -> dict:

@@ -1,8 +1,8 @@
 // Shared device code of the tensor-core kernels (sm_90a): asynchronous
 // copies, ldmatrix, the warpgroup matrix multiply and the 16-byte-chunk
 // XOR swizzle. Included by stage1.cu, stem.cu, c3k2.cu, head.cu and
-// int8_conv.cu (its cp.async and the warp-level int8 product); not
-// compiled on its own.
+// int8_conv.cu (its s8 warpgroup products, tensor copies and int8 tensor
+// maps); not compiled on its own.
 //
 // The products these kernels run are implicit GEMMs over NHWC pixels of
 // 64 bf16 channels (128 bytes a pixel):
@@ -68,6 +68,13 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// one arrival on the mbarrier `bar` when this thread's cp.async copies so
+// far have landed (the barrier's count includes it: noinc)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
 }
 // makes shared-memory writes of this thread (cp.async included) visible
 // to wgmma's reads of B, which go through the async proxy
@@ -214,21 +221,70 @@ __device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// ---- warp-level m16n8k32 on int8 (the int8 conv, int8_conv.cu) ----
-// A row-major 16 x 32 s8 (four registers of four k-consecutive bytes:
-// rows g, g+8, g, g+8; k 4t.., 4t.., 16+4t.., 16+4t..), B "col" 32 x 8
-// (two registers: column g, k 4t.. and 16+4t..), D 16 x 8 s32 (rows g,
-// g, g+8, g+8; columns 2t, 2t+1); g = lane / 4, t = lane % 4. Exact.
-__device__ __forceinline__ void mma_m16n8k32_s8(int (&d)[4],
-                                                const uint32_t (&a)[4],
-                                                const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// ---- s8 warpgroup products (the int8 conv, int8_conv.cu) ----
+// Both operands come from shared memory, K-major (a row's K bytes
+// contiguous), in the layout a tensor copy with `row_bytes`-byte swizzle
+// (32, 64 or 128: one row of K) leaves them: 8-row groups of 8 * row_bytes
+// bytes, the tile 1024-byte aligned. A k32 step further along the row is
+// the descriptor of the address 32 bytes on (+2 in the address field).
+// D is s32, exact, in the f32 layout above: thread (warp w, lane l) holds
+// rows 16w + l/4 (+8), columns 8j + 2(l%4) (+1) in d[4j..4j+3].
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile_addr,
+                                                int row_bytes) {
+  const uint64_t layout = row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : 3;
+  return (uint64_t)((tile_addr & 0x3FFFF) >> 4)    // start address
+         | (1ull << 16)                            // leading offset (unused)
+         | ((uint64_t)((8 * row_bytes) >> 4) << 32)  // 8-row group stride
+         | (layout << 62);                         // swizzle of the rows
 }
-
+// d += A(64 x 32, shared through `da`) @ B(32 x 8, shared through `db`),
+// both s8 K-major; 4 s32 accumulators a thread
+__device__ __forceinline__ void wgmma_m64n8k32_s8(int (&d)[4],
+                                                  uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{%0, %1, %2, %3}, %4, %5, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+// d += A(64 x 32, shared through `da`) @ B(32 x 32, shared through `db`),
+// both s8 K-major; 16 s32 accumulators a thread
+__device__ __forceinline__ void wgmma_m64n32k32_s8(int (&d)[16],
+                                                   uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+// d += A(64 x 32, shared through `da`) @ B(32 x 64, shared through `db`),
+// both s8 K-major; 32 s32 accumulators a thread
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32],
+                                                   uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
 // two f32 -> one register of two bf16 (lo = first), round to nearest even
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -428,6 +484,48 @@ inline int nhwc_tensor_map(CUtensorMap* map, const void* ptr, int B, int H,
       swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The tensor map of a 4-d int8 tensor at `ptr`: extents `dims` (innermost
+// first), byte strides `strides` of dims 1-3, boxes of `box` elements read
+// every `estride`-th element (a box of 2n elements at stride 2 lands n of
+// them), rows of `row_bytes` (32, 64 or 128: box[0]) swizzled as
+// `kmajor_desc` reads them. Elements outside the tensor (padding, past the
+// image, past C or N) arrive as zeros. Returns a cudaError_t.
+inline int s8_tensor_map(CUtensorMap* map, const void* ptr,
+                         const uint64_t (&dims)[4],
+                         const uint64_t (&strides)[3],
+                         const uint32_t (&box)[4],
+                         const uint32_t (&estride)[4], int row_bytes) {
+  static TensorMapEncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return (int)cudaErrorSymbolNotFound;
+    encode = (TensorMapEncodeTiled)fn;
+  }
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t bx[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t es[4] = {estride[0], estride[1], estride[2], estride[3]};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(ptr), d, st,
+      bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_32B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+// fetch a kernel parameter's tensor map ahead of its first copy
+__device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
 }
 
 // ---- launch ----
