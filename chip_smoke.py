@@ -95,6 +95,18 @@ refused; a ``shipped_graph_profile`` line gives the shipped graph's
 device time by kernel name, in which no library integer product may
 appear.
 
+The int8 chain's glue (``csrc/int8_sppf.cu``: SPPF's three int8
+max-pools and their concat, one launch a frame; ``csrc/qconcat.cu``: each
+int8 concat and each quantise of a float input, its parts copied,
+requantised, quantised or dequantised and quantised, upsampled where the
+neck upsamples, nine launches a frame, 52 on the unfused int8 engine) is
+held bit for bit against its plain versions at the sites the shipped
+eager frame launches it at (which must be ``SHIPPED_SITES`` and SPPF's
+``SHIPPED_SHAPE``), on that frame's activations, and timed beside the
+plain versions and a library yardstick (three ``F.max_pool2d``; a
+``torch.cat`` of the parts' sizes); no float max-pool, eager round or
+int8 ``torch.cat`` may appear in the shipped frame's profiles.
+
 The six tensor-core kernels (stem+stage1, stage1, both C3k2 forms, head,
 the int8 conv) are also run at ragged shapes that cut every tile edge, and
 the built library's SASS is read for the tensor-core instruction each of
@@ -257,7 +269,9 @@ DEVICE_FUNCS = {"normalize": ("normalize_merged_kernel",),
                                "head_large_kernel"),
                 "camera": ("camera_preprocess_kernel",
                            "camera_pixel_kernel"),
-                "int8_conv": ("int8_conv_kernel",)}
+                "int8_conv": ("int8_conv_kernel",),
+                "int8_sppf": ("int8_sppf_kernel",),
+                "qconcat": ("qconcat_kernel",)}
 # the kernels that run on the tensor cores: checked at ragged shapes too,
 # and their SASS read for the instruction they issue
 MMA_KERNELS = ("fused_stem_stage1", "stage1_merged", "fused_c3k2",
@@ -279,33 +293,41 @@ SASS_NAMES = {**{f"{k}<{c}>": f"{k}ILi{c}EE"
 # the unfused int8 engine (the reference's default exclusions)
 INT8_LAYERS = 46
 INT8_LAYERS_UNFUSED = 59
+# the int8 chain's glue: SPPF's pools and concat, one launch of
+# ``int8_sppf``; its seven other int8 concats and two quantises (each a
+# C3k2's float or mixed input, quantised once for cv1 and cv2), nine of
+# ``qconcat``; the unfused int8 engine quantises each int8 conv's float
+# input (its 59 in_q, the seven C3k2s' pairs once: 52)
+INT8_GLUE = {"int8_sppf": 1, "qconcat": 9}
+INT8_GLUE_UNFUSED = {"int8_sppf": 0, "qconcat": 52}
+NO_GLUE = {"int8_sppf": 0, "qconcat": 0}
 # launches per call of each path (a call is a frame, or a batch of 8)
 PER_FRAME = {
     "shipped": {"normalize": 1, "fused_stem_stage1": 1, "decode_topk": 1,
                 "nms": 1, "stage1_merged": 0, "fused_c3k2": 0,
                 "fused_c3k2_cat": 0, "fused_head": 0, "camera": 0,
-                "int8_conv": INT8_LAYERS},
+                "int8_conv": INT8_LAYERS, **INT8_GLUE},
     "int8_s2dm_fc": {"normalize": 1, "fused_stem_stage1": 0,
                      "decode_topk": 1, "nms": 1, "stage1_merged": 1,
                      "fused_c3k2": 1, "fused_c3k2_cat": 1, "fused_head": 1,
-                     "camera": 0, "int8_conv": INT8_LAYERS},
+                     "camera": 0, "int8_conv": INT8_LAYERS, **INT8_GLUE},
     "b8": {"normalize": 1, "fused_stem_stage1": 1, "decode_topk": 1,
            "nms": 1, "stage1_merged": 0, "fused_c3k2": 0,
            "fused_c3k2_cat": 0, "fused_head": 0, "camera": 0,
-           "int8_conv": INT8_LAYERS},
+           "int8_conv": INT8_LAYERS, **INT8_GLUE},
     "camera": {"normalize": 0, "fused_stem_stage1": 0, "decode_topk": 1,
                "nms": 1, "stage1_merged": 1, "fused_c3k2": 0,
                "fused_c3k2_cat": 0, "fused_head": 0, "camera": 1,
-               "int8_conv": INT8_LAYERS},
+               "int8_conv": INT8_LAYERS, **INT8_GLUE},
     "bf16_s2dm_mh": {"normalize": 1, "fused_stem_stage1": 0,
                      "decode_topk": 1, "nms": 1, "stage1_merged": 1,
                      "fused_c3k2": 0, "fused_c3k2_cat": 0, "fused_head": 0,
-                     "camera": 0, "int8_conv": 0},
+                     "camera": 0, "int8_conv": 0, **NO_GLUE},
     # every C3k2 and head of the bf16 engine fuses, at 64, 128 and 256
     "bf16_s2dm_fc": {"normalize": 1, "fused_stem_stage1": 0,
                      "decode_topk": 1, "nms": 1, "stage1_merged": 1,
                      "fused_c3k2": 3, "fused_c3k2_cat": 4, "fused_head": 3,
-                     "camera": 0, "int8_conv": 0},
+                     "camera": 0, "int8_conv": 0, **NO_GLUE},
 }
 # the port's export, from the committed calibrated checkpoint, with each
 # committed artifact's flags
@@ -414,8 +436,9 @@ _MODE_KERNELS = {"normalize": 1, "fused_stem_stage1": 1, "decode_topk": 1,
                  "nms": 1, "stage1_merged": 0, "fused_c3k2": 0,
                  "fused_c3k2_cat": 0, "fused_head": 0, "camera": 0}
 MODE_PER_FRAME = {
-    "int8_unfused": dict(_MODE_KERNELS, int8_conv=INT8_LAYERS_UNFUSED),
-    "qat_deploy": dict(_MODE_KERNELS, int8_conv=0)}
+    "int8_unfused": dict(_MODE_KERNELS, int8_conv=INT8_LAYERS_UNFUSED,
+                         **INT8_GLUE_UNFUSED),
+    "qat_deploy": dict(_MODE_KERNELS, int8_conv=0, **NO_GLUE)}
 # phase 20: the kernels at the other base widths, in random-initialised
 # engines (seed = base) whose BatchNorm scales keep the activations' scale
 # through the depth; the threshold is set in a gap of the seed-7 frame's
@@ -1293,6 +1316,153 @@ def check_int8_layers(art, rgb, torch) -> tuple[dict, list[dict]]:
     return row, layers
 
 
+def check_int8_glue(art, rgb, torch) -> tuple[list[dict], list[dict]]:
+    """Kernels 11 and 12 (``csrc/int8_sppf.cu``, ``csrc/qconcat.cu``) on
+    the inputs the shipped eager frame hands them (the wrappers' launches
+    recorded over one frame): the sites must be ``SHIPPED_SITES`` and
+    SPPF's ``SHIPPED_SHAPE``; each launch bit for bit its plain version
+    (``qmaxpool`` three times and ``qconcat``; ``upsample_nearest_2x_q``,
+    ``requantize``, ``dequant``, ``torch.cat``, ``quantize``), timed by
+    events and inside a replayed graph beside the plain version and a
+    library yardstick, with its bound (each input read once, the output
+    written once, at 3.35 TB/s; one operation an output byte at the f32
+    rate). -> (the two rows of the kernels line, summed over a frame's
+    sites; the sites)."""
+    import torch.nn.functional as F
+
+    from unina_yolo_dla_torch.models import blocks
+    from unina_yolo_dla_torch.ops.cuda import qconcat_kernel as k12
+    from unina_yolo_dla_torch.ops.cuda import sppf_kernel as k11
+    from unina_yolo_dla_torch.quant.qtensor import QTensor
+
+    concats, pools = [], []
+    launch, sppf = k12._launch, blocks.int8_sppf
+
+    def keep_launch(xs, modes, up, amax):
+        concats.append((list(xs), list(modes), tuple(up), amax))
+        return launch(xs, modes, up, amax)
+
+    def keep_sppf(x, window=k11.WINDOW):
+        pools.append(x)
+        return sppf(x, window)
+
+    k12._launch, blocks.int8_sppf = keep_launch, keep_sppf
+    try:
+        with torch.inference_mode():
+            art(rgb)
+        torch.cuda.synchronize()
+    finally:
+        k12._launch, blocks.int8_sppf = launch, sppf
+    assert [tuple(x.q.shape) for x in pools] == [k11.SHIPPED_SHAPE], pools
+    kinds = {k12.COPY: "s8", k12.REQ: "s8", k12.DEQ_Q: "deq", k12.Q: "bf16"}
+
+    def signature(xs, modes, up, amax):
+        parts = tuple((x.shape[-1], kinds[m], np.float32(x.amax)
+                       if isinstance(x, QTensor) else None, u)
+                      for x, m, u in zip(xs, modes, up))
+        scale = 2 if up[-1] else 1   # the output's size from the last part
+        return (xs[-1].shape[1] * scale, xs[-1].shape[2] * scale,
+                np.float32(amax), parts)
+
+    got_sites = sorted(repr(signature(*c)) for c in concats)
+    want_sites = sorted(repr(site[1:]) for site in k12.SHIPPED_SITES)
+    assert got_sites == want_sites, (got_sites, want_sites)
+
+    def timed(fn, plain, lib, rec):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        err = float((got.q.float() - want.q.float()).abs().max())
+        assert torch.equal(got.q, want.q) and got.amax == want.amax, (
+            rec, int((got.q != want.q).sum()))
+        b_ms, b_by = bound(rec["bytes"], rec["ops"], F32_FLOPS)
+        return dict(rec, max_abs_err=err, ms=cuda_ms(fn, 200),
+                    graph_ms=graph_ms(fn), plain_ms=cuda_ms(plain, 20, 3),
+                    library_ms=cuda_ms(lib, 200),
+                    library_graph_ms=graph_ms(lib), bound_ms=b_ms,
+                    bound_by=b_by)
+
+    sites = []
+    for xs, modes, up, amax in concats:
+        kept = all(m in (k12.COPY, k12.REQ) for m in modes)
+        ts = [x.q if isinstance(x, QTensor) else x for x in xs]
+
+        def fn(xs=xs, modes=modes, up=up, amax=amax):
+            return k12._launch(xs, modes, up, amax)
+
+        def plain(xs=xs, up=up, amax=amax, kept=kept):
+            return (k12.int8_concat_plain(xs, up) if kept else
+                    k12.quantize_concat_plain(xs, amax, up))
+
+        b, h, w = fn().q.shape[:3]
+        # the yardstick: torch.cat of prebuilt int8 tensors of the parts'
+        # output shapes (the concat's copy alone: no rescale, no quantise,
+        # no upsample)
+        stand = [torch.zeros((b, h, w, t.shape[-1]), dtype=torch.int8,
+                             device=t.device) for t in ts]
+        out_bytes = b * h * w * sum(t.shape[-1] for t in ts)
+        sites.append(timed(fn, plain, lambda stand=stand: torch.cat(
+            stand, dim=-1), dict(
+                kernel="qconcat", shape=[b, h, w, out_bytes // (b * h * w)],
+                amax=float(amax), parts=[
+                    [t.shape[-1], ("copy", "req", "q", "deq_q")[m],
+                     str(t.dtype).replace("torch.", ""), u]
+                    for t, m, u in zip(ts, modes, up)],
+                bytes=sum(t.numel() * t.element_size() for t in ts)
+                + out_bytes, ops=out_bytes)))
+    x = pools[0]
+    b, h, w, c = x.q.shape
+    xf = x.q.float().permute(0, 3, 1, 2)
+
+    def pools3(xf=xf):   # the yardstick: as the port pooled before
+        y1 = F.max_pool2d(xf, 5, 1, 2)
+        y2 = F.max_pool2d(y1, 5, 1, 2)
+        return F.max_pool2d(y2, 5, 1, 2)
+
+    # each pooled element: 8 maxima a 5 x 5 pool (rows, then columns)
+    sites.append(timed(lambda: k11.int8_sppf(x),
+                       lambda: k11.int8_sppf_plain(x), pools3, dict(
+                           kernel="int8_sppf", shape=[b, h, w, c],
+                           amax=float(x.amax), bytes=5 * b * h * w * c,
+                           ops=3 * 8 * b * h * w * c)))
+    for r in sites:
+        log(f"{r['kernel']} {r['shape']}: graph ms {r['graph_ms']:.5f}, "
+            f"library graph ms {r['library_graph_ms']:.5f}")
+
+    rows = []
+    for name, source, replaces, per, lib in (
+            ("int8_sppf", "int8_sppf.cu", "quant/qtensor.py:115",
+             "SPPF's input in the shipped frame, on its seed-7 activations "
+             "(one launch a frame)",
+             "F.max_pool2d three times on the float NCHW view of the int8 "
+             "input, as the port pooled before (library_ms by events, "
+             "library_graph_ms in a replayed graph)"),
+            ("qconcat", "qconcat.cu", "quant/qtensor.py:86",
+             "the shipped frame's nine sites (SHIPPED_SITES: seven int8 "
+             "concats, two quantises of a C3k2's input) on their seed-7 "
+             "activations, summed (one launch a site)",
+             "torch.cat of prebuilt int8 tensors of the parts' output "
+             "shapes: the concat's copy alone, no rescale, no quantise, "
+             "no upsample (library_ms by events, library_graph_ms in a "
+             "replayed graph)")):
+        mine = [r for r in sites if r["kernel"] == name]
+        sums = {k: sum(r[k] for r in mine) for k in (
+            "ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms",
+            "bytes", "ops")}
+        b_ms, b_by = bound(sums["bytes"], sums["ops"], F32_FLOPS)
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"unina_yolo_dla_torch/csrc/{source}",
+            replaces=f"unina_yolo_dla_tpu/{replaces}",
+            tolerance="exact: every site's output bit for bit its plain "
+                      "version's",
+            per=per, max_abs_err=max(r["max_abs_err"] for r in mine),
+            bound_ms=b_ms, bound_by=b_by, library=lib,
+            graph="graph_ms: 20 launches of a site in a replayed graph",
+            sites=len(mine), **sums))
+    log(json.dumps({"int8_glue_sites": sites}))
+    return rows, sites
+
+
 def capture_inputs(model, serve, frame, torch) -> dict:
     """The arguments each fused module of the fc engine receives while one
     frame is served (forward pre-hooks, removed after)."""
@@ -1684,7 +1854,7 @@ def profile_calls(serve, arg, torch, calls: int = 10,
             "kernels_per_call": sum(v[1] for v in by_name.values()) / calls,
             "memsets_per_call": memsets,
             "sort_kernels": [n[:90] for n in by_name if "sort" in n.lower()],
-            "by_kernel": {n[:120]: {"ms_per_call": v[0],
+            "by_kernel": {n[:200]: {"ms_per_call": v[0],
                                     "calls_per_call": v[1] / calls}
                           for n, v in top},
             "top": [{"name": n[:90], "ms_per_call": v[0],
@@ -4014,8 +4184,8 @@ def main() -> int:
     from unina_yolo_dla_torch.models.detector import from_jax_variables
     from unina_yolo_dla_torch.ops.cuda import (
         _lib, c3k2_kernel, camera_kernel, decode_kernel, head_kernel,
-        int8_conv_kernel, nms_kernel, preprocess_kernel, stage1_kernel,
-        stem_kernel)
+        int8_conv_kernel, nms_kernel, preprocess_kernel, qconcat_kernel,
+        sppf_kernel, stage1_kernel, stem_kernel)
     from unina_yolo_dla_torch.quant.fake_quant import PERF_EXCLUDE, QuantSpec
     from unina_yolo_dla_torch.runtime import aot
     from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
@@ -4049,7 +4219,9 @@ def main() -> int:
                "fused_c3k2_cat": c3k2_kernel.KERNEL_CAT,
                "fused_head": head_kernel.KERNEL,
                "camera": camera_kernel.KERNEL,
-               "int8_conv": int8_conv_kernel.KERNEL}
+               "int8_conv": int8_conv_kernel.KERNEL,
+               "int8_sppf": sppf_kernel.KERNEL,
+               "qconcat": qconcat_kernel.KERNEL}
     # the shipped engine, and the fc engine from the same weights through
     # the entry points (both on cuda), eager: each launch counted
     art = ServingArtifact(ARTIFACT, graph=False)
@@ -4097,6 +4269,8 @@ def main() -> int:
             for r in check_kernels(art, rgb, scenes, torch)]
     int8_row, int8_layers = check_int8_layers(art, rgb, torch)
     rows.append(dict(int8_row, path="shipped"))
+    glue_rows, glue_sites = check_int8_glue(art, rgb, torch)
+    rows += [dict(r, path="shipped") for r in glue_rows]
     rows += [dict(r, path="int8_s2dm_fc") for r in check_fc_kernels(
         fc_model, fc_serve, art.stage(rgb), torch)]
     rows.append(dict(check_camera_kernel(art_cam, cam7, torch),
@@ -4195,6 +4369,12 @@ def main() -> int:
                  if re.search(r"gemm_?s8|s8_?gemm|i8i8|int8.*gemm|"
                               r"gemm.*int8|int_mm|imma", n, re.I)]
         assert not gemms, f"shipped {label}: integer GEMM kernels {gemms}"
+        # the int8 glue runs as kernels 11 and 12: no float max-pool, no
+        # eager round, no int8 cat is left in the frame
+        glue = [n for n in pr["by_kernel"]
+                if re.search(r"max_pool_forward_nhwc|round_kernel_cuda|"
+                             r"CatArrayBatchedCopy.*OpaqueType<1u?>", n)]
+        assert not glue, f"shipped {label}: eager int8 glue {glue}"
     print(json.dumps({"shipped_graph_profile": {
         "card": smi, "kernel_nodes": g_ship["report"]["kernel_nodes"],
         "device_busy_ms_per_frame": prof_g["device_busy_ms_per_call"],
@@ -4497,7 +4677,8 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "build_s": build_s, "launch_floor": floor,
-         "int8_conv_layers": int8_layers, "end_to_end": e2e,
+         "int8_conv_layers": int8_layers, "int8_glue_sites": glue_sites,
+         "end_to_end": e2e,
          "profile": prof, "end_to_end_fc": e2e_fc, "profile_fc": prof_fc,
          "end_to_end_b8": e2e_b8, "profile_b8": prof_b8,
          "graph_shipped": g_ship, "profile_graph_shipped": prof_g,

@@ -25,12 +25,15 @@ from unina_yolo_dla_torch.ops.cuda import (
     mma_pack,
     nms_kernel,
     preprocess_kernel,
+    qconcat_kernel,
+    sppf_kernel,
     stage1_kernel,
     stem_kernel,
 )
 from unina_yolo_dla_torch.ops import decode as td
 from unina_yolo_dla_torch.ops.preprocess import merged_frame_np
 from unina_yolo_dla_torch.quant.fake_quant import PERF_EXCLUDE, QuantSpec
+from unina_yolo_dla_torch.quant.qtensor import QTensor
 from unina_yolo_dla_torch.ops.cuda import _lib
 from unina_yolo_dla_torch.runtime import aot
 from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
@@ -48,6 +51,9 @@ ARTIFACT_CAM = ARTIFACT.with_name("serving_artifact_cam")
 # the int8 layers of the int8 engines' chain (shipped, b8, camera, fc), one
 # int8 conv launch each
 INT8_LAYERS = 46
+# and the int8 chain's glue: SPPF's pools and concat (one launch), the
+# other int8 concats and the quantises of a C3k2's float input (nine)
+INT8_GLUE = {"int8_sppf": 1, "qconcat": 9}
 
 
 @pytest.fixture
@@ -419,11 +425,12 @@ def _camera_scenes(seeds):
 def test_serving_path_launches_one_of_each(cuda):
     """One eagerly served frame is one launch each of normalize (bf16 out:
     the backbone's cast is a no-op), the fused stem, decode and NMS, and
-    one int8 conv launch a layer of the int8 chain; a served batch of 8
-    too."""
+    one int8 conv launch a layer of the int8 chain, one SPPF launch and
+    nine of the concat kernel; a served batch of 8 too."""
     kernels = (preprocess_kernel.KERNEL, stem_kernel.KERNEL,
                decode_kernel.KERNEL, nms_kernel.KERNEL,
-               int8_conv_kernel.KERNEL)
+               int8_conv_kernel.KERNEL, sppf_kernel.KERNEL,
+               qconcat_kernel.KERNEL)
     for art, frames in ((ServingArtifact(ARTIFACT, graph=False),
                          _scenes([7])[0]),
                         (ServingArtifact(ARTIFACT_B8, graph=False),
@@ -433,7 +440,7 @@ def test_serving_path_launches_one_of_each(cuda):
         art(frames)
         torch.cuda.synchronize()
         assert [kern.launches - b for kern, b in zip(kernels, before)] == [
-            1, 1, 1, 1, INT8_LAYERS]
+            1, 1, 1, 1, INT8_LAYERS, *INT8_GLUE.values()]
 
 
 def _match(got, want, box_px=0.5, score_tol=1e-2):
@@ -1111,14 +1118,18 @@ FC_CFG = dict(quant=QuantSpec("int8_fused", exclude=PERF_EXCLUDE),
 # launches per call, and so kernel nodes per graph, of each path
 PATH_KERNELS = {
     "shipped": {"normalize": 1, "fused_stem_stage1": 1, "decode_topk": 1,
-                "nms": 1, "int8_conv": INT8_LAYERS},
+                "nms": 1, "int8_conv": INT8_LAYERS, **INT8_GLUE},
     "fc": {"normalize": 1, "decode_topk": 1, "nms": 1, "stage1_merged": 1,
            "fused_c3k2": 1, "fused_c3k2_cat": 1, "fused_head": 1,
-           "int8_conv": INT8_LAYERS},
+           "int8_conv": INT8_LAYERS, **INT8_GLUE},
 }
 PATH_KERNELS["b8"] = PATH_KERNELS["shipped"]
 PATH_KERNELS["camera"] = {"camera": 1, "stage1_merged": 1, "decode_topk": 1,
-                          "nms": 1, "int8_conv": INT8_LAYERS}
+                          "nms": 1, "int8_conv": INT8_LAYERS, **INT8_GLUE}
+# kernel nodes of each path's captured frame, the port's and the float
+# layers' library kernels together (chip_smoke.py's graph reports on an
+# H100 80GB HBM3)
+PATH_NODES = {"shipped": 127, "fc": 89, "b8": 127, "camera": 137}
 
 
 def _fc_pair(device):
@@ -1186,14 +1197,15 @@ def test_graph_results_do_not_alias(paths, path):
                                             ("camera", 25600)])
 def test_graph_report_clean_with_each_kernel(paths, path, out_bytes):
     """The strict report of each captured frame: no host node, the
-    reference artifacts' result size, and each of the path's kernels among
-    the nodes as often as a call launches it (the others not at all)."""
+    reference artifacts' result size, each of the path's kernels among
+    the nodes as often as a call launches it (the others not at all), and
+    the path's count of kernel nodes."""
     cap = paths[path][2]
     aot.print_fallback_report(cap.report, strict=True, log_fn=lambda s: None)
     assert cap.report.clean and cap.report.output_bytes == out_bytes
     want = PATH_KERNELS[path]
     assert {k: n for k, n in cap.report.port_kernels.items() if n} == want
-    assert cap.report.kernel_nodes > 100
+    assert cap.report.kernel_nodes == PATH_NODES[path]
 
 
 @pytest.mark.parametrize("path", ["shipped", "fc", "b8", "camera"])
@@ -1210,7 +1222,9 @@ def test_graph_replays_launch_nothing(paths, path):
              "fused_c3k2_cat": c3k2_kernel.KERNEL_CAT,
              "fused_head": head_kernel.KERNEL,
              "camera": camera_kernel.KERNEL,
-             "int8_conv": int8_conv_kernel.KERNEL}
+             "int8_conv": int8_conv_kernel.KERNEL,
+             "int8_sppf": sppf_kernel.KERNEL,
+             "qconcat": qconcat_kernel.KERNEL}
     assert {n: cap.capture_launches.get(k.symbol, 0)
             for n, k in names.items() if cap.capture_launches.get(
                 k.symbol)} == PATH_KERNELS[path]
@@ -2535,3 +2549,204 @@ def test_int8_conv_dependent_pair_in_a_graph(rng, cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(got, want), i
+
+
+# ---- the int8 chain's glue: SPPF's pools (kernel 11), the concat (12) ----
+
+# odd sizes and channel counts, unaligned parts, f32 parts, upsampled
+# parts: (B, H, W, the output's amax or None (qconcat's rule), parts),
+# a part (channels, kind, amax, up) as in ``SHIPPED_SITES``, "f32" a
+# float32 part
+ODD_SITES = [
+    (2, 7, 9, None, ((16, "s8", 3.0, False), (13, "s8", 1.75, False),
+                     (21, "s8", 3.0, False))),
+    (1, 6, 10, None, ((24, "s8", 7.90625, True), (17, "s8", 28.125, False))),
+    (3, 5, 6, 2.5, ((8, "bf16", None, False), (11, "f32", None, False))),
+    (1, 9, 7, 27.125, ((19, "bf16", None, False),)),
+    (2, 8, 6, 16.875, ((7, "deq", 12.625, False), (9, "bf16", None, False),
+                       (32, "deq", 20.0, True))),
+    (1, 4, 6, 9.5, ((16, "deq", 7.8125, True), (5, "f32", None, False))),
+    (8, 40, 40, None, ((128, "s8", 12.625, False),
+                       (256, "s8", 16.875, False))),
+    (1, 80, 80, 23.875, ((64, "bf16", None, True),
+                         (128, "deq", 23.875, False))),
+]
+
+
+def _glue_parts(rng, b, h, w, amax, parts, dev):
+    """A site's parts on ``dev``: int8 from -127 (what the chain's
+    producers emit), floats of the output's scale with a third of them on
+    half-step ties; each at half the size where it is upsampled."""
+    s = float(np.float32(max(amax or 1.0, 1e-9)) / np.float32(127))
+    xs, up = [], []
+    for c, kind, a, u in parts:
+        shape = (b, h // 2, w // 2, c) if u else (b, h, w, c)
+        if kind in ("s8", "deq"):
+            q = torch.from_numpy(rng.integers(-127, 128, shape,
+                                              dtype=np.int8)).to(dev)
+            xs.append(QTensor(q, np.float32(a)))
+        else:
+            v = rng.normal(0, 64 * s, shape).astype(np.float32)
+            ties = ((rng.integers(-260, 260, shape) + 0.5) * s).astype(
+                np.float32)
+            v = np.where(rng.random(shape) < 0.3, ties, v)
+            t = torch.from_numpy(v).to(dev)
+            xs.append(t.to(torch.bfloat16) if kind == "bf16" else t)
+        up.append(u)
+    return xs, up
+
+
+def _glue_call(xs, up, amax, plain=False):
+    if amax is None:
+        fn = (qconcat_kernel.int8_concat_plain if plain
+              else qconcat_kernel.int8_concat)
+        return fn(xs, up)
+    fn = (qconcat_kernel.quantize_concat_plain if plain
+          else qconcat_kernel.quantize_concat)
+    return fn(xs, amax, up)
+
+
+def _site_args(site, batch):
+    name, h, w, amax, parts = site
+    # int8_concat where every part is int8 and kept (COPY / REQ); else
+    # quantize_concat at the site's amax
+    kept = all(kind == "s8" for _, kind, _, _ in parts)
+    return batch, h, w, None if kept else amax, parts
+
+
+GLUE_SITES = [_site_args(site, batch)
+              for site in qconcat_kernel.SHIPPED_SITES for batch in (1, 8)]
+GLUE_SITE_IDS = [f"{site[0].replace(' ', '_')}_b{batch}"
+                 for site in qconcat_kernel.SHIPPED_SITES
+                 for batch in (1, 8)]
+
+
+@pytest.mark.parametrize("site", GLUE_SITES + ODD_SITES, ids=GLUE_SITE_IDS + [
+    "odd_" + "_".join(f"{p[1]}{p[0]}" for p in s[4]) for s in ODD_SITES])
+def test_qconcat_kernel_bit_exact(rng, cuda, site):
+    """Kernel 12 at every shipped site (batch 1 and 8) and at odd sizes,
+    channel counts and part layouts: bit for bit its plain version on the
+    card (upsample, requantize, dequant, cat, quantize); one wrapper call
+    is one launch."""
+    b, h, w, amax, parts = site
+    xs, up = _glue_parts(rng, b, h, w, amax, parts, cuda)
+    got = _launched(qconcat_kernel.KERNEL, lambda: _glue_call(xs, up, amax))
+    want = _glue_call(xs, up, amax, plain=True)
+    torch.cuda.synchronize()
+    assert got.q.dtype == torch.int8 and got.q.shape == want.q.shape
+    assert got.q.is_contiguous() and got.amax == want.amax
+    assert torch.equal(got.q, want.q), (
+        f"{int((got.q != want.q).sum())} of {got.q.numel()} differ")
+
+
+SPPF_SHAPES = [sppf_kernel.SHIPPED_SHAPE, (8, 40, 40, 128), (1, 7, 9, 5),
+               (2, 17, 14, 3), (1, 13, 21, 48), (3, 20, 20, 256),
+               (1, 1, 1, 16), (2, 33, 8, 40)]
+
+
+@pytest.mark.parametrize("shape", SPPF_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_int8_sppf_kernel_bit_exact(rng, cuda, shape):
+    """Kernel 11 at SPPF's shipped shape, batch 1 and 8, and at odd sizes
+    (below and above the 13-pixel reach of the third pool) and channel
+    counts: bit for bit ``qmaxpool`` three times and ``qconcat`` on the
+    card, -128 among the inputs; one wrapper call is one launch."""
+    q = torch.from_numpy(rng.integers(-128, 128, shape,
+                                      dtype=np.int8)).to(cuda)
+    x = QTensor(q, np.float32(20.375))
+    got = _launched(sppf_kernel.KERNEL, lambda: sppf_kernel.int8_sppf(x))
+    want = sppf_kernel.int8_sppf_plain(x)
+    torch.cuda.synchronize()
+    assert got.q.shape == (*shape[:3], 4 * shape[3]) and got.amax == x.amax
+    assert torch.equal(got.q, want.q), (
+        f"{int((got.q != want.q).sum())} of {got.q.numel()} differ")
+
+
+def test_int8_glue_in_a_graph_after_a_dependent_conv(rng, cuda):
+    """The glue right after an int8 conv launched with programmatic
+    dependent launch on the same stream (the glue's launch waits for the
+    conv's grid to end): SPPF's pools of the conv's output, and a concat
+    of it with another part, equal the plain versions of the conv's
+    output, eager and in each of 200 replays of a captured graph of the
+    three launches."""
+    (x, w1, c1, b1, *g1), kw1 = _int8_layer(
+        rng, (1, 1, 40, 40, 256, 128, 128, "q"), 1, False, cuda)
+    other = QTensor(torch.from_numpy(rng.integers(
+        -127, 128, (1, 40, 40, 128), dtype=np.int8)).to(cuda),
+        np.float32(12.625))
+    out_amax = np.float32(kw1["out_amax"])
+
+    def chain():
+        y = QTensor(int8_conv_kernel.int8_conv(x, w1, c1, b1, *g1, **kw1),
+                    out_amax)
+        return (sppf_kernel.int8_sppf(y).q,
+                qconcat_kernel.int8_concat([other, y]).q)
+
+    y = QTensor(int8_conv_kernel.int8_conv_plain(x, w1, c1, b1, *g1, **kw1),
+                out_amax)
+    want = (sppf_kernel.int8_sppf_plain(y).q,
+            qconcat_kernel.int8_concat_plain([other, y]).q)
+    got = chain()
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        chain()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph, stream=stream):
+        got = chain()
+    for i in range(200):
+        for g in got:
+            g.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w_) for g, w_ in zip(got, want)), i
+
+
+def test_int8_glue_refuses_what_it_does_not_take(rng, cuda):
+    """A CUDA tensor the kernels do not take raises ValueError; the plain
+    version is never run in its place and nothing is launched."""
+    q = torch.from_numpy(rng.integers(-127, 128, (1, 8, 8, 16),
+                                      dtype=np.int8)).to(cuda)
+    a = QTensor(q, np.float32(2.0))
+    f = torch.randn((1, 8, 8, 16), device=cuda)
+    calls = [
+        lambda: sppf_kernel.int8_sppf(a, 3),                  # not 5 x 5
+        lambda: sppf_kernel.int8_sppf(QTensor(q.float(), a.amax)),
+        lambda: sppf_kernel.int8_sppf(QTensor(q[0], a.amax)),  # not NHWC
+        lambda: qconcat_kernel.int8_concat([a, QTensor(q[:, :4], a.amax)]),
+        lambda: qconcat_kernel.int8_concat([a, QTensor(q.cpu(), a.amax)]),
+        lambda: qconcat_kernel.int8_concat([a] * 9),         # > 8 parts
+        lambda: qconcat_kernel.int8_concat([a, a], up=[True]),
+        lambda: qconcat_kernel.quantize_concat([f.double()], 2.0),
+        lambda: qconcat_kernel.quantize_concat([f.half()], 2.0),
+        lambda: qconcat_kernel.quantize_concat([f, f[:, :6]], 2.0, [True,
+                                                                   False]),
+        lambda: qconcat_kernel.quantize_concat([f, QTensor(q.to(torch.int16),
+                                                           a.amax)], 2.0),
+    ]
+    before = (sppf_kernel.KERNEL.launches, qconcat_kernel.KERNEL.launches)
+    for call in calls:
+        with pytest.raises(ValueError):
+            call()
+    assert (sppf_kernel.KERNEL.launches,
+            qconcat_kernel.KERNEL.launches) == before
+
+
+def test_int8_glue_on_the_card_launches_the_kernels(cuda):
+    """The shipped engine on the card: SPPF is one launch of kernel 11 and
+    the seven int8 concats and two quantises nine of kernel 12 a frame,
+    no int8 ``torch.cat`` or float max-pool runs, and the Detections equal
+    the graph's and the CPU path's bits of the glue."""
+    art = ServingArtifact(ARTIFACT, graph=False)
+    frame = _scenes([7])[0]
+    art(frame)
+    torch.cuda.synchronize()
+    before = (sppf_kernel.KERNEL.launches, qconcat_kernel.KERNEL.launches)
+    got = art(frame)
+    torch.cuda.synchronize()
+    assert (sppf_kernel.KERNEL.launches - before[0],
+            qconcat_kernel.KERNEL.launches - before[1]) == (1, 9)
+    want = ServingArtifact(ARTIFACT)(frame)
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))

@@ -168,6 +168,9 @@ def test_report_from_nodes_classifies_nodes():
                         "PT0_iiiiiiiPK4int2PK6float2S8_SB_NS_4NormE"),
              ("kernel", "_Z16int8_conv_kernelILi3ELi1ELi64ELi2EEvPKaS1_PKfS3_"
                         "S1_Pviiiiiiiiifff"),
+             ("kernel", "_ZN12_GLOBAL__N_114qconcat_kernelENS_4ArgsE"),
+             ("kernel", "(anonymous namespace)::int8_sppf_kernel(signed char "
+                        "const*, signed char*, int, int, int, int, int)"),
              ("kernel", "void at::native::vectorized_elementwise_kernel"),
              ("memcpy", "1024 B"), ("memset", ""),
              ("memcpy", "28672 B, host dst"), ("host", "")]
@@ -176,12 +179,13 @@ def test_report_from_nodes_classifies_nodes():
                       torch.zeros(1024, dtype=torch.bool))
     rep = taot.report_from_nodes(nodes, dets)
     assert rep.host_nodes == ["memcpy: 28672 B, host dst", "host: "]
-    assert rep.kernel_nodes == 7 and rep.output_bytes == 25600
-    assert rep.nodes == {"kernel": 7, "memcpy": 2, "memset": 1, "host": 1}
+    assert rep.kernel_nodes == 9 and rep.output_bytes == 25600
+    assert rep.nodes == {"kernel": 9, "memcpy": 2, "memset": 1, "host": 1}
     assert rep.port_kernels == {
         "normalize": 1, "fused_stem_stage1": 0, "decode_topk": 0, "nms": 1,
         "stage1_merged": 0, "fused_c3k2": 1, "fused_c3k2_cat": 1,
-        "fused_head": 0, "camera": 1, "int8_conv": 1}
+        "fused_head": 0, "camera": 1, "int8_conv": 1, "int8_sppf": 1,
+        "qconcat": 1}
     with pytest.raises(RuntimeError):
         taot.print_fallback_report(rep, log_fn=lambda s: None)
 

@@ -18,14 +18,20 @@ and the camera artifact), captured as one CUDA graph:
 - ``digest``: SHA-256 of every Detections field of every scene (seeds 1-8;
   one batch of them for b8; the camera's 1080x1920 BGRA scenes).
 
-For the shipped artifact also ``int8_layers``: the SHA-256 of each int8
-layer's output on the seed-7 scene, through the eager frame (forward
-hooks, keyed by layer): the requantised int8 of each ConvBlock, the sum
-requantised at ``add_q`` for each bottleneck ``cv2`` with a residual (the
-Bottleneck's output), the f32 of each pred; and ``shipped_profile``: the
-shipped graph's kernel nodes and, under the profiler over 10 replayed
-frames, its device busy ms a frame, idle share and device ms by kernel
-name.
+The same for the unfused int8 engine (``int8_unfused``: every int8 conv
+quantises its float input), exported by the tree's own export from
+``artifacts/engine_source.msgpack`` with ``chip_smoke.py``'s flags.
+
+For each int8 path also ``int8_layers``: the SHA-256 of each int8 layer's
+output through the eager frame (forward hooks, keyed by layer; the
+seed-7 scene, the batch of seeds 1-8 for b8, the seed-7 camera frame):
+the requantised int8 of each ConvBlock (the compute-dtype output in the
+unfused engine), the sum requantised at ``add_q`` for each bottleneck
+``cv2`` with a residual (the Bottleneck's output), the f32 of each pred;
+the glue's outputs are these layers' inputs. And ``shipped_profile``:
+the shipped graph's kernel nodes and, under the profiler over 10
+replayed frames, its device busy ms a frame, idle share and device ms by
+kernel name.
 
 The same for the two bf16 engines (``bf16_s2dm_mh``, ``bf16_s2dm_fc``),
 each exported by the tree's own export from the float checkpoint
@@ -192,6 +198,10 @@ def main() -> int:
         cs.run_export(["--weights", ckpt, *flags, "--cp-calibration",
                        cs.CP_CALIBRATION, "--output", tmp / name])
         bf16[name] = ServingArtifact(tmp / name)
+    cs.run_export(["--weights", cs.SOURCE, *cs.MODE_FLAGS["int8_unfused"],
+                   "--cp-calibration", cs.CP_CALIBRATION, "--output",
+                   tmp / "int8_unfused"])
+    unfused = ServingArtifact(tmp / "int8_unfused")
     paths = {
         "shipped": (lambda f: ship(f), ship.graph.graph, scenes),
         "int8_s2dm_fc": (lambda f: fc(ship.stage(f)), fc.graph, scenes),
@@ -200,6 +210,7 @@ def main() -> int:
     }
     for name, art in bf16.items():
         paths[name] = (art, art.graph.graph, scenes)
+    paths["int8_unfused"] = (unfused, unfused.graph.graph, scenes)
     for name, (call, graph, inputs) in paths.items():
         dets = []
         for frame in inputs:
@@ -246,7 +257,27 @@ def main() -> int:
         kernels[name] = {"digest": digest(res),
                          "graph_ms": cs.graph_ms(fn)}
     out["kernels_64"] = kernels
-    out["int8_layers"] = int8_layer_digests(scenes[6], torch)
+    fc_eager = from_jax_variables(
+        load_msgpack_raw(cs.ARTIFACT / "variables.msgpack"), cfg)
+    fc_serve = build_serving_fn(fc_eager, cfg, c["conf_threshold"],
+                                c["iou_threshold"], c["q_factor"],
+                                c["max_detections"])
+    eager = {name: ServingArtifact(d, graph=False) for name, d in (
+        ("shipped", cs.ARTIFACT), ("b8", cs.ARTIFACT_B8),
+        ("camera", cs.ARTIFACT_CAM), ("int8_unfused", tmp / "int8_unfused"))}
+    out["int8_layers"] = {
+        "shipped": int8_layer_digests(eager["shipped"].model,
+                                      eager["shipped"], scenes[6], torch),
+        "int8_s2dm_fc": int8_layer_digests(
+            fc_eager, lambda f: fc_serve(ship.stage(f)), scenes[6], torch),
+        "b8": int8_layer_digests(eager["b8"].model, eager["b8"],
+                                 np.stack(scenes), torch),
+        "camera": int8_layer_digests(eager["camera"].model, eager["camera"],
+                                     cams[6], torch),
+        "int8_unfused": int8_layer_digests(
+            eager["int8_unfused"].model, eager["int8_unfused"], scenes[6],
+            torch, cs.INT8_LAYERS_UNFUSED)}
+    del eager, fc_eager
     prof = cs.profile_calls(ship, scenes[6], torch)
     out["shipped_profile"] = {
         "kernel_nodes": ship.graph.report.kernel_nodes,
@@ -313,18 +344,18 @@ def int8_shapes(torch) -> dict:
     return out
 
 
-def int8_layer_digests(scene, torch) -> dict:
-    """SHA-256 of each int8 layer's output of the shipped artifact's eager
-    frame on ``scene``, keyed by layer, the same in any tree: a ConvBlock
-    whose conv is int8 (its int8 output), a pred whose conv is int8 (f32),
-    and for a bottleneck that adds its residual on the int8 chain, its
-    requantised sum under its ``cv2``'s name."""
+def int8_layer_digests(model, call, frame, torch, layers=None) -> dict:
+    """SHA-256 of each int8 layer's output of ``model``'s eager frame
+    (``call(frame)``), keyed by layer, the same in any tree: a ConvBlock
+    whose conv is int8 (its int8 output, or its compute-dtype output in
+    the unfused engine), a pred whose conv is int8 (f32), and for a
+    bottleneck that adds its residual on the int8 chain, its requantised
+    sum under its ``cv2``'s name. ``layers``: how many there must be
+    (the int8 chain's 46 by default)."""
     import chip_smoke as cs
     from unina_yolo_dla_torch.models.blocks import Bottleneck, ConvBlock
     from unina_yolo_dla_torch.quant.fake_quant import QuantConv
-    from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
 
-    art = ServingArtifact(cs.ARTIFACT, graph=False)
     out, hooks = {}, []
 
     def keep(name):
@@ -332,7 +363,7 @@ def int8_layer_digests(scene, torch) -> dict:
             out[name] = digest([getattr(y, "q", y)])
         return hook
 
-    mods = dict(art.model.named_modules())
+    mods = dict(model.named_modules())
     residual = {f"{n}.cv2" for n, m in mods.items()
                 if isinstance(m, Bottleneck) and m.add_q is not None}
     for n, m in mods.items():
@@ -345,12 +376,13 @@ def int8_layer_digests(scene, torch) -> dict:
             hooks.append(m.register_forward_hook(keep(n)))
     try:
         with torch.inference_mode():
-            art(scene)
+            call(frame)
         torch.cuda.synchronize()
     finally:
         for h in hooks:
             h.remove()
-    assert len(out) == cs.INT8_LAYERS, f"{len(out)} int8 layers"
+    want = cs.INT8_LAYERS if layers is None else layers
+    assert len(out) == want, f"{len(out)} int8 layers, not {want}"
     return dict(sorted(out.items()))
 
 

@@ -20,9 +20,9 @@
 //   The sum is exact in int32 (|acc| <= 127^2 * K < 2^31 for K <= 2^17),
 //   so any order of summation, and any split of K, gives the same
 //   accumulators. The epilogue is single-precision IEEE with one rounding
-//   per step: fmaf, the correctly rounded quotient (`requant`: a multiply
-//   by an f32 reciprocal would move int8 steps) and rint (half to even),
-//   compiled with --fmad=false.
+//   per step: fmaf, the correctly rounded quotient (`requant` in
+//   quant_sm90.cuh: a multiply by an f32 reciprocal would move int8
+//   steps) and rint (half to even), compiled with --fmad=false.
 //
 // Bound on the H100: the shipped frame's 46 layers do 23.4 G int8
 //   operations (11.8 us at 1,979 TOP/s) and must move 52.5 MB (15.7 us at
@@ -75,6 +75,7 @@
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "quant_sm90.cuh"
 
 namespace {
 
@@ -128,18 +129,6 @@ struct LaunchShape {
   int grid_x, grid_y, threads, smem;
 };
 LaunchShape last_launch{};
-
-// clamp(rint(v / s), -127, 127) with v / s the correctly rounded f32
-// quotient, from r = 1 / s rounded to double: the quotient of two f32
-// values is never a midpoint of f32 and lies at least 2^-49 (relative)
-// from one, and v * r is within 2^-52 of it, so rounding v * r once to
-// f32 gives the quotient. (The library's f32 division, __fdiv_rn, cost
-// 4-6 us a layer on an H100; a multiply by an f32 reciprocal moves int8
-// steps.)
-__device__ __forceinline__ float requant(float v, double r) {
-  const float q = __double2float_rn(__dmul_rn((double)v, r));
-  return fminf(fmaxf(rintf(q), -127.f), 127.f);
-}
 
 // one k32 step of the tile: d += A (64 x 32) @ B (32 x BN)
 template <int BN>
@@ -317,8 +306,8 @@ int8_conv_kernel(const __grid_constant__ CUtensorMap xmap,
   const float* bs = cs + BN;
   const int8_t* rs = reinterpret_cast<const int8_t*>(sm + L.res);
   const int lane = t & 31, warp = t >> 5;
-  const double r_out = __drcp_rn((double)g.s_out);
-  const double r_add = __drcp_rn((double)g.s_add);
+  const double r_out = quant_reciprocal(g.s_out);
+  const double r_add = quant_reciprocal(g.s_add);
 #pragma unroll
   for (int j = 0; j < G; ++j) {
     if ((j < G0) != (wg == 0)) continue;

@@ -21,7 +21,6 @@ which quantisers exist (calibration and QAT modes).
 from __future__ import annotations
 
 import contextlib
-import functools
 from typing import Any
 
 import numpy as np
@@ -38,6 +37,8 @@ from ..ops.cuda.c3k2_kernel import (
 )
 from ..ops.cuda.mma_pack import pack_c3k2_mma, pack_stage1_mma, \
     stem_stage1_takes
+from ..ops.cuda.qconcat_kernel import int8_concat, quantize_concat
+from ..ops.cuda.sppf_kernel import int8_sppf
 from ..ops.cuda.stage1_kernel import fused_downsample_merged
 from ..parallel.distributed import all_reduce_sum
 from ..quant.fake_quant import (
@@ -51,12 +52,7 @@ from ..quant.fake_quant import (
     TrainQuantConv,
     quant_weight,
 )
-from ..quant.qtensor import (
-    QTensor,
-    qconcat,
-    qmaxpool,
-    upsample_nearest_2x_q,
-)
+from ..quant.qtensor import QTensor, concat_float, upsample_nearest_2x_q
 from ..quant.qtensor import upsample_nearest_2x as _upsample_tensor
 
 
@@ -153,15 +149,14 @@ def upsample_nearest_2x(x):
     return _upsample_tensor(x)
 
 
-def concat_features(xs, dim: int = -1):
-    """Concat that keeps a fused int8 chain int8 (scale-matched); with any
-    float input, int8 inputs dequantise to bf16 first, as the reference."""
+def concat_features(xs):
+    """Concat along channels that keeps a fused int8 chain int8
+    (scale-matched: ``int8_concat``, one kernel launch on the card); with
+    any float input, int8 inputs dequantise to bf16 first, as the
+    reference."""
     if all(isinstance(x, QTensor) for x in xs):
-        return qconcat(list(xs), dim=dim)
-    xs = [x.dequant(torch.bfloat16) if isinstance(x, QTensor) else x
-          for x in xs]
-    dt = functools.reduce(torch.promote_types, [x.dtype for x in xs])
-    return torch.cat([x.to(dt) for x in xs], dim=dim)
+        return int8_concat(list(xs))
+    return concat_float(xs)
 
 
 class _KernelBias(nn.Module):
@@ -315,6 +310,10 @@ class C3k2(nn.Module):
             for i in range(n))
         self.cv2 = ConvBlock(tree, path + "/cv2", 1)
         self.cv3 = ConvBlock(tree, path + "/cv3", 1)
+        # where cv1 and cv2 are int8 convs that quantise a float input
+        # (their in_q amaxes), the block quantises its input itself
+        self.in_amax = [c.conv.in_q.amax for c in (self.cv1, self.cv2)
+                        if c.conv.int8 and c.conv.in_q is not None]
 
     def _forward_fused(self, x, x2, up_x: bool):
         def deq(t):   # the int8 -> float boundary, as QuantConv's
@@ -327,22 +326,43 @@ class C3k2(nn.Module):
                                   shortcut=self.shortcut, up_a=up_x)
         return fused_c3k2(deq(x), *ws, wpk=self.wpk, shortcut=self.shortcut)
 
-    def forward(self, x, x2=None, up_x: bool = False):
-        if self.fused:
-            return self._forward_fused(x, x2, up_x)
+    def _inputs(self, x, x2, up_x: bool):
+        """The inputs of cv1 and cv2: ``concat([upsample2x?(x), x2])``, or
+        ``x``. int8 parts alone: one ``int8_concat`` (the upsample read
+        inside it). A float or mixed input where cv1 and cv2 quantise it:
+        ``quantize_concat`` at cv1's ``in_q`` amax (the concat and the
+        upsample inside it), handed to both convs where cv2's amax is the
+        same, else once more at cv2's; the bytes of the float concat that
+        each conv then quantised."""
+        parts = [x] if x2 is None else [x, x2]
+        up = (up_x, False)[:len(parts)]
+        if all(isinstance(p, QTensor) for p in parts):
+            x = x if x2 is None else int8_concat(parts, up)
+            return x, x
+        if len(self.in_amax) == 2:
+            a1, a2 = self.in_amax
+            q1 = quantize_concat(parts, a1, up)
+            return q1, q1 if a2 == a1 else quantize_concat(parts, a2, up)
         if x2 is not None:
             x = upsample_nearest_2x(x) if up_x else x
             x = concat_features([x, x2])
-        path1 = self.cv1(x)
+        return x, x
+
+    def forward(self, x, x2=None, up_x: bool = False):
+        if self.fused:
+            return self._forward_fused(x, x2, up_x)
+        x1, x2 = self._inputs(x, x2, up_x)
+        path1 = self.cv1(x1)
         for b in self.bottlenecks:
             path1 = b(path1)
-        path2 = self.cv2(x)
+        path2 = self.cv2(x2)
         return self.cv3(concat_features([path1, path2]))
 
 
 class SPPF(nn.Module):
     """Spatial pyramid pooling (fast): three chained 5x5 stride-1 max-pools
-    (on int8 values when the chain is int8)."""
+    and their concat; on the int8 chain one ``int8_sppf`` (one kernel
+    launch on the card)."""
 
     def __init__(self, tree: WeightTree, path: str, pool_size: int = 5
                  ) -> None:
@@ -351,18 +371,16 @@ class SPPF(nn.Module):
         self.cv2 = ConvBlock(tree, path + "/cv2", 1)
         self.k = pool_size
 
-    def _pool(self, t):
-        if isinstance(t, QTensor):
-            return qmaxpool(t, self.k)
-        y = F.max_pool2d(t.permute(0, 3, 1, 2), self.k, 1, self.k // 2)
-        return y.permute(0, 2, 3, 1)
-
     def forward(self, x):
         x = self.cv1(x)
-        y1 = self._pool(x)
-        y2 = self._pool(y1)
-        y3 = self._pool(y2)
-        return self.cv2(concat_features([x, y1, y2, y3]))
+        if isinstance(x, QTensor):
+            return self.cv2(int8_sppf(x, self.k))
+        ys = [x]
+        for _ in range(3):
+            y = F.max_pool2d(ys[-1].permute(0, 3, 1, 2), self.k, 1,
+                             self.k // 2)
+            ys.append(y.permute(0, 2, 3, 1))
+        return self.cv2(concat_features(ys))
 
 
 # ---------------------------------------------------------------- train form

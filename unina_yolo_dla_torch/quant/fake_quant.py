@@ -51,7 +51,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda.int8_conv_kernel import int8_conv
-from .qtensor import QTensor, quantize, scale_tensor
+from ..ops.cuda.qconcat_kernel import quantize_concat
+from .qtensor import QTensor
 
 # Full-precision layers of the QAT model: stem + P2 head.
 DEFAULT_EXCLUDE = ("backbone/stem", "backbone/stage1_conv", "head_p2")
@@ -105,17 +106,18 @@ class QuantSpec:
 
 
 class ActQuant(nn.Module):
-    """float -> QTensor at a calibrated amax (the ``int8_fused`` branch)."""
+    """float -> QTensor at a calibrated amax (the ``int8_fused`` branch,
+    and an int8 conv's ``in_q``): ``quantize_concat`` of one part, one
+    kernel launch on the card."""
 
     def __init__(self, amax) -> None:
         super().__init__()
         self.amax = np.float32(amax)
         if not self.amax > 0:
             raise ValueError(f"activation amax must be positive, got {amax}")
-        self.register_buffer("scale", scale_tensor(self.amax, "cpu"))
 
     def forward(self, x: torch.Tensor) -> QTensor:
-        return quantize(x, self.amax, self.scale)
+        return quantize_concat([x], self.amax)
 
 
 def _pads(padding) -> tuple[int, int, int, int]:

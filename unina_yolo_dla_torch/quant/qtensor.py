@@ -12,6 +12,7 @@ Scale convention: symmetric, ``scale = max(amax, 1e-9) / 127``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -85,6 +86,16 @@ def qconcat(xs: list[QTensor], dim: int = -1) -> QTensor:
     parts = [x.q if np.float32(x.amax) == target else
              requantize(x, target).q for x in xs]
     return QTensor(torch.cat(parts, dim=dim), target)
+
+
+def concat_float(xs, dim: int = -1) -> torch.Tensor:
+    """Concat with any float input, as the reference's ``concat_features``:
+    int8 inputs dequantised to bf16 first, the parts cast to their
+    promoted type."""
+    xs = [x.dequant(torch.bfloat16) if isinstance(x, QTensor) else x
+          for x in xs]
+    dt = functools.reduce(torch.promote_types, [x.dtype for x in xs])
+    return torch.cat([x.to(dt) for x in xs], dim=dim)
 
 
 def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:

@@ -66,6 +66,8 @@ PORT_KERNELS = {
     "fused_head": r"head_(mma|wide|large)_kernel",
     "camera": r"camera_preprocess_kernel",
     "int8_conv": r"int8_conv_kernel",
+    "int8_sppf": r"int8_sppf_kernel",
+    "qconcat": r"qconcat_kernel",
 }
 
 # CUgraphNodeType
