@@ -394,6 +394,7 @@ INT8_OPS = 1979e12          # int8 tensor-core operations/s
 
 FRAMES = 30
 BATCHES = 20
+PROFILE_WINDOWS = 3         # profiler windows a profile may take
 SCENE_SEEDS = range(1, 9)   # the batch-8 path's scenes (and the camera's)
 CAMERA_SHAPE = (1080, 1920)  # the camera artifact's frames
 SERVER_FRAMES = 200
@@ -1316,47 +1317,92 @@ def check_int8_layers(art, rgb, torch) -> tuple[dict, list[dict]]:
     return row, layers
 
 
-def check_int8_glue(art, rgb, torch) -> tuple[list[dict], list[dict]]:
-    """Kernels 11 and 12 (``csrc/int8_sppf.cu``, ``csrc/qconcat.cu``) on
-    the inputs the shipped eager frame hands them (the wrappers' launches
-    recorded over one frame): the sites must be ``SHIPPED_SITES`` and
-    SPPF's ``SHIPPED_SHAPE``; each launch bit for bit its plain version
-    (``qmaxpool`` three times and ``qconcat``; ``upsample_nearest_2x_q``,
-    ``requantize``, ``dequant``, ``torch.cat``, ``quantize``), timed by
-    events and inside a replayed graph beside the plain version and a
-    library yardstick, with its bound (each input read once, the output
-    written once, at 3.35 TB/s; one operation an output byte at the f32
-    rate). -> (the two rows of the kernels line, summed over a frame's
-    sites; the sites)."""
-    import torch.nn.functional as F
-
+def glue_launches(art, rgb, torch) -> tuple[list, list]:
+    """The glue launches of ``art``'s eager frame on ``rgb``, in order,
+    with the int8 conv launch before each (the wrappers' calls recorded
+    over one frame): -> (concats, pools); a concat is ``(xs, modes, up,
+    amax, conv)`` (``qconcat_kernel._launch``'s arguments), a pool ``(x,
+    conv)`` (``int8_sppf``'s); ``conv`` is ``(args, kwargs)`` of the last
+    ``int8_conv`` call since the glue launch before it, or None."""
     from unina_yolo_dla_torch.models import blocks
     from unina_yolo_dla_torch.ops.cuda import qconcat_kernel as k12
     from unina_yolo_dla_torch.ops.cuda import sppf_kernel as k11
-    from unina_yolo_dla_torch.quant.qtensor import QTensor
+    from unina_yolo_dla_torch.quant import fake_quant
 
     concats, pools = [], []
-    launch, sppf = k12._launch, blocks.int8_sppf
+    last = [None]
+    launch, sppf, conv = k12._launch, blocks.int8_sppf, fake_quant.int8_conv
+
+    def keep_conv(*args, **kw):
+        last[0] = (args, kw)
+        return conv(*args, **kw)
 
     def keep_launch(xs, modes, up, amax):
-        concats.append((list(xs), list(modes), tuple(up), amax))
+        concats.append((list(xs), list(modes), tuple(up), amax, last[0]))
+        last[0] = None
         return launch(xs, modes, up, amax)
 
     def keep_sppf(x, window=k11.WINDOW):
-        pools.append(x)
+        pools.append((x, last[0]))
+        last[0] = None
         return sppf(x, window)
 
     k12._launch, blocks.int8_sppf = keep_launch, keep_sppf
+    fake_quant.int8_conv = keep_conv
     try:
         with torch.inference_mode():
             art(rgb)
         torch.cuda.synchronize()
     finally:
         k12._launch, blocks.int8_sppf = launch, sppf
-    assert [tuple(x.q.shape) for x in pools] == [k11.SHIPPED_SHAPE], pools
+        fake_quant.int8_conv = conv
+    return concats, pools
+
+
+def chained_ms(conv, fn, torch):
+    """What ``fn`` (a glue launch) adds to a replayed graph of 20 launches
+    of ``conv`` (the int8 conv launch before it in the frame, ``(args,
+    kwargs)``) when each conv is followed by it, as the frame chains them:
+    ``graph_ms`` of the pair less that of the conv alone; None without a
+    conv."""
+    from unina_yolo_dla_torch.ops.cuda import int8_conv_kernel as k8
+
+    if conv is None:
+        return None
+
+    def alone(conv=conv):
+        return k8.int8_conv(*conv[0], **conv[1])
+
+    def pair(alone=alone):
+        alone()
+        return fn()
+
+    return graph_ms(pair) - graph_ms(alone)
+
+
+def check_int8_glue(art, rgb, torch) -> tuple[list[dict], list[dict]]:
+    """Kernels 11 and 12 (``csrc/int8_sppf.cu``, ``csrc/qconcat.cu``) on
+    the inputs the shipped eager frame hands them (``glue_launches``):
+    the sites must be ``SHIPPED_SITES`` and SPPF's ``SHIPPED_SHAPE``; each
+    launch bit for bit its plain version (``qmaxpool`` three times and
+    ``qconcat``; ``upsample_nearest_2x_q``, ``requantize``, ``dequant``,
+    ``torch.cat``, ``quantize``), timed by events, alone inside a replayed
+    graph and chained under the int8 conv before it in the frame
+    (``chained_ms``), beside the plain version and a library yardstick,
+    with its bound (each input read once, the output written once, at
+    3.35 TB/s; one operation an output byte at the f32 rate). -> (the two
+    rows of the kernels line, summed over a frame's sites; the sites)."""
+    import torch.nn.functional as F
+
+    from unina_yolo_dla_torch.ops.cuda import qconcat_kernel as k12
+    from unina_yolo_dla_torch.ops.cuda import sppf_kernel as k11
+    from unina_yolo_dla_torch.quant.qtensor import QTensor
+
+    concats, pools = glue_launches(art, rgb, torch)
+    assert [tuple(x.q.shape) for x, _ in pools] == [k11.SHIPPED_SHAPE], pools
     kinds = {k12.COPY: "s8", k12.REQ: "s8", k12.DEQ_Q: "deq", k12.Q: "bf16"}
 
-    def signature(xs, modes, up, amax):
+    def signature(xs, modes, up, amax, _conv):
         parts = tuple((x.shape[-1], kinds[m], np.float32(x.amax)
                        if isinstance(x, QTensor) else None, u)
                       for x, m, u in zip(xs, modes, up))
@@ -1368,7 +1414,7 @@ def check_int8_glue(art, rgb, torch) -> tuple[list[dict], list[dict]]:
     want_sites = sorted(repr(site[1:]) for site in k12.SHIPPED_SITES)
     assert got_sites == want_sites, (got_sites, want_sites)
 
-    def timed(fn, plain, lib, rec):
+    def timed(fn, plain, lib, conv, rec):
         got, want = fn(), plain()
         torch.cuda.synchronize()
         err = float((got.q.float() - want.q.float()).abs().max())
@@ -1376,13 +1422,15 @@ def check_int8_glue(art, rgb, torch) -> tuple[list[dict], list[dict]]:
             rec, int((got.q != want.q).sum()))
         b_ms, b_by = bound(rec["bytes"], rec["ops"], F32_FLOPS)
         return dict(rec, max_abs_err=err, ms=cuda_ms(fn, 200),
-                    graph_ms=graph_ms(fn), plain_ms=cuda_ms(plain, 20, 3),
+                    graph_ms=graph_ms(fn),
+                    chained_graph_ms=chained_ms(conv, fn, torch),
+                    plain_ms=cuda_ms(plain, 20, 3),
                     library_ms=cuda_ms(lib, 200),
                     library_graph_ms=graph_ms(lib), bound_ms=b_ms,
                     bound_by=b_by)
 
     sites = []
-    for xs, modes, up, amax in concats:
+    for xs, modes, up, amax, conv in concats:
         kept = all(m in (k12.COPY, k12.REQ) for m in modes)
         ts = [x.q if isinstance(x, QTensor) else x for x in xs]
 
@@ -1401,7 +1449,7 @@ def check_int8_glue(art, rgb, torch) -> tuple[list[dict], list[dict]]:
                              device=t.device) for t in ts]
         out_bytes = b * h * w * sum(t.shape[-1] for t in ts)
         sites.append(timed(fn, plain, lambda stand=stand: torch.cat(
-            stand, dim=-1), dict(
+            stand, dim=-1), conv, dict(
                 kernel="qconcat", shape=[b, h, w, out_bytes // (b * h * w)],
                 amax=float(amax), parts=[
                     [t.shape[-1], ("copy", "req", "q", "deq_q")[m],
@@ -1409,7 +1457,7 @@ def check_int8_glue(art, rgb, torch) -> tuple[list[dict], list[dict]]:
                     for t, m, u in zip(ts, modes, up)],
                 bytes=sum(t.numel() * t.element_size() for t in ts)
                 + out_bytes, ops=out_bytes)))
-    x = pools[0]
+    x, conv = pools[0]
     b, h, w, c = x.q.shape
     xf = x.q.float().permute(0, 3, 1, 2)
 
@@ -1420,12 +1468,14 @@ def check_int8_glue(art, rgb, torch) -> tuple[list[dict], list[dict]]:
 
     # each pooled element: 8 maxima a 5 x 5 pool (rows, then columns)
     sites.append(timed(lambda: k11.int8_sppf(x),
-                       lambda: k11.int8_sppf_plain(x), pools3, dict(
+                       lambda: k11.int8_sppf_plain(x), pools3, conv, dict(
                            kernel="int8_sppf", shape=[b, h, w, c],
                            amax=float(x.amax), bytes=5 * b * h * w * c,
                            ops=3 * 8 * b * h * w * c)))
     for r in sites:
+        chained = r["chained_graph_ms"]
         log(f"{r['kernel']} {r['shape']}: graph ms {r['graph_ms']:.5f}, "
+            f"chained {'none' if chained is None else f'{chained:.5f}'}, "
             f"library graph ms {r['library_graph_ms']:.5f}")
 
     rows = []
@@ -1448,6 +1498,8 @@ def check_int8_glue(art, rgb, torch) -> tuple[list[dict], list[dict]]:
         sums = {k: sum(r[k] for r in mine) for k in (
             "ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms",
             "bytes", "ops")}
+        chained = [r["chained_graph_ms"] for r in mine
+                   if r["chained_graph_ms"] is not None]
         b_ms, b_by = bound(sums["bytes"], sums["ops"], F32_FLOPS)
         rows.append(dict(
             name=name, route="cuda",
@@ -1457,7 +1509,11 @@ def check_int8_glue(art, rgb, torch) -> tuple[list[dict], list[dict]]:
                       "version's",
             per=per, max_abs_err=max(r["max_abs_err"] for r in mine),
             bound_ms=b_ms, bound_by=b_by, library=lib,
-            graph="graph_ms: 20 launches of a site in a replayed graph",
+            graph="graph_ms: 20 launches of a site in a replayed graph; "
+                  "chained_graph_ms: what each site adds to a graph of 20 "
+                  "launches of the int8 conv before it in the frame when it "
+                  "follows each, summed over the sites that have one",
+            chained_graph_ms=sum(chained), chained_sites=len(chained),
             sites=len(mine), **sums))
     log(json.dumps({"int8_glue_sites": sites}))
     return rows, sites
@@ -1802,35 +1858,66 @@ def check_camera_kernel(art_cam, frame, torch) -> dict:
 
 
 def profile_calls(serve, arg, torch, calls: int = 10,
-                  unit: str = "frame") -> dict:
+                  unit: str = "frame", per: dict | None = None) -> dict:
     """Device time per call by kernel (torch.profiler, CUDA activity),
     against the host wall clock of the same calls (a call serves a frame,
-    or a batch: ``unit``)."""
+    or a batch: ``unit``).
+
+    ``per`` (wrapper -> launches a call) holds the port kernels' records
+    to their launches. A count above them fails at once: the profiler
+    makes no records. A window in which a port kernel counts more than
+    one record short is taken again, up to ``PROFILE_WINDOWS`` in all,
+    and the first window without a shortfall is kept (else the last).
+    A dropped window must have lost records of the other kernels too,
+    which a launch skipped on the main path would not: the profiler lost
+    them. ``lost_windows`` lists the dropped windows' counts, and the
+    caller's check reads the kept window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    serve(arg)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(calls):
-            serve(arg)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3 / calls
-    by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            row = by_name.setdefault(e.name, [0.0, 0])
-            row[0] += e.time_range.elapsed_us() / 1e3 / calls
-            row[1] += 1
-    busy = sum(v[0] for v in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-
-    def ours(wrapper):  # device functions, with or without template args
+    def ours(by_name, wrapper):
+        # device functions, with or without template args
         return [v for n, v in by_name.items() if any(
             re.search(rf"(^|\W){f}([,<][^(]*>)?\(", n)
             for f in DEVICE_FUNCS[wrapper])]
+
+    serve(arg)
+    torch.cuda.synchronize()
+    lost = []
+    for window in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(calls):
+                serve(arg)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3 / calls
+        by_name: dict[str, list] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                row = by_name.setdefault(e.name, [0.0, 0])
+                row[0] += e.time_range.elapsed_us() / 1e3 / calls
+                row[1] += 1
+        port_calls = {w: sum(v[1] for v in ours(by_name, w)) / calls
+                      for w in DEVICE_FUNCS}
+        others = (sum(v[1] for v in by_name.values()) / calls
+                  - sum(port_calls.values()))
+        if per is None:
+            break
+        over = {w: port_calls[w] for w, n in per.items() if port_calls[w] > n}
+        assert not over, f"{over} kernels a call at {per} launches a call"
+        if window == PROFILE_WINDOWS - 1 or all(
+                port_calls[w] >= n - 1 / calls for w, n in per.items()):
+            break
+        lost.append({"port": {w: port_calls[w] for w in per},
+                     "other_kernels": others})
+    for window in lost:
+        assert window["other_kernels"] < others, (
+            f"a window short of port kernels lost no other kernel's "
+            f"record ({window['other_kernels']} against {others} a call): "
+            f"{window['port']} at {per} launches a call")
+    busy = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
 
     # each memset on the card, by the chain of ops that issued it
     memsets: dict[str, float] = {}
@@ -1843,10 +1930,9 @@ def profile_calls(serve, arg, torch, calls: int = 10,
                 up = up.cpu_parent
             key = " < ".join(chain[:6])
             memsets[key] = memsets.get(key, 0.0) + 1.0 / calls
-    port = {w: sum(v[0] for v in ours(w)) for w in DEVICE_FUNCS}
-    port_calls = {w: sum(v[1] for v in ours(w)) / calls
-                  for w in DEVICE_FUNCS}
+    port = {w: sum(v[0] for v in ours(by_name, w)) for w in DEVICE_FUNCS}
     return {"calls": calls, "unit": unit, "wall_ms_per_call": wall,
+            "lost_windows": lost,
             "device_busy_ms_per_call": busy,
             "device_idle_share": 1.0 - busy / wall,
             "port_kernels_device_ms_per_call": port,
@@ -2433,7 +2519,7 @@ def drive_bf16(name: str, ckpt: Path, tmp: Path, rgb, labels, scenes,
     eager = ServingArtifact(d, graph=False)
     cpu = ServingArtifact(d, device="cpu")(rgb)
     e2e = drive(eager, rgb, labels, kernels, PER_FRAME[name], cpu, torch)
-    prof = profile_calls(eager, rgb, torch)
+    prof = profile_calls(eager, rgb, torch, per=PER_FRAME[name])
 
     def capture():
         owner = ServingArtifact(d)
@@ -2442,7 +2528,7 @@ def drive_bf16(name: str, ckpt: Path, tmp: Path, rgb, labels, scenes,
     owner, graph, g = drive_graph(capture, lambda a, f: a(f), eager, scenes,
                                   kernels, PER_FRAME[name], 25600, torch,
                                   copies=True)
-    prof_g = profile_calls(owner, rgb, torch)
+    prof_g = profile_calls(owner, rgb, torch, per=PER_FRAME[name])
     return {"dir": d, "export_s": secs, "config": conf, "eager": eager,
             "e2e": e2e, "profile": prof, "graph": g, "profile_graph": prof_g,
             "graph_owner": owner}
@@ -4293,7 +4379,7 @@ def main() -> int:
     print(json.dumps({"end_to_end": e2e}), flush=True)
 
     # phase 4: where the frame's time goes (profiler over a few frames)
-    prof = profile_calls(art, rgb, torch)
+    prof = profile_calls(art, rgb, torch, per=PER_FRAME["shipped"])
     log(json.dumps({"profile": prof}, indent=1))
 
     # phase 5: end to end, batch 1, the fc engine
@@ -4313,7 +4399,8 @@ def main() -> int:
     print(json.dumps({"nms_fast": fast_nms}), flush=True)
 
     # phase 6: the fc engine's frame under the profiler
-    prof_fc = profile_calls(serve_fc, rgb, torch)
+    prof_fc = profile_calls(serve_fc, rgb, torch,
+                            per=PER_FRAME["int8_s2dm_fc"])
     log(json.dumps({"profile_fc": prof_fc}, indent=1))
 
     # phase 7: the batch-8 artifact, 8 scenes in one call, against the
@@ -4325,7 +4412,8 @@ def main() -> int:
                          PER_FRAME["b8"], b1_dets, cpu8, torch)
 
     # phase 8: the batch under the profiler
-    prof_b8 = profile_calls(art8, scenes, torch, unit="batch of 8")
+    prof_b8 = profile_calls(art8, scenes, torch, unit="batch of 8",
+                            per=PER_FRAME["b8"])
     log(json.dumps({"profile_b8": prof_b8}, indent=1))
     print(json.dumps({"batch8": {
         k: e2e_b8[k] for k in ("batch_ms_median", "batch_ms_min",
@@ -4343,7 +4431,7 @@ def main() -> int:
     e2e_cam = drive(art_cam, cam7, cam_labels, kernels, PER_FRAME["camera"],
                     cpu_cam, torch, box_tol=1.5)
     print(json.dumps({"end_to_end_camera": e2e_cam}), flush=True)
-    prof_cam = profile_calls(art_cam, cam7, torch)
+    prof_cam = profile_calls(art_cam, cam7, torch, per=PER_FRAME["camera"])
     log(json.dumps({"profile_camera": prof_cam}, indent=1))
 
     # phases 9-11: the four paths again, each one captured CUDA graph
@@ -4359,7 +4447,7 @@ def main() -> int:
         lambda: artifact_graph(ARTIFACT), lambda a, f: a(f), art, scenes,
         kernels, PER_FRAME["shipped"], out_bytes[ARTIFACT.name], torch,
         copies=True)
-    prof_g = profile_calls(art_g, rgb, torch)
+    prof_g = profile_calls(art_g, rgb, torch, per=PER_FRAME["shipped"])
     log(json.dumps({"graph_shipped": g_ship, "profile": prof_g}, indent=1))
     # the shipped graph's device time by kernel name: no library integer
     # product is left in the frame (the int8 conv kernel computes each
@@ -4390,20 +4478,23 @@ def main() -> int:
         fc_capture, lambda g, f: g(art.stage(f)), serve_fc, scenes, kernels,
         PER_FRAME["int8_s2dm_fc"], out_bytes[ARTIFACT.name], torch,
         copies=False)
-    prof_gfc = profile_calls(lambda f: fc_g(art.stage(f)), rgb, torch)
+    prof_gfc = profile_calls(lambda f: fc_g(art.stage(f)), rgb, torch,
+                             per=PER_FRAME["int8_s2dm_fc"])
     log(json.dumps({"graph_fc": g_fc, "profile": prof_gfc}, indent=1))
 
     art8_g, graph_b8, g_b8 = drive_graph(
         lambda: artifact_graph(ARTIFACT_B8), lambda a, f: a(f), art8,
         [scenes], kernels, PER_FRAME["b8"], out_bytes[ARTIFACT_B8.name],
         torch, copies=True, unit="batch of 8")
-    prof_gb8 = profile_calls(art8_g, scenes, torch, unit="batch of 8")
+    prof_gb8 = profile_calls(art8_g, scenes, torch, unit="batch of 8",
+                             per=PER_FRAME["b8"])
     log(json.dumps({"graph_b8": g_b8, "profile": prof_gb8}, indent=1))
     cam_g, graph_cam, g_cam = drive_graph(
         lambda: artifact_graph(ARTIFACT_CAM), lambda a, f: a(f), art_cam,
         cam_scenes, kernels, PER_FRAME["camera"],
         out_bytes[ARTIFACT_CAM.name], torch, copies=True)
-    prof_gcam = profile_calls(cam_g, cam7, torch)
+    prof_gcam = profile_calls(cam_g, cam7, torch,
+                              per=PER_FRAME["camera"])
     log(json.dumps({"graph_camera": g_cam, "profile": prof_gcam}, indent=1))
     # host staging alone: into the pinned buffer (blocked and merged; the
     # camera's raw frame, one copy)
@@ -4590,6 +4681,8 @@ def main() -> int:
     for name, rec in bf16.items():
         profiles += [(name, rec["profile"]),
                      (f"{name} graph", rec["profile_graph"])]
+    print(json.dumps({"profiler_lost_windows": {
+        label: pr["lost_windows"] for label, pr in profiles}}), flush=True)
     for label, pr in profiles:
         engine = label.split()[0]
         assert not pr["sort_kernels"], f"{label}: {pr['sort_kernels']}"

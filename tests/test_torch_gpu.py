@@ -2704,6 +2704,146 @@ def test_int8_glue_in_a_graph_after_a_dependent_conv(rng, cuda):
         assert all(torch.equal(g, w_) for g, w_ in zip(got, want)), i
 
 
+def _every_value(kind, n):
+    """n values cycling through every int8 value (-128 included) or every
+    finite bf16 value."""
+    if kind == "bf16":
+        v = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+        v = v[np.isfinite(v)]
+    else:
+        v = np.arange(-128, 128).astype(np.int8)
+    return np.resize(v, n)
+
+
+@pytest.mark.parametrize("site", qconcat_kernel.SHIPPED_SITES,
+                         ids=lambda s: s[0].replace(" ", "_"))
+def test_qconcat_every_value_at_shipped_site(cuda, site):
+    """Each shipped site's modes and amaxes on every value its parts can
+    hold (every int8 value, -128 included, and every finite bf16 value),
+    and again with its amaxes scaled so that the output's is 18.0, then
+    21.875 (the amaxes whose scale the reference's jitted form computes one
+    f32 step from the IEEE quotient; ties +-amax / 2 among the bf16
+    values): bit for bit the plain version (the rounding by the f32 adder,
+    the DEQ_Q table)."""
+    _, _, _, amax, parts = site
+    w = 10880   # 2 x 10880 x 3 >= the 65024 finite bf16 values
+    for shift in (None, 18.0, 21.875):
+        arrays, xs, up = [], [], []
+        for c, kind, a, u in parts:
+            shape = (1, 1, w // 2, 3) if u else (1, 2, w, 3)
+            arr = _every_value(kind, int(np.prod(shape))).reshape(shape)
+            t = torch.from_numpy(arr).to(cuda)
+            if kind == "bf16":
+                xs.append(t.to(torch.bfloat16))
+            else:   # the site's amaxes scaled so that its output's is shift
+                xs.append(QTensor(t, np.float32(a if shift is None else
+                                                a * shift / amax)))
+            up.append(u)
+        target = None if all(k == "s8" for _, k, _, _ in parts) else (
+            np.float32(shift or amax))
+        got = _launched(qconcat_kernel.KERNEL,
+                        lambda: _glue_call(xs, up, target))
+        want = _glue_call(xs, up, target, plain=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got.q, want.q), (shift, int((got.q != want.q).sum()))
+
+
+def _misaligned(t):
+    """``t``'s values in a contiguous tensor whose data starts one element
+    past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = flat[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+def test_glue_unaligned_parts_take_the_byte_path(rng, cuda):
+    """Parts whose data start off a 16-byte boundary (the byte path, each
+    part's other parts still 16-byte ones) and SPPF on such an input:
+    bit for bit the plain versions, one launch each."""
+    for b, h, w, amax, parts in (GLUE_SITES[3], GLUE_SITES[10],
+                                 ODD_SITES[-1]):
+        xs, up = _glue_parts(rng, b, h, w, amax, parts, cuda)
+        xs[0] = (QTensor(_misaligned(xs[0].q), xs[0].amax)
+                 if isinstance(xs[0], QTensor) else _misaligned(xs[0]))
+        got = _launched(qconcat_kernel.KERNEL,
+                        lambda: _glue_call(xs, up, amax))
+        want = _glue_call(xs, up, amax, plain=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got.q, want.q), parts
+    for shape in (sppf_kernel.SHIPPED_SHAPE, (2, 17, 45, 48)):
+        q = torch.from_numpy(rng.integers(-128, 128, shape,
+                                          dtype=np.int8)).to(cuda)
+        x = QTensor(_misaligned(q), np.float32(20.375))
+        got = _launched(sppf_kernel.KERNEL, lambda: sppf_kernel.int8_sppf(x))
+        want = sppf_kernel.int8_sppf_plain(x)
+        torch.cuda.synchronize()
+        assert torch.equal(got.q, want.q), shape
+
+
+def test_int8_glue_between_dependent_convs_in_a_graph(rng, cuda):
+    """The chain conv -> glue -> conv as the frame runs it, every launch
+    with programmatic dependent launch: an int8 conv, SPPF's pools of its
+    output and a 1x1 int8 conv of those; the conv's output concatenated
+    with another part (a REQ part) and a 1x1 conv of the concat; a float
+    part and the conv's output dequantised and quantised (DEQ_Q + Q) and a
+    1x1 conv of that. Eager, and in each of 200 replays of a captured
+    graph of the launches: bit for bit the plain composition."""
+    (x, w1, c1, b1, *g1), kw1 = _int8_layer(
+        rng, (1, 1, 40, 40, 256, 128, 128, "q"), 1, False, cuda)
+    out_amax = np.float32(kw1["out_amax"])
+    other = QTensor(torch.from_numpy(rng.integers(
+        -127, 128, (1, 40, 40, 128), dtype=np.int8)).to(cuda),
+        np.float32(12.625))
+    flt = torch.from_numpy(rng.normal(0, 1, (1, 40, 40, 64)).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+
+    def conv1x1(cin, seed):
+        r = np.random.default_rng(seed)
+        w = torch.from_numpy(r.integers(-127, 128, (64, cin),
+                                        dtype=np.int8)).to(cuda)
+        comb = torch.from_numpy((r.uniform(0.5, 1.5, 64) * 1e-4).astype(
+            np.float32)).to(cuda)
+        bias = torch.from_numpy(r.normal(0, 0.1, 64).astype(
+            np.float32)).to(cuda)
+        return lambda t, conv: conv(t, w, comb, bias, 1, 1, 1, 0, 64,
+                                    np.float32(3.5))
+
+    after = [conv1x1(512, 1), conv1x1(256, 2), conv1x1(192, 3)]
+
+    def chain(plain=False):
+        conv = (int8_conv_kernel.int8_conv_plain if plain
+                else int8_conv_kernel.int8_conv)
+        sppf = (sppf_kernel.int8_sppf_plain if plain
+                else sppf_kernel.int8_sppf)
+        cat = (qconcat_kernel.int8_concat_plain if plain
+               else qconcat_kernel.int8_concat)
+        quant = (qconcat_kernel.quantize_concat_plain if plain
+                 else qconcat_kernel.quantize_concat)
+        y = QTensor(conv(x, w1, c1, b1, *g1, **kw1), out_amax)
+        return (after[0](sppf(y).q, conv), after[1](cat([other, y]).q, conv),
+                after[2](quant([flt, y], np.float32(3.0)).q, conv))
+
+    want = chain(plain=True)
+    got = chain()
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        chain()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph, stream=stream):
+        got = chain()
+    for i in range(200):
+        for g in got:
+            g.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w_) for g, w_ in zip(got, want)), i
+
+
 def test_int8_glue_refuses_what_it_does_not_take(rng, cuda):
     """A CUDA tensor the kernels do not take raises ValueError; the plain
     version is never run in its place and nothing is launched."""

@@ -26,13 +26,13 @@ such tie at its amaxes: at each of the nine shipped sites, every int8
 value of each int8 part and every finite bf16 value of each float part
 give the reference's bytes with the site's amaxes constants of the
 graph. XLA also computes a scale ``amax / 127`` as ``amax * f32(1 /
-127)``, one f32 step from the port's IEEE quotient (``scale_of``) at 9 of
-the shipped engine's 132 amaxes, all 18.0 or 21.875 (ROADMAP Queue C,
-"Scale of an amax"): no shipped site of kernel 12 has one as a part's or
-its output's scale but the REQ part at 21.875 of ``stage3_c3k2``, whose
-every value the site's case holds; a quantise at either amax gives
-another int8 than the reference's at the bf16 values +-amax / 2, which
-``test_quantize_where_xla_scale_differs`` pins.
+127)``, one f32 step from the IEEE quotient at 9 of the shipped engine's
+132 amaxes, all 18.0 or 21.875, and the port's ``scale_of`` takes that
+form: no shipped site of kernel 12 has one as a part's or its output's
+scale but the REQ part at 21.875 of ``stage3_c3k2``, whose every value
+the site's case holds; a quantise at either amax gives the reference's
+bytes on every bf16 value, +-amax / 2 included, where the IEEE quotient
+would not (``test_quantize_equals_xla_where_scale_forms_differ``).
 The blocks' bottlenecks add no
 residual: XLA contracts the residual sum into an FMA differently where
 its input's amax is an argument, which ``tests/test_torch_int8_conv.py``
@@ -266,18 +266,19 @@ def test_concat_every_value_at_shipped_site(site):
 
 
 @pytest.mark.parametrize("amax", [18.0, 21.875])
-def test_quantize_where_xla_scale_differs(amax):
+def test_quantize_equals_xla_where_scale_forms_differ(amax):
     """The two shipped amaxes whose scale XLA computes one f32 step from
-    the port's (ROADMAP Queue C, "Scale of an amax"), a constant of the
-    jitted graph, on every finite bf16 value: the port quantises with the
-    IEEE quotient ``amax / 127``, the reference with ``amax * f32(1 /
-    127)``, and the two give other int8s at +-amax / 2 alone (63 against
-    64), the values whose exact quotient is the tie 63.5."""
+    the IEEE quotient ``amax / 127`` (ROADMAP Queue C, "Scale of an
+    amax"), a constant of the jitted graph, on every finite bf16 value:
+    the port quantises with XLA's ``amax * f32(1 / 127)`` (``scale_of``)
+    and gives the reference's bytes everywhere, the values +-amax / 2
+    (whose exact quotient is the tie 63.5) included, where the IEEE
+    quotient's scale gives 63 against the reference's 64."""
     v = _every_value("bf16", (65024,))
     a = np.float32(amax)
-    s_port = a / np.float32(127)
+    s_ieee = a / np.float32(127)
     s_xla = a * (np.float32(1) / np.float32(127))
-    assert s_port != s_xla and s_port == tq.scale_of(a)
+    assert s_ieee != s_xla and s_xla == tq.scale_of(a)
 
     def q_of(scale):
         with np.errstate(over="ignore"):
@@ -287,36 +288,42 @@ def test_quantize_where_xla_scale_differs(amax):
         jnp.asarray(v, jnp.bfloat16)))
     got = k12.quantize_concat([torch.from_numpy(v).to(torch.bfloat16)],
                               a).q.numpy()
-    np.testing.assert_array_equal(got, q_of(s_port))
+    np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(want, q_of(s_xla))
-    apart = np.nonzero(got != want)[0]
+    ieee = q_of(s_ieee)
+    apart = np.nonzero(ieee != want)[0]
     np.testing.assert_array_equal(v[apart], [a / 2, -a / 2])
-    np.testing.assert_array_equal(got[apart], [63, -63])
-    np.testing.assert_array_equal(want[apart], [64, -64])
+    np.testing.assert_array_equal(ieee[apart], [63, -63])
+    np.testing.assert_array_equal(got[apart], [64, -64])
 
 
 def test_launch_args_ratios_are_numpys_f32():
     """The host side of a launch at every shipped site: one
     ``(channels, mode, dtype, up)`` a part, each REQ ratio numpy's f32
     ``scale_of(a) / scale_of(t)`` (what ``requantize`` multiplies by),
-    each DEQ_Q part's scale, the output's scale; built once a site."""
+    each DEQ_Q part's scale, the reciprocal of the output's scale in
+    double, each scale in the reference's jitted form; built once a
+    site."""
     kinds = {"s8": 0, "deq": 0, "bf16": 1}
     for site, h, w, amax, parts in k12.SHIPPED_SITES:
-        s_t = np.float32(max(amax, np.float32(1e-9))) / np.float32(127)
+        # the scale as the reference's jitted program computes it
+        s_t = np.float32(max(amax, np.float32(1e-9))) * (
+            np.float32(1) / np.float32(127))
         key, modes = [], []
         for c, kind, a, up in parts:
             mode = (k12.DEQ_Q if kind == "deq" else k12.Q if kind == "bf16"
                     else k12.COPY if a == amax else k12.REQ)
             key.append((c, mode, kinds[kind], up, a))
             modes.append(mode)
-        meta, f, got_s = k12._launch_args(tuple(key), amax)
+        meta, f, r = k12._launch_args(tuple(key), amax)
         assert k12._launch_args(tuple(key), amax) is not None
-        assert got_s == float(s_t), site
+        assert r == 1.0 / float(s_t), site
         assert list(meta) == [v for c, m, d, up, _ in key
                               for v in (c, m, d, int(up))], site
         for (c, kind, a, up), mode, got in zip(parts, modes, f):
             if mode == k12.REQ:
-                s_a = np.float32(max(a, np.float32(1e-9))) / np.float32(127)
+                s_a = np.float32(max(a, np.float32(1e-9))) * (
+                    np.float32(1) / np.float32(127))
                 ratio = np.float32(s_a / s_t)
                 assert got == float(ratio), site
                 assert ratio == tq.scale_of(a) / tq.scale_of(amax)

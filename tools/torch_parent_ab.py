@@ -43,6 +43,12 @@ And ``int8_shapes``: the int8 conv kernel at each of the shipped frame's
 batch 1) on seeded random inputs, the SHA-256 of its output and three
 replayed-graph times.
 
+And ``glue``: each launch of the int8 glue kernels in the shipped
+eager frame (the nine concat sites, then SPPF) on the inputs the seed-7
+frame hands it: the SHA-256 of its output, three replayed-graph times
+alone and three chained under the int8 conv launch before it in the
+frame (what it adds to that conv's graph).
+
 And the int8 fc engine's three fused kernels at 64 channels (stage1_block,
 fpn_c3k2_2, head_p2) on the seed-7 frame's own activations, and the bf16
 fc engine's ten fused blocks (``blocks``: the wide C3k2 and head kernels
@@ -311,6 +317,7 @@ def main() -> int:
             "graph_ms": [cs.graph_ms(call, 10, 5) for _ in range(3)]}
     out["widths"] = width_kernels(cs, torch)
     out["int8_shapes"] = int8_shapes(torch)
+    out["glue"] = glue_launches(scenes[6], cs, torch)
     text = json.dumps(out)
     shutil.rmtree(tmp)
     dst = REPO / "chiprun_out"
@@ -341,6 +348,35 @@ def int8_shapes(torch) -> dict:
         out["x".join(map(str, shape))] = {
             "digest": digest((res,)),
             "graph_ms": [cs.graph_ms(fn) for _ in range(3)]}
+    return out
+
+
+def glue_launches(frame, cs, torch) -> list[dict]:
+    """The glue kernels' launches of the shipped eager frame on ``frame``
+    (``chip_smoke.glue_launches``: the nine concat sites in the frame's
+    order, then SPPF), each on the inputs the frame hands it: the SHA-256
+    of its output, three replayed-graph times alone (``graph_ms``) and
+    three chained under the int8 conv launch before it in the frame
+    (``chip_smoke.chained_ms``; None where no int8 conv precedes it)."""
+    from unina_yolo_dla_torch.ops.cuda import qconcat_kernel as k12
+    from unina_yolo_dla_torch.ops.cuda import sppf_kernel as k11
+    from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
+
+    concats, pools = cs.glue_launches(
+        ServingArtifact(cs.ARTIFACT, graph=False), frame, torch)
+    calls = [(f"qconcat {tuple(xs[-1].shape[1:3])} {len(xs)} parts",
+              lambda xs=xs, m=m, up=up, a=a: k12._launch(xs, m, up, a), conv)
+             for xs, m, up, a, conv in concats]
+    calls += [("int8_sppf", lambda x=x: k11.int8_sppf(x), conv)
+              for x, conv in pools]
+    out = []
+    for name, fn, conv in calls:
+        res = fn()
+        torch.cuda.synchronize()
+        out.append({"launch": name, "digest": digest((res.q,)),
+                    "graph_ms": [cs.graph_ms(fn) for _ in range(3)],
+                    "chained_ms": [cs.chained_ms(conv, fn, torch)
+                                   for _ in range(3)]})
     return out
 
 

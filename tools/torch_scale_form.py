@@ -3,11 +3,14 @@ NVIDIA GPU: whether the served outputs move (imports no JAX).
 
     python3 tools/torch_scale_form.py
 
-The port computes a scale ``max(amax, 1e-9) / 127`` as the IEEE quotient
-(``quant/qtensor.scale_of``); jitted XLA computes it as ``amax * f32(1 /
-127)``, one f32 step apart at some amaxes (ROADMAP Queue C, "Scale of an
-amax"). For each form (``ieee``: the port's; ``xla``: ``scale_of``
-replaced where the port calls it), in a process of its own, since every
+The reference writes a scale ``max(amax, 1e-9) / 127``; its jitted
+program computes it as ``max(amax, 1e-9) * f32(1 / 127)``, one f32 step
+from the IEEE quotient at some amaxes (ROADMAP Queue C, "Scale of an
+amax"). The port computes it as the jitted reference does
+(``quant/qtensor.scale_of``), which repaired the port's earlier IEEE
+quotient. For each form (``port``: ``scale_of``; ``ieee``: the IEEE
+quotient in its place wherever the port calls it, the port's form
+before the repair), in a process of its own, since every
 scale is taken as the engines are built and captured: the shipped
 artifact and the unfused int8 engine (exported from
 ``artifacts/engine_source.msgpack`` with ``chip_smoke.py``'s flags), each
@@ -34,13 +37,14 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
-FORMS = ("ieee", "xla")
+FORMS = ("port", "ieee")
 
 
-def xla_scale_of(amax) -> np.float32:
-    """``max(amax, 1e-9) * f32(1 / 127)``, XLA's form of the scale."""
-    return np.float32(max(np.float32(amax), np.float32(1e-9))) * (
-        np.float32(1) / np.float32(127))
+def ieee_scale_of(amax) -> np.float32:
+    """``max(amax, 1e-9) / 127`` as the IEEE quotient in f32: the port's
+    scale before it took the jitted reference's form."""
+    return np.float32(max(np.float32(amax), np.float32(1e-9))) / \
+        np.float32(127)
 
 
 def differing_amaxes(tree, path="") -> dict:
@@ -52,7 +56,7 @@ def differing_amaxes(tree, path="") -> dict:
         return {k: v for key, sub in tree.items()
                 for k, v in differing_amaxes(sub, f"{path}/{key}").items()}
     a = np.float32(np.asarray(tree).reshape(-1)[0])
-    return {path: float(a)} if scale_of(a) != xla_scale_of(a) else {}
+    return {path: float(a)} if scale_of(a) != ieee_scale_of(a) else {}
 
 
 def serve_form(form: str) -> dict:
@@ -69,9 +73,9 @@ def serve_form(form: str) -> dict:
     from unina_yolo_dla_torch.quant import qtensor
     from unina_yolo_dla_torch.runtime.artifact import ServingArtifact
 
-    if form == "xla":
+    if form == "ieee":
         for mod in (qtensor, int8_conv_kernel, qconcat_kernel):
-            mod.scale_of = xla_scale_of
+            mod.scale_of = ieee_scale_of
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     scenes = [np.ascontiguousarray(generate_image(
@@ -125,14 +129,14 @@ def compare(a: dict, b: dict) -> dict:
             cand = [j for j in range(len(bb)) if j not in used
                     and cb[j] == ca[i]]
             if not cand:
-                unmatched.append({"form": "ieee", "class": int(ca[i]),
+                unmatched.append({"form": "port", "class": int(ca[i]),
                                   "score": float(sa[i])})
                 continue
             j = min(cand, key=lambda j: np.abs(bb[j] - ba[i]).max())
             used.add(j)
             box = max(box, float(np.abs(bb[j] - ba[i]).max()))
             score = max(score, float(abs(sb[j] - sa[i])))
-        unmatched += [{"form": "xla", "class": int(cb[j]),
+        unmatched += [{"form": "ieee", "class": int(cb[j]),
                        "score": float(sb[j])}
                       for j in range(len(bb)) if j not in used]
     layers = [k for k in a["int8_layers"]
@@ -173,8 +177,8 @@ def main() -> int:
     out = {"card": smi,
            "differing_amaxes": differing_amaxes(load_msgpack_raw(
                cs.ARTIFACT / "variables.msgpack")["quant"]),
-           "engines": {name: compare(forms["ieee"][name], forms["xla"][name])
-                       for name in forms["ieee"]},
+           "engines": {name: compare(forms["port"][name], forms["ieee"][name])
+                       for name in forms["port"]},
            "digests": {form: {name: {"detections": rec["digest"],
                                      "int8_layers": rec["int8_layers"]}
                               for name, rec in recs.items()}

@@ -19,7 +19,9 @@ the port's composition of the reference's XLA layer
     out  = clip(round(fma(q1, s_out, res * s_res) / s_add))
                                                 (``res``: Bottleneck cv2)
 
-with ``s = max(amax, 1e-9) / 127`` for each amax. The kernel computes the
+with ``s = scale_of(amax)`` for each amax: the reference's ``max(amax,
+1e-9) / 127`` as its jitted program computes it, ``max(amax, 1e-9) *
+f32(1 / 127)``, on the host. The kernel computes the
 same single-precision steps (fmaf, IEEE division, round half to even), so
 both agree bit for bit; the plain version emulates the FMA in float64
 (``qtensor.fma_f32``), which can differ from a true FMA only by a double

@@ -41,9 +41,10 @@ from ...quant.qtensor import (
     upsample_nearest_2x,
     upsample_nearest_2x_q,
 )
-from ._lib import F, I, Kernel, P, check_cuda, stream_ptr
+from ._lib import I, Kernel, P, check_cuda, stream_ptr
 
-KERNEL = Kernel("unina_qconcat", [P, P, P, I, I, I, I, I, F, P, P])
+KERNEL = Kernel("unina_qconcat", [P, P, P, I, I, I, I, I, ctypes.c_double,
+                                   P, P])
 COPY, REQ, Q, DEQ_Q = 0, 1, 2, 3
 MAX_PARTS = 8
 DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
@@ -114,10 +115,12 @@ def quantize_concat_plain(xs: Sequence, amax, up: Sequence[bool] = ()
 def _launch_args(parts: tuple, amax: np.float32):
     """The host side of a launch, built once for a site: ``parts`` is
     ((channels, mode, dtype code, up, the part's amax or None), ...),
-    ``amax`` the output's. -> (meta, f, s_t) as the C entry point takes
+    ``amax`` the output's. -> (meta, f, r) as the C entry point takes
     them: four ints a part (channels, mode, dtype, up); a float a part
     (REQ: ``scale_of(a) / scale_of(t)`` in f32, as ``requantize``
-    computes it; DEQ_Q: ``scale_of(a)``); the output's scale."""
+    computes it; DEQ_Q: ``scale_of(a)``); the reciprocal of the output's
+    scale rounded to double (the kernel's exact quotient,
+    ``csrc/quant_sm90.cuh``)."""
     s_t = scale_of(amax)
     meta, f = [], []
     for c, mode, dtype, up, a in parts:
@@ -125,8 +128,8 @@ def _launch_args(parts: tuple, amax: np.float32):
         f.append(float(scale_of(a) / s_t) if mode == REQ else
                  float(scale_of(a)) if mode == DEQ_Q else 0.0)
     n = len(parts)
-    return (ctypes.c_int * (4 * n))(*meta), (ctypes.c_float * n)(*f), \
-        float(s_t)
+    return ((ctypes.c_int * (4 * n))(*meta), (ctypes.c_float * n)(*f),
+            1.0 / float(s_t))
 
 
 def _launch(xs: Sequence, modes: Sequence[int], up: tuple[bool, ...],
@@ -158,11 +161,11 @@ def _launch(xs: Sequence, modes: Sequence[int], up: tuple[bool, ...],
         a = xs[i].amax if isinstance(xs[i], QTensor) else None
         parts.append((c, mode, DTYPES[t.dtype], u,
                       None if a is None else np.float32(a)))
-    meta, f, s_t = _launch_args(tuple(parts), np.float32(amax))
+    meta, f, r = _launch_args(tuple(parts), np.float32(amax))
     c_out = sum(p[0] for p in parts)
     out = torch.empty((b, h, w, c_out), dtype=torch.int8, device=ts[0].device)
     ptrs = (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
-    KERNEL.launch(ptrs, meta, f, len(ts), b, h, w, c_out, s_t,
+    KERNEL.launch(ptrs, meta, f, len(ts), b, h, w, c_out, r,
                   out.data_ptr(), stream_ptr(ts[0].device))
     return QTensor(out, np.float32(amax))
 

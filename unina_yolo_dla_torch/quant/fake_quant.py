@@ -300,10 +300,16 @@ def fake_quant_tensor(x: torch.Tensor, amax: torch.Tensor, qmax: float
     ``amax``'s dtype, the rest in the promoted type of ``x`` and ``amax``
     (float32 for a bf16 activation), the result in ``x``'s dtype. The
     gradient reaches ``amax`` where it carries one (the weights'
-    max|w|)."""
+    max|w|).
+
+    The reference's ``amax / qmax`` is taken as its jitted program (the
+    training step, the QAT model) computes it: XLA turns the division by
+    the constant ``qmax`` into a multiply by its reciprocal rounded to
+    ``amax``'s dtype, and so its gradient into ``g * (1 / qmax)`` too.
+    ``x / scale`` divides, as XLA does where the divisor is no constant."""
     dt = torch.promote_types(x.dtype, amax.dtype)
     amax = torch.maximum(amax, _const(amax, 1e-9))
-    scale = amax / _const(amax, qmax)
+    scale = amax * _const(amax, 1.0 / qmax)
     q = ste_round(_clip(x.to(dt) / scale, -qmax, qmax)) * scale
     return torch.where(amax > 1e-8, q, x.to(dt)).to(x.dtype)
 

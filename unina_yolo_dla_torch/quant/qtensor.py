@@ -4,10 +4,16 @@ The tensor that flows between layers of the fused int8 engine. ``q`` is
 int8 NHWC on the device; ``amax`` is a float32 value held on the HOST
 (a numpy scalar): every amax of the shipped engine is a calibrated
 constant, so each scale and rescale ratio is computed once in numpy f32
-(IEEE division, as XLA computes it) and reaches the device only as an
-exact f32 multiplier or as a 0-d divisor tensor.
+and reaches the device only as an exact f32 multiplier or as a 0-d
+divisor tensor.
 
-Scale convention: symmetric, ``scale = max(amax, 1e-9) / 127``.
+Scale convention: symmetric, the reference's ``scale = max(amax, 1e-9) /
+127`` as its jitted program computes it: XLA turns the division by the
+constant 127 into ``max(amax, 1e-9) * f32(1 / 127)``, with the amax a
+constant or an argument of the graph alike, one f32 step from the IEEE
+quotient at some amaxes (18.0 and 21.875 among the shipped ones). A
+quotient of two values (``requantize``'s ratio, ``qadd``'s, ``v /
+scale``) stays an IEEE division, as XLA computes it.
 """
 from __future__ import annotations
 
@@ -21,9 +27,15 @@ import torch.nn.functional as F
 QMAX = 127.0
 
 
+# f32(1 / 127): the multiplier jitted XLA puts in place of the division
+QMAX_RECIPROCAL = np.float32(1) / np.float32(QMAX)
+
+
 def scale_of(amax) -> np.float32:
-    """``max(amax, 1e-9) / 127`` in float32, as ``QTensor.scale``."""
-    return np.float32(max(np.float32(amax), np.float32(1e-9))) / np.float32(QMAX)
+    """The reference's ``max(amax, 1e-9) / 127`` as jitted XLA computes it:
+    ``max(amax, 1e-9) * f32(1 / 127)`` in float32 (``QTensor.scale``)."""
+    return np.float32(max(np.float32(amax), np.float32(1e-9))) * \
+        QMAX_RECIPROCAL
 
 
 def scale_tensor(amax, device) -> torch.Tensor:
